@@ -1,0 +1,206 @@
+"""Molecule description and AO-basis layout.
+
+Counterpart of pyscf_tpu/gto/mole.py: Shell, ShellGroup, Mole.build,
+energy_nuc and M. Shells are grouped per angular momentum into padded
+tables (exponents padded with 1.0, coefficients with 0.0) exactly as in
+the JAX package, so the screening and the integral kernels see the same
+inputs. The tables stay numpy on the host; the integral drivers move the
+pieces they need to `Mole.device`.
+
+Every Mole names its device: `M(..., device='cuda')` or `device='cpu'`.
+There is no default, so a run meant for the card never lands on the CPU
+by accident.
+"""
+import math
+
+import numpy as np
+import torch
+
+from ..data import elements
+from ..lib import parameters as param
+from . import basis as basis_mod
+
+
+def gto_norm(l, expnt):
+    """Radial normalization of a primitive r^l exp(-a r^2) Gaussian."""
+    return math.sqrt(2.0 * (2.0 * expnt) ** (l + 1.5) / math.gamma(l + 1.5))
+
+
+class Shell:
+    """One segmented contracted shell."""
+    __slots__ = ('atom_id', 'l', 'exps', 'coeffs')
+
+    def __init__(self, atom_id, l, exps, coeffs):
+        self.atom_id = atom_id
+        self.l = l
+        self.exps = np.asarray(exps, dtype=np.float64)
+        self.coeffs = np.asarray(coeffs, dtype=np.float64)
+
+
+class ShellGroup:
+    """All shells of one angular momentum, padded to a common nprim.
+
+    Fields (numpy, host):
+      l          : angular momentum
+      coords     : (ns, 3) shell centers (Bohr)
+      exps       : (ns, K) exponents (padded with 1.0)
+      coeffs     : (ns, K) normalized contraction coefficients (padded 0.0)
+      ao_off     : (ns,) offset of first (spherical) AO of each shell
+      atom_ids   : (ns,)
+    device: where the integral drivers put tensors built from this group.
+    """
+
+    def __init__(self, l, coords, exps, coeffs, ao_off, atom_ids, device):
+        self.l = int(l)
+        self.coords = np.asarray(coords, dtype=np.float64).reshape(-1, 3)
+        self.exps = np.asarray(exps, dtype=np.float64)
+        self.coeffs = np.asarray(coeffs, dtype=np.float64)
+        self.ao_off = np.asarray(ao_off, dtype=np.int32)
+        self.atom_ids = np.asarray(atom_ids, dtype=np.int32)
+        self.nshl, self.nprim = self.exps.shape
+        self.device = torch.device(device)
+
+    @classmethod
+    def from_shells(cls, l, shells, coords_of_atom, ao_offsets, device):
+        ns = len(shells)
+        K = max(len(sh.exps) for sh in shells)
+        exps = np.ones((ns, K))
+        coeffs = np.zeros((ns, K))
+        for i, sh in enumerate(shells):
+            k = len(sh.exps)
+            exps[i, :k] = sh.exps
+            coeffs[i, :k] = sh.coeffs
+        atom_ids = [sh.atom_id for sh in shells]
+        return cls(l, coords_of_atom[atom_ids], exps, coeffs, ao_offsets,
+                   atom_ids, device)
+
+    def tensors(self):
+        """(exps, coeffs, coords) as float64 tensors on the group's device."""
+        return tuple(torch.as_tensor(a, dtype=torch.float64,
+                                     device=self.device).contiguous()
+                     for a in (self.exps, self.coeffs, self.coords))
+
+
+def format_atom(atom, unit='angstrom'):
+    """Parse 'O 0 0 0; H 0 1 0' or [('O', (x, y, z)), ...].
+
+    Returns (symbols, raw_symbols, coords[natm, 3] in Bohr)."""
+    if isinstance(atom, str):
+        entries = []
+        for seg in atom.replace('\n', ';').split(';'):
+            seg = seg.strip()
+            if seg and not seg.startswith('#'):
+                toks = seg.replace(',', ' ').split()
+                entries.append((toks[0], [float(x) for x in toks[1:4]]))
+    else:
+        entries = [(item[0], [float(x) for x in item[1]]) for item in atom]
+    symbols = [elements.std_symbol(s) for s, _ in entries]
+    raw_symbols = [str(s) for s, _ in entries]
+    coords = np.array([c for _, c in entries], dtype=np.float64)
+    if isinstance(unit, str):
+        if unit.lower().startswith(('a', 'ang')):
+            coords = coords / param.BOHR
+    else:
+        coords = coords * unit
+    return symbols, raw_symbols, coords
+
+
+class Mole:
+    """Molecular system: geometry, basis, electron counts, AO layout.
+
+        mol = Mole(atom='O 0 0 0; H 0 1 0; H 0 0 1', basis='sto-3g',
+                   device='cuda').build()
+    """
+
+    def __init__(self, atom=None, basis='sto-3g', unit='angstrom',
+                 charge=0, spin=0, verbose=3, device=None):
+        self.atom = atom
+        self.basis = basis
+        self.unit = unit
+        self.charge = charge
+        self.spin = spin            # 2S = nalpha - nbeta
+        self.verbose = verbose
+        self.device = device
+
+    def build(self, **kwargs):
+        for k, v in kwargs.items():
+            setattr(self, k, v)
+        if self.device is None:
+            raise ValueError("Mole needs an explicit device "
+                             "(device='cuda' or device='cpu')")
+        self.device = torch.device(self.device)
+        self._j3c_cache = {}        # integral tables baked for this geometry
+        self._df_cache = {}
+        self.elements_, self.raw_symbols, self.coords = format_atom(
+            self.atom, self.unit)
+        self.charges = np.array([elements.charge(s) for s in self.raw_symbols],
+                                dtype=np.int32)
+        self.natm = len(self.elements_)
+
+        if isinstance(self.basis, dict):
+            def elem_basis(sym, rawsym):
+                b = self.basis.get(rawsym, self.basis.get(
+                    sym, self.basis.get('default')))
+                return basis_mod.load(b, sym) if isinstance(b, str) else b
+        else:
+            def elem_basis(sym, rawsym):
+                if isinstance(self.basis, str):
+                    return basis_mod.load(self.basis, sym)
+                return self.basis
+
+        # expand into segmented normalized shells
+        shells = []
+        for ia, sym in enumerate(self.elements_):
+            for raw in elem_basis(sym, self.raw_symbols[ia]):
+                l = raw[0]
+                prims = np.array(raw[1:], dtype=np.float64)
+                exps = prims[:, 0]
+                for col in range(1, prims.shape[1]):
+                    cs = prims[:, col]
+                    mask = cs != 0.0
+                    if not mask.any():
+                        continue
+                    e, c = exps[mask], cs[mask]
+                    # c are coefficients of normalized primitives; rescale
+                    # so the contracted radial function is normalized, then
+                    # fold in the primitive norms for the raw-monomial engine
+                    ee = e[:, None] + e[None, :]
+                    ss = (2.0 * np.sqrt(np.outer(e, e)) / ee) ** (l + 1.5)
+                    norm = (c @ ss @ c) ** -0.5
+                    cfold = c * norm * np.array([gto_norm(l, ei) for ei in e])
+                    shells.append(Shell(ia, l, e, cfold))
+
+        ao_loc = [0]
+        for sh in shells:
+            ao_loc.append(ao_loc[-1] + (2 * sh.l + 1))
+        self.ao_loc = np.asarray(ao_loc, dtype=np.int32)
+        self.nao = int(ao_loc[-1])
+
+        self.shell_groups = {}
+        for l in range(max((sh.l for sh in shells), default=0) + 1):
+            idx = [i for i, sh in enumerate(shells) if sh.l == l]
+            if idx:
+                self.shell_groups[l] = ShellGroup.from_shells(
+                    l, [shells[i] for i in idx], self.coords,
+                    [self.ao_loc[i] for i in idx], self.device)
+        return self
+
+    @property
+    def nelectron(self):
+        return int(self.charges.sum()) - self.charge
+
+    def energy_nuc(self):
+        z = self.charges.astype(np.float64)
+        r = self.coords
+        d = np.linalg.norm(r[:, None, :] - r[None, :, :], axis=-1)
+        np.fill_diagonal(d, np.inf)
+        return 0.5 * float((z[:, None] * z[None, :] / d).sum())
+
+    def RHF(self, **kwargs):
+        from ..scf.hf import RHF
+        return RHF(self, **kwargs)
+
+
+def M(**kwargs):
+    """Shortcut constructor: Mole(**kwargs).build()."""
+    return Mole(**kwargs).build()

@@ -1,0 +1,262 @@
+"""Wrappers of the hand-written CUDA integral kernels.
+
+Three kernels carry the DF-RHF path (sources in pyscf_tpu_torch/csrc/):
+
+  int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
+  int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
+  int2c2e    the (P|Q) metric                     (csrc/int2c2e.cu)
+
+Each wrapper takes float64 contiguous tensors on one device. On a CPU
+tensor it runs the kernel's plain PyTorch twin; on a CUDA tensor it
+launches the kernel on torch.cuda.current_stream() or raises. A wrapper
+adds one to its `launches` count for every kernel launch it makes.
+
+The kernels are compiled at first use with nvcc for sm_90a, one shared
+library per source with a plain C interface loaded by ctypes, into
+pyscf_tpu_torch/_build/<hash of the sources>/, so a fresh checkout builds
+them once and an edit to a source rebuilds them.
+"""
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+from .integrals import int1e, j3c
+from .integrals.int1e import sph
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, 'csrc')
+_BUILD = os.path.join(_PKG, '_build')
+_HEADERS = ('boys.cuh', 'hermite.cuh')
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC')
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# source -> (exported C function, its ctypes argtypes)
+_SOURCES = {
+    'int1e_stv.cu': ('pt_int1e_stv', [_I] * 6 + [_P] * 6 + [_I] + [_P] * 6),
+    'int3c2e.cu': ('pt_int3c2e', [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 7
+                   + [_I, _I, _P]),
+    'int2c2e.cu': ('pt_int2c2e', [_I] * 4 + [_P] * 3 + [_I, _I] + [_P] * 6
+                   + [_I, _I, _I, _P]),
+}
+_LIBS = {}      # C function name -> loaded ctypes function
+
+
+def _nvcc():
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the CUDA kernels need the CUDA '
+                           'toolkit (PATH or /usr/local/cuda/bin)')
+    return path
+
+
+def _build_dir():
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for name in (*_SOURCES, *_HEADERS):
+        with open(os.path.join(_CSRC, name), 'rb') as f:
+            h.update(name.encode() + b'\0' + f.read())
+    return os.path.join(_BUILD, h.hexdigest()[:16])
+
+
+def build():
+    """Compile the kernel libraries that are missing and load all three.
+
+    Returns the seconds spent. The sources compile in parallel; each output
+    is written under a temporary name and renamed, so concurrent builds in
+    one checkout do not see half-written libraries."""
+    if len(_LIBS) == len(_SOURCES):
+        return 0.0
+    t0 = time.perf_counter()
+    out_dir = _build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = []
+    for src in _SOURCES:
+        so = os.path.join(out_dir, src[:-3] + '.so')
+        if os.path.exists(so):
+            continue
+        tmp = f'{so}.{os.getpid()}.tmp'
+        cmd = [_nvcc(), *NVCC_FLAGS, '-I', _CSRC, '-o', tmp,
+               os.path.join(_CSRC, src)]
+        jobs.append((src, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for src, so, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f'nvcc failed on {src}:\n{log}')
+        else:
+            os.replace(tmp, so)
+    if errors:
+        raise RuntimeError('\n'.join(errors))
+    for src, (name, argtypes) in _SOURCES.items():
+        fn = getattr(ctypes.CDLL(os.path.join(out_dir, src[:-3] + '.so')),
+                     name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _LIBS[name] = fn
+    return time.perf_counter() - t0
+
+
+def _fn(name):
+    build()
+    return _LIBS[name]
+
+
+def _stream():
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _raise_on(rc, what):
+    if rc == -1:
+        raise NotImplementedError(f'{what}: angular momentum class not '
+                                  'instantiated in the CUDA kernel')
+    if rc != 0:
+        raise RuntimeError(f'{what}: CUDA launch failed with error {rc}')
+
+
+def _check(device, *named):
+    """float64, contiguous, on `device`, with the given shape."""
+    for name, t, shape in named:
+        if t.device != device:
+            raise ValueError(f'{name} is on {t.device}, expected {device}')
+        if t.dtype != torch.float64:
+            raise TypeError(f'{name} has dtype {t.dtype}, expected float64')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, '
+                             f'expected {tuple(shape)}')
+
+
+def _device_of(t):
+    if t.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {t.device}')
+    return t.device
+
+
+def _check_pairs(dev, ea, ca, ra, eb, cb, rb):
+    n, Ka = ea.shape
+    Kb = eb.shape[1]
+    _check(dev, ('ea', ea, (n, Ka)), ('ca', ca, (n, Ka)), ('ra', ra, (n, 3)),
+           ('eb', eb, (n, Kb)), ('cb', cb, (n, Kb)), ('rb', rb, (n, 3)))
+    return n, Ka, Kb
+
+
+def _check_aux(dev, aux):
+    ls = [l for l, _, _, _ in aux]
+    if ls != sorted(set(ls)):
+        raise ValueError(f'aux classes must be in ascending l, got {ls}')
+    for l, e, c, r in aux:
+        nsx, K = e.shape
+        _check(dev, ('aux exps', e, (nsx, K)), ('aux coeffs', c, (nsx, K)),
+               ('aux coords', r, (nsx, 3)))
+
+
+def int1e_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords=None,
+              atom_charges=None, with_tv=True):
+    """S/T/V rows of n shell pairs: (n, (2la+1)(2lb+1), 3), or the S rows
+    alone, (n, (2la+1)(2lb+1)), when with_tv is False.
+
+    ea/ca (n, Ka), eb/cb (n, Kb), ra/rb (n, 3); atom_coords (natm, 3) and
+    atom_charges (natm,) for V."""
+    dev = _device_of(ea)
+    n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
+    if with_tv:
+        natm = atom_coords.shape[0]
+        _check(dev, ('atom_coords', atom_coords, (natm, 3)),
+               ('atom_charges', atom_charges, (natm,)))
+    if dev.type == 'cpu':
+        return int1e.class_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords,
+                               atom_charges, with_tv)
+    ns1 = (2 * la + 1) * (2 * lb + 1)
+    out = torch.empty((n, ns1, 3) if with_tv else (n, ns1),
+                      dtype=torch.float64, device=dev)
+    if n == 0:
+        return out
+    zr = atom_coords.data_ptr() if with_tv else None
+    zq = atom_charges.data_ptr() if with_tv else None
+    rc = _fn('pt_int1e_stv')(
+        la, lb, int(with_tv), n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
+        ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
+        natm if with_tv else 0, zr, zq, sph(la, dev).data_ptr(),
+        sph(lb, dev).data_ptr(), out.data_ptr(), _stream())
+    _raise_on(rc, f'int1e_stv({la},{lb})')
+    int1e_stv.launches += 1
+    return out
+
+
+def int3c2e(la, lb, ea, ca, ra, eb, cb, rb, aux):
+    """Raw (ij|P) rows of n shell pairs of class (la, lb) against every aux
+    shell: (n*(2la+1)(2lb+1), naux) in grouped aux order.
+
+    aux: [(l, exps (nsx, K), coeffs (nsx, K), coords (nsx, 3))] by l."""
+    dev = _device_of(ea)
+    n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
+    _check_aux(dev, aux)
+    if dev.type == 'cpu':
+        return j3c.int3c2e_plain(la, lb, ea, ca, ra, eb, cb, rb, aux)
+    ns1 = (2 * la + 1) * (2 * lb + 1)
+    naux = sum(e.shape[0] * (2 * l + 1) for l, e, _, _ in aux)
+    out = torch.empty((n * ns1, naux), dtype=torch.float64, device=dev)
+    col = 0
+    for l, e, c, r in aux:
+        nsx, Kc = e.shape
+        if n and nsx:
+            rc = _fn('pt_int3c2e')(
+                la, lb, l, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
+                ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
+                nsx, Kc, e.data_ptr(), c.data_ptr(), r.data_ptr(),
+                sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(),
+                sph(l, dev).data_ptr(), out.data_ptr(), naux, col, _stream())
+            _raise_on(rc, f'int3c2e({la},{lb}|{l})')
+            int3c2e.launches += 1
+        col += nsx * (2 * l + 1)
+    return out
+
+
+def int2c2e(aux):
+    """(P|Q) metric over every aux shell: (naux, naux), grouped aux order."""
+    dev = _device_of(aux[0][1])
+    _check_aux(dev, aux)
+    if dev.type == 'cpu':
+        return j3c.int2c2e_plain(aux)
+    offs = [0]
+    for l, e, _, _ in aux:
+        offs.append(offs[-1] + e.shape[0] * (2 * l + 1))
+    naux = offs[-1]
+    out = torch.empty((naux, naux), dtype=torch.float64, device=dev)
+    for i, (lx, ex, cx, rx) in enumerate(aux):
+        for j in range(i, len(aux)):
+            ly, ey, cy, ry = aux[j]
+            rc = _fn('pt_int2c2e')(
+                lx, ly, ex.shape[0], ex.shape[1], ex.data_ptr(),
+                cx.data_ptr(), rx.data_ptr(), ey.shape[0], ey.shape[1],
+                ey.data_ptr(), cy.data_ptr(), ry.data_ptr(),
+                sph(lx, dev).data_ptr(), sph(ly, dev).data_ptr(),
+                out.data_ptr(), naux, offs[i], offs[j], _stream())
+            _raise_on(rc, f'int2c2e({lx}|{ly})')
+            int2c2e.launches += 1
+    return out
+
+
+KERNELS = (int1e_stv, int3c2e, int2c2e)
+
+
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launches():
+    """{kernel name: launches since the last reset_launches()}."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+reset_launches()

@@ -1,0 +1,36 @@
+"""Reference energies recorded once from the JAX package on the CPU.
+
+The card's machine has no JAX, so the references reach it as constants.
+Each was produced from the repository root by (BENZENE as in bench.py):
+
+  JAX_PLATFORMS=cpu PYSCF_TPU_JIT_CACHE=0 python -c "import dev_env, \\
+    pyscf_tpu as pt; from bench import BENZENE; \\
+    mol = pt.M(atom=BENZENE, basis='def2-svp', verbose=0); \\
+    mf = mol.RHF().density_fit(); mf.conv_tol = 1e-8; \\
+    mf.init_guess = 'minao'; print(repr(mf.kernel()), mf.converged)"
+
+and the same with atom=WATER, basis='cc-pvdz', conv_tol=1e-10. Both runs
+converged. tests/test_torch_scf.py checks the water value against a live
+JAX run.
+"""
+
+BENZENE = '''
+C  0.000000  1.396792  0.000000
+C  1.209657  0.698396  0.000000
+C  1.209657 -0.698396  0.000000
+C  0.000000 -1.396792  0.000000
+C -1.209657 -0.698396  0.000000
+C -1.209657  0.698396  0.000000
+H  0.000000  2.484212  0.000000
+H  2.151390  1.242106  0.000000
+H  2.151390 -1.242106  0.000000
+H  0.000000 -2.484212  0.000000
+H -2.151390 -1.242106  0.000000
+H -2.151390  1.242106  0.000000
+'''
+WATER = 'O 0 0 0; H 0 -0.757 0.587; H 0 0.757 0.587'
+
+# DF-RHF, def2-universal-jkfit, minao guess, conv_tol 1e-8
+E_BENZENE_DF_RHF_DEF2SVP = -230.5354323974008
+# DF-RHF, cc-pvdz-jkfit, minao guess, conv_tol 1e-10
+E_WATER_DF_RHF_CCPVDZ = -76.02674473735726

@@ -1,0 +1,89 @@
+"""The restricted SCF cycle: DIIS extrapolation, eigh, new orbitals.
+
+Counterpart of pyscf_tpu/scf/fused.py: _diis_extrapolate and the three
+programs of build_restricted_cycle (seed, cycle, finalize), as plain
+torch functions that one host loop in scf/hf.py drives. Only the float64
+stage is ported: the JAX package's float32 pre-stage made up for emulated
+float64 on the TPU.
+"""
+import torch
+
+from ..lib.linalg import eigh, eigh_gen
+
+
+def _diis_extrapolate(fh, eh, nval, newest):
+    """DIIS solve over a (space, n, n) ring buffer with nval valid slots.
+
+    Minimizes |sum_i c_i err_i| s.t. sum c_i = 1. Slots whose error norm
+    dwarfs the current best by 1e8 are dropped; the constraint is
+    eliminated analytically (c ~ G^{-1} 1 on the norm-scaled G) and G is
+    inverted by an eigh pseudo-inverse. Falls back to the newest Fock
+    when the coefficients are huge or sum to ~0."""
+    space = fh.shape[0]
+    dt, dev = fh.dtype, fh.device
+    ef = eh.reshape(space, -1)
+    G = ef @ ef.T
+    valid = torch.arange(space, device=dev) < nval
+    norms2 = torch.diagonal(G)
+    inf = torch.full_like(norms2, float('inf'))
+    best = torch.min(torch.where(valid, norms2, inf))
+    valid = valid & (norms2 < 1e8 * torch.clamp(best, min=1e-300))
+    vv = valid[:, None] & valid[None, :]
+    eye = torch.eye(space, dtype=dt, device=dev)
+    G = torch.where(vv, G, eye)
+    scale = torch.sqrt(torch.clamp(torch.diagonal(G),
+                                   min=torch.finfo(dt).tiny))
+    scale = torch.where(valid, scale, torch.ones_like(scale))
+    G = G / (scale[:, None] * scale[None, :])
+    w, v = eigh(G)
+    winv = torch.where(torch.abs(w) > 1e-12, 1.0 / w, torch.zeros_like(w))
+    ones = torch.where(valid, 1.0 / scale, torch.zeros_like(scale))
+    y = v @ (winv * (v.T @ ones))
+    c = torch.where(valid, y / scale, torch.zeros_like(y))
+    csum = torch.sum(c)
+    c = c / torch.where(torch.abs(csum) > 1e-12, csum, torch.ones_like(csum))
+    bad = (torch.max(torch.abs(c)) > 20.0) | (torch.abs(csum) <= 1e-12)
+    c_safe = torch.zeros(space, dtype=dt, device=dev)
+    c_safe[newest] = 1.0
+    c = torch.where(bad, c_safe, c)
+    return torch.tensordot(c, fh, dims=([0], [0]))
+
+
+def seed(veff_dm_fn, h1e, x, dm0, nocc):
+    """Occupied factor (scaled by sqrt(2)) from diagonalizing F(guess dm)."""
+    vhf0, _ = veff_dm_fn(dm0)
+    _, moc0 = eigh_gen(h1e + vhf0, x)
+    return moc0[:, :nocc] * 2.0 ** 0.5
+
+
+def cycle(veff_fn, h1e, s1e, x, co, fh, eh, cyc, nocc):
+    """One SCF cycle; fills DIIS slot cyc % space of fh/eh in place.
+
+    Returns (new occupied factor, e_elec, |x^T err x|) as tensors."""
+    dm = co @ co.T
+    vhf, e2 = veff_fn(dm, co)
+    f = h1e + vhf
+    e_elec = torch.sum(h1e * dm) + e2
+    sdf = s1e @ dm @ f
+    err = sdf.T - sdf
+    space = fh.shape[0]
+    idx = cyc % space
+    fh[idx] = f
+    eh[idx] = err
+    f_d = _diis_extrapolate(fh, eh, min(cyc + 1, space), idx)
+    _, moc = eigh_gen(f_d, x)
+    co_n = moc[:, :nocc] * 2.0 ** 0.5
+    gnorm = torch.linalg.norm(x.T @ err @ x)
+    return co_n, e_elec, gnorm
+
+
+def finalize(veff_fn, h1e, x, co, nocc):
+    """Canonical orbitals of the true converged Fock + final energy."""
+    dm = co @ co.T
+    vhf, _ = veff_fn(dm, co)
+    moe, moc = eigh_gen(h1e + vhf, x)
+    co2 = moc[:, :nocc] * 2.0 ** 0.5
+    dm2 = co2 @ co2.T
+    vhf2, e22 = veff_fn(dm2, co2)
+    e_elec = torch.sum(h1e * dm2) + e22
+    return e_elec, moe, moc, dm2
