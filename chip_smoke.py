@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
 """Smoke run of pyscf_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives the port's DF-RHF path for benzene/def2-SVP on the card, in order:
+Drives the port's two paths for benzene/def2-SVP on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the CUDA kernels from pyscf_tpu_torch/csrc (nvcc, sm_90a);
-  3. kernel phases at the main path's shapes: each kernel against its plain
-     PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c rows and
-     (P|Q) <= 1e-12 x max|value|; the whitened factor B <= 1e-10), with
-     both times from CUDA events;
-  4. the main path through the public entry points,
-     M(..., device='cuda').RHF().density_fit().kernel() with the minao guess
-     and conv_tol 1e-8: it must converge to the recorded JAX energy within
-     1e-8 Ha, and every kernel must have launched in that run;
-  5. one JSON line with the per-kernel numbers, then the result line
+  2. builds the six CUDA kernels from pyscf_tpu_torch/csrc (nvcc, sm_90a,
+     one process per source, all at once);
+  3. integral kernel phases at the main path's shapes: each kernel against
+     its plain PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c
+     rows and (P|Q) <= 1e-12 x max|value|; the whitened factor B <= 1e-10);
+  4. DF-RHF through the public entry points,
+     M(...).RHF().density_fit().kernel() with the minao guess and conv_tol
+     1e-8: the recorded JAX energy within 1e-8 Ha, every integral kernel
+     launched in that run;
+  5. grid, AO and XC kernel phases at the main path's shapes (benzene,
+     default grids): becke <= 1e-12 x max w; eval_ao <= 1e-13 on all four
+     components; xc_rks at the converged DF-RHF density, vtmp <= 1e-11 x
+     max|vtmp| and n, exc <= 1e-11 relative;
+  6. the main path, DF-RKS b3lypg through the public entry points,
+     dft.RKS(M(...), xc='b3lypg').density_fit().kernel() with the minao
+     guess and conv_tol 1e-8 on the default device: converged, the recorded
+     JAX energy within 1e-8 Ha, and all six kernels launched in that run;
+  7. one JSON line with the per-kernel numbers (times from CUDA events, the
+     bound computed from this run's inputs), then the result line
      {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
@@ -21,7 +30,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the FP64 rate outside the
+# tensor cores (the kernels here do no matrix products), at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+FP64_FLOPS = 34e12
 
 
 def cuda_ms(fn, reps=3):
@@ -45,37 +60,114 @@ def max_abs(pairs):
     return err, scale
 
 
-def show(name, r):
-    print(f'{name}: max_abs_err {r["max_abs_err"]:.3e}  '
-          f'kernel {r["ms"]:.3f} ms  plain {r["plain_ms"]:.3f} ms', flush=True)
-
-
 def check(ok, what):
     if not ok:
         raise SystemExit(f'FAILED: {what}')
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
-                         'a machine with an NVIDIA GPU')
-    import pyscf_tpu_torch as pt
-    from pyscf_tpu_torch import refs
+def bound(nbytes, nops):
+    """(ms, 'bytes' or 'operations'): the least time for the work, bytes
+    over HBM bandwidth or FP64 operations over the FP64 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP64_FLOPS * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def record(report, name, source, replaces, err, kernel_fn, plain_fn, nbytes,
+           nops):
+    bound_ms, bound_by = bound(nbytes, nops)
+    report[name] = dict(
+        source=source, replaces=replaces, max_abs_err=err,
+        ms=cuda_ms(kernel_fn), plain_ms=cuda_ms(plain_fn), bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None)
+    r = report[name]
+    print(f'{name}: max_abs_err {err:.3e}  kernel {r["ms"]:.3f} ms  plain '
+          f'{r["plain_ms"]:.3f} ms  bound {bound_ms:.4f} ms ({bound_by})',
+          flush=True)
+
+
+# ---- operation counts of the integral kernels -------------------------------
+# FP64 operations of the main loops of csrc/hermite.cuh coulomb_block and
+# csrc/int1e_stv.cu, for the primitives these inputs hold (zero coefficients
+# are skipped as the kernels skip them). The Boys function is not counted,
+# so these are lower bounds of the work.
+
+def _carts(l):
+    return [(ix, iy, l - ix - iy) for ix in range(l, -1, -1)
+            for iy in range(l - ix, -1, -1)]
+
+
+def _ntuv(L):
+    return (L + 1) * (L + 2) * (L + 3) // 6
+
+
+def _r_ops(L):
+    """hermite_R recursion: 3 operations per entry and level."""
+    return 3 * sum((k + 1) * (k + 2) // 2
+                   for n in range(L) for k in range(1, L - n + 1))
+
+
+def _e1d_ops(la, lb):
+    return 5 * sum(i + j + 1 for i in range(la + 1) for j in range(lb + 1))
+
+
+def _herm_terms(la, lb):
+    return sum((ix + jx + 1) * (iy + jy + 1) * (iz + jz + 1)
+               for ix, iy, iz in _carts(la) for jx, jy, jz in _carts(lb))
+
+
+def _ket_ops(lc, l1):
+    """Ket fold per primitive triple: the nonzero S and E_c terms."""
+    from pyscf_tpu_torch.ops.integrals.cart2sph import cart2sph
+    S = np.asarray(cart2sph(lc))
+    n = 0
+    for sc in range(2 * lc + 1):
+        for jc, (kx, ky, kz) in enumerate(_carts(lc)):
+            if S[sc, jc] != 0.0:
+                n += sum(1 for tx in range(kx + 1) for ty in range(ky + 1)
+                         for tz in range(kz + 1)
+                         if (kx - tx) % 2 == 0 and (ky - ty) % 2 == 0
+                         and (kz - tz) % 2 == 0)
+    return n * (5 + 2 * _ntuv(l1))
+
+
+def _nnz(c):
+    return (c != 0).sum(dim=1).double()
+
+
+def coulomb_ops(la, lb, lc, pair_prims, nthreads_per_pair, triples):
+    """coulomb_block: per bra primitive pair (and thread) the E tables and
+    the bra contraction, per primitive triple R and the ket fold."""
+    per_pair = (3 * _e1d_ops(la, lb)
+                + _herm_terms(la, lb) * (2 + 2 * (2 * lc + 1)))
+    per_triple = _r_ops(la + lb + lc) + _ket_ops(lc, la + lb)
+    return pair_prims * nthreads_per_pair * per_pair + triples * per_triple
+
+
+def stv_ops(la, lb, pairs, natm, with_tv):
+    ea, ca, _, eb, cb, _ = pairs
+    prims = float((_nnz(ca) * _nnz(cb)).sum())
+    ops = 3 * _e1d_ops(la, lb + 2)
+    if with_tv:
+        ops += natm * (_r_ops(la + lb) + 2 * _ntuv(la + lb))
+        ops += 34 * len(_carts(la)) * len(_carts(lb)) \
+            + 3 * _herm_terms(la, lb)
+    else:
+        ops += 4 * len(_carts(la)) * len(_carts(lb))
+    return prims * ops
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---- phases ---------------------------------------------------------------
+
+def integral_phases(pt, refs, report):
     from pyscf_tpu_torch.df.addons import make_auxmol
-    from pyscf_tpu_torch.lib.linalg import EIGH_REFINE, canonical_orth
     from pyscf_tpu_torch.ops import kernels
     from pyscf_tpu_torch.ops.integrals import int1e, j3c
 
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
-    print('torch', torch.__version__, 'cuda', torch.version.cuda,
-          'python', sys.version.split()[0])
-
-    print(f'kernel build: {kernels.build():.1f} s')
-
-    # ---- kernel phases at the main path's shapes --------------------------
     dev = torch.device('cuda')
     mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device=dev)
     auxmol = make_auxmol(mol)
@@ -87,7 +179,6 @@ def main():
     zq = torch.as_tensor(mol.charges, dtype=torch.float64, device=dev)
     cross = int1e.cross_pairs(mol, minao)   # minao guess, S only
     aux = j3c.aux_tables(auxmol)
-    report = {}
 
     def stv(fn):
         out = [fn(la, lb, *p, zr, zq) for (la, lb), (_, p) in classes.items()]
@@ -96,12 +187,15 @@ def main():
 
     k_out, p_out = stv(kernels.int1e_stv), stv(int1e.class_stv)
     err, _ = max_abs(list(zip(k_out, p_out)))
-    report['int1e_stv'] = dict(
-        source='pyscf_tpu_torch/csrc/int1e_stv.cu',
-        replaces='pyscf_tpu/ops/integrals/j1e.py:30', max_abs_err=err,
-        ms=cuda_ms(lambda: stv(kernels.int1e_stv)),
-        plain_ms=cuda_ms(lambda: stv(int1e.class_stv)))
-    show('int1e_stv', report['int1e_stv'])
+    ops = sum(stv_ops(la, lb, p, mol.natm, True)
+              for (la, lb), (_, p) in classes.items())
+    ops += sum(stv_ops(la, lb, p, 0, False) for la, lb, _, _, p in cross)
+    io = sum(nbytes(*p) for _, p in classes.values()) \
+        + sum(nbytes(*p) for *_, p in cross) + nbytes(*k_out)
+    record(report, 'int1e_stv', 'pyscf_tpu_torch/csrc/int1e_stv.cu',
+           'pyscf_tpu/ops/integrals/j1e.py:30', err,
+           lambda: stv(kernels.int1e_stv), lambda: stv(int1e.class_stv),
+           io, ops)
     check(err <= 1e-12, f'int1e_stv vs plain: {err:.3e} > 1e-12')
 
     def rows(fn):
@@ -109,23 +203,34 @@ def main():
 
     rows_k, rows_p = rows(kernels.int3c2e), rows(j3c.int3c2e_plain)
     err, scale = max_abs([(rows_k[c], rows_p[c]) for c in rows_k])
-    report['int3c2e'] = dict(
-        source='pyscf_tpu_torch/csrc/int3c2e.cu',
-        replaces='pyscf_tpu/ops/integrals/j3c.py:188', max_abs_err=err,
-        ms=cuda_ms(lambda: rows(kernels.int3c2e)),
-        plain_ms=cuda_ms(lambda: rows(j3c.int3c2e_plain)))
-    show('int3c2e', report['int3c2e'])
+    aux_nnz = {l: float(_nnz(c).sum()) for l, _, c, _ in aux}
+    ops = 0.0
+    for (la, lb), (_, p) in classes.items():
+        prims = float((_nnz(p[1]) * _nnz(p[4])).sum())
+        for l, e, _, _ in aux:
+            ops += coulomb_ops(la, lb, l, prims, e.shape[0],
+                               prims * aux_nnz[l])
+    io = sum(nbytes(*p) for _, p in classes.values()) \
+        + sum(nbytes(*a[1:]) for a in aux) + nbytes(*rows_k.values())
+    record(report, 'int3c2e', 'pyscf_tpu_torch/csrc/int3c2e.cu',
+           'pyscf_tpu/ops/integrals/j3c.py:188', err,
+           lambda: rows(kernels.int3c2e), lambda: rows(j3c.int3c2e_plain),
+           io, ops)
     check(err <= 1e-12 * scale, f'int3c2e vs plain: {err:.3e} > 1e-12 x '
           f'{scale:.3e}')
 
     jg_k, jg_p = kernels.int2c2e(aux), j3c.int2c2e_plain(aux)
     err, scale = max_abs([(jg_k, jg_p)])
-    report['int2c2e'] = dict(
-        source='pyscf_tpu_torch/csrc/int2c2e.cu',
-        replaces='pyscf_tpu/ops/integrals/j3c.py:266', max_abs_err=err,
-        ms=cuda_ms(lambda: kernels.int2c2e(aux)),
-        plain_ms=cuda_ms(lambda: j3c.int2c2e_plain(aux)))
-    show('int2c2e', report['int2c2e'])
+    ops = 0.0
+    for i, (lx, ex, cx, _) in enumerate(aux):
+        for ly, ey, cy, _ in aux[i:]:
+            prims = float(_nnz(cx).sum())
+            ops += coulomb_ops(lx, 0, ly, prims, ey.shape[0],
+                               prims * float(_nnz(cy).sum()))
+    record(report, 'int2c2e', 'pyscf_tpu_torch/csrc/int2c2e.cu',
+           'pyscf_tpu/ops/integrals/j3c.py:266', err,
+           lambda: kernels.int2c2e(aux), lambda: j3c.int2c2e_plain(aux),
+           sum(nbytes(*a[1:]) for a in aux) + nbytes(jg_k), ops)
     check(err <= 1e-12 * scale, f'int2c2e vs plain: {err:.3e} > 1e-12 x '
           f'{scale:.3e}')
 
@@ -143,36 +248,53 @@ def main():
           f'each side\'s own whitener; (P|Q) condition number '
           f'{float(ev[-1] / ev[0]):.3e}')
     check(err_b <= 1e-10, f'B (kernels) vs B (plain): {err_b:.3e} > 1e-10')
-    del rows_k, rows_p, B_k, B_p, B_pp
 
-    # ---- main path ---------------------------------------------------------
+
+def run_path(name, kernels, names, build):
+    """Drive one path with the launch counts set to 0 just before it; every
+    kernel in `names` must have launched. Returns (mf, e, launches)."""
     kernels.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device='cuda')
-    mf = mol.RHF().density_fit()
-    mf.conv_tol = 1e-8
-    mf.init_guess = 'minao'
+    mf = build()
     e = mf.kernel()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launches()
-    de = e - refs.E_BENZENE_DF_RHF_DEF2SVP
-    print(f'DF-RHF benzene/def2-SVP: E = {e!r}  E - E_ref = {de:.3e}  '
-          f'converged {mf.converged}  cycles {mf.scf_cycles}  '
-          f'wall {wall:.3f} s')
-    t = dict(mf.timings, df_factor=mf.timings['j2c'] + mf.timings['j3c'])
-    print('phase seconds: ' + '  '.join(f'{k} {v:.4f}' for k, v in t.items()))
+    print(f'{name}: E = {e!r}  converged {mf.converged}  cycles '
+          f'{mf.scf_cycles}  wall {wall:.3f} s')
+    order = ('hcore', 'j2c', 'j3c', 'guess', 'grids', 'ao', 'scf_loop')
+    print('phase seconds: ' + '  '.join(f'{k} {mf.timings[k]:.4f}'
+                                        for k in order if k in mf.timings))
     print(f'launches: {launches}')
-    check(mf.converged, 'SCF did not converge')
-    check(abs(de) < 1e-8, f'|E - E_ref| = {abs(de):.3e} >= 1e-8')
-    check(mf.mo_energy.shape == (mol.nao,)
+    check(mf.converged, f'{name}: SCF did not converge')
+    check(mf.mo_energy.shape == (mf.mol.nao,)
           and bool(torch.isfinite(mf.mo_energy).all()),
-          'mo_energy is not finite of shape (nao,)')
-    for name, n in launches.items():
-        check(n > 0, f'kernel {name} never launched on the main path')
+          f'{name}: mo_energy is not finite of shape (nao,)')
+    for k in names:
+        check(launches[k] > 0, f'{name}: kernel {k} never launched')
+    return mf, e, launches
 
-    # eigh residual at n = nao, on the converged Fock in the orthogonal basis
+
+def df_rhf_path(pt, refs, kernels):
+    def build():
+        mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device='cuda')
+        mf = mol.RHF().density_fit()
+        mf.conv_tol = 1e-8
+        mf.init_guess = 'minao'
+        return mf
+
+    mf, e, _ = run_path('DF-RHF benzene/def2-SVP', kernels,
+                        ('int1e_stv', 'int3c2e', 'int2c2e'), build)
+    de = e - refs.E_BENZENE_DF_RHF_DEF2SVP
+    print(f'DF-RHF E - E_ref = {de:.3e}')
+    check(abs(de) < 1e-8, f'DF-RHF |E - E_ref| = {abs(de):.3e} >= 1e-8')
+    return mf
+
+
+def eigh_residual(mf):
+    """eigh residual at n = nao on the converged Fock, orthogonal basis."""
+    from pyscf_tpu_torch.lib.linalg import EIGH_REFINE, canonical_orth
     _, veff_dm_fn = mf._veff_fns()
     fock = mf.get_hcore() + veff_dm_fn(mf.make_rdm1())[0]
     x = canonical_orth(mf.get_ovlp())
@@ -183,6 +305,109 @@ def main():
           f'(EIGH_REFINE = {EIGH_REFINE})')
     check(EIGH_REFINE > 0 or resid < 1e-12,
           f'eigh residual {resid:.3e} >= 1e-12 with refinement off')
+
+
+def grid_xc_phases(pt, kernels, mol, dm, report):
+    from pyscf_tpu_torch.dft import gen_grid, numint, xc
+    from pyscf_tpu_torch.ops import eval_gto
+
+    tab = gen_grid.gen_atomic_grids(mol)
+    inputs = gen_grid.partition_inputs(mol, tab)
+    w_k = kernels.becke(*inputs)
+    w_p = gen_grid.becke_weights_plain(*inputs)
+    err, scale = max_abs([(w_k, w_p)])
+    npts, natm = w_k.shape[0], mol.natm
+    print(f'grid: {npts} points, {natm} atoms')
+    record(report, 'becke', 'pyscf_tpu_torch/csrc/becke.cu',
+           'pyscf_tpu/dft/gen_grid.py:179', err,
+           lambda: kernels.becke(*inputs),
+           lambda: gen_grid.becke_weights_plain(*inputs),
+           nbytes(*inputs) + nbytes(w_k),
+           npts * (natm * 11 + natm * (natm - 1) * 20))
+    check(err <= 1e-12 * scale, f'becke vs plain: {err:.3e} > 1e-12 x '
+          f'{scale:.3e}')
+
+    coords, weights = inputs[0], w_k
+    tables = eval_gto.ao_tables(mol)
+    ao_k = kernels.eval_ao(tables, coords, mol.nao, 1)
+    ao_p = eval_gto.eval_ao_plain(tables, coords, mol.nao, 1)
+    err, _ = max_abs([(ao_k, ao_p)])
+    ops = 0.0
+    for l, e, c, _, _ in tables:
+        nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
+        ops += npts * e.shape[0] * (8 + 7 * e.shape[1]
+                                    + 4 * nc * (l + 4 + 2 * d))
+    record(report, 'eval_ao', 'pyscf_tpu_torch/csrc/eval_ao.cu',
+           'pyscf_tpu/ops/eval_gto.py:19', err,
+           lambda: kernels.eval_ao(tables, coords, mol.nao, 1),
+           lambda: eval_gto.eval_ao_plain(tables, coords, mol.nao, 1),
+           nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables), ops)
+    check(err <= 1e-13, f'eval_ao vs plain: {err:.3e} > 1e-13')
+    del ao_p
+
+    f = xc.parse_xc('b3lypg')
+    dmao = ao_k[0] @ dm
+    vt_k, n_k, e_k = kernels.xc_rks(ao_k, dmao, weights, f)
+    vt_p, n_p, e_p = numint.xc_rks_plain(ao_k, dmao, weights, f)
+    err, scale = max_abs([(vt_k, vt_p)])
+    rel_n = abs(float(n_k - n_p)) / abs(float(n_p))
+    rel_e = abs(float(e_k - e_p)) / abs(float(e_p))
+    print(f'xc_rks at the DF-RHF density: n {float(n_k):.12f} (rel diff '
+          f'{rel_n:.2e}), exc {float(e_k):.12f} (rel diff {rel_e:.2e})')
+    # reductions and vtmp: 16 operations per point and AO; the functional's
+    # few hundred per point are not counted
+    record(report, 'xc_rks', 'pyscf_tpu_torch/csrc/xc_rks.cu',
+           'pyscf_tpu/dft/numint.py:117', err,
+           lambda: kernels.xc_rks(ao_k, dmao, weights, f),
+           lambda: numint.xc_rks_plain(ao_k, dmao, weights, f),
+           nbytes(ao_k, dmao, weights, vt_k), 16 * npts * mol.nao)
+    check(err <= 1e-11 * scale, f'xc_rks vtmp vs plain: {err:.3e} > 1e-11 x '
+          f'{scale:.3e}')
+    check(rel_n <= 1e-11 and rel_e <= 1e-11,
+          f'xc_rks n/exc vs plain: {rel_n:.2e}, {rel_e:.2e} > 1e-11')
+
+
+def df_rks_path(pt, refs, kernels):
+    def build():
+        mol = pt.M(atom=refs.BENZENE, basis='def2-svp')
+        check(mol.device.type == 'cuda', 'M() without a device is not on '
+              'the card')
+        mf = pt.dft.RKS(mol, xc='b3lypg').density_fit()
+        mf.conv_tol = 1e-8
+        mf.init_guess = 'minao'
+        return mf
+
+    mf, e, launches = run_path('DF-RKS b3lypg benzene/def2-SVP', kernels,
+                               tuple(kernels.launches()), build)
+    de = e - refs.E_BENZENE_DF_RKS_B3LYPG_DEF2SVP
+    print(f'DF-RKS E - E_ref = {de:.3e}  ngrid {mf.grids.size}')
+    check(abs(de) < 1e-8, f'DF-RKS |E - E_ref| = {abs(de):.3e} >= 1e-8')
+    return launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
+                         'a machine with an NVIDIA GPU')
+    import pyscf_tpu_torch as pt
+    from pyscf_tpu_torch import refs
+    from pyscf_tpu_torch.ops import kernels
+
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    print('torch', torch.__version__, 'cuda', torch.version.cuda,
+          'python', sys.version.split()[0])
+    print(f'kernel build: {kernels.build():.1f} s', flush=True)
+
+    report = {}
+    integral_phases(pt, refs, report)
+    rhf = df_rhf_path(pt, refs, kernels)
+    eigh_residual(rhf)
+    grid_xc_phases(pt, kernels, rhf.mol, rhf.make_rdm1(), report)
+    del rhf
+    launches = df_rks_path(pt, refs, kernels)
 
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', launches=launches[name], **r)

@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Phase times and a device profile of the port's paths on one NVIDIA GPU.
+
+    python3 profile_port.py [--runs 10]
+
+Builds the kernels, then for benzene/def2-SVP DF-RHF and DF-RKS b3lypg
+(minao guess, conv_tol 1e-8, the paths of chip_smoke.py) runs each once
+cold and `--runs` times warm, every run from a fresh Mole, and prints the
+median, quartiles, min and max of each phase of mf.timings and of the wall
+time from M() to the energy (host clock, ended by a synchronize). Then one
+more warm run of each under torch.profiler prints the device time (the sum
+of the device's own events: kernels, copies and memsets), the wall, the
+device-busy share and the device events that take the most time. The last
+line is one JSON object with these numbers.
+"""
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def one_run(pt, refs, xc):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mol = pt.M(atom=refs.BENZENE, basis='def2-svp')
+    mf = (mol.RHF() if xc is None else pt.dft.RKS(mol, xc=xc)).density_fit()
+    mf.conv_tol = 1e-8
+    mf.init_guess = 'minao'
+    e = mf.kernel()
+    torch.cuda.synchronize()
+    if not mf.converged:
+        raise SystemExit(f'{xc or "RHF"}: SCF did not converge')
+    return dict(mf.timings, wall=time.perf_counter() - t0), e, mf.scf_cycles
+
+
+def stats(xs):
+    q = np.quantile(xs, [0.0, 0.25, 0.5, 0.75, 1.0])
+    return dict(min=q[0], q1=q[1], median=q[2], q3=q[3], max=q[4])
+
+
+def profiled(pt, refs, xc, top):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t, _, _ = one_run(pt, refs, xc)
+    # the device's own events (kernels, copies, sets) only: a host op such
+    # as aten::mm reports its kernels' time again
+    dev = []
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            us = getattr(ev, 'self_device_time_total',
+                         getattr(ev, 'self_cuda_time_total', 0.0))
+            dev.append((us, ev.count, ev.key))
+    dev.sort(reverse=True)
+    device_s = sum(us for us, _, _ in dev) * 1e-6
+    wall = t['wall']
+    print(f'profiled {xc or "RHF"}: wall {wall:.6f} s, device '
+          f'{device_s:.6f} s, busy {device_s / wall:.3f}, idle '
+          f'{1 - device_s / wall:.3f}')
+    for us, n, key in dev[:top]:
+        print(f'  {us * 1e-3:10.3f} ms  {n:6d}x  {key[:90]}')
+    return dict(wall=wall, device_s=device_s, busy=device_s / wall,
+                top=[dict(ms=us * 1e-3, count=n, name=key)
+                     for us, n, key in dev[:top]])
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--runs', type=int, default=10)
+    ap.add_argument('--top', type=int, default=12)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit('CUDA is not available: profile_port.py measures '
+                         'the card')
+    import pyscf_tpu_torch as pt
+    from pyscf_tpu_torch import refs
+    from pyscf_tpu_torch.ops import kernels
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card)
+    print(f'kernel build: {kernels.build():.1f} s')
+    out = {'card': card}
+    for name, xc in (('DF-RHF', None), ('DF-RKS b3lypg', 'b3lypg')):
+        cold, e, ncyc = one_run(pt, refs, xc)
+        runs = [one_run(pt, refs, xc)[0] for _ in range(args.runs)]
+        print(f'{name}: E = {e!r}, {ncyc} cycles; cold run '
+              + ' '.join(f'{k} {v:.6f}' for k, v in cold.items()))
+        table = {k: stats([r[k] for r in runs]) for k in runs[0]}
+        for k, s in table.items():
+            print(f'  {k:9s} median {s["median"]:.6f}  min {s["min"]:.6f}  '
+                  f'max {s["max"]:.6f}  q1 {s["q1"]:.6f}  q3 {s["q3"]:.6f}')
+        out[name] = dict(energy=e, cycles=ncyc, cold=cold, warm=table,
+                         profile=profiled(pt, refs, xc, args.top))
+    print(json.dumps(out))
+
+
+if __name__ == '__main__':
+    main()

@@ -7,9 +7,10 @@ the JAX package, so the screening and the integral kernels see the same
 inputs. The tables stay numpy on the host; the integral drivers move the
 pieces they need to `Mole.device`.
 
-Every Mole names its device: `M(..., device='cuda')` or `device='cpu'`.
-There is no default, so a run meant for the card never lands on the CPU
-by accident.
+A Mole runs on the card unless the caller asks for the CPU with
+`device='cpu'`. Without a CUDA device and without an explicit device,
+build() raises: a run meant for the card never lands on the CPU by
+accident.
 """
 import math
 
@@ -108,8 +109,7 @@ def format_atom(atom, unit='angstrom'):
 class Mole:
     """Molecular system: geometry, basis, electron counts, AO layout.
 
-        mol = Mole(atom='O 0 0 0; H 0 1 0; H 0 0 1', basis='sto-3g',
-                   device='cuda').build()
+        mol = Mole(atom='O 0 0 0; H 0 1 0; H 0 0 1', basis='sto-3g').build()
     """
 
     def __init__(self, atom=None, basis='sto-3g', unit='angstrom',
@@ -126,8 +126,11 @@ class Mole:
         for k, v in kwargs.items():
             setattr(self, k, v)
         if self.device is None:
-            raise ValueError("Mole needs an explicit device "
-                             "(device='cuda' or device='cpu')")
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    'no CUDA device: pyscf_tpu_torch runs on the card by '
+                    "default; pass device='cpu' to run on the CPU")
+            self.device = 'cuda'
         self.device = torch.device(self.device)
         self._j3c_cache = {}        # integral tables baked for this geometry
         self._df_cache = {}
@@ -199,6 +202,10 @@ class Mole:
     def RHF(self, **kwargs):
         from ..scf.hf import RHF
         return RHF(self, **kwargs)
+
+    def RKS(self, xc='lda,vwn', **kwargs):
+        from ..dft import RKS
+        return RKS(self, xc=xc, **kwargs)
 
 
 def M(**kwargs):

@@ -1,20 +1,24 @@
-"""Wrappers of the hand-written CUDA integral kernels.
+"""Wrappers of the hand-written CUDA kernels.
 
-Three kernels carry the DF-RHF path (sources in pyscf_tpu_torch/csrc/):
+Six kernels carry the DF-RKS path (sources in pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
   int2c2e    the (P|Q) metric                     (csrc/int2c2e.cu)
+  eval_ao    AO values and gradients on points    (csrc/eval_ao.cu)
+  becke      Becke partition weights of the grid  (csrc/becke.cu)
+  xc_rks     density, B3LYP-family functional and (csrc/xc_rks.cu,
+             the V_xc half-product per point       csrc/xc_funcs.cuh)
 
-Each wrapper takes float64 contiguous tensors on one device. On a CPU
-tensor it runs the kernel's plain PyTorch twin; on a CUDA tensor it
-launches the kernel on torch.cuda.current_stream() or raises. A wrapper
-adds one to its `launches` count for every kernel launch it makes.
+Each wrapper takes float64 (int32 for indices) contiguous tensors on one
+device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
+tensor it launches the kernel on torch.cuda.current_stream() or raises. A
+wrapper adds one to its `launches` count for every kernel launch it makes.
 
 The kernels are compiled at first use with nvcc for sm_90a, one shared
 library per source with a plain C interface loaded by ctypes, into
-pyscf_tpu_torch/_build/<hash of the sources>/, so a fresh checkout builds
-them once and an edit to a source rebuilds them.
+pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
+checkout builds them once and an edit to a source rebuilds them.
 """
 import ctypes
 import hashlib
@@ -25,25 +29,34 @@ import time
 
 import torch
 
+from ..dft import gen_grid, numint
+from . import eval_gto
 from .integrals import int1e, j3c
 from .integrals.int1e import sph
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
 _BUILD = os.path.join(_PKG, '_build')
-_HEADERS = ('boys.cuh', 'hermite.cuh')
+_HEADERS = ('boys.cuh', 'hermite.cuh', 'xc_funcs.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# source -> (exported C function, its ctypes argtypes)
+# source -> (exported C function, its ctypes argtypes, extra nvcc flags)
 _SOURCES = {
-    'int1e_stv.cu': ('pt_int1e_stv', [_I] * 6 + [_P] * 6 + [_I] + [_P] * 6),
+    'int1e_stv.cu': ('pt_int1e_stv', [_I] * 6 + [_P] * 6 + [_I] + [_P] * 6,
+                     ()),
     'int3c2e.cu': ('pt_int3c2e', [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 7
-                   + [_I, _I, _P]),
+                   + [_I, _I, _P], ()),
     'int2c2e.cu': ('pt_int2c2e', [_I] * 4 + [_P] * 3 + [_I, _I] + [_P] * 6
-                   + [_I, _I, _I, _P]),
+                   + [_I, _I, _I, _P], ()),
+    # no FMA contraction: the AO values keep the plain twin's rounding
+    'eval_ao.cu': ('pt_eval_ao', [_I] * 5 + [_P] * 7 + [_I, _P],
+                   ('-fmad=false',)),
+    'becke.cu': ('pt_becke', [_I, _I] + [_P] * 8, ()),
+    'xc_rks.cu': ('pt_xc_rks', [_I] * 3 + [_P] * 3 + [_I] + [_P] * 4
+                  + [_I, _P], ()),
 }
 _LIBS = {}      # C function name -> loaded ctypes function
 
@@ -59,13 +72,14 @@ def _nvcc():
 def _build_dir():
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     for name in (*_SOURCES, *_HEADERS):
+        extra = ' '.join(_SOURCES[name][2]) if name in _SOURCES else ''
         with open(os.path.join(_CSRC, name), 'rb') as f:
-            h.update(name.encode() + b'\0' + f.read())
+            h.update(name.encode() + extra.encode() + b'\0' + f.read())
     return os.path.join(_BUILD, h.hexdigest()[:16])
 
 
 def build():
-    """Compile the kernel libraries that are missing and load all three.
+    """Compile the kernel libraries that are missing and load them all.
 
     Returns the seconds spent. The sources compile in parallel; each output
     is written under a temporary name and renamed, so concurrent builds in
@@ -76,12 +90,12 @@ def build():
     out_dir = _build_dir()
     os.makedirs(out_dir, exist_ok=True)
     jobs = []
-    for src in _SOURCES:
+    for src, (_, _, extra) in _SOURCES.items():
         so = os.path.join(out_dir, src[:-3] + '.so')
         if os.path.exists(so):
             continue
         tmp = f'{so}.{os.getpid()}.tmp'
-        cmd = [_nvcc(), *NVCC_FLAGS, '-I', _CSRC, '-o', tmp,
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra, '-I', _CSRC, '-o', tmp,
                os.path.join(_CSRC, src)]
         jobs.append((src, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -95,7 +109,7 @@ def build():
             os.replace(tmp, so)
     if errors:
         raise RuntimeError('\n'.join(errors))
-    for src, (name, argtypes) in _SOURCES.items():
+    for src, (name, argtypes, _) in _SOURCES.items():
         fn = getattr(ctypes.CDLL(os.path.join(out_dir, src[:-3] + '.so')),
                      name)
         fn.argtypes = argtypes
@@ -115,8 +129,8 @@ def _stream():
 
 def _raise_on(rc, what):
     if rc == -1:
-        raise NotImplementedError(f'{what}: angular momentum class not '
-                                  'instantiated in the CUDA kernel')
+        raise NotImplementedError(f'{what}: not instantiated in the CUDA '
+                                  'kernel')
     if rc != 0:
         raise RuntimeError(f'{what}: CUDA launch failed with error {rc}')
 
@@ -133,6 +147,14 @@ def _check(device, *named):
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f'{name} has shape {tuple(t.shape)}, '
                              f'expected {tuple(shape)}')
+
+
+def _check_index(device, name, t, n):
+    """int32, contiguous, on `device`, of shape (n,)."""
+    if (t.device != device or t.dtype != torch.int32
+            or tuple(t.shape) != (n,) or not t.is_contiguous()):
+        raise ValueError(f'{name} must be a contiguous int32 ({n},) tensor '
+                         f'on {device}')
 
 
 def _device_of(t):
@@ -246,7 +268,107 @@ def int2c2e(aux):
     return out
 
 
-KERNELS = (int1e_stv, int3c2e, int2c2e)
+def eval_ao(tables, coords, nao, deriv=0):
+    """AO values on coords (n, 3): (n, nao) for deriv 0, (4, n, nao)
+    [value, d/dx, d/dy, d/dz] for deriv 1.
+
+    tables: [(l, exps (ns, K), coeffs (ns, K), centers (ns, 3),
+    ao_off (ns,) int32)] per l-class; every AO column belongs to one shell."""
+    dev = _device_of(coords)
+    n = coords.shape[0]
+    _check(dev, ('coords', coords, (n, 3)))
+    for l, e, c, r, off in tables:
+        ns, K = e.shape
+        _check(dev, ('exps', e, (ns, K)), ('coeffs', c, (ns, K)),
+               ('centers', r, (ns, 3)))
+        _check_index(dev, 'ao_off', off, ns)
+    if dev.type == 'cpu':
+        return eval_gto.eval_ao_plain(tables, coords, nao, deriv)
+    out = torch.empty((4, n, nao) if deriv else (n, nao), dtype=torch.float64,
+                      device=dev)
+    for l, e, c, r, off in tables:
+        ns, K = e.shape
+        if n == 0 or ns == 0:
+            continue
+        rc = _fn('pt_eval_ao')(
+            l, deriv, n, ns, K, coords.data_ptr(), e.data_ptr(),
+            c.data_ptr(), r.data_ptr(), off.data_ptr(), sph(l, dev).data_ptr(),
+            out.data_ptr(), nao, _stream())
+        _raise_on(rc, f'eval_ao(l={l})')
+        eval_ao.launches += 1
+    return out
+
+
+def becke(coords, w0, owner, atm_coords, inv_dist, a_adj):
+    """Becke partition weights (n,) of the points coords (n, 3) with atomic
+    weights w0 (n,) and owning atoms owner (n,) int32; atm_coords (natm, 3),
+    inv_dist = 1/R_ij and the Treutler a_ij (natm, natm)."""
+    dev = _device_of(coords)
+    n, natm = coords.shape[0], atm_coords.shape[0]
+    _check(dev, ('coords', coords, (n, 3)), ('w0', w0, (n,)),
+           ('atm_coords', atm_coords, (natm, 3)),
+           ('inv_dist', inv_dist, (natm, natm)),
+           ('a_adj', a_adj, (natm, natm)))
+    _check_index(dev, 'owner', owner, n)
+    if dev.type == 'cpu':
+        return gen_grid.becke_weights_plain(coords, w0, owner, atm_coords,
+                                            inv_dist, a_adj)
+    w = torch.empty(n, dtype=torch.float64, device=dev)
+    if n == 0:
+        return w
+    rc = _fn('pt_becke')(n, natm, coords.data_ptr(), w0.data_ptr(),
+                         owner.data_ptr(), atm_coords.data_ptr(),
+                         inv_dist.data_ptr(), a_adj.data_ptr(), w.data_ptr(),
+                         _stream())
+    _raise_on(rc, 'becke')
+    becke.launches += 1
+    return w
+
+
+# component of dft/xc.py -> id in csrc/xc_funcs.cuh
+XC_COMPONENT_IDS = {'SLATER': 0, 'VWN5': 1, 'VWN3': 2, 'B88': 3, 'LYP': 4}
+XC_WARPS_PER_BLOCK = 8
+
+
+def xc_rks(aod, dmao, weights, xc):
+    """The pointwise XC part of one block of B points: (vtmp (B, nao), n, exc)
+    with n = sum w rho and exc = sum over unmasked points of w e_xc (0-d).
+
+    aod (B, nao) for an LDA or (4, B, nao) for a GGA; dmao = ao @ dm
+    (B, nao); weights (B,); xc a dft.xc.XCFunctional."""
+    dev = _device_of(aod)
+    gga = aod.dim() == 3
+    B, nao = aod.shape[-2:]
+    _check(dev, ('aod', aod, (4, B, nao) if gga else (B, nao)),
+           ('dmao', dmao, (B, nao)), ('weights', weights, (B,)))
+    if xc.is_gga and not gga:
+        raise ValueError('a GGA functional needs the AO gradients (4, B, nao)')
+    if dev.type == 'cpu':
+        return numint.xc_rks_plain(aod, dmao, weights, xc)
+    unknown = [comp for _, _, comp in xc.terms if comp not in XC_COMPONENT_IDS]
+    if unknown or xc.is_mgga:
+        raise NotImplementedError(
+            f'xc_rks kernel: components {unknown} or a meta-GGA are not '
+            'in the kernel')
+    ids = (ctypes.c_int * len(xc.terms))(
+        *[XC_COMPONENT_IDS[comp] for _, _, comp in xc.terms])
+    coeffs = (ctypes.c_double * len(xc.terms))(*[c for c, _, _ in xc.terms])
+    vtmp = torch.empty((B, nao), dtype=torch.float64, device=dev)
+    nblk = -(-B // XC_WARPS_PER_BLOCK)
+    partials = torch.zeros((max(nblk, 1), 2), dtype=torch.float64, device=dev)
+    if B:
+        rc = _fn('pt_xc_rks')(int(gga), B, nao, aod.data_ptr(),
+                              dmao.data_ptr(), weights.data_ptr(),
+                              len(xc.terms), ids, coeffs, vtmp.data_ptr(),
+                              partials.data_ptr(), XC_WARPS_PER_BLOCK,
+                              _stream())
+        _raise_on(rc, 'xc_rks')
+        xc_rks.launches += 1
+    sums = partials.sum(dim=0)
+    return vtmp, sums[0], sums[1]
+
+
+KERNELS = (int1e_stv, int3c2e, int2c2e, eval_ao, becke, xc_rks)
 
 
 def reset_launches():

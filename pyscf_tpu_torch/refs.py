@@ -9,9 +9,11 @@ Each was produced from the repository root by (BENZENE as in bench.py):
     mf = mol.RHF().density_fit(); mf.conv_tol = 1e-8; \\
     mf.init_guess = 'minao'; print(repr(mf.kernel()), mf.converged)"
 
-and the same with atom=WATER, basis='cc-pvdz', conv_tol=1e-10. Both runs
-converged. tests/test_torch_scf.py checks the water value against a live
-JAX run.
+and the same with atom=WATER, basis='cc-pvdz', conv_tol=1e-10. The DF-RKS
+references replace `mol.RHF()` by `mol.RKS(xc='b3lypg')`, with the default
+grids (level 3) for benzene and `mf.grids.level = 1` for water
+(def2-svp, conv_tol 1e-10). Every run converged. tests/test_torch_scf.py
+and tests/test_torch_dft.py check the water values against live JAX runs.
 """
 
 BENZENE = '''
@@ -34,3 +36,8 @@ WATER = 'O 0 0 0; H 0 -0.757 0.587; H 0 0.757 0.587'
 E_BENZENE_DF_RHF_DEF2SVP = -230.5354323974008
 # DF-RHF, cc-pvdz-jkfit, minao guess, conv_tol 1e-10
 E_WATER_DF_RHF_CCPVDZ = -76.02674473735726
+# DF-RKS b3lypg/def2-SVP, def2-universal-jkfit, minao guess, conv_tol 1e-8,
+# default grids (level 3, 143,556 points)
+E_BENZENE_DF_RKS_B3LYPG_DEF2SVP = -232.08462612041947
+# DF-RKS b3lypg/def2-SVP, minao guess, conv_tol 1e-10, grids level 1
+E_WATER_DF_RKS_B3LYPG_L1 = -76.35813097538731

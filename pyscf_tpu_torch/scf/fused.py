@@ -14,11 +14,19 @@ from ..lib.linalg import eigh, eigh_gen
 def _diis_extrapolate(fh, eh, nval, newest):
     """DIIS solve over a (space, n, n) ring buffer with nval valid slots.
 
-    Minimizes |sum_i c_i err_i| s.t. sum c_i = 1. Slots whose error norm
-    dwarfs the current best by 1e8 are dropped; the constraint is
-    eliminated analytically (c ~ G^{-1} 1 on the norm-scaled G) and G is
-    inverted by an eigh pseudo-inverse. Falls back to the newest Fock
-    when the coefficients are huge or sum to ~0."""
+    Minimizes |sum_i c_i err_i| s.t. sum c_i = 1 (Pulay) through the
+    bordered system [[G, -1/s], [-1/s^T, 0]] [d; l] = [0; -1] on the
+    norm-scaled G, with c_i = d_i / s_i, solved by an eigh pseudo-inverse
+    with a 1e-10 relative cutoff. Slots whose error norm dwarfs the
+    current best by 1e8 are dropped. Falls back to the newest Fock when
+    the coefficients are huge.
+
+    This is the form of the JAX package before its c ~ G^-1 1 rewrite
+    (pyscf_tpu/scf/fused.py:21-70): when the error vectors are linearly
+    dependent, as for He, whose only occupied-virtual rotation is 1s-2s,
+    G is singular, the pseudo-inverse of G drops the very direction that
+    zeroes the error, and the SCF diverges. The bordered system keeps
+    that solution."""
     space = fh.shape[0]
     dt, dev = fh.dtype, fh.device
     ef = eh.reshape(space, -1)
@@ -35,14 +43,19 @@ def _diis_extrapolate(fh, eh, nval, newest):
                                    min=torch.finfo(dt).tiny))
     scale = torch.where(valid, scale, torch.ones_like(scale))
     G = G / (scale[:, None] * scale[None, :])
-    w, v = eigh(G)
-    winv = torch.where(torch.abs(w) > 1e-12, 1.0 / w, torch.zeros_like(w))
-    ones = torch.where(valid, 1.0 / scale, torch.zeros_like(scale))
-    y = v @ (winv * (v.T @ ones))
-    c = torch.where(valid, y / scale, torch.zeros_like(y))
-    csum = torch.sum(c)
-    c = c / torch.where(torch.abs(csum) > 1e-12, csum, torch.ones_like(csum))
-    bad = (torch.max(torch.abs(c)) > 20.0) | (torch.abs(csum) <= 1e-12)
+    H = torch.zeros((space + 1, space + 1), dtype=dt, device=dev)
+    H[:space, :space] = G
+    cvec = torch.where(valid, -1.0 / scale, torch.zeros_like(scale))
+    H[:space, space] = cvec
+    H[space, :space] = cvec
+    rhs = torch.zeros(space + 1, dtype=dt, device=dev)
+    rhs[space] = -1.0
+    w, v = eigh(H)
+    winv = torch.where(torch.abs(w) > 1e-10 * torch.max(torch.abs(w)),
+                       1.0 / w, torch.zeros_like(w))
+    c = (v @ (winv * (v.T @ rhs)))[:space]
+    c = torch.where(valid, c / scale, torch.zeros_like(c))
+    bad = torch.max(torch.abs(c)) > 20.0
     c_safe = torch.zeros(space, dtype=dt, device=dev)
     c_safe[newest] = 1.0
     c = torch.where(bad, c_safe, c)

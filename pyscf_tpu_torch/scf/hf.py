@@ -6,9 +6,13 @@ RHF._fused_veff, and _kernel_staged as `kernel`: one host loop drives the
 cycle functions of scf/fused.py. Unlike the JAX package, a failing minao
 guess raises instead of falling back to the core-Hamiltonian guess.
 
+J and K come from the DF factor, or from an in-core ERI tensor
+(nao, nao, nao, nao) assigned to `_eri` as in PySCF: the port has no 4c
+integral kernel yet (ROADMAP.md queue 1 step 8).
+
 Runs on mol.device. `timings` holds the seconds of each phase of the last
-kernel() (hcore, j2c, j3c, guess, scf_loop), each ended by a device
-synchronize.
+kernel() (hcore, j2c, j3c, guess, scf_loop; RKS adds grids and ao), each
+ended by a device synchronize.
 """
 import time
 
@@ -56,7 +60,9 @@ class SCF:
         self.mo_occ = None
         self.scf_cycles = 0
         self.with_df = None
+        self._eri = None
         self.timings = {}
+        self._veff_timings = {}     # set-up phases of the last _veff_fns()
 
     def get_hcore(self, mol=None):
         return get_hcore(mol or self.mol)
@@ -99,6 +105,7 @@ class SCF:
         """Converge the SCF from dm0 (or the init_guess); returns e_tot."""
         mol = self.mol
         dev = mol.device
+        self._veff_timings = {}
         veff_fn, veff_dm_fn = self._veff_fns()
         conv_tol_grad = (np.sqrt(self.conv_tol) if self.conv_tol_grad is None
                          else self.conv_tol_grad)
@@ -112,7 +119,7 @@ class SCF:
         sync(dev)
         t2 = time.perf_counter()
         timings = {'hcore': t1 - t0, 'guess': t2 - t1}
-        timings.update(self.with_df.timings)
+        timings.update(self._veff_timings)
 
         t3 = time.perf_counter()
         nocc = mol.nelectron // 2
@@ -155,20 +162,32 @@ class RHF(SCF):
             raise RuntimeError('RHF requires closed-shell molecule')
         super().__init__(mol)
 
-    def _veff_fns(self):
-        """(veff_fn(dm, co), veff_dm_fn(dm)) -> (vhf, e2) on the DF factor."""
-        if self.with_df is None:
+    def _jk_fns(self):
+        """(get_j(dm), get_k(dm, co=None)): DF-J/K on the factor B, K from
+        the occupied factor co when given; or contractions of `_eri`."""
+        if self.with_df is not None:
+            from ..df.df_jk import j_from_dm, k_from_dm, k_from_mo
+            B = self.with_df.cderi
+            self._veff_timings.update(self.with_df.timings)
+
+            def get_k(dm, co=None):
+                return k_from_dm(B, dm) if co is None else k_from_mo(B, co)
+
+            return (lambda dm: j_from_dm(B, dm)), get_k
+        if self._eri is None:
             raise NotImplementedError(
-                'only density-fitted RHF is ported: call .density_fit()')
-        from ..df.df_jk import j_from_dm, k_from_dm, k_from_mo
-        B = self.with_df.cderi
+                'in-core ERIs are not ported (ROADMAP.md queue 1 step 8): '
+                'call .density_fit() or assign an ERI tensor to _eri')
+        eri = self._eri
+        return (lambda dm: torch.einsum('ijkl,lk->ij', eri, dm),
+                lambda dm, co=None: torch.einsum('ilkj,lk->ij', eri, dm))
 
-        def veff_fn(dm, co):
-            vhf = j_from_dm(B, dm) - 0.5 * k_from_mo(B, co)
+    def _veff_fns(self):
+        """(veff_fn(dm, co), veff_dm_fn(dm)) -> (vhf, e2)."""
+        get_j, get_k = self._jk_fns()
+
+        def veff(dm, co=None):
+            vhf = get_j(dm) - 0.5 * get_k(dm, co)
             return vhf, 0.5 * torch.sum(vhf * dm)
 
-        def veff_dm_fn(dm):
-            vhf = j_from_dm(B, dm) - 0.5 * k_from_dm(B, dm)
-            return vhf, 0.5 * torch.sum(vhf * dm)
-
-        return veff_fn, veff_dm_fn
+        return veff, veff

@@ -57,9 +57,16 @@ def test_compat_round_trip():
     np.testing.assert_array_equal(t.numpy(), a)
 
 
-def test_mole_requires_device():
-    with pytest.raises(ValueError, match='device'):
+def test_mole_requires_device(monkeypatch):
+    """Without a device the Mole goes to the card; with no card it raises
+    and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         tpt.M(atom=refs.WATER, basis='sto-3g')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    assert tpt.M(atom=refs.WATER, basis='sto-3g').device.type == 'cuda'
+    assert tpt.M(atom=refs.WATER, basis='sto-3g',
+                 device='cpu').device.type == 'cpu'
 
 
 def test_missing_basis_dir_raises(monkeypatch):

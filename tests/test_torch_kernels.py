@@ -3,13 +3,15 @@
 Marked `gpu`: a CUDA kernel has no interpret mode, so these tests skip
 where torch finds no CUDA device, and run on a machine with an NVIDIA GPU
 and nvcc (python -m pytest tests/test_torch_kernels.py -m gpu)."""
+import numpy as np
 import pytest
 import torch
 
 import pyscf_tpu_torch as tpt
 from pyscf_tpu_torch import refs
 from pyscf_tpu_torch.df.addons import make_auxmol
-from pyscf_tpu_torch.ops import kernels
+from pyscf_tpu_torch.dft import gen_grid, numint, xc
+from pyscf_tpu_torch.ops import eval_gto, kernels
 from pyscf_tpu_torch.ops.integrals import int1e, j3c
 
 pytestmark = pytest.mark.gpu
@@ -59,4 +61,69 @@ def test_df_rhf_on_card_launches_every_kernel(water):
     e = mf.kernel()
     assert mf.converged
     assert abs(e - refs.E_WATER_DF_RHF_CCPVDZ) < 1e-8
+    launches = kernels.launches()
+    assert all(launches[k] > 0 for k in ('int1e_stv', 'int3c2e', 'int2c2e'))
+
+
+@pytest.fixture(scope='module')
+def water_grid(water):
+    mol, _ = water
+    grids = gen_grid.Grids(mol)
+    grids.level = 1
+    return grids.build()
+
+
+@pytest.mark.parametrize('basis', ['def2-svp', 'cc-pvtz'])
+@pytest.mark.parametrize('deriv', [0, 1])
+def test_eval_ao(water_grid, basis, deriv):
+    """cc-pVTZ brings the f shells (l = 3)."""
+    mol = tpt.M(atom=refs.WATER, basis=basis, device='cuda')
+    tables = eval_gto.ao_tables(mol)
+    got = kernels.eval_ao(tables, water_grid.coords, mol.nao, deriv)
+    ref = eval_gto.eval_ao_plain(tables, water_grid.coords, mol.nao, deriv)
+    assert torch.max(torch.abs(got - ref)) <= 1e-13
+
+
+def test_becke(water):
+    mol, _ = water
+    args = gen_grid.partition_inputs(mol, gen_grid.gen_atomic_grids(mol))
+    got = kernels.becke(*args)
+    ref = gen_grid.becke_weights_plain(*args)
+    assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.max()
+
+
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'blyp'])
+def test_xc_rks(water, water_grid, xc_code):
+    mol, _ = water
+    f = xc.parse_xc(xc_code)
+    aod = eval_gto.eval_ao(mol, water_grid.coords, 1 if f.is_gga else 0)
+    rng = np.random.default_rng(5)
+    c = torch.as_tensor(rng.standard_normal((mol.nao, 5)) * 0.3,
+                        device='cuda')
+    dmao = (aod[0] if f.is_gga else aod) @ (2.0 * c @ c.T)
+    got = kernels.xc_rks(aod, dmao, water_grid.weights, f)
+    ref = numint.xc_rks_plain(aod, dmao, water_grid.weights, f)
+    assert torch.max(torch.abs(got[0] - ref[0])) <= 1e-11 * ref[0].abs().max()
+    for a, b in zip(got[1:], ref[1:]):
+        assert abs(float(a - b)) <= 1e-11 * abs(float(b))
+
+
+def test_xc_rks_refuses_a_component_it_lacks(water, water_grid):
+    mol, _ = water
+    f = xc.parse_xc('b3lypg')
+    f = xc.XCFunctional(f.hyb, f.terms + [(0.1, xc.GGA, 'PBE_X')])
+    aod = eval_gto.eval_ao(mol, water_grid.coords[:64], 1)
+    with pytest.raises(NotImplementedError, match='PBE_X'):
+        kernels.xc_rks(aod, aod[0].clone(), water_grid.weights[:64], f)
+
+
+def test_df_rks_on_card_launches_every_kernel(water):
+    kernels.reset_launches()
+    mol = tpt.M(atom=refs.WATER, basis='def2-svp')
+    mf = tpt.dft.RKS(mol, xc='b3lypg').density_fit()
+    mf.grids.level = 1
+    mf.conv_tol = 1e-10
+    e = mf.kernel()
+    assert mol.device.type == 'cuda' and mf.converged
+    assert abs(e - refs.E_WATER_DF_RKS_B3LYPG_L1) < 1e-8
     assert all(n > 0 for n in kernels.launches().values())
