@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of pyscf_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives the port's two paths for benzene/def2-SVP on the card, in order:
+Drives the port's four paths for benzene/def2-SVP and the phenyl radical
+on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the six CUDA kernels from pyscf_tpu_torch/csrc (nvcc, sm_90a,
+  2. builds the eight CUDA kernels from pyscf_tpu_torch/csrc (nvcc, sm_90a,
      one process per source, all at once);
   3. integral kernel phases at the main path's shapes: each kernel against
      its plain PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c
@@ -19,10 +20,23 @@ Drives the port's two paths for benzene/def2-SVP on the card, in order:
   6. the main path, DF-RKS b3lypg through the public entry points,
      dft.RKS(M(...), xc='b3lypg').density_fit().kernel() with the minao
      guess and conv_tol 1e-8 on the default device: converged, the recorded
-     JAX energy within 1e-8 Ha, and all six kernels launched in that run;
-  7. one JSON line with the per-kernel numbers (times from CUDA events, the
-     bound computed from this run's inputs), then the result line
-     {"ok": true, "device": {...}}.
+     JAX energy within 1e-8 Ha, and its six kernels launched in that run;
+  7. the int2e phase: every ordered pair of benzene's screened shell-pair
+     classes through the `int2e` kernel and its plain twin, <= 1e-12 x
+     max|value|;
+  8. in-core RHF, M(...).RHF().kernel() without density fitting (minao,
+     conv_tol 1e-8): converged, the recorded JAX energy within 1e-8 Ha,
+     int2e and int1e_stv launched in that run;
+  9. DF-UKS b3lypg of the phenyl radical, M(..., spin=1).UKS(xc='b3lypg')
+     .density_fit().kernel() (minao, conv_tol 1e-8): converged, the
+     recorded JAX energy within 1e-8 Ha, <S^2> printed, its six kernels
+     launched in that run;
+ 10. the xc_uks phase at the converged phenyl spin density: vtmp <= 1e-11
+     x max|vtmp|, n_a, n_b and exc <= 1e-11 relative;
+ 11. one JSON line with the per-kernel numbers (times from CUDA events, the
+     bound computed from this run's inputs, launches from the path that
+     runs the kernel: int2e from 8, xc_uks from 9, the others from 6), then
+     the result line {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
 import json
@@ -40,7 +54,8 @@ FP64_FLOPS = 34e12
 
 
 def cuda_ms(fn, reps=3):
-    """Mean milliseconds of fn() on the current stream, after one warm-up."""
+    """Mean milliseconds of fn() over reps calls on the current stream,
+    after one warm-up."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -74,12 +89,12 @@ def bound(nbytes, nops):
 
 
 def record(report, name, source, replaces, err, kernel_fn, plain_fn, nbytes,
-           nops):
+           nops, plain_reps=3):
     bound_ms, bound_by = bound(nbytes, nops)
     report[name] = dict(
         source=source, replaces=replaces, max_abs_err=err,
-        ms=cuda_ms(kernel_fn), plain_ms=cuda_ms(plain_fn), bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None)
+        ms=cuda_ms(kernel_fn), plain_ms=cuda_ms(plain_fn, plain_reps),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     r = report[name]
     print(f'{name}: max_abs_err {err:.3e}  kernel {r["ms"]:.3f} ms  plain '
           f'{r["plain_ms"]:.3f} ms  bound {bound_ms:.4f} ms ({bound_by})',
@@ -87,10 +102,10 @@ def record(report, name, source, replaces, err, kernel_fn, plain_fn, nbytes,
 
 
 # ---- operation counts of the integral kernels -------------------------------
-# FP64 operations of the main loops of csrc/hermite.cuh coulomb_block and
-# csrc/int1e_stv.cu, for the primitives these inputs hold (zero coefficients
-# are skipped as the kernels skip them). The Boys function is not counted,
-# so these are lower bounds of the work.
+# FP64 operations of the main loops of csrc/hermite.cuh coulomb_block,
+# csrc/int2e.cu and csrc/int1e_stv.cu, for the primitives these inputs hold
+# (zero coefficients are skipped as the kernels skip them). The Boys
+# function is not counted, so these are lower bounds of the work.
 
 def _carts(l):
     return [(ix, iy, l - ix - iy) for ix in range(l, -1, -1)
@@ -142,6 +157,63 @@ def coulomb_ops(la, lb, lc, pair_prims, nthreads_per_pair, triples):
                 + _herm_terms(la, lb) * (2 + 2 * (2 * lc + 1)))
     per_triple = _r_ops(la + lb + lc) + _ket_ops(lc, la + lb)
     return pair_prims * nthreads_per_pair * per_pair + triples * per_triple
+
+
+def _same_centre(pairs):
+    """Per shell pair: whether both shells sit on one centre."""
+    return (pairs[2] == pairs[5]).all(dim=1)
+
+
+def _fold_terms(lc, ld, sd, same):
+    """Ket fold terms of csrc/int2e.cu for one sd: the (tx, ty, tz) of every
+    nonzero (sc, jc, jd) entry, and on one centre only those whose E_t is
+    not zero (i + j - t even)."""
+    from pyscf_tpu_torch.ops.integrals.cart2sph import cart2sph
+    Sc, Sd = np.asarray(cart2sph(lc)), np.asarray(cart2sph(ld))
+    n = 0
+    for sc in range(2 * lc + 1):
+        for jc, kc in enumerate(_carts(lc)):
+            if Sc[sc, jc] == 0.0:
+                continue
+            for jd, kd in enumerate(_carts(ld)):
+                if Sd[sd, jd] == 0.0:
+                    continue
+                m = 1
+                for i, j in zip(kc, kd):
+                    m *= (i + j) // 2 + 1 if same else i + j + 1
+                n += m
+    return n
+
+
+def _prim_pairs(pairs):
+    return _nnz(pairs[1]) * _nnz(pairs[4])
+
+
+def pair_e_ops(la, lb, pairs, bra):
+    """The E tables of a class of shell pairs and, for the bra, their
+    products E_x E_y E_z: once per primitive pair, whatever the other side."""
+    per_pp = 3 * _e1d_ops(la, lb) + (2 * _herm_terms(la, lb) if bra else 0)
+    return float(_prim_pairs(pairs).sum()) * per_pp
+
+
+def quartet_ops(la, lb, bra, lc, ld, ket):
+    """csrc/int2e.cu for one ordered class pair, less the E tables: per
+    primitive quartet R_tuv and, per sph component sd of the ket's second
+    shell, the fold into Y; per (bra primitive pair, ket pair, sd) the bra
+    contraction. The kernel redoes R_tuv and the E tables for every sd and
+    every pair of the other side; that is not counted."""
+    nt1 = _ntuv(la + lb)
+    bra_pp = float(_prim_pairs(bra).sum())
+    kp = _prim_pairs(ket)
+    same = _same_centre(ket)
+    ops = bra_pp * float(kp.sum()) * _r_ops(la + lb + lc + ld)
+    for sd in range(2 * ld + 1):
+        for s in (True, False):
+            kpp = float(kp[same == s].sum())
+            ops += bra_pp * kpp * _fold_terms(lc, ld, sd, s) * (5 + 2 * nt1)
+        ops += (bra_pp * ket[0].shape[0]
+                * _herm_terms(la, lb) * 2 * (2 * lc + 1))
+    return ops
 
 
 def stv_ops(la, lb, pairs, natm, with_tv):
@@ -263,14 +335,15 @@ def run_path(name, kernels, names, build):
     launches = kernels.launches()
     print(f'{name}: E = {e!r}  converged {mf.converged}  cycles '
           f'{mf.scf_cycles}  wall {wall:.3f} s')
-    order = ('hcore', 'j2c', 'j3c', 'guess', 'grids', 'ao', 'scf_loop')
+    order = ('hcore', 'j2c', 'j3c', 'eri', 'guess', 'grids', 'ao',
+             'scf_loop')
     print('phase seconds: ' + '  '.join(f'{k} {mf.timings[k]:.4f}'
                                         for k in order if k in mf.timings))
     print(f'launches: {launches}')
     check(mf.converged, f'{name}: SCF did not converge')
-    check(mf.mo_energy.shape == (mf.mol.nao,)
+    check(mf.mo_energy.shape[-1] == mf.mol.nao
           and bool(torch.isfinite(mf.mo_energy).all()),
-          f'{name}: mo_energy is not finite of shape (nao,)')
+          f'{name}: mo_energy is not finite of shape (..., nao)')
     for k in names:
         check(launches[k] > 0, f'{name}: kernel {k} never launched')
     return mf, e, launches
@@ -378,11 +451,132 @@ def df_rks_path(pt, refs, kernels):
         return mf
 
     mf, e, launches = run_path('DF-RKS b3lypg benzene/def2-SVP', kernels,
-                               tuple(kernels.launches()), build)
+                               ('int1e_stv', 'int3c2e', 'int2c2e', 'eval_ao',
+                                'becke', 'xc_rks'), build)
     de = e - refs.E_BENZENE_DF_RKS_B3LYPG_DEF2SVP
     print(f'DF-RKS E - E_ref = {de:.3e}  ngrid {mf.grids.size}')
     check(abs(de) < 1e-8, f'DF-RKS |E - E_ref| = {abs(de):.3e} >= 1e-8')
     return launches
+
+
+def int2e_phase(pt, refs, kernels, report):
+    from pyscf_tpu_torch.ops.integrals import j2e, j3c
+
+    mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device='cuda')
+    classes = j3c.screened_pairs(mol)
+    kets = j2e._ket_arrays(mol)
+
+    def pieces(fn):
+        return [fn(la, lb, *p, kets) for (la, lb), (_, p) in classes.items()]
+
+    k_out = pieces(kernels.int2e)
+    p_out = pieces(j2e.int2e_class_plain)
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    nrow = sum(p.shape[0] for p in k_out)
+    print(f'int2e: {len(classes)} bra classes x {len(kets)} ket classes, '
+          f'stacked rows {nrow} x {k_out[0].shape[1]}, dense (nao)^4 '
+          f'{mol.nao ** 4 * 8 / 1e9:.3f} GB')
+    del p_out
+    ops = sum(quartet_ops(la, lb, p, lc, ld, ket)
+              for (la, lb), (_, p) in classes.items()
+              for lc, ld, *ket in kets)
+    ops += sum(pair_e_ops(la, lb, p, True)
+               for (la, lb), (_, p) in classes.items())
+    ops += sum(pair_e_ops(lc, ld, ket, False) for lc, ld, *ket in kets)
+    io = sum(nbytes(*p) for _, p in classes.values()) + nbytes(*k_out)
+    record(report, 'int2e', 'pyscf_tpu_torch/csrc/int2e.cu',
+           'pyscf_tpu/ops/integrals/j2e.py:42', err,
+           lambda: pieces(kernels.int2e),
+           lambda: pieces(j2e.int2e_class_plain), io, ops, plain_reps=1)
+    check(err <= 1e-12 * scale, f'int2e vs plain: {err:.3e} > 1e-12 x '
+          f'{scale:.3e}')
+
+
+def incore_rhf_path(pt, refs, kernels):
+    def build():
+        mf = pt.M(atom=refs.BENZENE, basis='def2-svp').RHF()
+        mf.conv_tol = 1e-8
+        mf.init_guess = 'minao'
+        return mf
+
+    torch.cuda.reset_peak_memory_stats()
+    mf, e, launches = run_path('in-core RHF benzene/def2-SVP', kernels,
+                               ('int2e', 'int1e_stv'), build)
+    de = e - refs.E_BENZENE_RHF_DEF2SVP
+    print(f'in-core RHF E - E_ref = {de:.3e}  eri '
+          f'{tuple(mf._eri.shape)}  peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB')
+    check(abs(de) < 1e-8, f'in-core RHF |E - E_ref| = {abs(de):.3e} >= 1e-8')
+    # the K strategy of scf/hf.py, a batched GEMV on the tensor's own
+    # layout, against an axis-swapped copy of the tensor (once per kernel())
+    # and then a GEMV per K, and against torch.einsum as the JAX package
+    # writes K
+    eri, dm = mf._eri, mf.make_rdm1()
+    n = eri.shape[0]
+    get_k = mf._jk_fns()[1]
+    bgemv_ms = cuda_ms(lambda: get_k(dm))
+    copy_ms = cuda_ms(lambda: eri.permute(0, 2, 1, 3).contiguous())
+    eri_k = eri.permute(0, 2, 1, 3).reshape(n * n, n * n)
+    gemv_ms = cuda_ms(lambda: eri_k @ dm.reshape(-1))
+    err, scale = max_abs([(get_k(dm),
+                           (eri_k @ dm.reshape(-1)).reshape(n, n))])
+    del eri_k
+    einsum_ms = cuda_ms(lambda: torch.einsum('ilkj,lk->ij', eri, dm))
+    print(f'in-core K: batched GEMV {bgemv_ms:.3f} ms per K; axis-swapped '
+          f'copy {copy_ms:.3f} ms then a GEMV {gemv_ms:.3f} ms per K (max '
+          f'|diff| {err:.3e}); torch.einsum {einsum_ms:.3f} ms per K')
+    check(err <= 1e-12 * scale, f'in-core K: batched GEMV vs GEMV '
+          f'{err:.3e} > 1e-12 x {scale:.3e}')
+    return launches
+
+
+def df_uks_path(pt, refs, kernels):
+    def build():
+        mol = pt.M(atom=refs.PHENYL, basis='def2-svp', spin=1)
+        mf = mol.UKS(xc='b3lypg').density_fit()
+        mf.conv_tol = 1e-8
+        mf.init_guess = 'minao'
+        return mf
+
+    mf, e, launches = run_path(
+        'DF-UKS b3lypg phenyl/def2-SVP', kernels,
+        ('int1e_stv', 'int3c2e', 'int2c2e', 'eval_ao', 'becke', 'xc_uks'),
+        build)
+    de = e - refs.E_PHENYL_DF_UKS_B3LYPG_DEF2SVP
+    ss, mult = mf.spin_square()
+    print(f'DF-UKS E - E_ref = {de:.3e}  <S^2> {ss!r}  2S+1 {mult!r}  '
+          f'nelec {mf.mol.nelec}  ngrid {mf.grids.size}')
+    check(abs(de) < 1e-8, f'DF-UKS |E - E_ref| = {abs(de):.3e} >= 1e-8')
+    return mf, launches
+
+
+def xc_uks_phase(kernels, mf, report):
+    from pyscf_tpu_torch.dft import numint, xc
+
+    f = xc.parse_xc('b3lypg')
+    aods, weights = mf._numint.grid_ao(mf.mol, mf.grids, 1, spins=2)
+    check(len(aods) == 1, 'the phenyl grid does not fit one block')
+    aod, w = aods[0], weights[0]
+    dmao = aod[0] @ mf.make_rdm1()
+    vt_k, n_k, e_k = kernels.xc_uks(aod, dmao, w, f)
+    vt_p, n_p, e_p = numint.xc_uks_plain(aod, dmao, w, f)
+    err, scale = max_abs([(vt_k, vt_p)])
+    rel_n = float(torch.max(torch.abs(n_k - n_p) / torch.abs(n_p)))
+    rel_e = abs(float(e_k - e_p)) / abs(float(e_p))
+    print(f'xc_uks at the DF-UKS spin density: n {n_k.tolist()} (rel diff '
+          f'{rel_n:.2e}), exc {float(e_k):.12f} (rel diff {rel_e:.2e})')
+    npts, nao = w.shape[0], aod.shape[-1]
+    # reductions and the two vtmp rows: 30 operations per point and AO;
+    # the functional's few thousand per point are not counted
+    record(report, 'xc_uks', 'pyscf_tpu_torch/csrc/xc_uks.cu',
+           'pyscf_tpu/dft/numint.py:224', err,
+           lambda: kernels.xc_uks(aod, dmao, w, f),
+           lambda: numint.xc_uks_plain(aod, dmao, w, f),
+           nbytes(aod, dmao, w, vt_k), 30 * npts * nao)
+    check(err <= 1e-11 * scale, f'xc_uks vtmp vs plain: {err:.3e} > 1e-11 x '
+          f'{scale:.3e}')
+    check(rel_n <= 1e-11 and rel_e <= 1e-11,
+          f'xc_uks n/exc vs plain: {rel_n:.2e}, {rel_e:.2e} > 1e-11')
 
 
 def main():
@@ -408,6 +602,13 @@ def main():
     grid_xc_phases(pt, kernels, rhf.mol, rhf.make_rdm1(), report)
     del rhf
     launches = df_rks_path(pt, refs, kernels)
+    int2e_phase(pt, refs, kernels, report)
+    torch.cuda.empty_cache()
+    launches['int2e'] = incore_rhf_path(pt, refs, kernels)['int2e']
+    torch.cuda.empty_cache()
+    uks, uks_launches = df_uks_path(pt, refs, kernels)
+    launches['xc_uks'] = uks_launches['xc_uks']
+    xc_uks_phase(kernels, uks, report)
 
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', launches=launches[name], **r)

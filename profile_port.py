@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Phase times and a device profile of the port's paths on one NVIDIA GPU.
 
-    python3 profile_port.py [--runs 10]
+    python3 profile_port.py [--runs 10] [--top 12]
 
-Builds the kernels, then for benzene/def2-SVP DF-RHF and DF-RKS b3lypg
-(minao guess, conv_tol 1e-8, the paths of chip_smoke.py) runs each once
-cold and `--runs` times warm, every run from a fresh Mole, and prints the
+Builds the kernels, then for the four paths of chip_smoke.py (minao guess,
+conv_tol 1e-8): benzene/def2-SVP DF-RHF, DF-RKS b3lypg and in-core RHF,
+and the phenyl radical's DF-UKS b3lypg/def2-SVP, runs each once cold and
+`--runs` times warm, every run from a fresh Mole, and prints the
 median, quartiles, min and max of each phase of mf.timings and of the wall
 time from M() to the energy (host clock, ended by a synchronize). Then one
 more warm run of each under torch.profiler prints the device time (the sum
@@ -22,17 +23,29 @@ import numpy as np
 import torch
 
 
-def one_run(pt, refs, xc):
+PATHS = {
+    'DF-RHF': lambda pt, refs: pt.M(atom=refs.BENZENE, basis='def2-svp')
+    .RHF().density_fit(),
+    'DF-RKS b3lypg': lambda pt, refs: pt.dft.RKS(
+        pt.M(atom=refs.BENZENE, basis='def2-svp'), xc='b3lypg').density_fit(),
+    'in-core RHF': lambda pt, refs: pt.M(atom=refs.BENZENE,
+                                         basis='def2-svp').RHF(),
+    'DF-UKS b3lypg phenyl': lambda pt, refs: pt.M(
+        atom=refs.PHENYL, basis='def2-svp', spin=1).UKS(
+        xc='b3lypg').density_fit(),
+}
+
+
+def one_run(pt, refs, name):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mol = pt.M(atom=refs.BENZENE, basis='def2-svp')
-    mf = (mol.RHF() if xc is None else pt.dft.RKS(mol, xc=xc)).density_fit()
+    mf = PATHS[name](pt, refs)
     mf.conv_tol = 1e-8
     mf.init_guess = 'minao'
     e = mf.kernel()
     torch.cuda.synchronize()
     if not mf.converged:
-        raise SystemExit(f'{xc or "RHF"}: SCF did not converge')
+        raise SystemExit(f'{name}: SCF did not converge')
     return dict(mf.timings, wall=time.perf_counter() - t0), e, mf.scf_cycles
 
 
@@ -41,12 +54,12 @@ def stats(xs):
     return dict(min=q[0], q1=q[1], median=q[2], q3=q[3], max=q[4])
 
 
-def profiled(pt, refs, xc, top):
+def profiled(pt, refs, name, top):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t, _, _ = one_run(pt, refs, xc)
+        t, _, _ = one_run(pt, refs, name)
     # the device's own events (kernels, copies, sets) only: a host op such
     # as aten::mm reports its kernels' time again
     dev = []
@@ -58,7 +71,7 @@ def profiled(pt, refs, xc, top):
     dev.sort(reverse=True)
     device_s = sum(us for us, _, _ in dev) * 1e-6
     wall = t['wall']
-    print(f'profiled {xc or "RHF"}: wall {wall:.6f} s, device '
+    print(f'profiled {name}: wall {wall:.6f} s, device '
           f'{device_s:.6f} s, busy {device_s / wall:.3f}, idle '
           f'{1 - device_s / wall:.3f}')
     for us, n, key in dev[:top]:
@@ -86,9 +99,9 @@ def main():
     print(card)
     print(f'kernel build: {kernels.build():.1f} s')
     out = {'card': card}
-    for name, xc in (('DF-RHF', None), ('DF-RKS b3lypg', 'b3lypg')):
-        cold, e, ncyc = one_run(pt, refs, xc)
-        runs = [one_run(pt, refs, xc)[0] for _ in range(args.runs)]
+    for name in PATHS:
+        cold, e, ncyc = one_run(pt, refs, name)
+        runs = [one_run(pt, refs, name)[0] for _ in range(args.runs)]
         print(f'{name}: E = {e!r}, {ncyc} cycles; cold run '
               + ' '.join(f'{k} {v:.6f}' for k, v in cold.items()))
         table = {k: stats([r[k] for r in runs]) for k in runs[0]}
@@ -96,7 +109,7 @@ def main():
             print(f'  {k:9s} median {s["median"]:.6f}  min {s["min"]:.6f}  '
                   f'max {s["max"]:.6f}  q1 {s["q1"]:.6f}  q3 {s["q3"]:.6f}')
         out[name] = dict(energy=e, cycles=ncyc, cold=cold, warm=table,
-                         profile=profiled(pt, refs, xc, args.top))
+                         profile=profiled(pt, refs, name, args.top))
     print(json.dumps(out))
 
 

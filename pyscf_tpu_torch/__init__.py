@@ -8,6 +8,9 @@ the CPU. A Mole runs on the card unless it is given device='cpu':
     mol = pt.M(atom='O 0 0 0; H 0 -0.757 0.587; H 0 0.757 0.587',
                basis='def2-svp')
     e = pt.dft.RKS(mol, xc='b3lypg').density_fit().kernel()
+    e = pt.M(atom=..., basis='def2-svp', spin=1).UKS(xc='b3lypg') \
+        .density_fit().kernel()            # open shell
+    e = mol.RHF().kernel()                 # in-core ERIs, no density fitting
 """
 from .gto.mole import M, Mole  # noqa: F401
-from . import dft  # noqa: F401
+from . import dft, scf  # noqa: F401

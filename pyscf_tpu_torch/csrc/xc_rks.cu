@@ -75,9 +75,9 @@ __global__ void xc_rks_kernel(int gga, int npts, int nao,
     const bool mask = rho > RHO_THR;
     const double rho_s = mask ? fmax(rho, RHO_THR) : 1.0;
     const double sigma_s = mask ? fmax(sigma, SIGMA_FLOOR) : 1.0;
-    const ptxc::Dual e = ptxc::edens_closed(terms, rho_s, sigma_s);
-    const double wv = mask ? w * e.r : 0.0;
-    const double wvs = mask ? w * e.s : 0.0;
+    const ptxc::DualN<2> e = ptxc::edens_closed(terms, rho_s, sigma_s);
+    const double wv = mask ? w * e.d[0] : 0.0;
+    const double wvs = mask ? w * e.d[1] : 0.0;
     n_pt = w * rho;
     e_pt = mask ? w * e.v : 0.0;
     const double hw = 0.5 * wv;

@@ -6,7 +6,7 @@ branch of RKS._fused_veff: each cycle
     vhf = vxc + vj - 1/2 hyb vk
     e2  = 1/2 tr(vj dm) + exc - 1/4 hyb tr(vk dm)
 
-with J/K on the DF factor (or on an in-core ERI tensor assigned to `_eri`)
+with J/K on the DF factor or on the in-core ERI tensor (SCF._get_eri)
 and the XC term from NumInt over AO values evaluated once per kernel()
 call. The SCF loop is SCF.kernel of scf/hf.py.
 """
@@ -42,6 +42,22 @@ class KohnShamDFT:
     def xc_obj(self):
         return xc_mod.parse_xc(self.xc)
 
+    def _grid_ao(self, spins):
+        """(AO value blocks, weight blocks) of the grids, built here if
+        needed; timed as 'grids' and 'ao'."""
+        dev = self.mol.device
+        t0 = time.perf_counter()
+        if self.grids.coords is None:
+            self.grids.build()
+        sync(dev)
+        t1 = time.perf_counter()
+        out = self._numint.grid_ao(self.mol, self.grids,
+                                   1 if self.xc_obj.is_gga else 0, spins)
+        sync(dev)
+        self._veff_timings['grids'] = t1 - t0
+        self._veff_timings['ao'] = time.perf_counter() - t1
+        return out
+
 
 class RKS(KohnShamDFT, RHF):
     def __init__(self, mol, xc='lda,vwn'):
@@ -52,20 +68,9 @@ class RKS(KohnShamDFT, RHF):
         """(veff_fn(dm, co), veff_dm_fn(dm)) -> (vhf, e2); builds the grids
         and the AO values, timed as 'grids' and 'ao'."""
         get_j, get_k = self._jk_fns()
-        dev = self.mol.device
-        t0 = time.perf_counter()
-        if self.grids.coords is None:
-            self.grids.build()
-        sync(dev)
-        t1 = time.perf_counter()
-        xc = self.xc_obj
-        aod, weights = self._numint.grid_ao(self.mol, self.grids,
-                                            1 if xc.is_gga else 0)
-        sync(dev)
-        self._veff_timings['grids'] = t1 - t0
-        self._veff_timings['ao'] = time.perf_counter() - t1
+        aod, weights = self._grid_ao(1)
         core = self._numint._get_rks_core_aod(self.xc)
-        hyb = xc.hyb
+        hyb = self.xc_obj.hyb
 
         def veff(dm, co=None):
             _, exc, vxc = core(aod, weights, dm)

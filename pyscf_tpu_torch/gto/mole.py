@@ -1,7 +1,7 @@
 """Molecule description and AO-basis layout.
 
 Counterpart of pyscf_tpu/gto/mole.py: Shell, ShellGroup, Mole.build,
-energy_nuc and M. Shells are grouped per angular momentum into padded
+nelec, multiplicity, energy_nuc, intor('int2e') and M. Shells are grouped per angular momentum into padded
 tables (exponents padded with 1.0, coefficients with 0.0) exactly as in
 the JAX package, so the screening and the integral kernels see the same
 inputs. The tables stay numpy on the host; the integral drivers move the
@@ -192,6 +192,29 @@ class Mole:
     def nelectron(self):
         return int(self.charges.sum()) - self.charge
 
+    @property
+    def nelec(self):
+        """(n_alpha, n_beta); raises when charge and spin disagree."""
+        ne = self.nelectron
+        nb = (ne - self.spin) // 2
+        na = ne - nb
+        if na - nb != self.spin:
+            raise RuntimeError(
+                f'electron number {ne} and spin {self.spin} inconsistent')
+        return na, nb
+
+    @property
+    def multiplicity(self):
+        return self.spin + 1
+
+    def intor(self, name):
+        """The in-core integrals by libcint name; only 'int2e' (the dense
+        (nao,)^4 ERI tensor, kernel `int2e`) is ported."""
+        if name.replace('_sph', '') != 'int2e':
+            raise NotImplementedError(f'intor({name!r}) is not ported')
+        from ..ops.integrals.j2e import int2e_dense
+        return int2e_dense(self)
+
     def energy_nuc(self):
         z = self.charges.astype(np.float64)
         r = self.coords
@@ -203,9 +226,17 @@ class Mole:
         from ..scf.hf import RHF
         return RHF(self, **kwargs)
 
+    def UHF(self, **kwargs):
+        from ..scf.uhf import UHF
+        return UHF(self, **kwargs)
+
     def RKS(self, xc='lda,vwn', **kwargs):
         from ..dft import RKS
         return RKS(self, xc=xc, **kwargs)
+
+    def UKS(self, xc='lda,vwn', **kwargs):
+        from ..dft import UKS
+        return UKS(self, xc=xc, **kwargs)
 
 
 def M(**kwargs):

@@ -1,14 +1,17 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Six kernels carry the DF-RKS path (sources in pyscf_tpu_torch/csrc/):
+Eight kernels carry the DF-RHF/RKS/UKS and in-core paths (sources in
+pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
   int2c2e    the (P|Q) metric                     (csrc/int2c2e.cu)
+  int2e      (ab|cd) rows of one bra class        (csrc/int2e.cu)
   eval_ao    AO values and gradients on points    (csrc/eval_ao.cu)
   becke      Becke partition weights of the grid  (csrc/becke.cu)
   xc_rks     density, B3LYP-family functional and (csrc/xc_rks.cu,
              the V_xc half-product per point       csrc/xc_funcs.cuh)
+  xc_uks     the same for two spin densities      (csrc/xc_uks.cu)
 
 Each wrapper takes float64 (int32 for indices) contiguous tensors on one
 device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
@@ -31,7 +34,7 @@ import torch
 
 from ..dft import gen_grid, numint
 from . import eval_gto
-from .integrals import int1e, j3c
+from .integrals import int1e, j2e, j3c
 from .integrals.int1e import sph
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -51,11 +54,15 @@ _SOURCES = {
                    + [_I, _I, _P], ()),
     'int2c2e.cu': ('pt_int2c2e', [_I] * 4 + [_P] * 3 + [_I, _I] + [_P] * 6
                    + [_I, _I, _I, _P], ()),
+    'int2e.cu': ('pt_int2e', [_I] * 7 + [_P] * 6 + [_I] * 3 + [_P] * 11
+                 + [_I, _I, _P], ()),
     # no FMA contraction: the AO values keep the plain twin's rounding
     'eval_ao.cu': ('pt_eval_ao', [_I] * 5 + [_P] * 7 + [_I, _P],
                    ('-fmad=false',)),
     'becke.cu': ('pt_becke', [_I, _I] + [_P] * 8, ()),
     'xc_rks.cu': ('pt_xc_rks', [_I] * 3 + [_P] * 3 + [_I] + [_P] * 4
+                  + [_I, _P], ()),
+    'xc_uks.cu': ('pt_xc_uks', [_I] * 3 + [_P] * 3 + [_I] + [_P] * 4
                   + [_I, _P], ()),
 }
 _LIBS = {}      # C function name -> loaded ctypes function
@@ -268,6 +275,40 @@ def int2c2e(aux):
     return out
 
 
+def int2e(la, lb, ea, ca, ra, eb, cb, rb, kets):
+    """(ab|cd) sph rows of n bra shell pairs of class (la, lb) against the
+    ket pairs of every class in kets: (n*(2la+1)(2lb+1), sum over kets of
+    nket*(2lc+1)(2ld+1)), the ket classes' columns in the order given.
+
+    kets: [(lc, ld, ec, cc, rc, ed, cd, rd)] with lc <= ld, the pair tables
+    of each ket class (as j3c.screened_pairs gives them)."""
+    dev = _device_of(ea)
+    n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
+    for _, _, *ket in kets:
+        _check_pairs(dev, *ket)
+    if dev.type == 'cpu':
+        return j2e.int2e_class_plain(la, lb, ea, ca, ra, eb, cb, rb, kets)
+    ns1 = (2 * la + 1) * (2 * lb + 1)
+    ncol = sum(k[2].shape[0] * (2 * k[0] + 1) * (2 * k[1] + 1) for k in kets)
+    out = torch.empty((n * ns1, ncol), dtype=torch.float64, device=dev)
+    col = 0
+    for lc, ld, ec, cc, rc, ed, cd, rd in kets:
+        nk, Kc = ec.shape
+        if n and nk:
+            rc_ = _fn('pt_int2e')(
+                la, lb, lc, ld, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
+                ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
+                nk, Kc, ed.shape[1], ec.data_ptr(), cc.data_ptr(),
+                rc.data_ptr(), ed.data_ptr(), cd.data_ptr(), rd.data_ptr(),
+                sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(),
+                sph(lc, dev).data_ptr(), sph(ld, dev).data_ptr(),
+                out.data_ptr(), ncol, col, _stream())
+            _raise_on(rc_, f'int2e({la},{lb}|{lc},{ld})')
+            int2e.launches += 1
+        col += nk * (2 * lc + 1) * (2 * ld + 1)
+    return out
+
+
 def eval_ao(tables, coords, nao, deriv=0):
     """AO values on coords (n, 3): (n, nao) for deriv 0, (4, n, nao)
     [value, d/dx, d/dy, d/dz] for deriv 1.
@@ -330,6 +371,19 @@ XC_COMPONENT_IDS = {'SLATER': 0, 'VWN5': 1, 'VWN3': 2, 'B88': 3, 'LYP': 4}
 XC_WARPS_PER_BLOCK = 8
 
 
+def _xc_terms(xc, kernel):
+    """ctypes arrays (component ids, coefficients) of xc's terms."""
+    unknown = [comp for _, _, comp in xc.terms if comp not in XC_COMPONENT_IDS]
+    if unknown or xc.is_mgga:
+        raise NotImplementedError(
+            f'{kernel} kernel: components {unknown} or a meta-GGA are not '
+            'in the kernel')
+    ids = (ctypes.c_int * len(xc.terms))(
+        *[XC_COMPONENT_IDS[comp] for _, _, comp in xc.terms])
+    coeffs = (ctypes.c_double * len(xc.terms))(*[c for c, _, _ in xc.terms])
+    return ids, coeffs
+
+
 def xc_rks(aod, dmao, weights, xc):
     """The pointwise XC part of one block of B points: (vtmp (B, nao), n, exc)
     with n = sum w rho and exc = sum over unmasked points of w e_xc (0-d).
@@ -345,14 +399,7 @@ def xc_rks(aod, dmao, weights, xc):
         raise ValueError('a GGA functional needs the AO gradients (4, B, nao)')
     if dev.type == 'cpu':
         return numint.xc_rks_plain(aod, dmao, weights, xc)
-    unknown = [comp for _, _, comp in xc.terms if comp not in XC_COMPONENT_IDS]
-    if unknown or xc.is_mgga:
-        raise NotImplementedError(
-            f'xc_rks kernel: components {unknown} or a meta-GGA are not '
-            'in the kernel')
-    ids = (ctypes.c_int * len(xc.terms))(
-        *[XC_COMPONENT_IDS[comp] for _, _, comp in xc.terms])
-    coeffs = (ctypes.c_double * len(xc.terms))(*[c for c, _, _ in xc.terms])
+    ids, coeffs = _xc_terms(xc, 'xc_rks')
     vtmp = torch.empty((B, nao), dtype=torch.float64, device=dev)
     nblk = -(-B // XC_WARPS_PER_BLOCK)
     partials = torch.zeros((max(nblk, 1), 2), dtype=torch.float64, device=dev)
@@ -368,7 +415,40 @@ def xc_rks(aod, dmao, weights, xc):
     return vtmp, sums[0], sums[1]
 
 
-KERNELS = (int1e_stv, int3c2e, int2c2e, eval_ao, becke, xc_rks)
+def xc_uks(aod, dmao, weights, xc):
+    """The pointwise spin-polarized XC part of one block of B points:
+    (vtmp (2, B, nao), n (2,), exc) with n_s = sum w rho_s and exc = sum
+    over unmasked points of w e_xc (0-d).
+
+    aod (B, nao) for an LDA or (4, B, nao) for a GGA; dmao = ao @ dm_s
+    stacked (2, B, nao); weights (B,); xc a dft.xc.XCFunctional."""
+    dev = _device_of(aod)
+    gga = aod.dim() == 3
+    B, nao = aod.shape[-2:]
+    _check(dev, ('aod', aod, (4, B, nao) if gga else (B, nao)),
+           ('dmao', dmao, (2, B, nao)), ('weights', weights, (B,)))
+    if xc.is_gga and not gga:
+        raise ValueError('a GGA functional needs the AO gradients (4, B, nao)')
+    if dev.type == 'cpu':
+        return numint.xc_uks_plain(aod, dmao, weights, xc)
+    ids, coeffs = _xc_terms(xc, 'xc_uks')
+    vtmp = torch.empty((2, B, nao), dtype=torch.float64, device=dev)
+    nblk = -(-B // XC_WARPS_PER_BLOCK)
+    partials = torch.zeros((max(nblk, 1), 3), dtype=torch.float64, device=dev)
+    if B:
+        rc = _fn('pt_xc_uks')(int(gga), B, nao, aod.data_ptr(),
+                              dmao.data_ptr(), weights.data_ptr(),
+                              len(xc.terms), ids, coeffs, vtmp.data_ptr(),
+                              partials.data_ptr(), XC_WARPS_PER_BLOCK,
+                              _stream())
+        _raise_on(rc, 'xc_uks')
+        xc_uks.launches += 1
+    sums = partials.sum(dim=0)
+    return vtmp, sums[:2], sums[2]
+
+
+KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
+           xc_uks)
 
 
 def reset_launches():

@@ -1,9 +1,10 @@
-"""The restricted SCF cycle: DIIS extrapolation, eigh, new orbitals.
+"""The SCF cycles: DIIS extrapolation, eigh, new orbitals.
 
-Counterpart of pyscf_tpu/scf/fused.py: _diis_extrapolate and the three
-programs of build_restricted_cycle (seed, cycle, finalize), as plain
-torch functions that one host loop in scf/hf.py drives. Only the float64
-stage is ported: the JAX package's float32 pre-stage made up for emulated
+Counterpart of pyscf_tpu/scf/fused.py: _diis_extrapolate, the three
+programs of build_restricted_cycle (seed, cycle, finalize) and the body of
+build_unrestricted_program (seed_u, cycle_u, finalize_u), as plain torch
+functions that one host loop in scf/hf.py drives. Only the float64 stage
+is ported: the JAX package's float32 pre-stage made up for emulated
 float64 on the TPU.
 """
 import torch
@@ -100,3 +101,58 @@ def finalize(veff_fn, h1e, x, co, nocc):
     vhf2, e22 = veff_fn(dm2, co2)
     e_elec = torch.sum(h1e * dm2) + e22
     return e_elec, moe, moc, dm2
+
+
+# ---- unrestricted (UHF/UKS) -------------------------------------------------
+# veff_fn(dm (2, n, n), cos) -> (vhf (2, n, n), e2) with cos = (coa, cob),
+# the occupied factors (occupation 1, dm_s = co_s co_s^T), or None.
+
+def seed_u(veff_dm_fn, h1e, x, dm0, na, nb):
+    """Occupied factors from diagonalizing F of the untruncated guess dm0
+    (2, n, n): no guess information is lost to a rank-na/nb factorization
+    (pyscf_tpu/scf/fused.py:298-304)."""
+    vhf0, _ = veff_dm_fn(dm0)
+    _, ca = eigh_gen(h1e + vhf0[0], x)
+    _, cb = eigh_gen(h1e + vhf0[1], x)
+    return ca[:, :na], cb[:, :nb]
+
+
+def _fock_u(veff_fn, h1e, s1e, cos):
+    """(Fock (2, n, n), e_elec, DIIS error S D F - F D S (2, n, n), dm)."""
+    coa, cob = cos
+    dm = torch.stack([coa @ coa.T, cob @ cob.T])
+    vhf, e2 = veff_fn(dm, cos)
+    f = h1e + vhf
+    e_elec = torch.sum(h1e * (dm[0] + dm[1])) + e2
+    sdf = s1e @ dm @ f
+    return f, e_elec, sdf.transpose(1, 2) - sdf, dm
+
+
+def cycle_u(veff_fn, h1e, s1e, x, cos, fh, eh, cyc, na, nb):
+    """One unrestricted cycle; fills slot cyc % space of the stacked
+    (space, 2, n, n) buffers fh/eh in place, one DIIS over both spins.
+
+    Returns (new occupied factors, e_elec, |g|) with
+    |g| = sqrt(|x^T err_a x|^2 + |x^T err_b x|^2)."""
+    f, e_elec, err, _ = _fock_u(veff_fn, h1e, s1e, cos)
+    space = fh.shape[0]
+    idx = cyc % space
+    fh[idx] = f
+    eh[idx] = err
+    f_d = _diis_extrapolate(fh, eh, min(cyc + 1, space), idx)
+    _, ca = eigh_gen(f_d[0], x)
+    _, cb = eigh_gen(f_d[1], x)
+    gnorm = torch.sqrt(torch.linalg.norm(x.T @ err[0] @ x) ** 2
+                       + torch.linalg.norm(x.T @ err[1] @ x) ** 2)
+    return (ca[:, :na], cb[:, :nb]), e_elec, gnorm
+
+
+def finalize_u(veff_fn, h1e, s1e, x, cos, na, nb):
+    """Canonical orbitals of the true converged Fock, then the energy of
+    their density (pyscf_tpu/scf/fused.py:330-340). Returns (e_elec,
+    mo_energy (2, n), mo_coeff (2, n, n), dm (2, n, n))."""
+    f, _, _, _ = _fock_u(veff_fn, h1e, s1e, cos)
+    ea, ca = eigh_gen(f[0], x)
+    eb, cb = eigh_gen(f[1], x)
+    _, e_elec, _, dm = _fock_u(veff_fn, h1e, s1e, (ca[:, :na], cb[:, :nb]))
+    return e_elec, torch.stack([ea, eb]), torch.stack([ca, cb]), dm

@@ -1,18 +1,19 @@
-"""Restricted Hartree-Fock with density fitting.
+"""Restricted Hartree-Fock, density-fitted or with in-core ERIs.
 
 Counterpart of pyscf_tpu/scf/hf.py (SCF, RHF): get_hcore, get_ovlp, the
-'minao' and 'hcore' guesses, density_fit, the DF branch of
+'minao' and 'hcore' guesses, density_fit, _get_eri, both branches of
 RHF._fused_veff, and _kernel_staged as `kernel`: one host loop drives the
 cycle functions of scf/fused.py. Unlike the JAX package, a failing minao
 guess raises instead of falling back to the core-Hamiltonian guess.
 
-J and K come from the DF factor, or from an in-core ERI tensor
-(nao, nao, nao, nao) assigned to `_eri` as in PySCF: the port has no 4c
-integral kernel yet (ROADMAP.md queue 1 step 8).
+J and K come from the DF factor, or from the dense in-core ERI tensor
+(nao, nao, nao, nao): `_eri` as the caller assigned it, else built once by
+mol.intor('int2e') (kernel `int2e`). J is one GEMV on the tensor; K is a
+batched GEMV on the same tensor, so the in-core path holds one copy of it.
 
 Runs on mol.device. `timings` holds the seconds of each phase of the last
-kernel() (hcore, j2c, j3c, guess, scf_loop; RKS adds grids and ao), each
-ended by a device synchronize.
+kernel() (hcore, j2c, j3c or eri, guess, scf_loop; RKS and UKS add grids
+and ao), each ended by a device synchronize.
 """
 import time
 
@@ -101,6 +102,49 @@ class SCF:
         from ..df.df_jk import density_fit
         return density_fit(self, auxbasis)
 
+    def _get_eri(self):
+        """The in-core ERI tensor: `_eri` if assigned, else built once."""
+        if self._eri is None:
+            t0 = time.perf_counter()
+            self._eri = self.mol.intor('int2e')
+            sync(self.mol.device)
+            self._veff_timings['eri'] = time.perf_counter() - t0
+        return self._eri
+
+    def _jk_fns(self):
+        """(get_j(dm), get_k(dm, co=None)): DF-J/K on the factor B, K from
+        the occupied factor co (scaled by the square root of its
+        occupation) when given; or GEMVs on the in-core ERI tensor."""
+        if self.with_df is not None:
+            from ..df.df_jk import j_from_dm, k_from_dm, k_from_mo
+            B = self.with_df.cderi
+            self._veff_timings.update(self.with_df.timings)
+
+            def get_k(dm, co=None):
+                return k_from_dm(B, dm) if co is None else k_from_mo(B, co)
+
+            return (lambda dm: j_from_dm(B, dm)), get_k
+        eri = self._get_eri()
+        n = eri.shape[0]
+        eri_j = eri.reshape(n * n, n * n)
+
+        def get_k(dm, co=None):
+            # K_ij = sum_kl (ik|jl) dm_kl: one GEMV per (i, k) on the
+            # tensor's own layout, then a sum over k
+            return (eri @ dm[None, :, :, None]).sum(1).squeeze(-1)
+
+        return (lambda dm: (eri_j @ dm.T.reshape(-1)).reshape(n, n)), get_k
+
+    def _cycle_fns(self, veff_fn, veff_dm_fn, h1e, s1e, x):
+        """(seed(dm0), cycle(co, fh, eh, cyc), finalize(co), DIIS slot
+        shape) of the restricted cycle in scf/fused.py."""
+        nocc = self.mol.nelectron // 2
+        return (lambda dm: fused.seed(veff_dm_fn, h1e, x, dm, nocc),
+                lambda co, fh, eh, cyc: fused.cycle(
+                    veff_fn, h1e, s1e, x, co, fh, eh, cyc, nocc),
+                lambda co: fused.finalize(veff_fn, h1e, x, co, nocc),
+                h1e.shape)
+
     def kernel(self, dm0=None):
         """Converge the SCF from dm0 (or the init_guess); returns e_tot."""
         mol = self.mol
@@ -122,17 +166,17 @@ class SCF:
         timings.update(self._veff_timings)
 
         t3 = time.perf_counter()
-        nocc = mol.nelectron // 2
-        nao, space = mol.nao, self.diis_space
-        co = fused.seed(veff_dm_fn, h1e, x, dm, nocc)
-        fh = torch.zeros((space, nao, nao), dtype=h1e.dtype, device=dev)
+        seed, cycle, finalize, shape = self._cycle_fns(veff_fn, veff_dm_fn,
+                                                       h1e, s1e, x)
+        co = seed(dm)
+        fh = torch.zeros((self.diis_space,) + tuple(shape), dtype=h1e.dtype,
+                         device=dev)
         eh = torch.zeros_like(fh)
         e_last = 0.0
         conv = False
         ncyc = 0
         for cyc in range(self.max_cycle):
-            co, e_elec, gnorm = fused.cycle(veff_fn, h1e, s1e, x, co, fh, eh,
-                                            cyc, nocc)
+            co, e_elec, gnorm = cycle(co, fh, eh, cyc)
             e_elec, gnorm = torch.stack([e_elec, gnorm]).tolist()
             de = abs(e_elec - e_last)
             e_last = e_elec
@@ -143,7 +187,7 @@ class SCF:
             if de < self.conv_tol and gnorm < conv_tol_grad:
                 conv = True
                 break
-        e_elec, moe, moc, _ = fused.finalize(veff_fn, h1e, x, co, nocc)
+        e_elec, moe, moc, _ = finalize(co)
         self.converged = conv
         self.scf_cycles = ncyc
         self.e_tot = float(e_elec) + self.energy_nuc()
@@ -161,26 +205,6 @@ class RHF(SCF):
         if mol.nelectron % 2 != 0 or mol.spin != 0:
             raise RuntimeError('RHF requires closed-shell molecule')
         super().__init__(mol)
-
-    def _jk_fns(self):
-        """(get_j(dm), get_k(dm, co=None)): DF-J/K on the factor B, K from
-        the occupied factor co when given; or contractions of `_eri`."""
-        if self.with_df is not None:
-            from ..df.df_jk import j_from_dm, k_from_dm, k_from_mo
-            B = self.with_df.cderi
-            self._veff_timings.update(self.with_df.timings)
-
-            def get_k(dm, co=None):
-                return k_from_dm(B, dm) if co is None else k_from_mo(B, co)
-
-            return (lambda dm: j_from_dm(B, dm)), get_k
-        if self._eri is None:
-            raise NotImplementedError(
-                'in-core ERIs are not ported (ROADMAP.md queue 1 step 8): '
-                'call .density_fit() or assign an ERI tensor to _eri')
-        eri = self._eri
-        return (lambda dm: torch.einsum('ijkl,lk->ij', eri, dm),
-                lambda dm, co=None: torch.einsum('ilkj,lk->ij', eri, dm))
 
     def _veff_fns(self):
         """(veff_fn(dm, co), veff_dm_fn(dm)) -> (vhf, e2)."""

@@ -152,8 +152,8 @@ def he_eri():
 
 
 def _he_rks(he_eri, xc_code, init_guess, conv_tol):
-    """He/cc-pVDZ RKS without density fitting: the in-core ERIs come from
-    the JAX package (the port has no 4c kernel yet)."""
+    """He/cc-pVDZ RKS without density fitting, on the JAX package's in-core
+    ERIs assigned to _eri."""
     mf = tpt.M(atom='He 0 0 0', basis='cc-pvdz', device='cpu').RKS(xc=xc_code)
     mf._eri = he_eri
     mf.init_guess = init_guess
@@ -176,10 +176,18 @@ def test_he_lda_golden(he_eri):
     assert abs(e - GOLDEN_HE_LDA) < 1e-8
 
 
-def test_rks_without_df_or_eri_raises():
-    mf = tpt.M(atom='He 0 0 0', basis='cc-pvdz', device='cpu').RKS()
-    with pytest.raises(NotImplementedError, match='density_fit'):
-        mf.kernel()
+def test_rks_without_df_or_eri_raises(he_eri):
+    """Without density fitting and without an assigned _eri, RKS builds its
+    own in-core ERIs (kernel `int2e`) and gives the energy it gives on the
+    JAX package's tensor."""
+    mf_jax_eri, e_jax_eri = _he_rks(he_eri, 'b3lypg', 'minao', 1e-10)
+    mf = tpt.M(atom='He 0 0 0', basis='cc-pvdz', device='cpu').RKS(
+        xc='b3lypg')
+    mf.conv_tol = 1e-10
+    e = mf.kernel()
+    assert mf.converged and mf_jax_eri.converged
+    assert 'eri' in mf.timings
+    assert abs(e - e_jax_eri) < 1e-10
 
 
 @pytest.mark.slow

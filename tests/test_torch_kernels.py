@@ -12,7 +12,7 @@ from pyscf_tpu_torch import refs
 from pyscf_tpu_torch.df.addons import make_auxmol
 from pyscf_tpu_torch.dft import gen_grid, numint, xc
 from pyscf_tpu_torch.ops import eval_gto, kernels
-from pyscf_tpu_torch.ops.integrals import int1e, j3c
+from pyscf_tpu_torch.ops.integrals import int1e, j2e, j3c
 
 pytestmark = pytest.mark.gpu
 
@@ -51,6 +51,26 @@ def test_int2c2e(water):
     aux = j3c.aux_tables(auxmol)
     got, ref = kernels.int2c2e(aux), j3c.int2c2e_plain(aux)
     assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+def test_int2e(water):
+    """Every ordered class pair of water/def2-SVP, up to (dd|dd)."""
+    mol, _ = water
+    kets = j2e._ket_arrays(mol)
+    for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
+        got = kernels.int2e(la, lb, *p, kets)
+        ref = j2e.int2e_class_plain(la, lb, *p, kets)
+        assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+def test_incore_rhf_on_card_launches_int2e(water):
+    kernels.reset_launches()
+    mf = tpt.M(atom=refs.WATER, basis='sto-3g', device='cuda').RHF()
+    mf.init_guess = 'hcore'
+    mf.conv_tol = 1e-11
+    e = mf.kernel()
+    assert mf.converged and abs(e - (-74.96306312971071)) < 1e-8
+    assert kernels.launches()['int2e'] > 0
 
 
 def test_df_rhf_on_card_launches_every_kernel(water):
@@ -108,6 +128,25 @@ def test_xc_rks(water, water_grid, xc_code):
         assert abs(float(a - b)) <= 1e-11 * abs(float(b))
 
 
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+def test_xc_uks(water, water_grid, xc_code):
+    """On a random spin density (5 alpha and 4 beta orbitals)."""
+    mol, _ = water
+    f = xc.parse_xc(xc_code)
+    aod = eval_gto.eval_ao(mol, water_grid.coords, 1 if f.is_gga else 0)
+    rng = np.random.default_rng(7)
+    c = torch.as_tensor(rng.standard_normal((2, mol.nao, 5)) * 0.3,
+                        device='cuda')
+    c[1, :, 4] = 0.0
+    dm = c @ c.transpose(1, 2)
+    dmao = (aod[0] if f.is_gga else aod) @ dm
+    got = kernels.xc_uks(aod, dmao, water_grid.weights, f)
+    ref = numint.xc_uks_plain(aod, dmao, water_grid.weights, f)
+    assert torch.max(torch.abs(got[0] - ref[0])) <= 1e-11 * ref[0].abs().max()
+    assert torch.all(torch.abs(got[1] - ref[1]) <= 1e-11 * torch.abs(ref[1]))
+    assert abs(float(got[2] - ref[2])) <= 1e-11 * abs(float(ref[2]))
+
+
 def test_xc_rks_refuses_a_component_it_lacks(water, water_grid):
     mol, _ = water
     f = xc.parse_xc('b3lypg')
@@ -126,4 +165,18 @@ def test_df_rks_on_card_launches_every_kernel(water):
     e = mf.kernel()
     assert mol.device.type == 'cuda' and mf.converged
     assert abs(e - refs.E_WATER_DF_RKS_B3LYPG_L1) < 1e-8
-    assert all(n > 0 for n in kernels.launches().values())
+    launches = kernels.launches()
+    assert all(launches[k] > 0 for k in ('int1e_stv', 'int3c2e', 'int2c2e',
+                                         'eval_ao', 'becke', 'xc_rks'))
+
+
+def test_df_uks_on_card_launches_xc_uks(water):
+    kernels.reset_launches()
+    mol = tpt.M(atom=refs.WATER, basis='def2-svp', charge=1, spin=1)
+    mf = mol.UKS(xc='b3lypg').density_fit()
+    mf.grids.level = 1
+    mf.conv_tol = 1e-10
+    e = mf.kernel()
+    assert mol.device.type == 'cuda' and mf.converged
+    assert abs(e - refs.E_WATER_CATION_DF_UKS_B3LYPG_L1) < 1e-8
+    assert kernels.launches()['xc_uks'] > 0
