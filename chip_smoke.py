@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of pyscf_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives the port's four paths for benzene/def2-SVP and the phenyl radical
+Drives the port's five paths for benzene/def2-SVP and the phenyl radical
 on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the eight CUDA kernels from pyscf_tpu_torch/csrc (nvcc, sm_90a,
-     one process per source, all at once);
+  2. builds the eleven CUDA kernels from pyscf_tpu_torch/csrc (nvcc,
+     sm_90a, one process per library, all at once);
   3. integral kernel phases at the main path's shapes: each kernel against
      its plain PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c
      rows and (P|Q) <= 1e-12 x max|value|; the whitened factor B <= 1e-10);
@@ -33,10 +33,26 @@ on the card, in order:
      launched in that run;
  10. the xc_uks phase at the converged phenyl spin density: vtmp <= 1e-11
      x max|vtmp|, n_a, n_b and exc <= 1e-11 relative;
- 11. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 11. the derivative-integral phases at benzene's shapes: int1e_ip,
+     int1e_iprinv (all twelve atoms as centres) and int2e_ip1 over every
+     ordered bra class, each against its plain twin, <= 1e-12 x max|value|;
+ 12. the conventional RHF gradient, M(...).RHF() converged (minao,
+     conv_tol 1e-11, the recorded JAX energy within 1e-8 Ha), then
+     nuc_grad_method().kernel(): |sum_A de[A]| < 1e-9, the geometry's
+     three mirror planes (its six-decimal coordinates are exactly D2h)
+     within 1e-8 and the six C and the six H gradient norms within 1e-6
+     (they are D6h to 3e-7 Angstrom only) and, on the ring symmetrised to
+     D6h in float64, within 1e-8; central differences of the
+     port's own energy on one C and one H coordinate within 1e-6, the
+     three derivative kernels launched in that run; warm gradient times,
+     their phases and the peak device memory printed; and the water/
+     def2-SVP gradient through the same entry point within 1e-8 of the
+     recorded JAX gradient;
+ 13. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
-     runs the kernel: int2e from 8, xc_uks from 9, the others from 6), then
-     the result line {"ok": true, "device": {...}}.
+     runs the kernel: int2e from 8, xc_uks from 9, the three derivative
+     kernels from 12, the others from 6), then the result line
+     {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
 import json
@@ -189,30 +205,42 @@ def _prim_pairs(pairs):
     return _nnz(pairs[1]) * _nnz(pairs[4])
 
 
-def pair_e_ops(la, lb, pairs, bra):
+def _bra_terms(la, lb, deriv):
+    """Hermite terms of the bra's cartesian blocks: the shell pair itself,
+    or the raised and lowered bra shells of a derivative."""
+    if not deriv:
+        return _herm_terms(la, lb)
+    return _herm_terms(la + 1, lb) + (_herm_terms(la - 1, lb) if la else 0)
+
+
+def pair_e_ops(la, lb, pairs, bra, deriv=False):
     """The E tables of a class of shell pairs and, for the bra, their
-    products E_x E_y E_z: once per primitive pair, whatever the other side."""
-    per_pp = 3 * _e1d_ops(la, lb) + (2 * _herm_terms(la, lb) if bra else 0)
+    products E_x E_y E_z: once per primitive pair, whatever the other side.
+    A derivative bra has tables to la + 1."""
+    per_pp = 3 * _e1d_ops(la + deriv, lb) \
+        + (2 * _bra_terms(la, lb, deriv) if bra else 0)
     return float(_prim_pairs(pairs).sum()) * per_pp
 
 
-def quartet_ops(la, lb, bra, lc, ld, ket):
-    """csrc/int2e.cu for one ordered class pair, less the E tables: per
-    primitive quartet R_tuv and, per sph component sd of the ket's second
-    shell, the fold into Y; per (bra primitive pair, ket pair, sd) the bra
-    contraction. The kernel redoes R_tuv and the E tables for every sd and
-    every pair of the other side; that is not counted."""
-    nt1 = _ntuv(la + lb)
+def quartet_ops(la, lb, bra, lc, ld, ket, deriv=False):
+    """csrc/int2e.cu (csrc/int2e_ip1.cu with deriv) for one ordered class
+    pair, less the E tables: per primitive quartet R_tuv and, per sph
+    component sd of the ket's second shell, the fold into Y; per (bra
+    primitive pair, ket pair, sd) the bra contraction. The kernel redoes
+    R_tuv and the E tables for every sd and every pair of the other side;
+    that is not counted."""
+    l1 = la + lb + deriv
+    nt1 = _ntuv(l1)
     bra_pp = float(_prim_pairs(bra).sum())
     kp = _prim_pairs(ket)
     same = _same_centre(ket)
-    ops = bra_pp * float(kp.sum()) * _r_ops(la + lb + lc + ld)
+    ops = bra_pp * float(kp.sum()) * _r_ops(l1 + lc + ld)
     for sd in range(2 * ld + 1):
         for s in (True, False):
             kpp = float(kp[same == s].sum())
             ops += bra_pp * kpp * _fold_terms(lc, ld, sd, s) * (5 + 2 * nt1)
         ops += (bra_pp * ket[0].shape[0]
-                * _herm_terms(la, lb) * 2 * (2 * lc + 1))
+                * _bra_terms(la, lb, deriv) * 2 * (2 * lc + 1))
     return ops
 
 
@@ -227,6 +255,27 @@ def stv_ops(la, lb, pairs, natm, with_tv):
     else:
         ops += 4 * len(_carts(la)) * len(_carts(lb))
     return prims * ops
+
+
+def ip_ops(la, lb, pairs, natm):
+    """csrc/int1e_ip.cu: per primitive pair the E tables to (la + 1,
+    lb + 2), R_tuv to order la + lb + 1 per atom, and the S/T/V terms of
+    the raised and lowered bra shells."""
+    ops = 3 * _e1d_ops(la + 1, lb + 2)
+    ops += natm * (_r_ops(la + lb + 1) + 2 * _ntuv(la + lb + 1))
+    for ls in ([la + 1, la - 1] if la else [la + 1]):
+        ops += 34 * len(_carts(ls)) * len(_carts(lb)) \
+            + 3 * _herm_terms(ls, lb)
+    return float(_prim_pairs(pairs).sum()) * ops
+
+
+def iprinv_ops(la, lb, pairs, ncentre):
+    """csrc/int1e_iprinv.cu: per primitive pair the E tables (counted once,
+    the kernel redoes them per centre) and, per centre, R_tuv to order
+    la + lb + 1 and three shifted reads of it per Hermite term."""
+    ops = 3 * _e1d_ops(la, lb) \
+        + ncentre * (_r_ops(la + lb + 1) + 8 * _herm_terms(la, lb))
+    return float(_prim_pairs(pairs).sum()) * ops
 
 
 def nbytes(*tensors):
@@ -579,6 +628,205 @@ def xc_uks_phase(kernels, mf, report):
           f'xc_uks n/exc vs plain: {rel_n:.2e}, {rel_e:.2e} > 1e-11')
 
 
+def deriv_phases(pt, refs, kernels, report):
+    from pyscf_tpu_torch.ops.integrals import int1e, int1e_deriv, int2e, j2e
+
+    mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device='cuda')
+    dev = mol.device
+    classes = int1e.cross_pairs(mol, mol)     # every ordered class and pair
+    zr = torch.as_tensor(mol.coords, dtype=torch.float64, device=dev)
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64, device=dev)
+    pair_bytes = sum(nbytes(*p) for *_, p in classes)
+
+    def per_class(fn, *extra):
+        return [fn(la, lb, *p, *extra) for la, lb, _, _, p in classes]
+
+    k_out = per_class(kernels.int1e_ip, zr, zq)
+    p_out = per_class(int1e_deriv.class_ip, zr, zq)
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    record(report, 'int1e_ip', 'pyscf_tpu_torch/csrc/int1e_ip.cu',
+           'pyscf_tpu/ops/integrals/int1e_deriv.py:32', err,
+           lambda: per_class(kernels.int1e_ip, zr, zq),
+           lambda: per_class(int1e_deriv.class_ip, zr, zq),
+           pair_bytes + nbytes(*k_out),
+           sum(ip_ops(la, lb, p, mol.natm) for la, lb, _, _, p in classes))
+    check(err <= 1e-12 * scale, f'int1e_ip vs plain: {err:.3e} > 1e-12 x '
+          f'{scale:.3e}')
+
+    k_out = per_class(kernels.int1e_iprinv, zr)
+    p_out = per_class(int1e_deriv.class_iprinv, zr)
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    record(report, 'int1e_iprinv', 'pyscf_tpu_torch/csrc/int1e_iprinv.cu',
+           'pyscf_tpu/ops/integrals/int1e_deriv.py:136', err,
+           lambda: per_class(kernels.int1e_iprinv, zr),
+           lambda: per_class(int1e_deriv.class_iprinv, zr),
+           pair_bytes + nbytes(*k_out),
+           sum(iprinv_ops(la, lb, p, mol.natm)
+               for la, lb, _, _, p in classes))
+    check(err <= 1e-12 * scale, f'int1e_iprinv vs plain: {err:.3e} > 1e-12 '
+          f'x {scale:.3e}')
+
+    kets = j2e._ket_arrays(mol)
+    k_out = per_class(kernels.int2e_ip1, kets)
+    p_out = per_class(int2e.int2e_ip1_class_plain, kets)
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    nrow = sum(p.shape[1] for p in k_out)
+    print(f'int2e_ip1: {len(classes)} ordered bra classes x {len(kets)} ket '
+          f'classes, stacked rows 3 x {nrow} x {k_out[0].shape[2]} '
+          f'({nbytes(*k_out) / 1e9:.3f} GB), dense 3 x (nao)^4 '
+          f'{3 * mol.nao ** 4 * 8 / 1e9:.3f} GB')
+    del p_out
+    ops = sum(quartet_ops(la, lb, p, lc, ld, ket, deriv=True)
+              for la, lb, _, _, p in classes for lc, ld, *ket in kets)
+    ops += sum(pair_e_ops(la, lb, p, True, deriv=True)
+               for la, lb, _, _, p in classes)
+    ops += sum(pair_e_ops(lc, ld, ket, False) for lc, ld, *ket in kets)
+    io = pair_bytes + nbytes(*k_out)
+    del k_out
+    record(report, 'int2e_ip1', 'pyscf_tpu_torch/csrc/int2e_ip1.cu',
+           'pyscf_tpu/ops/integrals/int2e.py:727', err,
+           lambda: per_class(kernels.int2e_ip1, kets),
+           lambda: per_class(int2e.int2e_ip1_class_plain, kets), io, ops,
+           plain_reps=1)
+    check(err <= 1e-12 * scale, f'int2e_ip1 vs plain: {err:.3e} > 1e-12 x '
+          f'{scale:.3e}')
+
+
+def mirror_defect(coords, de, axis):
+    """max |de[image of A] - mirrored de[A]| for the mirror plane normal
+    to `axis`, which must map the atoms onto each other exactly."""
+    sign = np.ones(3)
+    sign[axis] = -1.0
+    dist = np.abs(coords[:, None, :] * sign - coords[None, :, :]).max(-1)
+    image = dist.argmin(axis=1)
+    check(float(dist.min(axis=1).max()) == 0.0,
+          f'the geometry has no exact mirror plane normal to axis {axis}')
+    return float(np.abs(de[image] - de * sign).max())
+
+
+def d6h_ring(coords):
+    """coords (12, 3) of a planar ring about the origin, six C then six H,
+    with every atom moved to its element's mean radius at the nearest
+    multiple of 30 degrees: D6h to the rounding of float64."""
+    out = np.zeros_like(coords)
+    for ring in (slice(0, 6), slice(6, 12)):
+        r = np.linalg.norm(coords[ring], axis=1).mean()
+        step = np.pi / 6
+        ang = step * np.round(np.arctan2(coords[ring, 1], coords[ring, 0])
+                              / step)
+        out[ring, 0] = r * np.cos(ang)
+        out[ring, 1] = r * np.sin(ang)
+    return out
+
+
+GRAD_KERNELS = ('int1e_ip', 'int1e_iprinv', 'int2e_ip1')
+
+
+def tight_rhf(mol):
+    """In-core RHF converged far enough for gradients and their central
+    differences (the gradient's error is linear in the orbital gradient)."""
+    mf = mol.RHF()
+    mf.conv_tol = 1e-11
+    mf.conv_tol_grad = 1e-7
+    mf.init_guess = 'minao'
+    return mf
+
+
+def rhf_grad_path(pt, refs, kernels):
+    torch.cuda.reset_peak_memory_stats()
+    mf, e, _ = run_path('in-core RHF benzene/def2-SVP for the gradient',
+                        kernels, ('int2e', 'int1e_stv'),
+                        lambda: tight_rhf(pt.M(atom=refs.BENZENE,
+                                               basis='def2-svp')))
+    de_ref = abs(e - refs.E_BENZENE_RHF_DEF2SVP)
+    check(de_ref < 1e-8, f'gradient SCF |E - E_ref| = {de_ref:.3e} >= 1e-8')
+    t0 = time.perf_counter()
+    grad = mf.nuc_grad_method()
+    de = grad.kernel()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    print(f'RHF gradient benzene/def2-SVP (first call): wall {wall:.3f} s  '
+          + '  '.join(f'{k} {v:.4f}' for k, v in grad.timings.items())
+          + f'  peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB')
+    print(f'launches: {launches}')
+    print('de (Ha/Bohr):\n' + np.array2string(de, precision=10))
+    for k in GRAD_KERNELS:
+        check(launches[k] > 0, f'RHF gradient: kernel {k} never launched')
+    check(de.shape == (mf.mol.natm, 3) and bool(np.isfinite(de).all()),
+          'the gradient is not finite of shape (natm, 3)')
+    drift = float(np.abs(de.sum(axis=0)).max())
+    check(drift < 1e-9, f'gradient sum rule: {drift:.3e} >= 1e-9')
+    # The geometry's six-decimal coordinates are exactly D2h (the mirrors
+    # x, y and z) and D6h only to 3e-7 Angstrom, so the mirrors hold to
+    # 1e-8 and the six-fold equalities to 1e-6.
+    mirror = max(mirror_defect(mf.mol.coords, de, ax) for ax in range(3))
+    norms = np.linalg.norm(de, axis=1)
+    spread_c = float(np.ptp(norms[:6]))
+    spread_h = float(np.ptp(norms[6:]))
+    print(f'|sum_A de[A]| {drift:.3e}  mirror defect {mirror:.3e}  |de| C '
+          f'{norms[0]:.10f} (spread {spread_c:.3e})  H {norms[6]:.10f} '
+          f'(spread {spread_h:.3e})')
+    check(mirror < 1e-8, f'D2h: the gradient breaks a mirror plane by '
+          f'{mirror:.3e} >= 1e-8')
+    check(spread_c < 1e-6 and spread_h < 1e-6,
+          f'D6h: gradient norms differ by {spread_c:.3e} (C), '
+          f'{spread_h:.3e} (H) >= 1e-6')
+
+    from pyscf_tpu_torch.grad import finite_difference_gradient
+    picks = [(0, 1), (6, 1)]      # the radial coordinate of one C, one H
+    fd = finite_difference_gradient(lambda m: tight_rhf(m).kernel(), mf.mol,
+                                    1e-4, picks)
+    for a, x in picks:
+        diff = abs(de[a, x] - fd[a, x])
+        print(f'de[{a},{x}] analytic {de[a, x]:.10f}  central differences '
+              f'{fd[a, x]:.10f}  diff {diff:.3e}')
+        check(diff < 1e-6, f'gradient vs central differences at ({a},{x}): '
+              f'{diff:.3e} >= 1e-6')
+
+    # the same molecule on coordinates that are D6h to float64's rounding
+    # (moved by up to 3e-7 Angstrom): the six-fold equalities to 1e-8
+    mfs = tight_rhf(mf.mol.copy().set_geom_(d6h_ring(mf.mol.coords)))
+    mfs.kernel()
+    norms = np.linalg.norm(mfs.nuc_grad_method().kernel(), axis=1)
+    sym_c = float(np.ptp(norms[:6]))
+    sym_h = float(np.ptp(norms[6:]))
+    print(f'on the D6h-symmetrised ring: |de| C {norms[0]:.10f} (spread '
+          f'{sym_c:.3e})  H {norms[6]:.10f} (spread {sym_h:.3e})')
+    check(mfs.converged and sym_c < 1e-8 and sym_h < 1e-8,
+          f'D6h ring: gradient norms differ by {sym_c:.3e} (C), '
+          f'{sym_h:.3e} (H) >= 1e-8')
+    del mfs
+    torch.cuda.empty_cache()
+
+    walls, phases = [], []
+    for _ in range(3):
+        mf.mol._j3c_cache.pop('ip1e')     # a warm call rebuilds everything
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grad.kernel()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        phases.append(dict(grad.timings))
+    print(f'RHF gradient warm: wall median {np.median(walls):.4f} s '
+          f'(min {min(walls):.4f}, max {max(walls):.4f})  '
+          + '  '.join(f'{k} {np.median([p[k] for p in phases]):.4f}'
+                      for k in phases[0]))
+    del mf, grad
+    torch.cuda.empty_cache()
+
+    mfw = tight_rhf(pt.M(atom=refs.WATER, basis='def2-svp'))
+    dew = mfw.run().nuc_grad_method().kernel()
+    ew = mfw.e_tot
+    err = float(np.abs(dew - np.array(refs.GRAD_WATER_RHF_DEF2SVP)).max())
+    print(f'water/def2-SVP RHF: E - E_ref {ew - refs.E_WATER_RHF_DEF2SVP:.3e}'
+          f'  max |de - de_ref| {err:.3e}')
+    check(mfw.converged and err < 1e-8,
+          f'water gradient vs the recorded JAX gradient: {err:.3e} >= 1e-8')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
@@ -609,6 +857,12 @@ def main():
     uks, uks_launches = df_uks_path(pt, refs, kernels)
     launches['xc_uks'] = uks_launches['xc_uks']
     xc_uks_phase(kernels, uks, report)
+    del uks
+    torch.cuda.empty_cache()
+    deriv_phases(pt, refs, kernels, report)
+    torch.cuda.empty_cache()
+    grad_launches = rhf_grad_path(pt, refs, kernels)
+    launches.update({k: grad_launches[k] for k in GRAD_KERNELS})
 
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', launches=launches[name], **r)

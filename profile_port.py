@@ -3,12 +3,14 @@
 
     python3 profile_port.py [--runs 10] [--top 12]
 
-Builds the kernels, then for the four paths of chip_smoke.py (minao guess,
+Builds the kernels, then for the five paths of chip_smoke.py (minao guess,
 conv_tol 1e-8): benzene/def2-SVP DF-RHF, DF-RKS b3lypg and in-core RHF,
-and the phenyl radical's DF-UKS b3lypg/def2-SVP, runs each once cold and
-`--runs` times warm, every run from a fresh Mole, and prints the
-median, quartiles, min and max of each phase of mf.timings and of the wall
-time from M() to the energy (host clock, ended by a synchronize). Then one
+the phenyl radical's DF-UKS b3lypg/def2-SVP, and benzene's in-core RHF
+(conv_tol 1e-11) followed by its analytic gradient, runs each once cold
+and `--runs` times warm, every run from a fresh Mole, and prints the
+median, quartiles, min and max of each phase of mf.timings (and of the
+gradient's timings, prefixed grad_) and of the wall time from M() to the
+energy or gradient (host clock, ended by a synchronize). Then one
 more warm run of each under torch.profiler prints the device time (the sum
 of the device's own events: kernels, copies and memsets), the wall, the
 device-busy share and the device events that take the most time. The last
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 
+GRADIENT = 'in-core RHF + gradient'
 PATHS = {
     'DF-RHF': lambda pt, refs: pt.M(atom=refs.BENZENE, basis='def2-svp')
     .RHF().density_fit(),
@@ -33,6 +36,8 @@ PATHS = {
     'DF-UKS b3lypg phenyl': lambda pt, refs: pt.M(
         atom=refs.PHENYL, basis='def2-svp', spin=1).UKS(
         xc='b3lypg').density_fit(),
+    GRADIENT: lambda pt, refs: pt.M(atom=refs.BENZENE,
+                                    basis='def2-svp').RHF(),
 }
 
 
@@ -40,13 +45,18 @@ def one_run(pt, refs, name):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mf = PATHS[name](pt, refs)
-    mf.conv_tol = 1e-8
+    mf.conv_tol = 1e-11 if name == GRADIENT else 1e-8
     mf.init_guess = 'minao'
     e = mf.kernel()
+    timings = dict(mf.timings)
+    if name == GRADIENT:
+        grad = mf.nuc_grad_method()
+        grad.kernel()
+        timings.update({f'grad_{k}': v for k, v in grad.timings.items()})
     torch.cuda.synchronize()
     if not mf.converged:
         raise SystemExit(f'{name}: SCF did not converge')
-    return dict(mf.timings, wall=time.perf_counter() - t0), e, mf.scf_cycles
+    return dict(timings, wall=time.perf_counter() - t0), e, mf.scf_cycles
 
 
 def stats(xs):

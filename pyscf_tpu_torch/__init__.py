@@ -11,6 +11,7 @@ the CPU. A Mole runs on the card unless it is given device='cpu':
     e = pt.M(atom=..., basis='def2-svp', spin=1).UKS(xc='b3lypg') \
         .density_fit().kernel()            # open shell
     e = mol.RHF().kernel()                 # in-core ERIs, no density fitting
+    de = mol.RHF().run().nuc_grad_method().kernel()   # (natm, 3) Ha/Bohr
 """
 from .gto.mole import M, Mole  # noqa: F401
-from . import dft, scf  # noqa: F401
+from . import dft, grad, scf  # noqa: F401

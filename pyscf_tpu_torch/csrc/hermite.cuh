@@ -28,6 +28,12 @@ __device__ __forceinline__ int tuv_idx(int t, int u, int v) {
   return n * (n + 1) * (n + 2) / 6 + m * (m + 1) / 2 + (m - u);
 }
 
+// Position of the cartesian component (ix,iy,iz) within its shell.
+__device__ __forceinline__ int cart_pos(int iy, int iz) {
+  const int m = iy + iz;
+  return m * (m + 1) / 2 + iz;
+}
+
 // 1D expansion table E_t^{i,j}, i <= LA, j <= LB, t <= LA+LB, stored at
 // E[(i*(LB+1)+j)*(LA+LB+1)+t]; zero where t > i+j. ab = A_x - B_x. The
 // Gaussian-product prefactor exp(-mu ab^2) sits in E_0^{0,0}.

@@ -16,7 +16,7 @@
 // out: (n, (2la+1)(2lb+1), 3) rows of [S, T, V], or (n, (2la+1)(2lb+1)) of S.
 #include <cuda_runtime.h>
 
-#include "hermite.cuh"
+#include "int1e.cuh"
 
 template <int LA, int LB, bool TV>
 __global__ void __launch_bounds__(128) int1e_stv_kernel(
@@ -31,9 +31,7 @@ __global__ void __launch_bounds__(128) int1e_stv_kernel(
   constexpr int NCA = n_cart(LA), NCB = n_cart(LB);
   constexpr int DA = 2 * LA + 1, DB = 2 * LB + 1;
   constexpr int L1 = LA + LB;
-  constexpr int NJ = LB + 3;           // j <= lb + 2
-  constexpr int NT = L1 + 3;           // t <= la + lb + 2
-  constexpr int NE = (LA + 1) * NJ * NT;
+  constexpr int NE = (LA + 1) * (LB + 3) * (L1 + 3);   // e1d<LA, LB + 2>
   constexpr int NC = TV ? 3 : 1;
 
   double acc[NC * NCA * NCB];
@@ -43,7 +41,6 @@ __global__ void __launch_bounds__(128) int1e_stv_kernel(
   const double* A = ra + 3 * ip;
   const double* B = rb + 3 * ip;
 
-#define PT_E(E, i, j, t) E[((i) * NJ + (j)) * NT + (t)]
 #pragma unroll 1
   for (int ka = 0; ka < Ka; ++ka) {
     const double cak = ca[ip * Ka + ka];
@@ -54,90 +51,23 @@ __global__ void __launch_bounds__(128) int1e_stv_kernel(
       const double cbk = cb[ip * Kb + kb];
       if (cbk == 0.0) continue;
       const double b = eb[ip * Kb + kb];
-      const double w = cak * cbk;
       const double p = a + b;
       e1d<LA, LB + 2>(a, b, A[0] - B[0], Ex);
       e1d<LA, LB + 2>(a, b, A[1] - B[1], Ey);
       e1d<LA, LB + 2>(a, b, A[2] - B[2], Ez);
-      const double q = PT_PI / p;
-      const double ws = w * q * sqrt(q);
-      const double sq = sqrt(PT_PI / p);
       if (TV) {
-        const double Px = (a * A[0] + b * B[0]) / p;
-        const double Py = (a * A[1] + b * B[1]) / p;
-        const double Pz = (a * A[2] + b * B[2]) / p;
-        for (int k = 0; k < n_tuv(L1); ++k) RZ[k] = 0.0;
-#pragma unroll 1
-        for (int c = 0; c < natm; ++c) {
-          const double z = zq[c];
-          if (z == 0.0) continue;
-          hermite_R<L1>(p, Px - zr[3 * c], Py - zr[3 * c + 1],
-                        Pz - zr[3 * c + 2], R);
-          for (int k = 0; k < n_tuv(L1); ++k) RZ[k] += R[k] * z;
-        }
+        nuclear_R<L1>(p, (a * A[0] + b * B[0]) / p, (a * A[1] + b * B[1]) / p,
+                      (a * A[2] + b * B[2]) / p, natm, zr, zq, R, RZ);
       }
-      const double pre = -w * (2.0 * PT_PI / p);
-      int ia = 0;
-      for (int ix = LA; ix >= 0; --ix) {
-        for (int iy = LA - ix; iy >= 0; --iy, ++ia) {
-          const int iz = LA - ix - iy;
-          int jb = 0;
-          for (int jx = LB; jx >= 0; --jx) {
-            for (int jy = LB - jx; jy >= 0; --jy, ++jb) {
-              const int jz = LB - jx - jy;
-              const int o = ia * NCB + jb;
-              acc[o] += ws * (PT_E(Ex, ix, jx, 0) * PT_E(Ey, iy, jy, 0)
-                              * PT_E(Ez, iz, jz, 0));
-              if (TV) {
-                // 1D overlap s(i, j) and kinetic t(i, j) per direction
-                double s1[3], t1[3];
-                const double* Es[3] = {Ex, Ey, Ez};
-                const int ii[3] = {ix, iy, iz}, jj[3] = {jx, jy, jz};
-                for (int d = 0; d < 3; ++d) {
-                  const double* E = Es[d];
-                  const int i = ii[d], j = jj[d];
-                  const double s0 = PT_E(E, i, j, 0) * sq;
-                  double t = -2.0 * (b * b) * (PT_E(E, i, j + 2, 0) * sq)
-                           + b * (2 * j + 1) * s0;
-                  if (j >= 2) t = t - 0.5 * (j * (j - 1))
-                                          * (PT_E(E, i, j - 2, 0) * sq);
-                  s1[d] = s0;
-                  t1[d] = t;
-                }
-                acc[NCA * NCB + o] +=
-                    w * (t1[0] * s1[1] * s1[2] + s1[0] * t1[1] * s1[2]
-                         + s1[0] * s1[1] * t1[2]);
-                double v = 0.0;
-                for (int t = 0; t <= ix + jx; ++t) {
-                  for (int u = 0; u <= iy + jy; ++u) {
-                    const double exy = PT_E(Ex, ix, jx, t) * PT_E(Ey, iy, jy, u);
-                    for (int vv = 0; vv <= iz + jz; ++vv) {
-                      v += exy * PT_E(Ez, iz, jz, vv) * RZ[tuv_idx(t, u, vv)];
-                    }
-                  }
-                }
-                acc[2 * NCA * NCB + o] += pre * v;
-              }
-            }
-          }
-        }
-      }
+      stv_accumulate<LA, LA, LB, TV>(cak * cbk, b, p, Ex, Ey, Ez, RZ, acc);
     }
   }
-#undef PT_E
 
   for (int sa = 0; sa < DA; ++sa) {
     for (int sb = 0; sb < DB; ++sb) {
       for (int x = 0; x < NC; ++x) {
-        double v = 0.0;
-        for (int ia = 0; ia < NCA; ++ia) {
-          const double fa = Sa[sa * NCA + ia];
-          if (fa == 0.0) continue;
-          for (int jb = 0; jb < NCB; ++jb) {
-            v += fa * Sb[sb * NCB + jb] * acc[x * NCA * NCB + ia * NCB + jb];
-          }
-        }
-        out[((size_t)ip * DA * DB + sa * DB + sb) * NC + x] = v;
+        out[((size_t)ip * DA * DB + sa * DB + sb) * NC + x] =
+            sph_element<LA, LB>(Sa, Sb, sa, sb, acc + x * NCA * NCB, 1);
       }
     }
   }

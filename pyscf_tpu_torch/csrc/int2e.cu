@@ -20,7 +20,8 @@
 // a one-centre ket (hermite.cuh), the ket's primitive pair is folded into
 //   Y[tuv1][sc] += pref * sum_tuv2 E_cd[sc, sd][tuv2] (-1)^|tuv2| R[tuv1+tuv2]
 // and each bra primitive pair contracts Y with its E tables into cartesian
-// accumulators; the bra's cart->sph transform is applied once at the end.
+// accumulators (ket_fold and bra_contract of quartet.cuh, shared with
+// int2e_ip1.cu); the bra's cart->sph transform is applied once at the end.
 // What bounds it on the card is FP64 arithmetic (R_tuv up to L = 8 and the
 // Hermite contractions); the output, (nao)^4 / 8 unique doubles, is written
 // once. The simple design accepts local-memory traffic and the recomputation
@@ -30,7 +31,7 @@
 // ket pair * (2lc+1)(2ld+1) + sc*(2ld+1) + sd, leading dimension ld.
 #include <cuda_runtime.h>
 
-#include "hermite.cuh"
+#include "quartet.cuh"
 
 template <int LA, int LB, int LC, int LD>
 __device__ __forceinline__ void quartet_column(
@@ -40,23 +41,16 @@ __device__ __forceinline__ void quartet_column(
     int Kd, const double* ed, const double* cd, const double* D,
     const double* Sa, const double* Sb, const double* Sc, const double* Sd,
     int sd, double* res) {
-  constexpr int L1 = LA + LB, L2 = LC + LD, L = L1 + L2;
+  constexpr int L1 = LA + LB;
   constexpr int NCA = n_cart(LA), NCB = n_cart(LB);
-  constexpr int NCC = n_cart(LC), NCD = n_cart(LD);
-  constexpr int NT1 = n_tuv(L1);
   constexpr int DA = 2 * LA + 1, DB = 2 * LB + 1, DC = 2 * LC + 1;
   constexpr int NE1 = (LA + 1) * (LB + 1) * (L1 + 1);
-  constexpr int NE2 = (LC + 1) * (LD + 1) * (L2 + 1);
-  constexpr int T1 = L1 + 1, T2 = L2 + 1;
 
   double acc[NCA * NCB * DC];
   for (int k = 0; k < NCA * NCB * DC; ++k) acc[k] = 0.0;
-  double Y[NT1 * DC];
+  double Y[n_tuv(L1) * DC];
   double Ex[NE1], Ey[NE1], Ez[NE1];
-  double Fx[NE2], Fy[NE2], Fz[NE2];
-  double R[n_tuv(L)];
   const double ABx = A[0] - B[0], ABy = A[1] - B[1], ABz = A[2] - B[2];
-  const double CDx = C[0] - D[0], CDy = C[1] - D[1], CDz = C[2] - D[2];
 
 #pragma unroll 1
   for (int ka = 0; ka < Ka; ++ka) {
@@ -69,108 +63,14 @@ __device__ __forceinline__ void quartet_column(
       if (cbk == 0.0) continue;
       const double b = eb[kb];
       const double p = a + b;
-      const double Px = (a * A[0] + b * B[0]) / p;
-      const double Py = (a * A[1] + b * B[1]) / p;
-      const double Pz = (a * A[2] + b * B[2]) / p;
       e1d<LA, LB>(a, b, ABx, Ex);
       e1d<LA, LB>(a, b, ABy, Ey);
       e1d<LA, LB>(a, b, ABz, Ez);
-      for (int k = 0; k < NT1 * DC; ++k) Y[k] = 0.0;
-
-#pragma unroll 1
-      for (int kc = 0; kc < Kc; ++kc) {
-        const double cck = cc[kc];
-        if (cck == 0.0) continue;
-        const double c = ec[kc];
-#pragma unroll 1
-        for (int kd = 0; kd < Kd; ++kd) {
-          const double cdk = cd[kd];
-          if (cdk == 0.0) continue;
-          const double d = ed[kd];
-          const double q = c + d;
-          const double Qx = (c * C[0] + d * D[0]) / q;
-          const double Qy = (c * C[1] + d * D[1]) / q;
-          const double Qz = (c * C[2] + d * D[2]) / q;
-          const double pq = p * q;
-          const double ps = p + q;
-          // 2 pi^{5/2} / (p q sqrt(p + q))
-          const double pref = 34.986836655249725 / (pq * sqrt(ps)) * cck
-                              * cdk;
-          hermite_R<L>(pq / ps, Px - Qx, Py - Qy, Pz - Qz, R);
-          e1d<LC, LD>(c, d, CDx, Fx);
-          e1d<LC, LD>(c, d, CDy, Fy);
-          e1d<LC, LD>(c, d, CDz, Fz);
-#pragma unroll 1
-          for (int sc = 0; sc < DC; ++sc) {
-#pragma unroll 1
-            for (int jc = 0; jc < NCC; ++jc) {
-              const double s_c = Sc[sc * NCC + jc];
-              if (s_c == 0.0) continue;
-              // cartesian (kx, ky, kz) of position jc: ix descending, then
-              // iy descending
-              int kx = LC, rem = jc;
-              while (rem > LC - kx) { rem -= LC - kx + 1; --kx; }
-              const int ky = LC - kx - rem, kz = rem;
-#pragma unroll 1
-              for (int jd = 0; jd < NCD; ++jd) {
-                const double s = s_c * Sd[sd * NCD + jd];
-                if (s == 0.0) continue;
-                int lx = LD, rd = jd;
-                while (rd > LD - lx) { rd -= LD - lx + 1; --lx; }
-                const int ly = LD - lx - rd, lz = rd;
-                const double* fx = Fx + (kx * (LD + 1) + lx) * T2;
-                const double* fy = Fy + (ky * (LD + 1) + ly) * T2;
-                const double* fz = Fz + (kz * (LD + 1) + lz) * T2;
-                for (int tx = 0; tx <= kx + lx; ++tx) {
-                  for (int ty = 0; ty <= ky + ly; ++ty) {
-                    for (int tz = 0; tz <= kz + lz; ++tz) {
-                      const double e2 = fx[tx] * fy[ty] * fz[tz];
-                      if (e2 == 0.0) continue;
-                      double coef = pref * s * e2;
-                      if ((tx + ty + tz) & 1) coef = -coef;
-                      for (int n = 0; n <= L1; ++n) {
-                        for (int t = n; t >= 0; --t) {
-                          for (int u = n - t; u >= 0; --u) {
-                            const int v = n - t - u;
-                            Y[tuv_idx(t, u, v) * DC + sc] +=
-                                coef * R[tuv_idx(t + tx, u + ty, v + tz)];
-                          }
-                        }
-                      }
-                    }
-                  }
-                }
-              }
-            }
-          }
-        }
-      }
-
-      const double w = cak * cbk;
-      int ia = 0;
-      for (int ix = LA; ix >= 0; --ix) {
-        for (int iy = LA - ix; iy >= 0; --iy, ++ia) {
-          const int iz = LA - ix - iy;
-          int jb = 0;
-          for (int jx = LB; jx >= 0; --jx) {
-            for (int jy = LB - jx; jy >= 0; --jy, ++jb) {
-              const int jz = LB - jx - jy;
-              double* out = acc + (ia * NCB + jb) * DC;
-              for (int t = 0; t <= ix + jx; ++t) {
-                const double ex = w * Ex[(ix * (LB + 1) + jx) * T1 + t];
-                for (int u = 0; u <= iy + jy; ++u) {
-                  const double exy = ex * Ey[(iy * (LB + 1) + jy) * T1 + u];
-                  for (int v = 0; v <= iz + jz; ++v) {
-                    const double e = exy * Ez[(iz * (LB + 1) + jz) * T1 + v];
-                    const double* y = Y + tuv_idx(t, u, v) * DC;
-                    for (int sc = 0; sc < DC; ++sc) out[sc] += e * y[sc];
-                  }
-                }
-              }
-            }
-          }
-        }
-      }
+      ket_fold<L1, LC, LD>(p, (a * A[0] + b * B[0]) / p,
+                           (a * A[1] + b * B[1]) / p,
+                           (a * A[2] + b * B[2]) / p, Kc, ec, cc, C, Kd, ed,
+                           cd, D, Sc, Sd, sd, Y);
+      bra_contract<LA, LA, LB, DC>(cak * cbk, Ex, Ey, Ez, Y, acc);
     }
   }
 

@@ -84,3 +84,9 @@ class RKS(KohnShamDFT, RHF):
             return vhf, e2
 
         return veff, veff
+
+    def nuc_grad_method(self):
+        from ..grad import rks as rks_grad
+        return rks_grad.Gradients(self)
+
+    Gradients = nuc_grad_method

@@ -45,3 +45,9 @@ class UKS(KohnShamDFT, UHF):
             return vhf, e2
 
         return veff, veff
+
+    def Gradients(self):
+        raise NotImplementedError(
+            'UKS gradients are not ported: the JAX package has them for '
+            'density-fitted objects only, whose derivative kernels are '
+            'still to port')

@@ -1,17 +1,19 @@
 """Molecule description and AO-basis layout.
 
 Counterpart of pyscf_tpu/gto/mole.py: Shell, ShellGroup, Mole.build,
-nelec, multiplicity, energy_nuc, intor('int2e') and M. Shells are grouped per angular momentum into padded
-tables (exponents padded with 1.0, coefficients with 0.0) exactly as in
-the JAX package, so the screening and the integral kernels see the same
-inputs. The tables stay numpy on the host; the integral drivers move the
-pieces they need to `Mole.device`.
+nelec, multiplicity, energy_nuc, intor, copy, set_geom_ and M. Shells are
+grouped per angular momentum into padded tables (exponents padded with
+1.0, coefficients with 0.0) exactly as in the JAX package, so the
+screening and the integral kernels see the same inputs. The tables stay
+numpy on the host; the integral routines move the pieces they need to
+`Mole.device`.
 
 A Mole runs on the card unless the caller asks for the CPU with
 `device='cpu'`. Without a CUDA device and without an explicit device,
 build() raises: a run meant for the card never lands on the CPU by
 accident.
 """
+import copy
 import math
 
 import numpy as np
@@ -111,6 +113,7 @@ class Mole:
 
         mol = Mole(atom='O 0 0 0; H 0 1 0; H 0 0 1', basis='sto-3g').build()
     """
+    _CACHE_ATTRS = ('_j3c_cache', '_df_cache')
 
     def __init__(self, atom=None, basis='sto-3g', unit='angstrom',
                  charge=0, spin=0, verbose=3, device=None):
@@ -208,12 +211,44 @@ class Mole:
         return self.spin + 1
 
     def intor(self, name):
-        """The in-core integrals by libcint name; only 'int2e' (the dense
-        (nao,)^4 ERI tensor, kernel `int2e`) is ported."""
-        if name.replace('_sph', '') != 'int2e':
+        """Integrals by libcint name, on self.device: 'int2e' (the dense
+        (nao,)^4 ERI tensor, kernel `int2e`), 'int2e_ip1' (3, nao, nao, nao,
+        nao) and 'int1e_ipovlp', 'int1e_ipkin', 'int1e_ipnuc' (3, nao,
+        nao), the bra-centre derivatives of the gradient."""
+        from ..ops.integrals import int1e_deriv, int2e, j2e
+        fns = {'int2e': j2e.int2e_dense, 'int2e_ip1': int2e.int2e_ip1,
+               'int1e_ipovlp': int1e_deriv.int1e_ipovlp,
+               'int1e_ipkin': int1e_deriv.int1e_ipkin,
+               'int1e_ipnuc': int1e_deriv.int1e_ipnuc}
+        key = name.replace('_sph', '')
+        if key not in fns:
             raise NotImplementedError(f'intor({name!r}) is not ported')
-        from ..ops.integrals.j2e import int2e_dense
-        return int2e_dense(self)
+        return fns[key](self)
+
+    def copy(self):
+        """A deep copy that shares none of the per-geometry caches
+        (screened pairs, S/T/V, derivative integrals, DF factor)."""
+        caches = {a: self.__dict__.pop(a) for a in self._CACHE_ATTRS
+                  if a in self.__dict__}
+        try:
+            new = copy.deepcopy(self)
+        finally:
+            self.__dict__.update(caches)
+        for a in caches:
+            setattr(new, a, {})
+        return new
+
+    def set_geom_(self, coords_bohr):
+        """Move the atoms (same order) to coords_bohr (natm, 3) in Bohr and
+        rebuild the shell tables; build() starts empty caches."""
+        coords = np.asarray(coords_bohr, dtype=np.float64).reshape(-1, 3)
+        self.atom = list(zip(self.raw_symbols, coords))
+        unit_save, self.unit = self.unit, 'bohr'
+        try:
+            self.build()
+        finally:
+            self.unit = unit_save
+        return self
 
     def energy_nuc(self):
         z = self.charges.astype(np.float64)

@@ -89,6 +89,20 @@ def sph(l, device):
                            device=device).contiguous()
 
 
+def flat_prims(ea, ca, ra, eb, cb, rb):
+    """(a, b, A, B, w) of every primitive pair of n shell pairs, flat
+    (n*Ka*Kb,): exponents, centres and the product of the coefficients."""
+    n, Ka = ea.shape
+    Kb = eb.shape[1]
+    m = n * Ka * Kb
+    a = ea[:, :, None].expand(n, Ka, Kb).reshape(m)
+    b = eb[:, None, :].expand(n, Ka, Kb).reshape(m)
+    A = ra[:, None, None, :].expand(n, Ka, Kb, 3).reshape(m, 3)
+    B = rb[:, None, None, :].expand(n, Ka, Kb, 3).reshape(m, 3)
+    w = (ca[:, :, None] * cb[:, None, :]).reshape(m)
+    return a, b, A, B, w
+
+
 def class_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords=None,
               atom_charges=None, with_tv=True):
     """Sph-folded rows of one shell-pair class, plain PyTorch.
@@ -98,12 +112,7 @@ def class_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords=None,
     with_tv is False."""
     n, Ka = ea.shape
     Kb = eb.shape[1]
-    m = n * Ka * Kb
-    a = ea[:, :, None].expand(n, Ka, Kb).reshape(m)
-    b = eb[:, None, :].expand(n, Ka, Kb).reshape(m)
-    A = ra[:, None, None, :].expand(n, Ka, Kb, 3).reshape(m, 3)
-    B = rb[:, None, None, :].expand(n, Ka, Kb, 3).reshape(m, 3)
-    w = (ca[:, :, None] * cb[:, None, :]).reshape(m)
+    a, b, A, B, w = flat_prims(ea, ca, ra, eb, cb, rb)
     parts = [ovlp_chunk(la, lb, a, b, A, B, w)]
     if with_tv:
         parts.append(kin_chunk(la, lb, a, b, A, B, w))

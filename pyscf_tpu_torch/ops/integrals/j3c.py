@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from .hermite import e3d, hermite_R, n_tuv
-from .int1e import pair_tables, sph
+from .int1e import flat_prims, pair_tables, sph
 from .int2e import _comb_onehot3, pair_screen_bound, SCREEN_THRESH
 
 # elements of the largest temporary the plain 3c version allocates per chunk
@@ -71,14 +71,8 @@ def aux_tables(auxmol):
 def _pair_sph_tables(la, lb, ea, ca, ra, eb, cb, rb):
     """Sph-folded Hermite tables of the primitive pairs of n shell pairs:
     p (n*Ka*Kb,), P (.., 3), E (.., da*db, ntuv(la+lb))."""
-    n, Ka = ea.shape
-    Kb = eb.shape[1]
-    m = n * Ka * Kb
-    a = ea[:, :, None].expand(n, Ka, Kb).reshape(m)
-    b = eb[:, None, :].expand(n, Ka, Kb).reshape(m)
-    A = ra[:, None, None, :].expand(n, Ka, Kb, 3).reshape(m, 3)
-    B = rb[:, None, None, :].expand(n, Ka, Kb, 3).reshape(m, 3)
-    w = (ca[:, :, None] * cb[:, None, :]).reshape(m)
+    a, b, A, B, w = flat_prims(ea, ca, ra, eb, cb, rb)
+    m = a.shape[0]
     p = a + b
     P = (a[:, None] * A + b[:, None] * B) / p[:, None]
     E = e3d(la, lb, a, b, A, B) * w[:, None, None, None]

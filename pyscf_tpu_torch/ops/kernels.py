@@ -1,12 +1,17 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Eight kernels carry the DF-RHF/RKS/UKS and in-core paths (sources in
-pyscf_tpu_torch/csrc/):
+Eleven kernels carry the DF-RHF/RKS/UKS and in-core paths and the
+conventional RHF gradient (sources in pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
   int2c2e    the (P|Q) metric                     (csrc/int2c2e.cu)
   int2e      (ab|cd) rows of one bra class        (csrc/int2e.cu)
+  int1e_ip   d/dA of S/T/V per ordered shell pair (csrc/int1e_ip.cu)
+  int1e_iprinv  d/dC of <a|1/|r-C||b> per ordered (csrc/int1e_iprinv.cu)
+             shell pair and centre
+  int2e_ip1  d/dA (ab|cd) rows of one ordered bra (csrc/int2e_ip1.cu)
+             class
   eval_ao    AO values and gradients on points    (csrc/eval_ao.cu)
   becke      Becke partition weights of the grid  (csrc/becke.cu)
   xc_rks     density, B3LYP-family functional and (csrc/xc_rks.cu,
@@ -19,7 +24,8 @@ tensor it launches the kernel on torch.cuda.current_stream() or raises. A
 wrapper adds one to its `launches` count for every kernel launch it makes.
 
 The kernels are compiled at first use with nvcc for sm_90a, one shared
-library per source with a plain C interface loaded by ctypes, into
+library per source (three for int2e_ip1.cu, one per bra momentum) with a
+plain C interface loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
 checkout builds them once and an edit to a source rebuilds them.
 """
@@ -34,38 +40,49 @@ import torch
 
 from ..dft import gen_grid, numint
 from . import eval_gto
-from .integrals import int1e, j2e, j3c
+from .integrals import int1e, int1e_deriv, int2e as int2e_mod, j2e, j3c
 from .integrals.int1e import sph
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
 _BUILD = os.path.join(_PKG, '_build')
-_HEADERS = ('boys.cuh', 'hermite.cuh', 'xc_funcs.cuh')
+_HEADERS = ('boys.cuh', 'hermite.cuh', 'int1e.cuh', 'quartet.cuh',
+            'xc_funcs.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# source -> (exported C function, its ctypes argtypes, extra nvcc flags)
-_SOURCES = {
-    'int1e_stv.cu': ('pt_int1e_stv', [_I] * 6 + [_P] * 6 + [_I] + [_P] * 6,
-                     ()),
-    'int3c2e.cu': ('pt_int3c2e', [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 7
-                   + [_I, _I, _P], ()),
-    'int2c2e.cu': ('pt_int2c2e', [_I] * 4 + [_P] * 3 + [_I, _I] + [_P] * 6
-                   + [_I, _I, _I, _P], ()),
-    'int2e.cu': ('pt_int2e', [_I] * 7 + [_P] * 6 + [_I] * 3 + [_P] * 11
-                 + [_I, _I, _P], ()),
+_ERI_ARGS = [_I] * 7 + [_P] * 6 + [_I] * 3 + [_P] * 11 + [_I, _I, _P]
+# library -> (source, exported C function, its ctypes argtypes, extra nvcc
+# flags)
+_LIBRARIES = {
+    'int1e_stv': ('int1e_stv.cu', 'pt_int1e_stv',
+                  [_I] * 6 + [_P] * 6 + [_I] + [_P] * 6, ()),
+    'int3c2e': ('int3c2e.cu', 'pt_int3c2e', [_I] * 6 + [_P] * 6 + [_I, _I]
+                + [_P] * 7 + [_I, _I, _P], ()),
+    'int2c2e': ('int2c2e.cu', 'pt_int2c2e', [_I] * 4 + [_P] * 3 + [_I, _I]
+                + [_P] * 6 + [_I, _I, _I, _P], ()),
+    'int2e': ('int2e.cu', 'pt_int2e', _ERI_ARGS, ()),
+    'int1e_ip': ('int1e_ip.cu', 'pt_int1e_ip',
+                 [_I] * 5 + [_P] * 6 + [_I] + [_P] * 6, ()),
+    'int1e_iprinv': ('int1e_iprinv.cu', 'pt_int1e_iprinv',
+                     [_I] * 5 + [_P] * 6 + [_I] + [_P] * 5, ()),
     # no FMA contraction: the AO values keep the plain twin's rounding
-    'eval_ao.cu': ('pt_eval_ao', [_I] * 5 + [_P] * 7 + [_I, _P],
-                   ('-fmad=false',)),
-    'becke.cu': ('pt_becke', [_I, _I] + [_P] * 8, ()),
-    'xc_rks.cu': ('pt_xc_rks', [_I] * 3 + [_P] * 3 + [_I] + [_P] * 4
-                  + [_I, _P], ()),
-    'xc_uks.cu': ('pt_xc_uks', [_I] * 3 + [_P] * 3 + [_I] + [_P] * 4
-                  + [_I, _P], ()),
+    'eval_ao': ('eval_ao.cu', 'pt_eval_ao', [_I] * 5 + [_P] * 7 + [_I, _P],
+                ('-fmad=false',)),
+    'becke': ('becke.cu', 'pt_becke', [_I, _I] + [_P] * 8, ()),
+    'xc_rks': ('xc_rks.cu', 'pt_xc_rks', [_I] * 3 + [_P] * 3 + [_I]
+               + [_P] * 4 + [_I, _P], ()),
+    'xc_uks': ('xc_uks.cu', 'pt_xc_uks', [_I] * 3 + [_P] * 3 + [_I]
+               + [_P] * 4 + [_I, _P], ()),
 }
-_LIBS = {}      # C function name -> loaded ctypes function
+# int2e_ip1.cu once per bra momentum, so that its instantiations compile in
+# three processes side by side
+_LIBRARIES.update({
+    f'int2e_ip1_la{la}': ('int2e_ip1.cu', 'pt_int2e_ip1', _ERI_ARGS,
+                          (f'-DPT_LA={la}',)) for la in range(3)})
+_LIBS = {}      # library -> loaded ctypes function
 
 
 def _nvcc():
@@ -78,56 +95,57 @@ def _nvcc():
 
 def _build_dir():
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for name in (*_SOURCES, *_HEADERS):
-        extra = ' '.join(_SOURCES[name][2]) if name in _SOURCES else ''
+    for lib, (src, _, _, extra) in _LIBRARIES.items():
+        h.update(f'{lib} {src} {" ".join(extra)}\0'.encode())
+    for name in sorted({src for src, _, _, _ in _LIBRARIES.values()}
+                       | set(_HEADERS)):
         with open(os.path.join(_CSRC, name), 'rb') as f:
-            h.update(name.encode() + extra.encode() + b'\0' + f.read())
+            h.update(name.encode() + b'\0' + f.read())
     return os.path.join(_BUILD, h.hexdigest()[:16])
 
 
 def build():
     """Compile the kernel libraries that are missing and load them all.
 
-    Returns the seconds spent. The sources compile in parallel; each output
-    is written under a temporary name and renamed, so concurrent builds in
-    one checkout do not see half-written libraries."""
-    if len(_LIBS) == len(_SOURCES):
+    Returns the seconds spent. The libraries compile in parallel; each
+    output is written under a temporary name and renamed, so concurrent
+    builds in one checkout do not see half-written libraries."""
+    if len(_LIBS) == len(_LIBRARIES):
         return 0.0
     t0 = time.perf_counter()
     out_dir = _build_dir()
     os.makedirs(out_dir, exist_ok=True)
     jobs = []
-    for src, (_, _, extra) in _SOURCES.items():
-        so = os.path.join(out_dir, src[:-3] + '.so')
+    for lib, (src, _, _, extra) in _LIBRARIES.items():
+        so = os.path.join(out_dir, lib + '.so')
         if os.path.exists(so):
             continue
         tmp = f'{so}.{os.getpid()}.tmp'
         cmd = [_nvcc(), *NVCC_FLAGS, *extra, '-I', _CSRC, '-o', tmp,
                os.path.join(_CSRC, src)]
-        jobs.append((src, so, tmp, subprocess.Popen(
+        jobs.append((lib, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     errors = []
-    for src, so, tmp, proc in jobs:
+    for lib, so, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f'nvcc failed on {src}:\n{log}')
+            errors.append(f'nvcc failed on {lib}:\n{log}')
         else:
             os.replace(tmp, so)
     if errors:
         raise RuntimeError('\n'.join(errors))
-    for src, (name, argtypes, _) in _SOURCES.items():
-        fn = getattr(ctypes.CDLL(os.path.join(out_dir, src[:-3] + '.so')),
-                     name)
+    for lib, (_, name, argtypes, _) in _LIBRARIES.items():
+        fn = getattr(ctypes.CDLL(os.path.join(out_dir, lib + '.so')), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _LIBS[name] = fn
+        _LIBS[lib] = fn
     return time.perf_counter() - t0
 
 
-def _fn(name):
+def _fn(lib):
     build()
-    return _LIBS[name]
+    return _LIBS[lib]
 
 
 def _stream():
@@ -211,7 +229,7 @@ def int1e_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords=None,
         return out
     zr = atom_coords.data_ptr() if with_tv else None
     zq = atom_charges.data_ptr() if with_tv else None
-    rc = _fn('pt_int1e_stv')(
+    rc = _fn('int1e_stv')(
         la, lb, int(with_tv), n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
         ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
         natm if with_tv else 0, zr, zq, sph(la, dev).data_ptr(),
@@ -238,7 +256,7 @@ def int3c2e(la, lb, ea, ca, ra, eb, cb, rb, aux):
     for l, e, c, r in aux:
         nsx, Kc = e.shape
         if n and nsx:
-            rc = _fn('pt_int3c2e')(
+            rc = _fn('int3c2e')(
                 la, lb, l, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
                 ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
                 nsx, Kc, e.data_ptr(), c.data_ptr(), r.data_ptr(),
@@ -264,7 +282,7 @@ def int2c2e(aux):
     for i, (lx, ex, cx, rx) in enumerate(aux):
         for j in range(i, len(aux)):
             ly, ey, cy, ry = aux[j]
-            rc = _fn('pt_int2c2e')(
+            rc = _fn('int2c2e')(
                 lx, ly, ex.shape[0], ex.shape[1], ex.data_ptr(),
                 cx.data_ptr(), rx.data_ptr(), ey.shape[0], ey.shape[1],
                 ey.data_ptr(), cy.data_ptr(), ry.data_ptr(),
@@ -275,6 +293,37 @@ def int2c2e(aux):
     return out
 
 
+def _check_quartets(ea, ca, ra, eb, cb, rb, kets):
+    """(device, bra pairs n, rows per pair, columns) of a bra class against
+    the ket classes kets."""
+    dev = _device_of(ea)
+    n, _, _ = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
+    for _, _, *ket in kets:
+        _check_pairs(dev, *ket)
+    ncol = sum(k[2].shape[0] * (2 * k[0] + 1) * (2 * k[1] + 1) for k in kets)
+    return dev, n, ncol
+
+
+def _launch_quartets(wrapper, lib, la, lb, bra, kets, out, ncol):
+    """One launch of lib's kernel per ket class, each writing its columns
+    of out (leading dimension ncol); counted on wrapper.launches."""
+    dev = out.device
+    n, Ka, Kb = bra[0].shape[0], bra[0].shape[1], bra[3].shape[1]
+    col = 0
+    for lc, ld, *ket in kets:
+        nk, Kc, Kd = ket[0].shape[0], ket[0].shape[1], ket[3].shape[1]
+        if n and nk:
+            rc = _fn(lib)(
+                la, lb, lc, ld, n, Ka, Kb, *[t.data_ptr() for t in bra],
+                nk, Kc, Kd, *[t.data_ptr() for t in ket],
+                sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(),
+                sph(lc, dev).data_ptr(), sph(ld, dev).data_ptr(),
+                out.data_ptr(), ncol, col, _stream())
+            _raise_on(rc, f'{wrapper.__name__}({la},{lb}|{lc},{ld})')
+            wrapper.launches += 1
+        col += nk * (2 * lc + 1) * (2 * ld + 1)
+
+
 def int2e(la, lb, ea, ca, ra, eb, cb, rb, kets):
     """(ab|cd) sph rows of n bra shell pairs of class (la, lb) against the
     ket pairs of every class in kets: (n*(2la+1)(2lb+1), sum over kets of
@@ -282,30 +331,82 @@ def int2e(la, lb, ea, ca, ra, eb, cb, rb, kets):
 
     kets: [(lc, ld, ec, cc, rc, ed, cd, rd)] with lc <= ld, the pair tables
     of each ket class (as j3c.screened_pairs gives them)."""
+    bra = (ea, ca, ra, eb, cb, rb)
+    dev, n, ncol = _check_quartets(*bra, kets)
+    if dev.type == 'cpu':
+        return j2e.int2e_class_plain(la, lb, *bra, kets)
+    out = torch.empty((n * (2 * la + 1) * (2 * lb + 1), ncol),
+                      dtype=torch.float64, device=dev)
+    _launch_quartets(int2e, 'int2e', la, lb, bra, kets, out, ncol)
+    return out
+
+
+def int1e_ip(la, lb, ea, ca, ra, eb, cb, rb, atom_coords, atom_charges):
+    """Bra-centre derivatives of S, T and V of n ordered shell pairs:
+    (n, (2la+1)(2lb+1), 9), [ipovlp, ipkin, ipnuc] x [x, y, z] with the
+    operator major. Arguments as int1e_stv's; any la, lb <= 2."""
     dev = _device_of(ea)
     n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
-    for _, _, *ket in kets:
-        _check_pairs(dev, *ket)
+    natm = atom_coords.shape[0]
+    _check(dev, ('atom_coords', atom_coords, (natm, 3)),
+           ('atom_charges', atom_charges, (natm,)))
     if dev.type == 'cpu':
-        return j2e.int2e_class_plain(la, lb, ea, ca, ra, eb, cb, rb, kets)
-    ns1 = (2 * la + 1) * (2 * lb + 1)
-    ncol = sum(k[2].shape[0] * (2 * k[0] + 1) * (2 * k[1] + 1) for k in kets)
-    out = torch.empty((n * ns1, ncol), dtype=torch.float64, device=dev)
-    col = 0
-    for lc, ld, ec, cc, rc, ed, cd, rd in kets:
-        nk, Kc = ec.shape
-        if n and nk:
-            rc_ = _fn('pt_int2e')(
-                la, lb, lc, ld, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
-                ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
-                nk, Kc, ed.shape[1], ec.data_ptr(), cc.data_ptr(),
-                rc.data_ptr(), ed.data_ptr(), cd.data_ptr(), rd.data_ptr(),
-                sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(),
-                sph(lc, dev).data_ptr(), sph(ld, dev).data_ptr(),
-                out.data_ptr(), ncol, col, _stream())
-            _raise_on(rc_, f'int2e({la},{lb}|{lc},{ld})')
-            int2e.launches += 1
-        col += nk * (2 * lc + 1) * (2 * ld + 1)
+        return int1e_deriv.class_ip(la, lb, ea, ca, ra, eb, cb, rb,
+                                    atom_coords, atom_charges)
+    out = torch.empty((n, (2 * la + 1) * (2 * lb + 1), 9),
+                      dtype=torch.float64, device=dev)
+    if n == 0:
+        return out
+    rc = _fn('int1e_ip')(
+        la, lb, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(), ra.data_ptr(),
+        eb.data_ptr(), cb.data_ptr(), rb.data_ptr(), natm,
+        atom_coords.data_ptr(), atom_charges.data_ptr(),
+        sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(), out.data_ptr(),
+        _stream())
+    _raise_on(rc, f'int1e_ip({la},{lb})')
+    int1e_ip.launches += 1
+    return out
+
+
+def int1e_iprinv(la, lb, ea, ca, ra, eb, cb, rb, centers):
+    """Operator-centre derivatives d/dC <a|1/|r-C||b> of n ordered shell
+    pairs for every centre of centers (nc, 3), in one launch:
+    (nc, 3, n, (2la+1)(2lb+1)). Any la, lb <= 2."""
+    dev = _device_of(ea)
+    n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
+    nc = centers.shape[0]
+    _check(dev, ('centers', centers, (nc, 3)))
+    if dev.type == 'cpu':
+        return int1e_deriv.class_iprinv(la, lb, ea, ca, ra, eb, cb, rb,
+                                        centers)
+    out = torch.empty((nc, 3, n, (2 * la + 1) * (2 * lb + 1)),
+                      dtype=torch.float64, device=dev)
+    if n == 0 or nc == 0:
+        return out
+    rc = _fn('int1e_iprinv')(
+        la, lb, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(), ra.data_ptr(),
+        eb.data_ptr(), cb.data_ptr(), rb.data_ptr(), nc, centers.data_ptr(),
+        sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(), out.data_ptr(),
+        _stream())
+    _raise_on(rc, f'int1e_iprinv({la},{lb})')
+    int1e_iprinv.launches += 1
+    return out
+
+
+def int2e_ip1(la, lb, ea, ca, ra, eb, cb, rb, kets):
+    """d/dA (ab|cd) sph rows of n bra shell pairs of the ordered class
+    (la, lb), la, lb <= 2, against the ket pairs of every class in kets:
+    (3, n*(2la+1)(2lb+1), sum over kets of nket*(2lc+1)(2ld+1)).
+
+    kets as int2e's: lc <= ld, the (cd) = (dc) fold kept."""
+    bra = (ea, ca, ra, eb, cb, rb)
+    dev, n, ncol = _check_quartets(*bra, kets)
+    if dev.type == 'cpu':
+        return int2e_mod.int2e_ip1_class_plain(la, lb, *bra, kets)
+    out = torch.empty((3, n * (2 * la + 1) * (2 * lb + 1), ncol),
+                      dtype=torch.float64, device=dev)
+    _launch_quartets(int2e_ip1, f'int2e_ip1_la{la}', la, lb, bra, kets, out,
+                     ncol)
     return out
 
 
@@ -331,7 +432,7 @@ def eval_ao(tables, coords, nao, deriv=0):
         ns, K = e.shape
         if n == 0 or ns == 0:
             continue
-        rc = _fn('pt_eval_ao')(
+        rc = _fn('eval_ao')(
             l, deriv, n, ns, K, coords.data_ptr(), e.data_ptr(),
             c.data_ptr(), r.data_ptr(), off.data_ptr(), sph(l, dev).data_ptr(),
             out.data_ptr(), nao, _stream())
@@ -357,10 +458,10 @@ def becke(coords, w0, owner, atm_coords, inv_dist, a_adj):
     w = torch.empty(n, dtype=torch.float64, device=dev)
     if n == 0:
         return w
-    rc = _fn('pt_becke')(n, natm, coords.data_ptr(), w0.data_ptr(),
-                         owner.data_ptr(), atm_coords.data_ptr(),
-                         inv_dist.data_ptr(), a_adj.data_ptr(), w.data_ptr(),
-                         _stream())
+    rc = _fn('becke')(n, natm, coords.data_ptr(), w0.data_ptr(),
+                      owner.data_ptr(), atm_coords.data_ptr(),
+                      inv_dist.data_ptr(), a_adj.data_ptr(), w.data_ptr(),
+                      _stream())
     _raise_on(rc, 'becke')
     becke.launches += 1
     return w
@@ -404,11 +505,11 @@ def xc_rks(aod, dmao, weights, xc):
     nblk = -(-B // XC_WARPS_PER_BLOCK)
     partials = torch.zeros((max(nblk, 1), 2), dtype=torch.float64, device=dev)
     if B:
-        rc = _fn('pt_xc_rks')(int(gga), B, nao, aod.data_ptr(),
-                              dmao.data_ptr(), weights.data_ptr(),
-                              len(xc.terms), ids, coeffs, vtmp.data_ptr(),
-                              partials.data_ptr(), XC_WARPS_PER_BLOCK,
-                              _stream())
+        rc = _fn('xc_rks')(int(gga), B, nao, aod.data_ptr(),
+                           dmao.data_ptr(), weights.data_ptr(),
+                           len(xc.terms), ids, coeffs, vtmp.data_ptr(),
+                           partials.data_ptr(), XC_WARPS_PER_BLOCK,
+                           _stream())
         _raise_on(rc, 'xc_rks')
         xc_rks.launches += 1
     sums = partials.sum(dim=0)
@@ -436,11 +537,11 @@ def xc_uks(aod, dmao, weights, xc):
     nblk = -(-B // XC_WARPS_PER_BLOCK)
     partials = torch.zeros((max(nblk, 1), 3), dtype=torch.float64, device=dev)
     if B:
-        rc = _fn('pt_xc_uks')(int(gga), B, nao, aod.data_ptr(),
-                              dmao.data_ptr(), weights.data_ptr(),
-                              len(xc.terms), ids, coeffs, vtmp.data_ptr(),
-                              partials.data_ptr(), XC_WARPS_PER_BLOCK,
-                              _stream())
+        rc = _fn('xc_uks')(int(gga), B, nao, aod.data_ptr(),
+                           dmao.data_ptr(), weights.data_ptr(),
+                           len(xc.terms), ids, coeffs, vtmp.data_ptr(),
+                           partials.data_ptr(), XC_WARPS_PER_BLOCK,
+                           _stream())
         _raise_on(rc, 'xc_uks')
         xc_uks.launches += 1
     sums = partials.sum(dim=0)
@@ -448,7 +549,7 @@ def xc_uks(aod, dmao, weights, xc):
 
 
 KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
-           xc_uks)
+           xc_uks, int1e_ip, int1e_iprinv, int2e_ip1)
 
 
 def reset_launches():

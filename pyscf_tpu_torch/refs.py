@@ -1,4 +1,5 @@
-"""Reference energies recorded once from the JAX package on the CPU.
+"""Reference energies and gradients recorded once from the JAX package on
+the CPU.
 
 The card's machine has no JAX, so the references reach it as constants.
 Each was produced from the repository root by (BENZENE as in bench.py):
@@ -26,7 +27,19 @@ default, the legacy host engine, took 47 minutes and gave
 and the same with atom=WATER, charge=1, spin=1, mf.grids.level = 1,
 conv_tol 1e-10. Every run converged. tests/test_torch_scf.py,
 tests/test_torch_dft.py and tests/test_torch_uks.py check the water
-values against live JAX runs.
+values against live JAX runs. The conventional RHF gradient is
+
+  mol = pt.M(atom=WATER, basis='def2-svp', verbose=0)
+  mf = mol.RHF(); mf.conv_tol = 1e-13; mf.conv_tol_grad = 1e-9
+  mf.init_guess = 'minao'; print(repr(mf.kernel()), mf.converged)
+  print(np.asarray(mf.nuc_grad_method().kernel()).tolist())
+
+(83 s on the CPU for the derivative integrals of grad/rhf.py, too long for
+the fast tests; tests/test_torch_grad.py checks water/sto-3g against a
+live JAX run; with conv_tol 1e-11 and the default conv_tol_grad the JAX
+gradient moved by 5e-9, its SCF's residue). No JAX gradient of benzene is
+recorded: its in-core ERIs alone took the host engine 47 minutes, and
+int2e_ip1 is three of those.
 """
 
 BENZENE = '''
@@ -66,3 +79,10 @@ E_PHENYL_DF_UKS_B3LYPG_DEF2SVP = -231.39400216004216
 # DF-UKS b3lypg/def2-SVP of the water cation (charge=1, spin=1), minao
 # guess, conv_tol 1e-10, grids level 1; <S^2> 0.752270419625451
 E_WATER_CATION_DF_UKS_B3LYPG_L1 = -75.9018940566669
+# in-core RHF/def2-SVP, minao guess, conv_tol 1e-13, conv_tol_grad 1e-9, and
+# its analytic gradient (Ha/Bohr)
+E_WATER_RHF_DEF2SVP = -75.96097516698609
+GRAD_WATER_RHF_DEF2SVP = [
+    [1.2179834743296348e-12, -4.2878457396487306e-14, -0.018369727076083198],
+    [-4.56997935964616e-12, -0.011110437548206509, 0.009184863538075128],
+    [3.351995885316638e-12, 0.011110437548247365, 0.009184863538013621]]

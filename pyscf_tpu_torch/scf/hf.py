@@ -3,8 +3,9 @@
 Counterpart of pyscf_tpu/scf/hf.py (SCF, RHF): get_hcore, get_ovlp, the
 'minao' and 'hcore' guesses, density_fit, _get_eri, both branches of
 RHF._fused_veff, and _kernel_staged as `kernel`: one host loop drives the
-cycle functions of scf/fused.py. Unlike the JAX package, a failing minao
-guess raises instead of falling back to the core-Hamiltonian guess.
+cycle functions of scf/fused.py; RHF.Gradients / nuc_grad_method lead to
+grad/rhf.py. Unlike the JAX package, a failing minao guess raises instead
+of falling back to the core-Hamiltonian guess.
 
 J and K come from the DF factor, or from the dense in-core ERI tensor
 (nao, nao, nao, nao): `_eri` as the caller assigned it, else built once by
@@ -199,6 +200,13 @@ class SCF:
         self.timings = timings
         return self.e_tot
 
+    def run(self, dm0=None):
+        """kernel(dm0), then the mean field itself, so that calls chain as
+        in PySCF: mol.RHF().run().nuc_grad_method().kernel(). (In the JAX
+        package `run` is an alias of kernel and returns the energy.)"""
+        self.kernel(dm0)
+        return self
+
 
 class RHF(SCF):
     def __init__(self, mol):
@@ -215,3 +223,10 @@ class RHF(SCF):
             return vhf, 0.5 * torch.sum(vhf * dm)
 
         return veff, veff
+
+    def Gradients(self):
+        from ..grad import rhf as rhf_grad
+        return rhf_grad.Gradients(self)
+
+    def nuc_grad_method(self):
+        return self.Gradients()

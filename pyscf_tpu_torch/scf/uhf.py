@@ -85,3 +85,10 @@ class UHF(SCF):
         sz = 0.5 * (na - nb)
         ss = sz * sz + 0.5 * (na + nb) - float(torch.sum(sab * sab))
         return ss, 2 * (ss + 0.25) ** 0.5 if ss > -0.25 else 1.0
+
+    def Gradients(self):
+        from ..grad import uhf as uhf_grad
+        return uhf_grad.Gradients(self)
+
+    def nuc_grad_method(self):
+        return self.Gradients()

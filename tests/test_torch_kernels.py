@@ -12,7 +12,8 @@ from pyscf_tpu_torch import refs
 from pyscf_tpu_torch.df.addons import make_auxmol
 from pyscf_tpu_torch.dft import gen_grid, numint, xc
 from pyscf_tpu_torch.ops import eval_gto, kernels
-from pyscf_tpu_torch.ops.integrals import int1e, j2e, j3c
+from pyscf_tpu_torch.ops.integrals import (int1e, int1e_deriv, int2e, j2e,
+                                           j3c)
 
 pytestmark = pytest.mark.gpu
 
@@ -61,6 +62,45 @@ def test_int2e(water):
         got = kernels.int2e(la, lb, *p, kets)
         ref = j2e.int2e_class_plain(la, lb, *p, kets)
         assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+def test_int1e_ip_and_iprinv(water):
+    """Every ordered class of water/def2-SVP, up to (d, d)."""
+    mol, _ = water
+    zr = torch.as_tensor(mol.coords, device='cuda')
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64, device='cuda')
+    for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
+        got = kernels.int1e_ip(la, lb, *p, zr, zq)
+        ref = int1e_deriv.class_ip(la, lb, *p, zr, zq)
+        assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+        got = kernels.int1e_iprinv(la, lb, *p, zr)
+        ref = int1e_deriv.class_iprinv(la, lb, *p, zr)
+        assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+def test_int2e_ip1(water):
+    """Every (ordered bra class, ket class) of water/def2-SVP, up to
+    (dd|dd)."""
+    mol, _ = water
+    kets = j2e._ket_arrays(mol)
+    for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
+        got = kernels.int2e_ip1(la, lb, *p, kets)
+        ref = int2e.int2e_ip1_class_plain(la, lb, *p, kets)
+        assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+def test_rhf_gradient_on_card_launches_its_kernels(water):
+    kernels.reset_launches()
+    mf = tpt.M(atom=refs.WATER, basis='def2-svp').RHF()
+    mf.conv_tol = 1e-11
+    mf.conv_tol_grad = 1e-7
+    mf.kernel()
+    assert mf.converged
+    de = mf.nuc_grad_method().kernel()
+    assert np.max(np.abs(de - np.array(refs.GRAD_WATER_RHF_DEF2SVP))) < 1e-8
+    launches = kernels.launches()
+    assert all(launches[k] > 0 for k in ('int1e_ip', 'int1e_iprinv',
+                                         'int2e_ip1'))
 
 
 def test_incore_rhf_on_card_launches_int2e(water):
