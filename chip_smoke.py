@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of pyscf_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives the port's five paths for benzene/def2-SVP and the phenyl radical
-on the card, in order:
+Drives the port's paths for benzene/def2-SVP and the phenyl radical on
+the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the eleven CUDA kernels from pyscf_tpu_torch/csrc (nvcc,
+  2. builds the fifteen CUDA kernels from pyscf_tpu_torch/csrc (nvcc,
      sm_90a, one process per library, all at once);
   3. integral kernel phases at the main path's shapes: each kernel against
      its plain PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c
@@ -48,10 +48,28 @@ on the card, in order:
      their phases and the peak device memory printed; and the water/
      def2-SVP gradient through the same entry point within 1e-8 of the
      recorded JAX gradient;
- 13. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 13. the main path with its forces, benzene DF-RKS b3lypg/def2-SVP from
+     M() through kernel() (conv_tol 1e-10, conv_tol_grad 1e-7) and
+     nuc_grad_method().kernel(): the recorded JAX energy within 1e-8 Ha,
+     the gradient's energy check within 1e-6, |de_z| < 1e-8 and the three
+     mirror planes within 1e-8 (the grid is held fixed, as in the JAX
+     package, so the sum rule is the missing grid response: printed),
+     central differences with the grid held fixed within 1e-6 on one C and
+     one H coordinate (with the grid moving: printed), its kernels
+     launched in that run; warm gradient times and phases, peak memory;
+ 14. the DF gradient's kernel phases at benzene's shapes: int3c2e_ip on
+     the DF-RKS Gamma, int2c2e_ip1 on its W (<= 1e-10 x max), eval_ao
+     deriv 2 on its grid (<= 1e-12 x max) and xc_rks_grad at its density
+     (<= 1e-10 x max, exc <= 1e-11 relative), each against its twin;
+ 15. benzene DF-RHF/def2-SVP + gradient: sum rule < 1e-9, mirror planes
+     1e-8, central differences within 1e-6; then water/def2-SVP DF-RHF,
+     DF-RKS b3lypg (grids level 1) and the water cation's DF-UHF within
+     1e-8 of the recorded JAX gradients;
+ 16. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
-     runs the kernel: int2e from 8, xc_uks from 9, the three derivative
-     kernels from 12, the others from 6), then the result line
+     runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
+     and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
+     xc_rks_grad from 13, the others from 6), then the result line
      {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
@@ -276,6 +294,23 @@ def iprinv_ops(la, lb, pairs, ncentre):
     ops = 3 * _e1d_ops(la, lb) \
         + ncentre * (_r_ops(la + lb + 1) + 8 * _herm_terms(la, lb))
     return float(_prim_pairs(pairs).sum()) * ops
+
+
+def coulomb_ip_ops(la, lb, lc, pair_prims, nthreads_per_pair, triples,
+                   with_a=True):
+    """csrc/coulomb_ip.cuh: per bra primitive pair (and thread) the E tables
+    (to la + 1 for d/dA), the raised and lowered bra contraction and the
+    contraction of Y shifted by one Hermite order with the weights; per
+    primitive triple R_tuv to order la + lb + lc + 1 and the fold of the
+    ket into Y to order la + lb + 1. The weights' cart transform is not
+    counted."""
+    dc = 2 * lc + 1
+    per_pair = (3 * _e1d_ops(la + with_a, lb)
+                + _herm_terms(la, lb) * (2 + 6 * dc))
+    if with_a:
+        per_pair += _bra_terms(la, lb, True) * (2 + 2 * dc)
+    per_triple = _r_ops(la + lb + lc + 1) + _ket_ops(lc, la + lb + 1)
+    return pair_prims * nthreads_per_pair * per_pair + triples * per_triple
 
 
 def nbytes(*tensors):
@@ -827,6 +862,269 @@ def rhf_grad_path(pt, refs, kernels):
     return launches
 
 
+# ---- the density-fitted gradients -------------------------------------------
+
+DF_GRAD_KERNELS = ('int1e_ip', 'int1e_iprinv', 'int3c2e_ip', 'int2c2e_ip1')
+# the radial coordinate of one C and of one H of benzene
+RADIAL_PICKS = [(0, 1), (6, 1)]
+XC_GRAD_KERNELS = ('eval_ao_deriv2', 'xc_rks_grad')
+
+
+def tight(mf):
+    """Converged far enough for gradients and their central differences."""
+    mf.conv_tol = 1e-10
+    mf.conv_tol_grad = 1e-7
+    mf.init_guess = 'minao'
+    return mf
+
+
+def fixed_grid(mf0):
+    """A function that makes moved copies of the DF-RKS mean field mf0
+    which keep its grid points and weights, so that their central
+    differences are the fixed-grid gradient; grid=False lets the grid
+    follow the atoms."""
+    def build(mol, grid=True):
+        mf = tight(mol.RKS(xc=mf0.xc).density_fit())
+        if grid:
+            mf.grids.coords = mf0.grids.coords
+            mf.grids.weights = mf0.grids.weights
+        return mf
+    return build
+
+
+def df_grad_path(name, kernels, build, e_ref, names):
+    """M() through kernel() (run_path, which sets the launch counts to 0)
+    and nuc_grad_method().kernel(); every kernel in `names` must have
+    launched by the end. Returns (mf, grad, de, launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mf, e, _ = run_path(name, kernels, (), build)
+    grad = mf.nuc_grad_method()
+    de = grad.kernel()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    print(f'{name}: E - E_ref {e - e_ref:.3e}  energy check |e_chk - E| '
+          f'{abs(grad.e_chk - e):.3e}  wall from M() {wall:.3f} s  peak '
+          f'device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB')
+    print('gradient phases: ' + '  '.join(
+        f'{k} {v:.4f}' for k, v in grad.timings.items()))
+    print(f'launches: {launches}')
+    print('de (Ha/Bohr):\n' + np.array2string(de, precision=10))
+    check(abs(e - e_ref) < 1e-8, f'{name}: |E - E_ref| {abs(e - e_ref):.3e}')
+    check(abs(grad.e_chk - e) < 1e-6, f'{name}: energy check')
+    check(de.shape == (mf.mol.natm, 3) and bool(np.isfinite(de).all()),
+          f'{name}: the gradient is not finite of shape (natm, 3)')
+    for k in names:
+        check(launches[k] > 0, f'{name}: kernel {k} never launched')
+    return mf, grad, de, launches
+
+
+def central_differences(name, de, efun, mol, picks, limit):
+    from pyscf_tpu_torch.grad import finite_difference_gradient
+    fd = finite_difference_gradient(efun, mol, 1e-4, picks)
+    for a, x in picks:
+        diff = abs(de[a, x] - fd[a, x])
+        print(f'{name} de[{a},{x}] analytic {de[a, x]:.10f}  central '
+              f'differences {fd[a, x]:.10f}  diff {diff:.3e}')
+        if limit is not None:
+            check(diff < limit, f'{name}: gradient vs central differences '
+                  f'at ({a},{x}): {diff:.3e} >= {limit}')
+    return fd
+
+
+def warm_gradient(name, grad, runs=3):
+    """Median wall and phases of `runs` more gradients of one mean field."""
+    walls, phases = [], []
+    for _ in range(runs):
+        grad.mol._j3c_cache.pop('ip1e')     # rebuilt, as a new geometry would
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grad.kernel()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        phases.append(dict(grad.timings))
+    print(f'{name} gradient warm: wall median {np.median(walls):.4f} s '
+          f'(min {min(walls):.4f}, max {max(walls):.4f})  '
+          + '  '.join(f'{k} {np.median([p[k] for p in phases]):.4f}'
+                      for k in phases[0]))
+
+
+def df_rks_grad_path(pt, refs, kernels):
+    """The main path with its forces: benzene DF-RKS b3lypg/def2-SVP."""
+    mf, grad, de, launches = df_grad_path(
+        'DF-RKS b3lypg benzene/def2-SVP + gradient', kernels,
+        lambda: tight(pt.dft.RKS(pt.M(atom=refs.BENZENE, basis='def2-svp'),
+                                 xc='b3lypg').density_fit()),
+        refs.E_BENZENE_DF_RKS_B3LYPG_DEF2SVP,
+        ('int1e_stv', 'int3c2e', 'int2c2e', 'eval_ao', 'becke', 'xc_rks')
+        + DF_GRAD_KERNELS + XC_GRAD_KERNELS)
+    # the grid is held fixed (no grid response, as in the JAX package), so
+    # the sum over atoms is not zero; the planar molecule's out-of-plane
+    # components and its mirror planes still hold
+    out = float(np.abs(de[:, 2]).max())
+    mirror = max(mirror_defect(mf.mol.coords, de, ax) for ax in range(3))
+    print(f'|de_z| {out:.3e}  mirror defect {mirror:.3e}  |sum_A de[A]| '
+          f'(the missing grid response) {np.abs(de.sum(axis=0)).max():.3e}')
+    check(out < 1e-8, f'DF-RKS gradient: |de_z| {out:.3e} >= 1e-8')
+    check(mirror < 1e-8, f'DF-RKS gradient: mirror defect {mirror:.3e}')
+    build = fixed_grid(mf)
+    fd = central_differences('DF-RKS (grid fixed)', de,
+                             lambda m: build(m).kernel(), mf.mol,
+                             RADIAL_PICKS, 1e-6)
+    fdm = central_differences('DF-RKS (grid moving)', de,
+                              lambda m: build(m, grid=False).kernel(),
+                              mf.mol, RADIAL_PICKS, None)
+    for a, x in RADIAL_PICKS:
+        print(f'grid response at ({a},{x}): moving-grid minus fixed-grid '
+              f'central differences {fdm[a, x] - fd[a, x]:.3e}')
+    warm_gradient('DF-RKS', grad)
+    return mf, launches
+
+
+def df_rhf_grad_path(pt, refs, kernels):
+    mf, grad, de, _ = df_grad_path(
+        'DF-RHF benzene/def2-SVP + gradient', kernels,
+        lambda: tight(pt.M(atom=refs.BENZENE, basis='def2-svp').RHF()
+                      .density_fit()),
+        refs.E_BENZENE_DF_RHF_DEF2SVP, DF_GRAD_KERNELS)
+    drift = float(np.abs(de.sum(axis=0)).max())
+    mirror = max(mirror_defect(mf.mol.coords, de, ax) for ax in range(3))
+    print(f'|sum_A de[A]| {drift:.3e}  mirror defect {mirror:.3e}')
+    check(drift < 1e-9, f'DF-RHF gradient sum rule: {drift:.3e} >= 1e-9')
+    check(mirror < 1e-8, f'DF-RHF gradient: mirror defect {mirror:.3e}')
+    central_differences(
+        'DF-RHF', de, lambda m: tight(m.RHF().density_fit()).kernel(),
+        mf.mol, RADIAL_PICKS, 1e-6)
+    warm_gradient('DF-RHF', grad)
+
+
+def df_water_gradients(pt, refs):
+    """Water/def2-SVP DF-RHF, DF-RKS b3lypg (grids level 1) and the water
+    cation's DF-UHF against the recorded JAX gradients, 1e-8."""
+    def rks(mol):
+        mf = mol.RKS(xc='b3lypg').density_fit()
+        mf.grids.level = 1
+        return mf
+
+    cases = (('DF-RHF', {}, lambda m: m.RHF().density_fit(),
+              refs.GRAD_WATER_DF_RHF_DEF2SVP),
+             ('DF-RKS b3lypg', {}, rks, refs.GRAD_WATER_DF_RKS_B3LYPG_L1),
+             ('DF-UHF cation', dict(charge=1, spin=1),
+              lambda m: m.UHF().density_fit(),
+              refs.GRAD_WATER_CATION_DF_UHF_DEF2SVP))
+    for name, kw, build, ref in cases:
+        mf = tight(build(pt.M(atom=refs.WATER, basis='def2-svp', **kw)))
+        de = mf.run().nuc_grad_method().kernel()
+        err = float(np.abs(de - np.array(ref)).max())
+        print(f'water/def2-SVP {name}: max |de - de_ref| {err:.3e}')
+        check(mf.converged and err < 1e-8, f'water {name} gradient vs the '
+              f'recorded JAX gradient: {err:.3e} >= 1e-8')
+
+
+def df_grad_phases(pt, kernels, mf, report):
+    """The four kernels of the DF gradient against their twins at benzene's
+    shapes: Gamma and W from the converged DF-RKS, the AO second
+    derivatives and the XC gradient on its grid."""
+    from pyscf_tpu_torch.dft import numint
+    from pyscf_tpu_torch.grad import df
+    from pyscf_tpu_torch.ops import eval_gto
+    from pyscf_tpu_torch.ops.integrals import j3c, j3c_deriv
+
+    mol, auxmol = mf.mol, mf.with_df.auxmol
+    dev = mol.device
+    dm, cos, _, kfac = df.occupied(mf)
+    _, gamma, W = df.fitted_weights(mf, dm, cos, kfac)
+    naux, nao = auxmol.nao, mol.nao
+    order = torch.as_tensor(j3c._grouped_order(auxmol), device=dev)
+    gflat = gamma.reshape(naux, nao * nao).index_select(0, order)
+    del gamma
+    bra = j3c._bra_classes(mol)
+    classes = j3c.screened_pairs(mol)
+    aux = j3c.aux_tables(auxmol)
+    G = {cls: j3c_deriv._gamma_rows(mol, bra[cls], gflat) for cls in classes}
+    del gflat
+
+    def rows(fn):
+        return [fn(*cls, *p, aux, G[cls]) for cls, (_, p) in classes.items()]
+
+    k_out, p_out = rows(kernels.int3c2e_ip), rows(j3c_deriv.int3c2e_ip_plain)
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    aux_nnz = {l: float(_nnz(c).sum()) for l, _, c, _ in aux}
+    ops = 0.0
+    for (la, lb), (_, p) in classes.items():
+        prims = float(_prim_pairs(p).sum())
+        for l, e, _, _ in aux:
+            ops += coulomb_ip_ops(la, lb, l, prims, e.shape[0],
+                                  prims * aux_nnz[l])
+    io = sum(nbytes(*p) for _, p in classes.values()) \
+        + sum(nbytes(*a[1:]) for a in aux) + nbytes(*G.values(), *k_out)
+    record(report, 'int3c2e_ip', 'pyscf_tpu_torch/csrc/int3c2e_ip.cu',
+           'pyscf_tpu/grad/autodiff.py:148', err,
+           lambda: rows(kernels.int3c2e_ip),
+           lambda: rows(j3c_deriv.int3c2e_ip_plain), io, ops, plain_reps=1)
+    check(err <= 1e-10 * scale, f'int3c2e_ip vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
+    del G, k_out, p_out
+
+    Wg = W.index_select(0, order).index_select(1, order).contiguous()
+    k_out = kernels.int2c2e_ip1(aux, Wg)
+    err, scale = max_abs([(k_out, j3c_deriv.int2c2e_ip1_plain(aux, Wg))])
+    ops = 0.0
+    for lx, ex, cx, _ in aux:
+        for ly, ey, cy, _ in aux:
+            prims = float(_nnz(cy).sum())
+            ops += coulomb_ip_ops(ly, 0, lx, prims, ex.shape[0],
+                                  prims * float(_nnz(cx).sum()), False)
+    record(report, 'int2c2e_ip1', 'pyscf_tpu_torch/csrc/int2c2e_ip1.cu',
+           'pyscf_tpu/grad/autodiff.py:131', err,
+           lambda: kernels.int2c2e_ip1(aux, Wg),
+           lambda: j3c_deriv.int2c2e_ip1_plain(aux, Wg),
+           sum(nbytes(*a[1:]) for a in aux) + nbytes(Wg, k_out), ops)
+    check(err <= 1e-10 * scale, f'int2c2e_ip1 vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
+
+    coords, weights = mf.grids.coords, mf.grids.weights
+    tables = eval_gto.ao_tables(mol)
+    ao_k = kernels.eval_ao_deriv2(tables, coords, nao)
+    ao_p = eval_gto.eval_ao_plain(tables, coords, nao, 2)
+    err, scale = max_abs([(ao_k, ao_p)])
+    del ao_p
+    npts = coords.shape[0]
+    ops = 0.0
+    for l, e, c, _, _ in tables:
+        nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
+        ops += npts * e.shape[0] * (8 + 9 * e.shape[1]
+                                    + 10 * nc * (l + 8 + 2 * d))
+    record(report, 'eval_ao_deriv2', 'pyscf_tpu_torch/csrc/eval_ao.cu',
+           'pyscf_tpu/ops/eval_gto.py:63', err,
+           lambda: kernels.eval_ao_deriv2(tables, coords, nao),
+           lambda: eval_gto.eval_ao_plain(tables, coords, nao, 2),
+           nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables), ops)
+    check(err <= 1e-12 * scale, f'eval_ao deriv 2 vs plain: {err:.3e} > '
+          f'1e-12 x {scale:.3e}')
+
+    f = mf.xc_obj
+    dmao = (ao_k[:4].reshape(-1, nao) @ dm).reshape(4, -1, nao)
+    g_k, e_k = kernels.xc_rks_grad(ao_k, dmao, weights, f)
+    g_p, e_p = numint.xc_rks_grad_plain(ao_k, dmao, weights, f)
+    err, scale = max_abs([(g_k, g_p)])
+    rel_e = abs(float(e_k - e_p)) / abs(float(e_p))
+    print(f'xc_rks_grad at the DF-RKS density: exc {float(e_k):.12f} (rel '
+          f'diff {rel_e:.2e})')
+    # per point and AO 13 reads and ~40 operations; the functional's few
+    # hundred per point are not counted
+    record(report, 'xc_rks_grad', 'pyscf_tpu_torch/csrc/xc_rks_grad.cu',
+           'pyscf_tpu/grad/autodiff.py:199', err,
+           lambda: kernels.xc_rks_grad(ao_k, dmao, weights, f),
+           lambda: numint.xc_rks_grad_plain(ao_k, dmao, weights, f),
+           nbytes(ao_k, dmao, weights) + 8 * 4 * nao * (npts // 64 + 1),
+           40 * npts * nao)
+    check(err <= 1e-10 * scale, f'xc_rks_grad vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
+    check(rel_e <= 1e-11, f'xc_rks_grad exc vs plain: {rel_e:.2e} > 1e-11')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
@@ -863,6 +1161,17 @@ def main():
     torch.cuda.empty_cache()
     grad_launches = rhf_grad_path(pt, refs, kernels)
     launches.update({k: grad_launches[k] for k in GRAD_KERNELS})
+    torch.cuda.empty_cache()
+    rks, rks_launches = df_rks_grad_path(pt, refs, kernels)
+    launches.update({k: rks_launches[k] for k in
+                     ('int3c2e_ip', 'int2c2e_ip1') + XC_GRAD_KERNELS})
+    df_grad_phases(pt, kernels, rks, report)
+    del rks
+    torch.cuda.empty_cache()
+    df_rhf_grad_path(pt, refs, kernels)
+    df_water_gradients(pt, refs)
+    for name in report:
+        check(launches[name] > 0, f'kernel {name} never launched on its path')
 
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', launches=launches[name], **r)

@@ -3,11 +3,13 @@
 
     python3 profile_port.py [--runs 10] [--top 12]
 
-Builds the kernels, then for the five paths of chip_smoke.py (minao guess,
+Builds the kernels, then for the seven paths of chip_smoke.py (minao guess,
 conv_tol 1e-8): benzene/def2-SVP DF-RHF, DF-RKS b3lypg and in-core RHF,
-the phenyl radical's DF-UKS b3lypg/def2-SVP, and benzene's in-core RHF
-(conv_tol 1e-11) followed by its analytic gradient, runs each once cold
-and `--runs` times warm, every run from a fresh Mole, and prints the
+the phenyl radical's DF-UKS b3lypg/def2-SVP, benzene's in-core RHF
+(conv_tol 1e-11) followed by its analytic gradient, and benzene's DF-RKS
+b3lypg and DF-RHF (conv_tol 1e-10, conv_tol_grad 1e-7) followed by theirs,
+runs each once cold and `--runs` times warm, every run from a fresh Mole,
+and prints the
 median, quartiles, min and max of each phase of mf.timings (and of the
 gradient's timings, prefixed grad_) and of the wall time from M() to the
 energy or gradient (host clock, ended by a synchronize). Then one
@@ -26,6 +28,7 @@ import torch
 
 
 GRADIENT = 'in-core RHF + gradient'
+DF_GRADIENTS = ('DF-RKS b3lypg + gradient', 'DF-RHF + gradient')
 PATHS = {
     'DF-RHF': lambda pt, refs: pt.M(atom=refs.BENZENE, basis='def2-svp')
     .RHF().density_fit(),
@@ -38,6 +41,11 @@ PATHS = {
         xc='b3lypg').density_fit(),
     GRADIENT: lambda pt, refs: pt.M(atom=refs.BENZENE,
                                     basis='def2-svp').RHF(),
+    DF_GRADIENTS[0]: lambda pt, refs: pt.dft.RKS(
+        pt.M(atom=refs.BENZENE, basis='def2-svp'), xc='b3lypg').density_fit(),
+    DF_GRADIENTS[1]: lambda pt, refs: pt.M(atom=refs.BENZENE,
+                                           basis='def2-svp').RHF()
+    .density_fit(),
 }
 
 
@@ -46,10 +54,13 @@ def one_run(pt, refs, name):
     t0 = time.perf_counter()
     mf = PATHS[name](pt, refs)
     mf.conv_tol = 1e-11 if name == GRADIENT else 1e-8
+    if name in DF_GRADIENTS:
+        mf.conv_tol = 1e-10
+        mf.conv_tol_grad = 1e-7
     mf.init_guess = 'minao'
     e = mf.kernel()
     timings = dict(mf.timings)
-    if name == GRADIENT:
+    if name == GRADIENT or name in DF_GRADIENTS:
         grad = mf.nuc_grad_method()
         grad.kernel()
         timings.update({f'grad_{k}': v for k, v in grad.timings.items()})

@@ -1,4 +1,5 @@
-// AO values and their gradients on grid points, one l-class per launch.
+// AO values and their first and second derivatives on grid points, one
+// l-class per launch.
 //
 // Replaces pyscf_tpu/ops/eval_gto.py:_class_ao and the column permutation
 // of eval_ao (:63-89); plain PyTorch twin:
@@ -6,13 +7,17 @@
 // JAX package: the contracted radial part sum_k c_k exp(-a_k r^2) and its
 // derivative factor sum_k -2 a_k c_k exp(-a_k r^2), cartesian monomials by
 // repeated squaring (XLA's integer_pow), then cart->sph with the
-// (2l+1, ncart) table of ops/integrals/int1e.py:sph.
+// (2l+1, ncart) table of ops/integrals/int1e.py:sph. deriv 2 adds the
+// second derivatives xx, xy, xz, yy, yz, zz, with the radial factor
+// sum_k 4 a_k^2 c_k exp(-a_k r^2): they replace what jax.grad takes of
+// eval_ao(..., deriv=1, atom_coords=X) in the XC gradient
+// (pyscf_tpu/grad/autodiff.py:207-210).
 //
 // One thread per (point, shell), points along the threads, so a warp
 // shares its shell's exponents and writes a column strip of the
 // (npts, nao) output. Each shell's 2l+1 values go straight to their AO
 // columns ao_off[shell] + m, so no permutation follows. What bounds it on
-// the card is the bytes written, (4 or 1) x npts x nao doubles; the stores
+// the card is the bytes written, (10, 4 or 1) x npts x nao doubles; the stores
 // of a warp are strided by nao, so each touches its own 32-byte sector.
 // The simple layout is kept: it runs once per SCF.
 #include <cuda_runtime.h>
@@ -41,6 +46,24 @@ __device__ __forceinline__ double mono(double x, double y, double z, int ix,
   return m;
 }
 
+// p[i] (p[i] - 1 if j == i) ... times the monomial with the powers of the
+// directions i and j (j = -1: none) taken down by one each, 0 where a
+// power runs out: the cartesian factor of a first (j = -1) or second
+// derivative of the monomial.
+__device__ __forceinline__ double lowered(const double* d, int ix, int iy,
+                                          int iz, int i, int j) {
+  int pw[3] = {ix, iy, iz};
+  int fac = 1;
+  for (int k = 0; k < 2; ++k) {
+    const int q = k == 0 ? i : j;
+    if (q < 0) break;
+    if (pw[q] == 0) return 0.0;
+    fac *= pw[q];
+    pw[q] -= 1;
+  }
+  return fac * mono(d[0], d[1], d[2], pw[0], pw[1], pw[2]);
+}
+
 template <int L>
 __global__ void __launch_bounds__(128) eval_ao_kernel(
     int deriv, int npts, int ns, int K, const double* __restrict__ pts,
@@ -57,18 +80,20 @@ __global__ void __launch_bounds__(128) eval_ao_kernel(
                        pts[3 * p + 1] - centers[3 * sh + 1],
                        pts[3 * p + 2] - centers[3 * sh + 2]};
   const double r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
-  double rad = 0.0, drad = 0.0;
+  double rad = 0.0, drad = 0.0, d2rad = 0.0;
   for (int k = 0; k < K; ++k) {
     const double a = exps[(size_t)sh * K + k];
     const double c = coeffs[(size_t)sh * K + k];
     const double ex = exp(-a * r2);
     rad += c * ex;
     drad += -2.0 * a * c * ex;
+    if (deriv == 2) d2rad += 4.0 * a * a * c * ex;
   }
   double cart[NC];
   double* col = out + (size_t)p * nao + ao_off[sh];
   const size_t comp_stride = (size_t)npts * nao;
-  for (int comp = 0; comp < (deriv ? 4 : 1); ++comp) {
+  const int ncomp = deriv == 0 ? 1 : (deriv == 1 ? 4 : 10);
+  for (int comp = 0; comp < ncomp; ++comp) {
     int jc = 0;
     for (int ix = L; ix >= 0; --ix) {
       for (int iy = L - ix; iy >= 0; --iy, ++jc) {
@@ -76,7 +101,7 @@ __global__ void __launch_bounds__(128) eval_ao_kernel(
         const double m = mono(d[0], d[1], d[2], ix, iy, iz);
         if (comp == 0) {
           cart[jc] = m * rad;
-        } else {
+        } else if (comp < 4) {
           const int pw[3] = {ix, iy, iz};
           const int q = comp - 1;
           const double dm =
@@ -84,6 +109,19 @@ __global__ void __launch_bounds__(128) eval_ao_kernel(
                                    iy - (q == 1), iz - (q == 2))
                     : 0.0;
           cart[jc] = dm * rad + m * d[q] * drad;
+        } else {
+          // d2/(dx_i dx_j) of m(x) R(r^2): m_ij R + (m_i x_j + m_j x_i) R'
+          // + m (x_i x_j R'' + delta_ij R'), with R' = drad, R'' = d2rad
+          // components 4..9: xx, xy, xz, yy, yz, zz
+          const int q = comp - 4;
+          const int i = q < 3 ? 0 : (q < 5 ? 1 : 2);
+          const int j = q < 3 ? q : (q < 5 ? q - 2 : 2);
+          const double v = lowered(d, ix, iy, iz, i, j) * rad
+                         + (lowered(d, ix, iy, iz, i, -1) * d[j]
+                            + lowered(d, ix, iy, iz, j, -1) * d[i]) * drad;
+          double dd = d[i] * d[j] * d2rad;
+          if (i == j) dd = dd + drad;
+          cart[jc] = v + m * dd;
         }
       }
     }
@@ -109,13 +147,15 @@ static int launch(int deriv, int npts, int ns, int K, const double* pts,
 }
 
 // pts (npts, 3); exps/coeffs (ns, K); centers (ns, 3); ao_off (ns,);
-// S (2l+1, ncart); out (npts, nao) for deriv 0 or (4, npts, nao) for
-// deriv 1. Returns cudaGetLastError() after the launch, or -1 for l > 4.
+// S (2l+1, ncart); out (npts, nao) for deriv 0, (4, npts, nao) for deriv
+// 1 or (10, npts, nao) for deriv 2. Returns cudaGetLastError() after the
+// launch, or -1 for l > 4 or deriv > 2.
 extern "C" int pt_eval_ao(int l, int deriv, int npts, int ns, int K,
                           const double* pts, const double* exps,
                           const double* coeffs, const double* centers,
                           const int* ao_off, const double* S, double* out,
                           int nao, void* stream) {
+  if (deriv < 0 || deriv > 2) return -1;
   cudaStream_t s = (cudaStream_t)stream;
 #define PT_L(X)                                                         \
   if (l == X)                                                           \

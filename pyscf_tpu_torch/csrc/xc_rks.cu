@@ -23,19 +23,7 @@
 // few hundred FP64 operations against 100-700 B of traffic per point.
 #include <cuda_runtime.h>
 
-#include "xc_funcs.cuh"
-
-#define PT_FULL_MASK 0xffffffffu
-
-constexpr double RHO_THR = 1e-10;
-constexpr double SIGMA_FLOOR = 1e-20;
-
-__device__ __forceinline__ double warp_sum(double x) {
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(PT_FULL_MASK, x, off);
-  }
-  return x;
-}
+#include "xc_point.cuh"
 
 __global__ void xc_rks_kernel(int gga, int npts, int nao,
                               const double* __restrict__ aod,
@@ -53,24 +41,9 @@ __global__ void xc_rks_kernel(int gga, int npts, int nao,
     const size_t stride = (size_t)npts * nao;   // between AO components
     const double* ao = aod + (size_t)b * nao;
     const double* dm = dmao + (size_t)b * nao;
-    double rho = 0.0, gx = 0.0, gy = 0.0, gz = 0.0;
-    for (int i = lane; i < nao; i += 32) {
-      const double d = dm[i];
-      rho += d * ao[i];
-      if (gga) {
-        gx += d * ao[stride + i];
-        gy += d * ao[2 * stride + i];
-        gz += d * ao[3 * stride + i];
-      }
-    }
-    rho = fmax(warp_sum(rho), 0.0);
-    double sigma = 0.0;
-    if (gga) {
-      gx = 2.0 * warp_sum(gx);
-      gy = 2.0 * warp_sum(gy);
-      gz = 2.0 * warp_sum(gz);
-      sigma = gx * gx + gy * gy + gz * gz;
-    }
+    double rho, gx, gy, gz;
+    closed_density(gga, lane, nao, stride, ao, dm, rho, gx, gy, gz);
+    const double sigma = gga ? gx * gx + gy * gy + gz * gz : 0.0;
     const double w = weights[b];
     const bool mask = rho > RHO_THR;
     const double rho_s = mask ? fmax(rho, RHO_THR) : 1.0;
@@ -119,15 +92,8 @@ extern "C" int pt_xc_rks(int gga, int npts, int nao, const double* aod,
                          int nterm, const int* ids, const double* coeffs,
                          double* vtmp, double* partials, int warps_per_block,
                          void* stream) {
-  if (nterm > ptxc::MAXTERM) return -1;
   ptxc::Terms terms;
-  terms.n = nterm;
-  for (int k = 0; k < nterm; ++k) {
-    if (ids[k] < ptxc::SLATER || ids[k] > ptxc::LYP) return -1;
-    if (!gga && ids[k] >= ptxc::B88) return -1;
-    terms.id[k] = ids[k];
-    terms.c[k] = coeffs[k];
-  }
+  if (!make_terms(gga, nterm, ids, coeffs, terms)) return -1;
   const int threads = 32 * warps_per_block;
   const int blocks = (npts + warps_per_block - 1) / warps_per_block;
   const size_t shmem = 2 * warps_per_block * sizeof(double);

@@ -26,19 +26,7 @@
 // point and AO.
 #include <cuda_runtime.h>
 
-#include "xc_funcs.cuh"
-
-#define PT_FULL_MASK 0xffffffffu
-
-constexpr double RHO_THR = 1e-10;
-constexpr double SIGMA_FLOOR = 1e-20;
-
-__device__ __forceinline__ double warp_sum(double x) {
-  for (int off = 16; off > 0; off >>= 1) {
-    x += __shfl_xor_sync(PT_FULL_MASK, x, off);
-  }
-  return x;
-}
+#include "xc_point.cuh"
 
 __global__ void xc_uks_kernel(int gga, int npts, int nao,
                               const double* __restrict__ aod,
@@ -156,15 +144,8 @@ extern "C" int pt_xc_uks(int gga, int npts, int nao, const double* aod,
                          int nterm, const int* ids, const double* coeffs,
                          double* vtmp, double* partials, int warps_per_block,
                          void* stream) {
-  if (nterm > ptxc::MAXTERM) return -1;
   ptxc::Terms terms;
-  terms.n = nterm;
-  for (int k = 0; k < nterm; ++k) {
-    if (ids[k] < ptxc::SLATER || ids[k] > ptxc::LYP) return -1;
-    if (!gga && ids[k] >= ptxc::B88) return -1;
-    terms.id[k] = ids[k];
-    terms.c[k] = coeffs[k];
-  }
+  if (!make_terms(gga, nterm, ids, coeffs, terms)) return -1;
   const int threads = 32 * warps_per_block;
   const int blocks = (npts + warps_per_block - 1) / warps_per_block;
   const size_t shmem = 3 * warps_per_block * sizeof(double);

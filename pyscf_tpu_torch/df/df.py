@@ -2,8 +2,10 @@
 
 Counterpart of pyscf_tpu/df/df.py:DF. B satisfies
 (ij|kl) ~= sum_P B[P,i,j] B[P,k,l] with B = L^{-1} (P|ij), (P|Q) = L L^T.
-The factor depends only on geometry, basis and aux basis, so it is cached
-on the Mole: fresh mean-field objects on the same molecule reuse it.
+The factor and the whitener (L^{-1})^T depend only on geometry, basis and
+aux basis, so they are cached on the Mole: fresh mean-field objects on the
+same molecule reuse them, and the DF gradient (grad/df.py) takes the fitted
+densities from them.
 """
 from . import addons
 
@@ -14,18 +16,17 @@ class DF:
         self.auxbasis = auxbasis
         self.auxmol = None
         self._cderi = None      # (naux, nao, nao)
+        self._whitener = None   # (L^-1)^T, (naux, naux)
         self.timings = {}       # seconds of the last build: 'j2c', 'j3c'
 
     def build(self):
         from ..ops.integrals.j3c import df_factor
         cache = self.mol._df_cache
         key = str(self.auxbasis)
-        if key in cache:
-            self.auxmol, self._cderi = cache[key]
-            return self
-        self.auxmol = addons.make_auxmol(self.mol, self.auxbasis)
-        self._cderi = df_factor(self.mol, self.auxmol, self.timings)
-        cache[key] = (self.auxmol, self._cderi)
+        if key not in cache:
+            auxmol = addons.make_auxmol(self.mol, self.auxbasis)
+            cache[key] = (auxmol,) + df_factor(self.mol, auxmol, self.timings)
+        self.auxmol, self._cderi, self._whitener = cache[key]
         return self
 
     @property
@@ -33,3 +34,9 @@ class DF:
         if self._cderi is None:
             self.build()
         return self._cderi
+
+    @property
+    def whitener(self):
+        if self._whitener is None:
+            self.build()
+        return self._whitener

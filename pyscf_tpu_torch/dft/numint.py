@@ -18,14 +18,27 @@ and V_xc = V + V^T. Open shell, the same with a spin axis:
                                                      twin xc_uks_plain
     V_s += ao^T @ vtmp_s                            one batched torch.matmul
 
+The nuclear gradient of E_xc on the fixed grid (rks_grad; what jax.grad
+makes of pyscf_tpu/grad/autodiff.py _exc_quadrature, restricted branch):
+
+    aod with second derivatives                     CUDA kernel `eval_ao`,
+                                                     deriv 2
+    dmao4 = aod[:4] @ dm                            torch.matmul (cuBLAS)
+    rho, sigma, vrho, vsigma and the per-AO         CUDA kernel `xc_rks_grad`
+    gradient integrand summed over the block         (csrc/xc_rks_grad.cu);
+                                                     twin xc_rks_grad_plain
+
 The grid is not padded, and blocks are sized by
 memory, not by the TPU's budget: on the card one block usually holds the
 whole grid. The AO values are evaluated once per SCF (grid_ao) and reused
 every cycle.
 """
+import time
+
 import torch
 
-from ..ops.eval_gto import eval_ao
+from ..ops.eval_gto import SECOND_DERIVS, eval_ao
+from ..ops.integrals.j3c import sync
 from . import xc as xc_mod
 
 # The JAX package's thresholds, kept so both give the same energies.
@@ -128,8 +141,57 @@ def xc_uks_plain(aod, dmao, weights, xc):
     return torch.stack(vtmp), n, exc
 
 
-def _block_size(npts, nao, deriv, device, spins=1):
-    per_point = ((4 if deriv else 1) + 2 * spins) * nao * 8
+def xc_rks_grad_plain(aod, dmao, weights, xc):
+    """Plain PyTorch twin of the `xc_rks_grad` kernel on one block of B
+    points: the XC energy's nuclear gradient on a fixed grid, per AO.
+
+    aod (10, B, nao) [value, x, y, z, xx, xy, xz, yy, yz, zz] for a GGA, or
+    (4, B, nao) for an LDA; dmao = aod[:4] @ dm (4, B, nao), or aod[:1] @ dm
+    (1, B, nao) for an LDA; weights (B,). Returns (g (3, nao), exc) with
+      g[x, mu] = sum_b -2 w [vrho d_x phi_mu (D phi)_mu + 2 vsigma
+                 sum_j g_j (d_x phi_mu (D d_j phi)_mu
+                            + d_x d_j phi_mu (D phi)_mu)]
+    over the unmasked points, g_j = 2 sum (D phi) d_j phi, so that
+    dE_xc/dX_A = sum over the AOs mu on atom A of g[:, mu]; exc = sum over
+    unmasked points of w e_xc. The mask and clamps are _masked's, and a
+    derivative is zero where jax.grad gives zero: vsigma counts above
+    SIGMA_FLOOR, half at it, not below."""
+    gga = aod.shape[0] == 10
+    ao, dm0 = aod[0], dmao[0]
+    rho = torch.clamp(torch.einsum('bi,bi->b', dm0, ao), min=0.0)
+    if gga:
+        grho = 2.0 * torch.einsum('bi,dbi->db', dm0, aod[1:4])
+        sigma = torch.einsum('db,db->b', grho, grho)
+    else:
+        sigma = torch.zeros_like(rho)
+    mask, rho_s, sigma_s = _masked(rho, sigma)
+    with torch.enable_grad():
+        r = rho_s.detach().requires_grad_()
+        s = sigma_s.detach().requires_grad_()
+        e = edens_closed(xc, r, s)
+        vrho, vsigma = [torch.zeros_like(rho) if v is None else v
+                        for v in torch.autograd.grad(e.sum(), (r, s),
+                                                     allow_unused=True)]
+    exc = torch.sum(torch.where(mask, weights * e.detach(), 0.0))
+    a = torch.where(mask, -2.0 * weights * vrho, 0.0)
+    g = torch.einsum('b,xbi,bi->xi', a, aod[1:4], dm0)
+    if gga:
+        vs = torch.where(sigma > SIGMA_FLOOR, vsigma,
+                         torch.where(sigma == SIGMA_FLOOR, 0.5 * vsigma, 0.0))
+        bj = torch.where(mask, -4.0 * weights * vs, 0.0) * grho     # (3, B)
+        second = {}
+        for k, (i, j) in enumerate(SECOND_DERIVS):
+            second[i, j] = second[j, i] = aod[4 + k]
+        g = g + torch.stack([
+            sum(torch.einsum('b,bi->i', bj[j], aod[1 + x] * dmao[1 + j]
+                             + second[x, j] * dm0) for j in range(3))
+            for x in range(3)])
+    return g, exc
+
+
+def _block_size(npts, nao, ncomp, device):
+    """Points per block when each point holds ncomp rows of nao doubles."""
+    per_point = ncomp * nao * 8
     if device.type == 'cuda':
         budget = torch.cuda.mem_get_info(device)[0] // 2
     else:
@@ -145,7 +207,8 @@ class NumInt:
         deriv 0 or (4, B, nao) for deriv 1 (kernel `eval_ao`); blocks leave
         room for the per-cycle temporaries of `spins` densities."""
         n = grids.size
-        blk = _block_size(n, mol.nao, deriv, mol.device, spins)
+        blk = _block_size(n, mol.nao, (4 if deriv else 1) + 2 * spins,
+                          mol.device)
         aod = [eval_ao(mol, grids.coords[i:i + blk], deriv)
                for i in range(0, n, blk)]
         return aod, [grids.weights[i:i + blk] for i in range(0, n, blk)]
@@ -187,6 +250,41 @@ class NumInt:
             return n, e, v + v.transpose(1, 2)
 
         return run
+
+    def rks_grad(self, mol, grids, xc_code, dm, timings=None):
+        """(exc, g (nao, 3)) of a closed-shell density dm on the fixed grid:
+        dE_xc/dX_A is the sum of g over the AOs on atom A (no grid
+        response, as in the JAX package). Per block, the AO values with
+        their second derivatives (kernel `eval_ao` deriv 2; first for an
+        LDA), dmao = aod[:4] @ dm as one GEMM, and kernel `xc_rks_grad`.
+        timings, if given, receives the seconds of the AO values ('ao2')
+        and of the rest ('xc_grad')."""
+        from ..ops import kernels
+        xc = xc_mod.parse_xc(xc_code)
+        gga = xc.is_gga
+        nd = 4 if gga else 1
+        n, nao = grids.size, mol.nao
+        blk = _block_size(n, nao, (10 if gga else 4) + nd, mol.device)
+        e = 0.0
+        g = torch.zeros((3, nao), dtype=dm.dtype, device=dm.device)
+        t_ao = t_xc = 0.0
+        for i in range(0, n, blk):
+            t0 = time.perf_counter()
+            aod = eval_ao(mol, grids.coords[i:i + blk], 2 if gga else 1)
+            sync(mol.device)
+            t1 = time.perf_counter()
+            dmao = (aod[:nd].reshape(-1, nao) @ dm).reshape(nd, -1, nao)
+            g_blk, e_blk = kernels.xc_rks_grad(aod, dmao,
+                                               grids.weights[i:i + blk], xc)
+            g += g_blk
+            e = e + e_blk
+            del aod, dmao
+            sync(mol.device)
+            t_ao += t1 - t0
+            t_xc += time.perf_counter() - t1
+        if timings is not None:
+            timings.update(ao2=t_ao, xc_grad=t_xc)
+        return e, g.T
 
     def nr_rks(self, mol, grids, xc_code, dm):
         """(nelec, exc, vxc matrix) of a closed-shell density dm."""

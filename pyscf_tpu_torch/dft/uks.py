@@ -47,7 +47,6 @@ class UKS(KohnShamDFT, UHF):
         return veff, veff
 
     def Gradients(self):
+        from ..grad.df import XC_UKS_GRAD
         raise NotImplementedError(
-            'UKS gradients are not ported: the JAX package has them for '
-            'density-fitted objects only, whose derivative kernels are '
-            'still to port')
+            f'UKS gradients are not ported: {XC_UKS_GRAD}')

@@ -1,6 +1,8 @@
-"""RKS nuclear gradients by central differences of the conventional RKS
-energy, as pyscf_tpu/grad/rks.py computes them without density fitting
-(the moved grids follow the atoms, so the grid response is included)."""
+"""RKS nuclear gradients: analytic for density-fitted mean fields
+(grad/df.py, the grid held fixed as in the JAX package), central
+differences of the conventional RKS energy otherwise, as
+pyscf_tpu/grad/rks.py computes them (the moved grids follow the atoms, so
+that grid response is included)."""
 from . import uhf
 
 

@@ -1,6 +1,7 @@
-"""UHF nuclear gradients by central differences of the conventional UHF
-energy, as pyscf_tpu/grad/uhf.py computes them without density fitting."""
-from .rhf import finite_difference_gradient, refuse_df
+"""UHF nuclear gradients: analytic for density-fitted mean fields
+(grad/df.py), central differences of the conventional UHF energy
+otherwise, as pyscf_tpu/grad/uhf.py computes them."""
+from .rhf import df_kernel, finite_difference_gradient
 
 
 class Gradients:
@@ -8,6 +9,7 @@ class Gradients:
         self._scf = mf
         self.mol = mf.mol
         self.de = None
+        self.timings = {}
 
     def _moved(self, mol):
         """The mean field of a moved copy, set up like self._scf."""
@@ -15,7 +17,8 @@ class Gradients:
 
     def kernel(self, step=1e-4):
         mf0 = self._scf
-        refuse_df(mf0)
+        if mf0.with_df is not None:
+            return df_kernel(self)
 
         def efac(m):
             mf = self._moved(m)

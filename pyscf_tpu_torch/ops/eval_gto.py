@@ -1,4 +1,4 @@
-"""AO values (and gradients) on grid points.
+"""AO values (and first and second derivatives) on grid points.
 
 Counterpart of pyscf_tpu/ops/eval_gto.py (eval_ao, _class_ao). The values
 come from the CUDA kernel `eval_ao` (csrc/eval_ao.cu), which writes every
@@ -6,11 +6,21 @@ shell's columns straight to their AO positions, so the JAX package's
 concatenate-then-argsort of the class blocks has no counterpart. The
 plain PyTorch twin is `eval_ao_plain`: `_class_ao` per l-class, scattered
 to the same columns.
+
+deriv 2 adds the six second derivatives xx, xy, xz, yy, yz, zz (PySCF's
+order). The JAX package has no deriv 2: the XC gradient there is jax.grad
+through eval_ao(..., deriv=1, atom_coords=X) (pyscf_tpu/grad/autodiff.py
+:207-210), whose derivative with respect to the centre of AO mu is
+-d_i d_j phi_mu.
 """
 import torch
 
 from .integrals.hermite import cart_components
 from .integrals.int1e import sph
+
+# (i, j) of the second derivatives in the order of components 4..9
+SECOND_DERIVS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+NCOMP = {0: 1, 1: 4, 2: 10}
 
 
 def _ipow(x, n):
@@ -30,7 +40,8 @@ def _class_ao(l, pts, exps, coeffs, centers, deriv):
     """AO values for all shells of one l-class.
 
     pts (C,3); exps/coeffs (ns,K); centers (ns,3).
-    Returns (ncomp, C, ns*(2l+1)) with ncomp = 1 (values) or 4 (+d/dx,y,z).
+    Returns (ncomp, C, ns*(2l+1)) with ncomp = 1 (values), 4 (+d/dx,y,z)
+    or 10 (+ d2/dxx, dxy, dxz, dyy, dyz, dzz).
     """
     diff = pts[:, None, :] - centers[None, :, :]          # (C, ns, 3)
     r2 = torch.sum(diff * diff, dim=-1)                   # (C, ns)
@@ -61,6 +72,35 @@ def _class_ao(l, pts, exps, coeffs, centers, deriv):
                 comp.append(dm * rad + mono(*c) * xyz[d] * drad)
             comp = torch.stack(comp, dim=-1)
             out.append(torch.einsum('cnp,mp->cnm', comp, S))
+    if deriv >= 2:
+        d2rad = torch.sum(4.0 * exps[None] * exps[None] * coeffs[None] * expo,
+                          dim=-1)
+        zero = torch.zeros_like(r2)
+
+        def lowered(c, *dirs):
+            """c[d] * (c[d] - 1 if twice) * the monomial with the powers of
+            dirs taken down by one each, 0 where a power runs out."""
+            pw = list(c)
+            fac = 1
+            for d in dirs:
+                if pw[d] == 0:
+                    return zero
+                fac *= pw[d]
+                pw[d] -= 1
+            return fac * mono(*pw)
+
+        for i, j in SECOND_DERIVS:
+            comp = []
+            for c in carts:
+                v = (lowered(c, i, j) * rad
+                     + (lowered(c, i) * xyz[j] + lowered(c, j) * xyz[i])
+                     * drad)
+                dd = xyz[i] * xyz[j] * d2rad
+                if i == j:
+                    dd = dd + drad
+                comp.append(v + mono(*c) * dd)
+            comp = torch.stack(comp, dim=-1)
+            out.append(torch.einsum('cnp,mp->cnm', comp, S))
     out = torch.stack(out)                          # (ncomp, C, ns, 2l+1)
     ncomp, C, ns = out.shape[0], out.shape[1], out.shape[2]
     return out.reshape(ncomp, C, ns * (2 * l + 1))
@@ -75,9 +115,9 @@ def ao_tables(mol):
 
 def eval_ao_plain(tables, coords, nao, deriv=0):
     """Plain PyTorch twin of the `eval_ao` kernel: (n, nao) for deriv 0,
-    (4, n, nao) [value, d/dx, d/dy, d/dz] for deriv 1."""
-    ncomp = 4 if deriv else 1
-    out = coords.new_empty((ncomp, coords.shape[0], nao))
+    (4, n, nao) [value, d/dx, d/dy, d/dz] for deriv 1, (10, n, nao) with
+    [xx, xy, xz, yy, yz, zz] after those for deriv 2."""
+    out = coords.new_empty((NCOMP[deriv], coords.shape[0], nao))
     for l, e, c, r, off in tables:
         cols = (off[:, None].long()
                 + torch.arange(2 * l + 1, device=off.device)).reshape(-1)
@@ -87,8 +127,9 @@ def eval_ao_plain(tables, coords, nao, deriv=0):
 
 def eval_ao(mol, coords, deriv=0):
     """AO values on coords (n, 3) on mol.device: (n, nao) for deriv 0,
-    (4, n, nao) [value, d/dx, d/dy, d/dz] for deriv 1."""
+    (4, n, nao) [value, d/dx, d/dy, d/dz] for deriv 1, (10, n, nao) with
+    the second derivatives [xx, xy, xz, yy, yz, zz] for deriv 2."""
     from . import kernels
-    if deriv not in (0, 1):
-        raise NotImplementedError(f'eval_ao deriv={deriv}: only 0 and 1')
+    if deriv not in NCOMP:
+        raise NotImplementedError(f'eval_ao deriv={deriv}: only 0, 1 and 2')
     return kernels.eval_ao(ao_tables(mol), coords, mol.nao, deriv)

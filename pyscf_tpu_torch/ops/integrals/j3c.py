@@ -204,6 +204,11 @@ def screened_pairs(mol):
             for cls, bc in _bra_classes(mol).items() if bc.nsel}
 
 
+def _to_ao_order(auxmol, device):
+    """Positions that take an aux index from grouped to AO order."""
+    return torch.as_tensor(np.argsort(_grouped_order(auxmol)), device=device)
+
+
 def whitened_factor(mol, auxmol, rows, linv_t):
     """B (naux, nao, nao) from raw rows {(la, lb): (nsel*ns1, naux)} and the
     whitener: rows @ (L^-1)^T per class, gathered to AO order."""
@@ -212,12 +217,15 @@ def whitened_factor(mol, auxmol, rows, linv_t):
     pieces = [r @ linv_t for r in rows.values()]
     row_ids = [_row_maps(mol, bra[cls]) for cls in rows]
     B = _assemble(pieces, row_ids, nao).T.reshape(naux, nao, nao)
-    order = _grouped_order(auxmol)
-    return B[torch.as_tensor(np.argsort(order), device=B.device)]
+    return B[_to_ao_order(auxmol, B.device)]
 
 
 def df_factor(mol, auxmol, timings=None):
-    """Dense whitened DF factor B (naux, nao, nao) on mol.device.
+    """(B, (L^-1)^T) on mol.device: the dense whitened DF factor B (naux,
+    nao, nao) and its whitener, whose rows and columns are in the order of
+    B's first index and of the AO aux basis, so that
+    (L^-1)^T @ (B . dm) = (P|Q)^-1 gamma in AO order (the DF gradient needs
+    both).
 
     (ij|kl) ~= sum_P B[P,i,j] B[P,k,l]. timings, if given, receives the
     seconds of the j2c metric + whitener ('j2c') and of the 3c rows,
@@ -235,4 +243,5 @@ def df_factor(mol, auxmol, timings=None):
     if timings is not None:
         timings['j2c'] = t1 - t0
         timings['j3c'] = time.perf_counter() - t1
-    return B
+    ao = _to_ao_order(auxmol, B.device)
+    return B, linv_t[ao][:, ao]

@@ -1,7 +1,8 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Eleven kernels carry the DF-RHF/RKS/UKS and in-core paths and the
-conventional RHF gradient (sources in pyscf_tpu_torch/csrc/):
+Fifteen kernels carry the DF-RHF/RKS/UKS and in-core paths, the
+conventional RHF gradient and the DF-RHF/RKS/UHF gradients (sources in
+pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
@@ -12,11 +13,18 @@ conventional RHF gradient (sources in pyscf_tpu_torch/csrc/):
              shell pair and centre
   int2e_ip1  d/dA (ab|cd) rows of one ordered bra (csrc/int2e_ip1.cu)
              class
+  int3c2e_ip d(ij|P)/dA, /dB of one bra class,    (csrc/int3c2e_ip.cu,
+             contracted with Gamma^P_ij            csrc/coulomb_ip.cuh)
+  int2c2e_ip1  d(P|Q)/dP contracted with W_PQ      (csrc/int2c2e_ip1.cu)
   eval_ao    AO values and gradients on points    (csrc/eval_ao.cu)
+  eval_ao_deriv2  the same kernel's deriv 2: with the second derivatives,
+             counted apart
   becke      Becke partition weights of the grid  (csrc/becke.cu)
   xc_rks     density, B3LYP-family functional and (csrc/xc_rks.cu,
              the V_xc half-product per point       csrc/xc_funcs.cuh)
   xc_uks     the same for two spin densities      (csrc/xc_uks.cu)
+  xc_rks_grad  the XC energy's nuclear gradient   (csrc/xc_rks_grad.cu)
+             per AO on a fixed grid
 
 Each wrapper takes float64 (int32 for indices) contiguous tensors on one
 device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
@@ -24,10 +32,12 @@ tensor it launches the kernel on torch.cuda.current_stream() or raises. A
 wrapper adds one to its `launches` count for every kernel launch it makes.
 
 The kernels are compiled at first use with nvcc for sm_90a, one shared
-library per source (three for int2e_ip1.cu, one per bra momentum) with a
-plain C interface loaded by ctypes, into
+library per source (three each for int2e_ip1.cu and int3c2e_ip.cu, one per
+bra momentum) with a plain C interface loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
-checkout builds them once and an edit to a source rebuilds them.
+checkout builds them once and an edit to a source rebuilds them; nvcc's
+output, with ptxas's registers, stack frame and spills per kernel
+instantiation, is kept beside each library as <library>.log.
 """
 import ctypes
 import hashlib
@@ -40,16 +50,17 @@ import torch
 
 from ..dft import gen_grid, numint
 from . import eval_gto
-from .integrals import int1e, int1e_deriv, int2e as int2e_mod, j2e, j3c
+from .integrals import (int1e, int1e_deriv, int2e as int2e_mod, j2e, j3c,
+                        j3c_deriv)
 from .integrals.int1e import sph
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
 _BUILD = os.path.join(_PKG, '_build')
-_HEADERS = ('boys.cuh', 'hermite.cuh', 'int1e.cuh', 'quartet.cuh',
-            'xc_funcs.cuh')
+_HEADERS = ('boys.cuh', 'coulomb_ip.cuh', 'hermite.cuh', 'int1e.cuh',
+            'quartet.cuh', 'xc_funcs.cuh', 'xc_point.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,12 +87,22 @@ _LIBRARIES = {
                + [_P] * 4 + [_I, _P], ()),
     'xc_uks': ('xc_uks.cu', 'pt_xc_uks', [_I] * 3 + [_P] * 3 + [_I]
                + [_P] * 4 + [_I, _P], ()),
+    'int2c2e_ip1': ('int2c2e_ip1.cu', 'pt_int2c2e_ip1', [_I] * 4 + [_P] * 3
+                    + [_I, _I] + [_P] * 6 + [_I] * 3 + [_P] + [_I] * 3 + [_P],
+                    ()),
+    'xc_rks_grad': ('xc_rks_grad.cu', 'pt_xc_rks_grad', [_I] * 3 + [_P] * 3
+                    + [_I] + [_P] * 4 + [_I, _I, _P], ()),
 }
-# int2e_ip1.cu once per bra momentum, so that its instantiations compile in
-# three processes side by side
+# int2e_ip1.cu and int3c2e_ip.cu once per bra momentum, so that their
+# instantiations compile in three processes each, side by side
 _LIBRARIES.update({
     f'int2e_ip1_la{la}': ('int2e_ip1.cu', 'pt_int2e_ip1', _ERI_ARGS,
                           (f'-DPT_LA={la}',)) for la in range(3)})
+_LIBRARIES.update({
+    f'int3c2e_ip_la{la}': ('int3c2e_ip.cu', 'pt_int3c2e_ip',
+                           [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 7
+                           + [_I, _I, _P, _I, _I, _P], (f'-DPT_LA={la}',))
+    for la in range(3)})
 _LIBS = {}      # library -> loaded ctypes function
 
 
@@ -132,6 +153,8 @@ def build():
         if proc.returncode != 0:
             errors.append(f'nvcc failed on {lib}:\n{log}')
         else:
+            with open(so[:-3] + '.log', 'w') as f:
+                f.write(log)
             os.replace(tmp, so)
     if errors:
         raise RuntimeError('\n'.join(errors))
@@ -293,6 +316,74 @@ def int2c2e(aux):
     return out
 
 
+def _aux_offsets(aux):
+    """(function offsets, shell offsets) of the aux classes, with the totals
+    last."""
+    offs, shs = [0], [0]
+    for l, e, _, _ in aux:
+        offs.append(offs[-1] + e.shape[0] * (2 * l + 1))
+        shs.append(shs[-1] + e.shape[0])
+    return offs, shs
+
+
+def int3c2e_ip(la, lb, ea, ca, ra, eb, cb, rb, aux, G):
+    """d(ij|P)/dA and d(ij|P)/dB of n shell pairs of class (la, lb), la <=
+    lb <= 2, against every aux shell, contracted with G: (n, nshells, 6),
+    per pair and aux shell the sums over the block of G times d/dA_xyz, then
+    d/dB_xyz.
+
+    G (n*(2la+1)(2lb+1), naux): rows in the layout of int3c2e's output
+    (grouped aux order); aux as int3c2e's."""
+    dev = _device_of(ea)
+    n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
+    _check_aux(dev, aux)
+    offs, shs = _aux_offsets(aux)
+    ns1 = (2 * la + 1) * (2 * lb + 1)
+    _check(dev, ('G', G, (n * ns1, offs[-1])))
+    if dev.type == 'cpu':
+        return j3c_deriv.int3c2e_ip_plain(la, lb, ea, ca, ra, eb, cb, rb, aux,
+                                          G)
+    out = torch.empty((n, shs[-1], 6), dtype=torch.float64, device=dev)
+    for i, (l, e, c, r) in enumerate(aux):
+        nsx, Kc = e.shape
+        if n and nsx:
+            rc = _fn(f'int3c2e_ip_la{la}')(
+                la, lb, l, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
+                ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
+                nsx, Kc, e.data_ptr(), c.data_ptr(), r.data_ptr(),
+                sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(),
+                sph(l, dev).data_ptr(), G.data_ptr(), offs[-1], offs[i],
+                out.data_ptr(), shs[-1], shs[i], _stream())
+            _raise_on(rc, f'int3c2e_ip({la},{lb}|{l})')
+            int3c2e_ip.launches += 1
+    return out
+
+
+def int2c2e_ip1(aux, W):
+    """d(P|Q)/dR_P of every ordered aux shell pair contracted with W:
+    (nshells, nshells, 3), entry (P, Q) the sum over the block of W times
+    d(P|Q)/dR_P. W (naux, naux) in grouped aux order, symmetric."""
+    dev = _device_of(aux[0][1])
+    _check_aux(dev, aux)
+    offs, shs = _aux_offsets(aux)
+    _check(dev, ('W', W, (offs[-1], offs[-1])))
+    if dev.type == 'cpu':
+        return j3c_deriv.int2c2e_ip1_plain(aux, W)
+    out = torch.empty((shs[-1], shs[-1], 3), dtype=torch.float64, device=dev)
+    for i, (lx, ex, cx, rx) in enumerate(aux):
+        for j, (ly, ey, cy, ry) in enumerate(aux):
+            rc = _fn('int2c2e_ip1')(
+                lx, ly, ex.shape[0], ex.shape[1], ex.data_ptr(),
+                cx.data_ptr(), rx.data_ptr(), ey.shape[0], ey.shape[1],
+                ey.data_ptr(), cy.data_ptr(), ry.data_ptr(),
+                sph(lx, dev).data_ptr(), sph(ly, dev).data_ptr(),
+                W.data_ptr(), offs[-1], offs[i], offs[j], out.data_ptr(),
+                shs[-1], shs[i], shs[j], _stream())
+            _raise_on(rc, f'int2c2e_ip1({lx}|{ly})')
+            int2c2e_ip1.launches += 1
+    return out
+
+
 def _check_quartets(ea, ca, ra, eb, cb, rb, kets):
     """(device, bra pairs n, rows per pair, columns) of a bra class against
     the ket classes kets."""
@@ -410,13 +501,7 @@ def int2e_ip1(la, lb, ea, ca, ra, eb, cb, rb, kets):
     return out
 
 
-def eval_ao(tables, coords, nao, deriv=0):
-    """AO values on coords (n, 3): (n, nao) for deriv 0, (4, n, nao)
-    [value, d/dx, d/dy, d/dz] for deriv 1.
-
-    tables: [(l, exps (ns, K), coeffs (ns, K), centers (ns, 3),
-    ao_off (ns,) int32)] per l-class; every AO column belongs to one shell."""
-    dev = _device_of(coords)
+def _check_tables(dev, tables, coords):
     n = coords.shape[0]
     _check(dev, ('coords', coords, (n, 3)))
     for l, e, c, r, off in tables:
@@ -424,10 +509,16 @@ def eval_ao(tables, coords, nao, deriv=0):
         _check(dev, ('exps', e, (ns, K)), ('coeffs', c, (ns, K)),
                ('centers', r, (ns, 3)))
         _check_index(dev, 'ao_off', off, ns)
-    if dev.type == 'cpu':
-        return eval_gto.eval_ao_plain(tables, coords, nao, deriv)
-    out = torch.empty((4, n, nao) if deriv else (n, nao), dtype=torch.float64,
-                      device=dev)
+    return n
+
+
+def _launch_eval_ao(wrapper, tables, coords, nao, deriv):
+    """One `eval_ao` launch per l-class into a fresh output, counted on
+    wrapper.launches."""
+    dev = coords.device
+    n = coords.shape[0]
+    out = torch.empty((eval_gto.NCOMP[deriv], n, nao) if deriv else (n, nao),
+                      dtype=torch.float64, device=dev)
     for l, e, c, r, off in tables:
         ns, K = e.shape
         if n == 0 or ns == 0:
@@ -436,9 +527,36 @@ def eval_ao(tables, coords, nao, deriv=0):
             l, deriv, n, ns, K, coords.data_ptr(), e.data_ptr(),
             c.data_ptr(), r.data_ptr(), off.data_ptr(), sph(l, dev).data_ptr(),
             out.data_ptr(), nao, _stream())
-        _raise_on(rc, f'eval_ao(l={l})')
-        eval_ao.launches += 1
+        _raise_on(rc, f'eval_ao(l={l}, deriv={deriv})')
+        wrapper.launches += 1
     return out
+
+
+def eval_ao(tables, coords, nao, deriv=0):
+    """AO values on coords (n, 3): (n, nao) for deriv 0, (4, n, nao)
+    [value, d/dx, d/dy, d/dz] for deriv 1; deriv 2 is eval_ao_deriv2's.
+
+    tables: [(l, exps (ns, K), coeffs (ns, K), centers (ns, 3),
+    ao_off (ns,) int32)] per l-class; every AO column belongs to one shell."""
+    if deriv == 2:
+        return eval_ao_deriv2(tables, coords, nao)
+    dev = _device_of(coords)
+    _check_tables(dev, tables, coords)
+    if dev.type == 'cpu':
+        return eval_gto.eval_ao_plain(tables, coords, nao, deriv)
+    return _launch_eval_ao(eval_ao, tables, coords, nao, deriv)
+
+
+def eval_ao_deriv2(tables, coords, nao):
+    """AO values with their first and second derivatives on coords (n, 3):
+    (10, n, nao) [value, x, y, z, xx, xy, xz, yy, yz, zz], the `eval_ao`
+    kernel's deriv 2, counted apart from deriv 0 and 1. tables as
+    eval_ao's."""
+    dev = _device_of(coords)
+    _check_tables(dev, tables, coords)
+    if dev.type == 'cpu':
+        return eval_gto.eval_ao_plain(tables, coords, nao, 2)
+    return _launch_eval_ao(eval_ao_deriv2, tables, coords, nao, 2)
 
 
 def becke(coords, w0, owner, atm_coords, inv_dist, a_adj):
@@ -470,6 +588,9 @@ def becke(coords, w0, owner, atm_coords, inv_dist, a_adj):
 # component of dft/xc.py -> id in csrc/xc_funcs.cuh
 XC_COMPONENT_IDS = {'SLATER': 0, 'VWN5': 1, 'VWN3': 2, 'B88': 3, 'LYP': 4}
 XC_WARPS_PER_BLOCK = 8
+# points and warps per thread block of xc_rks_grad
+XC_GRAD_POINTS = 64
+XC_GRAD_WARPS = 4
 
 
 def _xc_terms(xc, kernel):
@@ -548,8 +669,43 @@ def xc_uks(aod, dmao, weights, xc):
     return vtmp, sums[:2], sums[2]
 
 
+def xc_rks_grad(aod, dmao, weights, xc):
+    """The closed-shell XC energy's nuclear gradient on a fixed grid, per
+    AO, over one block of B points: (g (3, nao), exc), dE_xc/dX_A the sum of
+    g over the AOs on atom A and exc the sum over unmasked points of w e_xc.
+
+    aod (10, B, nao) [value, x, y, z, xx, xy, xz, yy, yz, zz] with dmao =
+    aod[:4] @ dm (4, B, nao) for a GGA; aod (4, B, nao) with dmao =
+    aod[:1] @ dm (1, B, nao) for an LDA; weights (B,)."""
+    dev = _device_of(aod)
+    gga = aod.shape[0] == 10
+    B, nao = aod.shape[1:]
+    nd = 4 if gga else 1
+    _check(dev, ('aod', aod, (10 if gga else 4, B, nao)),
+           ('dmao', dmao, (nd, B, nao)), ('weights', weights, (B,)))
+    if xc.is_gga and not gga:
+        raise ValueError('a GGA functional needs the second AO derivatives '
+                         '(10, B, nao)')
+    if dev.type == 'cpu':
+        return numint.xc_rks_grad_plain(aod, dmao, weights, xc)
+    ids, coeffs = _xc_terms(xc, 'xc_rks_grad')
+    nblk = max(-(-B // XC_GRAD_POINTS), 1)
+    partials = torch.zeros((nblk, 3, nao), dtype=torch.float64, device=dev)
+    exc = torch.zeros(nblk, dtype=torch.float64, device=dev)
+    if B:
+        rc = _fn('xc_rks_grad')(int(gga), B, nao, aod.data_ptr(),
+                                dmao.data_ptr(), weights.data_ptr(),
+                                len(xc.terms), ids, coeffs, partials.data_ptr(),
+                                exc.data_ptr(), XC_GRAD_POINTS,
+                                XC_GRAD_WARPS, _stream())
+        _raise_on(rc, 'xc_rks_grad')
+        xc_rks_grad.launches += 1
+    return partials.sum(dim=0), exc.sum()
+
+
 KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
-           xc_uks, int1e_ip, int1e_iprinv, int2e_ip1)
+           xc_uks, int1e_ip, int1e_iprinv, int2e_ip1, int3c2e_ip, int2c2e_ip1,
+           eval_ao_deriv2, xc_rks_grad)
 
 
 def reset_launches():

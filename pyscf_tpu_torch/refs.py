@@ -40,6 +40,27 @@ live JAX run; with conv_tol 1e-11 and the default conv_tol_grad the JAX
 gradient moved by 5e-9, its SCF's residue). No JAX gradient of benzene is
 recorded: its in-core ERIs alone took the host engine 47 minutes, and
 int2e_ip1 is three of those.
+
+The density-fitted gradients (grad/autodiff.py, jax.grad of a rebuilt
+energy) are the same run with `mol.RHF().density_fit()`, with
+`mol.RKS(xc='b3lypg').density_fit()` and `mf.grids.level = 1`, and, for
+the water cation (charge=1, spin=1), with `mol.UHF().density_fit()`; each
+took 60-70 s of SCF and 200-220 s of gradient on the CPU, and water/sto-3g
+DF-RHF (basis='sto-3g') 28 s and 67 s, too long for the fast tests. The
+DF derivative integrals alone are checked on seeded inputs
+(tests/test_torch_grad_df.py): with mol = water in basis b and auxmol =
+make_auxmol(mol), pairs, auxes = autodiff._build_host_data_cached(mol,
+auxmol) and
+
+  rng = np.random.default_rng(11); C = rng.standard_normal((nao, 3)) * 0.3
+  D = 2 C C^T; a = rng.standard_normal(naux)
+  b = rng.standard_normal((naux, 3, 3)); b = b + b^T
+  W = rng.standard_normal((naux, naux)); W = W + W^T
+
+DF_DERIV_FUNCTIONALS[b] holds jax.jit(jax.grad(f))(X) at X = mol.coords
+for f(X) = gamma . a + sum(O * b) of autodiff._df_intermediates(pairs,
+auxes, naux, X, [D blocks], [[C blocks]]) ('3c') and for f(X) =
+sum(autodiff._j2c(auxes, naux, X) * W) ('2c'), 23-54 s each on the CPU.
 """
 
 BENZENE = '''
@@ -86,3 +107,46 @@ GRAD_WATER_RHF_DEF2SVP = [
     [1.2179834743296348e-12, -4.2878457396487306e-14, -0.018369727076083198],
     [-4.56997935964616e-12, -0.011110437548206509, 0.009184863538075128],
     [3.351995885316638e-12, 0.011110437548247365, 0.009184863538013621]]
+
+# density-fitted gradients, conv_tol 1e-13, conv_tol_grad 1e-9, minao guess
+# water/sto-3g DF-RHF (def2-universal-jkfit)
+E_WATER_DF_RHF_STO3G = -74.9631499176466
+GRAD_WATER_DF_RHF_STO3G = [
+    [3.55419716686979e-14, -3.764766276503906e-12, 0.061032391820871085],
+    [2.3863443043022873e-12, 0.02360133517462487, -0.030516195909422894],
+    [-2.4218862759709644e-12, -0.02360133517086005, -0.030516195911451938]]
+# water/def2-SVP DF-RHF
+E_WATER_DF_RHF_DEF2SVP = -75.96091927371799
+GRAD_WATER_DF_RHF_DEF2SVP = [
+    [-4.294827265160788e-15, -2.1094237467877974e-15, -0.018384450756409522],
+    [4.186820528681439e-15, -0.011107859399779842, 0.009192225378205684],
+    [1.0800673647930924e-16, 0.011107859399783183, 0.009192225378205198]]
+# water/def2-SVP DF-RKS b3lypg, grids level 1 (held fixed: no grid response;
+# the SCF gave E_WATER_DF_RKS_B3LYPG_L1 + 2.7e-13)
+GRAD_WATER_DF_RKS_B3LYPG_L1 = [
+    [-1.8636474711654925e-14, 1.2791226411401624e-12, 0.012266193146710742],
+    [3.1071590564701237e-14, 0.00560723939805801, -0.006209432425517865],
+    [-1.4826376684021847e-14, -0.005607239399337445, -0.006209432427037583]]
+# water cation/def2-SVP DF-UHF (charge 1, spin 1)
+E_WATER_CATION_DF_UHF_DEF2SVP = -75.56222814171319
+GRAD_WATER_CATION_DF_UHF_DEF2SVP = [
+    [1.7117420734445356e-10, 2.9264785039728736e-15, 0.019955197591733004],
+    [-7.595505111330884e-11, 0.030479261773378005, -0.009977598795812228],
+    [-9.521915623114288e-11, -0.030479261773380395, -0.00997759879592482]]
+# the DF derivative integrals on seeded inputs (see the docstring)
+DF_DERIV_FUNCTIONALS = {
+    'sto-3g': {
+        '3c': [[-1.1199517605018836, 15.791546214573735, 11.364175476465403],
+               [-2.3740211893225247, -3.9655174588429625, -3.713335777508342],
+               [3.4939729498244074, -11.826028755730771, -7.650839698957061]],
+        '2c': [[47.62180343215476, -48.96444577655239, 84.16412191142571],
+               [-12.326807668214919, 89.3905905402087, -89.64227038944125],
+               [-35.29499576393984, -40.426144763656296, 5.47814847801547]]},
+    'def2-svp': {
+        '3c': [[-20.655948557571136, -1.7528229286629102, -2.83487781789108],
+               [16.261537853811095, -7.412854546467009, -1.3153449383201732],
+               [4.39441070376002, 9.165677475129929, 4.150222756211255]],
+        '2c': [[-89.9162990465078, -32.3459125228605, -100.1761777167811],
+               [122.45305670573372, 13.864459001249074, 41.804487676729245],
+               [-32.53675765922591, 18.481453521611428, 58.371690040051895]]},
+}

@@ -2,8 +2,9 @@
 against their plain twins.
 
 There is no CUDA compiler or card where the fast tests run, so this file
-compiles csrc/int1e_stv.cu, int2e.cu, int1e_ip.cu, int1e_iprinv.cu and
-int2e_ip1.cu as C++ behind a small stand-in for cuda_runtime.h (the
+compiles csrc/int1e_stv.cu, int2e.cu, int1e_ip.cu, int1e_iprinv.cu,
+int2e_ip1.cu, int3c2e_ip.cu and int2c2e_ip1.cu as C++ behind a small
+stand-in for cuda_runtime.h (the
 qualifiers defined away, a launch turned into a loop over blocks and
 threads) and calls them through the C interface the wrappers use, on
 water/def2-SVP, whose classes reach (dd|dd). It checks the kernels'
@@ -18,10 +19,13 @@ import pytest
 import torch
 
 import pyscf_tpu_torch as tpt
+import numpy as np
+
 from pyscf_tpu_torch import refs
+from pyscf_tpu_torch.df.addons import make_auxmol
 from pyscf_tpu_torch.ops import kernels
 from pyscf_tpu_torch.ops.integrals import (int1e, int1e_deriv, int2e, j2e,
-                                           j3c)
+                                           j3c, j3c_deriv)
 from pyscf_tpu_torch.ops.integrals.int1e import sph
 
 torch.set_num_threads(1)
@@ -51,7 +55,8 @@ void host_launch(int blocks, int threads, F f, A... a) {
 }
 '''
 LIBS = ('int1e_stv', 'int2e', 'int1e_ip', 'int1e_iprinv', 'int2e_ip1_la0',
-        'int2e_ip1_la1', 'int2e_ip1_la2')
+        'int2e_ip1_la1', 'int2e_ip1_la2', 'int3c2e_ip_la0', 'int3c2e_ip_la1',
+        'int3c2e_ip_la2', 'int2c2e_ip1')
 DEV = torch.device('cpu')
 
 
@@ -169,3 +174,48 @@ def test_int2e_ip1(host, water):
         got = _quartets(host[f'int2e_ip1_la{la}'], la, lb, p, kets,
                         torch.empty_like(ref), ref.shape[2])
         _close(got, ref)
+
+
+def _close_contracted(got, ref):
+    """1e-10 x max |value|, the card's limit for the contracted sums."""
+    assert torch.max(torch.abs(got - ref)) <= 1e-10 * ref.abs().max()
+
+
+def test_int3c2e_ip(host, water):
+    """Every bra class of water/def2-SVP against the def2-universal-jkfit
+    aux classes, up to (dd|g), on seeded Gamma rows."""
+    mol, _, _ = water
+    aux = j3c.aux_tables(make_auxmol(mol))
+    offs, shs = kernels._aux_offsets(aux)
+    rng = np.random.default_rng(3)
+    for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
+        n, Ka, Kb = _dims(p)
+        G = torch.as_tensor(rng.standard_normal(
+            (n * (2 * la + 1) * (2 * lb + 1), offs[-1])))
+        out = torch.empty((n, shs[-1], 6), dtype=torch.float64)
+        for i, (l, e, c, r) in enumerate(aux):
+            assert host[f'int3c2e_ip_la{la}'](
+                la, lb, l, n, Ka, Kb, *_ptrs(*p), e.shape[0], e.shape[1],
+                *_ptrs(e, c, r, sph(la, DEV), sph(lb, DEV), sph(l, DEV), G),
+                offs[-1], offs[i], out.data_ptr(), shs[-1], shs[i],
+                None) == 0
+        _close_contracted(out, j3c_deriv.int3c2e_ip_plain(la, lb, *p, aux, G))
+
+
+def test_int2c2e_ip1(host, water):
+    """Every ordered aux class pair of def2-universal-jkfit on water, up to
+    (g|g), on a seeded symmetric W."""
+    mol, _, _ = water
+    aux = j3c.aux_tables(make_auxmol(mol))
+    offs, shs = kernels._aux_offsets(aux)
+    W = np.random.default_rng(4).standard_normal((offs[-1], offs[-1]))
+    W = torch.as_tensor(W + W.T)
+    out = torch.empty((shs[-1], shs[-1], 3), dtype=torch.float64)
+    for i, (lx, ex, cx, rx) in enumerate(aux):
+        for j, (ly, ey, cy, ry) in enumerate(aux):
+            assert host['int2c2e_ip1'](
+                lx, ly, *ex.shape, *_ptrs(ex, cx, rx), *ey.shape,
+                *_ptrs(ey, cy, ry, sph(lx, DEV), sph(ly, DEV), W), offs[-1],
+                offs[i], offs[j], out.data_ptr(), shs[-1], shs[i], shs[j],
+                None) == 0
+    _close_contracted(out, j3c_deriv.int2c2e_ip1_plain(aux, W))

@@ -152,9 +152,18 @@ def test_set_geom_drops_stale_caches(water):
     lambda m: m.RKS(xc='b3lypg').density_fit(),
 ], ids=['rhf', 'uhf', 'rks'])
 def test_df_gradient_raises(build):
-    """No fallback to finite differences or to the in-core path."""
+    """The DF gradient rebuilds the energy from its own intermediates and
+    raises when that misses mf.e_tot by more than 1e-6, as the JAX
+    package's Gradients.kernel does: no result and no fallback to finite
+    differences or to the in-core path."""
     mf = build(tpt.M(atom=refs.WATER, basis='sto-3g', device='cpu'))
-    with pytest.raises(NotImplementedError, match='density-fitted'):
+    if hasattr(mf, 'grids'):
+        mf.grids.level = 1
+    mf.conv_tol = 1e-10
+    mf.kernel()
+    assert mf.converged
+    mf.e_tot += 2e-6
+    with pytest.raises(RuntimeError, match='energy check'):
         mf.nuc_grad_method().kernel()
 
 

@@ -13,7 +13,7 @@ from pyscf_tpu_torch.df.addons import make_auxmol
 from pyscf_tpu_torch.dft import gen_grid, numint, xc
 from pyscf_tpu_torch.ops import eval_gto, kernels
 from pyscf_tpu_torch.ops.integrals import (int1e, int1e_deriv, int2e, j2e,
-                                           j3c)
+                                           j3c, j3c_deriv)
 
 pytestmark = pytest.mark.gpu
 
@@ -220,3 +220,87 @@ def test_df_uks_on_card_launches_xc_uks(water):
     assert mol.device.type == 'cuda' and mf.converged
     assert abs(e - refs.E_WATER_CATION_DF_UKS_B3LYPG_L1) < 1e-8
     assert kernels.launches()['xc_uks'] > 0
+
+
+def test_int3c2e_ip(water):
+    """Every bra class of water/def2-SVP against every aux class, up to
+    (dd|g), on seeded Gamma rows."""
+    mol, auxmol = water
+    aux = j3c.aux_tables(auxmol)
+    naux = auxmol.nao
+    rng = np.random.default_rng(3)
+    for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
+        G = torch.as_tensor(rng.standard_normal(
+            (p[0].shape[0] * (2 * la + 1) * (2 * lb + 1), naux)),
+            device='cuda')
+        got = kernels.int3c2e_ip(la, lb, *p, aux, G)
+        ref = j3c_deriv.int3c2e_ip_plain(la, lb, *p, aux, G)
+        assert torch.max(torch.abs(got - ref)) <= 1e-10 * ref.abs().max()
+
+
+def test_int2c2e_ip1(water):
+    _, auxmol = water
+    aux = j3c.aux_tables(auxmol)
+    W = np.random.default_rng(4).standard_normal((auxmol.nao,) * 2)
+    W = torch.as_tensor(W + W.T, device='cuda')
+    got = kernels.int2c2e_ip1(aux, W)
+    ref = j3c_deriv.int2c2e_ip1_plain(aux, W)
+    assert torch.max(torch.abs(got - ref)) <= 1e-10 * ref.abs().max()
+
+
+@pytest.mark.parametrize('basis', ['def2-svp', 'cc-pvtz'])
+def test_eval_ao_deriv2(water_grid, basis):
+    mol = tpt.M(atom=refs.WATER, basis=basis, device='cuda')
+    tables = eval_gto.ao_tables(mol)
+    kernels.reset_launches()
+    got = kernels.eval_ao(tables, water_grid.coords, mol.nao, 2)
+    assert kernels.launches()['eval_ao_deriv2'] == len(tables)
+    assert kernels.launches()['eval_ao'] == 0
+    ref = eval_gto.eval_ao_plain(tables, water_grid.coords, mol.nao, 2)
+    assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+def test_xc_rks_grad(water, water_grid, xc_code):
+    mol, _ = water
+    f = xc.parse_xc(xc_code)
+    aod = eval_gto.eval_ao(mol, water_grid.coords, 2 if f.is_gga else 1)
+    rng = np.random.default_rng(5)
+    c = torch.as_tensor(rng.standard_normal((mol.nao, 5)) * 0.3,
+                        device='cuda')
+    nd = 4 if f.is_gga else 1
+    dmao = (aod[:nd].reshape(-1, mol.nao) @ (2.0 * c @ c.T)).reshape(
+        nd, -1, mol.nao)
+    g, e = kernels.xc_rks_grad(aod, dmao, water_grid.weights, f)
+    g_ref, e_ref = numint.xc_rks_grad_plain(aod, dmao, water_grid.weights, f)
+    assert torch.max(torch.abs(g - g_ref)) <= 1e-10 * g_ref.abs().max()
+    assert abs(float(e - e_ref)) <= 1e-11 * abs(float(e_ref))
+
+
+@pytest.mark.parametrize('case', ['rhf', 'rks', 'uhf'])
+def test_df_gradient_on_card_launches_its_kernels(water, case):
+    """Water/def2-SVP DF-RHF, DF-RKS b3lypg (grids level 1) and the water
+    cation's DF-UHF against the recorded JAX gradients, 1e-8."""
+    kernels.reset_launches()
+    if case == 'uhf':
+        mf = tpt.M(atom=refs.WATER, basis='def2-svp', charge=1,
+                   spin=1).UHF().density_fit()
+        ref = refs.GRAD_WATER_CATION_DF_UHF_DEF2SVP
+    elif case == 'rks':
+        mf = tpt.M(atom=refs.WATER, basis='def2-svp').RKS(
+            xc='b3lypg').density_fit()
+        mf.grids.level = 1
+        ref = refs.GRAD_WATER_DF_RKS_B3LYPG_L1
+    else:
+        mf = tpt.M(atom=refs.WATER, basis='def2-svp').RHF().density_fit()
+        ref = refs.GRAD_WATER_DF_RHF_DEF2SVP
+    mf.conv_tol = 1e-11
+    mf.conv_tol_grad = 1e-7
+    mf.kernel()
+    assert mf.converged
+    de = mf.nuc_grad_method().kernel()
+    assert np.max(np.abs(de - np.array(ref))) < 1e-8
+    names = ['int1e_ip', 'int1e_iprinv', 'int3c2e_ip', 'int2c2e_ip1']
+    if case == 'rks':
+        names += ['eval_ao_deriv2', 'xc_rks_grad']
+    assert all(kernels.launches()[k] > 0 for k in names)
