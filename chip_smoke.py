@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of pyscf_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
-Drives the port's paths for benzene/def2-SVP and the phenyl radical on
-the card, in order:
+Drives the port's paths for benzene/def2-SVP, the phenyl radical and
+water on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the fifteen CUDA kernels from pyscf_tpu_torch/csrc (nvcc,
+  2. builds the seventeen CUDA kernels from pyscf_tpu_torch/csrc (nvcc,
      sm_90a, one process per library, all at once);
   3. integral kernel phases at the main path's shapes: each kernel against
      its plain PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c
@@ -65,12 +65,40 @@ the card, in order:
      1e-8, central differences within 1e-6; then water/def2-SVP DF-RHF,
      DF-RKS b3lypg (grids level 1) and the water cation's DF-UHF within
      1e-8 of the recorded JAX gradients;
- 16. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 16. the xc_uks_grad phase at the converged phenyl spin density of 9 on
+     its whole grid, block by block: g <= 1e-10 x max|g|, exc <= 1e-11
+     relative;
+ 17. the phenyl radical's DF-UKS b3lypg/def2-SVP gradient, M(...,
+     spin=1).UKS(xc='b3lypg').density_fit() (conv_tol 1e-10,
+     conv_tol_grad 1e-7) and nuc_grad_method().kernel(): the recorded JAX
+     energy within 1e-8 Ha, the energy check within 1e-6, |de_z| < 1e-8,
+     the x -> -x mirror within 1e-8, central differences with the grid
+     held fixed within 1e-6 on the radical carbon's and the para
+     hydrogen's radial coordinates (the moving grid's and the sum rule
+     printed), its kernels launched in that run; warm gradient times and
+     phases, peak memory;
+ 18. the water cation's DF-UKS b3lypg gradient (grids level 1) within 1e-8
+     of the recorded JAX gradient;
+ 19. the int1e_r phase: every ordered class pair of benzene/def2-SVP
+     against its twin, <= 1e-12 x max|value|;
+ 20. water in-core RHF/def2-SVP (minao, conv_tol 1e-11, conv_tol_grad
+     1e-9), dip_moment() within 1e-8 Debye and mulliken_pop() charges
+     within 1e-8 of the recorded JAX values, int1e_r launched;
+ 21. the optimisation path: geomopt.internal.optimize of the phenyl
+     radical from the benzene geometry less one H, DF-UKS b3lypg/def2-SVP
+     forces at conv_tol 1e-10 and conv_tol_grad 1e-7 (the process's first
+     torch.func.jacrev timed apart before it; energy, max|g| and seconds
+     of every step printed): max|g| < 3e-4 within 30 steps, the last
+     energy below the first, the x-mirror within 1e-6 Bohr and |z| <
+     1e-8 Bohr; then analyze(): charges summing to 0 and spin populations
+     to 1 within 1e-8, the dipole printed; int1e_r and xc_uks_grad
+     launched on that path;
+ 22. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
-     xc_rks_grad from 13, the others from 6), then the result line
-     {"ok": true, "device": {...}}.
+     xc_rks_grad from 13, xc_uks_grad from 17, int1e_r from 20, the
+     others from 6), then the result line {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
 import json
@@ -879,12 +907,14 @@ def tight(mf):
 
 
 def fixed_grid(mf0):
-    """A function that makes moved copies of the DF-RKS mean field mf0
-    which keep its grid points and weights, so that their central
-    differences are the fixed-grid gradient; grid=False lets the grid
-    follow the atoms."""
+    """A function that makes moved copies of the DF-RKS or DF-UKS mean
+    field mf0 which keep its grid points and weights, so that their
+    central differences are the fixed-grid gradient; grid=False lets the
+    grid follow the atoms."""
+    kind = 'UKS' if mf0.mo_occ.dim() == 2 else 'RKS'
+
     def build(mol, grid=True):
-        mf = tight(mol.RKS(xc=mf0.xc).density_fit())
+        mf = tight(getattr(mol, kind)(xc=mf0.xc).density_fit())
         if grid:
             mf.grids.coords = mf0.grids.coords
             mf.grids.weights = mf0.grids.weights
@@ -999,21 +1029,28 @@ def df_rhf_grad_path(pt, refs, kernels):
     warm_gradient('DF-RHF', grad)
 
 
-def df_water_gradients(pt, refs):
+def df_water_gradients(pt, refs, names):
     """Water/def2-SVP DF-RHF, DF-RKS b3lypg (grids level 1) and the water
-    cation's DF-UHF against the recorded JAX gradients, 1e-8."""
-    def rks(mol):
-        mf = mol.RKS(xc='b3lypg').density_fit()
-        mf.grids.level = 1
-        return mf
+    cation's DF-UHF and DF-UKS b3lypg (grids level 1), those of `names`,
+    against the recorded JAX gradients, 1e-8."""
+    def ks(kind):
+        def build(mol):
+            mf = getattr(mol, kind)(xc='b3lypg').density_fit()
+            mf.grids.level = 1
+            return mf
+        return build
 
-    cases = (('DF-RHF', {}, lambda m: m.RHF().density_fit(),
-              refs.GRAD_WATER_DF_RHF_DEF2SVP),
-             ('DF-RKS b3lypg', {}, rks, refs.GRAD_WATER_DF_RKS_B3LYPG_L1),
-             ('DF-UHF cation', dict(charge=1, spin=1),
-              lambda m: m.UHF().density_fit(),
-              refs.GRAD_WATER_CATION_DF_UHF_DEF2SVP))
-    for name, kw, build, ref in cases:
+    cation = dict(charge=1, spin=1)
+    cases = {'DF-RHF': ({}, lambda m: m.RHF().density_fit(),
+                        refs.GRAD_WATER_DF_RHF_DEF2SVP),
+             'DF-RKS b3lypg': ({}, ks('RKS'),
+                               refs.GRAD_WATER_DF_RKS_B3LYPG_L1),
+             'DF-UHF cation': (cation, lambda m: m.UHF().density_fit(),
+                               refs.GRAD_WATER_CATION_DF_UHF_DEF2SVP),
+             'DF-UKS b3lypg cation': (cation, ks('UKS'),
+                                      refs.GRAD_WATER_CATION_DF_UKS_B3LYPG_L1)}
+    for name in names:
+        kw, build, ref = cases[name]
         mf = tight(build(pt.M(atom=refs.WATER, basis='def2-svp', **kw)))
         de = mf.run().nuc_grad_method().kernel()
         err = float(np.abs(de - np.array(ref)).max())
@@ -1125,6 +1162,242 @@ def df_grad_phases(pt, kernels, mf, report):
     check(rel_e <= 1e-11, f'xc_rks_grad exc vs plain: {rel_e:.2e} > 1e-11')
 
 
+# ---- DF-UKS forces, the dipole and geometry optimisation ------------------
+
+def xc_uks_grad_phase(kernels, mf, report):
+    """xc_uks_grad against its twin at the converged phenyl DF-UKS spin
+    density on its whole default grid, block by block as uks_grad cuts
+    it: g <= 1e-10 x max|g|, exc <= 1e-11 relative."""
+    from pyscf_tpu_torch.dft import numint
+    from pyscf_tpu_torch.ops import eval_gto
+
+    mol, grids, f = mf.mol, mf.grids, mf.xc_obj
+    nao, npts = mol.nao, grids.size
+    dm = mf.make_rdm1()
+    blk = numint._block_size(npts, nao, 18, mol.device)
+    pairs, e_k, e_p = [], 0.0, 0.0
+    for i in range(0, npts, blk):
+        aod = eval_gto.eval_ao(mol, grids.coords[i:i + blk], 2)
+        dmao = (aod[:4].reshape(-1, nao) @ dm).reshape(2, 4, -1, nao)
+        w = grids.weights[i:i + blk]
+        g_k, ek = kernels.xc_uks_grad(aod, dmao, w, f)
+        g_p, ep = numint.xc_uks_grad_plain(aod, dmao, w, f)
+        pairs.append((g_k, g_p))
+        e_k, e_p = e_k + float(ek), e_p + float(ep)
+        if i == 0:
+            first = (aod, dmao, w)
+    err, scale = max_abs(pairs)
+    rel_e = abs(e_k - e_p) / abs(e_p)
+    aod, dmao, w = first
+    nb = w.shape[0]
+    print(f'xc_uks_grad at the DF-UKS phenyl spin density: {npts} points in '
+          f'blocks of {blk}, exc {e_k:.12f} (rel diff {rel_e:.2e})')
+    # per point and AO 18 reads and ~75 operations; the functional's few
+    # thousand per point are not counted
+    record(report, 'xc_uks_grad', 'pyscf_tpu_torch/csrc/xc_uks_grad.cu',
+           'pyscf_tpu/grad/autodiff.py:228', err,
+           lambda: kernels.xc_uks_grad(aod, dmao, w, f),
+           lambda: numint.xc_uks_grad_plain(aod, dmao, w, f),
+           nbytes(aod, dmao, w) + 8 * 4 * nao * (nb // 64 + 1),
+           75 * nb * nao)
+    check(err <= 1e-10 * scale, f'xc_uks_grad vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
+    check(rel_e <= 1e-11, f'xc_uks_grad exc vs plain: {rel_e:.2e} > 1e-11')
+
+
+def x_mirror(coords):
+    """image[A]: the atom that the mirror x -> -x maps A onto."""
+    flip = coords * np.array([-1.0, 1.0, 1.0])
+    return np.abs(flip[:, None, :] - coords[None, :, :]).max(-1).argmin(1)
+
+
+def df_uks_grad_path(pt, refs, kernels):
+    """The phenyl radical's DF-UKS b3lypg/def2-SVP gradient at full width."""
+    mf, grad, de, launches = df_grad_path(
+        'DF-UKS b3lypg phenyl/def2-SVP + gradient', kernels,
+        lambda: tight(pt.M(atom=refs.PHENYL, basis='def2-svp', spin=1)
+                      .UKS(xc='b3lypg').density_fit()),
+        refs.E_PHENYL_DF_UKS_B3LYPG_DEF2SVP,
+        DF_GRAD_KERNELS + ('eval_ao_deriv2', 'xc_uks_grad'))
+    # planar, with the mirror x -> -x; the grid is held fixed, so the sum
+    # over atoms is the missing grid response
+    out = float(np.abs(de[:, 2]).max())
+    mirror = mirror_defect(mf.mol.coords, de, 0)
+    print(f'|de_z| {out:.3e}  x-mirror defect {mirror:.3e}  |sum_A de[A]| '
+          f'(the missing grid response) {np.abs(de.sum(axis=0)).max():.3e}')
+    check(out < 1e-8, f'DF-UKS gradient: |de_z| {out:.3e} >= 1e-8')
+    check(mirror < 1e-8, f'DF-UKS gradient: x-mirror defect {mirror:.3e}')
+    # the radical carbon's and the para hydrogen's radial coordinates
+    picks = [(0, 1), (8, 1)]
+    build = fixed_grid(mf)
+    fd = central_differences('DF-UKS (grid fixed)', de,
+                             lambda m: build(m).kernel(), mf.mol, picks, 1e-6)
+    fdm = central_differences('DF-UKS (grid moving)', de,
+                              lambda m: build(m, grid=False).kernel(),
+                              mf.mol, picks, None)
+    for a, x in picks:
+        print(f'grid response at ({a},{x}): moving-grid minus fixed-grid '
+              f'central differences {fdm[a, x] - fd[a, x]:.3e}')
+    warm_gradient('DF-UKS', grad)
+    return launches
+
+
+def r_ops(la, lb, pairs):
+    """csrc/int1e_r.cu per primitive pair: the E tables to lb + 1 and, per
+    cartesian pair, three components of 8 operations."""
+    nc = len(_carts(la)) * len(_carts(lb))
+    return float(_prim_pairs(pairs).sum()) * (3 * _e1d_ops(la, lb + 1)
+                                              + nc * (6 + 3 * 8))
+
+
+def int1e_r_phase(pt, refs, kernels, report):
+    """int1e_r over every ordered class pair of benzene/def2-SVP against
+    class_r: <= 1e-12 x max|value|."""
+    from pyscf_tpu_torch.ops.integrals import int1e
+
+    mol = pt.M(atom=refs.BENZENE, basis='def2-svp')
+    classes = int1e.cross_pairs(mol, mol)
+
+    def per_class(fn):
+        return [fn(la, lb, *p) for la, lb, _, _, p in classes]
+
+    k_out, p_out = per_class(kernels.int1e_r), per_class(int1e.class_r)
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    print(f'int1e_r: {len(classes)} ordered class pairs, '
+          f'{sum(p[0].shape[0] for *_, p in classes)} shell pairs')
+    record(report, 'int1e_r', 'pyscf_tpu_torch/csrc/int1e_r.cu',
+           'pyscf_tpu/ops/integrals/int1e.py:93', err,
+           lambda: per_class(kernels.int1e_r),
+           lambda: per_class(int1e.class_r),
+           sum(nbytes(*p) for *_, p in classes) + nbytes(*k_out),
+           sum(r_ops(la, lb, p) for la, lb, _, _, p in classes))
+    check(err <= 1e-12 * scale, f'int1e_r vs plain: {err:.3e} > 1e-12 x '
+          f'{scale:.3e}')
+
+
+def water_analysis_path(pt, refs, kernels):
+    """In-core RHF/def2-SVP water, then dip_moment() and mulliken_pop()
+    against the recorded JAX values: 1e-8 Debye, 1e-8."""
+    def build():
+        mf = pt.M(atom=refs.WATER, basis='def2-svp').RHF()
+        mf.conv_tol = 1e-11
+        mf.conv_tol_grad = 1e-9
+        mf.init_guess = 'minao'
+        return mf
+
+    mf, _, _ = run_path('in-core RHF water/def2-SVP', kernels, ('int2e',),
+                        build)
+    mu = mf.dip_moment()
+    _, chg = mf.mulliken_pop()
+    launches = kernels.launches()
+    err_mu = float(np.abs(mu - np.array(refs.DIP_WATER_RHF_DEF2SVP)).max())
+    err_q = float(np.abs(chg - np.array(refs.CHG_WATER_RHF_DEF2SVP)).max())
+    print(f'water dipole (Debye) {mu.tolist()}  max |mu - mu_ref| '
+          f'{err_mu:.3e}; Mulliken charges {chg.tolist()}  max |q - q_ref| '
+          f'{err_q:.3e}; int1e_r launches {launches["int1e_r"]}')
+    check(err_mu < 1e-8, f'water dipole vs the recorded JAX dipole: '
+          f'{err_mu:.3e} >= 1e-8 Debye')
+    check(err_q < 1e-8, f'water Mulliken charges vs the recorded JAX '
+          f'charges: {err_q:.3e} >= 1e-8')
+    check(launches['int1e_r'] > 0, 'dip_moment: int1e_r never launched')
+    return launches
+
+
+def phenyl_optimisation_path(pt, refs, kernels):
+    """The optimisation path: geomopt.internal.optimize of the phenyl radical
+    with DF-UKS b3lypg/def2-SVP forces from the benzene geometry less one
+    H, then analyze() at the optimised geometry."""
+    from pyscf_tpu_torch.geomopt import internal
+
+    steps, last = [], {}
+
+    def mf_factory(m):
+        t0 = time.perf_counter()
+        mf = tight(m.UKS(xc='b3lypg').density_fit())
+        mf.kernel()
+        check(mf.converged, f'step {len(steps)}: SCF did not converge')
+        gradients = mf.Gradients
+
+        class Logged:
+            """mf.Gradients() whose kernel() prints and keeps the step."""
+            def kernel(self):
+                de = gradients().kernel()
+                torch.cuda.synchronize()
+                steps.append((mf.e_tot, float(np.abs(de).max()),
+                              time.perf_counter() - t0))
+                print(f'step {len(steps)}: E {mf.e_tot:.10f}  max|g| '
+                      f'{steps[-1][1]:.3e}  {steps[-1][2]:.3f} s  cycles '
+                      f'{mf.scf_cycles}', flush=True)
+                return de
+
+        mf.Gradients = Logged
+        last['mf'] = mf
+        return mf
+
+    mol0 = pt.M(atom=refs.PHENYL, basis='def2-svp', spin=1)
+    # the first torch.func call of a process loads its machinery: timed
+    # apart, so that the optimisation's wall below holds only its own work
+    ints = internal.detect_internals(mol0)
+    x0 = torch.as_tensor(mol0.coords)
+    t0 = time.perf_counter()
+    torch.func.jacrev(internal.q_func(*ints))(x0)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.func.jacrev(internal.q_func(*ints))(x0)
+    print(f'Wilson B of {sum(map(len, ints))} internal coordinates by '
+          f'torch.func.jacrev on the CPU: the process\'s first call '
+          f'{first:.3f} s, the next {time.perf_counter() - t0:.4f} s')
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mol, energies = internal.optimize(mf_factory, mol0, gtol=3e-4,
+                                      maxsteps=30)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(steps) == len(energies) <= 30 and steps[-1][1] < 3e-4,
+          f'phenyl optimisation: max|g| {steps[-1][1]:.3e} after '
+          f'{len(steps)} steps')
+    mf = last['mf']
+    check(np.array_equal(mf.mol.coords, mol.coords),
+          'the last mean field is not at the optimised geometry')
+    pop, chg, mu = mf.analyze()
+    _, spin = mf.mulliken_spin_pop()
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    x = mol.coords
+    image = x_mirror(mol0.coords)
+    flip = x[image] * np.array([-1.0, 1.0, 1.0])
+    mirror = float(np.abs(flip - x).max())
+    planar = float(np.abs(x[:, 2]).max())
+    u, v = x[1] - x[0], x[5] - x[0]
+    angle = np.degrees(np.arccos(u @ v / np.linalg.norm(u)
+                                 / np.linalg.norm(v)))
+    in_steps = sum(t for _, _, t in steps)
+    print(f'phenyl optimisation: {len(energies)} steps in {wall:.3f} s '
+          f'({in_steps:.3f} s in the steps\' SCF and gradient, '
+          f'{wall - in_steps:.3f} s in the optimiser: Mole builds, q, B and '
+          f'the back-transformation), '
+          f'E {energies[0]:.10f} -> {energies[-1]:.10f} '
+          f'({energies[-1] - energies[0]:.3e} Ha); C5-C0-C1 at the radical '
+          f'carbon {angle:.4f} deg; x-mirror {mirror:.3e} Bohr, |z| '
+          f'{planar:.3e} Bohr')
+    print(f'analyze: sum of charges {chg.sum():.3e}, of spin populations '
+          f'{spin.sum():.12f}, spin on the radical carbon {spin[0]:.6f}, '
+          f'dipole (Debye) {mu.tolist()}')
+    print(f'launches: {launches}')
+    check(energies[-1] < energies[0], 'phenyl optimisation: the energy rose')
+    check(mirror < 1e-6, f'phenyl optimisation broke the x-mirror: '
+          f'{mirror:.3e} Bohr')
+    check(planar < 1e-8, f'phenyl optimisation left the plane: '
+          f'{planar:.3e} Bohr')
+    check(abs(chg.sum()) < 1e-8, f'Mulliken charges sum to {chg.sum():.3e}')
+    check(abs(spin.sum() - 1.0) < 1e-8,
+          f'spin populations sum to {spin.sum():.12f}')
+    for k in ('int1e_r', 'xc_uks_grad'):
+        check(launches[k] > 0, f'phenyl optimisation: kernel {k} never '
+              'launched')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
@@ -1155,7 +1428,6 @@ def main():
     uks, uks_launches = df_uks_path(pt, refs, kernels)
     launches['xc_uks'] = uks_launches['xc_uks']
     xc_uks_phase(kernels, uks, report)
-    del uks
     torch.cuda.empty_cache()
     deriv_phases(pt, refs, kernels, report)
     torch.cuda.empty_cache()
@@ -1169,7 +1441,19 @@ def main():
     del rks
     torch.cuda.empty_cache()
     df_rhf_grad_path(pt, refs, kernels)
-    df_water_gradients(pt, refs)
+    df_water_gradients(pt, refs, ('DF-RHF', 'DF-RKS b3lypg', 'DF-UHF cation'))
+    torch.cuda.empty_cache()
+    # DF-UKS forces, the dipole and geometry optimisation
+    xc_uks_grad_phase(kernels, uks, report)
+    del uks
+    torch.cuda.empty_cache()
+    launches['xc_uks_grad'] = df_uks_grad_path(pt, refs, kernels)[
+        'xc_uks_grad']
+    df_water_gradients(pt, refs, ('DF-UKS b3lypg cation',))
+    int1e_r_phase(pt, refs, kernels, report)
+    launches['int1e_r'] = water_analysis_path(pt, refs, kernels)['int1e_r']
+    torch.cuda.empty_cache()
+    phenyl_optimisation_path(pt, refs, kernels)
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

@@ -3,16 +3,17 @@
 
     python3 profile_port.py [--runs 10] [--top 12]
 
-Builds the kernels, then for the seven paths of chip_smoke.py (minao guess,
+Builds the kernels, then for the eight paths of chip_smoke.py (minao guess,
 conv_tol 1e-8): benzene/def2-SVP DF-RHF, DF-RKS b3lypg and in-core RHF,
 the phenyl radical's DF-UKS b3lypg/def2-SVP, benzene's in-core RHF
 (conv_tol 1e-11) followed by its analytic gradient, and benzene's DF-RKS
-b3lypg and DF-RHF (conv_tol 1e-10, conv_tol_grad 1e-7) followed by theirs,
-runs each once cold and `--runs` times warm, every run from a fresh Mole,
-and prints the
-median, quartiles, min and max of each phase of mf.timings (and of the
-gradient's timings, prefixed grad_) and of the wall time from M() to the
-energy or gradient (host clock, ended by a synchronize). Then one
+b3lypg and DF-RHF and phenyl's DF-UKS b3lypg (conv_tol 1e-10,
+conv_tol_grad 1e-7) followed by theirs (one geometry step of the phenyl
+optimisation), runs each once cold and `--runs` times warm, every run
+from a fresh Mole, and prints the median, quartiles, min and max of each
+phase of mf.timings (and of the gradient's timings, prefixed grad_) and
+of the wall time from M() to the energy or gradient (host clock, ended by
+a synchronize). Then one
 more warm run of each under torch.profiler prints the device time (the sum
 of the device's own events: kernels, copies and memsets), the wall, the
 device-busy share and the device events that take the most time. The last
@@ -28,7 +29,8 @@ import torch
 
 
 GRADIENT = 'in-core RHF + gradient'
-DF_GRADIENTS = ('DF-RKS b3lypg + gradient', 'DF-RHF + gradient')
+DF_GRADIENTS = ('DF-RKS b3lypg + gradient', 'DF-RHF + gradient',
+                'DF-UKS phenyl + gradient')
 PATHS = {
     'DF-RHF': lambda pt, refs: pt.M(atom=refs.BENZENE, basis='def2-svp')
     .RHF().density_fit(),
@@ -46,6 +48,9 @@ PATHS = {
     DF_GRADIENTS[1]: lambda pt, refs: pt.M(atom=refs.BENZENE,
                                            basis='def2-svp').RHF()
     .density_fit(),
+    DF_GRADIENTS[2]: lambda pt, refs: pt.M(
+        atom=refs.PHENYL, basis='def2-svp', spin=1).UKS(
+        xc='b3lypg').density_fit(),
 }
 
 

@@ -12,6 +12,13 @@ the CPU. A Mole runs on the card unless it is given device='cpu':
         .density_fit().kernel()            # open shell
     e = mol.RHF().kernel()                 # in-core ERIs, no density fitting
     de = mol.RHF().run().nuc_grad_method().kernel()   # (natm, 3) Ha/Bohr
+    mol.RHF().run().analyze()              # Mulliken charges, dipole
+
+    def mf_factory(m):                     # forces of any DF mean field
+        mf = m.UKS(xc='b3lypg').density_fit()
+        mf.kernel()
+        return mf
+    mol_opt, energies = pt.geomopt.internal.optimize(mf_factory, mol)
 """
 from .gto.mole import M, Mole  # noqa: F401
-from . import dft, grad, scf  # noqa: F401
+from . import dft, geomopt, grad, scf  # noqa: F401

@@ -28,6 +28,14 @@ makes of pyscf_tpu/grad/autodiff.py _exc_quadrature, restricted branch):
     gradient integrand summed over the block         (csrc/xc_rks_grad.cu);
                                                      twin xc_rks_grad_plain
 
+and for a spin density (uks_grad; the unrestricted branch,
+autodiff.py:228-245):
+
+    dmao_s = aod[:4] @ dm_s                         one batched torch.matmul
+    rho_s, the three sigmas, their derivatives and  CUDA kernel `xc_uks_grad`
+    the per-AO integrand of both spins               (csrc/xc_uks_grad.cu);
+                                                     twin xc_uks_grad_plain
+
 The grid is not padded, and blocks are sized by
 memory, not by the TPU's budget: on the card one block usually holds the
 whole grid. The AO values are evaluated once per SCF (grid_ao) and reused
@@ -94,24 +102,25 @@ def xc_rks_plain(aod, dmao, weights, xc):
     return vtmp, torch.sum(weights * rho), exc
 
 
-def xc_uks_plain(aod, dmao, weights, xc):
-    """Plain PyTorch twin of the `xc_uks` kernel on one block of B points.
-
-    aod (B, nao) for an LDA or (4, B, nao) for a GGA, dmao = ao @ dm_s
-    stacked (2, B, nao), weights (B,). Returns (vtmp (2, B, nao), n (2,),
-    exc) with n_s = sum w rho_s and exc = sum over unmasked points of
-    w e_xc. The mask and clamps are the JAX package's (numint.py:265-273):
-    rho_a + rho_b > RHO_THR, rho_s >= RHO_THR/2, sigma_ss >= SIGMA_FLOOR,
-    sigma_ab as it is; the five derivatives come from torch.autograd."""
-    gga = aod.dim() == 3
-    ao = aod[0] if gga else aod
+def _spin_densities(ao, ao_grad, dmao):
+    """(rho (2, B), grad rho (2, 3, B) or None, [sigma_aa, sigma_ab,
+    sigma_bb]) of dmao = ao @ dm_s (2, B, nao); ao_grad (3, B, nao) for a
+    GGA, None for an LDA (the sigmas are then zero)."""
     rho = torch.clamp(torch.einsum('sbi,bi->sb', dmao, ao), min=0.0)
-    if gga:
-        grho = 2.0 * torch.einsum('sbi,dbi->sdb', dmao, aod[1:])
-        sig = [torch.einsum('db,db->b', grho[i], grho[j])
-               for i, j in ((0, 0), (0, 1), (1, 1))]
-    else:
-        sig = [torch.zeros_like(rho[0])] * 3
+    if ao_grad is None:
+        return rho, None, [torch.zeros_like(rho[0])] * 3
+    grho = 2.0 * torch.einsum('sbi,dbi->sdb', dmao, ao_grad)
+    return rho, grho, [torch.einsum('db,db->b', grho[i], grho[j])
+                       for i, j in ((0, 0), (0, 1), (1, 1))]
+
+
+def _open_shell_derivs(rho, sig, xc):
+    """(mask, [vrho_a, vrho_b, vsigma_aa, vsigma_ab, vsigma_bb], e_xc) per
+    point of the spin densities rho (2, B) and sig [sigma_aa, sigma_ab,
+    sigma_bb], with the JAX package's mask and clamps (numint.py:265-273):
+    rho_a + rho_b > RHO_THR, rho_s >= RHO_THR/2, sigma_ss >= SIGMA_FLOOR,
+    sigma_ab as it is; the derivatives by torch.autograd at the clamped
+    values."""
     mask = (rho[0] + rho[1]) > RHO_THR
 
     def sf(x, lo):
@@ -124,9 +133,24 @@ def xc_uks_plain(aod, dmao, weights, xc):
         leaves = [x.detach().requires_grad_() for x in args]
         e = xc.exc_density(*leaves)
         grads = torch.autograd.grad(e.sum(), leaves, allow_unused=True)
-    vra, vrb, vsaa, vsab, vsbb = [torch.zeros_like(rho[0]) if g is None
-                                  else g for g in grads]
-    exc = torch.sum(torch.where(mask, weights * e.detach(), 0.0))
+    return mask, [torch.zeros_like(rho[0]) if g is None else g
+                  for g in grads], e.detach()
+
+
+def xc_uks_plain(aod, dmao, weights, xc):
+    """Plain PyTorch twin of the `xc_uks` kernel on one block of B points.
+
+    aod (B, nao) for an LDA or (4, B, nao) for a GGA, dmao = ao @ dm_s
+    stacked (2, B, nao), weights (B,). Returns (vtmp (2, B, nao), n (2,),
+    exc) with n_s = sum w rho_s and exc = sum over unmasked points of
+    w e_xc. The mask and clamps are the JAX package's (numint.py:265-273):
+    rho_a + rho_b > RHO_THR, rho_s >= RHO_THR/2, sigma_ss >= SIGMA_FLOOR,
+    sigma_ab as it is; the five derivatives come from torch.autograd."""
+    gga = aod.dim() == 3
+    ao = aod[0] if gga else aod
+    rho, grho, sig = _spin_densities(ao, aod[1:] if gga else None, dmao)
+    mask, (vra, vrb, vsaa, vsab, vsbb), e = _open_shell_derivs(rho, sig, xc)
+    exc = torch.sum(torch.where(mask, weights * e, 0.0))
     vtmp = []
     for vr, vss, s, o in ((vra, vsaa, 0, 1), (vrb, vsbb, 1, 0)):
         wv = torch.where(mask, weights * vr, 0.0)
@@ -174,18 +198,66 @@ def xc_rks_grad_plain(aod, dmao, weights, xc):
                                                      allow_unused=True)]
     exc = torch.sum(torch.where(mask, weights * e.detach(), 0.0))
     a = torch.where(mask, -2.0 * weights * vrho, 0.0)
-    g = torch.einsum('b,xbi,bi->xi', a, aod[1:4], dm0)
+    bj = None
     if gga:
-        vs = torch.where(sigma > SIGMA_FLOOR, vsigma,
-                         torch.where(sigma == SIGMA_FLOOR, 0.5 * vsigma, 0.0))
+        vs = vsigma * clamp_slope(sigma, SIGMA_FLOOR)
         bj = torch.where(mask, -4.0 * weights * vs, 0.0) * grho     # (3, B)
-        second = {}
-        for k, (i, j) in enumerate(SECOND_DERIVS):
-            second[i, j] = second[j, i] = aod[4 + k]
-        g = g + torch.stack([
-            sum(torch.einsum('b,bi->i', bj[j], aod[1 + x] * dmao[1 + j]
-                             + second[x, j] * dm0) for j in range(3))
-            for x in range(3)])
+    return _grad_rows(aod, dmao, a, bj), exc
+
+
+def clamp_slope(x, lo):
+    """d max(x, lo)/dx as jax.grad takes it: 1 above lo, 1/2 at a tie, 0
+    below."""
+    return (x > lo).to(x.dtype) + 0.5 * (x == lo).to(x.dtype)
+
+
+def _grad_rows(aod, dm_rows, a, bj):
+    """g (3, nao) of one density's coefficients per point, a (B,) and, for
+    a GGA, bj (3, B): sum_b a d_x phi (D phi) + sum_j bj (d_x phi (D d_j
+    phi) + d_x d_j phi (D phi)); dm_rows = aod[:4] @ D (or aod[:1] @ D)."""
+    dm0 = dm_rows[0]
+    g = torch.einsum('b,xbi,bi->xi', a, aod[1:4], dm0)
+    if bj is None:
+        return g
+    second = {}
+    for k, (i, j) in enumerate(SECOND_DERIVS):
+        second[i, j] = second[j, i] = aod[4 + k]
+    return g + torch.stack([
+        sum(torch.einsum('b,bi->i', bj[j], aod[1 + x] * dm_rows[1 + j]
+                         + second[x, j] * dm0) for j in range(3))
+        for x in range(3)])
+
+
+def xc_uks_grad_plain(aod, dmao, weights, xc):
+    """Plain PyTorch twin of the `xc_uks_grad` kernel on one block of B
+    points: the spin-polarized XC energy's nuclear gradient on a fixed
+    grid, per AO.
+
+    aod as xc_rks_grad_plain's; dmao = aod[:4] @ dm_s stacked (2, 4, B,
+    nao), or aod[:1] @ dm_s (2, 1, B, nao) for an LDA; weights (B,).
+    Returns (g (3, nao), exc) with
+      g[x, mu] = sum_s sum_b [a_s d_x phi_mu (D_s phi)_mu + sum_j b_sj
+                 (d_x phi_mu (D_s d_j phi)_mu + d_x d_j phi_mu (D_s phi)_mu)]
+      a_s = -2 w vrho_s,  b_sj = -2 w (2 vsigma_ss g_sj + vsigma_ab g_s'j)
+    over the unmasked points. The mask and clamps are xc_uks_plain's, and a
+    derivative through a clamp is zero where jax.grad gives zero: vrho_s
+    counts above RHO_THR/2, vsigma_ss above SIGMA_FLOOR, half at a tie, not
+    below (pyscf_tpu/grad/autodiff.py:228-245)."""
+    gga = aod.shape[0] == 10
+    rho, grho, sig = _spin_densities(aod[0], aod[1:4] if gga else None,
+                                     dmao[:, 0])
+    mask, (vra, vrb, vsaa, vsab, vsbb), e = _open_shell_derivs(rho, sig, xc)
+    exc = torch.sum(torch.where(mask, weights * e, 0.0))
+    m2w = torch.where(mask, -2.0 * weights, 0.0)
+    g = 0.0
+    for s, o, vr, vss, sss in ((0, 1, vra, vsaa, sig[0]),
+                               (1, 0, vrb, vsbb, sig[2])):
+        a = m2w * (vr * clamp_slope(rho[s], 0.5 * RHO_THR))
+        bj = None
+        if gga:
+            vs = 2.0 * (vss * clamp_slope(sss, SIGMA_FLOOR))
+            bj = m2w * (vs * grho[s] + vsab * grho[o])
+        g = g + _grad_rows(aod, dmao[s], a, bj)
     return g, exc
 
 
@@ -275,6 +347,39 @@ class NumInt:
             t1 = time.perf_counter()
             dmao = (aod[:nd].reshape(-1, nao) @ dm).reshape(nd, -1, nao)
             g_blk, e_blk = kernels.xc_rks_grad(aod, dmao,
+                                               grids.weights[i:i + blk], xc)
+            g += g_blk
+            e = e + e_blk
+            del aod, dmao
+            sync(mol.device)
+            t_ao += t1 - t0
+            t_xc += time.perf_counter() - t1
+        if timings is not None:
+            timings.update(ao2=t_ao, xc_grad=t_xc)
+        return e, g.T
+
+    def uks_grad(self, mol, grids, xc_code, dm, timings=None):
+        """(exc, g (nao, 3)) of a spin density dm (2, nao, nao) on the fixed
+        grid, as rks_grad's: per block the AO values with their second
+        derivatives (kernel `eval_ao` deriv 2; first for an LDA), dmao_s =
+        aod[:4] @ dm_s for both spins as one batched GEMM, and kernel
+        `xc_uks_grad`. timings as rks_grad's ('ao2', 'xc_grad')."""
+        from ..ops import kernels
+        xc = xc_mod.parse_xc(xc_code)
+        gga = xc.is_gga
+        nd = 4 if gga else 1
+        n, nao = grids.size, mol.nao
+        blk = _block_size(n, nao, (10 if gga else 4) + 2 * nd, mol.device)
+        e = 0.0
+        g = torch.zeros((3, nao), dtype=dm.dtype, device=dm.device)
+        t_ao = t_xc = 0.0
+        for i in range(0, n, blk):
+            t0 = time.perf_counter()
+            aod = eval_ao(mol, grids.coords[i:i + blk], 2 if gga else 1)
+            sync(mol.device)
+            t1 = time.perf_counter()
+            dmao = (aod[:nd].reshape(-1, nao) @ dm).reshape(2, nd, -1, nao)
+            g_blk, e_blk = kernels.xc_uks_grad(aod, dmao,
                                                grids.weights[i:i + blk], xc)
             g += g_blk
             e = e + e_blk

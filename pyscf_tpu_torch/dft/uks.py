@@ -11,6 +11,8 @@ with J/K on the DF factor (K from each spin's occupied factor in the cycle)
 or on the in-core ERI tensor, and the XC term from NumInt's spin-polarized
 core (kernel `xc_uks`) over AO values evaluated once per kernel() call.
 The SCF loop is SCF.kernel of scf/hf.py with the cycle of UHF.
+Gradients / nuc_grad_method lead to grad/uks.py: analytic for a
+density-fitted mean field, NotImplementedError otherwise.
 """
 import torch
 
@@ -47,6 +49,5 @@ class UKS(KohnShamDFT, UHF):
         return veff, veff
 
     def Gradients(self):
-        from ..grad.df import XC_UKS_GRAD
-        raise NotImplementedError(
-            f'UKS gradients are not ported: {XC_UKS_GRAD}')
+        from ..grad import uks as uks_grad
+        return uks_grad.Gradients(self)

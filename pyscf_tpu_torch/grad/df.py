@@ -1,4 +1,4 @@
-"""Analytic nuclear gradients of density-fitted RHF, RKS and UHF.
+"""Analytic nuclear gradients of density-fitted RHF, RKS, UHF and UKS.
 
 Counterpart of pyscf_tpu/grad/autodiff.py build_grad_fn (:259) and
 grad_scf (:363). The JAX package takes jax.value_and_grad of an energy
@@ -18,7 +18,8 @@ B and the whitener (L^-1)^T come from the SCF's DF cache (df/df.py), so
 nothing that is not differentiated is recomputed; c, Y, Gamma and W are
 torch GEMMs on mol.device. The derivative integrals are the kernels
 int3c2e_ip and int2c2e_ip1 (ops/integrals/j3c_deriv.py), the XC term the
-kernels eval_ao (deriv 2) and xc_rks_grad (dft/numint.py rks_grad). No
+kernels eval_ao (deriv 2) and xc_rks_grad (dft/numint.py rks_grad) or, for
+two spins, xc_uks_grad (numint.py uks_grad). No
 (3, naux, nao, nao) tensor is built; Gamma is (naux, nao, nao).
 """
 import time
@@ -28,12 +29,6 @@ import torch
 from ..ops.integrals import j3c_deriv
 from ..ops.integrals.j3c import sync
 from .rhf import ao_rows_to_atoms, energy_weighted_dm, grad_1e, grad_nuc
-
-XC_UKS_GRAD = ('DF-UKS gradients need the spin-polarized XC gradient '
-               'integrand kernel xc_uks_grad (the unrestricted branch of '
-               'pyscf_tpu/grad/autodiff.py _exc_quadrature under jax.grad), '
-               'which is not ported')
-
 
 def occupied(mf):
     """(dm, [co per spin], dme, kfac): the total density, the occupied
@@ -78,20 +73,19 @@ def fitted_weights(mf, dm, cos, kfac):
 
 
 def grad_scf(mf, timings=None):
-    """(e_chk, de (natm, 3) numpy in Ha/Bohr) of a converged DF-RHF, DF-RKS
-    or DF-UHF mean field; e_chk is the energy rebuilt from the gradient's
-    own intermediates, for the caller's check against mf.e_tot.
+    """(e_chk, de (natm, 3) numpy in Ha/Bohr) of a converged DF-RHF,
+    DF-RKS, DF-UHF or DF-UKS mean field; e_chk is the energy rebuilt from
+    the gradient's own intermediates, for the caller's check against
+    mf.e_tot.
 
     timings, if given, receives the seconds of the one-electron part
     ('int1e_ip'), of c, Y, Gamma and W ('contract'), of the two derivative
-    integral kernels ('int3c2e_ip', 'int2c2e_ip1') and, for RKS, of the AO
+    integral kernels ('int3c2e_ip', 'int2c2e_ip1') and, for KS, of the AO
     values ('ao2') and the XC gradient ('xc_grad'), each ended by a device
     synchronize."""
     mol = mf.mol
     dev = mol.device
     isks = hasattr(mf, 'xc')
-    if isks and mf.mo_occ.dim() == 2:
-        raise NotImplementedError(XC_UKS_GRAD)
     dm, cos, dme, kfac = occupied(mf)
     t = {}
 
@@ -112,7 +106,11 @@ def grad_scf(mf, timings=None):
              int2c2e_ip1=time.perf_counter() - t3)
     exc = 0.0
     if isks:
-        exc, g = mf._numint.rks_grad(mol, mf.grids, mf.xc, dm, t)
+        if len(cos) == 2:
+            exc, g = mf._numint.uks_grad(mol, mf.grids, mf.xc,
+                                         mf.make_rdm1(), t)
+        else:
+            exc, g = mf._numint.rks_grad(mol, mf.grids, mf.xc, dm, t)
         de += ao_rows_to_atoms(mol, g)
     e_chk = (mol.energy_nuc() + float(torch.sum(mf.get_hcore() * dm))
              + float(e2) + float(exc))

@@ -213,10 +213,12 @@ class Mole:
     def intor(self, name):
         """Integrals by libcint name, on self.device: 'int2e' (the dense
         (nao,)^4 ERI tensor, kernel `int2e`), 'int2e_ip1' (3, nao, nao, nao,
-        nao) and 'int1e_ipovlp', 'int1e_ipkin', 'int1e_ipnuc' (3, nao,
-        nao), the bra-centre derivatives of the gradient."""
-        from ..ops.integrals import int1e_deriv, int2e, j2e
+        nao), 'int1e_ipovlp', 'int1e_ipkin', 'int1e_ipnuc' (3, nao,
+        nao), the bra-centre derivatives of the gradient, and 'int1e_r'
+        (3, nao, nao), the dipole integrals (kernel `int1e_r`)."""
+        from ..ops.integrals import int1e, int1e_deriv, int2e, j2e
         fns = {'int2e': j2e.int2e_dense, 'int2e_ip1': int2e.int2e_ip1,
+               'int1e_r': int1e.int1e_r,
                'int1e_ipovlp': int1e_deriv.int1e_ipovlp,
                'int1e_ipkin': int1e_deriv.int1e_ipkin,
                'int1e_ipnuc': int1e_deriv.int1e_ipnuc}

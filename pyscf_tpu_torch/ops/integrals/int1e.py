@@ -1,12 +1,14 @@
-"""One-electron integrals: overlap, kinetic and nuclear attraction.
+"""One-electron integrals: overlap, kinetic, nuclear attraction and dipole.
 
-Counterpart of pyscf_tpu/ops/integrals/int1e.py: ovlp_chunk, kin_chunk
-and nuc_chunk are the plain PyTorch versions over a flat batch of
-primitive pairs; class_stv folds them into the per-shell-pair sph rows
-that the JAX package's j1e._class_stv returns, and is the plain twin of
-the CUDA kernel int1e_stv (csrc/int1e_stv.cu). int1e_ovlp_cross is the
-(mol x minao) overlap of the minao guess, on the same kernel in S-only
-mode over every shell pair.
+Counterpart of pyscf_tpu/ops/integrals/int1e.py: ovlp_chunk, kin_chunk,
+nuc_chunk and r_chunk are the plain PyTorch versions over a flat batch of
+primitive pairs; class_stv folds the first three into the per-shell-pair
+sph rows that the JAX package's j1e._class_stv returns, and is the plain
+twin of the CUDA kernel int1e_stv (csrc/int1e_stv.cu). int1e_ovlp_cross is
+the (mol x minao) overlap of the minao guess, on the same kernel in S-only
+mode over every shell pair. class_r folds r_chunk the same way and is the
+plain twin of the kernel int1e_r (csrc/int1e_r.cu), which int1e_r runs
+over every ordered shell pair, as the JAX int1e_r (int1e.py:233) does.
 """
 import math
 from functools import lru_cache
@@ -81,6 +83,31 @@ def nuc_chunk(la, lb, a, b, A, B, w, atom_coords, atom_charges):
     return -torch.einsum('m,mpqt,mt->mpq', w * (2.0 * math.pi / p), E3, RZ)
 
 
+def r_chunk(la, lb, a, b, A, B, w):
+    """Dipole <a|r_d|b>, origin at the coordinate origin, for a batch of
+    primitive pairs: (3, m, ncart_a, ncart_b)."""
+    p = a + b
+    E = _dense_e(la, lb + 1, a, b, A, B)
+    sq = torch.sqrt(math.pi / p)
+    ia, jb = _cart_idx(la, lb)
+    S1 = [E[d][..., 0] * sq[..., None, None] for d in range(3)]
+
+    def gsel(M, d):
+        return M[..., ia[:, None, d], jb[None, :, d]]
+
+    def gsel_jp1(M, d):
+        return M[..., ia[:, None, d], jb[None, :, d] + 1]
+
+    out = []
+    for d in range(3):
+        v = gsel_jp1(S1[d], d) + B[:, d, None, None] * gsel(S1[d], d)
+        for dd in range(3):
+            if dd != d:
+                v = v * gsel(S1[dd], dd)
+        out.append(w[:, None, None] * v)
+    return torch.stack(out)
+
+
 @lru_cache(maxsize=None)
 def sph(l, device):
     """Row-major (2l+1, ncart) cart->sph matrix on `device` (contiguous: the
@@ -126,6 +153,43 @@ def class_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords=None,
     return x if with_tv else x[..., 0]
 
 
+def class_r(la, lb, ea, ca, ra, eb, cb, rb):
+    """Sph-folded dipole rows of one shell-pair class, plain PyTorch: (n,
+    (2la+1)(2lb+1), 3) rows of [x, y, z]; the plain twin of the CUDA kernel
+    int1e_r (csrc/int1e_r.cu). Arguments as class_stv's."""
+    n, Ka = ea.shape
+    Kb = eb.shape[1]
+    x = r_chunk(la, lb, *flat_prims(ea, ca, ra, eb, cb, rb))
+    x = x.reshape((3, n, Ka * Kb) + x.shape[2:]).sum(dim=2)
+    Sa, Sb = sph(la, ea.device), sph(lb, ea.device)
+    x = torch.einsum('xmpq,ap,bq->mabx', x, Sa, Sb)
+    return x.reshape(n, Sa.shape[0] * Sb.shape[0], 3)
+
+
+def _place(out, la, lb, ga, gb, blk):
+    """Write the rows blk (nsa*nsb, (2la+1)(2lb+1), ...) of every (ga, gb)
+    shell pair, ga-shell-major, into out[..., mol1 AOs, mol2 AOs]."""
+    dev = out.device
+    ia = (ga.ao_off[:, None] + np.arange(2 * la + 1)).ravel()
+    jb = (gb.ao_off[:, None] + np.arange(2 * lb + 1)).ravel()
+    blk = blk.reshape((ga.nshl, gb.nshl, 2 * la + 1, 2 * lb + 1, -1))
+    blk = blk.permute(4, 0, 2, 1, 3).reshape(-1, ia.size, jb.size)
+    out[..., torch.as_tensor(ia, device=dev)[:, None],
+        torch.as_tensor(jb, device=dev)[None, :]] = blk.squeeze(0)
+
+
+def int1e_r(mol):
+    """Dipole integrals <mu|r|nu>, origin at the coordinate origin: (3, nao,
+    nao) on mol.device, one `int1e_r` launch per ordered class pair over
+    every shell pair (unscreened, as the JAX package's _assemble)."""
+    from .. import kernels
+    out = torch.zeros((3, mol.nao, mol.nao), dtype=torch.float64,
+                      device=mol.device)
+    for la, lb, ga, gb, pairs in cross_pairs(mol, mol):
+        _place(out, la, lb, ga, gb, kernels.int1e_r(la, lb, *pairs))
+    return out
+
+
 def cross_pairs(mol1, mol2):
     """[(la, lb, ga, gb, pair tables)] of every (mol1, mol2) shell pair,
     one entry per class, pairs ordered mol1-shell-major."""
@@ -141,16 +205,11 @@ def cross_pairs(mol1, mol2):
 def int1e_ovlp_cross(mol1, mol2):
     """Overlap between the AO bases of two molecules: (nao1, nao2)."""
     from .. import kernels
-    dev = mol1.device
-    out = torch.zeros((mol1.nao, mol2.nao), dtype=torch.float64, device=dev)
+    out = torch.zeros((mol1.nao, mol2.nao), dtype=torch.float64,
+                      device=mol1.device)
     for la, lb, ga, gb, pairs in cross_pairs(mol1, mol2):
-        ia = (ga.ao_off[:, None] + np.arange(2 * la + 1)).ravel()
-        jb = (gb.ao_off[:, None] + np.arange(2 * lb + 1)).ravel()
-        blk = kernels.int1e_stv(la, lb, *pairs, with_tv=False)
-        blk = blk.reshape(ga.nshl, gb.nshl, 2 * la + 1, 2 * lb + 1)
-        blk = blk.permute(0, 2, 1, 3).reshape(ia.size, jb.size)
-        out[torch.as_tensor(ia, device=dev)[:, None],
-            torch.as_tensor(jb, device=dev)[None, :]] = blk
+        _place(out, la, lb, ga, gb,
+               kernels.int1e_stv(la, lb, *pairs, with_tv=False))
     return out
 
 

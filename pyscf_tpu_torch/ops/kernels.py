@@ -1,8 +1,8 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Fifteen kernels carry the DF-RHF/RKS/UKS and in-core paths, the
-conventional RHF gradient and the DF-RHF/RKS/UHF gradients (sources in
-pyscf_tpu_torch/csrc/):
+Seventeen kernels carry the DF-RHF/RKS/UKS and in-core paths, the
+conventional RHF gradient, the DF-RHF/RKS/UHF/UKS gradients and the
+dipole of the SCF analysis (sources in pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
@@ -25,6 +25,9 @@ pyscf_tpu_torch/csrc/):
   xc_uks     the same for two spin densities      (csrc/xc_uks.cu)
   xc_rks_grad  the XC energy's nuclear gradient   (csrc/xc_rks_grad.cu)
              per AO on a fixed grid
+  xc_uks_grad  the same for two spin densities    (csrc/xc_uks_grad.cu)
+  int1e_r    dipole integrals <a|r|b> per shell  (csrc/int1e_r.cu)
+             pair
 
 Each wrapper takes float64 (int32 for indices) contiguous tensors on one
 device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
@@ -92,6 +95,9 @@ _LIBRARIES = {
                     ()),
     'xc_rks_grad': ('xc_rks_grad.cu', 'pt_xc_rks_grad', [_I] * 3 + [_P] * 3
                     + [_I] + [_P] * 4 + [_I, _I, _P], ()),
+    'xc_uks_grad': ('xc_uks_grad.cu', 'pt_xc_uks_grad', [_I] * 3 + [_P] * 3
+                    + [_I] + [_P] * 4 + [_I, _I, _P], ()),
+    'int1e_r': ('int1e_r.cu', 'pt_int1e_r', [_I] * 5 + [_P] * 10, ()),
 }
 # int2e_ip1.cu and int3c2e_ip.cu once per bra momentum, so that their
 # instantiations compile in three processes each, side by side
@@ -432,6 +438,27 @@ def int2e(la, lb, ea, ca, ra, eb, cb, rb, kets):
     return out
 
 
+def int1e_r(la, lb, ea, ca, ra, eb, cb, rb):
+    """Dipole rows <a|r|b> (origin at the coordinate origin) of n shell
+    pairs: (n, (2la+1)(2lb+1), 3) of [x, y, z]. Arguments as int1e_stv's;
+    any la, lb <= 4."""
+    dev = _device_of(ea)
+    n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
+    if dev.type == 'cpu':
+        return int1e.class_r(la, lb, ea, ca, ra, eb, cb, rb)
+    out = torch.empty((n, (2 * la + 1) * (2 * lb + 1), 3),
+                      dtype=torch.float64, device=dev)
+    if n == 0:
+        return out
+    rc = _fn('int1e_r')(
+        la, lb, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(), ra.data_ptr(),
+        eb.data_ptr(), cb.data_ptr(), rb.data_ptr(), sph(la, dev).data_ptr(),
+        sph(lb, dev).data_ptr(), out.data_ptr(), _stream())
+    _raise_on(rc, f'int1e_r({la},{lb})')
+    int1e_r.launches += 1
+    return out
+
+
 def int1e_ip(la, lb, ea, ca, ra, eb, cb, rb, atom_coords, atom_charges):
     """Bra-centre derivatives of S, T and V of n ordered shell pairs:
     (n, (2la+1)(2lb+1), 9), [ipovlp, ipkin, ipnuc] x [x, y, z] with the
@@ -703,9 +730,42 @@ def xc_rks_grad(aod, dmao, weights, xc):
     return partials.sum(dim=0), exc.sum()
 
 
+def xc_uks_grad(aod, dmao, weights, xc):
+    """The spin-polarized XC energy's nuclear gradient on a fixed grid, per
+    AO, over one block of B points: (g (3, nao), exc), as xc_rks_grad's.
+
+    aod (10, B, nao) with dmao = aod[:4] @ dm_s stacked (2, 4, B, nao) for
+    a GGA; aod (4, B, nao) with dmao = aod[:1] @ dm_s (2, 1, B, nao) for an
+    LDA; weights (B,)."""
+    dev = _device_of(aod)
+    gga = aod.shape[0] == 10
+    B, nao = aod.shape[1:]
+    nd = 4 if gga else 1
+    _check(dev, ('aod', aod, (10 if gga else 4, B, nao)),
+           ('dmao', dmao, (2, nd, B, nao)), ('weights', weights, (B,)))
+    if xc.is_gga and not gga:
+        raise ValueError('a GGA functional needs the second AO derivatives '
+                         '(10, B, nao)')
+    if dev.type == 'cpu':
+        return numint.xc_uks_grad_plain(aod, dmao, weights, xc)
+    ids, coeffs = _xc_terms(xc, 'xc_uks_grad')
+    nblk = max(-(-B // XC_GRAD_POINTS), 1)
+    partials = torch.zeros((nblk, 3, nao), dtype=torch.float64, device=dev)
+    exc = torch.zeros(nblk, dtype=torch.float64, device=dev)
+    if B:
+        rc = _fn('xc_uks_grad')(int(gga), B, nao, aod.data_ptr(),
+                                dmao.data_ptr(), weights.data_ptr(),
+                                len(xc.terms), ids, coeffs,
+                                partials.data_ptr(), exc.data_ptr(),
+                                XC_GRAD_POINTS, XC_GRAD_WARPS, _stream())
+        _raise_on(rc, 'xc_uks_grad')
+        xc_uks_grad.launches += 1
+    return partials.sum(dim=0), exc.sum()
+
+
 KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
            xc_uks, int1e_ip, int1e_iprinv, int2e_ip1, int3c2e_ip, int2c2e_ip1,
-           eval_ao_deriv2, xc_rks_grad)
+           eval_ao_deriv2, xc_rks_grad, xc_uks_grad, int1e_r)
 
 
 def reset_launches():

@@ -44,9 +44,14 @@ int2e_ip1 is three of those.
 The density-fitted gradients (grad/autodiff.py, jax.grad of a rebuilt
 energy) are the same run with `mol.RHF().density_fit()`, with
 `mol.RKS(xc='b3lypg').density_fit()` and `mf.grids.level = 1`, and, for
-the water cation (charge=1, spin=1), with `mol.UHF().density_fit()`; each
-took 60-70 s of SCF and 200-220 s of gradient on the CPU, and water/sto-3g
-DF-RHF (basis='sto-3g') 28 s and 67 s, too long for the fast tests. The
+the water cation (charge=1, spin=1), with `mol.UHF().density_fit()` and
+`mol.UKS(xc='b3lypg').density_fit()` (grids level 1); each took 50-70 s
+of SCF and 140-220 s of gradient on the CPU, and water/sto-3g DF-RHF
+(basis='sto-3g') 28 s and 67 s, too long for the fast tests. The water
+analysis is the in-core RHF/def2-SVP run with conv_tol 1e-11 and
+conv_tol_grad 1e-9, then `mf.dip_moment()` and `mf.mulliken_pop()[1]`
+(60 s on the CPU); the water optimisation is tests/test_grad.py's
+test_internal_coordinate_optimizer run as it stands (50 s). The
 DF derivative integrals alone are checked on seeded inputs
 (tests/test_torch_grad_df.py): with mol = water in basis b and auxmol =
 make_auxmol(mol), pairs, auxes = autodiff._build_host_data_cached(mol,
@@ -133,6 +138,24 @@ GRAD_WATER_CATION_DF_UHF_DEF2SVP = [
     [1.7117420734445356e-10, 2.9264785039728736e-15, 0.019955197591733004],
     [-7.595505111330884e-11, 0.030479261773378005, -0.009977598795812228],
     [-9.521915623114288e-11, -0.030479261773380395, -0.00997759879592482]]
+# water cation/def2-SVP DF-UKS b3lypg (charge 1, spin 1), grids level 1
+# (held fixed); the SCF gave E_WATER_CATION_DF_UKS_B3LYPG_L1 - 1.5e-13
+GRAD_WATER_CATION_DF_UKS_B3LYPG_L1 = [
+    [-6.266935149157756e-11, 5.4251776682168185e-12, 0.049762306582345525],
+    [3.643121253767748e-11, 0.04595624625613754, -0.0249550592626861],
+    [2.6255976985383644e-11, -0.04595624626156123, -0.02495505927044731]]
+# the analysis of in-core RHF/def2-SVP water (minao, conv_tol 1e-11,
+# conv_tol_grad 1e-9): mf.dip_moment() in Debye and mf.mulliken_pop()[1]
+DIP_WATER_RHF_DEF2SVP = [-9.545711891008863e-12, -4.5912401786762926e-12,
+                         2.134576133675371]
+CHG_WATER_RHF_DEF2SVP = [-0.3474845103958631, 0.17374225519873834,
+                         0.17374225519712355]
+# geomopt.internal.optimize of tests/test_grad.py's water (RHF/sto-3g, hcore
+# guess, conv_tol 1e-11, from 'O 0 0 0; H 0 -0.9 0.4; H 0 0.9 0.4'): the
+# energy of every step
+E_WATER_OPT_RHF_STO3G = [-74.92789381482277, -74.95671203427062,
+                         -74.96568740945375, -74.9658982450076,
+                         -74.9659011908348]
 # the DF derivative integrals on seeded inputs (see the docstring)
 DF_DERIV_FUNCTIONALS = {
     'sto-3g': {

@@ -4,8 +4,9 @@ Counterpart of pyscf_tpu/scf/hf.py (SCF, RHF): get_hcore, get_ovlp, the
 'minao' and 'hcore' guesses, density_fit, _get_eri, both branches of
 RHF._fused_veff, and _kernel_staged as `kernel`: one host loop drives the
 cycle functions of scf/fused.py; RHF.Gradients / nuc_grad_method lead to
-grad/rhf.py. Unlike the JAX package, a failing minao guess raises instead
-of falling back to the core-Hamiltonian guess.
+grad/rhf.py; dip_moment, quad_moment, mulliken_pop and analyze are the
+JAX package's analysis (hf.py:559-621). Unlike the JAX package, a failing
+minao guess raises instead of falling back to the core-Hamiltonian guess.
 
 J and K come from the DF factor, or from the dense in-core ERI tensor
 (nao, nao, nao, nao): `_eri` as the caller assigned it, else built once by
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..lib.linalg import canonical_orth, eigh_gen
+from ..lib.parameters import DEBYE
 from ..ops.integrals.j3c import sync
 from . import fused
 
@@ -199,6 +201,77 @@ class SCF:
         timings['scf_loop'] = time.perf_counter() - t3
         self.timings = timings
         return self.e_tot
+
+    # ---- analysis (pyscf_tpu/scf/hf.py:559-621) ----------------------------
+    def dip_moment(self, mol=None, dm=None, unit='Debye'):
+        """Dipole moment (3,) numpy about the coordinate origin: -tr(r dm)
+        of the electrons (mol.intor('int1e_r'), kernel `int1e_r`) plus
+        sum_A Z_A R_A; in Debye unless unit is 'au'."""
+        mol = mol or self.mol
+        if dm is None:
+            dm = self.make_rdm1()
+        el = -torch.einsum('xij,ji->x', mol.intor('int1e_r'), dm)
+        nuc = np.einsum('a,ax->x', np.asarray(mol.charges, dtype=np.float64),
+                        mol.coords)
+        mu = el.cpu().numpy() + nuc
+        if unit.lower().startswith('d'):
+            mu = mu * DEBYE
+        return mu
+
+    def quad_moment(self, mol=None, dm=None):
+        """Traceless quadrupole moment (3, 3) numpy in a.u. about the
+        coordinate origin: q = sum_A Z_A R_A R_A - sum_g w r r rho on the
+        default grid (AO values by kernel `eval_ao`, in blocks), returned
+        as 3/2 q - 1/2 tr(q) I."""
+        from ..dft import gen_grid
+        from ..dft.numint import _block_size
+        from ..ops.eval_gto import eval_ao
+        mol = mol or self.mol
+        if dm is None:
+            dm = self.make_rdm1()
+        grids = gen_grid.Grids(mol).build()
+        n = grids.size
+        blk = _block_size(n, mol.nao, 2, mol.device)
+        el = torch.zeros((3, 3), dtype=torch.float64, device=mol.device)
+        for i in range(0, n, blk):
+            c = grids.coords[i:i + blk]
+            ao = eval_ao(mol, c, 0)
+            rho = torch.einsum('gi,gi->g', ao @ dm, ao)
+            el -= torch.einsum('g,gx,gy,g->xy', grids.weights[i:i + blk], c,
+                               c, rho)
+        z = np.asarray(mol.charges, dtype=np.float64)
+        q = el.cpu().numpy() + np.einsum('a,ax,ay->xy', z, mol.coords,
+                                         mol.coords)
+        return 1.5 * q - 0.5 * np.trace(q) * np.eye(3)
+
+    def mulliken_pop(self, mol=None, dm=None, s=None):
+        """(pop (nao,), chg (natm,)) numpy: the Mulliken populations
+        (dm S)_ii and each atom's charge Z_A less its AOs' populations."""
+        from ..grad.rhf import _ao2atom_map
+        mol = mol or self.mol
+        if dm is None:
+            dm = self.make_rdm1()
+        if s is None:
+            s = self.get_ovlp(mol)
+        pop = torch.einsum('ij,ji->i', dm, s).cpu().numpy()
+        chg = np.array(mol.charges, dtype=float)
+        np.subtract.at(chg, _ao2atom_map(mol), pop)
+        return pop, chg
+
+    def analyze(self):
+        """Print the energy, the Mulliken charges and the dipole; returns
+        (pop, chg, mu) as numpy."""
+        pop, chg = self.mulliken_pop()
+        mu = self.dip_moment()
+        print('SCF summary: E_tot = %.12f  converged = %s'
+              % (self.e_tot, self.converged))
+        print('Mulliken charges:')
+        for ia, c in enumerate(chg):
+            print('  atom %d %-2s  charge % .5f'
+                  % (ia, self.mol.elements_[ia], c))
+        print('Dipole moment (Debye): %.5f %.5f %.5f  |mu| = %.5f'
+              % (*mu, np.linalg.norm(mu)))
+        return pop, chg, mu
 
     def run(self, dm0=None):
         """kernel(dm0), then the mean field itself, so that calls chain as

@@ -1,12 +1,13 @@
 """Unrestricted Hartree-Fock.
 
-Counterpart of pyscf_tpu/scf/uhf.py (UHF) up to its analysis methods: the
+Counterpart of pyscf_tpu/scf/uhf.py (UHF) with its analysis methods: the
 density is a stacked (2, nao, nao) tensor [dm_alpha, dm_beta]; J of the
 total density and K of each spin come from the DF factor (K from each
 spin's occupied factor in the cycle) or from the in-core ERI tensor, as in
 the two branches of UHF._fused_veff. The cycle is scf/fused.py's seed_u,
 cycle_u and finalize_u under SCF.kernel's host loop.
 """
+import numpy as np
 import torch
 
 from ..lib.linalg import canonical_orth, eigh_gen
@@ -85,6 +86,38 @@ class UHF(SCF):
         sz = 0.5 * (na - nb)
         ss = sz * sz + 0.5 * (na + nb) - float(torch.sum(sab * sab))
         return ss, 2 * (ss + 0.25) ** 0.5 if ss > -0.25 else 1.0
+
+    # ---- analysis: the base class's methods on the total density dm_a +
+    # dm_b (pyscf_tpu/scf/uhf.py:154-188) ---------------------------------
+    def dip_moment(self, mol=None, dm=None, unit='Debye'):
+        if dm is None:
+            dm = self.make_rdm1()
+        return super().dip_moment(mol, dm[0] + dm[1], unit)
+
+    def quad_moment(self, mol=None, dm=None):
+        if dm is None:
+            dm = self.make_rdm1()
+        return super().quad_moment(mol, dm[0] + dm[1])
+
+    def mulliken_pop(self, mol=None, dm=None, s=None):
+        if dm is None:
+            dm = self.make_rdm1()
+        return super().mulliken_pop(mol, dm[0] + dm[1], s)
+
+    def mulliken_spin_pop(self, mol=None, dm=None, s=None):
+        """(pop (nao,), spin (natm,)) numpy: the Mulliken populations of
+        the spin density, ((dm_a - dm_b) S)_ii, and their sums per atom,
+        which add up to 2S."""
+        from ..grad.rhf import _ao2atom_map
+        mol = mol or self.mol
+        if dm is None:
+            dm = self.make_rdm1()
+        if s is None:
+            s = self.get_ovlp(mol)
+        pop = torch.einsum('ij,ji->i', dm[0] - dm[1], s).cpu().numpy()
+        spin = np.zeros(mol.natm)
+        np.add.at(spin, _ao2atom_map(mol), pop)
+        return pop, spin
 
     def Gradients(self):
         from ..grad import uhf as uhf_grad

@@ -3,12 +3,12 @@ against their plain twins.
 
 There is no CUDA compiler or card where the fast tests run, so this file
 compiles csrc/int1e_stv.cu, int2e.cu, int1e_ip.cu, int1e_iprinv.cu,
-int2e_ip1.cu, int3c2e_ip.cu and int2c2e_ip1.cu as C++ behind a small
-stand-in for cuda_runtime.h (the
-qualifiers defined away, a launch turned into a loop over blocks and
-threads) and calls them through the C interface the wrappers use, on
-water/def2-SVP, whose classes reach (dd|dd). It checks the kernels'
-arithmetic and indexing, not that nvcc accepts them: that is
+int2e_ip1.cu, int3c2e_ip.cu, int2c2e_ip1.cu and int1e_r.cu as C++ behind
+a small stand-in for cuda_runtime.h (the qualifiers defined away, a
+launch turned into a loop over blocks and threads) and calls them through
+the C interface the wrappers use, on water/def2-SVP, whose classes reach
+(dd|dd), and the dipole kernel on a basis of s to g shells. It checks the
+kernels' arithmetic and indexing, not that nvcc accepts them: that is
 tests/test_torch_kernels.py on the card."""
 import ctypes
 import re
@@ -56,7 +56,7 @@ void host_launch(int blocks, int threads, F f, A... a) {
 '''
 LIBS = ('int1e_stv', 'int2e', 'int1e_ip', 'int1e_iprinv', 'int2e_ip1_la0',
         'int2e_ip1_la1', 'int2e_ip1_la2', 'int3c2e_ip_la0', 'int3c2e_ip_la1',
-        'int3c2e_ip_la2', 'int2c2e_ip1')
+        'int3c2e_ip_la2', 'int2c2e_ip1', 'int1e_r')
 DEV = torch.device('cpu')
 
 
@@ -141,6 +141,32 @@ def test_int1e_ip_and_iprinv(host, water):
             la, lb, n, Ka, Kb, *_ptrs(*p), mol.natm,
             *_ptrs(zr, sph(la, DEV), sph(lb, DEV), out), None) == 0
         _close(out, int1e_deriv.class_iprinv(la, lb, *p, zr))
+
+
+# s to g shells, two of them contracted, for the dipole kernel's classes
+# up to (g|g)
+HOST_BASIS = {'O': [[0, [3.0, 0.6], [0.8, 0.5]], [1, [1.1, 1.0]],
+                    [2, [0.9, 1.0]], [3, [0.7, 0.4], [2.0, 0.7]],
+                    [4, [0.6, 1.0]]],
+              'H': [[0, [1.2, 1.0]], [1, [0.9, 1.0]], [2, [0.5, 1.0]]]}
+
+
+def test_int1e_r(host):
+    """Every ordered class pair of s to g shells on two centres off the
+    origin (so that no class vanishes by parity) against class_r (r_chunk
+    folded to sph rows)."""
+    mol = tpt.M(atom='O 0.1 0.2 -0.3; H 0.3 -0.7 0.6', basis=HOST_BASIS,
+                device='cpu')
+    classes = int1e.cross_pairs(mol, mol)
+    assert len(classes) == 25
+    for la, lb, _, _, p in classes:
+        n, Ka, Kb = _dims(p)
+        out = torch.empty((n, (2 * la + 1) * (2 * lb + 1), 3),
+                          dtype=torch.float64)
+        assert host['int1e_r'](
+            la, lb, n, Ka, Kb, *_ptrs(*p),
+            *_ptrs(sph(la, DEV), sph(lb, DEV), out), None) == 0
+        _close(out, int1e.class_r(la, lb, *p))
 
 
 def _quartets(fn, la, lb, p, kets, out, ncol):

@@ -1,7 +1,7 @@
 """Density-fitted nuclear gradients of pyscf_tpu_torch on the CPU against
-pyscf_tpu: the plain twins of the four kernels the DF gradient adds
-(int3c2e_ip, int2c2e_ip1, eval_ao deriv 2, xc_rks_grad) and the gradient
-of DF-RHF, DF-RKS and DF-UHF end to end.
+pyscf_tpu: the plain twins of the five kernels the DF gradient adds
+(int3c2e_ip, int2c2e_ip1, eval_ao deriv 2, xc_rks_grad, xc_uks_grad) and
+the gradient of DF-RHF, DF-RKS, DF-UHF and DF-UKS end to end.
 
 jax.grad of the JAX package's DF intermediates runs live on H2/sto-3g
 (one bra class, aux l <= 2, ~10 s); on water, whose aux basis reaches
@@ -24,7 +24,7 @@ from pyscf_tpu.grad import autodiff
 from pyscf_tpu.ops.eval_gto import eval_ao as jax_eval_ao
 
 import pyscf_tpu_torch as tpt
-from pyscf_tpu_torch import refs
+from pyscf_tpu_torch import compat, refs
 from pyscf_tpu_torch.df.addons import make_auxmol
 from pyscf_tpu_torch.dft import gen_grid, numint, xc
 from pyscf_tpu_torch.grad.rhf import ao_rows_to_atoms, _ao2atom_map
@@ -188,6 +188,10 @@ CASES = {
     'uhf': (dict(basis='def2-svp', charge=1, spin=1),
             lambda m: m.UHF().density_fit(), refs.E_WATER_CATION_DF_UHF_DEF2SVP,
             refs.GRAD_WATER_CATION_DF_UHF_DEF2SVP),
+    'uks': (dict(basis='def2-svp', charge=1, spin=1),
+            lambda m: m.UKS(xc='b3lypg').density_fit(),
+            refs.E_WATER_CATION_DF_UKS_B3LYPG_L1,
+            refs.GRAD_WATER_CATION_DF_UKS_B3LYPG_L1),
 }
 
 
@@ -208,8 +212,8 @@ def test_df_gradient_matches_recorded_jax(case):
     """mf.nuc_grad_method().kernel() against the JAX gradient recorded in
     refs.py: 1e-8 Ha/Bohr (the SCF here stops at conv_tol_grad 1e-7, the
     reference at 1e-9). DF-RHF and DF-UHF are translationally invariant to
-    1e-9; DF-RKS holds its grid fixed, as the reference does, so its sum
-    is the missing grid response and is not gated."""
+    1e-9; DF-RKS and DF-UKS hold their grid fixed, as the reference does,
+    so their sum is the missing grid response and is not gated."""
     _, _, e_ref, g_ref = CASES[case]
     mf = _converged(case)
     assert abs(mf.e_tot - e_ref) < 1e-9
@@ -218,18 +222,93 @@ def test_df_gradient_matches_recorded_jax(case):
     assert isinstance(de, np.ndarray) and de.shape == (3, 3)
     assert np.max(np.abs(de - np.array(g_ref))) < 1e-8
     phases = {'int1e_ip', 'contract', 'int3c2e_ip', 'int2c2e_ip1'}
-    if case == 'rks':
+    if case in ('rks', 'uks'):
         phases |= {'ao2', 'xc_grad'}
     else:
         assert np.max(np.abs(de.sum(axis=0))) < 1e-9
     assert set(g.timings) == phases
 
 
-def test_df_uks_gradient_raises():
-    """No finite differences and no conventional fallback for DF-UKS: the
-    spin-polarized gradient integrand kernel is missing."""
+def test_incore_uks_gradient_raises():
+    """No finite differences of a UHF energy for a conventional UKS, which
+    is what the reference's non-DF branch computes: the gradient raises
+    and says so."""
     mol = tpt.M(atom=refs.WATER, basis='sto-3g', charge=1, spin=1,
                 device='cpu')
-    mf = mol.UKS(xc='b3lypg').density_fit()
-    with pytest.raises(NotImplementedError, match='xc_uks_grad'):
+    mf = mol.UKS(xc='b3lypg')
+    with pytest.raises(NotImplementedError, match='UHF energy'):
         mf.nuc_grad_method().kernel()
+
+
+@pytest.fixture(scope='module')
+def lih_cation():
+    """(JAX mole, port mole, 400 seeded points and weights, the seeded spin
+    density (2, nao, nao), the index of the point where rho_a sits under
+    its floor RHO_THR/2) on LiH+/sto-3g (s and p shells).
+
+    dm_b is positive semidefinite; dm_a is too, less a rank-one term along
+    the AO values of one point that leaves rho_a = 2e-11 there, so that
+    only the beta spin passes its floor while the total passes the mask."""
+    atom = 'Li 0 0 0; H 0.2 0.1 1.6'
+    jmol = jpt.M(atom=atom, basis='sto-3g', charge=1, spin=1, verbose=0)
+    mol = tpt.M(atom=atom, basis='sto-3g', charge=1, spin=1, device='cpu')
+    rng = np.random.default_rng(17)
+    pts = rng.standard_normal((400, 3)) * 1.5 + np.array([0.1, 0.05, 1.5])
+    w = rng.random(400) * 0.05
+    ca, cb = (rng.standard_normal((mol.nao, 2)) * 0.4 for _ in range(2))
+    dma, dmb = ca @ ca.T, cb @ cb.T
+    p0 = 7
+    phi = eval_gto.eval_ao(mol, torch.as_tensor(pts[p0:p0 + 1]))[0].numpy()
+    r0 = phi @ dma @ phi
+    dma = dma - (r0 - 2e-11) * np.outer(phi, phi) / (phi @ phi) ** 2
+    return jmol, mol, pts, w, np.stack([dma, dmb]), p0
+
+
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+def test_xc_uks_grad_matches_live_jax(lih_cation, xc_code):
+    """The twin of xc_uks_grad with its sum by atom against a live
+    jax.value_and_grad of autodiff._exc_quadrature (unrestricted) on
+    seeded points, weights and spin densities: 1e-10 x max, exc 1e-12
+    relative. At point p0 rho_a is under RHO_THR/2 and rho_b is not:
+    there vrho_a and vsigma_aa drop out and the beta and sigma_ab terms
+    stay, as jax.grad takes them through the clamps."""
+    jmol, mol, pts, w, dm, p0 = lih_cation
+    ao = eval_gto.eval_ao(mol, torch.as_tensor(pts)).numpy()
+    rho = np.einsum('pi,sij,pj->sp', ao, dm, ao)
+    assert 0 < rho[0, p0] < 0.5 * numint.RHO_THR
+    assert rho[:, p0].sum() > 1e3 * numint.RHO_THR
+    f = jax_xc.parse_xc(xc_code)
+    pc, pw = _pad_grid(jnp.asarray(pts), jnp.asarray(w))
+    jexc, ref = jax.jit(jax.value_and_grad(
+        lambda X: autodiff._exc_quadrature(jmol, f, X, jnp.asarray(dm), pc,
+                                           pw, False)))(
+        jnp.asarray(jmol.coords))
+    grids = gen_grid.Grids(mol)
+    grids.coords = torch.as_tensor(pts)
+    grids.weights = torch.as_tensor(w)
+    t = {}
+    exc, g = numint.NumInt().uks_grad(
+        mol, grids, xc_code, compat.spin_density_from_numpy(dm, 'cpu'), t)
+    assert set(t) == {'ao2', 'xc_grad'}
+    _close(ao_rows_to_atoms(mol, g).numpy(), np.asarray(ref), 1e-10)
+    assert abs(float(exc) - float(jexc)) <= 1e-12 * abs(float(jexc))
+
+
+def test_xc_uks_grad_closed_shell_is_xc_rks_grad(water_grid):
+    """Two equal spin densities dm/2 give the closed-shell twin's gradient
+    and energy of dm (1e-12 x max): the spin-polarized integrand reduces
+    to the restricted one."""
+    _, mol, coords, weights = water_grid
+    rng = np.random.default_rng(9)
+    c = rng.standard_normal((mol.nao, 4)) * 0.3
+    dm = torch.as_tensor(2 * c @ c.T)
+    pts = np.ascontiguousarray(coords[::7])
+    aod = eval_gto.eval_ao(mol, torch.as_tensor(pts), deriv=2)
+    dmao = (aod[:4].reshape(-1, mol.nao) @ dm).reshape(4, -1, mol.nao)
+    w = torch.as_tensor(np.ascontiguousarray(weights[::7]))
+    f = xc.parse_xc('b3lypg')
+    g_r, e_r = numint.xc_rks_grad_plain(aod, dmao, w, f)
+    g_u, e_u = numint.xc_uks_grad_plain(aod, 0.5 * torch.stack([dmao, dmao]),
+                                        w, f)
+    _close(g_u.numpy(), g_r.numpy(), 1e-12)
+    assert abs(float(e_u - e_r)) <= 1e-12 * abs(float(e_r))

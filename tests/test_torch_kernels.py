@@ -277,15 +277,54 @@ def test_xc_rks_grad(water, water_grid, xc_code):
     assert abs(float(e - e_ref)) <= 1e-11 * abs(float(e_ref))
 
 
-@pytest.mark.parametrize('case', ['rhf', 'rks', 'uhf'])
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+def test_xc_uks_grad(water, water_grid, xc_code):
+    mol, _ = water
+    f = xc.parse_xc(xc_code)
+    aod = eval_gto.eval_ao(mol, water_grid.coords, 2 if f.is_gga else 1)
+    rng = np.random.default_rng(6)
+    dm = []
+    for _ in range(2):
+        c = torch.as_tensor(rng.standard_normal((mol.nao, 4)) * 0.3,
+                            device='cuda')
+        dm.append(c @ c.T)
+    nd = 4 if f.is_gga else 1
+    dmao = (aod[:nd].reshape(-1, mol.nao) @ torch.stack(dm)).reshape(
+        2, nd, -1, mol.nao)
+    g, e = kernels.xc_uks_grad(aod, dmao, water_grid.weights, f)
+    g_ref, e_ref = numint.xc_uks_grad_plain(aod, dmao, water_grid.weights, f)
+    assert torch.max(torch.abs(g - g_ref)) <= 1e-10 * g_ref.abs().max()
+    assert abs(float(e - e_ref)) <= 1e-11 * abs(float(e_ref))
+
+
+def test_int1e_r(water):
+    """Every ordered class pair of water/def2-SVP; mol.intor('int1e_r')
+    launches one kernel per class pair."""
+    mol, _ = water
+    for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
+        got = kernels.int1e_r(la, lb, *p)
+        ref = int1e.class_r(la, lb, *p)
+        assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+    kernels.reset_launches()
+    assert mol.intor('int1e_r').shape == (3, mol.nao, mol.nao)
+    assert kernels.launches()['int1e_r'] == 9
+
+
+@pytest.mark.parametrize('case', ['rhf', 'rks', 'uhf', 'uks'])
 def test_df_gradient_on_card_launches_its_kernels(water, case):
     """Water/def2-SVP DF-RHF, DF-RKS b3lypg (grids level 1) and the water
-    cation's DF-UHF against the recorded JAX gradients, 1e-8."""
+    cation's DF-UHF and DF-UKS b3lypg (grids level 1) against the
+    recorded JAX gradients, 1e-8."""
     kernels.reset_launches()
     if case == 'uhf':
         mf = tpt.M(atom=refs.WATER, basis='def2-svp', charge=1,
                    spin=1).UHF().density_fit()
         ref = refs.GRAD_WATER_CATION_DF_UHF_DEF2SVP
+    elif case == 'uks':
+        mf = tpt.M(atom=refs.WATER, basis='def2-svp', charge=1,
+                   spin=1).UKS(xc='b3lypg').density_fit()
+        mf.grids.level = 1
+        ref = refs.GRAD_WATER_CATION_DF_UKS_B3LYPG_L1
     elif case == 'rks':
         mf = tpt.M(atom=refs.WATER, basis='def2-svp').RKS(
             xc='b3lypg').density_fit()
@@ -301,6 +340,6 @@ def test_df_gradient_on_card_launches_its_kernels(water, case):
     de = mf.nuc_grad_method().kernel()
     assert np.max(np.abs(de - np.array(ref))) < 1e-8
     names = ['int1e_ip', 'int1e_iprinv', 'int3c2e_ip', 'int2c2e_ip1']
-    if case == 'rks':
-        names += ['eval_ao_deriv2', 'xc_rks_grad']
+    if case in ('rks', 'uks'):
+        names += ['eval_ao_deriv2', f'xc_{case}_grad']
     assert all(kernels.launches()[k] > 0 for k in names)
