@@ -4,8 +4,9 @@
 Drives the port's paths for benzene/def2-SVP, the phenyl radical and
 water on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the seventeen CUDA kernels from pyscf_tpu_torch/csrc (nvcc,
-     sm_90a, one process per library, all at once);
+  2. builds the twenty-one kernel libraries from the seventeen sources of
+     pyscf_tpu_torch/csrc (nvcc, sm_90a, one process per library, all at
+     once);
   3. integral kernel phases at the main path's shapes: each kernel against
      its plain PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c
      rows and (P|Q) <= 1e-12 x max|value|; the whitened factor B <= 1e-10);
@@ -93,12 +94,37 @@ water on the card, in order:
      1e-8 Bohr; then analyze(): charges summing to 0 and spin populations
      to 1 within 1e-8, the dipole printed; int1e_r and xc_uks_grad
      launched on that path;
- 22. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 22. the erf(omega r)/r integral phases at benzene's shapes (omega 0.3):
+     int3c2e_lr and int2c2e_lr against their twins, <= 1e-12 x max|value|;
+     the long-range metric's eigenvalues and Cholesky status printed; the
+     long-range factor B_LR from kernel and plain rows with the same
+     (eigendecomposed) whitener, <= 1e-10 x max|B_LR|;
+ 23. benzene DF-RKS wB97X-V/def2-SVP through the public entry points,
+     dft.RKS(M(...), xc='wb97x-v').density_fit().kernel() (minao, conv_tol
+     1e-8): converged, the energy, the long-range factor's phases and the
+     vv10 launches' seconds and share of scf_loop printed, int3c2e_lr,
+     int2c2e_lr, xc_rks and vv10 launched in that run (no JAX reference
+     exists at this width: the kernels are held by their twins);
+ 24. the vv10 phase at its converged density on the whole grid: E <= 1e-11
+     relative, dE/drho and dE/dg2 <= 1e-11 x max; xc_rks with the WB97
+     component at the same density, as in 5;
+ 25. the phenyl radical's DF-UKS wB97X-V (minao, conv_tol 1e-8): converged,
+     energy and <S^2> printed, xc_uks and vv10 launched; xc_uks with the
+     WB97 component at its spin density, as in 10;
+ 26. int2e_lr over every ordered pair of benzene's classes against its
+     twin, <= 1e-12 x max|value|;
+ 27. water DF-RKS CAM-B3LYP and wB97X-V, the water cation's DF-UKS
+     wB97X-V and water's in-core RKS wB97X-V (def2-SVP, level-1 grids,
+     conv_tol 1e-10) within 1e-8 of the recorded JAX energies, the
+     long-range kernels and vv10 launched;
+ 28. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
-     xc_rks_grad from 13, xc_uks_grad from 17, int1e_r from 20, the
-     others from 6), then the result line {"ok": true, "device": {...}}.
+     xc_rks_grad from 13, xc_uks_grad from 17, int1e_r from 20,
+     int3c2e_lr, int2c2e_lr, vv10 and xc_rks with WB97 from 23, xc_uks
+     with WB97 from 25, int2e_lr from 27's in-core run, the others from
+     6), then the result line {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
 import json
@@ -345,6 +371,29 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def int3c2e_ops(classes, aux):
+    """coulomb_ops of every bra class against every aux class."""
+    aux_nnz = {l: float(_nnz(c).sum()) for l, _, c, _ in aux}
+    ops = 0.0
+    for (la, lb), (_, p) in classes.items():
+        prims = float((_nnz(p[1]) * _nnz(p[4])).sum())
+        for l, e, _, _ in aux:
+            ops += coulomb_ops(la, lb, l, prims, e.shape[0],
+                               prims * aux_nnz[l])
+    return ops
+
+
+def int2c2e_ops(aux):
+    """coulomb_ops of every aux class pair lx <= ly."""
+    ops = 0.0
+    for i, (lx, ex, cx, _) in enumerate(aux):
+        for ly, ey, cy, _ in aux[i:]:
+            prims = float(_nnz(cx).sum())
+            ops += coulomb_ops(lx, 0, ly, prims, ey.shape[0],
+                               prims * float(_nnz(cy).sum()))
+    return ops
+
+
 # ---- phases ---------------------------------------------------------------
 
 def integral_phases(pt, refs, report):
@@ -387,34 +436,22 @@ def integral_phases(pt, refs, report):
 
     rows_k, rows_p = rows(kernels.int3c2e), rows(j3c.int3c2e_plain)
     err, scale = max_abs([(rows_k[c], rows_p[c]) for c in rows_k])
-    aux_nnz = {l: float(_nnz(c).sum()) for l, _, c, _ in aux}
-    ops = 0.0
-    for (la, lb), (_, p) in classes.items():
-        prims = float((_nnz(p[1]) * _nnz(p[4])).sum())
-        for l, e, _, _ in aux:
-            ops += coulomb_ops(la, lb, l, prims, e.shape[0],
-                               prims * aux_nnz[l])
     io = sum(nbytes(*p) for _, p in classes.values()) \
         + sum(nbytes(*a[1:]) for a in aux) + nbytes(*rows_k.values())
     record(report, 'int3c2e', 'pyscf_tpu_torch/csrc/int3c2e.cu',
            'pyscf_tpu/ops/integrals/j3c.py:188', err,
            lambda: rows(kernels.int3c2e), lambda: rows(j3c.int3c2e_plain),
-           io, ops)
+           io, int3c2e_ops(classes, aux))
     check(err <= 1e-12 * scale, f'int3c2e vs plain: {err:.3e} > 1e-12 x '
           f'{scale:.3e}')
 
     jg_k, jg_p = kernels.int2c2e(aux), j3c.int2c2e_plain(aux)
     err, scale = max_abs([(jg_k, jg_p)])
-    ops = 0.0
-    for i, (lx, ex, cx, _) in enumerate(aux):
-        for ly, ey, cy, _ in aux[i:]:
-            prims = float(_nnz(cx).sum())
-            ops += coulomb_ops(lx, 0, ly, prims, ey.shape[0],
-                               prims * float(_nnz(cy).sum()))
     record(report, 'int2c2e', 'pyscf_tpu_torch/csrc/int2c2e.cu',
            'pyscf_tpu/ops/integrals/j3c.py:266', err,
            lambda: kernels.int2c2e(aux), lambda: j3c.int2c2e_plain(aux),
-           sum(nbytes(*a[1:]) for a in aux) + nbytes(jg_k), ops)
+           sum(nbytes(*a[1:]) for a in aux) + nbytes(jg_k),
+           int2c2e_ops(aux))
     check(err <= 1e-12 * scale, f'int2c2e vs plain: {err:.3e} > 1e-12 x '
           f'{scale:.3e}')
 
@@ -493,7 +530,7 @@ def eigh_residual(mf):
 
 
 def grid_xc_phases(pt, kernels, mol, dm, report):
-    from pyscf_tpu_torch.dft import gen_grid, numint, xc
+    from pyscf_tpu_torch.dft import gen_grid
     from pyscf_tpu_torch.ops import eval_gto
 
     tab = gen_grid.gen_atomic_grids(mol)
@@ -530,26 +567,36 @@ def grid_xc_phases(pt, kernels, mol, dm, report):
     check(err <= 1e-13, f'eval_ao vs plain: {err:.3e} > 1e-13')
     del ao_p
 
-    f = xc.parse_xc('b3lypg')
-    dmao = ao_k[0] @ dm
-    vt_k, n_k, e_k = kernels.xc_rks(ao_k, dmao, weights, f)
-    vt_p, n_p, e_p = numint.xc_rks_plain(ao_k, dmao, weights, f)
+    xc_rks_phase(kernels, 'xc_rks', 'b3lypg', ao_k, dm, weights, report)
+
+
+def xc_rks_phase(kernels, name, xc_code, aod, dm, weights, report):
+    """kernel xc_rks with the functional xc_code at the density dm on the
+    AO values aod (4, npts, nao) against its twin: vtmp <= 1e-11 x
+    max|vtmp|, n and exc <= 1e-11 relative; recorded as `name`."""
+    from pyscf_tpu_torch.dft import numint, xc
+
+    f = xc.parse_xc(xc_code)
+    dmao = aod[0] @ dm
+    vt_k, n_k, e_k = kernels.xc_rks(aod, dmao, weights, f)
+    vt_p, n_p, e_p = numint.xc_rks_plain(aod, dmao, weights, f)
     err, scale = max_abs([(vt_k, vt_p)])
     rel_n = abs(float(n_k - n_p)) / abs(float(n_p))
     rel_e = abs(float(e_k - e_p)) / abs(float(e_p))
-    print(f'xc_rks at the DF-RHF density: n {float(n_k):.12f} (rel diff '
-          f'{rel_n:.2e}), exc {float(e_k):.12f} (rel diff {rel_e:.2e})')
+    print(f'{name} ({xc_code}): n {float(n_k):.12f} (rel diff {rel_n:.2e}), '
+          f'exc {float(e_k):.12f} (rel diff {rel_e:.2e})')
+    npts, nao = weights.shape[0], aod.shape[-1]
     # reductions and vtmp: 16 operations per point and AO; the functional's
     # few hundred per point are not counted
-    record(report, 'xc_rks', 'pyscf_tpu_torch/csrc/xc_rks.cu',
+    record(report, name, 'pyscf_tpu_torch/csrc/xc_rks.cu',
            'pyscf_tpu/dft/numint.py:117', err,
-           lambda: kernels.xc_rks(ao_k, dmao, weights, f),
-           lambda: numint.xc_rks_plain(ao_k, dmao, weights, f),
-           nbytes(ao_k, dmao, weights, vt_k), 16 * npts * mol.nao)
-    check(err <= 1e-11 * scale, f'xc_rks vtmp vs plain: {err:.3e} > 1e-11 x '
+           lambda: kernels.xc_rks(aod, dmao, weights, f),
+           lambda: numint.xc_rks_plain(aod, dmao, weights, f),
+           nbytes(aod, dmao, weights, vt_k), 16 * npts * nao)
+    check(err <= 1e-11 * scale, f'{name} vtmp vs plain: {err:.3e} > 1e-11 x '
           f'{scale:.3e}')
     check(rel_n <= 1e-11 and rel_e <= 1e-11,
-          f'xc_rks n/exc vs plain: {rel_n:.2e}, {rel_e:.2e} > 1e-11')
+          f'{name} n/exc vs plain: {rel_n:.2e}, {rel_e:.2e} > 1e-11')
 
 
 def df_rks_path(pt, refs, kernels):
@@ -571,21 +618,26 @@ def df_rks_path(pt, refs, kernels):
     return launches
 
 
-def int2e_phase(pt, refs, kernels, report):
+def int2e_phase(pt, refs, kernels, report, omega=None):
+    """Every ordered pair of benzene's screened classes through the `int2e`
+    kernel and its twin, <= 1e-12 x max; with omega, the erf(omega r)/r
+    quartets, recorded as int2e_lr."""
     from pyscf_tpu_torch.ops.integrals import j2e, j3c
 
+    name = 'int2e_lr' if omega else 'int2e'
     mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device='cuda')
     classes = j3c.screened_pairs(mol)
     kets = j2e._ket_arrays(mol)
 
     def pieces(fn):
-        return [fn(la, lb, *p, kets) for (la, lb), (_, p) in classes.items()]
+        return [fn(la, lb, *p, kets, omega)
+                for (la, lb), (_, p) in classes.items()]
 
     k_out = pieces(kernels.int2e)
     p_out = pieces(j2e.int2e_class_plain)
     err, scale = max_abs(list(zip(k_out, p_out)))
     nrow = sum(p.shape[0] for p in k_out)
-    print(f'int2e: {len(classes)} bra classes x {len(kets)} ket classes, '
+    print(f'{name}: {len(classes)} bra classes x {len(kets)} ket classes, '
           f'stacked rows {nrow} x {k_out[0].shape[1]}, dense (nao)^4 '
           f'{mol.nao ** 4 * 8 / 1e9:.3f} GB')
     del p_out
@@ -596,11 +648,11 @@ def int2e_phase(pt, refs, kernels, report):
                for (la, lb), (_, p) in classes.items())
     ops += sum(pair_e_ops(lc, ld, ket, False) for lc, ld, *ket in kets)
     io = sum(nbytes(*p) for _, p in classes.values()) + nbytes(*k_out)
-    record(report, 'int2e', 'pyscf_tpu_torch/csrc/int2e.cu',
+    record(report, name, 'pyscf_tpu_torch/csrc/int2e.cu',
            'pyscf_tpu/ops/integrals/j2e.py:42', err,
            lambda: pieces(kernels.int2e),
            lambda: pieces(j2e.int2e_class_plain), io, ops, plain_reps=1)
-    check(err <= 1e-12 * scale, f'int2e vs plain: {err:.3e} > 1e-12 x '
+    check(err <= 1e-12 * scale, f'{name} vs plain: {err:.3e} > 1e-12 x '
           f'{scale:.3e}')
 
 
@@ -662,10 +714,10 @@ def df_uks_path(pt, refs, kernels):
     return mf, launches
 
 
-def xc_uks_phase(kernels, mf, report):
+def xc_uks_phase(kernels, mf, report, name='xc_uks', xc_code='b3lypg'):
     from pyscf_tpu_torch.dft import numint, xc
 
-    f = xc.parse_xc('b3lypg')
+    f = xc.parse_xc(xc_code)
     aods, weights = mf._numint.grid_ao(mf.mol, mf.grids, 1, spins=2)
     check(len(aods) == 1, 'the phenyl grid does not fit one block')
     aod, w = aods[0], weights[0]
@@ -675,20 +727,21 @@ def xc_uks_phase(kernels, mf, report):
     err, scale = max_abs([(vt_k, vt_p)])
     rel_n = float(torch.max(torch.abs(n_k - n_p) / torch.abs(n_p)))
     rel_e = abs(float(e_k - e_p)) / abs(float(e_p))
-    print(f'xc_uks at the DF-UKS spin density: n {n_k.tolist()} (rel diff '
-          f'{rel_n:.2e}), exc {float(e_k):.12f} (rel diff {rel_e:.2e})')
+    print(f'{name} ({xc_code}) at the DF-UKS spin density: n {n_k.tolist()} '
+          f'(rel diff {rel_n:.2e}), exc {float(e_k):.12f} (rel diff '
+          f'{rel_e:.2e})')
     npts, nao = w.shape[0], aod.shape[-1]
     # reductions and the two vtmp rows: 30 operations per point and AO;
     # the functional's few thousand per point are not counted
-    record(report, 'xc_uks', 'pyscf_tpu_torch/csrc/xc_uks.cu',
+    record(report, name, 'pyscf_tpu_torch/csrc/xc_uks.cu',
            'pyscf_tpu/dft/numint.py:224', err,
            lambda: kernels.xc_uks(aod, dmao, w, f),
            lambda: numint.xc_uks_plain(aod, dmao, w, f),
            nbytes(aod, dmao, w, vt_k), 30 * npts * nao)
-    check(err <= 1e-11 * scale, f'xc_uks vtmp vs plain: {err:.3e} > 1e-11 x '
+    check(err <= 1e-11 * scale, f'{name} vtmp vs plain: {err:.3e} > 1e-11 x '
           f'{scale:.3e}')
     check(rel_n <= 1e-11 and rel_e <= 1e-11,
-          f'xc_uks n/exc vs plain: {rel_n:.2e}, {rel_e:.2e} > 1e-11')
+          f'{name} n/exc vs plain: {rel_n:.2e}, {rel_e:.2e} > 1e-11')
 
 
 def deriv_phases(pt, refs, kernels, report):
@@ -1398,6 +1451,185 @@ def phenyl_optimisation_path(pt, refs, kernels):
               'launched')
 
 
+# ---- wB97X-V: range-separated DF exchange and VV10 -------------------------
+
+OMEGA = 0.3                 # wB97X-V's (pyscf_tpu_torch/dft/xc_funcs.py)
+# FP64 operations per point pair of csrc/vv10.cu's loop (3 differences, r^2
+# 5, g_i and g_j 4, the sum and product 3, one reciprocal, U, W and V 9)
+VV10_PAIR_OPS = 25
+
+
+def lr_integral_phases(pt, refs, kernels, report):
+    """The erf(omega r)/r rows and metric at benzene's shapes against their
+    twins (<= 1e-12 x max), and the long-range factor: B_LR from kernel and
+    plain rows with the same whitener (<= 1e-10 x max)."""
+    from pyscf_tpu_torch.df.addons import make_auxmol
+    from pyscf_tpu_torch.ops.integrals import j3c
+
+    mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device='cuda')
+    auxmol = make_auxmol(mol)
+    classes = j3c.screened_pairs(mol)
+    aux = j3c.aux_tables(auxmol)
+
+    def rows(fn):
+        return {cls: fn(*cls, *p, aux, OMEGA)
+                for cls, (_, p) in classes.items()}
+
+    rows_k, rows_p = rows(kernels.int3c2e), rows(j3c.int3c2e_plain)
+    err, scale = max_abs([(rows_k[c], rows_p[c]) for c in rows_k])
+    io = sum(nbytes(*p) for _, p in classes.values()) \
+        + sum(nbytes(*a[1:]) for a in aux) + nbytes(*rows_k.values())
+    record(report, 'int3c2e_lr', 'pyscf_tpu_torch/csrc/int3c2e.cu',
+           'pyscf_tpu/ops/integrals/j3c.py:188', err,
+           lambda: rows(kernels.int3c2e), lambda: rows(j3c.int3c2e_plain),
+           io, int3c2e_ops(classes, aux))
+    check(err <= 1e-12 * scale, f'int3c2e_lr vs plain: {err:.3e} > 1e-12 x '
+          f'{scale:.3e}')
+
+    jg_k = kernels.int2c2e(aux, OMEGA)
+    jg_p = j3c.int2c2e_plain(aux, OMEGA)
+    err, scale = max_abs([(jg_k, jg_p)])
+    record(report, 'int2c2e_lr', 'pyscf_tpu_torch/csrc/int2c2e.cu',
+           'pyscf_tpu/ops/integrals/j3c.py:266', err,
+           lambda: kernels.int2c2e(aux, OMEGA),
+           lambda: j3c.int2c2e_plain(aux, OMEGA),
+           sum(nbytes(*a[1:]) for a in aux) + nbytes(jg_k), int2c2e_ops(aux))
+    check(err <= 1e-12 * scale, f'int2c2e_lr vs plain: {err:.3e} > 1e-12 x '
+          f'{scale:.3e}')
+
+    ev = torch.linalg.eigvalsh(jg_k)
+    info = int(torch.linalg.cholesky_ex(jg_k)[1])
+    kept = int((ev > j3c.LINEAR_DEP_THR).sum())
+    print(f'(P|erf|Q) at omega {OMEGA}: eigenvalues {float(ev[0]):.3e} to '
+          f'{float(ev[-1]):.3e}; Cholesky info {info}; whitener keeps '
+          f'{kept} of {ev.shape[0]} (> {j3c.LINEAR_DEP_THR:g})')
+    linv = j3c.whitener(jg_k)
+    B_k = j3c.whitened_factor(mol, auxmol, rows_k, linv)
+    B_p = j3c.whitened_factor(mol, auxmol, rows_p, linv)
+    err, scale = max_abs([(B_k, B_p)])
+    print(f'B_LR: max_abs_err {err:.3e} (same whitener), max |B_LR| '
+          f'{scale:.3e}')
+    check(err <= 1e-10 * scale, f'B_LR (kernels) vs B_LR (plain): {err:.3e} '
+          f'> 1e-10 x {scale:.3e}')
+
+
+def wb97xv_path(pt, refs, kernels, name, build, spin_names):
+    """One wB97X-V SCF through the public entry points with its kernels
+    launched; prints the energy, the phases with the long-range factor's
+    (j2c_lr, j3c_lr) and the vv10 launches' seconds inside scf_loop from
+    their CUDA events, and VV10's share of the loop."""
+    names = ('int1e_stv', 'int3c2e', 'int2c2e', 'int3c2e_lr', 'int2c2e_lr',
+             'eval_ao', 'becke', 'vv10') + spin_names
+    mf, e, launches = run_path(name, kernels, names, build)
+    t = mf.timings
+    print(f'{name}: j2c_lr {t["j2c_lr"]:.4f} s  j3c_lr {t["j3c_lr"]:.4f} s  '
+          f'vv10 {t["vv10"]:.4f} s in {launches["vv10"]} launches, '
+          f'{t["vv10"] / t["scf_loop"]:.3f} of scf_loop; ngrid '
+          f'{mf.grids.size}')
+    return mf, e, launches
+
+
+def benzene_wb97xv_path(pt, refs, kernels):
+    def build():
+        mol = pt.M(atom=refs.BENZENE, basis='def2-svp')
+        mf = pt.dft.RKS(mol, xc='wb97x-v').density_fit()
+        mf.conv_tol = 1e-8
+        mf.init_guess = 'minao'
+        return mf
+
+    mf, e, launches = wb97xv_path(pt, refs, kernels,
+                                  'DF-RKS wb97x-v benzene/def2-SVP', build,
+                                  ('xc_rks',))
+    check(np.isfinite(e) and mf.nlc == 'VV10', 'DF-RKS wb97x-v: no energy')
+    return mf, launches
+
+
+def phenyl_wb97xv_path(pt, refs, kernels):
+    def build():
+        mol = pt.M(atom=refs.PHENYL, basis='def2-svp', spin=1)
+        mf = mol.UKS(xc='wb97x-v').density_fit()
+        mf.conv_tol = 1e-8
+        mf.init_guess = 'minao'
+        return mf
+
+    mf, e, launches = wb97xv_path(pt, refs, kernels,
+                                  'DF-UKS wb97x-v phenyl/def2-SVP', build,
+                                  ('xc_uks',))
+    ss, mult = mf.spin_square()
+    print(f'DF-UKS wb97x-v phenyl: <S^2> {ss!r}  2S+1 {mult!r}')
+    check(np.isfinite(e) and abs(ss - 0.75) < 0.1,
+          f'DF-UKS wb97x-v phenyl: E {e!r}, <S^2> {ss!r}')
+    return mf, launches
+
+
+def vv10_phase(kernels, mf, report):
+    """kernel vv10 at benzene's converged wB97X-V density on its whole grid
+    against the twin: E <= 1e-11 relative, dE/drho and dE/dg2 <= 1e-11 x
+    their largest magnitude."""
+    from pyscf_tpu_torch.dft import vv10
+
+    aods, wblocks = mf._numint.grid_ao(mf.mol, mf.grids, 1)
+    rho, g2, _ = vv10.density_features(aods, mf.make_rdm1())
+    del aods
+    args = (rho, g2, mf.grids.coords, torch.cat(wblocks), mf.nlc_b,
+            mf.nlc_C)
+    e_k, dr_k, dg_k = kernels.vv10(*args)
+    e_p, dr_p, dg_p = vv10.vv10_plain(*args)
+    rel_e = abs(float(e_k - e_p)) / abs(float(e_p))
+    err_r, scale_r = max_abs([(dr_k, dr_p)])
+    err_g, scale_g = max_abs([(dg_k, dg_p)])
+    n = rho.shape[0]
+    m = int((rho > vv10.RHO_CUT).sum())
+    print(f'vv10: {n} points, {m} above RHO_CUT ({m * m:.4e} pairs); E_nlc '
+          f'{float(e_k):.12f} (rel diff {rel_e:.2e}); dE/drho {err_r:.3e} of '
+          f'{scale_r:.3e}; dE/dg2 {err_g:.3e} of {scale_g:.3e}')
+    # inputs read once (coords, rho, g2, weights: 48 B per point) and the
+    # three outputs (24 B per point); the pair loop over the unmasked
+    # points, plus ~60 operations per point for its features and epilogue
+    record(report, 'vv10', 'pyscf_tpu_torch/csrc/vv10.cu',
+           'pyscf_tpu/dft/vv10.py:25', max(err_r, err_g),
+           lambda: kernels.vv10(*args), lambda: vv10.vv10_plain(*args),
+           72 * n, VV10_PAIR_OPS * float(m) * m + 60 * n, plain_reps=1)
+    check(rel_e <= 1e-11, f'vv10 E vs plain: {rel_e:.2e} > 1e-11')
+    check(err_r <= 1e-11 * scale_r and err_g <= 1e-11 * scale_g,
+          f'vv10 derivatives vs plain: {err_r:.3e} of {scale_r:.3e}, '
+          f'{err_g:.3e} of {scale_g:.3e} > 1e-11')
+
+
+def water_rsh_references(pt, refs, kernels):
+    """Water's DF-RKS camb3lyp and wb97x-v, the cation's DF-UKS wb97x-v and
+    water's in-core RKS wb97x-v (def2-SVP, level-1 grids, conv_tol 1e-10)
+    within 1e-8 of the recorded JAX energies; returns the launches of the
+    in-core run (int2e_lr)."""
+    cases = [('DF-RKS camb3lyp', 'camb3lyp', 0, True,
+              refs.E_WATER_DF_RKS_CAMB3LYP_L1),
+             ('DF-RKS wb97x-v', 'wb97x-v', 0, True,
+              refs.E_WATER_DF_RKS_WB97XV_L1),
+             ('DF-UKS wb97x-v cation', 'wb97x-v', 1, True,
+              refs.E_WATER_CATION_DF_UKS_WB97XV_L1),
+             ('in-core RKS wb97x-v', 'wb97x-v', 0, False,
+              refs.E_WATER_RKS_WB97XV_L1)]
+    for name, xc_code, spin, df, ref in cases:
+        kernels.reset_launches()
+        mol = pt.M(atom=refs.WATER, basis='def2-svp', charge=spin, spin=spin)
+        mf = mol.UKS(xc=xc_code) if spin else mol.RKS(xc=xc_code)
+        if df:
+            mf = mf.density_fit()
+        mf.grids.level = 1
+        mf.conv_tol = 1e-10
+        e = mf.kernel()
+        launches = kernels.launches()
+        print(f'water {name}: E - E_ref = {e - ref:.3e}  converged '
+              f'{mf.converged}  cycles {mf.scf_cycles}')
+        check(mf.converged and abs(e - ref) < 1e-8,
+              f'water {name}: |E - E_ref| = {abs(e - ref):.3e}')
+        lr = ('int3c2e_lr', 'int2c2e_lr') if df else ('int2e_lr',)
+        for k in lr + (('vv10',) if xc_code == 'wb97x-v' else ()):
+            check(launches[k] > 0, f'water {name}: kernel {k} never '
+                  'launched')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
@@ -1454,6 +1686,29 @@ def main():
     launches['int1e_r'] = water_analysis_path(pt, refs, kernels)['int1e_r']
     torch.cuda.empty_cache()
     phenyl_optimisation_path(pt, refs, kernels)
+    torch.cuda.empty_cache()
+    # wB97X-V: range-separated DF exchange and VV10
+    lr_integral_phases(pt, refs, kernels, report)
+    rks, rks_launches = benzene_wb97xv_path(pt, refs, kernels)
+    launches.update({k: rks_launches[k] for k in
+                     ('int3c2e_lr', 'int2c2e_lr', 'vv10')})
+    launches['xc_rks_wb97x_v'] = rks_launches['xc_rks']
+    vv10_phase(kernels, rks, report)
+    aods, wblocks = rks._numint.grid_ao(rks.mol, rks.grids, 1)
+    check(len(aods) == 1, 'the benzene grid does not fit one block')
+    xc_rks_phase(kernels, 'xc_rks_wb97x_v', 'wb97x-v', aods[0],
+                 rks.make_rdm1(), wblocks[0], report)
+    del rks, aods, wblocks
+    torch.cuda.empty_cache()
+    uks, uks_launches = phenyl_wb97xv_path(pt, refs, kernels)
+    launches['xc_uks_wb97x_v'] = uks_launches['xc_uks']
+    xc_uks_phase(kernels, uks, report, 'xc_uks_wb97x_v', 'wb97x-v')
+    del uks
+    torch.cuda.empty_cache()
+    int2e_phase(pt, refs, kernels, report, OMEGA)
+    torch.cuda.empty_cache()
+    launches['int2e_lr'] = water_rsh_references(pt, refs, kernels)[
+        'int2e_lr']
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

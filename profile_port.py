@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Phase times and a device profile of the port's paths on one NVIDIA GPU.
 
-    python3 profile_port.py [--runs 10] [--top 12]
+    python3 profile_port.py [--runs 10] [--top 12] [--paths NAME ...]
 
-Builds the kernels, then for the eight paths of chip_smoke.py (minao guess,
+Builds the kernels, then for the ten paths of chip_smoke.py (minao guess,
 conv_tol 1e-8): benzene/def2-SVP DF-RHF, DF-RKS b3lypg and in-core RHF,
 the phenyl radical's DF-UKS b3lypg/def2-SVP, benzene's in-core RHF
-(conv_tol 1e-11) followed by its analytic gradient, and benzene's DF-RKS
+(conv_tol 1e-11) followed by its analytic gradient, benzene's DF-RKS
 b3lypg and DF-RHF and phenyl's DF-UKS b3lypg (conv_tol 1e-10,
 conv_tol_grad 1e-7) followed by theirs (one geometry step of the phenyl
-optimisation), runs each once cold and `--runs` times warm, every run
+optimisation), and benzene's DF-RKS and phenyl's DF-UKS wB97X-V (the
+long-range factor's phases j2c_lr and j3c_lr, and vv10, the seconds of
+the `vv10` launches inside scf_loop from their CUDA events), or for the
+paths named by --paths, runs each once cold and `--runs` times warm, every
+run
 from a fresh Mole, and prints the median, quartiles, min and max of each
 phase of mf.timings (and of the gradient's timings, prefixed grad_) and
 of the wall time from M() to the energy or gradient (host clock, ended by
@@ -51,6 +55,11 @@ PATHS = {
     DF_GRADIENTS[2]: lambda pt, refs: pt.M(
         atom=refs.PHENYL, basis='def2-svp', spin=1).UKS(
         xc='b3lypg').density_fit(),
+    'DF-RKS wb97x-v': lambda pt, refs: pt.dft.RKS(
+        pt.M(atom=refs.BENZENE, basis='def2-svp'), xc='wb97x-v').density_fit(),
+    'DF-UKS wb97x-v phenyl': lambda pt, refs: pt.M(
+        atom=refs.PHENYL, basis='def2-svp', spin=1).UKS(
+        xc='wb97x-v').density_fit(),
 }
 
 
@@ -111,6 +120,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--runs', type=int, default=10)
     ap.add_argument('--top', type=int, default=12)
+    ap.add_argument('--paths', nargs='+', choices=list(PATHS),
+                    default=list(PATHS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: profile_port.py measures '
@@ -125,7 +136,7 @@ def main():
     print(card)
     print(f'kernel build: {kernels.build():.1f} s')
     out = {'card': card}
-    for name in PATHS:
+    for name in args.paths:
         cold, e, ncyc = one_run(pt, refs, name)
         runs = [one_run(pt, refs, name)[0] for _ in range(args.runs)]
         print(f'{name}: E = {e!r}, {ncyc} cycles; cold run '

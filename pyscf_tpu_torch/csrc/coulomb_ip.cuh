@@ -128,7 +128,7 @@ __device__ __forceinline__ void coulomb_ip_block(
       ket_fold<L1 + 1, LC, 0>(
           p, (a * A[0] + b * B[0]) / p, (a * A[1] + b * B[1]) / p,
           (a * A[2] + b * B[2]) / p, Kc, ec, cc, C, 1, &zero, &one, C, Sc,
-          &one, 0, Y);
+          &one, 0, 0.0, Y);
       if constexpr (WITH_A) {
         bra_contract<LA + 1, LE, LB, DC>(2.0 * a * w, Ex, Ey, Ez, Y, accp);
         if constexpr (LA > 0) {

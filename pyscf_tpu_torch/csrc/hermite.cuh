@@ -108,6 +108,19 @@ __device__ __forceinline__ void hermite_R(double p, double X, double Y,
   }
 }
 
+// The range-separated substitution of the JAX package for erf(omega r)/r:
+// theta = omega^2 / (omega^2 + rho), rho -> rho theta, pref -> pref
+// sqrt(theta); nothing for omega = 0.
+__device__ __forceinline__ void lr_scale(double omega, double& rho,
+                                         double& pref) {
+  if (omega > 0.0) {
+    const double w2 = omega * omega;
+    const double theta = w2 / (w2 + rho);
+    rho = rho * theta;
+    pref = pref * sqrt(theta);
+  }
+}
+
 // Coulomb integrals (ab|c) of one bra shell pair (a on A, b on B) with one
 // single-centre ket shell c on C, contracted over every primitive, in real
 // solid harmonics: res[((sa*(2LB+1)+sb)*(2LC+1)+sc]. Primitives with a zero
@@ -119,12 +132,18 @@ __device__ __forceinline__ void hermite_R(double p, double X, double Y,
 // Y[tuv1][sc] = sum_c pref * sum_tuv2 E_c[sc][tuv2] (-1)^|tuv2| R[tuv1+tuv2],
 // then contracted with the bra's E tables into cartesian accumulators; the
 // bra's cart->sph transform is applied once at the end.
+//
+// omega > 0 gives the erf(omega r)/r attenuated (long-range) integrals of
+// a range-separated functional's K (pyscf_tpu/ops/integrals/j3c.py:235-238,
+// :274-277): rho -> rho theta and pref -> pref sqrt(theta), theta =
+// omega^2 / (omega^2 + rho) (lr_scale); omega = 0 is the full operator.
 template <int LA, int LB, int LC>
 __device__ __forceinline__ void coulomb_block(
     int Ka, const double* ea, const double* ca, const double* A,
     int Kb, const double* eb, const double* cb, const double* B,
     int Kc, const double* ec, const double* cc, const double* C,
-    const double* Sa, const double* Sb, const double* Sc, double* res) {
+    const double* Sa, const double* Sb, const double* Sc, double omega,
+    double* res) {
   constexpr int L1 = LA + LB;
   constexpr int L = L1 + LC;
   constexpr int NCA = n_cart(LA), NCB = n_cart(LB), NCC = n_cart(LC);
@@ -167,10 +186,12 @@ __device__ __forceinline__ void coulomb_block(
         const double c = ec[kc];
         const double pp = p * c;
         const double ps = p + c;
-        const double omega = pp / ps;
+        double rho = pp / ps;
         // 2 pi^{5/2} / (p c sqrt(p + c))
-        const double pref = 34.986836655249725 / (pp * sqrt(ps)) * cck;
-        hermite_R<L>(omega, Px - C[0], Py - C[1], Pz - C[2], R);
+        double pref = 34.986836655249725 / (pp * sqrt(ps));
+        lr_scale(omega, rho, pref);
+        pref = pref * cck;
+        hermite_R<L>(rho, Px - C[0], Py - C[1], Pz - C[2], R);
         e1d<LC, 0>(c, 0.0, 0.0, Ec);   // same table in x, y and z
 #pragma unroll 1
         for (int sc = 0; sc < DC; ++sc) {

@@ -28,7 +28,7 @@ __global__ void __launch_bounds__(128) int2c2e_kernel(
     int Ky, const double* __restrict__ ey, const double* __restrict__ cy,
     const double* __restrict__ ry, const double* __restrict__ Sx,
     const double* __restrict__ Sy, double* __restrict__ out, int ld,
-    int offx, int offy) {
+    int offx, int offy, double omega) {
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long)nsx * nsy) return;
   const int P = (int)(idx / nsy);
@@ -40,7 +40,7 @@ __global__ void __launch_bounds__(128) int2c2e_kernel(
   coulomb_block<LX, 0, LY>(Kx, ex + (size_t)P * Kx, cx + (size_t)P * Kx, A,
                            1, &zero, &one, A, Ky, ey + (size_t)Q * Ky,
                            cy + (size_t)Q * Ky, ry + 3 * (size_t)Q, Sx, &one,
-                           Sy, res);
+                           Sy, omega, res);
   for (int sx = 0; sx < DX; ++sx) {
     for (int sy = 0; sy < DY; ++sy) {
       const double v = res[sx * DY + sy];
@@ -57,15 +57,17 @@ static int launch(int nsx, int Kx, const double* ex, const double* cx,
                   const double* rx, int nsy, int Ky, const double* ey,
                   const double* cy, const double* ry, const double* Sx,
                   const double* Sy, double* out, int ld, int offx, int offy,
-                  cudaStream_t stream) {
+                  double omega, cudaStream_t stream) {
   const int threads = 128;
   const long total = (long)nsx * nsy;
   const int blocks = (int)((total + threads - 1) / threads);
   int2c2e_kernel<LX, LY><<<blocks, threads, 0, stream>>>(
-      nsx, Kx, ex, cx, rx, nsy, Ky, ey, cy, ry, Sx, Sy, out, ld, offx, offy);
+      nsx, Kx, ex, cx, rx, nsy, Ky, ey, cy, ry, Sx, Sy, out, ld, offx, offy,
+      omega);
   return (int)cudaGetLastError();
 }
 
+// omega > 0: the erf(omega r)/r attenuated metric (0: the full operator).
 // Returns cudaGetLastError() after the launch, or -1 for a class pair that
 // has no instantiation (lx <= ly <= 4).
 extern "C" int pt_int2c2e(int lx, int ly, int nsx, int Kx, const double* ex,
@@ -73,10 +75,10 @@ extern "C" int pt_int2c2e(int lx, int ly, int nsx, int Kx, const double* ex,
                           const double* ey, const double* cy,
                           const double* ry, const double* Sx,
                           const double* Sy, double* out, int ld, int offx,
-                          int offy, void* stream) {
+                          int offy, double omega, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define PT_ARGS nsx, Kx, ex, cx, rx, nsy, Ky, ey, cy, ry, Sx, Sy, out, ld, \
-                offx, offy, s
+                offx, offy, omega, s
 #define PT_C(X, Y) if (lx == X && ly == Y) return launch<X, Y>(PT_ARGS);
   PT_C(0, 0) PT_C(0, 1) PT_C(0, 2) PT_C(0, 3) PT_C(0, 4)
   PT_C(1, 1) PT_C(1, 2) PT_C(1, 3) PT_C(1, 4)

@@ -40,7 +40,7 @@ __device__ __forceinline__ void quartet_column(
     int Kc, const double* ec, const double* cc, const double* C,
     int Kd, const double* ed, const double* cd, const double* D,
     const double* Sa, const double* Sb, const double* Sc, const double* Sd,
-    int sd, double* res) {
+    int sd, double omega, double* res) {
   constexpr int L1 = LA + LB;
   constexpr int NCA = n_cart(LA), NCB = n_cart(LB);
   constexpr int DA = 2 * LA + 1, DB = 2 * LB + 1, DC = 2 * LC + 1;
@@ -69,7 +69,7 @@ __device__ __forceinline__ void quartet_column(
       ket_fold<L1, LC, LD>(p, (a * A[0] + b * B[0]) / p,
                            (a * A[1] + b * B[1]) / p,
                            (a * A[2] + b * B[2]) / p, Kc, ec, cc, C, Kd, ed,
-                           cd, D, Sc, Sd, sd, Y);
+                           cd, D, Sc, Sd, sd, omega, Y);
       bra_contract<LA, LA, LB, DC>(cak * cbk, Ex, Ey, Ez, Y, acc);
     }
   }
@@ -102,7 +102,7 @@ __global__ void __launch_bounds__(128) int2e_kernel(
     const double* __restrict__ cd, const double* __restrict__ rd,
     const double* __restrict__ Sa, const double* __restrict__ Sb,
     const double* __restrict__ Sc, const double* __restrict__ Sd,
-    double* __restrict__ out, int ld, int col0) {
+    double* __restrict__ out, int ld, int col0, double omega) {
   constexpr int DA = 2 * LA + 1, DB = 2 * LB + 1;
   constexpr int DC = 2 * LC + 1, DD = 2 * LD + 1;
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -117,7 +117,7 @@ __global__ void __launch_bounds__(128) int2e_kernel(
       Kb, eb + (size_t)ip * Kb, cb + (size_t)ip * Kb, rb + 3 * (size_t)ip,
       Kc, ec + (size_t)kp * Kc, cc + (size_t)kp * Kc, rc + 3 * (size_t)kp,
       Kd, ed + (size_t)kp * Kd, cd + (size_t)kp * Kd, rd + 3 * (size_t)kp,
-      Sa, Sb, Sc, Sd, sd, res);
+      Sa, Sb, Sc, Sd, sd, omega, res);
   for (int ab = 0; ab < DA * DB; ++ab) {
     double* row = out + ((size_t)ip * DA * DB + ab) * ld + col0
                   + (size_t)kp * DC * DD + sd;
@@ -132,18 +132,20 @@ static int launch(int nb, int Ka, int Kb, const double* ea, const double* ca,
                   const double* cc, const double* rc, const double* ed,
                   const double* cd, const double* rd, const double* Sa,
                   const double* Sb, const double* Sc, const double* Sd,
-                  double* out, int ld, int col0, cudaStream_t stream) {
+                  double* out, int ld, int col0, double omega,
+                  cudaStream_t stream) {
   const int threads = 128;
   const long total = (long)nb * nk * (2 * LD + 1);
   const int blocks = (int)((total + threads - 1) / threads);
   int2e_kernel<LA, LB, LC, LD><<<blocks, threads, 0, stream>>>(
       nb, Ka, Kb, ea, ca, ra, eb, cb, rb, nk, Kc, Kd, ec, cc, rc, ed, cd, rd,
-      Sa, Sb, Sc, Sd, out, ld, col0);
+      Sa, Sb, Sc, Sd, out, ld, col0, omega);
   return (int)cudaGetLastError();
 }
 
-// Returns cudaGetLastError() after the launch, or -1 for a class pair that
-// has no instantiation (la <= lb <= 2 and lc <= ld <= 2).
+// omega > 0: the erf(omega r)/r attenuated integrals (0: the full
+// operator). Returns cudaGetLastError() after the launch, or -1 for a class
+// pair that has no instantiation (la <= lb <= 2 and lc <= ld <= 2).
 extern "C" int pt_int2e(int la, int lb, int lc, int ld_, int nb, int Ka,
                         int Kb, const double* ea, const double* ca,
                         const double* ra, const double* eb, const double* cb,
@@ -152,10 +154,10 @@ extern "C" int pt_int2e(int la, int lb, int lc, int ld_, int nb, int Ka,
                         const double* ed, const double* cd, const double* rd,
                         const double* Sa, const double* Sb, const double* Sc,
                         const double* Sd, double* out, int ld, int col0,
-                        void* stream) {
+                        double omega, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define PT_ARGS nb, Ka, Kb, ea, ca, ra, eb, cb, rb, nk, Kc, Kd, ec, cc, rc, \
-                ed, cd, rd, Sa, Sb, Sc, Sd, out, ld, col0, s
+                ed, cd, rd, Sa, Sb, Sc, Sd, out, ld, col0, omega, s
 #define PT_Q(A, B, C, D) \
   if (la == A && lb == B && lc == C && ld_ == D) \
     return launch<A, B, C, D>(PT_ARGS);

@@ -100,7 +100,7 @@ __global__ void __launch_bounds__(128) int2e_ip1_kernel(
           (a * A[2] + b * B[2]) / p, Kc, ec + (size_t)kp * Kc,
           cc + (size_t)kp * Kc, rc + 3 * (size_t)kp, Kd,
           ed + (size_t)kp * Kd, cd + (size_t)kp * Kd, rd + 3 * (size_t)kp,
-          Sc, Sd, sd, Y);
+          Sc, Sd, sd, 0.0, Y);
       bra_contract<LA + 1, LA + 1, LB, DC>(2.0 * a * w, Ex, Ey, Ez, Y, accp);
       if constexpr (LA > 0) {
         bra_contract<LA - 1, LA + 1, LB, DC>(w, Ex, Ey, Ez, Y, accm);

@@ -31,7 +31,7 @@ __global__ void __launch_bounds__(128) int3c2e_kernel(
     const double* __restrict__ ec, const double* __restrict__ cc,
     const double* __restrict__ rc, const double* __restrict__ Sa,
     const double* __restrict__ Sb, const double* __restrict__ Sc,
-    double* __restrict__ out, int ld, int col0) {
+    double* __restrict__ out, int ld, int col0, double omega) {
   const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long)n * nsx) return;
   const int ip = (int)(idx / nsx);
@@ -42,7 +42,7 @@ __global__ void __launch_bounds__(128) int3c2e_kernel(
                             ra + 3 * (size_t)ip, Kb, eb + (size_t)ip * Kb,
                             cb + (size_t)ip * Kb, rb + 3 * (size_t)ip, Kc,
                             ec + (size_t)P * Kc, cc + (size_t)P * Kc,
-                            rc + 3 * (size_t)P, Sa, Sb, Sc, res);
+                            rc + 3 * (size_t)P, Sa, Sb, Sc, omega, res);
   for (int ab = 0; ab < DA * DB; ++ab) {
     double* row = out + ((size_t)ip * DA * DB + ab) * ld + col0 + P * DC;
     for (int sc = 0; sc < DC; ++sc) row[sc] = res[ab * DC + sc];
@@ -55,18 +55,19 @@ static int launch(int n, int Ka, int Kb, const double* ea, const double* ca,
                   const double* rb, int nsx, int Kc, const double* ec,
                   const double* cc, const double* rc, const double* Sa,
                   const double* Sb, const double* Sc, double* out, int ld,
-                  int col0, cudaStream_t stream) {
+                  int col0, double omega, cudaStream_t stream) {
   const int threads = 128;
   const long total = (long)n * nsx;
   const int blocks = (int)((total + threads - 1) / threads);
   int3c2e_kernel<LA, LB, LC><<<blocks, threads, 0, stream>>>(
       n, Ka, Kb, ea, ca, ra, eb, cb, rb, nsx, Kc, ec, cc, rc, Sa, Sb, Sc,
-      out, ld, col0);
+      out, ld, col0, omega);
   return (int)cudaGetLastError();
 }
 
-// Returns cudaGetLastError() after the launch, or -1 for a class that has
-// no instantiation (la <= lb <= 2, lc <= 4).
+// omega > 0: the erf(omega r)/r attenuated integrals (0: the full
+// operator). Returns cudaGetLastError() after the launch, or -1 for a class
+// that has no instantiation (la <= lb <= 2, lc <= 4).
 extern "C" int pt_int3c2e(int la, int lb, int lc, int n, int Ka, int Kb,
                           const double* ea, const double* ca,
                           const double* ra, const double* eb,
@@ -74,10 +75,10 @@ extern "C" int pt_int3c2e(int la, int lb, int lc, int n, int Ka, int Kb,
                           int Kc, const double* ec, const double* cc,
                           const double* rc, const double* Sa,
                           const double* Sb, const double* Sc, double* out,
-                          int ld, int col0, void* stream) {
+                          int ld, int col0, double omega, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
 #define PT_ARGS n, Ka, Kb, ea, ca, ra, eb, cb, rb, nsx, Kc, ec, cc, rc, \
-                Sa, Sb, Sc, out, ld, col0, s
+                Sa, Sb, Sc, out, ld, col0, omega, s
 #define PT_C(A, B, C) \
   if (la == A && lb == B && lc == C) return launch<A, B, C>(PT_ARGS);
 #define PT_AB(A, B) PT_C(A, B, 0) PT_C(A, B, 1) PT_C(A, B, 2) PT_C(A, B, 3) \

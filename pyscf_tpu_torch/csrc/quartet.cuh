@@ -10,12 +10,14 @@
 // for tuv1 of order <= L1 and one sph component sd of the ket's second
 // shell; (p, P) is the bra primitive pair's exponent and centre. Primitives
 // with a zero coefficient (the padding of the shell tables) are skipped.
+// omega > 0 gives the erf(omega r)/r attenuated operator (lr_scale of
+// hermite.cuh, pyscf_tpu/ops/integrals/j2e.py:76-79); 0 the full one.
 template <int L1, int LC, int LD>
 __device__ __forceinline__ void ket_fold(
     double p, double Px, double Py, double Pz,
     int Kc, const double* ec, const double* cc, const double* C,
     int Kd, const double* ed, const double* cd, const double* D,
-    const double* Sc, const double* Sd, int sd, double* Y) {
+    const double* Sc, const double* Sd, int sd, double omega, double* Y) {
   constexpr int L2 = LC + LD, L = L1 + L2;
   constexpr int NCC = n_cart(LC), NCD = n_cart(LD);
   constexpr int DC = 2 * LC + 1;
@@ -42,9 +44,12 @@ __device__ __forceinline__ void ket_fold(
       const double Qz = (c * C[2] + d * D[2]) / q;
       const double pq = p * q;
       const double ps = p + q;
+      double rho = pq / ps;
       // 2 pi^{5/2} / (p q sqrt(p + q))
-      const double pref = 34.986836655249725 / (pq * sqrt(ps)) * cck * cdk;
-      hermite_R<L>(pq / ps, Px - Qx, Py - Qy, Pz - Qz, R);
+      double pref = 34.986836655249725 / (pq * sqrt(ps));
+      lr_scale(omega, rho, pref);
+      pref = pref * cck * cdk;
+      hermite_R<L>(rho, Px - Qx, Py - Qy, Pz - Qz, R);
       e1d<LC, LD>(c, d, CDx, Fx);
       e1d<LC, LD>(c, d, CDy, Fy);
       e1d<LC, LD>(c, d, CDz, Fz);

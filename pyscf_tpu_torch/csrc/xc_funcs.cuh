@@ -1,11 +1,12 @@
-// The B3LYP components on forward-mode dual numbers.
+// The XC components on forward-mode dual numbers.
 //
 // Device counterpart of pyscf_tpu/dft/xc_funcs.py (lda_x, _vwn_eps,
-// _f_zeta, vwn5_c, vwn3_c, b88_x, lyp_c, _rs) and of their torch versions
-// in pyscf_tpu_torch/dft/xc_funcs.py. Each component is written once, in
-// the JAX package's expression order and with its clamps, as a template
-// over the dual number type DualN<N>, which carries the value and N
-// tangents:
+// _f_zeta, vwn5_c, vwn3_c, b88_x, lyp_c, _rs; _pw92_g, pw92_eps,
+// _sr_attenuation, cam_b88_x, _b97_u, _b97_series, wb97_xc) and of their
+// torch versions in pyscf_tpu_torch/dft/xc_funcs.py. Each component is
+// written once, in the JAX package's expression order and with its clamps,
+// as a template over the dual number type DualN<N>, which carries the value
+// and N tangents:
 //   N = 2  d/drho and d/dsigma of the closed-shell energy density, seeded
 //          through rho_a = rho_b = rho/2 and sigma_aa = sigma_ab = sigma_bb
 //          = sigma/4 (edens_closed, kernel xc_rks): one evaluation gives
@@ -14,8 +15,11 @@
 //   N = 5  one for each of rho_a, rho_b, sigma_aa, sigma_ab and sigma_bb
 //          (edens_open, kernel xc_uks).
 // The derivative rules are JAX's: pow(x, y)' = y pow(x, y-1), integer
-// powers by repeated squaring with (x^n)' = n x^(n-1), and a maximum or
-// minimum at a tie passes half the tangent.
+// powers by repeated squaring with (x^n)' = n x^(n-1), erf' = 2/sqrt(pi)
+// exp(-x^2), log1p' = 1/(1+x), and a maximum or minimum at a tie passes
+// half the tangent. The two components with parameters, CAM_B88 and WB97,
+// are compiled in only where a kernel asks for them (the template flag
+// RSH of edens_closed and edens_open): xc_rks and xc_uks.
 //
 // Constants that Python computes with pow are written out as the doubles
 // Python gives (CUDA's pow is not correctly rounded); the rest are the
@@ -200,6 +204,15 @@ PT_HD DualN<N> dasinh(const DualN<N>& x) {
   return scale(x, 1.0 / sqrt(x.v * x.v + 1.0), asinh(x.v));
 }
 template <int N>
+PT_HD DualN<N> derf(const DualN<N>& x) {
+  constexpr double TWO_OVER_SQRT_PI = 1.1283791670955126;
+  return scale(x, TWO_OVER_SQRT_PI * exp(-(x.v * x.v)), erf(x.v));
+}
+template <int N>
+PT_HD DualN<N> dlog1p(const DualN<N>& x) {
+  return scale(x, 1.0 / (x.v + 1.0), log1p(x.v));
+}
+template <int N>
 PT_HD DualN<N> dmax(const DualN<N>& x, double c) {
   if (x.v > c) return x;
   if (x.v < c) return cst_n<N>(c);
@@ -340,31 +353,174 @@ PT_HD D lyp_c(const D& rho_a, const D& rho_b,
   return e;
 }
 
+// ---- the range-separated and B97 power-series components -----------------
+
+template <class D>
+PT_HD D pw92_g(const D& rs, double A, double a1, double b1, double b2,
+               double b3, double b4) {
+  const D s = dsqrt(rs);
+  const D den = 2.0 * A * (b1 * s + b2 * rs + b3 * rs * s + b4 * rs * rs);
+  return -2.0 * A * (1.0 + a1 * rs) * dlog1p(1.0 / dmax(den, TINY));
+}
+
+template <class D>
+PT_HD D pw92_eps(const D& ra, const D& rb) {
+  const D rho = dmax(ra + rb, TINY);
+  const D zeta = zeta_of(ra, rb, rho);
+  const D rs = rs_of(rho);
+  const D e0 = pw92_g(rs, 0.031091, 0.21370, 7.5957, 3.5876, 1.6382,
+                      0.49294);
+  const D e1 = pw92_g(rs, 0.015545, 0.20548, 14.1189, 6.1977, 3.3662,
+                      0.62517);
+  const D alc = -pw92_g(rs, 0.016887, 0.11125, 10.357, 3.6231, 0.88026,
+                        0.49671);
+  const D f = f_zeta(zeta);
+  constexpr double FPP0 = 1.709920934161365617563962776245;
+  const D z4 = dipow(zeta, 4);
+  return e0 + alc * f / FPP0 * (1.0 - z4) + (e1 - e0) * f * z4;
+}
+
+// F(a): the fraction of exchange that survives erfc(w r)/r attenuation, a
+// clipped to [1e-10, 50]. At large a the bracket is a difference of terms
+// near 1e8 that leaves ~1e-5, so F carries ~1e-3 relative rounding there,
+// in the JAX package as here: the expression order is kept.
+template <class D>
+PT_HD D sr_attenuation(const D& a_in) {
+  constexpr double SQRT_PI = 1.7724538509055159;
+  const D a = dmin(dmax(a_in, 1e-10), 50.0);
+  const D a2 = a * a;
+  const D expf = dexp(-dmin(1.0 / (4.0 * a2), 700.0));
+  const D erfv = derf(1.0 / (2.0 * a));
+  const D a3 = dipow(a, 3);
+  return 1.0 - (8.0 / 3.0) * a * (SQRT_PI * erfv - 3.0 * a + 4.0 * a3
+                                  + (2.0 * a - 4.0 * a3) * expf);
+}
+
+// B88 with the CAM partition of 1/r12: the DFT part keeps
+// [1 - alpha - beta + beta F(a_sigma)] of the full B88 energy density.
+template <class D>
+PT_HD D cam_b88_x(const D& ra, const D& rb, const D& saa, const D& sbb,
+                  double omega, double alpha, double beta) {
+  constexpr double bbeta = 0.0042;
+  constexpr double LDA = -0.9305257363491002;  // -(3/2) (3/(4 pi))^(1/3)
+  D e = cst_like(ra, 0.0);
+  const D* rr[2] = {&ra, &rb};
+  const D* ss[2] = {&saa, &sbb};
+  for (int k = 0; k < 2; ++k) {
+    const D r = dmax(*rr[k], TINY);
+    const D r43 = dpow(r, 4.0 / 3.0);
+    const D x = dsqrt(dmax(*ss[k], TINY)) / r43;
+    const D lda = LDA * r43;
+    const D corr =
+        -bbeta * r43 * x * x / (1.0 + 6 * bbeta * x * dasinh(x));
+    const D e_full = lda + corr;
+    const D K = dmax(-2.0 * e_full / r43, TINY);
+    const D k_sig = dsqrt(9.0 * PI / K) * dpow(r, 1.0 / 3.0);
+    const D a = omega / (2.0 * k_sig);
+    const D F = sr_attenuation(a);
+    e = e + e_full * (1.0 - alpha - beta + beta * F);
+  }
+  return e;
+}
+
+template <class D>
+PT_HD D b97_u(const D& s2, double gamma) {
+  const D gs = gamma * s2;
+  return gs / (1.0 + gs);
+}
+
+// sum_i c_i u^i by Horner over NSERIES coefficients; the trailing zeros of
+// a shorter series leave the value and its tangents exactly as they are
+constexpr int NSERIES = 5;
+
+template <class D>
+PT_HD D b97_series(const D& u, const double* c) {
+  D acc = cst_like(u, 0.0);
+  for (int k = NSERIES - 1; k >= 0; --k) acc = acc * u + c[k];
+  return acc;
+}
+
+// The omega-B97 family's semilocal part. p = [omega, alpha, beta,
+// cx[5], css[5], cos[5]] (alpha and beta unused here).
+template <class D>
+PT_HD D wb97_xc(const D& ra, const D& rb, const D& saa, const D& sab,
+                const D& sbb, const double* p) {
+  constexpr double gam_x = 0.004, gam_ss = 0.2, gam_os = 0.006;
+  constexpr double ELDA = -0.9305257363491002;  // -1.5 (3/(4 pi))^(1/3)
+  constexpr double SIX_PI2 = 59.21762640653615;  // 6 pi^2
+  const double omega = p[0];
+  const double* cx = p + 3;
+  const double* css = p + 3 + NSERIES;
+  const double* cos_ = p + 3 + 2 * NSERIES;
+  D e = cst_like(ra, 0.0);
+  D s2s[2];
+  const D* rr[2] = {&ra, &rb};
+  const D* ss[2] = {&saa, &sbb};
+  for (int k = 0; k < 2; ++k) {
+    const D r = dmax(*rr[k], TINY);
+    const D s = dmax(*ss[k], 0.0);
+    const D s2 = s / dpow(r, 8.0 / 3.0);
+    s2s[k] = s2;
+    const D e_lda = ELDA * dpow(r, 4.0 / 3.0);
+    const D kf = dpow(SIX_PI2 * r, 1.0 / 3.0);
+    const D Fa = sr_attenuation(omega / (2.0 * kf));
+    const D gx = b97_series(b97_u(s2, gam_x), cx);
+    e = e + e_lda * Fa * gx;
+  }
+  // Stoll partition of PW92 correlation
+  const D z = cst_like(ra, TINY);
+  const D ec_ab = (ra + rb) * pw92_eps(ra, rb);
+  const D ec_aa = ra * pw92_eps(ra, z);
+  const D ec_bb = rb * pw92_eps(z, rb);
+  const D g_ss_a = b97_series(b97_u(s2s[0], gam_ss), css);
+  const D g_ss_b = b97_series(b97_u(s2s[1], gam_ss), css);
+  const D u_os = b97_u(0.5 * (s2s[0] + s2s[1]), gam_os);
+  const D g_os = b97_series(u_os, cos_);
+  return e + ec_aa * g_ss_a + ec_bb * g_ss_b
+         + (ec_ab - ec_aa - ec_bb) * g_os;
+}
+
 // Component ids, as pyscf_tpu_torch/ops/kernels.py names them.
-enum Component { SLATER = 0, VWN5 = 1, VWN3 = 2, B88 = 3, LYP = 4 };
+enum Component {
+  SLATER = 0, VWN5 = 1, VWN3 = 2, B88 = 3, LYP = 4, CAM_B88 = 5, WB97 = 6
+};
 
 constexpr int MAXTERM = 8;
+// parameters per term: omega, alpha, beta and three series of NSERIES
+constexpr int NPARAM = 3 + 3 * NSERIES;
 
 struct Terms {
   int n;
   int id[MAXTERM];
   double c[MAXTERM];
+  double p[MAXTERM][NPARAM];
 };
 
 // Closed-shell energy density with its derivatives: e.v = e_xc(rho, sigma),
-// e.d = (vrho, vsigma). The terms are summed in their listed order.
+// e.d = (vrho, vsigma). The terms are summed in their listed order; RSH
+// compiles in CAM_B88 and WB97.
+template <bool RSH = false>
 PT_HD DualN<2> edens_closed(const Terms& t, double rho, double sigma) {
   const DualN<2> ra = 0.5 * DualN<2>{rho, {1.0, 0.0}};
   const DualN<2> s4 = 0.25 * DualN<2>{sigma, {0.0, 1.0}};
   DualN<2> e = cst_n<2>(0.0);
   for (int k = 0; k < t.n; ++k) {
-    DualN<2> f;
+    DualN<2> f = cst_n<2>(0.0);
     switch (t.id[k]) {
       case SLATER: f = lda_x(ra, ra); break;
       case VWN5: f = vwn5_c(ra, ra); break;
       case VWN3: f = vwn3_c(ra, ra); break;
       case B88: f = b88_x(ra, ra, s4, s4); break;
-      default: f = lyp_c(ra, ra, s4, s4, s4); break;
+      case LYP: f = lyp_c(ra, ra, s4, s4, s4); break;
+      default:
+        if constexpr (RSH) {
+          if (t.id[k] == CAM_B88) {
+            f = cam_b88_x(ra, ra, s4, s4, t.p[k][0], t.p[k][1], t.p[k][2]);
+          } else {
+            f = wb97_xc(ra, ra, s4, s4, s4, t.p[k]);
+          }
+        }
+        break;
     }
     e = e + t.c[k] * f;
   }
@@ -374,7 +530,8 @@ PT_HD DualN<2> edens_closed(const Terms& t, double rho, double sigma) {
 // Spin-polarized energy density with its five derivatives: e.v = e_xc,
 // e.d = (vrho_a, vrho_b, vsigma_aa, vsigma_ab, vsigma_bb), the numbers
 // jax.grad gives at pyscf_tpu/dft/numint.py:239-240 and :278-279. The
-// terms are summed in their listed order.
+// terms are summed in their listed order; RSH compiles in CAM_B88 and WB97.
+template <bool RSH = false>
 PT_HD DualN<5> edens_open(const Terms& t, double ra, double rb, double saa,
                           double sab, double sbb) {
   const DualN<5> a{ra, {1.0, 0.0, 0.0, 0.0, 0.0}};
@@ -384,13 +541,22 @@ PT_HD DualN<5> edens_open(const Terms& t, double ra, double rb, double saa,
   const DualN<5> xbb{sbb, {0.0, 0.0, 0.0, 0.0, 1.0}};
   DualN<5> e = cst_n<5>(0.0);
   for (int k = 0; k < t.n; ++k) {
-    DualN<5> f;
+    DualN<5> f = cst_n<5>(0.0);
     switch (t.id[k]) {
       case SLATER: f = lda_x(a, b); break;
       case VWN5: f = vwn5_c(a, b); break;
       case VWN3: f = vwn3_c(a, b); break;
       case B88: f = b88_x(a, b, xaa, xbb); break;
-      default: f = lyp_c(a, b, xaa, xab, xbb); break;
+      case LYP: f = lyp_c(a, b, xaa, xab, xbb); break;
+      default:
+        if constexpr (RSH) {
+          if (t.id[k] == CAM_B88) {
+            f = cam_b88_x(a, b, xaa, xbb, t.p[k][0], t.p[k][1], t.p[k][2]);
+          } else {
+            f = wb97_xc(a, b, xaa, xab, xbb, t.p[k]);
+          }
+        }
+        break;
     }
     e = e + t.c[k] * f;
   }

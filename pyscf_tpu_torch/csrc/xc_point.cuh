@@ -43,18 +43,23 @@ __device__ __forceinline__ void closed_density(int gga, int lane, int nao,
   }
 }
 
-// The functional's components for a launch, summed in the order given;
-// false for too many terms, an unknown component or a GGA component
-// without gga.
+// The functional's components for a launch, summed in the order given,
+// with params (nterm x NPARAM, or null when no component takes any); false
+// for too many terms, a component above max_id or a GGA component without
+// gga.
 inline bool make_terms(int gga, int nterm, const int* ids,
-                       const double* coeffs, ptxc::Terms& terms) {
+                       const double* coeffs, const double* params,
+                       int max_id, ptxc::Terms& terms) {
   if (nterm > ptxc::MAXTERM) return false;
   terms.n = nterm;
   for (int k = 0; k < nterm; ++k) {
-    if (ids[k] < ptxc::SLATER || ids[k] > ptxc::LYP) return false;
+    if (ids[k] < ptxc::SLATER || ids[k] > max_id) return false;
     if (!gga && ids[k] >= ptxc::B88) return false;
     terms.id[k] = ids[k];
     terms.c[k] = coeffs[k];
+    for (int j = 0; j < ptxc::NPARAM; ++j) {
+      terms.p[k][j] = params ? params[k * ptxc::NPARAM + j] : 0.0;
+    }
   }
   return true;
 }

@@ -3,7 +3,8 @@
 // half-product.
 //
 // Replaces pyscf_tpu/dft/numint.py:148-178 (inside _get_rks_core_aod) with
-// the B3LYP components of pyscf_tpu/dft/xc_funcs.py and the derivatives
+// the ported components of pyscf_tpu/dft/xc_funcs.py (the B3LYP family,
+// cam_b88_x and wb97_xc) and the derivatives
 // that jax.grad takes at numint.py:135-137; plain PyTorch twin:
 // pyscf_tpu_torch/dft/numint.py:xc_rks_plain. The two products around it,
 // dmao = ao @ dm and V = ao^T @ vtmp, are GEMMs and stay library calls.
@@ -48,7 +49,7 @@ __global__ void xc_rks_kernel(int gga, int npts, int nao,
     const bool mask = rho > RHO_THR;
     const double rho_s = mask ? fmax(rho, RHO_THR) : 1.0;
     const double sigma_s = mask ? fmax(sigma, SIGMA_FLOOR) : 1.0;
-    const ptxc::DualN<2> e = ptxc::edens_closed(terms, rho_s, sigma_s);
+    const ptxc::DualN<2> e = ptxc::edens_closed<true>(terms, rho_s, sigma_s);
     const double wv = mask ? w * e.d[0] : 0.0;
     const double wvs = mask ? w * e.d[1] : 0.0;
     n_pt = w * rho;
@@ -82,18 +83,21 @@ __global__ void xc_rks_kernel(int gga, int npts, int nao,
 }
 
 // aod: (4, npts, nao) for a GGA (gga = 1) or (npts, nao) for an LDA;
-// dmao (npts, nao); weights (npts,); ids/coeffs: the nterm components and
-// their weights, summed in this order; vtmp (npts, nao); partials
+// dmao (npts, nao); weights (npts,); ids/coeffs/params: the nterm
+// components, their weights and their parameters (nterm x NPARAM, see
+// xc_funcs.cuh Terms), summed in this order; vtmp (npts, nao); partials
 // (2 * ceil(npts / warps_per_block)): [n, exc] per thread block. Returns
 // cudaGetLastError() after the launch, or -1 for an unknown component or
 // too many terms.
 extern "C" int pt_xc_rks(int gga, int npts, int nao, const double* aod,
                          const double* dmao, const double* weights,
                          int nterm, const int* ids, const double* coeffs,
+                         const double* params,
                          double* vtmp, double* partials, int warps_per_block,
                          void* stream) {
   ptxc::Terms terms;
-  if (!make_terms(gga, nterm, ids, coeffs, terms)) return -1;
+  if (!make_terms(gga, nterm, ids, coeffs, params, ptxc::WB97, terms))
+    return -1;
   const int threads = 32 * warps_per_block;
   const int blocks = (npts + warps_per_block - 1) / warps_per_block;
   const size_t shmem = 2 * warps_per_block * sizeof(double);

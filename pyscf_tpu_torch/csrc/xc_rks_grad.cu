@@ -124,7 +124,9 @@ extern "C" int pt_xc_rks_grad(int gga, int npts, int nao, const double* aod,
                               double* exc_partials, int pts,
                               int warps_per_block, void* stream) {
   ptxc::Terms terms;
-  if (!make_terms(gga, nterm, ids, coeffs, terms)) return -1;
+  if (!make_terms(gga, nterm, ids, coeffs, nullptr, ptxc::LYP, terms)) {
+    return -1;
+  }
   const int blocks = (npts + pts - 1) / pts;
   const size_t shmem = (4 * pts + warps_per_block) * sizeof(double);
   xc_rks_grad_kernel<<<blocks, 32 * warps_per_block, shmem,

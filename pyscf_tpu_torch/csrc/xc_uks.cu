@@ -3,7 +3,8 @@
 // with its five first derivatives, and the two V_xc half-products.
 //
 // Replaces pyscf_tpu/dft/numint.py:246-302 (inside _get_uks_core_aod) with
-// the B3LYP components of pyscf_tpu/dft/xc_funcs.py and the derivatives
+// the ported components of pyscf_tpu/dft/xc_funcs.py (the B3LYP family,
+// cam_b88_x and wb97_xc) and the derivatives
 // that jax.grad takes at numint.py:239-240; plain PyTorch twin:
 // pyscf_tpu_torch/dft/numint.py:xc_uks_plain. The products around it,
 // dmao_s = ao @ dm_s and V_s = ao^T @ vtmp_s, are GEMMs and stay library
@@ -78,7 +79,7 @@ __global__ void xc_uks_kernel(int gga, int npts, int nao,
     }
     const double w = weights[b];
     const bool mask = (ra + rb) > RHO_THR;
-    const ptxc::DualN<5> e = ptxc::edens_open(
+    const ptxc::DualN<5> e = ptxc::edens_open<true>(
         terms, mask ? fmax(ra, 0.5 * RHO_THR) : 1.0,
         mask ? fmax(rb, 0.5 * RHO_THR) : 1.0,
         mask ? fmax(saa, SIGMA_FLOOR) : 1.0, mask ? sab : 1.0,
@@ -134,18 +135,21 @@ __global__ void xc_uks_kernel(int gga, int npts, int nao,
 }
 
 // aod: (4, npts, nao) for a GGA (gga = 1) or (npts, nao) for an LDA;
-// dmao (2, npts, nao); weights (npts,); ids/coeffs: the nterm components
-// and their weights, summed in this order; vtmp (2, npts, nao); partials
+// dmao (2, npts, nao); weights (npts,); ids/coeffs/params: the nterm
+// components, their weights and their parameters (nterm x NPARAM, see
+// xc_funcs.cuh Terms), summed in this order; vtmp (2, npts, nao); partials
 // (3 * ceil(npts / warps_per_block)): [n_a, n_b, exc] per thread block.
 // Returns cudaGetLastError() after the launch, or -1 for an unknown
 // component or too many terms.
 extern "C" int pt_xc_uks(int gga, int npts, int nao, const double* aod,
                          const double* dmao, const double* weights,
                          int nterm, const int* ids, const double* coeffs,
+                         const double* params,
                          double* vtmp, double* partials, int warps_per_block,
                          void* stream) {
   ptxc::Terms terms;
-  if (!make_terms(gga, nterm, ids, coeffs, terms)) return -1;
+  if (!make_terms(gga, nterm, ids, coeffs, params, ptxc::WB97, terms))
+    return -1;
   const int threads = 32 * warps_per_block;
   const int blocks = (npts + warps_per_block - 1) / warps_per_block;
   const size_t shmem = 3 * warps_per_block * sizeof(double);

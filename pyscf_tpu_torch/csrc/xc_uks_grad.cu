@@ -164,7 +164,9 @@ extern "C" int pt_xc_uks_grad(int gga, int npts, int nao, const double* aod,
                               double* exc_partials, int pts,
                               int warps_per_block, void* stream) {
   ptxc::Terms terms;
-  if (!make_terms(gga, nterm, ids, coeffs, terms)) return -1;
+  if (!make_terms(gga, nterm, ids, coeffs, nullptr, ptxc::LYP, terms)) {
+    return -1;
+  }
   const int blocks = (npts + pts - 1) / pts;
   const size_t shmem = (8 * pts + warps_per_block) * sizeof(double);
   xc_uks_grad_kernel<<<blocks, 32 * warps_per_block, shmem,

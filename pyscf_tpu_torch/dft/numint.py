@@ -274,6 +274,14 @@ def _block_size(npts, nao, ncomp, device):
 class NumInt:
     """Restricted and unrestricted numerical integrator."""
 
+    def rsh_and_hybrid_coeff(self, xc_code):
+        """(omega, alpha, hyb): K = hyb K + (alpha - hyb) K_LR; hyb is the
+        hybrid fraction when omega is 0 (pyscf_tpu/dft/numint.py:398-402)."""
+        omega, alpha, hyb = xc_mod.rsh_coeff(xc_code)
+        if omega == 0:
+            hyb = xc_mod.hybrid_coeff(xc_code)
+        return omega, alpha, hyb
+
     def grid_ao(self, mol, grids, deriv, spins=1):
         """([aod], [weights]) per block of grid points: aod is (B, nao) for
         deriv 0 or (4, B, nao) for deriv 1 (kernel `eval_ao`); blocks leave

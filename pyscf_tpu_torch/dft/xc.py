@@ -1,15 +1,21 @@
 """XC functional composition: parse_xc and XCFunctional.
 
 Counterpart of pyscf_tpu/dft/xc.py for the functionals built from the
-ported components (Slater, VWN5, VWN3, B88, LYP): the names SLATER/LDA,
-VWN/VWN5, VWN3/VWN_RPA, B88/B and LYP, the compounds LDA, LDA,VWN, SVWN,
-BLYP, B3LYP, B3LYP5 and B3LYPG, and the 'X,C' and 'a*X + b*Y' forms with
-HF for exact exchange. Any other name (meta-GGA, range-separated, double
-hybrid, VV10 and the rest) raises NotImplementedError: those are ROADMAP.md
-queue 1 step 9.
+ported components (Slater, VWN5, VWN3, B88, LYP, the CAM-attenuated B88 and
+the B97 power series): the names SLATER/LDA, VWN/VWN5, VWN3/VWN_RPA,
+B88/B and LYP, the compounds LDA, LDA,VWN, SVWN, BLYP, B3LYP, B3LYP5 and
+B3LYPG, the range-separated hybrids WB97, WB97X, WB97X-V (with VV10
+non-local correlation) and CAMB3LYP/CAM_B3LYP, the full-range B97 hybrids
+B97, B97-1, B97-2 and B97-D (alias B97D), and the 'X,C' and 'a*X + b*Y'
+forms with HF for exact exchange. Any other name (meta-GGA, the PBE family,
+double hybrids and the rest) raises NotImplementedError: those are
+ROADMAP.md queue 1.
 
 A functional is a list of weighted components plus a hybrid HF-exchange
 fraction; the energy density is their weighted sum, in the order listed.
+A component that takes parameters (omega, the series coefficients, the CAM
+fractions) gets them from `params`, one tuple per term, so that the XC
+kernels receive them as data.
 """
 from functools import lru_cache
 
@@ -39,13 +45,24 @@ def _c_lyp(ra, rb, saa, sab, sbb):
     return F.lyp_c(ra, rb, saa, sab, sbb)
 
 
-# component -> (family, fn); the kernel `xc_rks` knows them by these names
+def _x_cam_b88(ra, rb, saa, sab, sbb, omega, alpha, beta):
+    return F.cam_b88_x(ra, rb, saa, sbb, omega, alpha, beta)
+
+
+def _xc_wb97(ra, rb, saa, sab, sbb, omega, cx, css, cos_):
+    return F.wb97_xc(ra, rb, saa, sab, sbb, omega, cx, css, cos_)
+
+
+# component -> (family, fn(ra, rb, saa, sab, sbb, *params)); the kernels
+# `xc_rks` and `xc_uks` know them by these names
 COMPONENTS = {
     'SLATER': (LDA, _x_slater),
     'VWN5': (LDA, _c_vwn5),
     'VWN3': (LDA, _c_vwn3),
     'B88': (GGA, _x_b88),
     'LYP': (GGA, _c_lyp),
+    'CAM_B88': (GGA, _x_cam_b88),
+    'WB97': (GGA, _xc_wb97),
 }
 
 # name -> component
@@ -76,17 +93,34 @@ COMPOUND = {
 }
 
 
+# range-separated compounds: name -> (omega, alpha (the short-range HF
+# fraction), beta (the long-range increment), [(coeff, cname)]); exchange
+# is CAM_B88 with (omega, alpha, beta)
+RSH_COMPOUND = {
+    'CAMB3LYP': (0.33, 0.19, 0.46, [(0.81, 'LYP'), (0.19, 'VWN5')]),
+    'CAM_B3LYP': (0.33, 0.19, 0.46, [(0.81, 'LYP'), (0.19, 'VWN5')]),
+}
+
+
 class XCFunctional:
-    def __init__(self, hyb, terms):
-        self.hyb = hyb               # HF exchange fraction
+    def __init__(self, hyb, terms, params=None, rsh=(0.0, 0.0, 0.0),
+                 nlc=None):
+        self.hyb = hyb               # HF exchange fraction (the SR part)
         self.terms = terms           # [(coeff, family, component)]
+        # one tuple of parameters per term, () for a plain component
+        self.params = params or [()] * len(terms)
         self.family = max((f for _, f, _ in terms), default=LDA)
-        self.rsh = (0.0, 0.0, 0.0)   # no range-separated functional ported
+        # range separation (omega, alpha_LR_total, hyb_SR):
+        # K = hyb K + (alpha - hyb) K_LR
+        self.rsh = rsh
+        self.omega = rsh[0]
+        # built-in non-local correlation: ('VV10', b, C) or None
+        self.nlc = nlc
 
     def exc_density(self, ra, rb, saa, sab, sbb):
         e = 0.0
-        for c, _, comp in self.terms:
-            e = e + c * COMPONENTS[comp][1](ra, rb, saa, sab, sbb)
+        for (c, _, comp), p in zip(self.terms, self.params):
+            e = e + c * COMPONENTS[comp][1](ra, rb, saa, sab, sbb, *p)
         return e
 
     @property
@@ -101,8 +135,10 @@ class XCFunctional:
 def _not_ported(name, xc_code):
     return NotImplementedError(
         f'XC functional {name!r} in {xc_code!r} is not ported to '
-        'pyscf_tpu_torch (ROADMAP.md queue 1 step 9); the ported names are '
-        f'{sorted(FUNCTIONALS)} and the compounds {sorted(COMPOUND)}')
+        'pyscf_tpu_torch (ROADMAP.md queue 1, remaining XC); the ported '
+        f'names are {sorted(FUNCTIONALS)}, the compounds '
+        f'{sorted(COMPOUND)}, {sorted(RSH_COMPOUND)}, '
+        f'{sorted(F.WB97_PARAMS)} and {sorted(F.B97_PARAMS)} (B97D)')
 
 
 def _term(c, name, xc_code):
@@ -134,6 +170,24 @@ def parse_xc(xc_code):
     if not isinstance(xc_code, str):
         raise TypeError(xc_code)
     code = xc_code.upper().replace(' ', '')
+    cname = code.replace('-', '_')      # compound-name lookups only
+    if cname in F.WB97_PARAMS:
+        omega, sr_hf, lr_hf, cx, css, cos_, nlc = F.WB97_PARAMS[cname]
+        return XCFunctional(sr_hf, [(1.0, GGA, 'WB97')],
+                            [(omega, cx, css, cos_)],
+                            rsh=(omega, lr_hf, sr_hf), nlc=nlc)
+    if cname == 'B97D':
+        cname = 'B97_D'
+    if cname in F.B97_PARAMS:
+        # full-range B97 hybrids: the same series with omega = 0
+        hyb, cx, css, cos_ = F.B97_PARAMS[cname]
+        return XCFunctional(hyb, [(1.0, GGA, 'WB97')], [(0.0, cx, css, cos_)])
+    if cname in RSH_COMPOUND:
+        omega, a, b, cs = RSH_COMPOUND[cname]
+        terms = [(1.0, GGA, 'CAM_B88')] + [_term(c, n, xc_code)
+                                           for c, n in cs]
+        return XCFunctional(a, terms, [(omega, a, b)] + [()] * len(cs),
+                            rsh=(omega, a + b, a))
     if code in COMPOUND:
         hyb, xs, cs = COMPOUND[code]
         return XCFunctional(hyb, [_term(c, n, xc_code) for c, n in xs + cs])

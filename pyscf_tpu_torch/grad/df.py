@@ -30,6 +30,20 @@ from ..ops.integrals import j3c_deriv
 from ..ops.integrals.j3c import sync
 from .rhf import ao_rows_to_atoms, energy_weighted_dm, grad_1e, grad_nuc
 
+def check_functional(mf):
+    """NotImplementedError for a range-separated or VV10 functional: the
+    reference's gradient (pyscf_tpu/grad/autodiff.py:259-311 build_grad_fn)
+    reads neither rsh_coeff nor nlc, so it is not the energy's gradient
+    there, and the port has no other to hold these terms to yet."""
+    if not hasattr(mf, 'xc'):
+        return
+    if mf.xc_obj.omega or mf.nlc:
+        raise NotImplementedError(
+            f'nuclear gradients of {mf.xc!r} (nlc {mf.nlc!r}) are not '
+            'ported: the long-range K and VV10 terms have no reference '
+            '(pyscf_tpu/grad/autodiff.py:259-311 leaves them out)')
+
+
 def occupied(mf):
     """(dm, [co per spin], dme, kfac): the total density, the occupied
     orbitals scaled by sqrt(occ), the energy-weighted density and the
@@ -83,6 +97,7 @@ def grad_scf(mf, timings=None):
     integral kernels ('int3c2e_ip', 'int2c2e_ip1') and, for KS, of the AO
     values ('ao2') and the XC gradient ('xc_grad'), each ended by a device
     synchronize."""
+    check_functional(mf)
     mol = mf.mol
     dev = mol.device
     isks = hasattr(mf, 'xc')

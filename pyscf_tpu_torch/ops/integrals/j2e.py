@@ -1,14 +1,16 @@
 """The dense in-core ERI tensor (ab|cd), (nao,)^4, on the device.
 
-Counterpart of pyscf_tpu/ops/integrals/j2e.py without its range-separated
-(rs_omega) branch. The screened bra classes and their row maps are
-j3c.py's; the device program becomes one CUDA kernel with a plain PyTorch
-twin here:
+Counterpart of pyscf_tpu/ops/integrals/j2e.py. The screened bra classes
+and their row maps are j3c.py's; the device program becomes one CUDA kernel
+with a plain PyTorch twin here:
 
   int2e  (csrc/int2e.cu) replaces _class_pair_program: the sph rows
          (ab|cd) of every screened shell pair of one bra class against
          every screened shell pair of one ket class, contracted over all
-         primitives; twin int2e_class_plain.
+         primitives; twin int2e_class_plain. With omega (the JAX package's
+         rs_omega) the rows are of the erf(omega r)/r attenuated operator,
+         the long-range tensor of a range-separated functional's in-core K
+         (launched and counted as int2e_lr).
 
 Every ordered pair of classes is computed, so (ab|cd) and (cd|ab) come
 from two launches; the pieces of all bra classes share one column layout
@@ -24,9 +26,10 @@ from .j3c import (_PLAIN_BUDGET, _bra_classes, _coulomb, _pair_sph_tables,
                   _row_maps, screened_pairs)
 
 
-def int2e_class_plain(la, lb, ea, ca, ra, eb, cb, rb, kets):
+def int2e_class_plain(la, lb, ea, ca, ra, eb, cb, rb, kets, omega=None):
     """Plain PyTorch twin of the `int2e` kernel: sph rows (ab|cd) of n bra
-    shell pairs of class (la, lb) against every ket class.
+    shell pairs of class (la, lb) against every ket class; with omega, of
+    the erf(omega r)/r attenuated operator.
 
     kets: [(lc, ld, ec, cc, rc, ed, cd, rd)], the screened ket pair tables
     per class. Returns (n*(2la+1)(2lb+1), sum nket*(2lc+1)(2ld+1)), the
@@ -50,7 +53,7 @@ def int2e_class_plain(la, lb, ea, ca, ra, eb, cb, rb, kets):
             s = slice(i, i + step)
             p1, P1, E1 = _pair_sph_tables(la, lb, ea[s], ca[s], ra[s],
                                           eb[s], cb[s], rb[s])
-            v = _coulomb(L1, p1, P1, E1, L2, p2, P2, E2)
+            v = _coulomb(L1, p1, P1, E1, L2, p2, P2, E2, omega)
             v = v.reshape(-1, KK1, ns1, nk, KK2, ns2).sum(dim=(1, 4))
             blocks.append(v.reshape(-1, nk * ns2))
         cols.append(torch.cat(blocks))
@@ -89,11 +92,14 @@ def _index_map(mol, classes, n_total):
     return out
 
 
-def int2e_dense(mol):
-    """Full (nao,)^4 chemists' ERI tensor (ab|cd) on mol.device."""
+def int2e_dense(mol, omega=None):
+    """Full (nao,)^4 chemists' ERI tensor (ab|cd) on mol.device; with omega,
+    of the erf(omega r)/r attenuated operator, on the shell pairs screened
+    for the full operator, as in the JAX package."""
     from .. import kernels
     kets = _ket_arrays(mol)
-    pieces = [kernels.int2e(la, lb, *pairs, kets) for la, lb, *pairs in kets]
+    pieces = [kernels.int2e(la, lb, *pairs, kets, omega)
+              for la, lb, *pairs in kets]
     bcs = [bc for bc in _bra_classes(mol).values() if bc.nsel]
     n = sum(p.shape[0] for p in pieces)
     return _assemble_4c(pieces, _index_map(mol, bcs, n), mol.nao)

@@ -10,6 +10,12 @@ programs become two CUDA kernels with plain PyTorch twins here:
   int2c2e  (csrc/int2c2e.cu) replaces _eri_2c_sph inside _j2c_whitener:
            the (P|Q) metric in grouped aux order; twin int2c2e_plain.
 
+Both take omega (the JAX package's rs_omega): the erf(omega r)/r
+attenuated, long-range integrals of a range-separated functional's K, by
+the substitution rho -> rho theta, pref -> pref sqrt(theta) with
+theta = omega^2 / (omega^2 + rho) (pyscf_tpu/ops/integrals/j3c.py:235-238,
+:274-277); None or 0 is the full Coulomb operator.
+
 The whitening product rows @ (L^-1)^T, the Cholesky factor and the
 triangular inverse are dense linear algebra and go to torch.matmul and
 torch.linalg, as XLA ran them as library ops in the JAX package.
@@ -26,6 +32,9 @@ from .int2e import _comb_onehot3, pair_screen_bound, SCREEN_THRESH
 
 # elements of the largest temporary the plain 3c version allocates per chunk
 _PLAIN_BUDGET = 1 << 24
+# eigenvalues of a metric without a Cholesky factor that the whitener keeps
+# (PySCF df/incore.py LINEAR_DEP_THR)
+LINEAR_DEP_THR = 1e-9
 
 
 class _BraClass:
@@ -92,22 +101,28 @@ def _aux_prep(l, e, c, r):
     return ef, rf, torch.einsum('mpt,ap->mat', E, sph(l, e.device))
 
 
-def _coulomb(l1, p1, P1, E1, l2, p2, P2, E2):
-    """(C1, ns1, C2, ns2) Coulomb integrals between two Hermite tables."""
+def _coulomb(l1, p1, P1, E1, l2, p2, P2, E2, omega=None):
+    """(C1, ns1, C2, ns2) Coulomb integrals between two Hermite tables; with
+    omega, of the erf(omega r)/r attenuated operator."""
     pp = p1[:, None] * p2[None, :]
     ps = p1[:, None] + p2[None, :]
-    omega = pp / ps
+    rho = pp / ps
     pref = 2.0 * math.pi ** 2.5 / (pp * torch.sqrt(ps))
+    if omega:
+        theta = omega ** 2 / (omega ** 2 + rho)
+        rho = rho * theta
+        pref = pref * torch.sqrt(theta)
     rpq = P1[:, None, :] - P2[None, :, :]
-    R = hermite_R(l1 + l2, omega, rpq) * pref[..., None]     # (C1, C2, ntL)
+    R = hermite_R(l1 + l2, rho, rpq) * pref[..., None]       # (C1, C2, ntL)
     W3 = torch.as_tensor(_comb_onehot3(l1, l2), device=p1.device)
     P2f = torch.einsum('bqt,stL->bqsL', E2, W3)      # (C2, ns2, nt1, ntL)
     Q = torch.einsum('abL,bqsL->abqs', R, P2f)        # (C1, C2, ns2, nt1)
     return torch.einsum('aps,abqs->apbq', E1, Q)
 
 
-def int3c2e_plain(la, lb, ea, ca, ra, eb, cb, rb, aux):
-    """Raw (ij|P) rows of n shell pairs: (n*da*db, naux), grouped aux order."""
+def int3c2e_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, omega=None):
+    """Raw (ij|P) rows of n shell pairs: (n*da*db, naux), grouped aux order;
+    with omega, of the erf(omega r)/r attenuated operator."""
     n, Ka = ea.shape
     KK = Ka * eb.shape[1]
     L1 = la + lb
@@ -124,21 +139,22 @@ def int3c2e_plain(la, lb, ea, ca, ra, eb, cb, rb, aux):
             s = slice(i, i + step)
             p1, P1, E1 = _pair_sph_tables(la, lb, ea[s], ca[s], ra[s],
                                           eb[s], cb[s], rb[s])
-            v = _coulomb(L1, p1, P1, E1, l2, p2, P2, E2)
+            v = _coulomb(L1, p1, P1, E1, l2, p2, P2, E2, omega)
             v = v.reshape(-1, KK, ns1, nsx, K2, ns2).sum(dim=(1, 4))
             blocks.append(v.reshape(-1, nsx * ns2))
         cols.append(torch.cat(blocks))
     return torch.cat(cols, dim=1)
 
 
-def int2c2e_plain(aux):
-    """(P|Q) over every aux class pair: (naux, naux), grouped aux order."""
+def int2c2e_plain(aux, omega=None):
+    """(P|Q) over every aux class pair: (naux, naux), grouped aux order;
+    with omega, of the erf(omega r)/r attenuated operator."""
     preps = [(l,) + _aux_prep(l, e, c, r) + (e.shape,) for l, e, c, r in aux]
     rows = []
     for lx, px, Px, Ex, (nsx, Kx) in preps:
         cols = []
         for ly, py, Py, Ey, (nsy, Ky) in preps:
-            blk = _coulomb(lx, px, Px, Ex, ly, py, Py, Ey)
+            blk = _coulomb(lx, px, Px, Ex, ly, py, Py, Ey, omega)
             dx, dy = 2 * lx + 1, 2 * ly + 1
             blk = blk.reshape(nsx, Kx, dx, nsy, Ky, dy).sum(dim=(1, 4))
             cols.append(blk.reshape(nsx * dx, nsy * dy))
@@ -151,10 +167,23 @@ def int2c2e_plain(aux):
 # ---------------------------------------------------------------------------
 
 def whitener(jg):
-    """(L^-1)^T of the Cholesky factor L L^T = jg of the (P|Q) metric."""
-    L = torch.linalg.cholesky(jg)
-    eye = torch.eye(jg.shape[0], dtype=jg.dtype, device=jg.device)
-    return torch.linalg.solve_triangular(L, eye, upper=False).T
+    """(L^-1)^T of the Cholesky factor L L^T = jg of the (P|Q) metric.
+
+    A metric that is singular to rounding has no such factor: the
+    erf(omega r)/r metric of a range-separated functional, whose smallest
+    eigenvalues sit at +-1e-17 of its largest for def2-universal-jkfit at
+    omega 0.3 (the JAX package's Cholesky gives NaN there). Then, as PySCF's
+    decompose_j2c, the whitener is U diag(lam^-1/2) over the eigenvalues
+    lam > LINEAR_DEP_THR, with zero columns for the rest: W^T jg W is the
+    identity on the kept space, and the factor keeps its shape."""
+    L, info = torch.linalg.cholesky_ex(jg)
+    if int(info) == 0:
+        eye = torch.eye(jg.shape[0], dtype=jg.dtype, device=jg.device)
+        return torch.linalg.solve_triangular(L, eye, upper=False).T
+    lam, U = torch.linalg.eigh(jg)
+    keep = lam > LINEAR_DEP_THR
+    return torch.where(keep, U / torch.sqrt(torch.where(keep, lam, 1.0)),
+                       0.0)
 
 
 def _grouped_order(auxmol):
@@ -220,23 +249,25 @@ def whitened_factor(mol, auxmol, rows, linv_t):
     return B[_to_ao_order(auxmol, B.device)]
 
 
-def df_factor(mol, auxmol, timings=None):
+def df_factor(mol, auxmol, timings=None, omega=None):
     """(B, (L^-1)^T) on mol.device: the dense whitened DF factor B (naux,
     nao, nao) and its whitener, whose rows and columns are in the order of
     B's first index and of the AO aux basis, so that
     (L^-1)^T @ (B . dm) = (P|Q)^-1 gamma in AO order (the DF gradient needs
     both).
 
-    (ij|kl) ~= sum_P B[P,i,j] B[P,k,l]. timings, if given, receives the
-    seconds of the j2c metric + whitener ('j2c') and of the 3c rows,
-    whitening and assembly ('j3c')."""
+    (ij|kl) ~= sum_P B[P,i,j] B[P,k,l]; with omega, of the erf(omega r)/r
+    attenuated operator in both the metric and the 3c rows (kernels
+    int2c2e_lr and int3c2e_lr). timings, if given, receives the seconds of
+    the j2c metric + whitener ('j2c') and of the 3c rows, whitening and
+    assembly ('j3c')."""
     from .. import kernels
     aux = aux_tables(auxmol)
     t0 = time.perf_counter()
-    linv_t = whitener(kernels.int2c2e(aux))
+    linv_t = whitener(kernels.int2c2e(aux, omega))
     sync(mol.device)
     t1 = time.perf_counter()
-    rows = {(la, lb): kernels.int3c2e(la, lb, *pairs, aux)
+    rows = {(la, lb): kernels.int3c2e(la, lb, *pairs, aux, omega)
             for (la, lb), (_, pairs) in screened_pairs(mol).items()}
     B = whitened_factor(mol, auxmol, rows, linv_t)
     sync(mol.device)

@@ -1,13 +1,18 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Seventeen kernels carry the DF-RHF/RKS/UKS and in-core paths, the
-conventional RHF gradient, the DF-RHF/RKS/UHF/UKS gradients and the
-dipole of the SCF analysis (sources in pyscf_tpu_torch/csrc/):
+Twenty-one kernels carry the DF-RHF/RKS/UKS and in-core paths with the
+range-separated and VV10 functionals, the conventional RHF gradient, the
+DF-RHF/RKS/UHF/UKS gradients and the dipole of the SCF analysis (sources
+in pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
+  int3c2e_lr the same of erf(omega r)/r, counted  (csrc/int3c2e.cu)
+             apart
   int2c2e    the (P|Q) metric                     (csrc/int2c2e.cu)
+  int2c2e_lr the same of erf(omega r)/r           (csrc/int2c2e.cu)
   int2e      (ab|cd) rows of one bra class        (csrc/int2e.cu)
+  int2e_lr   the same of erf(omega r)/r           (csrc/int2e.cu)
   int1e_ip   d/dA of S/T/V per ordered shell pair (csrc/int1e_ip.cu)
   int1e_iprinv  d/dC of <a|1/|r-C||b> per ordered (csrc/int1e_iprinv.cu)
              shell pair and centre
@@ -20,14 +25,17 @@ dipole of the SCF analysis (sources in pyscf_tpu_torch/csrc/):
   eval_ao_deriv2  the same kernel's deriv 2: with the second derivatives,
              counted apart
   becke      Becke partition weights of the grid  (csrc/becke.cu)
-  xc_rks     density, B3LYP-family functional and (csrc/xc_rks.cu,
-             the V_xc half-product per point       csrc/xc_funcs.cuh)
+  xc_rks     density, functional (B3LYP family,   (csrc/xc_rks.cu,
+             CAM-B88, the B97 series) and the V_xc  csrc/xc_funcs.cuh)
+             half-product per point
   xc_uks     the same for two spin densities      (csrc/xc_uks.cu)
   xc_rks_grad  the XC energy's nuclear gradient   (csrc/xc_rks_grad.cu)
              per AO on a fixed grid
   xc_uks_grad  the same for two spin densities    (csrc/xc_uks_grad.cu)
   int1e_r    dipole integrals <a|r|b> per shell  (csrc/int1e_r.cu)
              pair
+  vv10       the VV10 pair sum over the grid and  (csrc/vv10.cu)
+             its derivatives per point
 
 Each wrapper takes float64 (int32 for indices) contiguous tensors on one
 device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
@@ -52,6 +60,7 @@ import time
 import torch
 
 from ..dft import gen_grid, numint
+from ..dft import vv10 as vv10_mod
 from . import eval_gto
 from .integrals import (int1e, int1e_deriv, int2e as int2e_mod, j2e, j3c,
                         j3c_deriv)
@@ -67,6 +76,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _ERI_ARGS = [_I] * 7 + [_P] * 6 + [_I] * 3 + [_P] * 11 + [_I, _I, _P]
 # library -> (source, exported C function, its ctypes argtypes, extra nvcc
 # flags)
@@ -74,10 +84,10 @@ _LIBRARIES = {
     'int1e_stv': ('int1e_stv.cu', 'pt_int1e_stv',
                   [_I] * 6 + [_P] * 6 + [_I] + [_P] * 6, ()),
     'int3c2e': ('int3c2e.cu', 'pt_int3c2e', [_I] * 6 + [_P] * 6 + [_I, _I]
-                + [_P] * 7 + [_I, _I, _P], ()),
+                + [_P] * 7 + [_I, _I, _D, _P], ()),
     'int2c2e': ('int2c2e.cu', 'pt_int2c2e', [_I] * 4 + [_P] * 3 + [_I, _I]
-                + [_P] * 6 + [_I, _I, _I, _P], ()),
-    'int2e': ('int2e.cu', 'pt_int2e', _ERI_ARGS, ()),
+                + [_P] * 6 + [_I, _I, _I, _D, _P], ()),
+    'int2e': ('int2e.cu', 'pt_int2e', _ERI_ARGS[:-1] + [_D, _P], ()),
     'int1e_ip': ('int1e_ip.cu', 'pt_int1e_ip',
                  [_I] * 5 + [_P] * 6 + [_I] + [_P] * 6, ()),
     'int1e_iprinv': ('int1e_iprinv.cu', 'pt_int1e_iprinv',
@@ -86,10 +96,12 @@ _LIBRARIES = {
     'eval_ao': ('eval_ao.cu', 'pt_eval_ao', [_I] * 5 + [_P] * 7 + [_I, _P],
                 ('-fmad=false',)),
     'becke': ('becke.cu', 'pt_becke', [_I, _I] + [_P] * 8, ()),
+    # no FMA contraction: the range-separated attenuation cancels to ~1e-5
+    # of its terms, and the plain twin's rounding is kept
     'xc_rks': ('xc_rks.cu', 'pt_xc_rks', [_I] * 3 + [_P] * 3 + [_I]
-               + [_P] * 4 + [_I, _P], ()),
+               + [_P] * 5 + [_I, _P], ('-fmad=false',)),
     'xc_uks': ('xc_uks.cu', 'pt_xc_uks', [_I] * 3 + [_P] * 3 + [_I]
-               + [_P] * 4 + [_I, _P], ()),
+               + [_P] * 5 + [_I, _P], ('-fmad=false',)),
     'int2c2e_ip1': ('int2c2e_ip1.cu', 'pt_int2c2e_ip1', [_I] * 4 + [_P] * 3
                     + [_I, _I] + [_P] * 6 + [_I] * 3 + [_P] + [_I] * 3 + [_P],
                     ()),
@@ -98,6 +110,8 @@ _LIBRARIES = {
     'xc_uks_grad': ('xc_uks_grad.cu', 'pt_xc_uks_grad', [_I] * 3 + [_P] * 3
                     + [_I] + [_P] * 4 + [_I, _I, _P], ()),
     'int1e_r': ('int1e_r.cu', 'pt_int1e_r', [_I] * 5 + [_P] * 10, ()),
+    'vv10': ('vv10.cu', 'pt_vv10', [_I] + [_P] * 4 + [_D, _D, _P, _I, _P],
+             ()),
 }
 # int2e_ip1.cu and int3c2e_ip.cu once per bra momentum, so that their
 # instantiations compile in three processes each, side by side
@@ -268,16 +282,31 @@ def int1e_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords=None,
     return out
 
 
-def int3c2e(la, lb, ea, ca, ra, eb, cb, rb, aux):
+def int3c2e(la, lb, ea, ca, ra, eb, cb, rb, aux, omega=None):
     """Raw (ij|P) rows of n shell pairs of class (la, lb) against every aux
     shell: (n*(2la+1)(2lb+1), naux) in grouped aux order.
 
-    aux: [(l, exps (nsx, K), coeffs (nsx, K), coords (nsx, 3))] by l."""
+    aux: [(l, exps (nsx, K), coeffs (nsx, K), coords (nsx, 3))] by l. With
+    omega, the rows of erf(omega r)/r: int3c2e_lr's."""
+    if omega:
+        return int3c2e_lr(la, lb, ea, ca, ra, eb, cb, rb, aux, omega)
+    return _int3c2e(int3c2e, la, lb, ea, ca, ra, eb, cb, rb, aux, 0.0)
+
+
+def int3c2e_lr(la, lb, ea, ca, ra, eb, cb, rb, aux, omega):
+    """int3c2e's rows of the erf(omega r)/r attenuated operator (omega > 0),
+    the long-range DF factor of a range-separated functional's K; the same
+    kernel, counted apart."""
+    return _int3c2e(int3c2e_lr, la, lb, ea, ca, ra, eb, cb, rb, aux,
+                    float(omega))
+
+
+def _int3c2e(wrapper, la, lb, ea, ca, ra, eb, cb, rb, aux, omega):
     dev = _device_of(ea)
     n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
     _check_aux(dev, aux)
     if dev.type == 'cpu':
-        return j3c.int3c2e_plain(la, lb, ea, ca, ra, eb, cb, rb, aux)
+        return j3c.int3c2e_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, omega)
     ns1 = (2 * la + 1) * (2 * lb + 1)
     naux = sum(e.shape[0] * (2 * l + 1) for l, e, _, _ in aux)
     out = torch.empty((n * ns1, naux), dtype=torch.float64, device=dev)
@@ -290,19 +319,33 @@ def int3c2e(la, lb, ea, ca, ra, eb, cb, rb, aux):
                 ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
                 nsx, Kc, e.data_ptr(), c.data_ptr(), r.data_ptr(),
                 sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(),
-                sph(l, dev).data_ptr(), out.data_ptr(), naux, col, _stream())
-            _raise_on(rc, f'int3c2e({la},{lb}|{l})')
-            int3c2e.launches += 1
+                sph(l, dev).data_ptr(), out.data_ptr(), naux, col, omega,
+                _stream())
+            _raise_on(rc, f'{wrapper.__name__}({la},{lb}|{l})')
+            wrapper.launches += 1
         col += nsx * (2 * l + 1)
     return out
 
 
-def int2c2e(aux):
-    """(P|Q) metric over every aux shell: (naux, naux), grouped aux order."""
+def int2c2e(aux, omega=None):
+    """(P|Q) metric over every aux shell: (naux, naux), grouped aux order;
+    with omega, of erf(omega r)/r: int2c2e_lr's."""
+    if omega:
+        return int2c2e_lr(aux, omega)
+    return _int2c2e(int2c2e, aux, 0.0)
+
+
+def int2c2e_lr(aux, omega):
+    """int2c2e's metric of the erf(omega r)/r attenuated operator (omega >
+    0); the same kernel, counted apart."""
+    return _int2c2e(int2c2e_lr, aux, float(omega))
+
+
+def _int2c2e(wrapper, aux, omega):
     dev = _device_of(aux[0][1])
     _check_aux(dev, aux)
     if dev.type == 'cpu':
-        return j3c.int2c2e_plain(aux)
+        return j3c.int2c2e_plain(aux, omega)
     offs = [0]
     for l, e, _, _ in aux:
         offs.append(offs[-1] + e.shape[0] * (2 * l + 1))
@@ -316,9 +359,9 @@ def int2c2e(aux):
                 cx.data_ptr(), rx.data_ptr(), ey.shape[0], ey.shape[1],
                 ey.data_ptr(), cy.data_ptr(), ry.data_ptr(),
                 sph(lx, dev).data_ptr(), sph(ly, dev).data_ptr(),
-                out.data_ptr(), naux, offs[i], offs[j], _stream())
-            _raise_on(rc, f'int2c2e({lx}|{ly})')
-            int2c2e.launches += 1
+                out.data_ptr(), naux, offs[i], offs[j], omega, _stream())
+            _raise_on(rc, f'{wrapper.__name__}({lx}|{ly})')
+            wrapper.launches += 1
     return out
 
 
@@ -401,9 +444,10 @@ def _check_quartets(ea, ca, ra, eb, cb, rb, kets):
     return dev, n, ncol
 
 
-def _launch_quartets(wrapper, lib, la, lb, bra, kets, out, ncol):
+def _launch_quartets(wrapper, lib, la, lb, bra, kets, out, ncol, *extra):
     """One launch of lib's kernel per ket class, each writing its columns
-    of out (leading dimension ncol); counted on wrapper.launches."""
+    of out (leading dimension ncol), with the arguments extra after them;
+    counted on wrapper.launches."""
     dev = out.device
     n, Ka, Kb = bra[0].shape[0], bra[0].shape[1], bra[3].shape[1]
     col = 0
@@ -415,26 +459,40 @@ def _launch_quartets(wrapper, lib, la, lb, bra, kets, out, ncol):
                 nk, Kc, Kd, *[t.data_ptr() for t in ket],
                 sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(),
                 sph(lc, dev).data_ptr(), sph(ld, dev).data_ptr(),
-                out.data_ptr(), ncol, col, _stream())
+                out.data_ptr(), ncol, col, *extra, _stream())
             _raise_on(rc, f'{wrapper.__name__}({la},{lb}|{lc},{ld})')
             wrapper.launches += 1
         col += nk * (2 * lc + 1) * (2 * ld + 1)
 
 
-def int2e(la, lb, ea, ca, ra, eb, cb, rb, kets):
+def int2e(la, lb, ea, ca, ra, eb, cb, rb, kets, omega=None):
     """(ab|cd) sph rows of n bra shell pairs of class (la, lb) against the
     ket pairs of every class in kets: (n*(2la+1)(2lb+1), sum over kets of
     nket*(2lc+1)(2ld+1)), the ket classes' columns in the order given.
 
     kets: [(lc, ld, ec, cc, rc, ed, cd, rd)] with lc <= ld, the pair tables
-    of each ket class (as j3c.screened_pairs gives them)."""
-    bra = (ea, ca, ra, eb, cb, rb)
+    of each ket class (as j3c.screened_pairs gives them). With omega, the
+    rows of erf(omega r)/r: int2e_lr's."""
+    if omega:
+        return int2e_lr(la, lb, ea, ca, ra, eb, cb, rb, kets, omega)
+    return _int2e(int2e, la, lb, (ea, ca, ra, eb, cb, rb), kets, 0.0)
+
+
+def int2e_lr(la, lb, ea, ca, ra, eb, cb, rb, kets, omega):
+    """int2e's rows of the erf(omega r)/r attenuated operator (omega > 0),
+    the long-range in-core tensor of a range-separated functional's K; the
+    same kernel, counted apart."""
+    return _int2e(int2e_lr, la, lb, (ea, ca, ra, eb, cb, rb), kets,
+                  float(omega))
+
+
+def _int2e(wrapper, la, lb, bra, kets, omega):
     dev, n, ncol = _check_quartets(*bra, kets)
     if dev.type == 'cpu':
-        return j2e.int2e_class_plain(la, lb, *bra, kets)
+        return j2e.int2e_class_plain(la, lb, *bra, kets, omega)
     out = torch.empty((n * (2 * la + 1) * (2 * lb + 1), ncol),
                       dtype=torch.float64, device=dev)
-    _launch_quartets(int2e, 'int2e', la, lb, bra, kets, out, ncol)
+    _launch_quartets(wrapper, 'int2e', la, lb, bra, kets, out, ncol, omega)
     return out
 
 
@@ -613,16 +671,43 @@ def becke(coords, w0, owner, atm_coords, inv_dist, a_adj):
 
 
 # component of dft/xc.py -> id in csrc/xc_funcs.cuh
-XC_COMPONENT_IDS = {'SLATER': 0, 'VWN5': 1, 'VWN3': 2, 'B88': 3, 'LYP': 4}
+XC_COMPONENT_IDS = {'SLATER': 0, 'VWN5': 1, 'VWN3': 2, 'B88': 3, 'LYP': 4,
+                    'CAM_B88': 5, 'WB97': 6}
+# the components of the gradient kernels xc_rks_grad and xc_uks_grad
+XC_GRAD_COMPONENTS = ('SLATER', 'VWN5', 'VWN3', 'B88', 'LYP')
+# per-term parameters in csrc/xc_funcs.cuh Terms: omega, alpha, beta, then
+# three power series of XC_NSERIES coefficients (cx, css, cos)
+XC_NSERIES = 5
+XC_NPARAM = 3 + 3 * XC_NSERIES
 XC_WARPS_PER_BLOCK = 8
 # points and warps per thread block of xc_rks_grad
 XC_GRAD_POINTS = 64
 XC_GRAD_WARPS = 4
 
 
-def _xc_terms(xc, kernel):
-    """ctypes arrays (component ids, coefficients) of xc's terms."""
-    unknown = [comp for _, _, comp in xc.terms if comp not in XC_COMPONENT_IDS]
+def _term_params(comp, params):
+    """One term's XC_NPARAM parameters: [omega, alpha, beta] for CAM_B88,
+    [omega, 0, 0, cx, css, cos] with each series padded with zeros to
+    XC_NSERIES for WB97, zeros for a component without parameters."""
+    out = [0.0] * XC_NPARAM
+    if comp == 'CAM_B88':
+        out[:3] = params
+    elif comp == 'WB97':
+        out[0] = params[0]
+        for k, series in enumerate(params[1:]):
+            if len(series) > XC_NSERIES:
+                raise NotImplementedError(
+                    f'a B97 series of {len(series)} terms (the kernels take '
+                    f'{XC_NSERIES})')
+            off = 3 + k * XC_NSERIES
+            out[off:off + len(series)] = series
+    return out
+
+
+def _xc_terms(xc, kernel, allowed=tuple(XC_COMPONENT_IDS)):
+    """ctypes arrays (component ids, coefficients, parameters) of xc's
+    terms; NotImplementedError for a component outside `allowed`."""
+    unknown = [comp for _, _, comp in xc.terms if comp not in allowed]
     if unknown or xc.is_mgga:
         raise NotImplementedError(
             f'{kernel} kernel: components {unknown} or a meta-GGA are not '
@@ -630,7 +715,10 @@ def _xc_terms(xc, kernel):
     ids = (ctypes.c_int * len(xc.terms))(
         *[XC_COMPONENT_IDS[comp] for _, _, comp in xc.terms])
     coeffs = (ctypes.c_double * len(xc.terms))(*[c for c, _, _ in xc.terms])
-    return ids, coeffs
+    params = (ctypes.c_double * (XC_NPARAM * len(xc.terms)))(
+        *[v for (_, _, comp), p in zip(xc.terms, xc.params)
+          for v in _term_params(comp, p)])
+    return ids, coeffs, params
 
 
 def xc_rks(aod, dmao, weights, xc):
@@ -648,14 +736,15 @@ def xc_rks(aod, dmao, weights, xc):
         raise ValueError('a GGA functional needs the AO gradients (4, B, nao)')
     if dev.type == 'cpu':
         return numint.xc_rks_plain(aod, dmao, weights, xc)
-    ids, coeffs = _xc_terms(xc, 'xc_rks')
+    ids, coeffs, params = _xc_terms(xc, 'xc_rks')
     vtmp = torch.empty((B, nao), dtype=torch.float64, device=dev)
     nblk = -(-B // XC_WARPS_PER_BLOCK)
     partials = torch.zeros((max(nblk, 1), 2), dtype=torch.float64, device=dev)
     if B:
         rc = _fn('xc_rks')(int(gga), B, nao, aod.data_ptr(),
                            dmao.data_ptr(), weights.data_ptr(),
-                           len(xc.terms), ids, coeffs, vtmp.data_ptr(),
+                           len(xc.terms), ids, coeffs, params,
+                           vtmp.data_ptr(),
                            partials.data_ptr(), XC_WARPS_PER_BLOCK,
                            _stream())
         _raise_on(rc, 'xc_rks')
@@ -680,14 +769,15 @@ def xc_uks(aod, dmao, weights, xc):
         raise ValueError('a GGA functional needs the AO gradients (4, B, nao)')
     if dev.type == 'cpu':
         return numint.xc_uks_plain(aod, dmao, weights, xc)
-    ids, coeffs = _xc_terms(xc, 'xc_uks')
+    ids, coeffs, params = _xc_terms(xc, 'xc_uks')
     vtmp = torch.empty((2, B, nao), dtype=torch.float64, device=dev)
     nblk = -(-B // XC_WARPS_PER_BLOCK)
     partials = torch.zeros((max(nblk, 1), 3), dtype=torch.float64, device=dev)
     if B:
         rc = _fn('xc_uks')(int(gga), B, nao, aod.data_ptr(),
                            dmao.data_ptr(), weights.data_ptr(),
-                           len(xc.terms), ids, coeffs, vtmp.data_ptr(),
+                           len(xc.terms), ids, coeffs, params,
+                           vtmp.data_ptr(),
                            partials.data_ptr(), XC_WARPS_PER_BLOCK,
                            _stream())
         _raise_on(rc, 'xc_uks')
@@ -715,7 +805,7 @@ def xc_rks_grad(aod, dmao, weights, xc):
                          '(10, B, nao)')
     if dev.type == 'cpu':
         return numint.xc_rks_grad_plain(aod, dmao, weights, xc)
-    ids, coeffs = _xc_terms(xc, 'xc_rks_grad')
+    ids, coeffs, _ = _xc_terms(xc, 'xc_rks_grad', XC_GRAD_COMPONENTS)
     nblk = max(-(-B // XC_GRAD_POINTS), 1)
     partials = torch.zeros((nblk, 3, nao), dtype=torch.float64, device=dev)
     exc = torch.zeros(nblk, dtype=torch.float64, device=dev)
@@ -748,7 +838,7 @@ def xc_uks_grad(aod, dmao, weights, xc):
                          '(10, B, nao)')
     if dev.type == 'cpu':
         return numint.xc_uks_grad_plain(aod, dmao, weights, xc)
-    ids, coeffs = _xc_terms(xc, 'xc_uks_grad')
+    ids, coeffs, _ = _xc_terms(xc, 'xc_uks_grad', XC_GRAD_COMPONENTS)
     nblk = max(-(-B // XC_GRAD_POINTS), 1)
     partials = torch.zeros((nblk, 3, nao), dtype=torch.float64, device=dev)
     exc = torch.zeros(nblk, dtype=torch.float64, device=dev)
@@ -763,9 +853,35 @@ def xc_uks_grad(aod, dmao, weights, xc):
     return partials.sum(dim=0), exc.sum()
 
 
+VV10_THREADS = 128
+
+
+def vv10(rho, g2, coords, weights, b, C):
+    """VV10 non-local correlation on a grid: (E (0-d), dE/drho (ng,),
+    dE/dg2 (ng,)) of rho, g2 = |grad rho|^2 and weights (ng,) on the points
+    coords (ng, 3), with the parameters b and C; points with rho <= 1e-8
+    take no part (dft/vv10.py RHO_CUT)."""
+    dev = _device_of(rho)
+    n = rho.shape[0]
+    _check(dev, ('rho', rho, (n,)), ('g2', g2, (n,)),
+           ('coords', coords, (n, 3)), ('weights', weights, (n,)))
+    if dev.type == 'cpu':
+        return vv10_mod.vv10_plain(rho, g2, coords, weights, b, C)
+    out = torch.zeros((3, n), dtype=torch.float64, device=dev)
+    if n:
+        rc = _fn('vv10')(n, coords.data_ptr(), rho.data_ptr(),
+                         g2.data_ptr(), weights.data_ptr(),
+                         float(b), float(C), out.data_ptr(), VV10_THREADS,
+                         _stream())
+        _raise_on(rc, 'vv10')
+        vv10.launches += 1
+    return out[0].sum(), out[1], out[2]
+
+
 KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
            xc_uks, int1e_ip, int1e_iprinv, int2e_ip1, int3c2e_ip, int2c2e_ip1,
-           eval_ao_deriv2, xc_rks_grad, xc_uks_grad, int1e_r)
+           eval_ao_deriv2, xc_rks_grad, xc_uks_grad, int1e_r, int3c2e_lr,
+           int2c2e_lr, int2e_lr, vv10)
 
 
 def reset_launches():

@@ -66,6 +66,24 @@ DF_DERIV_FUNCTIONALS[b] holds jax.jit(jax.grad(f))(X) at X = mol.coords
 for f(X) = gamma . a + sum(O * b) of autodiff._df_intermediates(pairs,
 auxes, naux, X, [D blocks], [[C blocks]]) ('3c') and for f(X) =
 sum(autodiff._j2c(auxes, naux, X) * W) ('2c'), 23-54 s each on the CPU.
+
+The range-separated references are the water runs above (def2-svp,
+mf.grids.level = 1, conv_tol 1e-10, minao guess) with xc='camb3lyp'
+(DF-RKS, 75 s on the CPU) and xc='wb97x-v' (DF-RKS, and DF-UKS of the
+cation, charge=1, spin=1, 130-150 s each, most of it VV10's
+jax.value_and_grad). The JAX package's own DF-wB97X-V run gives NaN: its
+Cholesky factor of the erf(omega r)/r metric at omega 0.3 fails (the
+metric is singular to rounding; jnp.linalg.cholesky returns NaN rather
+than raising), and the SCF stops unconverged. The wB97X-V references were
+therefore recorded with pyscf_tpu.ops.integrals.j3c._j2c_whitener wrapped,
+in the recording process only, so that where its whitener is NaN it is
+replaced by U diag(lam^-1/2) over the metric's eigenvalues lam > 1e-9 with
+zero columns for the rest (92 of 113 kept), the port's rule
+(ops/integrals/j3c.py whitener, PySCF's decompose_j2c). At camb3lyp's
+omega 0.33 the JAX Cholesky happens to succeed, and its energy is recorded
+as it is. The in-core wB97X-V references drop .density_fit(): the JAX
+SCF then takes its long-range K from the legacy engine's int2e(mol,
+omega=0.3) and needs no whitener (145-166 s each).
 """
 
 BENZENE = '''
@@ -105,6 +123,17 @@ E_PHENYL_DF_UKS_B3LYPG_DEF2SVP = -231.39400216004216
 # DF-UKS b3lypg/def2-SVP of the water cation (charge=1, spin=1), minao
 # guess, conv_tol 1e-10, grids level 1; <S^2> 0.752270419625451
 E_WATER_CATION_DF_UKS_B3LYPG_L1 = -75.9018940566669
+# range-separated functionals, def2-SVP, minao guess, conv_tol 1e-10, grids
+# level 1 (see the docstring): DF-RKS camb3lyp (the JAX Cholesky whitener)
+E_WATER_DF_RKS_CAMB3LYP_L1 = -76.32974901114858
+# DF-RKS wb97x-v and the water cation's DF-UKS wb97x-v (the eigendecomposed
+# long-range whitener); <S^2> 0.7518602285814122
+E_WATER_DF_RKS_WB97XV_L1 = -76.19198407077467
+E_WATER_CATION_DF_UKS_WB97XV_L1 = -75.73078113391307
+# in-core RKS wb97x-v and UKS wb97x-v of the cation (no whitener);
+# <S^2> 0.7518603219223583
+E_WATER_RKS_WB97XV_L1 = -76.19197147587373
+E_WATER_CATION_UKS_WB97XV_L1 = -75.73076006583429
 # in-core RHF/def2-SVP, minao guess, conv_tol 1e-13, conv_tol_grad 1e-9, and
 # its analytic gradient (Ha/Bohr)
 E_WATER_RHF_DEF2SVP = -75.96097516698609

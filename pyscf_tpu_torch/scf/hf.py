@@ -12,10 +12,14 @@ J and K come from the DF factor, or from the dense in-core ERI tensor
 (nao, nao, nao, nao): `_eri` as the caller assigned it, else built once by
 mol.intor('int2e') (kernel `int2e`). J is one GEMV on the tensor; K is a
 batched GEMV on the same tensor, so the in-core path holds one copy of it.
+A range-separated functional's long-range K takes the same forms on the
+erf(omega r)/r factor (_df_lr, kernels int2c2e_lr and int3c2e_lr) or
+tensor (_get_eri(omega), kernel int2e_lr), each built once per omega.
 
 Runs on mol.device. `timings` holds the seconds of each phase of the last
 kernel() (hcore, j2c, j3c or eri, guess, scf_loop; RKS and UKS add grids
-and ao), each ended by a device synchronize.
+and ao, and a range-separated functional j2c_lr and j3c_lr or eri_lr),
+each ended by a device synchronize.
 """
 import time
 
@@ -65,6 +69,7 @@ class SCF:
         self.scf_cycles = 0
         self.with_df = None
         self._eri = None
+        self._eri_lr = {}           # omega -> the erf(omega r)/r tensor
         self.timings = {}
         self._veff_timings = {}     # set-up phases of the last _veff_fns()
 
@@ -105,8 +110,18 @@ class SCF:
         from ..df.df_jk import density_fit
         return density_fit(self, auxbasis)
 
-    def _get_eri(self):
-        """The in-core ERI tensor: `_eri` if assigned, else built once."""
+    def _get_eri(self, omega=None):
+        """The in-core ERI tensor: `_eri` if assigned, else built once; with
+        omega, the erf(omega r)/r tensor, built once per omega
+        (ops/integrals/j2e.py int2e_dense, kernel int2e_lr)."""
+        if omega:
+            if omega not in self._eri_lr:
+                from ..ops.integrals.j2e import int2e_dense
+                t0 = time.perf_counter()
+                self._eri_lr[omega] = int2e_dense(self.mol, omega)
+                sync(self.mol.device)
+                self._veff_timings['eri_lr'] = time.perf_counter() - t0
+            return self._eri_lr[omega]
         if self._eri is None:
             t0 = time.perf_counter()
             self._eri = self.mol.intor('int2e')
@@ -114,20 +129,30 @@ class SCF:
             self._veff_timings['eri'] = time.perf_counter() - t0
         return self._eri
 
-    def _jk_fns(self):
+    def _df_lr(self, omega):
+        """The DF object of the erf(omega r)/r metric and rows in the mean
+        field's aux basis (pyscf_tpu/scf/hf.py:160-169), built once per
+        Mole and omega (DF's cache)."""
+        from ..df.df import DF
+        return DF(self.mol, self.with_df.auxbasis, omega).build()
+
+    def _jk_fns(self, omega=None):
         """(get_j(dm), get_k(dm, co=None)): DF-J/K on the factor B, K from
         the occupied factor co (scaled by the square root of its
-        occupation) when given; or GEMVs on the in-core ERI tensor."""
+        occupation) when given; or GEMVs on the in-core ERI tensor. With
+        omega, the same on the erf(omega r)/r factor or tensor: the
+        long-range K of a range-separated functional."""
         if self.with_df is not None:
             from ..df.df_jk import j_from_dm, k_from_dm, k_from_mo
-            B = self.with_df.cderi
-            self._veff_timings.update(self.with_df.timings)
+            dfobj = self._df_lr(omega) if omega else self.with_df
+            B = dfobj.cderi
+            self._veff_timings.update(dfobj.timings)
 
             def get_k(dm, co=None):
                 return k_from_dm(B, dm) if co is None else k_from_mo(B, co)
 
             return (lambda dm: j_from_dm(B, dm)), get_k
-        eri = self._get_eri()
+        eri = self._get_eri(omega)
         n = eri.shape[0]
         eri_j = eri.reshape(n * n, n * n)
 

@@ -1,13 +1,16 @@
-"""The integral kernels' CUDA sources, compiled for the host with g++,
-against their plain twins.
+"""The integral kernels' and the VV10 kernel's CUDA sources, compiled for
+the host with g++, against their plain twins.
 
 There is no CUDA compiler or card where the fast tests run, so this file
-compiles csrc/int1e_stv.cu, int2e.cu, int1e_ip.cu, int1e_iprinv.cu,
-int2e_ip1.cu, int3c2e_ip.cu, int2c2e_ip1.cu and int1e_r.cu as C++ behind
-a small stand-in for cuda_runtime.h (the qualifiers defined away, a
-launch turned into a loop over blocks and threads) and calls them through
-the C interface the wrappers use, on water/def2-SVP, whose classes reach
-(dd|dd), and the dipole kernel on a basis of s to g shells. It checks the
+compiles csrc/int1e_stv.cu, int3c2e.cu, int2c2e.cu, int2e.cu, int1e_ip.cu,
+int1e_iprinv.cu, int2e_ip1.cu, int3c2e_ip.cu, int2c2e_ip1.cu, int1e_r.cu
+and vv10.cu as C++ behind a small stand-in for cuda_runtime.h (the
+qualifiers defined away, shared arrays static, a launch turned into a loop
+over blocks and threads, in order, so that vv10.cu runs with one thread
+per block) and calls them through the C interface the wrappers use, on
+water/def2-SVP, whose classes reach (dd|dd) and whose aux basis reaches g,
+with and without the erf(omega r)/r attenuation, the dipole kernel on a
+basis of s to g shells, and vv10.cu on a water grid. It checks the
 kernels' arithmetic and indexing, not that nvcc accepts them: that is
 tests/test_torch_kernels.py on the card."""
 import ctypes
@@ -40,6 +43,8 @@ SHIM = '''
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(x)
+#define __shared__ static
+inline void __syncthreads() {}
 struct Dim { int x; };
 static thread_local Dim blockIdx, blockDim, threadIdx;
 typedef void* cudaStream_t;
@@ -54,9 +59,11 @@ void host_launch(int blocks, int threads, F f, A... a) {
     }
 }
 '''
-LIBS = ('int1e_stv', 'int2e', 'int1e_ip', 'int1e_iprinv', 'int2e_ip1_la0',
-        'int2e_ip1_la1', 'int2e_ip1_la2', 'int3c2e_ip_la0', 'int3c2e_ip_la1',
-        'int3c2e_ip_la2', 'int2c2e_ip1', 'int1e_r')
+LIBS = ('int1e_stv', 'int3c2e', 'int2c2e', 'int2e', 'int1e_ip',
+        'int1e_iprinv', 'int2e_ip1_la0', 'int2e_ip1_la1', 'int2e_ip1_la2',
+        'int3c2e_ip_la0', 'int3c2e_ip_la1', 'int3c2e_ip_la2', 'int2c2e_ip1',
+        'int1e_r', 'vv10')
+OMEGA = 0.3
 DEV = torch.device('cpu')
 
 
@@ -169,7 +176,7 @@ def test_int1e_r(host):
         _close(out, int1e.class_r(la, lb, *p))
 
 
-def _quartets(fn, la, lb, p, kets, out, ncol):
+def _quartets(fn, la, lb, p, kets, out, ncol, *extra):
     n, Ka, Kb = _dims(p)
     col = 0
     for lc, ld, *ket in kets:
@@ -177,19 +184,90 @@ def _quartets(fn, la, lb, p, kets, out, ncol):
         assert fn(la, lb, lc, ld, n, Ka, Kb, *_ptrs(*p), nk, Kc, Kd,
                   *_ptrs(*ket), *_ptrs(*[sph(l, DEV) for l in
                                          (la, lb, lc, ld)]),
-                  out.data_ptr(), ncol, col, None) == 0
+                  out.data_ptr(), ncol, col, *extra, None) == 0
         col += nk * (2 * lc + 1) * (2 * ld + 1)
     return out
 
 
-def test_int2e(host, water):
+def _int2e(host, water, omega):
     mol, _, _ = water
     kets = j2e._ket_arrays(mol)
     for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
-        ref = j2e.int2e_class_plain(la, lb, *p, kets)
+        ref = j2e.int2e_class_plain(la, lb, *p, kets, omega)
         got = _quartets(host['int2e'], la, lb, p, kets,
-                        torch.empty_like(ref), ref.shape[1])
+                        torch.empty_like(ref), ref.shape[1], omega)
         _close(got, ref)
+
+
+def test_int2e(host, water):
+    _int2e(host, water, 0.0)
+
+
+def test_int2e_lr(host, water):
+    """The erf(omega r)/r attenuated quartets (omega 0.3)."""
+    _int2e(host, water, OMEGA)
+
+
+@pytest.mark.parametrize('omega', [0.0, OMEGA])
+def test_int3c2e(host, water, omega):
+    """Raw (ij|P) rows of every bra class against the def2-universal-jkfit
+    aux classes, up to (dd|g)."""
+    mol, _, _ = water
+    aux = j3c.aux_tables(make_auxmol(mol))
+    offs, _ = kernels._aux_offsets(aux)
+    for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
+        n, Ka, Kb = _dims(p)
+        out = torch.empty((n * (2 * la + 1) * (2 * lb + 1), offs[-1]),
+                          dtype=torch.float64)
+        for i, (l, e, c, r) in enumerate(aux):
+            assert host['int3c2e'](
+                la, lb, l, n, Ka, Kb, *_ptrs(*p), *e.shape,
+                *_ptrs(e, c, r, sph(la, DEV), sph(lb, DEV), sph(l, DEV),
+                       out), offs[-1], offs[i], omega, None) == 0
+        _close(out, j3c.int3c2e_plain(la, lb, *p, aux, omega))
+
+
+@pytest.mark.parametrize('omega', [0.0, OMEGA])
+def test_int2c2e(host, water, omega):
+    """The (P|Q) metric over every aux class pair, up to (g|g)."""
+    mol, _, _ = water
+    aux = j3c.aux_tables(make_auxmol(mol))
+    offs, _ = kernels._aux_offsets(aux)
+    out = torch.empty((offs[-1], offs[-1]), dtype=torch.float64)
+    for i, (lx, ex, cx, rx) in enumerate(aux):
+        for j in range(i, len(aux)):
+            ly, ey, cy, ry = aux[j]
+            assert host['int2c2e'](
+                lx, ly, *ex.shape, *_ptrs(ex, cx, rx), *ey.shape,
+                *_ptrs(ey, cy, ry, sph(lx, DEV), sph(ly, DEV), out),
+                offs[-1], offs[i], offs[j], omega, None) == 0
+    _close(out, j3c.int2c2e_plain(aux, omega))
+
+
+def test_vv10(host):
+    """vv10.cu, one thread per block, on water's level-1 grid at a seeded
+    density (some points under RHO_CUT) against vv10_plain: the energy to
+    1e-12 relative, dE/drho and dE/dg2 to 1e-12 of their largest
+    magnitude."""
+    from pyscf_tpu_torch.dft import gen_grid, vv10
+    mol = tpt.M(atom=refs.WATER, basis='def2-svp', device='cpu')
+    grids = gen_grid.Grids(mol)
+    grids.level = 0
+    grids.build()
+    n = grids.size
+    rng = np.random.default_rng(61)
+    rho = torch.as_tensor(10.0 ** rng.uniform(-10, 1, n))
+    g2 = torch.as_tensor(rho.numpy() ** (8 / 3) * 10.0 ** rng.uniform(
+        -3, 2, n))
+    assert bool((rho <= vv10.RHO_CUT).any())
+    out = torch.empty((3, n), dtype=torch.float64)
+    assert host['vv10'](n, *_ptrs(grids.coords, rho, g2, grids.weights),
+                        6.0, 0.01, out.data_ptr(), 1, None) == 0
+    e, dr, dg = vv10.vv10_plain(rho, g2, grids.coords, grids.weights, 6.0,
+                                0.01)
+    assert abs(float(out[0].sum() - e)) <= 1e-12 * abs(float(e))
+    _close(out[1], dr)
+    _close(out[2], dg)
 
 
 def test_int2e_ip1(host, water):

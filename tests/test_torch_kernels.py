@@ -152,8 +152,41 @@ def test_becke(water):
     assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.max()
 
 
-@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'blyp'])
+def _attenuation_scale(f, r, s):
+    """1e-13 of rho_s^(4/3) g_s T(a_s) per point of one spin density r and
+    sigma_ss s, T(a) = (8/3) a (sqrt(pi) + 3a + 8a^3): the rounding of the
+    range-separated attenuation F(a), which cancels terms of size T(a) to
+    ~1e-5 at large a (as tests/test_torch_rsh.py _attenuation_scale
+    gates it, where it is held to jax.grad); zero without range
+    separation."""
+    if not f.omega:
+        return torch.zeros_like(r)
+    r = torch.clamp(r, min=numint.RHO_THR)
+    if f.terms[0][2] == 'CAM_B88':
+        y = torch.sqrt(torch.clamp(s, min=1e-30)) / r ** (4 / 3)
+        K = 2 * 0.9305257363491002 + 2 * 0.0042 * y * y / (
+            1 + 6 * 0.0042 * y * torch.asinh(y))
+        k, g = torch.sqrt(9 * np.pi / K) * r ** (1 / 3), 0.5 * K
+    else:
+        k, g = (6 * np.pi ** 2 * r) ** (1 / 3), 1.0
+    a = torch.clamp(f.omega / (2 * k), 1e-10, 50.0)
+    return 1e-13 * r ** (4 / 3) * g * (8 / 3) * a * (
+        np.sqrt(np.pi) + 3 * a + 8 * a ** 3)
+
+
+def _density(aod, dmao):
+    """(rho, grad rho (3, B)) of dmao = ao @ dm on aod (4, B, nao)."""
+    rho = torch.einsum('bi,bi->b', dmao, aod[0])
+    return rho, 2.0 * torch.einsum('bi,dbi->db', dmao, aod[1:])
+
+
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'blyp', 'wb97x-v',
+                                     'camb3lyp', 'b97-1'])
 def test_xc_rks(water, water_grid, xc_code):
+    """vtmp to 1e-11 of its largest magnitude; for a range-separated
+    functional plus, per point and AO, the attenuation's rounding carried
+    into vrho and vsigma (over rho and sigma) and from them into vtmp's
+    two terms."""
     mol, _ = water
     f = xc.parse_xc(xc_code)
     aod = eval_gto.eval_ao(mol, water_grid.coords, 1 if f.is_gga else 0)
@@ -161,16 +194,28 @@ def test_xc_rks(water, water_grid, xc_code):
     c = torch.as_tensor(rng.standard_normal((mol.nao, 5)) * 0.3,
                         device='cuda')
     dmao = (aod[0] if f.is_gga else aod) @ (2.0 * c @ c.T)
-    got = kernels.xc_rks(aod, dmao, water_grid.weights, f)
-    ref = numint.xc_rks_plain(aod, dmao, water_grid.weights, f)
-    assert torch.max(torch.abs(got[0] - ref[0])) <= 1e-11 * ref[0].abs().max()
+    w = water_grid.weights
+    got = kernels.xc_rks(aod, dmao, w, f)
+    ref = numint.xc_rks_plain(aod, dmao, w, f)
+    gate = 1e-11 * ref[0].abs().max()
+    if f.omega:
+        rho, grho = _density(aod, dmao)
+        sigma = torch.clamp((grho * grho).sum(0), min=numint.SIGMA_FLOOR)
+        att = w * _attenuation_scale(f, 0.5 * rho, 0.25 * sigma)
+        gate = gate + att[:, None] * (
+            0.5 * aod[0].abs() / torch.clamp(rho, min=numint.RHO_THR)[:, None]
+            + 2.0 * torch.einsum('db,dbi->bi', grho, aod[1:]).abs()
+            / sigma[:, None])
+    assert torch.all(torch.abs(got[0] - ref[0]) <= gate)
     for a, b in zip(got[1:], ref[1:]):
         assert abs(float(a - b)) <= 1e-11 * abs(float(b))
 
 
-@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'wb97x-v',
+                                     'camb3lyp'])
 def test_xc_uks(water, water_grid, xc_code):
-    """On a random spin density (5 alpha and 4 beta orbitals)."""
+    """On a random spin density (5 alpha and 4 beta orbitals); vtmp gated
+    as test_xc_rks's, per spin."""
     mol, _ = water
     f = xc.parse_xc(xc_code)
     aod = eval_gto.eval_ao(mol, water_grid.coords, 1 if f.is_gga else 0)
@@ -180,9 +225,23 @@ def test_xc_uks(water, water_grid, xc_code):
     c[1, :, 4] = 0.0
     dm = c @ c.transpose(1, 2)
     dmao = (aod[0] if f.is_gga else aod) @ dm
-    got = kernels.xc_uks(aod, dmao, water_grid.weights, f)
-    ref = numint.xc_uks_plain(aod, dmao, water_grid.weights, f)
-    assert torch.max(torch.abs(got[0] - ref[0])) <= 1e-11 * ref[0].abs().max()
+    w = water_grid.weights
+    got = kernels.xc_uks(aod, dmao, w, f)
+    ref = numint.xc_uks_plain(aod, dmao, w, f)
+    gate = 1e-11 * ref[0].abs().max()
+    if f.omega:
+        (ra, ga), (rb, gb) = _density(aod, dmao[0]), _density(aod, dmao[1])
+        saa = torch.clamp((ga * ga).sum(0), min=numint.SIGMA_FLOOR)
+        sbb = torch.clamp((gb * gb).sum(0), min=numint.SIGMA_FLOOR)
+        att = w * (_attenuation_scale(f, ra, saa)
+                   + _attenuation_scale(f, rb, sbb))
+        gate = gate + torch.stack([att[:, None] * (
+            0.5 * aod[0].abs() / torch.clamp(r, min=numint.RHO_THR)[:, None]
+            + 2.0 * torch.einsum('db,dbi->bi', g, aod[1:]).abs() / s[:, None]
+            + torch.einsum('db,dbi->bi', go, aod[1:]).abs()
+            / torch.sqrt(saa * sbb)[:, None])
+            for r, g, s, go in ((ra, ga, saa, gb), (rb, gb, sbb, ga))])
+    assert torch.all(torch.abs(got[0] - ref[0]) <= gate)
     assert torch.all(torch.abs(got[1] - ref[1]) <= 1e-11 * torch.abs(ref[1]))
     assert abs(float(got[2] - ref[2])) <= 1e-11 * abs(float(ref[2]))
 
@@ -343,3 +402,79 @@ def test_df_gradient_on_card_launches_its_kernels(water, case):
     if case in ('rks', 'uks'):
         names += ['eval_ao_deriv2', f'xc_{case}_grad']
     assert all(kernels.launches()[k] > 0 for k in names)
+
+
+# ---- range separation and VV10 ----------------------------------------------
+
+OMEGA = 0.3
+
+
+def test_int3c2e_lr(water):
+    mol, auxmol = water
+    aux = j3c.aux_tables(auxmol)
+    for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
+        got = kernels.int3c2e(la, lb, *p, aux, OMEGA)
+        ref = j3c.int3c2e_plain(la, lb, *p, aux, OMEGA)
+        assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+def test_int2c2e_lr(water):
+    _, auxmol = water
+    aux = j3c.aux_tables(auxmol)
+    got, ref = kernels.int2c2e(aux, OMEGA), j3c.int2c2e_plain(aux, OMEGA)
+    assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+def test_int2e_lr(water):
+    mol, _ = water
+    kets = j2e._ket_arrays(mol)
+    for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
+        got = kernels.int2e(la, lb, *p, kets, OMEGA)
+        ref = j2e.int2e_class_plain(la, lb, *p, kets, OMEGA)
+        assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+def test_vv10(water, water_grid):
+    """At a random density (5 orbitals) on water's level-1 grid: E to 1e-11
+    relative, the derivatives to 1e-11 of their largest magnitude."""
+    from pyscf_tpu_torch.dft import vv10
+    mol, _ = water
+    aod = eval_gto.eval_ao(mol, water_grid.coords, 1)
+    rng = np.random.default_rng(9)
+    c = torch.as_tensor(rng.standard_normal((mol.nao, 5)) * 0.3,
+                        device='cuda')
+    dmao = aod[0] @ (2.0 * c @ c.T)
+    rho = torch.clamp(torch.einsum('bi,bi->b', dmao, aod[0]), min=0.0)
+    grho = 2.0 * torch.einsum('bi,dbi->db', dmao, aod[1:])
+    args = (rho, torch.einsum('db,db->b', grho, grho), water_grid.coords,
+            water_grid.weights, 6.0, 0.01)
+    got, ref = kernels.vv10(*args), vv10.vv10_plain(*args)
+    assert abs(float(got[0] - ref[0])) <= 1e-11 * abs(float(ref[0]))
+    for a, b in zip(got[1:], ref[1:]):
+        assert torch.max(torch.abs(a - b)) <= 1e-11 * b.abs().max()
+
+
+@pytest.mark.parametrize('case', ['rks', 'uks', 'rks-incore'])
+def test_wb97xv_on_card_launches_its_kernels(water, case):
+    """Water (cation for UKS) wB97X-V/def2-SVP, level-1 grids, against the
+    recorded JAX energies, with vv10, the XC kernel and the long-range
+    integral kernels launched."""
+    kernels.reset_launches()
+    spin = int(case == 'uks')
+    mol = tpt.M(atom=refs.WATER, basis='def2-svp', charge=spin, spin=spin)
+    mf = mol.UKS(xc='wb97x-v') if spin else mol.RKS(xc='wb97x-v')
+    if case != 'rks-incore':
+        mf = mf.density_fit()
+    mf.grids.level = 1
+    mf.conv_tol = 1e-10
+    e = mf.kernel()
+    ref = {'rks': refs.E_WATER_DF_RKS_WB97XV_L1,
+           'uks': refs.E_WATER_CATION_DF_UKS_WB97XV_L1,
+           'rks-incore': refs.E_WATER_RKS_WB97XV_L1}[case]
+    assert mf.converged and abs(e - ref) < 1e-8
+    launches = kernels.launches()
+    lr = ('int2e_lr',) if case == 'rks-incore' else ('int3c2e_lr',
+                                                      'int2c2e_lr')
+    assert all(launches[k] > 0 for k in ('vv10', 'xc_uks' if spin else
+                                         'xc_rks') + lr)
+    assert mf.timings['vv10'] > 0.0

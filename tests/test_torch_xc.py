@@ -61,17 +61,20 @@ def test_energy_and_derivatives_match_jax(name):
 
 @pytest.mark.parametrize('name,hyb,family', [
     ('B3LYPG', 0.2, xc.GGA), ('b3lyp', 0.2, xc.GGA), ('LDA,VWN', 0.0, xc.LDA),
-    ('svwn', 0.0, xc.LDA), ('0.25*HF + 0.75*B88, LYP', 0.25, xc.GGA)])
+    ('svwn', 0.0, xc.LDA), ('0.25*HF + 0.75*B88, LYP', 0.25, xc.GGA),
+    ('wb97x-v', 0.167, xc.GGA), ('camb3lyp', 0.19, xc.GGA),
+    ('b97-1', 0.21, xc.GGA)])
 def test_parse_matches_jax(name, hyb, family):
     got, ref = xc.parse_xc(name), jax_xc.parse_xc(name)
     assert got.hyb == ref.hyb == xc.hybrid_coeff(name) == hyb
     assert got.family == ref.family == family
     assert [c for c, _, _ in got.terms] == [c for c, _, _ in ref.terms]
-    assert xc.rsh_coeff(name) == ref.rsh == (0.0, 0.0, 0.0)
+    assert xc.rsh_coeff(name) == ref.rsh
+    assert got.nlc == ref.nlc
 
 
-@pytest.mark.parametrize('name', ['pbe', 'camb3lyp', 'b2plyp', 'tpss',
-                                  'wb97x-v', 'xalpha', 'b88,p86'])
+@pytest.mark.parametrize('name', ['pbe', 'scan', 'b2plyp', 'tpss',
+                                  'pw91', 'xalpha', 'b88,p86'])
 def test_unported_functionals_raise(name):
-    with pytest.raises(NotImplementedError, match='queue 1 step 9'):
+    with pytest.raises(NotImplementedError, match='queue 1, remaining XC'):
         xc.parse_xc(name)
