@@ -4,7 +4,7 @@
 Drives the port's paths for benzene/def2-SVP, the phenyl radical and
 water on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the twenty-one kernel libraries from the seventeen sources of
+  2. builds the twenty-three kernel libraries from the nineteen sources of
      pyscf_tpu_torch/csrc (nvcc, sm_90a, one process per library, all at
      once);
   3. integral kernel phases at the main path's shapes: each kernel against
@@ -117,14 +117,38 @@ water on the card, in order:
      wB97X-V and water's in-core RKS wB97X-V (def2-SVP, level-1 grids,
      conv_tol 1e-10) within 1e-8 of the recorded JAX energies, the
      long-range kernels and vv10 launched;
- 28. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 28. the post-HF path, in-core: benzene/def2-SVP M(...).RHF().run() (minao,
+     conv_tol 1e-12, conv_tol_grad 1e-9, the references' settings), then
+     mf.MP2().kernel(), mf.CCSD() (conv_tol 1e-10, conv_tol_normt 1e-8)
+     .kernel() and ccsd_t(), all electrons: SCF and CCSD converged, E_MP2,
+     E_CCSD and E_(T) within 1e-8 Ha of the recorded JAX values,
+     mp2_energy and ccsd_t launched in that run; the ao2mo, MP2, per-cycle
+     CCSD and (T) seconds (host clock after a synchronize; MP2 and (T)
+     again warm), the cycle count and the peak device memory printed;
+ 29. the ccsd_t phase at that CCSD's tensors: the kernel against its
+     batched twin (run once) over all 138,415 triples within 1e-10
+     relative, its vvov slices staged in f tiles of 32 against the untiled
+     run within 1e-12, and on seeded tensors whose triples hold all three
+     multiplicities, untiled and in f tiles of 4, within 1e-12;
+ 30. the mp2_energy phase at benzene's (ia|jb): t2 within 1e-13 of its
+     largest, both sums within 1e-12 relative of the twin's;
+ 31. the same post-HF path on benzene DF-RHF (def2-universal-jkfit): the
+     recorded JAX energies within 1e-8 Ha, both kernels launched, times
+     printed ((T) by the kernel only);
+ 32. UMP2 of the water cation (in-core UHF/def2-SVP) within 1e-8 Ha of the
+     recorded JAX energy and its os/ss split, mp2_energy launched once per
+     spin block; the phenyl radical's UMP2 and its time printed (its UHF
+     does not converge from minao, in the JAX package either: printed,
+     not checked);
+ 33. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
      xc_rks_grad from 13, xc_uks_grad from 17, int1e_r from 20,
      int3c2e_lr, int2c2e_lr, vv10 and xc_rks with WB97 from 23, xc_uks
-     with WB97 from 25, int2e_lr from 27's in-core run, the others from
-     6), then the result line {"ok": true, "device": {...}}.
+     with WB97 from 25, int2e_lr from 27's in-core run, mp2_energy and
+     ccsd_t from 28, the others from 6), then the result line {"ok": true,
+     "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
 import json
@@ -135,10 +159,13 @@ import time
 import numpy as np
 import torch
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth and the FP64 rate outside the
-# tensor cores (the kernels here do no matrix products), at 700 W.
+# NVIDIA H100 SXM data sheet, at 700 W: HBM3 bandwidth, the FP64 rate
+# outside the tensor cores (the peak of the kernels whose work is no matrix
+# product) and the FP64 tensor cores' (DMMA) rate, the peak of ccsd_t,
+# whose w builds are small matrix products.
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+FP64_TC_FLOPS = 67e12
 
 
 def cuda_ms(fn, reps=3):
@@ -168,20 +195,25 @@ def check(ok, what):
         raise SystemExit(f'FAILED: {what}')
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, peak=FP64_FLOPS):
     """(ms, 'bytes' or 'operations'): the least time for the work, bytes
-    over HBM bandwidth or FP64 operations over the FP64 rate."""
+    over HBM bandwidth or FP64 operations over the card's peak rate for
+    them."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP64_FLOPS * 1e3
+    t_ops = nops / peak * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
 def record(report, name, source, replaces, err, kernel_fn, plain_fn, nbytes,
-           nops, plain_reps=3):
-    bound_ms, bound_by = bound(nbytes, nops)
+           nops, plain_reps=3, plain_ms=None, peak=FP64_FLOPS):
+    """Time the kernel and its twin (or take the twin's plain_ms, measured
+    once by the caller) and keep the kernel's line of the report."""
+    bound_ms, bound_by = bound(nbytes, nops, peak)
     report[name] = dict(
         source=source, replaces=replaces, max_abs_err=err,
-        ms=cuda_ms(kernel_fn), plain_ms=cuda_ms(plain_fn, plain_reps),
+        ms=cuda_ms(kernel_fn),
+        plain_ms=(cuda_ms(plain_fn, plain_reps) if plain_ms is None
+                  else plain_ms),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     r = report[name]
     print(f'{name}: max_abs_err {err:.3e}  kernel {r["ms"]:.3f} ms  plain '
@@ -1630,6 +1662,212 @@ def water_rsh_references(pt, refs, kernels):
     return launches
 
 
+# ---- post-HF: MP2, UMP2, CCSD and CCSD(T) -----------------------------------
+
+def tight_scf(mf):
+    """The post-HF references' SCF: minao, conv_tol 1e-12, conv_tol_grad
+    1e-9 (pyscf_tpu_torch/refs.py)."""
+    mf.init_guess = 'minao'
+    mf.conv_tol = 1e-12
+    mf.conv_tol_grad = 1e-9
+    return mf
+
+
+def host_s(fn):
+    """(fn(), seconds) on the host clock, ended by a device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def postscf_path(name, kernels, build, e_refs):
+    """SCF, mf.MP2().kernel(), mf.CCSD().kernel() and ccsd_t() of benzene
+    through the entry points, with the launch counts set to 0 just before
+    and read just after; the converged energies against the recorded JAX
+    ones (1e-8 Ha); then warm repeats of MP2 and (T), not counted.
+    Returns (mf, mycc, launches)."""
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    mf, scf_s = host_s(lambda: tight_scf(build()).run())
+    (e_mp2, _), mp2_s = host_s(lambda: mf.MP2().kernel())
+    mycc = mf.CCSD()
+    mycc.conv_tol = 1e-10
+    mycc.conv_tol_normt = 1e-8
+    (e_cc, _, _), cc_s = host_s(mycc.kernel)
+    e_t, t_s = host_s(mycc.ccsd_t)
+    launches = kernels.launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _, mp2_warm = host_s(lambda: mf.MP2().kernel())
+    _, t_warm = host_s(mycc.ccsd_t)
+    cyc = mycc.timings['cycles']
+    print(f'{name}: E_SCF {mf.e_tot!r} ({mf.scf_cycles} cycles, {scf_s:.3f} '
+          f's)  E_MP2 {e_mp2!r}  E_CCSD {e_cc!r} ({mycc.cycles} cycles)  '
+          f'E_(T) {e_t!r}')
+    print(f'{name} seconds: ao2mo (CCSD blocks) {mycc.timings["eris"]:.4f}  '
+          f'MP2 {mp2_s:.4f} (warm {mp2_warm:.4f})  CCSD {cc_s:.4f}: per '
+          f'cycle median {np.median(cyc):.4f} (first {cyc[0]:.4f}, min '
+          f'{min(cyc):.4f}, max {max(cyc):.4f})  (T) {t_s:.4f} (warm '
+          f'{t_warm:.4f})  SCF to (T) {scf_s + mp2_s + cc_s + t_s:.3f}  '
+          f'peak device memory {peak:.3f} GB')
+    print(f'launches: {launches}')
+    check(mf.converged and mycc.converged, f'{name}: SCF converged '
+          f'{mf.converged}, CCSD converged {mycc.converged}')
+    for what, e, ref in zip(('MP2', 'CCSD', '(T)'), (e_mp2, e_cc, e_t),
+                            e_refs):
+        print(f'{name} {what}: E - E_ref = {e - ref:.3e}')
+        check(abs(e - ref) < 1e-8, f'{name} {what}: |E - E_ref| = '
+              f'{abs(e - ref):.3e} >= 1e-8')
+    for k in ('mp2_energy', 'ccsd_t'):
+        check(launches[k] > 0, f'{name}: kernel {k} never launched')
+    return mf, mycc, launches
+
+
+def incore_postscf_path(pt, refs, kernels):
+    return postscf_path(
+        'in-core CCSD(T) benzene/def2-SVP', kernels,
+        lambda: pt.M(atom=refs.BENZENE, basis='def2-svp').RHF(),
+        (refs.E_BENZENE_MP2_DEF2SVP, refs.E_BENZENE_CCSD_DEF2SVP,
+         refs.E_BENZENE_CCSD_T_DEF2SVP))
+
+
+def df_postscf_path(pt, refs, kernels):
+    return postscf_path(
+        'DF-CCSD(T) benzene/def2-SVP', kernels,
+        lambda: pt.M(atom=refs.BENZENE, basis='def2-svp').RHF()
+        .density_fit(),
+        (refs.E_BENZENE_DF_MP2_DEF2SVP, refs.E_BENZENE_DF_CCSD_DEF2SVP,
+         refs.E_BENZENE_DF_CCSD_T_DEF2SVP))
+
+
+def ccsd_t_phase(kernels, mycc, report):
+    """The `ccsd_t` kernel at the converged CCSD's tensors over every a >=
+    b >= c against its batched twin (once), 1e-10 relative, and with its
+    vvov slices staged in f tiles of 32 against the untiled run, 1e-12
+    relative; and on seeded tensors whose triples hold all three
+    multiplicities, untiled and in f tiles of 4, 1e-12 relative."""
+    from types import SimpleNamespace
+
+    from pyscf_tpu_torch.cc import ccsd_t
+    nocc, nvir = mycc.t1.shape
+
+    def tiled(args, ft):
+        """kernels.ccsd_t with the shared memory capped to f tiles of ft."""
+        no = args[-2].shape[0]
+        full = kernels.CCSD_T_MAX_SMEM
+        kernels.CCSD_T_MAX_SMEM = 48 * no * (ft + no)
+        try:
+            return kernels.ccsd_t(*args)
+        finally:
+            kernels.CCSD_T_MAX_SMEM = full
+
+    args = ccsd_t.kernel_args(mycc._eris, mycc.t1, mycc.t2)
+    got = kernels.ccsd_t(*args)
+    ref, plain_s = host_s(lambda: ccsd_t.et_plain(*args))
+    err = abs(float(got - ref))
+    tgot, tiled_s = host_s(lambda: tiled(args, 32))
+    terr = abs(float(tgot - got)) / abs(float(got))
+    print(f'ccsd_t: {len(args[0])} triples, nocc {nocc}, nvir {nvir}: '
+          f'kernel {2 * float(got)!r}, twin {2 * float(ref)!r}, relative '
+          f'{err / abs(float(ref)):.3e}; f tiles of 32 against untiled '
+          f'{terr:.3e} ({tiled_s:.4f} s)')
+    check(err <= 1e-10 * abs(float(ref)), f'ccsd_t vs plain: {err:.3e} > '
+          f'1e-10 x {abs(float(ref)):.3e}')
+    check(terr <= 1e-12, f'ccsd_t tiled vs untiled: {terr:.3e} > 1e-12')
+    rng = np.random.default_rng(8)
+    no, nv = 5, 9
+    card = [torch.as_tensor(a, device='cuda') for a in (
+        rng.standard_normal((no, nv, nv, nv)) * 0.1,
+        rng.standard_normal((no, no, no, nv)) * 0.1,
+        rng.standard_normal((no, nv, no, nv)) * 0.1,
+        rng.standard_normal((no, no, nv, nv)) * 0.05,
+        rng.standard_normal((no, nv)) * 0.02,
+        np.concatenate([-0.5 - rng.random(no) * 20,
+                        0.2 + rng.random(nv) * 3]))]
+    seeded = SimpleNamespace(ovvv=card[0], ooov=card[1], ovov=card[2],
+                             mo_energy=card[5])
+    sargs = ccsd_t.kernel_args(seeded, card[4], card[3])
+    check(set(sargs[1].tolist()) == {1.0, 2.0, 6.0},
+          'seeded triples lack a multiplicity')
+    sref = ccsd_t.et_plain(*sargs)
+    serr = [abs(float(e - sref)) / abs(float(sref))
+            for e in (kernels.ccsd_t(*sargs), tiled(sargs, 4))]
+    print(f'ccsd_t seeded (nocc {no}, nvir {nv}, {len(sargs[0])} triples): '
+          f'relative {serr[0]:.3e}, in f tiles of 4 {serr[1]:.3e}')
+    check(max(serr) <= 1e-12, f'ccsd_t seeded vs plain: {max(serr):.3e} > '
+          f'1e-12')
+    # the w builds: 2 FMA operations x o^3 (v + o) per ordering and triple,
+    # small matrix products that the FP64 tensor cores can run
+    ops = 12.0 * nocc ** 3 * (nvir + nocc) * len(args[0])
+    record(report, 'ccsd_t', 'pyscf_tpu_torch/csrc/ccsd_t.cu',
+           'pyscf_tpu/cc/ccsd_t.py:70', err, lambda: kernels.ccsd_t(*args),
+           None, nbytes(*args), ops, plain_ms=plain_s * 1e3,
+           peak=FP64_TC_FLOPS)
+
+
+def mp2_energy_phase(kernels, mf, report):
+    """The `mp2_energy` kernel at benzene's (ia|jb) against its twin: the
+    amplitudes to 1e-13 of their largest, both sums to 1e-12 relative."""
+    from pyscf_tpu_torch.mp.mp2 import mp2_energy_plain
+    mp = mf.MP2()
+    ovov = mp.get_ovov()
+    eia = mp._orbitals()[2].contiguous()
+    got = kernels.mp2_energy(ovov, eia, eia)
+    ref = mp2_energy_plain(ovov, eia, eia)
+    err, scale = max_abs([(got[0], ref[0])])
+    rel = [abs(float(a - b)) / abs(float(b)) for a, b in zip(got[1:],
+                                                             ref[1:])]
+    print(f'mp2_energy: ovov {tuple(ovov.shape)} ({nbytes(ovov) / 1e6:.1f} '
+          f'MB): t2 {err:.3e} of max {scale:.3e}, sums relative {rel[0]:.3e}'
+          f', {rel[1]:.3e}')
+    check(err <= 1e-13 * scale, f'mp2_energy t2 vs plain: {err:.3e} > '
+          f'1e-13 x {scale:.3e}')
+    check(max(rel) <= 1e-12, f'mp2_energy sums vs plain: {max(rel):.3e}')
+    # per element: the denominator and the divide, twice (the exchange
+    # partner), and the two multiply-adds
+    record(report, 'mp2_energy', 'pyscf_tpu_torch/csrc/mp2_energy.cu',
+           'pyscf_tpu/mp/mp2.py:11', err,
+           lambda: kernels.mp2_energy(ovov, eia, eia),
+           lambda: mp2_energy_plain(ovov, eia, eia),
+           2 * nbytes(ovov) + nbytes(eia), 8.0 * ovov.numel())
+
+
+def ump2_path(pt, refs, kernels):
+    """The water cation's in-core UHF/def2-SVP then mf.MP2() (UMP2) against
+    the recorded JAX energy and its os/ss split (1e-8 Ha), mp2_energy
+    launched; then the phenyl radical's (minao, conv_tol 1e-8), printed
+    with its time and its SCF's state."""
+    kernels.reset_launches()
+    mol = pt.M(atom=refs.WATER, basis='def2-svp', charge=1, spin=1)
+    mf = tight_scf(mol.UHF()).run()
+    mp = mf.MP2()
+    e = mp.kernel()[0]
+    launches = kernels.launches()
+    os_ref, ss_ref = refs.E_WATER_CATION_UMP2_OS_SS_DEF2SVP
+    de = np.array([e - refs.E_WATER_CATION_UMP2_DEF2SVP,
+                   mp.e_corr_os - os_ref, mp.e_corr_ss - ss_ref])
+    print(f'water cation UMP2: E {e!r}, E - E_ref (total, os, ss) {de}')
+    check(mf.converged and np.max(np.abs(de)) < 1e-8,
+          f'water cation UMP2: |E - E_ref| {np.max(np.abs(de)):.3e}')
+    check(launches['mp2_energy'] == 3, 'UMP2: mp2_energy not launched once '
+          'per spin block')
+    # the phenyl radical's UHF/def2-SVP does not converge from minao, in
+    # the JAX package either (ROADMAP section 3): its UMP2 at the last
+    # cycle's orbitals is printed for the time at this width, not checked
+    mf = pt.M(atom=refs.PHENYL, basis='def2-svp', spin=1).UHF()
+    mf.conv_tol = 1e-8
+    mf.init_guess = 'minao'
+    mf.kernel()
+    (e, _), s = host_s(lambda: mf.MP2().kernel())
+    (e2, _), s2 = host_s(lambda: mf.MP2().kernel())
+    print(f'phenyl UMP2/def2-SVP (in-core UHF: converged {mf.converged} in '
+          f'{mf.scf_cycles} cycles, <S^2> {mf.spin_square()[0]:.4f}): E_UHF '
+          f'{mf.e_tot!r} E_UMP2 {e!r} ({s:.4f} s, warm {s2:.4f} s)')
+    check(np.isfinite(e) and e < 0.0 and abs(e - e2) < 1e-12,
+          'phenyl UMP2 not finite or not repeatable')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
@@ -1709,6 +1947,17 @@ def main():
     torch.cuda.empty_cache()
     launches['int2e_lr'] = water_rsh_references(pt, refs, kernels)[
         'int2e_lr']
+    torch.cuda.empty_cache()
+    # post-HF: MP2, CCSD and CCSD(T), in-core and DF, and UMP2
+    rhf, mycc, cc_launches = incore_postscf_path(pt, refs, kernels)
+    launches.update({k: cc_launches[k] for k in ('mp2_energy', 'ccsd_t')})
+    ccsd_t_phase(kernels, mycc, report)
+    mp2_energy_phase(kernels, rhf, report)
+    del rhf, mycc
+    torch.cuda.empty_cache()
+    df_postscf_path(pt, refs, kernels)
+    torch.cuda.empty_cache()
+    ump2_path(pt, refs, kernels)
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

@@ -11,8 +11,11 @@ b3lypg and DF-RHF and phenyl's DF-UKS b3lypg (conv_tol 1e-10,
 conv_tol_grad 1e-7) followed by theirs (one geometry step of the phenyl
 optimisation), and benzene's DF-RKS and phenyl's DF-UKS wB97X-V (the
 long-range factor's phases j2c_lr and j3c_lr, and vv10, the seconds of
-the `vv10` launches inside scf_loop from their CUDA events), or for the
-paths named by --paths, runs each once cold and `--runs` times warm, every
+the `vv10` launches inside scf_loop from their CUDA events), and
+benzene's in-core and DF RHF (conv_tol 1e-12, conv_tol_grad 1e-9)
+followed by MP2, CCSD (conv_tol 1e-10, conv_tol_normt 1e-8) and (T)
+(phases mp2, ccsd_eris, ccsd, ccsd_cycle, the median cycle, ccsd_ncycle,
+the cycle count, and ccsd_t), or for the paths named by --paths, runs each once cold and `--runs` times warm, every
 run
 from a fresh Mole, and prints the median, quartiles, min and max of each
 phase of mf.timings (and of the gradient's timings, prefixed grad_) and
@@ -35,6 +38,7 @@ import torch
 GRADIENT = 'in-core RHF + gradient'
 DF_GRADIENTS = ('DF-RKS b3lypg + gradient', 'DF-RHF + gradient',
                 'DF-UKS phenyl + gradient')
+POSTSCF = ('in-core CCSD(T)', 'DF-CCSD(T)')
 PATHS = {
     'DF-RHF': lambda pt, refs: pt.M(atom=refs.BENZENE, basis='def2-svp')
     .RHF().density_fit(),
@@ -60,7 +64,36 @@ PATHS = {
     'DF-UKS wb97x-v phenyl': lambda pt, refs: pt.M(
         atom=refs.PHENYL, basis='def2-svp', spin=1).UKS(
         xc='wb97x-v').density_fit(),
+    POSTSCF[0]: lambda pt, refs: pt.M(atom=refs.BENZENE,
+                                      basis='def2-svp').RHF(),
+    POSTSCF[1]: lambda pt, refs: pt.M(atom=refs.BENZENE,
+                                      basis='def2-svp').RHF().density_fit(),
 }
+
+
+def synced(fn):
+    """(fn(), seconds) on the host clock, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def postscf_timings(mf):
+    """MP2, CCSD and (T) of a converged RHF: their seconds, the CCSD's
+    MO-block phase, median cycle and cycle count."""
+    _, mp2 = synced(lambda: mf.MP2().kernel())
+    mycc = mf.CCSD()
+    mycc.conv_tol = 1e-10
+    mycc.conv_tol_normt = 1e-8
+    _, cc = synced(mycc.kernel)
+    if not mycc.converged:
+        raise SystemExit('CCSD did not converge')
+    _, et = synced(mycc.ccsd_t)
+    return dict(mp2=mp2, ccsd_eris=mycc.timings['eris'], ccsd=cc,
+                ccsd_cycle=float(np.median(mycc.timings['cycles'])),
+                ccsd_ncycle=mycc.cycles, ccsd_t=et)
 
 
 def one_run(pt, refs, name):
@@ -71,9 +104,14 @@ def one_run(pt, refs, name):
     if name in DF_GRADIENTS:
         mf.conv_tol = 1e-10
         mf.conv_tol_grad = 1e-7
+    if name in POSTSCF:
+        mf.conv_tol = 1e-12
+        mf.conv_tol_grad = 1e-9
     mf.init_guess = 'minao'
     e = mf.kernel()
     timings = dict(mf.timings)
+    if name in POSTSCF:
+        timings.update(postscf_timings(mf))
     if name == GRADIENT or name in DF_GRADIENTS:
         grad = mf.nuc_grad_method()
         grad.kernel()

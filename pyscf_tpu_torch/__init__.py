@@ -13,6 +13,11 @@ the CPU. A Mole runs on the card unless it is given device='cpu':
     e = mol.RHF().kernel()                 # in-core ERIs, no density fitting
     de = mol.RHF().run().nuc_grad_method().kernel()   # (natm, 3) Ha/Bohr
     mol.RHF().run().analyze()              # Mulliken charges, dipole
+    mf = mol.RHF().run()                   # or .density_fit().run()
+    e_mp2, t2 = mf.MP2().kernel()
+    mycc = mf.CCSD()
+    e_ccsd, t1, t2 = mycc.kernel()
+    e_t = mycc.ccsd_t()                    # CCSD(T)
 
     def mf_factory(m):                     # forces of any DF mean field
         mf = m.UKS(xc='b3lypg').density_fit()
@@ -21,4 +26,4 @@ the CPU. A Mole runs on the card unless it is given device='cpu':
     mol_opt, energies = pt.geomopt.internal.optimize(mf_factory, mol)
 """
 from .gto.mole import M, Mole  # noqa: F401
-from . import dft, geomopt, grad, scf  # noqa: F401
+from . import ao2mo, cc, dft, geomopt, grad, mp, scf  # noqa: F401

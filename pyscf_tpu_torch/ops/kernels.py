@@ -1,9 +1,9 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Twenty-one kernels carry the DF-RHF/RKS/UKS and in-core paths with the
+Twenty-three kernels carry the DF-RHF/RKS/UKS and in-core paths with the
 range-separated and VV10 functionals, the conventional RHF gradient, the
-DF-RHF/RKS/UHF/UKS gradients and the dipole of the SCF analysis (sources
-in pyscf_tpu_torch/csrc/):
+DF-RHF/RKS/UHF/UKS gradients, the dipole of the SCF analysis and MP2,
+UMP2, CCSD and CCSD(T) (sources in pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
@@ -36,6 +36,10 @@ in pyscf_tpu_torch/csrc/):
              pair
   vv10       the VV10 pair sum over the grid and  (csrc/vv10.cu)
              its derivatives per point
+  mp2_energy the MP2 amplitudes and the direct and (csrc/mp2_energy.cu)
+             exchange pair-energy sums of (ia|jb)
+  ccsd_t     the (T) energy over a list of virtual (csrc/ccsd_t.cu)
+             triples a >= b >= c
 
 Each wrapper takes float64 (int32 for indices) contiguous tensors on one
 device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
@@ -112,6 +116,10 @@ _LIBRARIES = {
     'int1e_r': ('int1e_r.cu', 'pt_int1e_r', [_I] * 5 + [_P] * 10, ()),
     'vv10': ('vv10.cu', 'pt_vv10', [_I] + [_P] * 4 + [_D, _D, _P, _I, _P],
              ()),
+    'mp2_energy': ('mp2_energy.cu', 'pt_mp2_energy', [_I] * 4 + [_P] * 4
+                   + [_I, _P, _P, _I, _P], ()),
+    'ccsd_t': ('ccsd_t.cu', 'pt_ccsd_t', [_I] * 4 + [_P] * 2 + [_I]
+               + [_P] * 10 + [_I, _P], ()),
 }
 # int2e_ip1.cu and int3c2e_ip.cu once per bra momentum, so that their
 # instantiations compile in three processes each, side by side
@@ -878,10 +886,103 @@ def vv10(rho, g2, coords, weights, b, C):
     return out[0].sum(), out[1], out[2]
 
 
+MP2_THREADS = 256
+
+
+def mp2_energy(ovov, eia1=None, eia2=None, tau=None, exchange=True,
+               with_t2=True):
+    """The pair-energy pass over ovov (no1, nv1, no2, nv2): (t2, direct,
+    exchange) with direct = sum ovov[i,a,j,b] x[i,a,j,b] and exchange =
+    sum ovov[i,a,j,b] x[i,b,j,a] (0-d; None unless `exchange`, which needs
+    nv1 == nv2).
+
+    Without tau, x = t2 = ovov / (eia1[i,a] + eia2[j,b]) (eia1 (no1, nv1),
+    eia2 (no2, nv2)), returned when with_t2, else None; with tau, the
+    CCSD amplitudes tau (no1, no2, nv1, nv2), x[i,a,j,b] = tau[i,j,a,b],
+    and t2 is None."""
+    dev = _device_of(ovov)
+    no1, nv1, no2, nv2 = ovov.shape
+    _check(dev, ('ovov', ovov, (no1, nv1, no2, nv2)))
+    if tau is None:
+        _check(dev, ('eia1', eia1, (no1, nv1)), ('eia2', eia2, (no2, nv2)))
+    else:
+        _check(dev, ('tau', tau, (no1, no2, nv1, nv2)))
+    if exchange and nv1 != nv2:
+        raise ValueError('the exchange sum needs nv1 == nv2')
+    if dev.type == 'cpu':
+        from ..mp.mp2 import mp2_energy_plain
+        return mp2_energy_plain(ovov, eia1, eia2, tau, exchange, with_t2)
+    t2 = (torch.empty_like(ovov) if tau is None and with_t2 else None)
+    nblk = no1 * no2
+    partials = torch.zeros((max(nblk, 1), 2), dtype=torch.float64,
+                           device=dev)
+    if nblk:
+        rc = _fn('mp2_energy')(
+            no1, nv1, no2, nv2, ovov.data_ptr(),
+            None if tau is not None else eia1.data_ptr(),
+            None if tau is not None else eia2.data_ptr(),
+            None if tau is None else tau.data_ptr(), int(exchange),
+            None if t2 is None else t2.data_ptr(), partials.data_ptr(),
+            MP2_THREADS, _stream())
+        _raise_on(rc, 'mp2_energy')
+        mp2_energy.launches += 1
+    sums = partials.sum(dim=0)
+    return t2, sums[0], sums[1] if exchange else None
+
+
+CCSD_T_THREADS = 256
+# bytes of dynamic shared memory a block can have: 227 KB less the
+# reduction's 8 bytes per thread
+CCSD_T_MAX_SMEM = 232448 - 8 * CCSD_T_THREADS
+
+
+def ccsd_t(abc, mult, vvov, vooo, ovov, t2, t1, e_occ, e_vir):
+    """The (T) sum over the virtual triples abc (n, 3) int32 with their
+    multiplicities mult (n,): a 0-d tensor, half of E_(T) when abc holds
+    every a >= b >= c.
+
+    vvov (v, v, o, v), vooo (v, o, o, o), ovov (o, v, o, v), t2 (o, o, v,
+    v), t1 (o, v), e_occ (o,), e_vir (v,), as cc/ccsd_t.py et_plain's."""
+    dev = _device_of(t2)
+    no, nv = t1.shape
+    n = abc.shape[0]
+    _check(dev, ('mult', mult, (n,)), ('vvov', vvov, (nv, nv, no, nv)),
+           ('vooo', vooo, (nv, no, no, no)), ('ovov', ovov, (no, nv, no, nv)),
+           ('t2', t2, (no, no, nv, nv)), ('t1', t1, (no, nv)),
+           ('e_occ', e_occ, (no,)), ('e_vir', e_vir, (nv,)))
+    if (abc.device != dev or abc.dtype != torch.int32
+            or tuple(abc.shape) != (n, 3) or not abc.is_contiguous()):
+        raise ValueError(f'abc must be a contiguous int32 ({n}, 3) tensor '
+                         f'on {dev}')
+    if dev.type == 'cpu':
+        from ..cc.ccsd_t import et_plain
+        return et_plain(abc, mult, vvov, vooo, ovov, t2, t1, e_occ, e_vir)
+    # the f tile of the staged vvov slices: all of nvir where it fits
+    ft = min(nv, (CCSD_T_MAX_SMEM // 48 - no * no) // no)
+    if ft < 1:
+        raise NotImplementedError(
+            f'ccsd_t: the t2 slices of nocc {no} need {48 * no * (no + 1)} '
+            f'bytes of shared memory per block, more than {CCSD_T_MAX_SMEM}')
+    ijk = torch.tensor([(i, j, k) for i in range(no) for j in range(i + 1)
+                        for k in range(j + 1)], dtype=torch.int32,
+                       device=dev).reshape(-1, 3)
+    t2T = t2.permute(2, 3, 0, 1).contiguous()
+    partials = torch.zeros(max(n, 1), dtype=torch.float64, device=dev)
+    if n:
+        rc = _fn('ccsd_t')(
+            no, nv, ft, n, abc.data_ptr(), mult.data_ptr(), ijk.shape[0],
+            ijk.data_ptr(), vvov.data_ptr(), vooo.data_ptr(), t2.data_ptr(),
+            t2T.data_ptr(), ovov.data_ptr(), t1.data_ptr(), e_occ.data_ptr(),
+            e_vir.data_ptr(), partials.data_ptr(), CCSD_T_THREADS, _stream())
+        _raise_on(rc, 'ccsd_t')
+        ccsd_t.launches += 1
+    return partials.sum()
+
+
 KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
            xc_uks, int1e_ip, int1e_iprinv, int2e_ip1, int3c2e_ip, int2c2e_ip1,
            eval_ao_deriv2, xc_rks_grad, xc_uks_grad, int1e_r, int3c2e_lr,
-           int2c2e_lr, int2e_lr, vv10)
+           int2c2e_lr, int2e_lr, vv10, mp2_energy, ccsd_t)
 
 
 def reset_launches():

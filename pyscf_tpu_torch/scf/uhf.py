@@ -123,5 +123,10 @@ class UHF(SCF):
         from ..grad import uhf as uhf_grad
         return uhf_grad.Gradients(self)
 
+    def MP2(self, **kwargs):
+        """UMP2 (mp/ump2.py), as pyscf_tpu/scf/uhf.py:148."""
+        from ..mp.ump2 import UMP2
+        return UMP2(self, **kwargs)
+
     def nuc_grad_method(self):
         return self.Gradients()

@@ -1,17 +1,20 @@
-"""The integral kernels' and the VV10 kernel's CUDA sources, compiled for
-the host with g++, against their plain twins.
+"""The integral kernels', the VV10 kernel's and the post-HF kernels' CUDA
+sources, compiled for the host with g++, against their plain twins.
 
 There is no CUDA compiler or card where the fast tests run, so this file
 compiles csrc/int1e_stv.cu, int3c2e.cu, int2c2e.cu, int2e.cu, int1e_ip.cu,
-int1e_iprinv.cu, int2e_ip1.cu, int3c2e_ip.cu, int2c2e_ip1.cu, int1e_r.cu
-and vv10.cu as C++ behind a small stand-in for cuda_runtime.h (the
-qualifiers defined away, shared arrays static, a launch turned into a loop
-over blocks and threads, in order, so that vv10.cu runs with one thread
-per block) and calls them through the C interface the wrappers use, on
-water/def2-SVP, whose classes reach (dd|dd) and whose aux basis reaches g,
-with and without the erf(omega r)/r attenuation, the dipole kernel on a
-basis of s to g shells, and vv10.cu on a water grid. It checks the
-kernels' arithmetic and indexing, not that nvcc accepts them: that is
+int1e_iprinv.cu, int2e_ip1.cu, int3c2e_ip.cu, int2c2e_ip1.cu, int1e_r.cu,
+vv10.cu, mp2_energy.cu and ccsd_t.cu as C++ behind a small stand-in for
+cuda_runtime.h (the qualifiers defined away, shared arrays static, the
+dynamic shared memory a static array, a launch turned into a loop over
+blocks and threads, in order, so that vv10.cu, mp2_energy.cu and
+ccsd_t.cu run with one thread per block) and calls them through the C
+interface the wrappers use, on water/def2-SVP, whose classes reach
+(dd|dd) and whose aux basis reaches g, with and without the erf(omega
+r)/r attenuation, the dipole kernel on a basis of s to g shells, vv10.cu
+on a water grid, and mp2_energy.cu and ccsd_t.cu on seeded tensors of a
+water-sized correlated calculation. It checks the kernels' arithmetic and
+indexing, not that nvcc accepts them: that is
 tests/test_torch_kernels.py on the card."""
 import ctypes
 import re
@@ -44,11 +47,15 @@ SHIM = '''
 #define __restrict__
 #define __launch_bounds__(x)
 #define __shared__ static
+#define PT_DYNAMIC_SMEM(name) static double name[1 << 16]
 inline void __syncthreads() {}
 struct Dim { int x; };
 static thread_local Dim blockIdx, blockDim, threadIdx;
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F>
+int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 using std::fmax;
 template <class F, class... A>
 void host_launch(int blocks, int threads, F f, A... a) {
@@ -62,7 +69,7 @@ void host_launch(int blocks, int threads, F f, A... a) {
 LIBS = ('int1e_stv', 'int3c2e', 'int2c2e', 'int2e', 'int1e_ip',
         'int1e_iprinv', 'int2e_ip1_la0', 'int2e_ip1_la1', 'int2e_ip1_la2',
         'int3c2e_ip_la0', 'int3c2e_ip_la1', 'int3c2e_ip_la2', 'int2c2e_ip1',
-        'int1e_r', 'vv10')
+        'int1e_r', 'vv10', 'mp2_energy', 'ccsd_t')
 OMEGA = 0.3
 DEV = torch.device('cpu')
 
@@ -80,7 +87,7 @@ def host(tmp_path_factory):
         src, _, _, flags = kernels._LIBRARIES[lib]
         text = open(f'{kernels._CSRC}/{src}').read()
         text, n = re.subn(
-            r'(\w+<[^;<>]*>)<<<blocks, threads, 0, stream>>>\(\s*',
+            r'(\w+<[^;<>]*>)<<<blocks, threads, \w+, stream>>>\(\s*',
             r'host_launch(blocks, threads, \1, ', text)
         assert n == 1
         (out / f'{lib}.cpp').write_text(text)
@@ -323,3 +330,100 @@ def test_int2c2e_ip1(host, water):
                 offs[i], offs[j], out.data_ptr(), shs[-1], shs[i], shs[j],
                 None) == 0
     _close_contracted(out, j3c_deriv.int2c2e_ip1_plain(aux, W))
+
+
+def _seeded_cc(seed, no=5, nv=9):
+    """Seeded tensors of a water-sized correlated calculation: ovov, t1,
+    t2 (o, o, v, v), ooov, ovvv, the orbital energies (occupied below
+    -0.5, virtual above 0.2) and eia."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((no, nv, no, nv)) * 0.1
+    ovov = torch.as_tensor(g + g.transpose(2, 3, 0, 1))
+    eo = torch.as_tensor(-0.5 - rng.random(no) * 20)
+    ev = torch.as_tensor(0.2 + rng.random(nv) * 3)
+    return dict(
+        ovov=ovov, eo=eo, ev=ev, eia=eo[:, None] - ev[None, :],
+        t1=torch.as_tensor(rng.standard_normal((no, nv)) * 0.02),
+        t2=torch.as_tensor(rng.standard_normal((no, no, nv, nv)) * 0.05),
+        ooov=torch.as_tensor(rng.standard_normal((no, no, no, nv)) * 0.1),
+        ovvv=torch.as_tensor(rng.standard_normal((no, nv, nv, nv)) * 0.1))
+
+
+def _mp2_host(host, ovov, eia1, eia2, tau, exchange, with_t2):
+    no1, nv1, no2, nv2 = ovov.shape
+    t2 = torch.empty_like(ovov) if with_t2 else None
+    partials = torch.empty((no1 * no2, 2), dtype=torch.float64)
+    assert host['mp2_energy'](
+        no1, nv1, no2, nv2, ovov.data_ptr(),
+        None if eia1 is None else eia1.data_ptr(),
+        None if eia2 is None else eia2.data_ptr(),
+        None if tau is None else tau.data_ptr(), int(exchange),
+        None if t2 is None else t2.data_ptr(), partials.data_ptr(), 1,
+        None) == 0
+    return t2, partials.sum(dim=0)
+
+
+def test_mp2_energy(host):
+    """mp2_energy.cu, one thread per block, against mp2_energy_plain: the
+    amplitudes to 1e-13 of their largest and the sums to 1e-12 relative;
+    MP2 with its exchange sum, the CCSD tau read in its (i,j,a,b) layout,
+    and an opposite-spin block of other sizes without exchange."""
+    from pyscf_tpu_torch.mp.mp2 import mp2_energy_plain
+    d = _seeded_cc(5)
+    ovov, eia = d['ovov'], d['eia']
+    no, nv = eia.shape
+
+    def close(got, ref):
+        assert abs(float(got - ref)) <= 1e-12 * abs(float(ref))
+
+    t2, sums = _mp2_host(host, ovov, eia, eia, None, True, True)
+    rt2, rd, rx = mp2_energy_plain(ovov, eia, eia)
+    assert torch.max(torch.abs(t2 - rt2)) <= 1e-13 * rt2.abs().max()
+    close(sums[0], rd)
+    close(sums[1], rx)
+    tau = d['t2'] + torch.einsum('ia,jb->ijab', d['t1'], d['t1'])
+    _, sums = _mp2_host(host, ovov, None, None, tau, True, False)
+    _, rd, rx = mp2_energy_plain(ovov, None, None, tau)
+    close(sums[0], rd)
+    close(sums[1], rx)
+    rng = np.random.default_rng(6)
+    ovab = torch.as_tensor(rng.standard_normal((no, nv, 3, 7)))
+    eib = torch.as_tensor(-1.0 - rng.random((3, 7)))
+    _, sums = _mp2_host(host, ovab, eia, eib, None, False, False)
+    _, rd, _ = mp2_energy_plain(ovab, eia, eib, exchange=False)
+    close(sums[0], rd)
+
+
+def test_ccsd_t(host):
+    """ccsd_t.cu, one thread per block, against et_plain triple by triple
+    on seeded tensors (nocc 5, nvir 9: 165 triples, 9 with a = b = c, 72
+    with one pair equal) to 1e-12 of the largest triple's magnitude (an
+    a = b = c triple sums to zero up to rounding), and the sum to 1e-12
+    relative, with the vvov slices staged whole and in f tiles of 4 (the
+    last one short)."""
+    from types import SimpleNamespace
+
+    from pyscf_tpu_torch.cc import ccsd_t
+    d = _seeded_cc(7)
+    no, nv = d['t1'].shape
+    eris = SimpleNamespace(ovvv=d['ovvv'], ooov=d['ooov'], ovov=d['ovov'],
+                           mo_energy=torch.cat([d['eo'], d['ev']]))
+    args = ccsd_t.kernel_args(eris, d['t1'], d['t2'])
+    abc_t, mult_t, vvov, vooo, ovov, t2, t1, eo, ev = args
+    assert sorted(np.unique(mult_t, return_counts=True)[1]) == [9, 72, 84]
+    ijk = torch.tensor([(i, j, k) for i in range(no) for j in range(i + 1)
+                        for k in range(j + 1)], dtype=torch.int32)
+    t2T = t2.permute(2, 3, 0, 1).contiguous()
+    ref = torch.stack([ccsd_t.et_plain(abc_t[n:n + 1], mult_t[n:n + 1],
+                                       *args[2:]) for n in range(len(abc_t))])
+    total = ccsd_t.et_plain(*args)
+    for ft in (nv, 4):
+        partials = torch.empty(len(abc_t), dtype=torch.float64)
+        assert host['ccsd_t'](
+            no, nv, ft, len(abc_t), abc_t.data_ptr(), mult_t.data_ptr(),
+            ijk.shape[0], *_ptrs(ijk, vvov, vooo, t2, t2T, ovov, t1, eo, ev,
+                                 partials), 1, None) == 0
+        assert (torch.max(torch.abs(partials - ref))
+                <= 1e-12 * ref.abs().max())
+        assert (abs(float(partials.sum() - total))
+                <= 1e-12 * abs(float(total)))

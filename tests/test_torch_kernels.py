@@ -478,3 +478,97 @@ def test_wb97xv_on_card_launches_its_kernels(water, case):
     assert all(launches[k] > 0 for k in ('vv10', 'xc_uks' if spin else
                                          'xc_rks') + lr)
     assert mf.timings['vv10'] > 0.0
+
+
+def _seeded_cc_card(seed, no=5, nv=9):
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal((no, nv, no, nv)) * 0.1
+
+    def card(a):
+        return torch.as_tensor(a, device='cuda')
+    eo = -0.5 - rng.random(no) * 20
+    ev = 0.2 + rng.random(nv) * 3
+    return dict(
+        ovov=card(g + g.transpose(2, 3, 0, 1)), eo=card(eo), ev=card(ev),
+        eia=card(eo[:, None] - ev[None, :]),
+        t1=card(rng.standard_normal((no, nv)) * 0.02),
+        t2=card(rng.standard_normal((no, no, nv, nv)) * 0.05),
+        ooov=card(rng.standard_normal((no, no, no, nv)) * 0.1),
+        ovvv=card(rng.standard_normal((no, nv, nv, nv)) * 0.1))
+
+
+def test_mp2_energy(water):
+    """The kernel against mp2_energy_plain on the card: MP2 amplitudes to
+    1e-13 of their largest, the sums to 1e-12 relative; the CCSD tau read
+    in its (i,j,a,b) layout; an opposite-spin block without exchange."""
+    from pyscf_tpu_torch.mp.mp2 import mp2_energy_plain
+    d = _seeded_cc_card(5)
+    ovov, eia = d['ovov'], d['eia']
+    t2, dd, dx = kernels.mp2_energy(ovov, eia, eia)
+    rt2, rd, rx = mp2_energy_plain(ovov, eia, eia)
+    assert torch.max(torch.abs(t2 - rt2)) <= 1e-13 * rt2.abs().max()
+    for got, ref in ((dd, rd), (dx, rx)):
+        assert abs(float(got - ref)) <= 1e-12 * abs(float(ref))
+    tau = (d['t2'] + torch.einsum('ia,jb->ijab', d['t1'], d['t1'])
+           ).contiguous()
+    got = kernels.mp2_energy(ovov, tau=tau)
+    ref = mp2_energy_plain(ovov, None, None, tau)
+    assert got[0] is None
+    for a, b in zip(got[1:], ref[1:]):
+        assert abs(float(a - b)) <= 1e-12 * abs(float(b))
+    eib = eia[:3, :7].contiguous()
+    ovab = ovov[:, :, :3, :7].contiguous()
+    got = kernels.mp2_energy(ovab, eia, eib, exchange=False)
+    ref = mp2_energy_plain(ovab, eia, eib, exchange=False)
+    assert got[2] is None
+    assert abs(float(got[1] - ref[1])) <= 1e-12 * abs(float(ref[1]))
+
+
+def test_ccsd_t(water, monkeypatch):
+    """The kernel against et_plain on the card over every triple of seeded
+    tensors (nocc 5, nvir 9; all three multiplicities), 1e-12 relative,
+    with the vvov slices staged whole and, under a shared-memory cap, in f
+    tiles of 4."""
+    from types import SimpleNamespace
+
+    from pyscf_tpu_torch.cc import ccsd_t
+    d = _seeded_cc_card(7)
+    no = d['t1'].shape[0]
+    eris = SimpleNamespace(ovvv=d['ovvv'], ooov=d['ooov'], ovov=d['ovov'],
+                           mo_energy=torch.cat([d['eo'], d['ev']]))
+    args = ccsd_t.kernel_args(eris, d['t1'], d['t2'])
+    ref = ccsd_t.et_plain(*args)
+    got = kernels.ccsd_t(*args)
+    assert abs(float(got - ref)) <= 1e-12 * abs(float(ref))
+    monkeypatch.setattr(kernels, 'CCSD_T_MAX_SMEM', 48 * no * (4 + no))
+    got = kernels.ccsd_t(*args)
+    assert abs(float(got - ref)) <= 1e-12 * abs(float(ref))
+
+
+@pytest.mark.parametrize('df', [False, True])
+def test_postscf_on_card_launches_its_kernels(water, df):
+    """Water/cc-pVDZ MP2, CCSD and (T) on the card: in-core against
+    PySCF's goldens (tests/test_postscf.py), DF against the recorded JAX
+    energies, within 1e-8, with mp2_energy and ccsd_t launched."""
+    kernels.reset_launches()
+    mf = tpt.M(atom=refs.WATER, basis='cc-pvdz').RHF()
+    if df:
+        mf = mf.density_fit()
+    mf.init_guess = 'hcore'
+    mf.conv_tol = 1e-12
+    mf.conv_tol_grad = 1e-9
+    mf.kernel()
+    assert mf.converged
+    e_mp2 = mf.MP2().kernel()[0]
+    mycc = mf.CCSD()
+    mycc.conv_tol = 1e-10
+    mycc.conv_tol_normt = 1e-8
+    e_cc = mycc.kernel()[0]
+    e_t = mycc.ccsd_t()
+    ref = ((refs.E_WATER_DF_MP2_CCPVDZ, refs.E_WATER_DF_CCSD_CCPVDZ,
+            refs.E_WATER_DF_CCSD_T_CCPVDZ) if df else
+           (-0.204019967288338, -0.213343234198275, -0.003060022611584471))
+    assert mycc.converged
+    assert np.max(np.abs(np.array([e_mp2, e_cc, e_t]) - ref)) < 1e-8
+    launches = kernels.launches()
+    assert launches['mp2_energy'] > 0 and launches['ccsd_t'] == 1
