@@ -4,9 +4,9 @@
 Drives the port's paths for benzene/def2-SVP, the phenyl radical and
 water on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the twenty-three kernel libraries from the nineteen sources of
-     pyscf_tpu_torch/csrc (nvcc, sm_90a, one process per library, all at
-     once);
+  2. builds the twenty-seven kernel libraries from the twenty-two sources
+     of pyscf_tpu_torch/csrc (nvcc, sm_90a, one process per library, all
+     at once);
   3. integral kernel phases at the main path's shapes: each kernel against
      its plain PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c
      rows and (P|Q) <= 1e-12 x max|value|; the whitened factor B <= 1e-10);
@@ -140,17 +140,42 @@ water on the card, in order:
      spin block; the phenyl radical's UMP2 and its time printed (its UHF
      does not converge from minao, in the JAX package either: printed,
      not checked);
- 33. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 33. the excited-state path: benzene DF-RKS b3lypg/def2-SVP from M()
+     (minao, conv_tol 1e-10, conv_tol_grad 1e-7), mf.TDA() singlets and
+     triplets (four each, Davidson: nov 1953 is above dense_cutoff;
+     kernels xc_rks_fxc and xc_uks_fxc) and mf.TDDFT() singlets (five,
+     dense: xc_fxc and xc_fxc_pairs), all four kernels launched in that
+     run; their energies, oscillator strengths, seconds, the Davidson's
+     iterations and matvecs, the wall from M() and the peak memory
+     printed; then the dense TDA of both spin kinds: each Davidson state
+     within 1e-7 Ha of its dense eigenvalue (the lower dense states that
+     its seeds' symmetries do not reach printed), the singlets'
+     oscillator strengths summed over degenerate sets within 1e-3 of the
+     largest (no JAX reference could be recorded at this width);
+ 34. the response kernels at its density on the whole grid against their
+     plain twins on the card: xc_fxc <= 1e-10 x max|H|, xc_fxc_pairs on a
+     chunk of get_ab's size <= 1e-10 x max, xc_rks_fxc and xc_uks_fxc
+     along five seeded transition densities <= 1e-10 x max; the A_xc
+     GEMM of one chunk timed;
+ 35. the phenyl radical's DF-UKS b3lypg (conv_tol 1e-10, conv_tol_grad
+     1e-7) and tdscf.TDAUKS(mf).kernel(nstates=5): time, peak memory,
+     xc_fxc, xc_fxc_pairs and int2e launched; the same A built with the
+     plain twins on the card: its five lowest eigenvalues within 1e-8 Ha;
+ 36. HF/6-31G in-core RHF on the card: TDA and TDHF singlets and triplets
+     within 1e-4 eV of PySCF's goldens;
+ 37. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
      xc_rks_grad from 13, xc_uks_grad from 17, int1e_r from 20,
      int3c2e_lr, int2c2e_lr, vv10 and xc_rks with WB97 from 23, xc_uks
      with WB97 from 25, int2e_lr from 27's in-core run, mp2_energy and
-     ccsd_t from 28, the others from 6), then the result line {"ok": true,
-     "device": {...}}.
+     ccsd_t from 28, xc_fxc, xc_fxc_pairs, xc_rks_fxc and xc_uks_fxc from
+     33, the others from 6), then the result line {"ok": true, "device":
+     {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -1868,6 +1893,315 @@ def ump2_path(pt, refs, kernels):
           'phenyl UMP2 not finite or not repeatable')
 
 
+# ---- excited states: TDA, TDHF and TDDFT ------------------------------------
+
+EV = 27.2114                  # tests/test_tdscf_extras.py
+TD_NSTATES = 5
+# the TDA's Davidson states at benzene: its seeds, the argsort of the
+# orbital-energy differences, are then exactly the four degenerate HOMO ->
+# LUMO pairs (e1g x e2u = B1u + B2u + E1u). The diagonal preconditioner
+# keeps the point group, so the solver reaches no symmetry its seeds lack,
+# and five seeds cut the next degenerate set of pairs: it then returns the
+# lowest states of the seeded symmetries, not the five lowest (ROADMAP
+# section 3, a property of the reference's solver)
+TDA_NSTATES = 4
+# the dense TDA's states among which each Davidson state is found
+TD_DENSE_STATES = 40
+# points per call of the xc_fxc twin, whose vmapped Hessian keeps every
+# intermediate of the functional per point
+FXC_PLAIN_CHUNK = 16384
+
+
+def plain_fxc(aod, dmao, weights, xc, singlet=True):
+    """numint.xc_fxc_plain over chunks of FXC_PLAIN_CHUNK points."""
+    from pyscf_tpu_torch.dft import numint
+    n = weights.shape[0]
+    return torch.cat([
+        numint.xc_fxc_plain(aod[:, i:i + FXC_PLAIN_CHUNK],
+                            dmao[:, i:i + FXC_PLAIN_CHUNK],
+                            weights[i:i + FXC_PLAIN_CHUNK], xc, singlet)
+        for i in range(0, n, FXC_PLAIN_CHUNK)])
+
+
+@contextlib.contextmanager
+def fxc_twins(kernels):
+    """kernels.xc_fxc and xc_fxc_pairs replaced by their plain twins (on the
+    card's tensors), so that the same A is built both ways."""
+    from pyscf_tpu_torch.dft import numint
+    saved = kernels.xc_fxc, kernels.xc_fxc_pairs
+    kernels.xc_fxc, kernels.xc_fxc_pairs = plain_fxc, numint.xc_fxc_pairs_plain
+    try:
+        yield
+    finally:
+        kernels.xc_fxc, kernels.xc_fxc_pairs = saved
+
+
+def degenerate_sums(e, f, tol=1e-6):
+    """f summed over the sets of states whose energies lie within tol Ha."""
+    sums, start = [], 0
+    for i in range(1, len(e) + 1):
+        if i == len(e) or e[i] - e[i - 1] > tol:
+            sums.append(float(np.sum(f[start:i])))
+            start = i
+    return np.array(sums)
+
+
+def tdscf_benzene_path(pt, refs, kernels):
+    """Benzene DF-RKS b3lypg/def2-SVP (minao, conv_tol 1e-10, conv_tol_grad
+    1e-7) from M(), then mf.TDA() singlets (Davidson: nov 1953 is above
+    dense_cutoff) and triplets, TDA_NSTATES each, and mf.TDDFT() singlets
+    (dense), TD_NSTATES, with the launch counts set to 0 just before and
+    read just after; then the dense TDA (dense_cutoff raised) of both spin
+    kinds: each Davidson energy within 1e-7 Ha of the nearest dense
+    eigenvalue not taken by a lower one, the lower dense states it does
+    not reach printed (the
+    JAX package's benzene TDA could not be recorded: its P and HP alone
+    take 9 GB each), and the oscillator strengths of those states summed
+    over degenerate sets within 1e-3 of the largest. Returns (mf,
+    launches)."""
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mol = pt.M(atom=refs.BENZENE, basis='def2-svp')
+    mf = pt.dft.RKS(mol, xc='b3lypg').density_fit()
+    mf.init_guess = 'minao'
+    mf.conv_tol = 1e-10
+    mf.conv_tol_grad = 1e-7
+    mf.run()
+    torch.cuda.synchronize()
+    scf_s = time.perf_counter() - t0
+    tda = {}
+    for singlet in (True, False):
+        td = mf.TDA()
+        td.singlet = singlet
+        e, s = host_s(lambda: td.kernel(nstates=TDA_NSTATES))
+        tda[singlet] = (td, e, s)
+    rpa = mf.TDDFT()
+    e_rpa, rpa_s = host_s(lambda: rpa.kernel(nstates=TD_NSTATES))
+    f_rpa = rpa.oscillator_strength()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    nocc, nvir = (int((mf.mo_occ > 0).sum()), int((mf.mo_occ == 0).sum()))
+    print(f'TDDFT benzene DF-RKS b3lypg/def2-SVP: E_SCF {mf.e_tot!r} '
+          f'({mf.scf_cycles} cycles, {scf_s:.3f} s from M()), nocc {nocc} '
+          f'nvir {nvir} nov {nocc * nvir}, ngrid {mf.grids.size}')
+    for singlet in (True, False):
+        td, e, s = tda[singlet]
+        print(f'TDA {"singlet" if singlet else "triplet"} (Davidson): '
+              f'{s:.4f} s, {td.cycles} iterations, {td.nmatvec} matvecs, '
+              f'converged {td.converged}; E (eV) {(e * EV).tolist()}')
+    print(f'TDDFT singlet (dense RPA): {rpa_s:.4f} s (get_ab '
+          f'{rpa.timings["get_ab"]:.4f} s, eigh {rpa.timings["eigh"]:.4f} '
+          f's); E (eV) {(e_rpa * EV).tolist()}; f {f_rpa.tolist()}')
+    print(f'TDDFT path: wall from M() {wall:.3f} s, peak device memory '
+          f'{peak:.3f} GB')
+    print(f'launches: {launches}')
+    check(mf.converged, 'benzene DF-RKS did not converge')
+    for k in ('xc_rks_fxc', 'xc_uks_fxc', 'xc_fxc', 'xc_fxc_pairs'):
+        check(launches[k] > 0, f'benzene TDDFT: kernel {k} never launched')
+    check(np.all(np.isfinite(e_rpa)) and e_rpa.shape == (TD_NSTATES,)
+          and np.all(np.diff(e_rpa) >= 0) and e_rpa[0] > 0,
+          'TDDFT energies not finite, positive and ascending')
+    for singlet in (True, False):
+        td, e, _ = tda[singlet]
+        dense = mf.TDA()
+        dense.singlet = singlet
+        dense.dense_cutoff = 10 ** 6
+        e_d, s = host_s(lambda: dense.kernel(nstates=TD_DENSE_STATES))
+        # each Davidson state against the nearest dense eigenvalue not
+        # taken by a lower one (a near-degenerate pair maps to both)
+        idx = []
+        for x in e:
+            dist = np.abs(e_d - x)
+            dist[idx] = np.inf
+            idx.append(int(np.argmin(dist)))
+        de = float(np.max(np.abs(e - e_d[idx])))
+        missed = [float(x) * EV for k, x in enumerate(e_d[:max(idx) + 1])
+                  if k not in idx]
+        kind = 'singlet' if singlet else 'triplet'
+        print(f'TDA {kind} dense ({s:.4f} s, get_ab '
+              f'{dense.timings["get_ab"]:.4f} s): E (eV) '
+              f'{(e_d[:TD_NSTATES + 2] * EV).tolist()}; the Davidson states '
+              f'are dense states {idx}, within {de:.3e} Ha; lower dense '
+              f'states of symmetries its seeds lack (eV): {missed}')
+        check(td.converged and de < 1e-7,
+              f'TDA {kind}: Davidson vs dense {de:.3e} >= 1e-7 Ha')
+        if singlet:
+            fs = [degenerate_sums(e, f) for f in (
+                td.oscillator_strength(), dense.oscillator_strength()[idx])]
+            df = float(np.max(np.abs(fs[0] - fs[1])))
+            print(f'TDA singlet oscillator strengths over degenerate sets: '
+                  f'{fs[1].tolist()} (Davidson - dense {df:.3e})')
+            # the solver stops once its Ritz values settle with residuals
+            # under sqrt(conv_tol) = 1e-4, so its vectors, and f, carry
+            # errors of that order
+            check(df < 1e-3 * float(np.max(fs[1])), f'TDA oscillator '
+                  f'strengths: {df:.3e} >= 1e-3 x {float(np.max(fs[1])):.3e}')
+    return mf, launches
+
+
+def fxc_phases(kernels, mf, report):
+    """The four response kernels at the converged benzene DF-RKS density
+    on its whole grid, each against its plain twin on the card: xc_fxc
+    (singlet kernel) <= 1e-10 x max|H|; xc_fxc_pairs on one chunk of the
+    size get_ab uses <= 1e-10 x max; xc_rks_fxc and xc_uks_fxc along five
+    seeded transition densities (the Davidson's first batch) <= 1e-10 x
+    max|dvtmp|; and the A_xc GEMM of that chunk timed."""
+    from pyscf_tpu_torch.dft import numint
+    from pyscf_tpu_torch.tdscf import rhf as tdrhf
+
+    f = mf.xc_obj
+    aods, wblocks = mf._numint.grid_ao(mf.mol, mf.grids, 1)
+    check(len(aods) == 1, 'the benzene grid does not fit one block')
+    aod, w = aods[0], wblocks[0]
+    npts, nao = w.shape[0], aod.shape[-1]
+    dm = mf.make_rdm1()
+    dmao = (aod[0] @ dm)[None]
+    h_k = kernels.xc_fxc(aod, dmao, w, f)
+    h_p, plain_s = host_s(lambda: plain_fxc(aod, dmao, w, f))
+    err, scale = max_abs([(h_k, h_p)])
+    print(f'xc_fxc: {npts} points, max|H| {scale:.3e}, twin {plain_s:.3f} s')
+    # reductions of rho and grad rho (8 per point and AO) and the 8x8
+    # chain rule (1040 per point); the functional's tens of thousands per
+    # point on second-order dual numbers are not counted
+    record(report, 'xc_fxc', 'pyscf_tpu_torch/csrc/xc_fxc.cu',
+           'pyscf_tpu/tdscf/rhf.py:96', err,
+           lambda: kernels.xc_fxc(aod, dmao, w, f), None,
+           nbytes(aod, dmao, w, h_k), 8.0 * npts * nao + 1040.0 * npts,
+           plain_ms=plain_s * 1e3)
+    check(err <= 1e-10 * scale, f'xc_fxc vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
+    del h_p
+
+    co, cv = tdrhf._orbitals(mf)[:2]
+    nov = co.shape[1] * cv.shape[1]
+    step = tdrhf.pair_step(npts, 8 * nov, w.device)
+    blk = aod[:, :step]
+    oo, ov = torch.matmul(blk, co), torch.matmul(blk, cv)
+    hs = h_k[:step]
+    got = kernels.xc_fxc_pairs(oo, ov, hs, (0,))
+    ref = numint.xc_fxc_pairs_plain(oo, ov, hs, (0,))
+    err, scale = max_abs(list(zip(got, ref)))
+    del ref
+    print(f'xc_fxc_pairs: a chunk of {step} points x {nov} pairs, P and HP '
+          f'{2 * nbytes(got[0]) / 1e9:.3f} GB, {-(-npts // step)} chunks '
+          f'per grid')
+    # P: 10 operations per point and pair, H P: 28
+    record(report, 'xc_fxc_pairs', 'pyscf_tpu_torch/csrc/xc_fxc.cu',
+           'pyscf_tpu/tdscf/rhf.py:130', err,
+           lambda: kernels.xc_fxc_pairs(oo, ov, hs, (0,)),
+           lambda: numint.xc_fxc_pairs_plain(oo, ov, hs, (0,)),
+           nbytes(oo, ov, hs, *got), 38.0 * step * nov)
+    check(err <= 1e-10 * scale, f'xc_fxc_pairs vs plain: {err:.3e} > '
+          f'1e-10 x {scale:.3e}')
+    P, HP = got
+    gemm_ms = cuda_ms(lambda: P.reshape(-1, nov).T @ HP[0].reshape(-1, nov))
+    flops = 2.0 * nov * nov * 4 * step
+    print(f'A_xc GEMM of one chunk (cuBLAS): {gemm_ms:.3f} ms, '
+          f'{flops / gemm_ms / 1e9:.1f} TFLOP/s; the whole grid '
+          f'{flops * npts / step / 1e12:.2f} TFLOP')
+    del P, HP, got, oo, ov
+
+    rng = np.random.default_rng(19)
+    z = torch.as_tensor(rng.standard_normal((5, co.shape[1], cv.shape[1])),
+                        device='cuda')
+    ddm = co @ z @ cv.T
+    ddm = ddm + ddm.transpose(1, 2)
+    d0, d1 = dmao[0], torch.matmul(aod[0], ddm)
+    for name, fn, plain, args, ops in (
+            ('xc_rks_fxc', kernels.xc_rks_fxc, numint.xc_rks_fxc_plain,
+             (aod, d0, d1, w, f), (8.0 + 16.0 * 5) * npts * nao),
+            ('xc_uks_fxc', kernels.xc_uks_fxc, numint.xc_uks_fxc_plain,
+             (aod, torch.stack([0.5 * d0, 0.5 * d0]),
+              torch.stack([0.5 * d1, -0.5 * d1], dim=1).contiguous(), w, f),
+             (16.0 + 32.0 * 5) * npts * nao)):
+        got, ref = fn(*args), plain(*args)
+        err, scale = max_abs([(got, ref)])
+        del ref
+        # reductions (8 per point and AO per density) and the rows (8 per
+        # point and AO per output); the functional is not counted
+        record(report, name, f'pyscf_tpu_torch/csrc/{name}.cu',
+               'pyscf_tpu/tdscf/rhf.py:218' if name == 'xc_rks_fxc'
+               else 'pyscf_tpu/tdscf/rhf.py:237', err,
+               lambda: fn(*args), lambda: plain(*args),
+               nbytes(*args[:-1], got), ops)
+        check(err <= 1e-10 * scale, f'{name} vs plain: {err:.3e} > 1e-10 x '
+              f'{scale:.3e}')
+
+
+def tdscf_phenyl_path(pt, refs, kernels):
+    """The phenyl radical's DF-UKS b3lypg/def2-SVP (minao, conv_tol 1e-10,
+    conv_tol_grad 1e-7), then tdscf.TDAUKS(mf).kernel(nstates=5) (dense,
+    in-core ERIs as in the reference) with its time and peak memory, xc_fxc
+    and xc_fxc_pairs launched; then the same A with the plain twins of
+    both on the card: the five lowest eigenvalues within 1e-8 Ha (no JAX
+    reference at this width)."""
+    from pyscf_tpu_torch.tdscf import uhf as tduhf
+    mol = pt.M(atom=refs.PHENYL, basis='def2-svp', spin=1)
+    mf = mol.UKS(xc='b3lypg').density_fit()
+    mf.init_guess = 'minao'
+    mf.conv_tol = 1e-10
+    mf.conv_tol_grad = 1e-7
+    mf.run()
+    check(mf.converged, 'phenyl DF-UKS did not converge')
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    td = pt.tdscf.TDAUKS(mf)
+    e, s = host_s(lambda: td.kernel(nstates=TD_NSTATES))
+    launches = kernels.launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _, s2 = host_s(lambda: pt.tdscf.TDAUKS(mf).kernel(nstates=TD_NSTATES))
+    a_k, dims = tduhf.get_ab_uhf(mf)
+    with fxc_twins(kernels):
+        a_p, _ = host_s(lambda: tduhf.get_ab_uhf(mf)[0])
+    err, scale = max_abs([(a_k, a_p)])
+    w_k = torch.linalg.eigvalsh(a_k)[:TD_NSTATES].cpu().numpy()
+    w_p = torch.linalg.eigvalsh(a_p)[:TD_NSTATES].cpu().numpy()
+    dw = float(np.max(np.abs(w_k - w_p)))
+    print(f'TDA-UKS phenyl DF-UKS b3lypg/def2-SVP: dims {dims} (ntot '
+          f'{sum(dims)}), {s:.3f} s (again {s2:.3f} s), peak device memory '
+          f'{peak:.3f} GB; E (eV) {(e * EV).tolist()}')
+    print(f'TDA-UKS A with kernels vs plain twins: max|dA| {err:.3e} of '
+          f'{scale:.3e}; lowest eigenvalues differ by {dw:.3e} Ha')
+    print(f'launches: {launches}')
+    for k in ('xc_fxc', 'xc_fxc_pairs', 'int2e'):
+        check(launches[k] > 0, f'phenyl TDA-UKS: kernel {k} never launched')
+    check(np.all(np.isfinite(e)) and float(np.max(np.abs(e - w_k))) < 1e-12,
+          'TDA-UKS energies not finite or not those of its A')
+    check(dw < 1e-8, f'TDA-UKS eigenvalues kernels vs twins {dw:.3e} >= '
+          '1e-8 Ha')
+
+
+# PySCF's goldens, tdscf/test/test_tdrhf.py:41-74 (eV)
+TD_GOLDENS = {
+    ('TDA', True): [11.90276464, 11.90276464, 16.86036434],
+    ('TDA', False): [11.01747918, 11.01747918, 13.16955056],
+    ('TDHF', True): [11.83487199, 11.83487199, 16.66309285],
+    ('TDHF', False): [10.8919234, 10.8919234, 12.63440705],
+}
+
+
+def tdscf_goldens(pt):
+    """HF/6-31G in-core RHF on the card (hcore, conv_tol 1e-12): TDA and
+    TDHF singlets and triplets within 1e-4 eV of PySCF's goldens."""
+    mf = pt.M(atom='H 0 0 .917; F 0 0 0', basis='6-31g').RHF()
+    mf.init_guess = 'hcore'
+    mf.conv_tol = 1e-12
+    mf.run()
+    check(mf.converged, 'HF/6-31G RHF did not converge')
+    for (method, singlet), ref in TD_GOLDENS.items():
+        td = getattr(mf, method)()
+        td.singlet = singlet
+        e = td.kernel(nstates=5) * EV
+        de = float(np.max(np.abs(e[:3] - ref)))
+        print(f'HF/6-31G {method} {"singlet" if singlet else "triplet"}: '
+              f'{e[:3].tolist()} eV, golden - port {de:.2e} eV')
+        check(de < 1e-4, f'HF/6-31G {method}: {de:.2e} eV >= 1e-4')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
@@ -1958,6 +2292,17 @@ def main():
     df_postscf_path(pt, refs, kernels)
     torch.cuda.empty_cache()
     ump2_path(pt, refs, kernels)
+    torch.cuda.empty_cache()
+    # excited states: TDA, TDHF and TDDFT
+    rks, td_launches = tdscf_benzene_path(pt, refs, kernels)
+    launches.update({k: td_launches[k] for k in
+                     ('xc_fxc', 'xc_fxc_pairs', 'xc_rks_fxc', 'xc_uks_fxc')})
+    fxc_phases(kernels, rks, report)
+    del rks
+    torch.cuda.empty_cache()
+    tdscf_phenyl_path(pt, refs, kernels)
+    torch.cuda.empty_cache()
+    tdscf_goldens(pt)
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

@@ -15,16 +15,21 @@ the `vv10` launches inside scf_loop from their CUDA events), and
 benzene's in-core and DF RHF (conv_tol 1e-12, conv_tol_grad 1e-9)
 followed by MP2, CCSD (conv_tol 1e-10, conv_tol_normt 1e-8) and (T)
 (phases mp2, ccsd_eris, ccsd, ccsd_cycle, the median cycle, ccsd_ncycle,
-the cycle count, and ccsd_t), or for the paths named by --paths, runs each once cold and `--runs` times warm, every
-run
+the cycle count, and ccsd_t), and benzene's DF-RKS b3lypg (conv_tol 1e-10,
+conv_tol_grad 1e-7) followed by mf.TDA() (four singlets by Davidson:
+phases tda, tda_cycles, tda_matvecs) and mf.TDDFT() (five singlets,
+dense: tddft_get_ab, tddft_eigh), or for the paths named by --paths, runs
+each once cold and `--runs` times warm, every run
 from a fresh Mole, and prints the median, quartiles, min and max of each
 phase of mf.timings (and of the gradient's timings, prefixed grad_) and
 of the wall time from M() to the energy or gradient (host clock, ended by
 a synchronize). Then one
 more warm run of each under torch.profiler prints the device time (the sum
 of the device's own events: kernels, copies and memsets), the wall, the
-device-busy share and the device events that take the most time. The last
-line is one JSON object with these numbers.
+device-busy share, the share of the XC response kernels (`xc_fxc`,
+`xc_fxc_pairs`, `xc_rks_fxc`, `xc_uks_fxc`) in the device time and the
+device events that take the most time. The last line is one JSON object
+with these numbers.
 """
 import argparse
 import json
@@ -39,6 +44,7 @@ GRADIENT = 'in-core RHF + gradient'
 DF_GRADIENTS = ('DF-RKS b3lypg + gradient', 'DF-RHF + gradient',
                 'DF-UKS phenyl + gradient')
 POSTSCF = ('in-core CCSD(T)', 'DF-CCSD(T)')
+TDDFT = 'DF-RKS TDA'
 PATHS = {
     'DF-RHF': lambda pt, refs: pt.M(atom=refs.BENZENE, basis='def2-svp')
     .RHF().density_fit(),
@@ -68,6 +74,8 @@ PATHS = {
                                       basis='def2-svp').RHF(),
     POSTSCF[1]: lambda pt, refs: pt.M(atom=refs.BENZENE,
                                       basis='def2-svp').RHF().density_fit(),
+    TDDFT: lambda pt, refs: pt.dft.RKS(
+        pt.M(atom=refs.BENZENE, basis='def2-svp'), xc='b3lypg').density_fit(),
 }
 
 
@@ -96,12 +104,28 @@ def postscf_timings(mf):
                 ccsd_ncycle=mycc.cycles, ccsd_t=et)
 
 
+def tddft_timings(mf):
+    """mf.TDA() by Davidson (four singlets: its seeds are then the four
+    degenerate HOMO -> LUMO pairs) and mf.TDDFT() (five singlets, dense):
+    their seconds, the Davidson's iterations and matvecs, and the dense
+    path's get_ab and eigh."""
+    td = mf.TDA()
+    _, tda = synced(lambda: td.kernel(nstates=4))
+    if not td.converged:
+        raise SystemExit('TDA did not converge')
+    rpa = mf.TDDFT()
+    _, tddft = synced(lambda: rpa.kernel(nstates=5))
+    return dict(tda=tda, tda_cycles=td.cycles, tda_matvecs=td.nmatvec,
+                tddft=tddft, tddft_get_ab=rpa.timings['get_ab'],
+                tddft_eigh=rpa.timings['eigh'])
+
+
 def one_run(pt, refs, name):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mf = PATHS[name](pt, refs)
     mf.conv_tol = 1e-11 if name == GRADIENT else 1e-8
-    if name in DF_GRADIENTS:
+    if name in DF_GRADIENTS or name == TDDFT:
         mf.conv_tol = 1e-10
         mf.conv_tol_grad = 1e-7
     if name in POSTSCF:
@@ -112,6 +136,8 @@ def one_run(pt, refs, name):
     timings = dict(mf.timings)
     if name in POSTSCF:
         timings.update(postscf_timings(mf))
+    if name == TDDFT:
+        timings.update(tddft_timings(mf))
     if name == GRADIENT or name in DF_GRADIENTS:
         grad = mf.nuc_grad_method()
         grad.kernel()
@@ -143,13 +169,16 @@ def profiled(pt, refs, name, top):
             dev.append((us, ev.count, ev.key))
     dev.sort(reverse=True)
     device_s = sum(us for us, _, _ in dev) * 1e-6
+    fxc_s = sum(us for us, _, key in dev if 'fxc' in key) * 1e-6
     wall = t['wall']
     print(f'profiled {name}: wall {wall:.6f} s, device '
           f'{device_s:.6f} s, busy {device_s / wall:.3f}, idle '
-          f'{1 - device_s / wall:.3f}')
+          f'{1 - device_s / wall:.3f}, XC response kernels {fxc_s:.6f} s '
+          f'({fxc_s / device_s:.3f} of the device time)')
     for us, n, key in dev[:top]:
         print(f'  {us * 1e-3:10.3f} ms  {n:6d}x  {key[:90]}')
     return dict(wall=wall, device_s=device_s, busy=device_s / wall,
+                fxc_s=fxc_s,
                 top=[dict(ms=us * 1e-3, count=n, name=key)
                      for us, n, key in dev[:top]])
 

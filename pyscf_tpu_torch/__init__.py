@@ -18,6 +18,11 @@ the CPU. A Mole runs on the card unless it is given device='cpu':
     mycc = mf.CCSD()
     e_ccsd, t1, t2 = mycc.kernel()
     e_t = mycc.ccsd_t()                    # CCSD(T)
+    mf = pt.dft.RKS(mol, xc='b3lypg').density_fit().run()
+    td = mf.TDA()                          # or mf.TDDFT(); mol.RHF().TDHF()
+    e_exc = td.kernel(nstates=5)           # Hartree
+    f = td.oscillator_strength()
+    e_u = pt.tdscf.TDAUKS(mol.UKS(xc='b3lypg').run()).kernel()
 
     def mf_factory(m):                     # forces of any DF mean field
         mf = m.UKS(xc='b3lypg').density_fit()
@@ -26,4 +31,4 @@ the CPU. A Mole runs on the card unless it is given device='cpu':
     mol_opt, energies = pt.geomopt.internal.optimize(mf_factory, mol)
 """
 from .gto.mole import M, Mole  # noqa: F401
-from . import ao2mo, cc, dft, geomopt, grad, mp, scf  # noqa: F401
+from . import ao2mo, cc, dft, geomopt, grad, mp, scf, tdscf  # noqa: F401

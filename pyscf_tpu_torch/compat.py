@@ -3,7 +3,8 @@
 The tests use these to give both packages identical inputs: shell tables
 taken from a pyscf_tpu Mole, and densities or MO coefficients taken from a
 pyscf_tpu run (for instance a converged density to seed the port's SCF, a
-stacked spin density, or the in-core ERI tensor).
+stacked spin density, the in-core ERI tensor, or the orbitals of a mean
+field whose response is compared).
 Only numpy arrays cross; this module imports neither jax nor pyscf_tpu.
 """
 import numpy as np
@@ -43,3 +44,23 @@ def eri_from_numpy(eri, device):
         raise ValueError(f'expected an (nao,)^4 ERI tensor, got '
                          f'{tuple(t.shape)}')
     return t
+
+
+def mean_field_from_numpy(mf, mo_coeff, mo_energy, mo_occ):
+    """Set a port mean field's orbitals, their energies and occupations from
+    arrays (pyscf_tpu's mo_coeff, mo_energy and mo_occ, restricted or
+    stacked by spin), as float64 tensors on its Mole's device, so that the
+    response of both packages is built on identical orbitals. Returns
+    mf."""
+    dev = mf.mol.device
+    mf.mo_coeff = tensor_from_numpy(mo_coeff, dev)
+    mf.mo_energy = tensor_from_numpy(mo_energy, dev)
+    mf.mo_occ = tensor_from_numpy(mo_occ, dev)
+    if mf.mo_coeff.shape[-2] != mf.mol.nao or mf.mo_energy.shape != \
+            mf.mo_coeff.shape[:-2] + mf.mo_coeff.shape[-1:] or \
+            mf.mo_occ.shape != mf.mo_energy.shape:
+        raise ValueError(f'orbitals {tuple(mf.mo_coeff.shape)}, energies '
+                         f'{tuple(mf.mo_energy.shape)} and occupations '
+                         f'{tuple(mf.mo_occ.shape)} do not fit nao '
+                         f'{mf.mol.nao}')
+    return mf

@@ -1,25 +1,32 @@
-// The XC components on forward-mode dual numbers.
+// The XC components on forward-mode dual numbers of first and second order.
 //
 // Device counterpart of pyscf_tpu/dft/xc_funcs.py (lda_x, _vwn_eps,
 // _f_zeta, vwn5_c, vwn3_c, b88_x, lyp_c, _rs; _pw92_g, pw92_eps,
 // _sr_attenuation, cam_b88_x, _b97_u, _b97_series, wb97_xc) and of their
 // torch versions in pyscf_tpu_torch/dft/xc_funcs.py. Each component is
 // written once, in the JAX package's expression order and with its clamps,
-// as a template over the dual number type DualN<N>, which carries the value
-// and N tangents:
-//   N = 2  d/drho and d/dsigma of the closed-shell energy density, seeded
-//          through rho_a = rho_b = rho/2 and sigma_aa = sigma_ab = sigma_bb
-//          = sigma/4 (edens_closed, kernel xc_rks): one evaluation gives
-//          e_xc, vrho and vsigma, the numbers jax.grad gives at
-//          pyscf_tpu/dft/numint.py:135-137;
-//   N = 5  one for each of rho_a, rho_b, sigma_aa, sigma_ab and sigma_bb
-//          (edens_open, kernel xc_uks).
+// as a template over the number type D, which is one of
+//   DualN<N>   the value and N tangents;
+//   HDualN<N>  the value, N tangents and the N(N+1)/2 second derivatives
+//              (a truncated Taylor number), for the XC response kernels.
+// N is
+//   2  d/drho and d/dsigma of the closed-shell energy density, seeded
+//      through rho_a = rho_b = rho/2 and sigma_aa = sigma_ab = sigma_bb =
+//      sigma/4 (edens_closed: kernels xc_rks, xc_rks_fxc): one evaluation
+//      gives e_xc, vrho and vsigma, the numbers jax.grad gives at
+//      pyscf_tpu/dft/numint.py:135-137, and on HDualN<2> their derivatives,
+//      which jax.jvp of that jax.grad takes (pyscf_tpu/tdscf/rhf.py:218);
+//   5  one for each of rho_a, rho_b, sigma_aa, sigma_ab and sigma_bb
+//      (edens_open: kernels xc_uks, xc_uks_fxc, xc_fxc).
 // The derivative rules are JAX's: pow(x, y)' = y pow(x, y-1), integer
 // powers by repeated squaring with (x^n)' = n x^(n-1), erf' = 2/sqrt(pi)
 // exp(-x^2), log1p' = 1/(1+x), and a maximum or minimum at a tie passes
-// half the tangent. The two components with parameters, CAM_B88 and WB97,
-// are compiled in only where a kernel asks for them (the template flag
-// RSH of edens_closed and edens_open): xc_rks and xc_uks.
+// half the tangent; on HDualN each rule is also differentiated once more
+// (x^y)'' = y (y-1) x^(y-2), ..., and a tie's second derivative is zero,
+// as jax.hessian (jacfwd of jacrev) composes them. The two components with
+// parameters, CAM_B88 and WB97, are compiled in only where a kernel asks
+// for them (the template flag RSH of edens_closed and edens_open): xc_rks
+// and xc_uks.
 //
 // Constants that Python computes with pow are written out as the doubles
 // Python gives (CUDA's pow is not correctly rounded); the rest are the
@@ -229,6 +236,214 @@ PT_HD DualN<N> dmin(const DualN<N>& x, double c) {
 template <int N>
 PT_HD DualN<N> cst_like(const DualN<N>&, double c) {
   return cst_n<N>(c);
+}
+
+// ---- second-order dual numbers with N tangents ------------------------------
+//
+// h holds the upper triangle of the Hessian row by row: h[k] is d2/dx_i dx_j
+// for the k-th pair (i, j), i <= j, in the order of the double loop.
+
+template <int N>
+struct HDualN {
+  static constexpr int M = N * (N + 1) / 2;
+  double v;      // value
+  double d[N];   // first derivatives
+  double h[M];   // second derivatives, packed upper triangle
+};
+
+template <int N>
+PT_HD HDualN<N> hcst(double c) {
+  HDualN<N> r;
+  r.v = c;
+  for (int k = 0; k < N; ++k) r.d[k] = 0.0;
+  for (int k = 0; k < HDualN<N>::M; ++k) r.h[k] = 0.0;
+  return r;
+}
+
+// the independent variable x_i at the value v
+template <int N>
+PT_HD HDualN<N> hvar(double v, int i) {
+  HDualN<N> r = hcst<N>(v);
+  r.d[i] = 1.0;
+  return r;
+}
+
+// f(x) by the chain rule from f(x.v) = f0, f'(x.v) = f1, f''(x.v) = f2
+template <int N>
+PT_HD HDualN<N> hchain(const HDualN<N>& x, double f0, double f1, double f2) {
+  HDualN<N> r;
+  r.v = f0;
+  for (int k = 0; k < N; ++k) r.d[k] = f1 * x.d[k];
+  int k = 0;
+  for (int i = 0; i < N; ++i)
+    for (int j = i; j < N; ++j, ++k)
+      r.h[k] = f1 * x.h[k] + f2 * (x.d[i] * x.d[j]);
+  return r;
+}
+
+template <int N>
+PT_HD HDualN<N> operator+(const HDualN<N>& a, const HDualN<N>& b) {
+  HDualN<N> r;
+  r.v = a.v + b.v;
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] + b.d[k];
+  for (int k = 0; k < HDualN<N>::M; ++k) r.h[k] = a.h[k] + b.h[k];
+  return r;
+}
+template <int N>
+PT_HD HDualN<N> operator-(const HDualN<N>& a, const HDualN<N>& b) {
+  HDualN<N> r;
+  r.v = a.v - b.v;
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] - b.d[k];
+  for (int k = 0; k < HDualN<N>::M; ++k) r.h[k] = a.h[k] - b.h[k];
+  return r;
+}
+template <int N>
+PT_HD HDualN<N> operator-(const HDualN<N>& a) {
+  HDualN<N> r;
+  r.v = -a.v;
+  for (int k = 0; k < N; ++k) r.d[k] = -a.d[k];
+  for (int k = 0; k < HDualN<N>::M; ++k) r.h[k] = -a.h[k];
+  return r;
+}
+template <int N>
+PT_HD HDualN<N> operator*(const HDualN<N>& a, const HDualN<N>& b) {
+  HDualN<N> r;
+  r.v = a.v * b.v;
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * b.v + a.v * b.d[k];
+  int k = 0;
+  for (int i = 0; i < N; ++i)
+    for (int j = i; j < N; ++j, ++k)
+      r.h[k] = a.h[k] * b.v + (a.d[i] * b.d[j] + a.d[j] * b.d[i])
+               + a.v * b.h[k];
+  return r;
+}
+// q = a / b from a = q b: q' = (a' - q b') / b,
+// q'' = (a'' - q' b' - b' q' - q b'') / b
+template <int N>
+PT_HD HDualN<N> operator/(const HDualN<N>& a, const HDualN<N>& b) {
+  HDualN<N> r;
+  r.v = a.v / b.v;
+  for (int k = 0; k < N; ++k) r.d[k] = (a.d[k] - r.v * b.d[k]) / b.v;
+  int k = 0;
+  for (int i = 0; i < N; ++i)
+    for (int j = i; j < N; ++j, ++k)
+      r.h[k] = (a.h[k] - (r.d[i] * b.d[j] + r.d[j] * b.d[i])
+                - r.v * b.h[k]) / b.v;
+  return r;
+}
+template <int N>
+PT_HD HDualN<N> operator+(const HDualN<N>& a, double c) {
+  HDualN<N> r = a;
+  r.v = a.v + c;
+  return r;
+}
+template <int N>
+PT_HD HDualN<N> operator+(double c, const HDualN<N>& a) {
+  HDualN<N> r = a;
+  r.v = c + a.v;
+  return r;
+}
+template <int N>
+PT_HD HDualN<N> operator-(const HDualN<N>& a, double c) {
+  HDualN<N> r = a;
+  r.v = a.v - c;
+  return r;
+}
+template <int N>
+PT_HD HDualN<N> operator-(double c, const HDualN<N>& a) {
+  HDualN<N> r = -a;
+  r.v = c - a.v;
+  return r;
+}
+template <int N>
+PT_HD HDualN<N> operator*(const HDualN<N>& a, double c) {
+  HDualN<N> r;
+  r.v = a.v * c;
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * c;
+  for (int k = 0; k < HDualN<N>::M; ++k) r.h[k] = a.h[k] * c;
+  return r;
+}
+template <int N>
+PT_HD HDualN<N> operator*(double c, const HDualN<N>& a) {
+  return a * c;
+}
+template <int N>
+PT_HD HDualN<N> operator/(const HDualN<N>& a, double c) {
+  HDualN<N> r;
+  r.v = a.v / c;
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] / c;
+  for (int k = 0; k < HDualN<N>::M; ++k) r.h[k] = a.h[k] / c;
+  return r;
+}
+template <int N>
+PT_HD HDualN<N> operator/(double c, const HDualN<N>& b) {
+  return hcst<N>(c) / b;
+}
+
+template <int N>
+PT_HD HDualN<N> dpow(const HDualN<N>& x, double y) {
+  return hchain(x, pow(x.v, y), y * pow(x.v, y - 1.0),
+                y * (y - 1.0) * pow(x.v, y - 2.0));
+}
+template <int N>
+PT_HD HDualN<N> dipow(const HDualN<N>& x, int n) {
+  const double d1 = n == 1 ? 1.0 : n * ipow(x.v, n - 1);
+  const double d2 = n == 1 ? 0.0 : n == 2 ? 2.0
+                                          : n * (n - 1) * ipow(x.v, n - 2);
+  return hchain(x, ipow(x.v, n), d1, d2);
+}
+template <int N>
+PT_HD HDualN<N> dsqrt(const HDualN<N>& x) {
+  const double v = sqrt(x.v);
+  const double d1 = 0.5 / v;
+  return hchain(x, v, d1, -0.5 * d1 / x.v);
+}
+template <int N>
+PT_HD HDualN<N> dexp(const HDualN<N>& x) {
+  const double v = exp(x.v);
+  return hchain(x, v, v, v);
+}
+template <int N>
+PT_HD HDualN<N> dlog(const HDualN<N>& x) {
+  const double d1 = 1.0 / x.v;
+  return hchain(x, log(x.v), d1, -d1 * d1);
+}
+template <int N>
+PT_HD HDualN<N> datan(const HDualN<N>& x) {
+  const double d1 = 1.0 / (1.0 + x.v * x.v);
+  return hchain(x, atan(x.v), d1, -2.0 * x.v * d1 * d1);
+}
+template <int N>
+PT_HD HDualN<N> dasinh(const HDualN<N>& x) {
+  const double d1 = 1.0 / sqrt(x.v * x.v + 1.0);
+  return hchain(x, asinh(x.v), d1, -x.v * d1 * d1 * d1);
+}
+template <int N>
+PT_HD HDualN<N> derf(const HDualN<N>& x) {
+  constexpr double TWO_OVER_SQRT_PI = 1.1283791670955126;
+  const double d1 = TWO_OVER_SQRT_PI * exp(-(x.v * x.v));
+  return hchain(x, erf(x.v), d1, -2.0 * x.v * d1);
+}
+template <int N>
+PT_HD HDualN<N> dlog1p(const HDualN<N>& x) {
+  const double d1 = 1.0 / (x.v + 1.0);
+  return hchain(x, log1p(x.v), d1, -d1 * d1);
+}
+template <int N>
+PT_HD HDualN<N> dmax(const HDualN<N>& x, double c) {
+  if (x.v > c) return x;
+  if (x.v < c) return hcst<N>(c);
+  return hchain(x, c, 0.5, 0.0);
+}
+template <int N>
+PT_HD HDualN<N> dmin(const HDualN<N>& x, double c) {
+  if (x.v < c) return x;
+  if (x.v > c) return hcst<N>(c);
+  return hchain(x, c, 0.5, 0.0);
+}
+template <int N>
+PT_HD HDualN<N> cst_like(const HDualN<N>&, double c) {
+  return hcst<N>(c);
 }
 
 // ---- the components, for D = DualN<N> --------------------------------------
@@ -496,52 +711,15 @@ struct Terms {
   double p[MAXTERM][NPARAM];
 };
 
-// Closed-shell energy density with its derivatives: e.v = e_xc(rho, sigma),
-// e.d = (vrho, vsigma). The terms are summed in their listed order; RSH
-// compiles in CAM_B88 and WB97.
-template <bool RSH = false>
-PT_HD DualN<2> edens_closed(const Terms& t, double rho, double sigma) {
-  const DualN<2> ra = 0.5 * DualN<2>{rho, {1.0, 0.0}};
-  const DualN<2> s4 = 0.25 * DualN<2>{sigma, {0.0, 1.0}};
-  DualN<2> e = cst_n<2>(0.0);
+// The weighted sum of the terms at (rho_a, rho_b, sigma_aa, sigma_ab,
+// sigma_bb) = (a, b, xaa, xab, xbb), in their listed order; RSH compiles in
+// CAM_B88 and WB97.
+template <bool RSH, class D>
+PT_HD D edens_terms(const Terms& t, const D& a, const D& b, const D& xaa,
+                    const D& xab, const D& xbb) {
+  D e = cst_like(a, 0.0);
   for (int k = 0; k < t.n; ++k) {
-    DualN<2> f = cst_n<2>(0.0);
-    switch (t.id[k]) {
-      case SLATER: f = lda_x(ra, ra); break;
-      case VWN5: f = vwn5_c(ra, ra); break;
-      case VWN3: f = vwn3_c(ra, ra); break;
-      case B88: f = b88_x(ra, ra, s4, s4); break;
-      case LYP: f = lyp_c(ra, ra, s4, s4, s4); break;
-      default:
-        if constexpr (RSH) {
-          if (t.id[k] == CAM_B88) {
-            f = cam_b88_x(ra, ra, s4, s4, t.p[k][0], t.p[k][1], t.p[k][2]);
-          } else {
-            f = wb97_xc(ra, ra, s4, s4, s4, t.p[k]);
-          }
-        }
-        break;
-    }
-    e = e + t.c[k] * f;
-  }
-  return e;
-}
-
-// Spin-polarized energy density with its five derivatives: e.v = e_xc,
-// e.d = (vrho_a, vrho_b, vsigma_aa, vsigma_ab, vsigma_bb), the numbers
-// jax.grad gives at pyscf_tpu/dft/numint.py:239-240 and :278-279. The
-// terms are summed in their listed order; RSH compiles in CAM_B88 and WB97.
-template <bool RSH = false>
-PT_HD DualN<5> edens_open(const Terms& t, double ra, double rb, double saa,
-                          double sab, double sbb) {
-  const DualN<5> a{ra, {1.0, 0.0, 0.0, 0.0, 0.0}};
-  const DualN<5> b{rb, {0.0, 1.0, 0.0, 0.0, 0.0}};
-  const DualN<5> xaa{saa, {0.0, 0.0, 1.0, 0.0, 0.0}};
-  const DualN<5> xab{sab, {0.0, 0.0, 0.0, 1.0, 0.0}};
-  const DualN<5> xbb{sbb, {0.0, 0.0, 0.0, 0.0, 1.0}};
-  DualN<5> e = cst_n<5>(0.0);
-  for (int k = 0; k < t.n; ++k) {
-    DualN<5> f = cst_n<5>(0.0);
+    D f = cst_like(a, 0.0);
     switch (t.id[k]) {
       case SLATER: f = lda_x(a, b); break;
       case VWN5: f = vwn5_c(a, b); break;
@@ -561,6 +739,46 @@ PT_HD DualN<5> edens_open(const Terms& t, double ra, double rb, double saa,
     e = e + t.c[k] * f;
   }
   return e;
+}
+
+// Closed-shell energy density with its derivatives: e.v = e_xc(rho, sigma),
+// e.d = (vrho, vsigma).
+template <bool RSH = false>
+PT_HD DualN<2> edens_closed(const Terms& t, double rho, double sigma) {
+  const DualN<2> ra = 0.5 * DualN<2>{rho, {1.0, 0.0}};
+  const DualN<2> s4 = 0.25 * DualN<2>{sigma, {0.0, 1.0}};
+  return edens_terms<RSH>(t, ra, ra, s4, s4, s4);
+}
+
+// Spin-polarized energy density with its five derivatives: e.v = e_xc,
+// e.d = (vrho_a, vrho_b, vsigma_aa, vsigma_ab, vsigma_bb), the numbers
+// jax.grad gives at pyscf_tpu/dft/numint.py:239-240 and :278-279.
+template <bool RSH = false>
+PT_HD DualN<5> edens_open(const Terms& t, double ra, double rb, double saa,
+                          double sab, double sbb) {
+  const DualN<5> a{ra, {1.0, 0.0, 0.0, 0.0, 0.0}};
+  const DualN<5> b{rb, {0.0, 1.0, 0.0, 0.0, 0.0}};
+  const DualN<5> xaa{saa, {0.0, 0.0, 1.0, 0.0, 0.0}};
+  const DualN<5> xab{sab, {0.0, 0.0, 0.0, 1.0, 0.0}};
+  const DualN<5> xbb{sbb, {0.0, 0.0, 0.0, 0.0, 1.0}};
+  return edens_terms<RSH>(t, a, b, xaa, xab, xbb);
+}
+
+// The same with second derivatives, for the B3LYP family (the response
+// kernels take no range-separated component): h = (e_rr, e_rs, e_ss) of
+// (rho, sigma) ...
+PT_HD HDualN<2> edens_closed2(const Terms& t, double rho, double sigma) {
+  const HDualN<2> ra = 0.5 * hvar<2>(rho, 0);
+  const HDualN<2> s4 = 0.25 * hvar<2>(sigma, 1);
+  return edens_terms<false>(t, ra, ra, s4, s4, s4);
+}
+
+// ... and the 15 of (rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb)
+PT_HD HDualN<5> edens_open2(const Terms& t, double ra, double rb, double saa,
+                            double sab, double sbb) {
+  return edens_terms<false>(t, hvar<5>(ra, 0), hvar<5>(rb, 1),
+                            hvar<5>(saa, 2), hvar<5>(sab, 3),
+                            hvar<5>(sbb, 4));
 }
 
 }  // namespace ptxc

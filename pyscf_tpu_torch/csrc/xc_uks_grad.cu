@@ -37,11 +37,6 @@
 
 #include "xc_point.cuh"
 
-// d max(x, lo)/dx as jax.grad takes it
-__device__ __forceinline__ double clamp_slope(double x, double lo) {
-  return x > lo ? 1.0 : (x == lo ? 0.5 : 0.0);
-}
-
 __global__ void xc_uks_grad_kernel(int gga, int npts, int nao,
                                    const double* __restrict__ aod,
                                    const double* __restrict__ dmao,

@@ -4,8 +4,20 @@ Counterpart of pyscf_tpu/df/df_jk.py (get_jk, density_fit) and of the DF
 branch of RHF._fused_veff (pyscf_tpu/scf/hf.py:677-695):
     J_ij = B[P,ij] (B[P,kl] dm_lk)
     K_ij = B[P,il] dm_lk B[P,kj]      or  sum_P (B C_occ)(B C_occ)^T
-The contractions are library matmuls (cuBLAS on the card).
+The contractions are library matmuls (cuBLAS on the card). _bmo gives the
+MO blocks of B for the TDA/TDDFT response (pyscf_tpu/df/df_jk.py _bmo).
 """
+import torch
+
+
+
+def _bmo(B, ca, cb):
+    """MO blocks of the whitened factor, (naux, ka, kb) = B[P] in the
+    orbitals ca (nao, ka) and cb (nao, kb), in B's own aux order (as the
+    DF cache keeps it); two GEMMs."""
+    naux, nao, _ = B.shape
+    Bb = (B.reshape(naux * nao, nao) @ cb).reshape(naux, nao, -1)
+    return torch.matmul(ca.T, Bb)
 
 
 def j_from_dm(B, dm):

@@ -36,6 +36,21 @@ autodiff.py:228-245):
     the per-AO integrand of both spins               (csrc/xc_uks_grad.cu);
                                                      twin xc_uks_grad_plain
 
+The XC response of TDA/TDDFT, on a closed- or open-shell ground density:
+
+    the Hessian route (tdscf get_ab): w f_xc per    CUDA kernel `xc_fxc`;
+    point in 4x4 blocks over (rho, grad rho),        twin xc_fxc_plain
+    no clamps (pyscf_tpu/tdscf/rhf.py _fxc_ov)
+    the pair features P and H P                     CUDA kernel
+                                                     `xc_fxc_pairs`; twin
+                                                     xc_fxc_pairs_plain
+    the jvp route (the Davidson matvec): dmao1 =    torch.matmul (cuBLAS)
+    ao @ ddm, the tangent of vtmp through the SCF's  CUDA kernel `xc_rks_fxc`
+    clamps (rks_response), or of both spins'         or `xc_uks_fxc`; twins
+    (uks_response), dV = ao^T @ dvtmp                xc_rks_fxc_plain and
+                                                     xc_uks_fxc_plain
+                                                     (torch.func.jvp)
+
 The grid is not padded, and blocks are sized by
 memory, not by the TPU's budget: on the card one block usually holds the
 whole grid. The AO values are evaluated once per SCF (grid_ao) and reused
@@ -48,6 +63,7 @@ import torch
 from ..ops.eval_gto import SECOND_DERIVS, eval_ao
 from ..ops.integrals.j3c import sync
 from . import xc as xc_mod
+from .xc_funcs import _max
 
 # The JAX package's thresholds, kept so both give the same energies.
 RHO_THR = 1e-10
@@ -59,9 +75,21 @@ CPU_BLOCK_BYTES = 1 << 28
 
 def _masked(rho, sigma):
     mask = rho > RHO_THR
-    rho_s = torch.where(mask, torch.clamp(rho, min=RHO_THR), 1.0)
-    sigma_s = torch.where(mask, torch.clamp(sigma, min=SIGMA_FLOOR), 1.0)
+    rho_s = torch.where(mask, _max(rho, RHO_THR), 1.0)
+    sigma_s = torch.where(mask, _max(sigma, SIGMA_FLOOR), 1.0)
     return mask, rho_s, sigma_s
+
+
+def _closed_derivs(xc, rho_s, sigma_s):
+    """(e_xc, vrho, vsigma) per point at the clamped inputs, by
+    torch.func.grad: a block map built on them differentiates again under
+    torch.func.jvp, as jax.jvp of jax.grad does in the JAX package."""
+    def esum(r, s):
+        e = edens_closed(xc, r, s)
+        return e.sum(), e
+    (vrho, vsigma), e = torch.func.grad(esum, argnums=(0, 1),
+                                        has_aux=True)(rho_s, sigma_s)
+    return e, vrho, vsigma
 
 
 def edens_closed(xc, rho, sigma):
@@ -78,7 +106,7 @@ def xc_rks_plain(aod, dmao, weights, xc):
     aod (B, nao) for an LDA or (4, B, nao) for a GGA, dmao = ao @ dm
     (B, nao), weights (B,). Returns (vtmp (B, nao), n, exc) with
     n = sum w rho and exc = sum over unmasked points of w e_xc; vrho and
-    vsigma come from torch.autograd through the functional's clamps."""
+    vsigma come from torch.func.grad through the functional's clamps."""
     gga = aod.dim() == 3
     ao = aod[0] if gga else aod
     rho = torch.clamp(torch.einsum('bi,bi->b', dmao, ao), min=0.0)
@@ -88,12 +116,8 @@ def xc_rks_plain(aod, dmao, weights, xc):
     else:
         sigma = torch.zeros_like(rho)
     mask, rho_s, sigma_s = _masked(rho, sigma)
-    with torch.enable_grad():
-        r = rho_s.detach().requires_grad_()
-        s = sigma_s.detach().requires_grad_()
-        e = edens_closed(xc, r, s)
-        vrho, vsigma = torch.autograd.grad(e.sum(), (r, s), allow_unused=True)
-    exc = torch.sum(torch.where(mask, weights * e.detach(), 0.0))
+    e, vrho, vsigma = _closed_derivs(xc, rho_s, sigma_s)
+    exc = torch.sum(torch.where(mask, weights * e, 0.0))
     wv = torch.where(mask, weights * vrho, 0.0)
     vtmp = 0.5 * wv[:, None] * ao
     if gga:
@@ -119,22 +143,22 @@ def _open_shell_derivs(rho, sig, xc):
     point of the spin densities rho (2, B) and sig [sigma_aa, sigma_ab,
     sigma_bb], with the JAX package's mask and clamps (numint.py:265-273):
     rho_a + rho_b > RHO_THR, rho_s >= RHO_THR/2, sigma_ss >= SIGMA_FLOOR,
-    sigma_ab as it is; the derivatives by torch.autograd at the clamped
-    values."""
+    sigma_ab as it is; the derivatives by torch.func.grad at the clamped
+    values (so that torch.func.jvp differentiates them again)."""
     mask = (rho[0] + rho[1]) > RHO_THR
 
     def sf(x, lo):
-        return torch.where(mask, x if lo is None else torch.clamp(x, min=lo),
-                           1.0)
+        return torch.where(mask, x if lo is None else _max(x, lo), 1.0)
+
+    def esum(*a):
+        e = xc.exc_density(*a)
+        return e.sum(), e
 
     args = [sf(rho[0], 0.5 * RHO_THR), sf(rho[1], 0.5 * RHO_THR),
             sf(sig[0], SIGMA_FLOOR), sf(sig[1], None), sf(sig[2], SIGMA_FLOOR)]
-    with torch.enable_grad():
-        leaves = [x.detach().requires_grad_() for x in args]
-        e = xc.exc_density(*leaves)
-        grads = torch.autograd.grad(e.sum(), leaves, allow_unused=True)
-    return mask, [torch.zeros_like(rho[0]) if g is None else g
-                  for g in grads], e.detach()
+    grads, e = torch.func.grad(esum, argnums=(0, 1, 2, 3, 4),
+                               has_aux=True)(*args)
+    return mask, list(grads), e
 
 
 def xc_uks_plain(aod, dmao, weights, xc):
@@ -145,7 +169,7 @@ def xc_uks_plain(aod, dmao, weights, xc):
     exc) with n_s = sum w rho_s and exc = sum over unmasked points of
     w e_xc. The mask and clamps are the JAX package's (numint.py:265-273):
     rho_a + rho_b > RHO_THR, rho_s >= RHO_THR/2, sigma_ss >= SIGMA_FLOOR,
-    sigma_ab as it is; the five derivatives come from torch.autograd."""
+    sigma_ab as it is; the five derivatives come from torch.func.grad."""
     gga = aod.dim() == 3
     ao = aod[0] if gga else aod
     rho, grho, sig = _spin_densities(ao, aod[1:] if gga else None, dmao)
@@ -261,14 +285,112 @@ def xc_uks_grad_plain(aod, dmao, weights, xc):
     return g, exc
 
 
+# ---- the XC response (TDA/TDDFT) -------------------------------------------
+
+# the rows of (rho, grad rho) of spin a and of spin b in u = (rho_a, rho_b,
+# grad rho_a, grad rho_b)
+_SPIN_ROWS = ([0, 2, 3, 4], [1, 5, 6, 7])
+
+
+def xc_fxc_plain(aod, dmao, weights, xc, singlet=True):
+    """Plain PyTorch twin of the `xc_fxc` kernel on one block of B points:
+    the weighted, masked XC response kernel per point in 4x4 blocks over
+    (rho, grad rho).
+
+    aod (4, B, nao); dmao = ao @ dm (1, B, nao) of a closed-shell total
+    density, or ao @ dm_s (2, B, nao) of each spin; weights (B,). H is the
+    Hessian by torch.func.hessian (vmapped over the points) of e_xc over
+    u = (rho_a, rho_b, grad rho_a, grad rho_b) with the features of the JAX
+    package's _fxc_ov (pyscf_tpu/tdscf/rhf.py:87-131) and _fxc_ov_uks
+    (tdscf/uhf.py:89-121): no clamps; u = (rho/2, rho/2, g/2, g/2) of the
+    total density, or the spin densities, at points above RHO_THR and
+    (1/2, 1/2, 0, 0) elsewhere, where H is then zero. Returns (B, 1, 4, 4)
+    of w (H_aa + H_ab) for the closed shell (w (H_aa - H_ab) unless
+    singlet), (B, 4, 4, 4) of w [H_aa, H_ab, H_ba, H_bb] for two spins."""
+    nspin = dmao.shape[0]
+    rho = torch.clamp(torch.einsum('sbi,bi->sb', dmao, aod[0]), min=0.0)
+    grho = 2.0 * torch.einsum('sbi,dbi->sdb', dmao, aod[1:])
+    if nspin == 1:
+        mask = rho[0] > RHO_THR
+        half = torch.where(mask, 0.5 * rho[0], 0.5)
+        g = torch.where(mask, 0.5 * grho[0], 0.0)
+        u = [half, half, *g, *g]
+    else:
+        mask = (rho[0] + rho[1]) > RHO_THR
+        u = ([torch.where(mask, rho[s], 0.5) for s in (0, 1)]
+             + [torch.where(mask, grho[s, d], 0.0) for s in (0, 1)
+                for d in range(3)])
+
+    def e_of_u8(x):
+        ga, gb = x[2:5], x[5:8]
+        return xc.exc_density(x[0], x[1], ga @ ga, ga @ gb, gb @ gb)
+
+    H8 = torch.func.vmap(torch.func.hessian(e_of_u8))(torch.stack(u, dim=1))
+    H8 = torch.where(mask[:, None, None], H8, 0.0)
+
+    def blk(s, t):
+        return H8[:, _SPIN_ROWS[s]][:, :, _SPIN_ROWS[t]]
+
+    if nspin == 1:
+        H = (blk(0, 0) + (1.0 if singlet else -1.0) * blk(0, 1))[:, None]
+    else:
+        H = torch.stack([blk(0, 0), blk(0, 1), blk(1, 0), blk(1, 1)], dim=1)
+    return weights[:, None, None, None] * H
+
+
+def xc_fxc_pairs_plain(oo, ov, H, blocks):
+    """Plain PyTorch twin of the `xc_fxc_pairs` kernel: (P (4, B, nov),
+    HP (nh, 4, B, nov)) with P = [phi_i phi_a, grad(phi_i phi_a)] over the
+    pairs (i, a), i major, and HP[h] = H[:, blocks[h]] P per point, as the
+    JAX package's _fxc_ov forms them (pyscf_tpu/tdscf/rhf.py:130-139).
+
+    oo (4, B, nocc), ov (4, B, nvir): orbital values and gradients; H
+    (B, nblk, 4, 4) from xc_fxc."""
+    B = oo.shape[1]
+    P0 = torch.einsum('bi,ba->bia', oo[0], ov[0])
+    Pd = (torch.einsum('dbi,ba->dbia', oo[1:], ov[0])
+          + torch.einsum('bi,dba->dbia', oo[0], ov[1:]))
+    P = torch.cat([P0[None], Pd]).reshape(4, B, -1)
+    HP = torch.stack([torch.einsum('buv,vbx->ubx', H[:, h], P)
+                      for h in blocks])
+    return P, HP
+
+
+def xc_rks_fxc_plain(aod, dmao, dmao1, weights, xc):
+    """Plain PyTorch twin of the `xc_rks_fxc` kernel: (nvec, B, nao), the
+    tangent of xc_rks_plain's vtmp at dmao along each dmao1[v] by
+    torch.func.jvp, through the same clamps, as jax.jvp of the JAX
+    package's _get_rks_core_aod (pyscf_tpu/tdscf/rhf.py:218)."""
+    def vtmp(d):
+        return xc_rks_plain(aod, d, weights, xc)[0]
+
+    return torch.stack([torch.func.jvp(vtmp, (dmao,), (t,))[1]
+                        for t in dmao1])
+
+
+def xc_uks_fxc_plain(aod, dmao, dmao1, weights, xc):
+    """Plain PyTorch twin of the `xc_uks_fxc` kernel: (nvec, 2, B, nao), the
+    tangent of xc_uks_plain's vtmp at dmao (2, B, nao) along each dmao1[v]
+    (2, B, nao) by torch.func.jvp, as jax.jvp of the JAX package's
+    _get_uks_core_aod (pyscf_tpu/tdscf/rhf.py:237)."""
+    def vtmp(d):
+        return xc_uks_plain(aod, d, weights, xc)[0]
+
+    return torch.stack([torch.func.jvp(vtmp, (dmao,), (t,))[1]
+                        for t in dmao1])
+
+
+def _budget(device, share):
+    """Bytes a block of temporaries may take: share of the free memory on
+    the card, CPU_BLOCK_BYTES on the CPU."""
+    if device.type == 'cuda':
+        return torch.cuda.mem_get_info(device)[0] // share
+    return CPU_BLOCK_BYTES
+
+
 def _block_size(npts, nao, ncomp, device):
     """Points per block when each point holds ncomp rows of nao doubles."""
-    per_point = ncomp * nao * 8
-    if device.type == 'cuda':
-        budget = torch.cuda.mem_get_info(device)[0] // 2
-    else:
-        budget = CPU_BLOCK_BYTES
-    return max(1, min(npts, budget // per_point))
+    return max(1, min(npts, _budget(device, 2) // (ncomp * nao * 8)))
 
 
 class NumInt:
@@ -330,6 +452,46 @@ class NumInt:
             return n, e, v + v.transpose(1, 2)
 
         return run
+
+    def _response(self, kernel, nspin, xc_code, aod_blocks, weights, dm0):
+        """ddm (nvec, [2,] nao, nao) -> the tangent of the core's V_xc at
+        dm0 along each ddm, block by block: dmao1 = ao @ ddm (GEMM), the
+        kernel, dV += ao^T @ dvtmp (GEMM), in groups of vectors that fit
+        half the free memory; then dV + dV^T, as the core's V + V^T."""
+        xc = xc_mod.parse_xc(xc_code)
+        aos = [aod[0] if aod.dim() == 3 else aod for aod in aod_blocks]
+        dmao0 = [torch.matmul(ao, dm0) for ao in aos]
+
+        def run(ddm):
+            v = torch.zeros_like(ddm)
+            for aod, ao, w, d0 in zip(aod_blocks, aos, weights, dmao0):
+                step = max(1, _budget(ao.device, 2) // (2 * nspin * ao.numel()
+                                                        * 8))
+                for i in range(0, ddm.shape[0], step):
+                    dmao1 = torch.matmul(ao, ddm[i:i + step])
+                    dv = kernel(aod, d0, dmao1, w, xc)
+                    v[i:i + step] += torch.matmul(ao.T, dv)
+            return v + v.transpose(-1, -2)
+
+        return run
+
+    def rks_response(self, xc_code, aod_blocks, weights, dm0):
+        """The closed-shell V_xc response at the density dm0: a map ddm
+        (nvec, nao, nao) -> (nvec, nao, nao), jax.jvp of _get_rks_core_aod's
+        V_xc at dm0 as pyscf_tpu/tdscf/rhf.py:210-219 takes it (kernel
+        `xc_rks_fxc`), over the AO blocks of grid_ao."""
+        from ..ops import kernels
+        return self._response(kernels.xc_rks_fxc, 1, xc_code, aod_blocks,
+                              weights, dm0)
+
+    def uks_response(self, xc_code, aod_blocks, weights, dm0):
+        """The spin-polarized V_xc response at the spin density dm0 (2, nao,
+        nao): a map ddm (nvec, 2, nao, nao) -> (nvec, 2, nao, nao), jax.jvp of
+        _get_uks_core_aod's V_xc as pyscf_tpu/tdscf/rhf.py:221-238 takes it
+        (kernel `xc_uks_fxc`)."""
+        from ..ops import kernels
+        return self._response(kernels.xc_uks_fxc, 2, xc_code, aod_blocks,
+                              weights, dm0)
 
     def rks_grad(self, mol, grids, xc_code, dm, timings=None):
         """(exc, g (nao, 3)) of a closed-shell density dm on the fixed grid:

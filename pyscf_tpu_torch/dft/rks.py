@@ -154,3 +154,12 @@ class RKS(KohnShamDFT, RHF):
         return rks_grad.Gradients(self)
 
     Gradients = nuc_grad_method
+
+    # excited states (pyscf_tpu/dft/rks.py:265-271); TDHF is RHF's
+    def TDA(self, **kwargs):
+        from ..tdscf import TDA
+        return TDA(self, **kwargs)
+
+    def TDDFT(self, **kwargs):
+        from ..tdscf import TDDFT
+        return TDDFT(self, **kwargs)

@@ -1,7 +1,8 @@
-"""Symmetric eigensolver, canonical orthogonalization, generalized eigh.
+"""Symmetric eigensolver, canonical orthogonalization, generalized eigh
+and the Davidson solver.
 
-Counterpart of pyscf_tpu/lib/linalg.py (eigh, canonical_orth, eigh_gen)
-on torch.linalg.eigh (LAPACK on the CPU, cuSOLVER on the card).
+Counterpart of pyscf_tpu/lib/linalg.py (eigh, canonical_orth, eigh_gen,
+davidson) on torch.linalg.eigh (LAPACK on the CPU, cuSOLVER on the card).
 
 The JAX package refines every f64 eigh with Ogita-Aishima steps because
 jax 0.9's eigh left residuals ||AV - VW|| near 1e-6 at n=580. That
@@ -10,6 +11,7 @@ the number of steps the SCF uses: 0, because torch.linalg.eigh's residual
 is at rounding level on both devices (LAPACK on the CPU; on the H100,
 chip_smoke.py prints the measured max residual at n=114).
 """
+import numpy as np
 import torch
 
 EIGH_REFINE = 0
@@ -62,3 +64,68 @@ def eigh_gen(f, x, refine=EIGH_REFINE):
     """Solve F C = S C e given X = S^{-1/2}: returns (e, C)."""
     e, cp = eigh(x.T @ f @ x, refine)
     return e, x @ cp
+
+
+def davidson(matvec, x0, neig=1, max_cycle=60, tol=1e-10, max_space=14,
+             hdiag=None):
+    """Davidson eigensolver for the lowest eigenpairs of a symmetric
+    operator: (evals (neig,) numpy, evecs (neig, n) tensor, converged).
+
+    The JAX package's solver (pyscf_tpu/lib/linalg.py:89-166): the same
+    subspace, restart with the Ritz vectors and guard roots, diagonal
+    preconditioner and convergence test. The vectors stay on x0's device;
+    the subspace matrix goes to the host for its eigh, as DIIS's does.
+    matvec takes a batch (k, n) and returns A applied to each row (k, n):
+    the new vectors of an iteration go in one call, which gives the
+    product of one vector at a time of the JAX package's matvec."""
+    x0 = x0[None] if x0.dim() == 1 else x0
+    max_space = max(max_space, 3 * (neig + 2))
+    hd = None if hdiag is None else torch.as_tensor(hdiag, device=x0.device)
+    V = [v / torch.linalg.norm(v) for v in x0]
+    AV = []
+    theta_old = None
+    conv = False
+    evals = evecs = None
+    for _ in range(max_cycle):
+        if len(AV) < len(V):
+            AV.extend(matvec(torch.stack(V[len(AV):])))
+        Vm = torch.stack(V)
+        AVm = torch.stack(AV)
+        H = (Vm @ AVm.T).cpu().numpy()
+        theta, S = np.linalg.eigh(0.5 * (H + H.T))
+        # guard roots beyond the requested ones, so that a restart keeps
+        # low-spectrum components the Ritz set has not resolved yet
+        nroot = min(neig + 2, len(theta))
+        theta = theta[:nroot]
+        St = torch.as_tensor(S[:, :nroot].T.copy(), device=Vm.device)
+        X = St @ Vm
+        R = St @ AVm - torch.as_tensor(theta, device=Vm.device)[:, None] * X
+        rnorm = torch.linalg.norm(R, dim=1).cpu().numpy()
+        evals, evecs = theta[:neig], X[:neig]
+        if np.all(rnorm[:neig] < tol) or (
+                theta_old is not None
+                and np.all(np.abs(theta[:neig] - theta_old) < tol * 1e-2)
+                and np.all(rnorm[:neig] < np.sqrt(tol))):
+            conv = True
+            break
+        theta_old = theta[:neig]
+        if len(V) + nroot > max_space:
+            V = [X[i] / torch.linalg.norm(X[i]) for i in range(nroot)]
+            AV = []
+            continue
+        for i in range(nroot):
+            if rnorm[i] < tol:
+                continue
+            t = R[i]
+            if hd is not None:
+                denom = hd - float(theta[i])
+                denom = torch.where(denom.abs() < 1e-8,
+                                    torch.sign(denom + 1e-30) * 1e-8, denom)
+                t = t / denom
+            # modified Gram-Schmidt against the subspace
+            for v in V:
+                t = t - (v @ t) * v
+            nrm = float(torch.linalg.norm(t))
+            if nrm > 1e-7:
+                V.append(t / nrm)
+    return evals, evecs, conv

@@ -1,9 +1,9 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Twenty-three kernels carry the DF-RHF/RKS/UKS and in-core paths with the
+Twenty-seven kernels carry the DF-RHF/RKS/UKS and in-core paths with the
 range-separated and VV10 functionals, the conventional RHF gradient, the
-DF-RHF/RKS/UHF/UKS gradients, the dipole of the SCF analysis and MP2,
-UMP2, CCSD and CCSD(T) (sources in pyscf_tpu_torch/csrc/):
+DF-RHF/RKS/UHF/UKS gradients, the dipole of the SCF analysis, MP2, UMP2,
+CCSD and CCSD(T), and TDA/TDHF/TDDFT (sources in pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
@@ -40,6 +40,13 @@ UMP2, CCSD and CCSD(T) (sources in pyscf_tpu_torch/csrc/):
              exchange pair-energy sums of (ia|jb)
   ccsd_t     the (T) energy over a list of virtual (csrc/ccsd_t.cu)
              triples a >= b >= c
+  xc_fxc     the XC response kernel per point,    (csrc/xc_fxc.cu,
+             second-order dual numbers              csrc/xc_funcs.cuh)
+  xc_fxc_pairs  the pair features P and H P per   (csrc/xc_fxc.cu,
+             point and occupied-virtual pair        PT_FXC_PAIRS)
+  xc_rks_fxc the tangent of xc_rks's vtmp along   (csrc/xc_rks_fxc.cu)
+             transition densities
+  xc_uks_fxc the same of xc_uks's                 (csrc/xc_uks_fxc.cu)
 
 Each wrapper takes float64 (int32 for indices) contiguous tensors on one
 device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
@@ -48,7 +55,8 @@ wrapper adds one to its `launches` count for every kernel launch it makes.
 
 The kernels are compiled at first use with nvcc for sm_90a, one shared
 library per source (three each for int2e_ip1.cu and int3c2e_ip.cu, one per
-bra momentum) with a plain C interface loaded by ctypes, into
+bra momentum; two for xc_fxc.cu, one per kernel) with a plain C interface
+loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
 checkout builds them once and an edit to a source rebuilds them; nvcc's
 output, with ptxas's registers, stack frame and spills per kernel
@@ -120,6 +128,16 @@ _LIBRARIES = {
                    + [_I, _P, _P, _I, _P], ()),
     'ccsd_t': ('ccsd_t.cu', 'pt_ccsd_t', [_I] * 4 + [_P] * 2 + [_I]
                + [_P] * 10 + [_I, _P], ()),
+    # the XC response: no FMA contraction, as in xc_rks and xc_uks; the
+    # pair features are a second launch from the same source
+    'xc_fxc': ('xc_fxc.cu', 'pt_xc_fxc', [_I, _D, _I, _I] + [_P] * 3 + [_I]
+               + [_P] * 3 + [_I, _P], ('-fmad=false',)),
+    'xc_fxc_pairs': ('xc_fxc.cu', 'pt_xc_fxc_pairs', [_I] * 3 + [_P] * 3
+                     + [_I] * 4 + [_P] * 2 + [_I, _P], ('-DPT_FXC_PAIRS',)),
+    'xc_rks_fxc': ('xc_rks_fxc.cu', 'pt_xc_rks_fxc', [_I] * 4 + [_P] * 4
+                   + [_I] + [_P] * 4, ('-fmad=false',)),
+    'xc_uks_fxc': ('xc_uks_fxc.cu', 'pt_xc_uks_fxc', [_I] * 4 + [_P] * 4
+                   + [_I] + [_P] * 4, ('-fmad=false',)),
 }
 # int2e_ip1.cu and int3c2e_ip.cu once per bra momentum, so that their
 # instantiations compile in three processes each, side by side
@@ -979,10 +997,128 @@ def ccsd_t(abc, mult, vvov, vooo, ovov, t2, t1, e_occ, e_vir):
     return partials.sum()
 
 
+# the response kernels take the components of the gradient kernels
+XC_FXC_COMPONENTS = XC_GRAD_COMPONENTS
+XC_FXC_WARPS = 4
+XC_FXC_PAIR_THREADS = 256
+
+
+def xc_fxc(aod, dmao, weights, xc, singlet=True):
+    """The XC response kernel per point of one block of B points, weighted
+    and masked, in 4x4 blocks over (rho, grad rho): (B, 1, 4, 4) of w (H_aa
+    + H_ab) for a closed-shell dmao (1, B, nao) of the total density
+    (singlet; H_aa - H_ab for a triplet), (B, 4, 4, 4) of w [H_aa, H_ab,
+    H_ba, H_bb] for dmao (2, B, nao) of each spin, H the Hessian of e_xc
+    over (rho_a, rho_b, grad rho_a, grad rho_b) as the JAX package's _fxc_ov
+    and _fxc_ov_uks take it.
+
+    aod (4, B, nao); weights (B,); xc a dft.xc.XCFunctional of the B3LYP
+    family."""
+    dev = _device_of(aod)
+    B, nao = aod.shape[1:]
+    nspin = dmao.shape[0]
+    if nspin not in (1, 2):
+        raise ValueError(f'dmao must hold 1 or 2 densities, got {nspin}')
+    _check(dev, ('aod', aod, (4, B, nao)), ('dmao', dmao, (nspin, B, nao)),
+           ('weights', weights, (B,)))
+    if dev.type == 'cpu':
+        return numint.xc_fxc_plain(aod, dmao, weights, xc, singlet)
+    ids, coeffs, _ = _xc_terms(xc, 'xc_fxc', XC_FXC_COMPONENTS)
+    out = torch.empty((B, 1 if nspin == 1 else 4, 4, 4), dtype=torch.float64,
+                      device=dev)
+    if B:
+        rc = _fn('xc_fxc')(nspin, 1.0 if singlet else -1.0, B, nao,
+                           aod.data_ptr(), dmao.data_ptr(),
+                           weights.data_ptr(), len(xc.terms), ids, coeffs,
+                           out.data_ptr(), XC_FXC_WARPS, _stream())
+        _raise_on(rc, 'xc_fxc')
+        xc_fxc.launches += 1
+    return out
+
+
+def xc_fxc_pairs(oo, ov, H, blocks):
+    """The pair features of one block of B points: (P (4, B, nov), HP (nh,
+    4, B, nov)) with P = [phi_i phi_a, grad(phi_i phi_a)] over the pairs
+    (i, a), i major, and HP[h] = H[:, blocks[h]] P per point.
+
+    oo (4, B, nocc), ov (4, B, nvir): the orbital values and gradients; H
+    (B, nblk, 4, 4) from xc_fxc; blocks one or two indices into nblk."""
+    dev = _device_of(oo)
+    _, B, nocc = oo.shape
+    nvir = ov.shape[2]
+    nblk = H.shape[1]
+    _check(dev, ('oo', oo, (4, B, nocc)), ('ov', ov, (4, B, nvir)),
+           ('H', H, (B, nblk, 4, 4)))
+    if not 1 <= len(blocks) <= 2 or not all(0 <= h < nblk for h in blocks):
+        raise ValueError(f'blocks {blocks} must be one or two of {nblk}')
+    if dev.type == 'cpu':
+        return numint.xc_fxc_pairs_plain(oo, ov, H, blocks)
+    nov = nocc * nvir
+    P = torch.empty((4, B, nov), dtype=torch.float64, device=dev)
+    HP = torch.empty((len(blocks), 4, B, nov), dtype=torch.float64,
+                     device=dev)
+    if B and nov:
+        rc = _fn('xc_fxc_pairs')(
+            B, nocc, nvir, oo.data_ptr(), ov.data_ptr(), H.data_ptr(), nblk,
+            len(blocks), blocks[0], blocks[-1], P.data_ptr(), HP.data_ptr(),
+            XC_FXC_PAIR_THREADS, _stream())
+        _raise_on(rc, 'xc_fxc_pairs')
+        xc_fxc_pairs.launches += 1
+    return P, HP
+
+
+def _fxc_tangent(wrapper, lib, plain, nspin, aod, dmao, dmao1, weights, xc):
+    dev = _device_of(aod)
+    gga = aod.dim() == 3
+    B, nao = aod.shape[-2:]
+    nvec = dmao1.shape[0]
+    rows = (B, nao) if nspin == 1 else (nspin, B, nao)
+    _check(dev, ('aod', aod, (4, B, nao) if gga else (B, nao)),
+           ('dmao', dmao, rows), ('dmao1', dmao1, (nvec,) + rows),
+           ('weights', weights, (B,)))
+    if xc.is_gga and not gga:
+        raise ValueError('a GGA functional needs the AO gradients (4, B, nao)')
+    if dev.type == 'cpu':
+        return plain(aod, dmao, dmao1, weights, xc)
+    ids, coeffs, _ = _xc_terms(xc, lib, XC_FXC_COMPONENTS)
+    out = torch.empty((nvec,) + rows, dtype=torch.float64, device=dev)
+    if B and nvec:
+        rc = _fn(lib)(int(gga), B, nao, nvec, aod.data_ptr(), dmao.data_ptr(),
+                      dmao1.data_ptr(), weights.data_ptr(), len(xc.terms),
+                      ids, coeffs, out.data_ptr(), _stream())
+        _raise_on(rc, lib)
+        wrapper.launches += 1
+    return out
+
+
+def xc_rks_fxc(aod, dmao, dmao1, weights, xc):
+    """The tangent of xc_rks's vtmp along nvec transition densities at one
+    block of B points: (nvec, B, nao), as jax.jvp of the JAX package's
+    _get_rks_core_aod takes it.
+
+    aod (B, nao) for an LDA or (4, B, nao) for a GGA; dmao = ao @ dm
+    (B, nao) of the ground density; dmao1 = ao @ ddm_v (nvec, B, nao);
+    weights (B,); xc a dft.xc.XCFunctional of the B3LYP family."""
+    return _fxc_tangent(xc_rks_fxc, 'xc_rks_fxc', numint.xc_rks_fxc_plain, 1,
+                        aod, dmao, dmao1, weights, xc)
+
+
+def xc_uks_fxc(aod, dmao, dmao1, weights, xc):
+    """The tangent of xc_uks's vtmp along nvec spin transition densities at
+    one block of B points: (nvec, 2, B, nao), as jax.jvp of the JAX
+    package's _get_uks_core_aod takes it.
+
+    aod as xc_rks_fxc's; dmao = ao @ dm_s (2, B, nao); dmao1 = ao @ ddm_vs
+    (nvec, 2, B, nao); weights (B,)."""
+    return _fxc_tangent(xc_uks_fxc, 'xc_uks_fxc', numint.xc_uks_fxc_plain, 2,
+                        aod, dmao, dmao1, weights, xc)
+
+
 KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
            xc_uks, int1e_ip, int1e_iprinv, int2e_ip1, int3c2e_ip, int2c2e_ip1,
            eval_ao_deriv2, xc_rks_grad, xc_uks_grad, int1e_r, int3c2e_lr,
-           int2c2e_lr, int2e_lr, vv10, mp2_energy, ccsd_t)
+           int2c2e_lr, int2e_lr, vv10, mp2_energy, ccsd_t, xc_fxc,
+           xc_fxc_pairs, xc_rks_fxc, xc_uks_fxc)
 
 
 def reset_launches():

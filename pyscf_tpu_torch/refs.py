@@ -98,7 +98,15 @@ s, 364 s and 286 s), and water/cc-pVDZ DF-RHF (hcore guess); every SCF
 and CCSD converged. The water cation's UMP2 is the in-core UHF/def2-SVP
 (charge=1, spin=1, minao guess, the same SCF tolerances) with `m =
 mf.MP2(); m.kernel()`, then m.e_corr_os and m.e_corr_ss.
+
+The TDA/TDHF references of water are arrays (orbitals, A and B matrices,
+matrix-free products, excitation energies), kept in the file
+TDSCF_WATER_REFS, which tests/tdscf_refs_record.py writes from the JAX
+package (its docstring holds the command and the settings: water/def2-SVP
+DF-RKS b3lypg and the cation's DF-UKS b3lypg, grids level 1, conv_tol
+1e-12, conv_tol_grad 1e-9).
 """
+import os
 
 BENZENE = '''
 C  0.000000  1.396792  0.000000
@@ -119,6 +127,9 @@ H -2.151390  1.242106  0.000000
 PHENYL = '\n'.join(line for line in BENZENE.splitlines()
                    if line.split()[1:3] != ['0.000000', '2.484212'])
 WATER = 'O 0 0 0; H 0 -0.757 0.587; H 0 0.757 0.587'
+# np.load-able arrays of the JAX package's water TDA/TDHF (see the docstring)
+TDSCF_WATER_REFS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                'data', 'tdscf_water_refs.npz')
 
 # DF-RHF, def2-universal-jkfit, minao guess, conv_tol 1e-8
 E_BENZENE_DF_RHF_DEF2SVP = -230.5354323974008

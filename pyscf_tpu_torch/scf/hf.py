@@ -4,7 +4,8 @@ Counterpart of pyscf_tpu/scf/hf.py (SCF, RHF): get_hcore, get_ovlp, the
 'minao' and 'hcore' guesses, density_fit, _get_eri, both branches of
 RHF._fused_veff, and _kernel_staged as `kernel`: one host loop drives the
 cycle functions of scf/fused.py; RHF.Gradients / nuc_grad_method lead to
-grad/rhf.py, RHF.MP2 and RHF.CCSD to mp/mp2.py and cc/ccsd.py; dip_moment, quad_moment, mulliken_pop and analyze are the
+grad/rhf.py, RHF.MP2 and RHF.CCSD to mp/mp2.py and cc/ccsd.py, RHF.TDA and RHF.TDHF to
+tdscf/rhf.py; dip_moment, quad_moment, mulliken_pop and analyze are the
 JAX package's analysis (hf.py:559-621). Unlike the JAX package, a failing
 minao guess raises instead of falling back to the core-Hamiltonian guess.
 
@@ -337,3 +338,12 @@ class RHF(SCF):
     def CCSD(self, **kwargs):
         from ..cc import CCSD
         return CCSD(self, **kwargs)
+
+    # excited states (pyscf_tpu/scf/hf.py:729-735)
+    def TDA(self, **kwargs):
+        from ..tdscf import TDA
+        return TDA(self, **kwargs)
+
+    def TDHF(self, **kwargs):
+        from ..tdscf import TDHF
+        return TDHF(self, **kwargs)

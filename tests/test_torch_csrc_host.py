@@ -13,22 +13,31 @@ interface the wrappers use, on water/def2-SVP, whose classes reach
 (dd|dd) and whose aux basis reaches g, with and without the erf(omega
 r)/r attenuation, the dipole kernel on a basis of s to g shells, vv10.cu
 on a water grid, and mp2_energy.cu and ccsd_t.cu on seeded tensors of a
-water-sized correlated calculation. It checks the kernels' arithmetic and
-indexing, not that nvcc accepts them: that is
-tests/test_torch_kernels.py on the card."""
+water-sized correlated calculation; and the second-order dual numbers of
+xc_funcs.cuh (HDualN, the functional of the XC response kernels xc_fxc,
+xc_rks_fxc and xc_uks_fxc) through a small harness program, against
+torch.func.hessian of dft/xc_funcs.py and jax.hessian of the JAX
+package's functional. It checks the kernels' arithmetic and indexing, not
+that nvcc accepts them: that is tests/test_torch_kernels.py on the
+card."""
 import ctypes
 import re
 import shutil
 import subprocess
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from pyscf_tpu.dft import xc as jax_xc
+
 import pyscf_tpu_torch as tpt
-import numpy as np
 
 from pyscf_tpu_torch import refs
 from pyscf_tpu_torch.df.addons import make_auxmol
+from pyscf_tpu_torch.dft import numint, xc
 from pyscf_tpu_torch.ops import kernels
 from pyscf_tpu_torch.ops.integrals import (int1e, int1e_deriv, int2e, j2e,
                                            j3c, j3c_deriv)
@@ -427,3 +436,143 @@ def test_ccsd_t(host):
                 <= 1e-12 * ref.abs().max())
         assert (abs(float(partials.sum() - total))
                 <= 1e-12 * abs(float(total)))
+
+
+# ---- the second-order dual numbers of the XC response kernels --------------
+
+# reads the terms, the number of inputs per point (2: rho, sigma for
+# edens_closed2; 5: rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb for
+# edens_open2) and the points; prints e_xc, its first and its packed second
+# derivatives per point
+HDUAL_HARNESS = r'''
+#include <cstdio>
+#include "xc_funcs.cuh"
+template <int N>
+void print(const ptxc::HDualN<N>& e) {
+  printf("%.17g", e.v);
+  for (int k = 0; k < N; ++k) printf(" %.17g", e.d[k]);
+  for (int k = 0; k < ptxc::HDualN<N>::M; ++k) printf(" %.17g", e.h[k]);
+  printf("\n");
+}
+int main() {
+  ptxc::Terms t;
+  if (scanf("%d", &t.n) != 1) return 1;
+  for (int k = 0; k < t.n; ++k) scanf("%d %lf", &t.id[k], &t.c[k]);
+  int m, n;
+  if (scanf("%d %d", &m, &n) != 2) return 1;
+  for (int i = 0; i < n; ++i) {
+    double x[5];
+    for (int k = 0; k < m; ++k) scanf("%lf", &x[k]);
+    if (m == 2) print(ptxc::edens_closed2(t, x[0], x[1]));
+    else print(ptxc::edens_open2(t, x[0], x[1], x[2], x[3], x[4]));
+  }
+  return 0;
+}
+'''
+HDUAL_NAMES = ['SLATER', 'VWN5', 'VWN3', 'B88', 'LYP', 'b3lypg']
+
+
+@pytest.fixture(scope='module')
+def hdual(tmp_path_factory):
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('needs g++ to build csrc/xc_funcs.cuh for the host')
+    d = tmp_path_factory.mktemp('hdual_host')
+    (d / 'h.cpp').write_text(HDUAL_HARNESS)
+    subprocess.run([gxx, '-O1', '-std=c++17', '-I', kernels._CSRC, '-o',
+                    str(d / 'h'), str(d / 'h.cpp')], check=True)
+    return d / 'h'
+
+
+def _run_hdual(exe, name, x):
+    """(npts, 1 + m + m(m+1)/2) of the harness at the (m, npts) inputs x."""
+    f = xc.parse_xc(name)
+    lines = [str(len(f.terms))]
+    lines += [f'{kernels.XC_COMPONENT_IDS[comp]} {c!r}' for c, _, comp in
+              f.terms]
+    lines += [f'{x.shape[0]} {x.shape[1]}']
+    lines += [' '.join(repr(float(v)) for v in col) for col in x.T]
+    out = subprocess.run([str(exe)], input='\n'.join(lines) + '\n',
+                         capture_output=True, text=True, check=True).stdout
+    return np.array([[float(v) for v in ln.split()]
+                     for ln in out.splitlines()])
+
+
+def _hdual_points():
+    """64 seeded points: rho_s in [1e-10, 1e2], sigma_ss in [1e-20, 1e3],
+    log-uniform (the extremes included), |sigma_ab| <= sqrt(sigma_aa
+    sigma_bb) of either sign."""
+    rng = np.random.default_rng(29)
+    n = 64
+    ra, rb = 10.0 ** rng.uniform(-10, 2, (2, n))
+    saa, sbb = 10.0 ** rng.uniform(-20, 3, (2, n))
+    ra[:2], rb[:2], saa[:2], sbb[:2] = (1e-10, 1e2), (1e2, 1e-10), \
+        (1e-20, 1e3), (1e3, 1e-20)
+    sab = rng.uniform(-1, 1, n) * np.sqrt(saa * sbb)
+    return np.stack([ra, rb, saa, sab, sbb])
+
+
+def _hdual_gate(got, e, g, h, x):
+    """e_xc to 1e-12 relative; each first and second derivative to 1e-9 of
+    its size plus the point's energy-density scale rho_a^(4/3) +
+    rho_b^(4/3) over its variables (rho_s, sigma_ss, sqrt(sigma_aa
+    sigma_bb) for sigma_ab): LYP's terms cancel at extreme inputs, where
+    forward and reverse modes round apart (tests/test_torch_uks.py)."""
+    m = x.shape[0]
+    if m == 5:
+        scale = x[0] ** (4 / 3) + x[1] ** (4 / 3)
+        v = np.stack([x[0], x[1], x[2], np.sqrt(x[2] * x[4]), x[4]]).T
+    else:
+        scale = x[0] ** (4 / 3)
+        v = x.T
+    iu = np.triu_indices(m)
+    assert np.all(np.isfinite(got))
+    assert np.all(np.abs(got[:, 0] - e) <= 1e-12 * np.abs(e))
+    assert np.all(np.abs(got[:, 1:1 + m] - g)
+                  <= 1e-9 * (np.abs(g) + scale[:, None] / v))
+    hp = h[:, iu[0], iu[1]]
+    assert np.all(np.abs(got[:, 1 + m:] - hp) <= 1e-9 * (
+        np.abs(hp) + scale[:, None] / (v[:, iu[0]] * v[:, iu[1]])))
+
+
+@pytest.mark.parametrize('name', HDUAL_NAMES)
+def test_hdual_matches_torch_hessian(hdual, name):
+    """edens_open2 and edens_closed2 (HDualN<5>, HDualN<2>) against
+    torch.func.hessian of the port's energy densities: the open shell's
+    over (rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb), the closed shell's
+    over (rho, sigma) of numint.edens_closed."""
+    f = xc.parse_xc(name)
+    x = _hdual_points()
+    X = torch.as_tensor(x.T.copy())
+
+    def e5(u):
+        return f.exc_density(*u)
+
+    H = torch.func.vmap(torch.func.hessian(e5))(X).numpy()
+    G = torch.func.vmap(torch.func.grad(e5))(X).numpy()
+    _hdual_gate(_run_hdual(hdual, name, x), e5(X.T).numpy(), G, H, x)
+    xc2 = x[[0, 2]] * np.array([[2.0], [4.0]])      # rho, sigma
+
+    def e2(u):
+        return numint.edens_closed(f, u[0], u[1])
+
+    X2 = torch.as_tensor(xc2.T.copy())
+    _hdual_gate(_run_hdual(hdual, name, xc2), e2(X2.T).numpy(),
+                torch.func.vmap(torch.func.grad(e2))(X2).numpy(),
+                torch.func.vmap(torch.func.hessian(e2))(X2).numpy(), xc2)
+
+
+def test_hdual_matches_jax_hessian(hdual):
+    """edens_open2 of b3lypg against jax.hessian of the JAX package's
+    exc_density at the same points, the live reference of the Hessian
+    route (pyscf_tpu/tdscf/rhf.py:101)."""
+    fj = jax_xc.parse_xc('b3lypg')
+    x = _hdual_points()
+
+    def e5(u):
+        return fj.exc_density(*u)
+
+    X = jnp.asarray(x.T)
+    H = np.asarray(jax.jit(jax.vmap(jax.hessian(e5)))(X))
+    G = np.asarray(jax.jit(jax.vmap(jax.grad(e5)))(X))
+    _hdual_gate(_run_hdual(hdual, 'b3lypg', x), np.asarray(e5(X.T)), G, H, x)

@@ -572,3 +572,115 @@ def test_postscf_on_card_launches_its_kernels(water, df):
     assert np.max(np.abs(np.array([e_mp2, e_cc, e_t]) - ref)) < 1e-8
     launches = kernels.launches()
     assert launches['mp2_energy'] > 0 and launches['ccsd_t'] == 1
+
+
+def _seeded_density(mol, nspin, seed):
+    """A random closed-shell (nspin 1) or spin (nspin 2) density of five
+    orbitals per spin on the card."""
+    rng = np.random.default_rng(seed)
+    c = torch.as_tensor(rng.standard_normal((nspin, mol.nao, 5)) * 0.3,
+                        device='cuda')
+    return c @ c.transpose(1, 2)
+
+
+@pytest.mark.parametrize('case', ['singlet', 'triplet', 'uks'])
+def test_xc_fxc(water, water_grid, case):
+    """The per-point response kernel on water's level-1 grid at a seeded
+    density (some points masked) against xc_fxc_plain: 1e-10 x max|H|."""
+    mol, _ = water
+    f = xc.parse_xc('b3lypg')
+    aod = eval_gto.eval_ao(mol, water_grid.coords, 1)
+    dm = _seeded_density(mol, 2 if case == 'uks' else 1, 31)
+    dmao = torch.matmul(aod[0], dm)
+    w = water_grid.weights
+    got = kernels.xc_fxc(aod, dmao, w, f, case != 'triplet')
+    ref = numint.xc_fxc_plain(aod, dmao, w, f, case != 'triplet')
+    assert torch.max(torch.abs(got - ref)) <= 1e-10 * ref.abs().max()
+
+
+def test_xc_fxc_pairs(water, water_grid):
+    """P and H P of seeded orbital values against xc_fxc_pairs_plain, one
+    and two H blocks: 1e-12 x max."""
+    mol, _ = water
+    f = xc.parse_xc('b3lypg')
+    aod = eval_gto.eval_ao(mol, water_grid.coords, 1)
+    dmao = torch.matmul(aod[0], _seeded_density(mol, 2, 5))
+    H = kernels.xc_fxc(aod, dmao, water_grid.weights, f)
+    rng = np.random.default_rng(3)
+    co, cv = (torch.as_tensor(rng.standard_normal((mol.nao, k)),
+                              device='cuda') for k in (5, 19))
+    oo, ov = torch.matmul(aod, co), torch.matmul(aod, cv)
+    for blocks in ((0,), (1, 3)):
+        got = kernels.xc_fxc_pairs(oo, ov, H, blocks)
+        ref = numint.xc_fxc_pairs_plain(oo, ov, H, blocks)
+        for g, r in zip(got, ref):
+            assert torch.max(torch.abs(g - r)) <= 1e-12 * r.abs().max()
+
+
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+@pytest.mark.parametrize('spin', [1, 2])
+def test_xc_fxc_tangents(water, water_grid, xc_code, spin):
+    """xc_rks_fxc (spin 1) and xc_uks_fxc (spin 2) along three seeded
+    symmetric transition densities against their torch.func.jvp twins:
+    1e-10 x max."""
+    mol, _ = water
+    f = xc.parse_xc(xc_code)
+    aod = eval_gto.eval_ao(mol, water_grid.coords, 1 if f.is_gga else 0)
+    ao = aod[0] if f.is_gga else aod
+    dm = _seeded_density(mol, spin, 11)
+    rng = np.random.default_rng(13)
+    t = torch.as_tensor(rng.standard_normal((3, spin, mol.nao, mol.nao)),
+                        device='cuda')
+    t = t + t.transpose(-1, -2)
+    if spin == 1:
+        dm, t = dm[0], t[:, 0]
+        fn, plain = kernels.xc_rks_fxc, numint.xc_rks_fxc_plain
+    else:
+        fn, plain = kernels.xc_uks_fxc, numint.xc_uks_fxc_plain
+    dmao, dmao1 = torch.matmul(ao, dm), torch.matmul(ao, t)
+    w = water_grid.weights
+    got, ref = fn(aod, dmao, dmao1, w, f), plain(aod, dmao, dmao1, w, f)
+    assert torch.max(torch.abs(got - ref)) <= 1e-10 * ref.abs().max()
+
+
+def test_xc_fxc_refuses_a_component_it_lacks(water, water_grid):
+    """The response kernels take the B3LYP family only."""
+    mol, _ = water
+    f = xc.parse_xc('b97-1')
+    aod = eval_gto.eval_ao(mol, water_grid.coords[:64], 1)
+    dmao = aod[0].clone()[None]
+    with pytest.raises(NotImplementedError, match='WB97'):
+        kernels.xc_fxc(aod, dmao, water_grid.weights[:64], f)
+    with pytest.raises(NotImplementedError, match='WB97'):
+        kernels.xc_rks_fxc(aod, dmao[0], dmao, water_grid.weights[:64], f)
+
+
+def test_tddft_on_card_launches_its_kernels(water):
+    """Water DF-RKS b3lypg on the card: TDA by Davidson (dense_cutoff 0),
+    singlet and triplet, launches xc_rks_fxc and xc_uks_fxc; TDDFT (dense)
+    launches xc_fxc and xc_fxc_pairs; both within 1e-7 Ha of the dense
+    TDA, and the TDDFT energies against the recorded JAX values (1e-8 Ha on
+    the JAX orbitals)."""
+    from pyscf_tpu_torch import compat
+    ref = np.load(refs.TDSCF_WATER_REFS)
+    mol = tpt.M(atom=refs.WATER, basis='def2-svp')
+    mf = tpt.dft.RKS(mol, xc='b3lypg').density_fit()
+    mf.grids.level = 1
+    compat.mean_field_from_numpy(mf, ref['rks_mo_coeff'],
+                                 ref['rks_mo_energy'], ref['rks_mo_occ'])
+    for singlet in (True, False):
+        kernels.reset_launches()
+        td = mf.TDA()
+        td.singlet = singlet
+        td.dense_cutoff = 0
+        e = td.kernel(nstates=5)
+        launches = kernels.launches()
+        assert launches['xc_rks_fxc' if singlet else 'xc_uks_fxc'] > 0
+        assert td.converged
+        assert np.max(np.abs(e - ref['rks_tda_s' if singlet
+                                     else 'rks_tda_t'])) < 1e-7
+    kernels.reset_launches()
+    e = mf.TDDFT().kernel(nstates=5)
+    launches = kernels.launches()
+    assert launches['xc_fxc'] > 0 and launches['xc_fxc_pairs'] > 0
+    assert np.max(np.abs(e - ref['rks_tdhf_s'])) < 1e-8
