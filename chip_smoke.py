@@ -4,9 +4,9 @@
 Drives the port's paths for benzene/def2-SVP, the phenyl radical and
 water on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the twenty-seven kernel libraries from the twenty-two sources
-     of pyscf_tpu_torch/csrc (nvcc, sm_90a, one process per library, all
-     at once);
+  2. builds the thirty-six kernel libraries of the thirty-two kernels from
+     the twenty-six sources of pyscf_tpu_torch/csrc (nvcc, sm_90a, one
+     process per library, all at once);
   3. integral kernel phases at the main path's shapes: each kernel against
      its plain PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c
      rows and (P|Q) <= 1e-12 x max|value|; the whitened factor B <= 1e-10);
@@ -163,7 +163,19 @@ water on the card, in order:
      plain twins on the card: its five lowest eigenvalues within 1e-8 Ha;
  36. HF/6-31G in-core RHF on the card: TDA and TDHF singlets and triplets
      within 1e-4 eV of PySCF's goldens;
- 37. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 37. the Hessian path: benzene DF-RHF/def2-SVP from M() (minao, conv_tol
+     1e-12, conv_tol_grad 1e-8) and mf.Hessian().kernel(): the five
+     Hessian kernels, int1e_ip and int1e_iprinv launched in that run;
+     |sum_A H[A]| <= 1e-7, |H - H^T| <= 1e-9, central differences of the
+     analytic gradient (step 1e-3 Bohr, SCFs at conv_tol 1e-12 and
+     conv_tol_grad 1e-9) within 1e-5 Ha/Bohr^2; the warm time (median of
+     3), its phases, the CPHF iterations, the peak memory, the harmonic
+     frequencies and the thermochemistry printed;
+ 38. the Hessian kernels at benzene's shapes against their twins (<= 1e-10
+     x max): int1e_ipip with the SCF's D and W, int3c2e_ip1 and
+     int2c2e_ip1_full written out, int3c2e_ipip and int2c2e_ipip with the
+     DF gradient's Gamma and W_PQ;
+ 39. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
@@ -171,8 +183,9 @@ water on the card, in order:
      int3c2e_lr, int2c2e_lr, vv10 and xc_rks with WB97 from 23, xc_uks
      with WB97 from 25, int2e_lr from 27's in-core run, mp2_energy and
      ccsd_t from 28, xc_fxc, xc_fxc_pairs, xc_rks_fxc and xc_uks_fxc from
-     33, the others from 6), then the result line {"ok": true, "device":
-     {...}}.
+     33, int1e_ipip, int3c2e_ip1, int2c2e_ip1_full, int3c2e_ipip and
+     int2c2e_ipip from 37, the others from 6), then the result line
+     {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
 import contextlib
@@ -2201,6 +2214,324 @@ def tdscf_goldens(pt):
               f'{e[:3].tolist()} eV, golden - port {de:.2e} eV')
         check(de < 1e-4, f'HF/6-31G {method}: {de:.2e} eV >= 1e-4')
 
+# ---- the analytic DF-RHF Hessian --------------------------------------------
+
+HESS_KERNELS = ('int1e_ipip', 'int3c2e_ip1', 'int2c2e_ip1_full',
+                'int3c2e_ipip', 'int2c2e_ipip')
+HESS_PHASES = ('s1h1', 'ip1_3c', 'F1', 'cphf', 'rows_1e', 'rows_df',
+               'rows_3c', 'rows_2c')
+
+
+def hess_terms_ops(la, lb, with_a):
+    """csrc/hess2.cuh hess_terms per cartesian component pair: the shifted
+    Hermite sums (2 operations a term) of CC, and with the bra's
+    derivatives of AC (raised and lowered) and AA (two steps)."""
+    t0 = _herm_terms(la, lb)
+    ops = 6 * t0
+    if with_a:
+        ops += 3 * (_herm_terms(la + 1, lb)
+                    + (_herm_terms(la - 1, lb) if la else 0))
+        ops += 2 * (_herm_terms(la + 2, lb) + t0
+                    + (_herm_terms(la - 2, lb) if la > 1 else 0))
+    return 2 * ops
+
+
+def coulomb_ipip_ops(la, lb, lc, pair_prims, nthreads_per_pair, triples,
+                     with_a=True):
+    """csrc/coulomb_ipip.cuh coulomb_ipip_block: per bra primitive pair
+    (and thread) the E tables (to la + 2 with the bra's derivatives), per
+    cartesian component pair the weights' contraction of Y and the
+    shifted sums; per primitive triple R_tuv to order la + lb + lc + 2 and
+    the fold into Y to order la + lb + 2."""
+    l1 = la + lb
+    ncomp = len(_carts(la)) * len(_carts(lb))
+    per_pair = (3 * _e1d_ops(la + 2 * with_a, lb)
+                + ncomp * 2 * _ntuv(l1 + 2) * (2 * lc + 1)
+                + hess_terms_ops(la, lb, with_a))
+    per_triple = _r_ops(l1 + lc + 2) + _ket_ops(lc, l1 + 2)
+    return pair_prims * nthreads_per_pair * per_pair + triples * per_triple
+
+
+def coulomb_ip1_ops(la, lb, lc, pair_prims, nthreads_per_pair, triples):
+    """csrc/coulomb_ipip.cuh coulomb_ip1_block: per bra primitive pair the
+    E tables to la + 1 and the raised and lowered bra contraction with Y;
+    per primitive triple R_tuv to order la + lb + lc + 1 and the fold."""
+    per_pair = (3 * _e1d_ops(la + 1, lb)
+                + _bra_terms(la, lb, True) * 2 * (2 * lc + 1))
+    per_triple = _r_ops(la + lb + lc + 1) + _ket_ops(lc, la + lb + 1)
+    return pair_prims * nthreads_per_pair * per_pair + triples * per_triple
+
+
+def ipip_1e_ops(la, lb, pairs, natm):
+    """csrc/int1e_ipip.cu per primitive pair and slot: the E tables to
+    (la + 2, lb + 2), per charge R_tuv to order la + lb + 2 and
+    hess_terms per component pair; S and T's 1D factors (about 60
+    operations a component pair and direction)."""
+    ncomp = len(_carts(la)) * len(_carts(lb))
+    ops = (natm + 1) * 3 * _e1d_ops(la + 2, lb + 2)
+    ops += natm * (_r_ops(la + lb + 2) + _ntuv(la + lb + 2)
+                   + ncomp * hess_terms_ops(la, lb, True))
+    ops += ncomp * (3 * 60 + 9 * 12)
+    return float(_prim_pairs(pairs).sum()) * ops
+
+
+@contextlib.contextmanager
+def hessian_twins(kernels):
+    """The Hessian's five kernel wrappers replaced by the plain twins on the
+    card's tensors, so that the same Hessian is built both ways."""
+    from pyscf_tpu_torch.ops.integrals import int1e_deriv, j3c_deriv
+
+    names = HESS_KERNELS
+    saved = [getattr(kernels, k) for k in names]
+    for k, fn in zip(names, (int1e_deriv.class_ipip,
+                             j3c_deriv.int3c2e_ip1_plain,
+                             j3c_deriv.int2c2e_ip1_full_plain,
+                             j3c_deriv.int3c2e_ipip_plain,
+                             j3c_deriv.int2c2e_ipip_plain)):
+        setattr(kernels, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in zip(names, saved):
+            setattr(kernels, k, fn)
+
+
+def hessian_phases(pt, kernels, mf, report):
+    """The Hessian's five kernels against their twins at benzene's shapes
+    (1e-10 x max): int1e_ipip with the SCF's D and W over every ordered
+    class, int3c2e_ip1 and int2c2e_ip1_full written out as the Hessian
+    writes them, int3c2e_ipip and int2c2e_ipip contracted with the DF
+    gradient's Gamma and W_PQ; each timed over the full set of launches
+    the Hessian makes."""
+    from pyscf_tpu_torch.grad import df
+    from pyscf_tpu_torch.hessian import rhf as hess_rhf
+    from pyscf_tpu_torch.ops.integrals import (int1e, int1e_deriv, j3c,
+                                               j3c_deriv)
+
+    mol, auxmol = mf.mol, mf.with_df.auxmol
+    dev = mol.device
+    dm, cos, dme, kfac = df.occupied(mf)
+    natm, nao, naux = mol.natm, mol.nao, auxmol.nao
+    zr = torch.as_tensor(mol.coords, dtype=torch.float64, device=dev)
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64, device=dev)
+    aux = j3c.aux_tables(auxmol)
+    aux_nnz = {l: float(_nnz(c).sum()) for l, _, c, _ in aux}
+    print('the Hessian kernels against their twins on benzene/def2-SVP '
+          '(every class at the main path\'s shapes)')
+
+    cross = int1e.cross_pairs(mol, mol)
+    blocks = []
+    for la, lb, ga, gb, p in cross:
+        sel_a = np.repeat(np.arange(ga.nshl), gb.nshl)
+        sel_b = np.tile(np.arange(gb.nshl), ga.nshl)
+        ia = torch.as_tensor(ga.ao_off[sel_a][:, None]
+                             + np.arange(2 * la + 1), device=dev)
+        jb = torch.as_tensor(gb.ao_off[sel_b][:, None]
+                             + np.arange(2 * lb + 1), device=dev)
+        n = ia.shape[0]
+        blocks.append((la, lb, p, dm[ia[:, :, None], jb[:, None, :]]
+                       .reshape(n, -1).contiguous(),
+                       dme[ia[:, :, None], jb[:, None, :]]
+                       .reshape(n, -1).contiguous()))
+
+    def one_e(fn):
+        return [fn(la, lb, *p, zr, zq, D, W) for la, lb, p, D, W in blocks]
+
+    k_out = one_e(kernels.int1e_ipip)
+    p_out = one_e(int1e_deriv.class_ipip)
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    ops = sum(ipip_1e_ops(la, lb, p, natm) for la, lb, p, _, _ in blocks)
+    io = sum(nbytes(*p, D, W) for _, _, p, D, W in blocks) \
+        + nbytes(*k_out, zr, zq)
+    record(report, 'int1e_ipip', 'pyscf_tpu_torch/csrc/int1e_ipip.cu',
+           'pyscf_tpu/hessian/rhf.py:327', err, lambda: one_e(
+               kernels.int1e_ipip),
+           lambda: one_e(int1e_deriv.class_ipip), io, ops, plain_reps=1)
+    check(err <= 1e-10 * scale, f'int1e_ipip vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
+    del k_out, p_out
+
+    with hessian_twins(kernels):
+        ip1_p, _ = hess_rhf._first_df(mol, auxmol)
+    ip1_k, _ = hess_rhf._first_df(mol, auxmol)
+    err, scale = max_abs([(ip1_k, ip1_p)])
+    del ip1_p
+    classes = j3c.screened_pairs(mol)
+    ops = 0.0
+    for (la, lb), (_, p) in classes.items():
+        prims = float(_prim_pairs(p).sum())
+        for a, b in {(la, lb), (lb, la)}:
+            for l, e, _, _ in aux:
+                ops += coulomb_ip1_ops(a, b, l, prims, e.shape[0],
+                                       prims * aux_nnz[l])
+
+    def ip1_all(fn):
+        out = torch.zeros((3, nao, nao, naux), dtype=torch.float64,
+                          device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        for (la, lb), (bc, p) in classes.items():
+            ia, jb = bc.ga.ao_off[bc.sel_a], bc.gb.ao_off[bc.sel_b]
+            fn(la, lb, *p, aux, torch.as_tensor(ia, **i32),
+               torch.as_tensor(jb, **i32), out)
+            keep = ~((la == lb) & (bc.sel_a == bc.sel_b))
+            if not keep.any():
+                continue
+            k = torch.as_tensor(np.flatnonzero(keep), device=dev)
+            q = [t.index_select(0, k) for t in p]
+            fn(lb, la, *q[3:], *q[:3], aux, torch.as_tensor(jb[keep], **i32),
+               torch.as_tensor(ia[keep], **i32), out)
+        return out
+
+    record(report, 'int3c2e_ip1', 'pyscf_tpu_torch/csrc/int3c2e_ip1.cu',
+           'pyscf_tpu/hessian/rhf.py:270', err,
+           lambda: ip1_all(kernels.int3c2e_ip1),
+           lambda: ip1_all(j3c_deriv.int3c2e_ip1_plain),
+           nbytes(ip1_k) + sum(nbytes(*p) for _, p in classes.values())
+           + sum(nbytes(*a[1:]) for a in aux), ops, plain_reps=1)
+    check(err <= 1e-10 * scale, f'int3c2e_ip1 vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
+    del ip1_k
+
+    full_k = kernels.int2c2e_ip1_full(aux)
+    full_p = j3c_deriv.int2c2e_ip1_full_plain(aux)
+    err, scale = max_abs([(full_k, full_p)])
+    ops = 0.0
+    for lx, ex, cx, _ in aux:
+        for ly, ey, cy, _ in aux:
+            prims = float(_nnz(cx).sum())
+            ops += coulomb_ip1_ops(lx, 0, ly, prims, ey.shape[0],
+                                   prims * float(_nnz(cy).sum()))
+    record(report, 'int2c2e_ip1_full', 'pyscf_tpu_torch/csrc/int2c2e_ipip.cu',
+           'pyscf_tpu/hessian/rhf.py:270', err,
+           lambda: kernels.int2c2e_ip1_full(aux),
+           lambda: j3c_deriv.int2c2e_ip1_full_plain(aux),
+           nbytes(full_k) + sum(nbytes(*a[1:]) for a in aux), ops)
+    check(err <= 1e-10 * scale, f'int2c2e_ip1_full vs plain: {err:.3e} > '
+          f'1e-10 x {scale:.3e}')
+    del full_k, full_p
+
+    _, gamma, Wpq = df.fitted_weights(mf, dm, cos, kfac)
+    order = torch.as_tensor(j3c._grouped_order(auxmol), device=dev)
+    gflat = gamma.reshape(naux, nao * nao).index_select(0, order)
+    del gamma
+    bra = j3c._bra_classes(mol)
+    G = {cls: j3c_deriv._gamma_rows(mol, bra[cls], gflat) for cls in classes}
+    del gflat
+
+    def rows(fn):
+        return [fn(*cls, *p, aux, G[cls]) for cls, (_, p) in classes.items()]
+
+    k_out, p_out = rows(kernels.int3c2e_ipip), rows(
+        j3c_deriv.int3c2e_ipip_plain)
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    ops = 0.0
+    for (la, lb), (_, p) in classes.items():
+        prims = float(_prim_pairs(p).sum())
+        for l, e, _, _ in aux:
+            ops += coulomb_ipip_ops(la, lb, l, prims, e.shape[0],
+                                    prims * aux_nnz[l])
+    io = sum(nbytes(*p) for _, p in classes.values()) \
+        + sum(nbytes(*a[1:]) for a in aux) + nbytes(*G.values(), *k_out)
+    record(report, 'int3c2e_ipip', 'pyscf_tpu_torch/csrc/int3c2e_ipip.cu',
+           'pyscf_tpu/hessian/rhf.py:327', err,
+           lambda: rows(kernels.int3c2e_ipip),
+           lambda: rows(j3c_deriv.int3c2e_ipip_plain), io, ops,
+           plain_reps=1)
+    check(err <= 1e-10 * scale, f'int3c2e_ipip vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
+    del G, k_out, p_out
+
+    Wg = Wpq.index_select(0, order).index_select(1, order).contiguous()
+    k_out = kernels.int2c2e_ipip(aux, Wg)
+    err, scale = max_abs([(k_out, j3c_deriv.int2c2e_ipip_plain(aux, Wg))])
+    ops = 0.0
+    for lx, ex, cx, _ in aux:
+        for ly, ey, cy, _ in aux:
+            prims = float(_nnz(cy).sum())
+            ops += coulomb_ipip_ops(ly, 0, lx, prims, ex.shape[0],
+                                    prims * float(_nnz(cx).sum()), False)
+    record(report, 'int2c2e_ipip', 'pyscf_tpu_torch/csrc/int2c2e_ipip.cu',
+           'pyscf_tpu/hessian/rhf.py:327', err,
+           lambda: kernels.int2c2e_ipip(aux, Wg),
+           lambda: j3c_deriv.int2c2e_ipip_plain(aux, Wg),
+           sum(nbytes(*a[1:]) for a in aux) + nbytes(Wg, k_out), ops)
+    check(err <= 1e-10 * scale, f'int2c2e_ipip vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
+
+
+def hessian_path(pt, refs, kernels):
+    """Benzene DF-RHF/def2-SVP from M() (minao, conv_tol 1e-12,
+    conv_tol_grad 1e-8), then mf.Hessian().kernel() with the launch counts
+    set to 0 just before and read just after: the five Hessian kernels,
+    int1e_ip and int1e_iprinv launched; |sum_A H[A]| <= 1e-7, |H - H^T| <=
+    1e-9; central differences (hessian_fd, step 1e-3 Bohr) of the analytic
+    gradient with SCFs at conv_tol 1e-12 and conv_tol_grad 1e-9 within
+    1e-5 Ha/Bohr^2, the reference's gate (tests/test_hessian.py:39); the
+    warm time (median of 3) and its phases, the CG iterations and the
+    peak memory, the harmonic frequencies and the thermochemistry (the
+    geometry is no RHF minimum: printed, not gated). Returns (mf,
+    launches)."""
+    from pyscf_tpu_torch import hessian
+
+    def tight_df_rhf(mol, conv_tol_grad):
+        mf = mol.RHF().density_fit()
+        mf.init_guess = 'minao'
+        mf.conv_tol = 1e-12
+        mf.conv_tol_grad = conv_tol_grad
+        mf.kernel()
+        check(mf.converged, 'benzene DF-RHF (Hessian) did not converge')
+        return mf
+
+    mf = tight_df_rhf(pt.M(atom=refs.BENZENE, basis='def2-svp'), 1e-8)
+    de = mf.e_tot - refs.E_BENZENE_DF_RHF_DEF2SVP
+    print(f'Hessian: benzene DF-RHF/def2-SVP E {mf.e_tot!r} (E - E_ref '
+          f'{de:.3e}, the reference at conv_tol 1e-8)')
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    hobj = mf.Hessian()
+    h, s = host_s(hobj.kernel)
+    launches = kernels.launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f'Hessian (first call) {s:.3f} s, CPHF {hobj.cphf_cycles} '
+          f'iterations, peak device memory {peak:.3f} GB')
+    print(f'launches: {launches}')
+    for k in HESS_KERNELS + ('int1e_ip', 'int1e_iprinv'):
+        check(launches[k] > 0, f'Hessian: kernel {k} never launched')
+    natm = mf.mol.natm
+    hm = h.reshape(3 * natm, 3 * natm)
+    drift = float(np.abs(h.sum(axis=0)).max())
+    asym = float(np.abs(hm - hm.T).max())
+    print(f'Hessian |sum_A H[A]| {drift:.3e}  |H - H^T| {asym:.3e}')
+    check(np.all(np.isfinite(h)) and h.shape == (natm, 3, natm, 3),
+          'Hessian not finite of shape (natm, 3, natm, 3)')
+    check(drift <= 1e-7, f'Hessian sum rule {drift:.3e} > 1e-7')
+    check(asym <= 1e-9, f'Hessian symmetry {asym:.3e} > 1e-9')
+    times = []
+    for _ in range(3):
+        times.append(host_s(hobj.kernel)[1])
+    print(f'Hessian warm {float(np.median(times)):.4f} s (median of 3: '
+          f'{[round(t, 4) for t in times]}); phases: '
+          + '  '.join(f'{k} {hobj.timings[k]:.4f}' for k in HESS_PHASES)
+          + f'; CPHF iterations {hobj.cphf_cycles}')
+
+    def grad_factory(m):
+        return tight_df_rhf(m, 1e-9).Gradients().kernel()
+
+    fd, s = host_s(lambda: hessian.hessian_fd(grad_factory, mf.mol, 1e-3))
+    dfd = float(np.abs(h - fd).max())
+    print(f'Hessian vs central differences of the gradient (72 SCF + '
+          f'gradient runs, {s:.1f} s): max |H - H_fd| {dfd:.3e} Ha/Bohr^2')
+    check(dfd <= 1e-5, f'Hessian vs central differences {dfd:.3e} > 1e-5')
+    res = hessian.harmonic_analysis(mf.mol, h)
+    print('harmonic frequencies (cm^-1): '
+          + ' '.join(f'{f:.2f}' for f in res['freq_wavenumber']))
+    th = hessian.thermo(mf.mol, res['freq_au'], mf.e_tot)
+    print('thermochemistry (Ha): ' + '  '.join(f'{k} {v:.8f}'
+                                               for k, v in th.items()))
+    return mf, launches
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2303,6 +2634,12 @@ def main():
     tdscf_phenyl_path(pt, refs, kernels)
     torch.cuda.empty_cache()
     tdscf_goldens(pt)
+    torch.cuda.empty_cache()
+    # the analytic DF-RHF Hessian
+    rhf, hess_launches = hessian_path(pt, refs, kernels)
+    launches.update({k: hess_launches[k] for k in HESS_KERNELS})
+    hessian_phases(pt, kernels, rhf, report)
+    del rhf
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

@@ -3,7 +3,7 @@
 
     python3 profile_port.py [--runs 10] [--top 12] [--paths NAME ...]
 
-Builds the kernels, then for the ten paths of chip_smoke.py (minao guess,
+Builds the kernels, then for the paths of chip_smoke.py (minao guess,
 conv_tol 1e-8): benzene/def2-SVP DF-RHF, DF-RKS b3lypg and in-core RHF,
 the phenyl radical's DF-UKS b3lypg/def2-SVP, benzene's in-core RHF
 (conv_tol 1e-11) followed by its analytic gradient, benzene's DF-RKS
@@ -18,7 +18,10 @@ followed by MP2, CCSD (conv_tol 1e-10, conv_tol_normt 1e-8) and (T)
 the cycle count, and ccsd_t), and benzene's DF-RKS b3lypg (conv_tol 1e-10,
 conv_tol_grad 1e-7) followed by mf.TDA() (four singlets by Davidson:
 phases tda, tda_cycles, tda_matvecs) and mf.TDDFT() (five singlets,
-dense: tddft_get_ab, tddft_eigh), or for the paths named by --paths, runs
+dense: tddft_get_ab, tddft_eigh), and benzene's DF-RHF (conv_tol 1e-12,
+conv_tol_grad 1e-8) followed by mf.Hessian().kernel() (the phases of
+hessian/rhf.py prefixed hess_, hessian, hess_cphf_cycles), or for the
+paths named by --paths, runs
 each once cold and `--runs` times warm, every run
 from a fresh Mole, and prints the median, quartiles, min and max of each
 phase of mf.timings (and of the gradient's timings, prefixed grad_) and
@@ -45,6 +48,7 @@ DF_GRADIENTS = ('DF-RKS b3lypg + gradient', 'DF-RHF + gradient',
                 'DF-UKS phenyl + gradient')
 POSTSCF = ('in-core CCSD(T)', 'DF-CCSD(T)')
 TDDFT = 'DF-RKS TDA'
+HESSIAN = 'DF-RHF + Hessian'
 PATHS = {
     'DF-RHF': lambda pt, refs: pt.M(atom=refs.BENZENE, basis='def2-svp')
     .RHF().density_fit(),
@@ -76,6 +80,8 @@ PATHS = {
                                       basis='def2-svp').RHF().density_fit(),
     TDDFT: lambda pt, refs: pt.dft.RKS(
         pt.M(atom=refs.BENZENE, basis='def2-svp'), xc='b3lypg').density_fit(),
+    HESSIAN: lambda pt, refs: pt.M(atom=refs.BENZENE,
+                                   basis='def2-svp').RHF().density_fit(),
 }
 
 
@@ -131,6 +137,9 @@ def one_run(pt, refs, name):
     if name in POSTSCF:
         mf.conv_tol = 1e-12
         mf.conv_tol_grad = 1e-9
+    if name == HESSIAN:
+        mf.conv_tol = 1e-12
+        mf.conv_tol_grad = 1e-8
     mf.init_guess = 'minao'
     e = mf.kernel()
     timings = dict(mf.timings)
@@ -138,6 +147,11 @@ def one_run(pt, refs, name):
         timings.update(postscf_timings(mf))
     if name == TDDFT:
         timings.update(tddft_timings(mf))
+    if name == HESSIAN:
+        hobj = mf.Hessian()
+        _, t = synced(hobj.kernel)
+        timings.update({f'hess_{k}': v for k, v in hobj.timings.items()},
+                       hessian=t, hess_cphf_cycles=hobj.cphf_cycles)
     if name == GRADIENT or name in DF_GRADIENTS:
         grad = mf.nuc_grad_method()
         grad.kernel()

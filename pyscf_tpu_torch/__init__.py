@@ -23,6 +23,9 @@ the CPU. A Mole runs on the card unless it is given device='cpu':
     e_exc = td.kernel(nstates=5)           # Hartree
     f = td.oscillator_strength()
     e_u = pt.tdscf.TDAUKS(mol.UKS(xc='b3lypg').run()).kernel()
+    mf = mol.RHF().density_fit().run()
+    h = mf.Hessian().kernel()              # (natm, 3, natm, 3) Ha/Bohr^2
+    freq = pt.hessian.harmonic_analysis(mol, h)['freq_wavenumber']
 
     def mf_factory(m):                     # forces of any DF mean field
         mf = m.UKS(xc='b3lypg').density_fit()
@@ -31,4 +34,5 @@ the CPU. A Mole runs on the card unless it is given device='cpu':
     mol_opt, energies = pt.geomopt.internal.optimize(mf_factory, mol)
 """
 from .gto.mole import M, Mole  # noqa: F401
-from . import ao2mo, cc, dft, geomopt, grad, mp, scf, tdscf  # noqa: F401
+from . import (ao2mo, cc, dft, geomopt, grad, hessian, mp, scf,  # noqa: F401
+               tdscf)

@@ -50,7 +50,9 @@ def optimize(mf_factory, mol, maxsteps=50, gtol=3e-4, use_analytic=True):
 def optimize_ts(mf_factory, mol, maxsteps=40, gtol=3e-4, trust=0.15,
                 hess_update_every=0):
     """The transition-state search of pyscf_tpu/geomopt/__init__.py:43-127
-    is not ported: it needs the nuclear Hessian."""
+    is not ported yet: its P-RFO steps take the nuclear Hessian, which the
+    port has for DF-RHF (hessian/rhf.py) and not yet for the other mean
+    fields."""
     raise NotImplementedError(
-        'optimize_ts is not ported: its P-RFO steps need the nuclear '
-        'Hessian, which the port does not have yet')
+        'optimize_ts is not ported: its P-RFO steps take the nuclear '
+        'Hessian, which the port has for DF-RHF only so far')

@@ -20,7 +20,8 @@ import torch
 
 from .hermite import (cart_components, e1d_dense, e3d, hermite_R,
                       tuv_components, tuv_index)
-from .int1e import _cart_idx, cross_pairs, flat_prims, sph
+from .int1e import (_cart_idx, cross_pairs, flat_prims, kin_chunk,
+                    nuc_chunk, ovlp_chunk, sph)
 
 
 def _s1_tables(la_e, lb_e, a, b, A, B):
@@ -145,6 +146,123 @@ def iprinv_chunk(la, lb, a, b, A, B, w, center):
                for c in tuv_components(L)]
         out.append(torch.einsum('m,mpqt,mt->mpq', pref, E3, R[..., sel]))
     return torch.stack(out)
+
+
+def _second_shift(la, a, blocks):
+    """The power-shift rule applied twice on cartesian blocks: blocks {l:
+    (m, ncart(l), ...)} of the bra shells la + 2, la and la - 2 (the last
+    absent for la < 2) -> (3, 3, m, ncart(la), ...), entry [x, y] the
+    blocks of d2/dA_x dA_y."""
+    idx = {l: {c: i for i, c in enumerate(cart_components(l))}
+           for l in blocks}
+    first = blocks[la + 2]
+    a2 = 2.0 * a.reshape((-1,) + (1,) * (first.dim() - 2))
+    out = [[None] * 3 for _ in range(3)]
+    for x in range(3):
+        for y in range(3):
+            cols = []
+            for c in cart_components(la):
+                v = 0.0
+                for sy in (1, -1):
+                    for sx in (1, -1):
+                        k = list(c)
+                        if sy < 0 and k[y] == 0:
+                            continue
+                        f = a2 if sy > 0 else -k[y]
+                        k[y] += sy
+                        if sx < 0 and k[x] == 0:
+                            continue
+                        f = f * (a2 if sx > 0 else -k[x])
+                        k[x] += sx
+                        v = v + f * blocks[sum(k)][:, idx[sum(k)][tuple(k)]]
+                cols.append(v)
+            out[x][y] = torch.stack(cols, dim=1)
+    return torch.stack([torch.stack(r) for r in out])
+
+
+def _shifted_rinv(la, lb, a, b, A, B, w, center, shifts):
+    """sum E_tuv R_{tuv + s}(P - C) (2 pi / p) w for every shift s of
+    shifts: (len(shifts), m, ncart_a, ncart_b)."""
+    p = a + b
+    P = (a[:, None] * A + b[:, None] * B) / p[:, None]
+    L = la + lb
+    E3 = e3d(la, lb, a, b, A, B)
+    top = max(sum(s) for s in shifts)
+    R = hermite_R(L + top, p, P - center)
+    idx_hi = tuv_index(L + top)
+    pref = w * (2.0 * math.pi / p)
+    out = []
+    for s in shifts:
+        sel = [idx_hi[tuple(c[i] + s[i] for i in range(3))]
+               for c in tuv_components(L)]
+        out.append(torch.einsum('m,mpqt,mt->mpq', pref, E3, R[..., sel]))
+    return torch.stack(out)
+
+
+def ipip_chunk(la, lb, a, b, A, B, w, atom_coords, atom_charges, dm, wm):
+    """Second derivatives of one class's primitive blocks contracted with
+    the cartesian density blocks dm and wm (m, ncart_a, ncart_b): (m,
+    natm + 1, 27). Slot c < natm: AA, AC and CC of dm . V_c, V_c = -Z_c
+    <a|1/|r-C_c||b>; slot natm: AA of dm . T - wm . S (as int1e_ipip)."""
+    m = a.shape[0]
+    natm = atom_coords.shape[0]
+    out = a.new_zeros((m, natm + 1, 27))
+    shells = [l for l in (la + 2, la, la - 2) if l >= 0]
+
+    def aa(fn):
+        return _second_shift(la, a, {l: fn(l) for l in shells})
+
+    st = (torch.einsum('xympq,mpq->mxy', aa(
+        lambda l: kin_chunk(l, lb, a, b, A, B, w)), dm)
+        - torch.einsum('xympq,mpq->mxy', aa(
+            lambda l: ovlp_chunk(l, lb, a, b, A, B, w)), wm))
+    out[:, natm, :9] = st.reshape(m, 9)
+    eye = [(1, 0, 0), (0, 1, 0), (0, 0, 1)]
+    for c in range(natm):
+        z = atom_charges[c]
+        cen, q = atom_coords[c:c + 1], atom_charges[c:c + 1]
+        vaa = aa(lambda l: nuc_chunk(l, lb, a, b, A, B, w, cen, q))
+        # d/dC_y V_c = -Z_c d/dC_y <1/r_C> = Z_c (2 pi/p) sum E R_{tuv+e_y}
+        up = z * _shifted_rinv(la + 1, lb, a, b, A, B, w, cen[0], eye)
+        dn = None
+        if la:
+            dn = z * _shifted_rinv(la - 1, lb, a, b, A, B, w, cen[0],
+                                   eye).permute(1, 2, 0, 3)
+        # -> [x (bra), m, ncart_a, y (centre), ncart_b] -> [x, y, m, ...]
+        vac = _raised_lowered(la, a, up.permute(1, 2, 0, 3),
+                              dn).permute(0, 3, 1, 2, 4)
+        # d2/dC_x dC_y V_c = -Z_c (2 pi/p) sum E R_{tuv + e_x + e_y}
+        vcc = -z * _shifted_rinv(la, lb, a, b, A, B, w, cen[0],
+                                 [tuple(eye[x][i] + eye[y][i]
+                                        for i in range(3))
+                                  for x in range(3) for y in range(3)])
+        vcc = vcc.reshape((3, 3) + vcc.shape[1:])
+        for k, blk in enumerate((vaa, vac, vcc)):
+            out[:, c, 9 * k:9 * k + 9] = torch.einsum(
+                'xympq,mpq->mxy', blk, dm).reshape(m, 9)
+    return out
+
+
+def class_ipip(la, lb, ea, ca, ra, eb, cb, rb, atom_coords, atom_charges,
+               D, W):
+    """Plain PyTorch twin of the `int1e_ipip` kernel: (n, natm + 1, 27) of
+    n ordered shell pairs with the sph density blocks D and W (n,
+    (2la+1)(2lb+1)). The blocks go to the cartesian basis and to every
+    primitive pair of their shell pair."""
+    n, Ka = ea.shape
+    KK = Ka * eb.shape[1]
+    dev = ea.device
+    da, db = 2 * la + 1, 2 * lb + 1
+
+    def cart(M):
+        M = torch.einsum('nab,ap,bq->npq', M.reshape(n, da, db),
+                         sph(la, dev), sph(lb, dev))
+        return M.repeat_interleave(KK, dim=0)
+
+    prims = flat_prims(ea, ca, ra, eb, cb, rb)
+    x = ipip_chunk(la, lb, *prims, atom_coords, atom_charges, cart(D),
+                   cart(W))
+    return x.reshape(n, KK, *x.shape[1:]).sum(dim=1)
 
 
 def _fold(x, n, la, lb, dev):

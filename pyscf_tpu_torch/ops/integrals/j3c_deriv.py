@@ -26,7 +26,7 @@ import torch
 
 from .hermite import e3d, n_tuv
 from .int1e import sph
-from .int1e_deriv import _raised_lowered
+from .int1e_deriv import _raised_lowered, _second_shift
 from .int2e import _deriv_pair_sph_tables
 from .j3c import (_PLAIN_BUDGET, _bra_classes, _coulomb, _aux_prep,
                   _grouped_order, _pair_sph_tables, _row_maps, aux_tables,
@@ -48,6 +48,44 @@ def _aux_ip_prep(l, e, c, r):
         Em = torch.nn.functional.pad(Em, (0, Ep.shape[-1] - Em.shape[-1]))
     E = _raised_lowered(l, ef, Ep, Em) * c.reshape(-1)[:, None, None]
     E = torch.einsum('xmpt,ap->mxat', E, sph(l, e.device))
+    return E.reshape(E.shape[0], -1, E.shape[-1])
+
+
+def _shift2_tables(la, lb, a, b, A, B, w):
+    """Cartesian Hermite tables of d2/dA_x dA_y of the bra shell la against
+    lb: (3, 3, m, ncart_a, ncart_b, ntuv(la+lb+2)), weights w folded in."""
+    nt = n_tuv(la + lb + 2)
+    blocks = {}
+    for l in (la + 2, la, la - 2):
+        if l >= 0:
+            E = e3d(l, lb, a, b, A, B)
+            blocks[l] = torch.nn.functional.pad(E, (0, nt - E.shape[-1]))
+    return _second_shift(la, a, blocks) * w[:, None, None, None]
+
+
+def _deriv2_pair_sph_tables(la, lb, ea, ca, ra, eb, cb, rb):
+    """Sph-folded second-derivative bra tables of the primitive pairs of n
+    shell pairs: p (m,), P (m, 3), E (m, 9*da*db, ntuv(la+lb+2)), the
+    direction pair (x, y) major."""
+    from .int1e import flat_prims
+    a, b, A, B, w = flat_prims(ea, ca, ra, eb, cb, rb)
+    p = a + b
+    P = (a[:, None] * A + b[:, None] * B) / p[:, None]
+    E = torch.einsum('xympqt,ap,bq->mxyabt',
+                     _shift2_tables(la, lb, a, b, A, B, w),
+                     sph(la, ea.device), sph(lb, ea.device))
+    return p, P, E.reshape(E.shape[0], -1, E.shape[-1])
+
+
+def _aux_ip2_prep(l, e, c, r):
+    """Sph-folded second-derivative tables d2/dC_x dC_y of every primitive
+    of one aux class: (m, 9*(2l+1), ntuv(l+2)), the direction pair major."""
+    K = e.shape[1]
+    ef = e.reshape(-1)
+    rf = r.repeat_interleave(K, dim=0)
+    E = _shift2_tables(l, 0, ef, torch.zeros_like(ef), rf, rf,
+                       c.reshape(-1))[:, :, :, :, 0, :]
+    E = torch.einsum('xympt,ap->mxyat', E, sph(l, e.device))
     return E.reshape(E.shape[0], -1, E.shape[-1])
 
 
@@ -97,6 +135,148 @@ def int3c2e_ip_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, G):
             out[s, sh:sh + nsx, 3:] = -(da + dc)
         sh += nsx
         col += nsx * ns2
+    return out
+
+
+def int3c2e_ip1_rows(la, lb, ea, ca, ra, eb, cb, rb, aux):
+    """d(ij|P)/dA_i of n ordered shell pairs of class (la, lb) against
+    every aux shell, (3, n*(2la+1)(2lb+1), naux) in int3c2e's row layout
+    and grouped aux order, from the bra's power-shift tables."""
+    n, Ka = ea.shape
+    KK = Ka * eb.shape[1]
+    L1 = la + lb
+    ns1 = (2 * la + 1) * (2 * lb + 1)
+    cols = []
+    for l2, e2, c2, r2 in aux:
+        nsx, K2 = e2.shape
+        ns2 = 2 * l2 + 1
+        p2, P2, E2 = _aux_prep(l2, e2, c2, r2)
+        per_pair = KK * nsx * K2 * max(n_tuv(L1 + l2 + 1),
+                                       3 * ns2 * n_tuv(L1 + 1))
+        step = max(1, _PLAIN_BUDGET // per_pair)
+        blocks = []
+        for i in range(0, n, step):
+            s = slice(i, i + step)
+            p1, P1, E1d = _deriv_pair_sph_tables(la, lb, ea[s], ca[s], ra[s],
+                                                 eb[s], cb[s], rb[s])
+            v = _coulomb(L1 + 1, p1, P1, E1d, l2, p2, P2, E2)
+            v = v.reshape(-1, KK, 3, ns1, nsx, K2, ns2).sum(dim=(1, 5))
+            blocks.append(v.permute(1, 0, 2, 3, 4).reshape(3, -1, nsx * ns2))
+        cols.append(torch.cat(blocks, dim=1) if blocks
+                    else ea.new_zeros((3, 0, nsx * ns2)))
+    return torch.cat(cols, dim=2)
+
+
+def int3c2e_ip1_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, ia, jb, out):
+    """Plain PyTorch twin of the `int3c2e_ip1` kernel: int3c2e_ip1_rows
+    written into out (3, nao, nao, naux) at rows ia[k] + sa, columns
+    jb[k] + sb of pair k, as the kernel writes them. Returns out."""
+    n, da, db = ea.shape[0], 2 * la + 1, 2 * lb + 1
+    if n == 0:
+        return out
+    rows = int3c2e_ip1_rows(la, lb, ea, ca, ra, eb, cb, rb, aux)
+    i = ia.long()[:, None] + torch.arange(da, device=out.device)
+    j = jb.long()[:, None] + torch.arange(db, device=out.device)
+    out[:, i.reshape(n, da, 1), j.reshape(n, 1, db)] = rows.reshape(
+        3, n, da, db, -1)
+    return out
+
+
+def int3c2e_ipip_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, G):
+    """Plain PyTorch twin of the `int3c2e_ipip` kernel.
+
+    G as int3c2e_ip_plain's. Returns (n, nshells of aux, 27): per shell pair
+    and aux shell, sum over the block of G times d2(ij|P)/dA dA, dA dB and
+    dB dB (3 x 3 each, row-major). AA from the bra's tables with the
+    power-shift rule applied twice, AC (A and the aux centre C) from the
+    bra's and the aux shell's first-derivative tables, CC from the aux
+    shell's second-derivative tables; then d/dB = -(d/dA + d/dC)."""
+    n, Ka = ea.shape
+    KK = Ka * eb.shape[1]
+    L1 = la + lb
+    ns1 = (2 * la + 1) * (2 * lb + 1)
+    out = ea.new_zeros((n, _nshells(aux), 27))
+    sh = col = 0
+    for l2, e2, c2, r2 in aux:
+        nsx, K2 = e2.shape
+        ns2 = 2 * l2 + 1
+        p2, P2, E2 = _aux_prep(l2, e2, c2, r2)
+        E2d = _aux_ip_prep(l2, e2, c2, r2)
+        E2dd = _aux_ip2_prep(l2, e2, c2, r2)
+        per_pair = KK * nsx * K2 * 9 * max(n_tuv(L1 + l2 + 2),
+                                           ns2 * n_tuv(L1 + 2))
+        step = max(1, _PLAIN_BUDGET // per_pair)
+        for i in range(0, n, step):
+            s = slice(i, i + step)
+            m = ea[s].shape[0]
+            g = G[i * ns1:(i + m) * ns1, col:col + nsx * ns2]
+            g = g.reshape(m, ns1, nsx, ns2)
+            args = (ea[s], ca[s], ra[s], eb[s], cb[s], rb[s])
+            p1, P1, E1dd = _deriv2_pair_sph_tables(la, lb, *args)
+            aa = _coulomb(L1 + 2, p1, P1, E1dd, l2, p2, P2, E2)
+            aa = aa.reshape(m, KK, 9, ns1, nsx, K2, ns2).sum(dim=(1, 5))
+            p1, P1, E1d = _deriv_pair_sph_tables(la, lb, *args)
+            ac = _coulomb(L1 + 1, p1, P1, E1d, l2 + 1, p2, P2, E2d)
+            ac = ac.reshape(m, KK, 3, ns1, nsx, K2, 3, ns2).sum(dim=(1, 5))
+            p1, P1, E1 = _pair_sph_tables(la, lb, *args)
+            cc = _coulomb(L1, p1, P1, E1, l2 + 2, p2, P2, E2dd)
+            cc = cc.reshape(m, KK, ns1, nsx, K2, 9, ns2).sum(dim=(1, 4))
+            aa = torch.einsum('mkaPq,maPq->mPk', aa, g).reshape(m, nsx, 3, 3)
+            ac = torch.einsum('mxaPyq,maPq->mPxy', ac, g)
+            cc = torch.einsum('maPkq,maPq->mPk', cc, g).reshape(m, nsx, 3, 3)
+            ab = -(aa + ac)
+            bb = aa + ac + ac.transpose(-1, -2) + cc
+            out[s, sh:sh + nsx] = torch.cat(
+                [aa.reshape(m, nsx, 9), ab.reshape(m, nsx, 9),
+                 bb.reshape(m, nsx, 9)], dim=-1)
+        sh += nsx
+        col += nsx * ns2
+    return out
+
+
+def int2c2e_ip1_full_plain(aux):
+    """Plain PyTorch twin of the `int2c2e_ip1_full` kernel: d(P|Q)/dR_P of
+    every aux function pair, (3, naux, naux) in grouped aux order, from P's
+    power-shift tables."""
+    preps = [(l, e.shape) + _aux_prep(l, e, c, r) + (_aux_ip_prep(l, e, c, r),)
+             for l, e, c, r in aux]
+    rows = []
+    for lx, (nsx, Kx), px, Px, _, Exd in preps:
+        dx = 2 * lx + 1
+        cols = []
+        for ly, (nsy, Ky), py, Py, Ey, _ in preps:
+            dy = 2 * ly + 1
+            v = _coulomb(lx + 1, px, Px, Exd, ly, py, Py, Ey)
+            v = v.reshape(nsx, Kx, 3, dx, nsy, Ky, dy).sum(dim=(1, 5))
+            cols.append(v.permute(1, 0, 2, 3, 4).reshape(3, nsx * dx,
+                                                        nsy * dy))
+        rows.append(torch.cat(cols, dim=2))
+    return torch.cat(rows, dim=1)
+
+
+def int2c2e_ipip_plain(aux, W):
+    """Plain PyTorch twin of the `int2c2e_ipip` kernel: (nshells, nshells,
+    9), entry (P, Q) the sum over the block of W times d2(P|Q)/dR_P dR_P
+    (row-major), from P's second-derivative tables. W as int2c2e_ip1's."""
+    preps = [(l, e.shape) + _aux_prep(l, e, c, r)
+             + (_aux_ip2_prep(l, e, c, r),) for l, e, c, r in aux]
+    nsh = _nshells(aux)
+    out = W.new_zeros((nsh, nsh, 9))
+    shx = offx = 0
+    for lx, (nsx, Kx), px, Px, _, Exdd in preps:
+        dx = 2 * lx + 1
+        shy = offy = 0
+        for ly, (nsy, Ky), py, Py, Ey, _ in preps:
+            dy = 2 * ly + 1
+            v = _coulomb(lx + 2, px, Px, Exdd, ly, py, Py, Ey)
+            v = v.reshape(nsx, Kx, 9, dx, nsy, Ky, dy).sum(dim=(1, 5))
+            w = W[offx:offx + nsx * dx, offy:offy + nsy * dy]
+            out[shx:shx + nsx, shy:shy + nsy] = torch.einsum(
+                'PkaQb,PaQb->PQk', v, w.reshape(nsx, dx, nsy, dy))
+            shy += nsy
+            offy += nsy * dy
+        shx += nsx
+        offx += nsx * dx
     return out
 
 

@@ -1,9 +1,10 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Twenty-seven kernels carry the DF-RHF/RKS/UKS and in-core paths with the
+Thirty-two kernels carry the DF-RHF/RKS/UKS and in-core paths with the
 range-separated and VV10 functionals, the conventional RHF gradient, the
 DF-RHF/RKS/UHF/UKS gradients, the dipole of the SCF analysis, MP2, UMP2,
-CCSD and CCSD(T), and TDA/TDHF/TDDFT (sources in pyscf_tpu_torch/csrc/):
+CCSD and CCSD(T), TDA/TDHF/TDDFT and the DF-RHF nuclear Hessian (sources
+in pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
@@ -47,6 +48,17 @@ CCSD and CCSD(T), and TDA/TDHF/TDDFT (sources in pyscf_tpu_torch/csrc/):
   xc_rks_fxc the tangent of xc_rks's vtmp along   (csrc/xc_rks_fxc.cu)
              transition densities
   xc_uks_fxc the same of xc_uks's                 (csrc/xc_uks_fxc.cu)
+  int1e_ipip second derivatives of S, T and V per (csrc/int1e_ipip.cu,
+             ordered shell pair, contracted with D   csrc/hess2.cuh)
+             and W
+  int3c2e_ip1  d(ij|P)/dA_i written out, every    (csrc/int3c2e_ip1.cu,
+             ordered pair                           csrc/coulomb_ipip.cuh)
+  int2c2e_ip1_full  d(P|Q)/dP written out         (csrc/int2c2e_ipip.cu,
+                                                    PT_IP1_FULL)
+  int3c2e_ipip  d2(ij|P) on A and B contracted    (csrc/int3c2e_ipip.cu)
+             with Gamma^P_ij
+  int2c2e_ipip  d2(P|Q)/dP dP contracted with     (csrc/int2c2e_ipip.cu)
+             W_PQ
 
 Each wrapper takes float64 (int32 for indices) contiguous tensors on one
 device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
@@ -54,8 +66,9 @@ tensor it launches the kernel on torch.cuda.current_stream() or raises. A
 wrapper adds one to its `launches` count for every kernel launch it makes.
 
 The kernels are compiled at first use with nvcc for sm_90a, one shared
-library per source (three each for int2e_ip1.cu and int3c2e_ip.cu, one per
-bra momentum; two for xc_fxc.cu, one per kernel) with a plain C interface
+library per source (three each for int2e_ip1.cu, int3c2e_ip.cu,
+int3c2e_ip1.cu and int3c2e_ipip.cu, one per bra momentum; two each for
+xc_fxc.cu and int2c2e_ipip.cu, one per kernel) with a plain C interface
 loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
 checkout builds them once and an edit to a source rebuilds them; nvcc's
@@ -81,8 +94,9 @@ from .integrals.int1e import sph
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, 'csrc')
 _BUILD = os.path.join(_PKG, '_build')
-_HEADERS = ('boys.cuh', 'coulomb_ip.cuh', 'hermite.cuh', 'int1e.cuh',
-            'quartet.cuh', 'xc_funcs.cuh', 'xc_point.cuh')
+_HEADERS = ('boys.cuh', 'coulomb_ip.cuh', 'coulomb_ipip.cuh', 'hermite.cuh',
+            'hess2.cuh', 'int1e.cuh', 'quartet.cuh', 'xc_funcs.cuh',
+            'xc_point.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -138,9 +152,20 @@ _LIBRARIES = {
                    + [_I] + [_P] * 4, ('-fmad=false',)),
     'xc_uks_fxc': ('xc_uks_fxc.cu', 'pt_xc_uks_fxc', [_I] * 4 + [_P] * 4
                    + [_I] + [_P] * 4, ('-fmad=false',)),
+    # the nuclear Hessian's second-derivative integrals; the metric's
+    # uncontracted first derivative is a second launch from int2c2e_ipip.cu
+    'int1e_ipip': ('int1e_ipip.cu', 'pt_int1e_ipip',
+                   [_I] * 5 + [_P] * 6 + [_I] + [_P] * 8, ()),
+    'int2c2e_ipip': ('int2c2e_ipip.cu', 'pt_int2c2e_ipip', [_I] * 4
+                     + [_P] * 3 + [_I, _I] + [_P] * 6 + [_I] * 3 + [_P]
+                     + [_I] * 3 + [_P], ()),
+    'int2c2e_ip1_full': ('int2c2e_ipip.cu', 'pt_int2c2e_ip1_full', [_I] * 4
+                         + [_P] * 3 + [_I, _I] + [_P] * 6 + [_I] * 3 + [_P]
+                         + [_I] * 3 + [_P], ('-DPT_IP1_FULL',)),
 }
-# int2e_ip1.cu and int3c2e_ip.cu once per bra momentum, so that their
-# instantiations compile in three processes each, side by side
+# int2e_ip1.cu, int3c2e_ip.cu, int3c2e_ip1.cu and int3c2e_ipip.cu once per
+# bra momentum, so that their instantiations compile in three processes
+# each, side by side
 _LIBRARIES.update({
     f'int2e_ip1_la{la}': ('int2e_ip1.cu', 'pt_int2e_ip1', _ERI_ARGS,
                           (f'-DPT_LA={la}',)) for la in range(3)})
@@ -148,6 +173,16 @@ _LIBRARIES.update({
     f'int3c2e_ip_la{la}': ('int3c2e_ip.cu', 'pt_int3c2e_ip',
                            [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 7
                            + [_I, _I, _P, _I, _I, _P], (f'-DPT_LA={la}',))
+    for la in range(3)})
+_LIBRARIES.update({
+    f'int3c2e_ip1_la{la}': ('int3c2e_ip1.cu', 'pt_int3c2e_ip1',
+                            [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 8
+                            + [_I] * 3 + [_P, _P], (f'-DPT_LA={la}',))
+    for la in range(3)})
+_LIBRARIES.update({
+    f'int3c2e_ipip_la{la}': ('int3c2e_ipip.cu', 'pt_int3c2e_ipip',
+                             [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 7
+                             + [_I, _I, _P, _I, _I, _P], (f'-DPT_LA={la}',))
     for la in range(3)})
 _LIBS = {}      # library -> loaded ctypes function
 
@@ -459,6 +494,118 @@ def int2c2e_ip1(aux, W):
     return out
 
 
+def int3c2e_ip1(la, lb, ea, ca, ra, eb, cb, rb, aux, ia, jb, out):
+    """d(ij|P)/dA_i of n ordered shell pairs of class (la, lb), la, lb <= 2,
+    against every aux shell, written into out (3, nao, nao, naux) at rows
+    ia[k] + sa, columns jb[k] + sb of pair k, the aux index in grouped
+    order; the rest of out is left as it is. ia, jb: the AO offsets of the
+    pairs' shells, int32 (n,). Returns out."""
+    dev = _device_of(ea)
+    n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
+    _check_aux(dev, aux)
+    offs, _ = _aux_offsets(aux)
+    nao = out.shape[1]
+    _check(dev, ('out', out, (3, nao, nao, offs[-1])))
+    _check_index(dev, 'ia', ia, n)
+    _check_index(dev, 'jb', jb, n)
+    if dev.type == 'cpu':
+        return j3c_deriv.int3c2e_ip1_plain(la, lb, ea, ca, ra, eb, cb, rb,
+                                           aux, ia, jb, out)
+    for k, (l, e, c, r) in enumerate(aux):
+        nsx, Kc = e.shape
+        if n and nsx:
+            rc = _fn(f'int3c2e_ip1_la{la}')(
+                la, lb, l, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
+                ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
+                nsx, Kc, e.data_ptr(), c.data_ptr(), r.data_ptr(),
+                sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(),
+                sph(l, dev).data_ptr(), ia.data_ptr(), jb.data_ptr(), nao,
+                offs[-1], offs[k], out.data_ptr(), _stream())
+            _raise_on(rc, f'int3c2e_ip1({la},{lb}|{l})')
+            int3c2e_ip1.launches += 1
+    return out
+
+
+def int3c2e_ipip(la, lb, ea, ca, ra, eb, cb, rb, aux, G):
+    """Second derivatives of (ij|P) of n shell pairs of class (la, lb), la <=
+    lb <= 2, against every aux shell, contracted with G: (n, nshells, 27),
+    per pair and aux shell the sums over the block of G times d2/dA dA,
+    d2/dA dB and d2/dB dB (3 x 3 each, row-major). G and aux as
+    int3c2e_ip's."""
+    dev = _device_of(ea)
+    n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
+    _check_aux(dev, aux)
+    offs, shs = _aux_offsets(aux)
+    ns1 = (2 * la + 1) * (2 * lb + 1)
+    _check(dev, ('G', G, (n * ns1, offs[-1])))
+    if dev.type == 'cpu':
+        return j3c_deriv.int3c2e_ipip_plain(la, lb, ea, ca, ra, eb, cb, rb,
+                                            aux, G)
+    out = torch.empty((n, shs[-1], 27), dtype=torch.float64, device=dev)
+    for i, (l, e, c, r) in enumerate(aux):
+        nsx, Kc = e.shape
+        if n and nsx:
+            rc = _fn(f'int3c2e_ipip_la{la}')(
+                la, lb, l, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
+                ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
+                nsx, Kc, e.data_ptr(), c.data_ptr(), r.data_ptr(),
+                sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(),
+                sph(l, dev).data_ptr(), G.data_ptr(), offs[-1], offs[i],
+                out.data_ptr(), shs[-1], shs[i], _stream())
+            _raise_on(rc, f'int3c2e_ipip({la},{lb}|{l})')
+            int3c2e_ipip.launches += 1
+    return out
+
+
+def int2c2e_ip1_full(aux):
+    """d(P|Q)/dR_P of every aux function pair: (3, naux, naux) in grouped
+    aux order, the derivative's centre on the rows."""
+    dev = _device_of(aux[0][1])
+    _check_aux(dev, aux)
+    offs, _ = _aux_offsets(aux)
+    if dev.type == 'cpu':
+        return j3c_deriv.int2c2e_ip1_full_plain(aux)
+    out = torch.empty((3, offs[-1], offs[-1]), dtype=torch.float64,
+                      device=dev)
+    for i, (lx, ex, cx, rx) in enumerate(aux):
+        for j, (ly, ey, cy, ry) in enumerate(aux):
+            rc = _fn('int2c2e_ip1_full')(
+                lx, ly, ex.shape[0], ex.shape[1], ex.data_ptr(),
+                cx.data_ptr(), rx.data_ptr(), ey.shape[0], ey.shape[1],
+                ey.data_ptr(), cy.data_ptr(), ry.data_ptr(),
+                sph(lx, dev).data_ptr(), sph(ly, dev).data_ptr(), None,
+                offs[-1], offs[i], offs[j], out.data_ptr(), 0, 0, 0,
+                _stream())
+            _raise_on(rc, f'int2c2e_ip1_full({lx}|{ly})')
+            int2c2e_ip1_full.launches += 1
+    return out
+
+
+def int2c2e_ipip(aux, W):
+    """d2(P|Q)/dR_P dR_P of every ordered aux shell pair contracted with W:
+    (nshells, nshells, 9), entry (P, Q) the sum over the block of W times
+    the second derivatives (row-major). W as int2c2e_ip1's."""
+    dev = _device_of(aux[0][1])
+    _check_aux(dev, aux)
+    offs, shs = _aux_offsets(aux)
+    _check(dev, ('W', W, (offs[-1], offs[-1])))
+    if dev.type == 'cpu':
+        return j3c_deriv.int2c2e_ipip_plain(aux, W)
+    out = torch.empty((shs[-1], shs[-1], 9), dtype=torch.float64, device=dev)
+    for i, (lx, ex, cx, rx) in enumerate(aux):
+        for j, (ly, ey, cy, ry) in enumerate(aux):
+            rc = _fn('int2c2e_ipip')(
+                lx, ly, ex.shape[0], ex.shape[1], ex.data_ptr(),
+                cx.data_ptr(), rx.data_ptr(), ey.shape[0], ey.shape[1],
+                ey.data_ptr(), cy.data_ptr(), ry.data_ptr(),
+                sph(lx, dev).data_ptr(), sph(ly, dev).data_ptr(),
+                W.data_ptr(), offs[-1], offs[i], offs[j], out.data_ptr(),
+                shs[-1], shs[i], shs[j], _stream())
+            _raise_on(rc, f'int2c2e_ipip({lx}|{ly})')
+            int2c2e_ipip.launches += 1
+    return out
+
+
 def _check_quartets(ea, ca, ra, eb, cb, rb, kets):
     """(device, bra pairs n, rows per pair, columns) of a bra class against
     the ket classes kets."""
@@ -592,6 +739,38 @@ def int1e_iprinv(la, lb, ea, ca, ra, eb, cb, rb, centers):
         _stream())
     _raise_on(rc, f'int1e_iprinv({la},{lb})')
     int1e_iprinv.launches += 1
+    return out
+
+
+def int1e_ipip(la, lb, ea, ca, ra, eb, cb, rb, atom_coords, atom_charges, D,
+               W):
+    """Second derivatives of S, T and V of n ordered shell pairs contracted
+    with their density blocks D and W (n, (2la+1)(2lb+1)): (n, natm + 1,
+    27). Slot c < natm: d2/dA dA, dA dC and dC dC (3 x 3 each, row-major;
+    A the bra's centre, C atom c's) of sum D V_c, V_c the attraction of
+    the charge of atom c; slot natm: d2/dA dA of sum D T - W S (9 numbers,
+    then zeros). Arguments as int1e_ip's; any la, lb <= 2."""
+    dev = _device_of(ea)
+    n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
+    natm = atom_coords.shape[0]
+    ns1 = (2 * la + 1) * (2 * lb + 1)
+    _check(dev, ('atom_coords', atom_coords, (natm, 3)),
+           ('atom_charges', atom_charges, (natm,)), ('D', D, (n, ns1)),
+           ('W', W, (n, ns1)))
+    if dev.type == 'cpu':
+        return int1e_deriv.class_ipip(la, lb, ea, ca, ra, eb, cb, rb,
+                                      atom_coords, atom_charges, D, W)
+    out = torch.empty((n, natm + 1, 27), dtype=torch.float64, device=dev)
+    if n == 0:
+        return out
+    rc = _fn('int1e_ipip')(
+        la, lb, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(), ra.data_ptr(),
+        eb.data_ptr(), cb.data_ptr(), rb.data_ptr(), natm,
+        atom_coords.data_ptr(), atom_charges.data_ptr(),
+        sph(la, dev).data_ptr(), sph(lb, dev).data_ptr(), D.data_ptr(),
+        W.data_ptr(), out.data_ptr(), _stream())
+    _raise_on(rc, f'int1e_ipip({la},{lb})')
+    int1e_ipip.launches += 1
     return out
 
 
@@ -1118,7 +1297,8 @@ KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
            xc_uks, int1e_ip, int1e_iprinv, int2e_ip1, int3c2e_ip, int2c2e_ip1,
            eval_ao_deriv2, xc_rks_grad, xc_uks_grad, int1e_r, int3c2e_lr,
            int2c2e_lr, int2e_lr, vv10, mp2_energy, ccsd_t, xc_fxc,
-           xc_fxc_pairs, xc_rks_fxc, xc_uks_fxc)
+           xc_fxc_pairs, xc_rks_fxc, xc_uks_fxc, int1e_ipip, int3c2e_ip1,
+           int2c2e_ip1_full, int3c2e_ipip, int2c2e_ipip)
 
 
 def reset_launches():

@@ -127,6 +127,13 @@ H -2.151390  1.242106  0.000000
 PHENYL = '\n'.join(line for line in BENZENE.splitlines()
                    if line.split()[1:3] != ['0.000000', '2.484212'])
 WATER = 'O 0 0 0; H 0 -0.757 0.587; H 0 0.757 0.587'
+# np.load-able arrays of the JAX package's values that the CPU tests read
+# (tests/port_refs_record.py and tests/hessian_refs_record.py say how each
+# was made)
+PORT_REFS = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'data',
+                         'port_refs.npz')
+HESSIAN_REFS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'data', 'hessian_water_refs.npz')
 # np.load-able arrays of the JAX package's water TDA/TDHF (see the docstring)
 TDSCF_WATER_REFS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 'data', 'tdscf_water_refs.npz')

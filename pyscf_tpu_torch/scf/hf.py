@@ -299,6 +299,13 @@ class SCF:
               % (*mu, np.linalg.norm(mu)))
         return pop, chg, mu
 
+    def Hessian(self):
+        """The nuclear Hessian object of hessian.Hessian (the dispatcher:
+        analytic for DF-RHF, finite differences where the reference uses
+        them)."""
+        from ..hessian import Hessian
+        return Hessian(self)
+
     def run(self, dm0=None):
         """kernel(dm0), then the mean field itself, so that calls chain as
         in PySCF: mol.RHF().run().nuc_grad_method().kernel(). (In the JAX

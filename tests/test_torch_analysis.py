@@ -1,15 +1,13 @@
 """The dipole integrals and the SCF analysis of pyscf_tpu_torch on the CPU
 against pyscf_tpu: the plain twin of the int1e_r kernel (class_r over
 r_chunk) and dip_moment, quad_moment, mulliken_pop and mulliken_spin_pop
-on the JAX package's own converged densities, handed over through
-compat."""
+on the JAX package's own converged densities, handed over through compat
+(the JAX runs' analysis as tests/port_refs_record.py recorded it)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import pyscf_tpu as jpt
-from pyscf_tpu.ops.integrals.int1e import int1e_r as jax_int1e_r
 from pyscf_tpu.ops.integrals.int1e import r_chunk as jax_r_chunk
 
 import pyscf_tpu_torch as tpt
@@ -26,13 +24,13 @@ def _close(got, ref, rel):
 
 def test_int1e_r_matches_jax():
     """mol.intor('int1e_r') on water/def2-SVP (every ordered class pair up
-    to (d|d)) against the JAX int1e_r: 1e-12 x max."""
-    jmol = jpt.M(atom=refs.WATER, basis='def2-svp', verbose=0)
+    to (d|d)) against the JAX int1e_r (recorded by
+    tests/port_refs_record.py): 1e-12 x max."""
     mol = tpt.M(atom=refs.WATER, basis='def2-svp', device='cpu')
     got = mol.intor('int1e_r')
     assert got.shape == (3, mol.nao, mol.nao)
     assert len(int1e.cross_pairs(mol, mol)) == 9
-    _close(got.numpy(), np.asarray(jax_int1e_r(jmol)), 1e-12)
+    _close(got.numpy(), np.load(refs.PORT_REFS)['int1e_r_svp'], 1e-12)
 
 
 @pytest.mark.parametrize('la,lb', [(3, 3), (1, 3)])
@@ -51,27 +49,46 @@ def test_r_chunk_f_shells_match_jax(la, lb):
     _close(got.numpy(), np.asarray(ref), 1e-12)
 
 
+class _Recorded:
+    """A JAX mean field's analysis as tests/port_refs_record.py recorded it
+    (ana_<tag>_*), with the methods the comparison calls."""
+
+    def __init__(self, tag):
+        r = np.load(refs.PORT_REFS)
+        self.r = {k[len(tag) + 5:]: r[k] for k in r.files
+                  if k.startswith(f'ana_{tag}_')}
+
+    def make_rdm1(self):
+        return self.r['dm']
+
+    def dip_moment(self, dm, unit):
+        return self.r['dip_debye' if unit == 'Debye' else 'dip_au']
+
+    def quad_moment(self, dm):
+        return self.r['quad']
+
+    def mulliken_pop(self, dm):
+        return self.r['pop'], self.r['chg']
+
+    def mulliken_spin_pop(self, dm):
+        return self.r['spin_pop'], self.r['spin']
+
+
 @pytest.fixture(scope='module')
 def water_rhf():
-    """(JAX RHF/sto-3g water, converged; the port's RHF on the same mole)."""
-    jmf = jpt.M(atom=refs.WATER, basis='sto-3g', verbose=0).RHF()
-    jmf.init_guess = 'hcore'
-    jmf.conv_tol = 1e-11
-    jmf.kernel()
-    assert jmf.converged
-    return jmf, tpt.M(atom=refs.WATER, basis='sto-3g', device='cpu').RHF()
+    """(JAX RHF/sto-3g water, hcore, conv_tol 1e-11, converged, recorded;
+    the port's RHF on the same mole)."""
+    return (_Recorded('rhf'),
+            tpt.M(atom=refs.WATER, basis='sto-3g', device='cpu').RHF())
 
 
 @pytest.fixture(scope='module')
 def oh_uhf():
-    """(JAX UHF/sto-3g OH radical, converged; the port's UHF on the same
-    mole)."""
+    """(JAX UHF/sto-3g OH radical, conv_tol 1e-11, converged, recorded; the
+    port's UHF on the same mole)."""
     atom = 'O 0 0 0; H 0 0 0.97'
-    jmf = jpt.M(atom=atom, basis='sto-3g', spin=1, verbose=0).UHF()
-    jmf.conv_tol = 1e-11
-    jmf.kernel()
-    assert jmf.converged
-    return jmf, tpt.M(atom=atom, basis='sto-3g', spin=1, device='cpu').UHF()
+    return (_Recorded('uhf'),
+            tpt.M(atom=atom, basis='sto-3g', spin=1, device='cpu').UHF())
 
 
 def _analysis_matches(jmf, mf, dm):

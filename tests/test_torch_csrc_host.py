@@ -4,7 +4,9 @@ sources, compiled for the host with g++, against their plain twins.
 There is no CUDA compiler or card where the fast tests run, so this file
 compiles csrc/int1e_stv.cu, int3c2e.cu, int2c2e.cu, int2e.cu, int1e_ip.cu,
 int1e_iprinv.cu, int2e_ip1.cu, int3c2e_ip.cu, int2c2e_ip1.cu, int1e_r.cu,
-vv10.cu, mp2_energy.cu and ccsd_t.cu as C++ behind a small stand-in for
+vv10.cu, mp2_energy.cu, ccsd_t.cu and the nuclear Hessian's int1e_ipip.cu,
+int3c2e_ip1.cu, int3c2e_ipip.cu and int2c2e_ipip.cu (both of its kernels)
+as C++ behind a small stand-in for
 cuda_runtime.h (the qualifiers defined away, shared arrays static, the
 dynamic shared memory a static array, a launch turned into a loop over
 blocks and threads, in order, so that vv10.cu, mp2_energy.cu and
@@ -21,6 +23,9 @@ package's functional. It checks the kernels' arithmetic and indexing, not
 that nvcc accepts them: that is tests/test_torch_kernels.py on the
 card."""
 import ctypes
+import fcntl
+import hashlib
+import os
 import re
 import shutil
 import subprocess
@@ -78,40 +83,77 @@ void host_launch(int blocks, int threads, F f, A... a) {
 LIBS = ('int1e_stv', 'int3c2e', 'int2c2e', 'int2e', 'int1e_ip',
         'int1e_iprinv', 'int2e_ip1_la0', 'int2e_ip1_la1', 'int2e_ip1_la2',
         'int3c2e_ip_la0', 'int3c2e_ip_la1', 'int3c2e_ip_la2', 'int2c2e_ip1',
-        'int1e_r', 'vv10', 'mp2_energy', 'ccsd_t')
+        'int1e_r', 'vv10', 'mp2_energy', 'ccsd_t', 'int1e_ipip',
+        'int3c2e_ip1_la0', 'int3c2e_ip1_la1', 'int3c2e_ip1_la2',
+        'int3c2e_ipip_la0', 'int3c2e_ipip_la1', 'int3c2e_ipip_la2',
+        'int2c2e_ip1_full', 'int2c2e_ipip')
 OMEGA = 0.3
 DEV = torch.device('cpu')
 
 
+class _HostLibs:
+    """{library: ctypes function} of the sources built for the host, each
+    built at its first use together with the other libraries of its
+    source (one g++ process each, side by side), into a directory named
+    by the hash of the sources that the test processes of one run share:
+    a source is built once per run, under a file lock, whichever process
+    asks first."""
+
+    def __init__(self, gxx, out):
+        self.gxx, self.out, self.fns = gxx, out, {}
+        out.mkdir(parents=True, exist_ok=True)
+        (out / 'cuda_runtime.h').write_text(SHIM)
+
+    def __getitem__(self, lib):
+        if lib not in self.fns:
+            src = kernels._LIBRARIES[lib][0]
+            libs = [k for k in LIBS if kernels._LIBRARIES[k][0] == src]
+            with open(self.out / f'{src}.lock', 'w') as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                todo = [k for k in libs if not (self.out / f'{k}.so').exists()]
+                if todo:
+                    self._build(todo)
+            for k in libs:
+                _, name, argtypes, _ = kernels._LIBRARIES[k]
+                fn = getattr(ctypes.CDLL(str(self.out / f'{k}.so')), name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                self.fns[k] = fn
+        return self.fns[lib]
+
+    def _build(self, libs):
+        out, jobs = self.out, []
+        for lib in libs:
+            src, _, _, flags = kernels._LIBRARIES[lib]
+            text = open(f'{kernels._CSRC}/{src}').read()
+            text, n = re.subn(
+                r'(\w+<[^;<>]*>)<<<blocks, threads, \w+, stream>>>\(\s*',
+                r'host_launch(blocks, threads, \1, ', text)
+            assert n == 1
+            (out / f'{lib}.cpp').write_text(text)
+            jobs.append((lib, subprocess.Popen(
+                [self.gxx, '-O0', '-std=c++17', '-shared', '-fPIC', '-w',
+                 *flags, '-I', str(out), '-I', kernels._CSRC, '-o',
+                 str(out / f'{lib}.so.tmp'), str(out / f'{lib}.cpp')])))
+        assert all(j.wait() == 0 for _, j in jobs)
+        for lib, _ in jobs:
+            os.replace(out / f'{lib}.so.tmp', out / f'{lib}.so')
+
+
 @pytest.fixture(scope='module')
 def host(tmp_path_factory):
-    """{library: ctypes function} of the sources built for the host."""
+    """The sources built for the host with g++, at first use."""
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++ to build the CUDA sources for the host')
-    out = tmp_path_factory.mktemp('csrc_host')
-    (out / 'cuda_runtime.h').write_text(SHIM)
-    jobs = []
-    for lib in LIBS:
-        src, _, _, flags = kernels._LIBRARIES[lib]
-        text = open(f'{kernels._CSRC}/{src}').read()
-        text, n = re.subn(
-            r'(\w+<[^;<>]*>)<<<blocks, threads, \w+, stream>>>\(\s*',
-            r'host_launch(blocks, threads, \1, ', text)
-        assert n == 1
-        (out / f'{lib}.cpp').write_text(text)
-        jobs.append(subprocess.Popen(
-            [gxx, '-O1', '-std=c++17', '-shared', '-fPIC', '-w', *flags,
-             '-I', str(out), '-I', kernels._CSRC, '-o', str(out / f'{lib}.so'),
-             str(out / f'{lib}.cpp')]))
-    assert all(j.wait() == 0 for j in jobs)
-    fns = {}
-    for lib in LIBS:
-        _, name, argtypes, _ = kernels._LIBRARIES[lib]
-        fns[lib] = getattr(ctypes.CDLL(str(out / f'{lib}.so')), name)
-        fns[lib].argtypes = argtypes
-        fns[lib].restype = ctypes.c_int
-    return fns
+    h = hashlib.sha256(SHIM.encode())
+    for name in sorted(os.listdir(kernels._CSRC)):
+        with open(os.path.join(kernels._CSRC, name), 'rb') as f:
+            h.update(name.encode() + f.read())
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get('PYTEST_XDIST_WORKER'):
+        base = base.parent          # shared by the run's worker processes
+    return _HostLibs(gxx, base / f'csrc_host_{h.hexdigest()[:16]}')
 
 
 @pytest.fixture(scope='module')
@@ -339,6 +381,102 @@ def test_int2c2e_ip1(host, water):
                 offs[i], offs[j], out.data_ptr(), shs[-1], shs[i], shs[j],
                 None) == 0
     _close_contracted(out, j3c_deriv.int2c2e_ip1_plain(aux, W))
+
+
+def _few(pairs, k):
+    """The first k shell pairs of a class's pair tables."""
+    return [t[:k].contiguous() for t in pairs]
+
+
+def _few_aux(aux, k=2):
+    """The first k shells of every aux class."""
+    return [(l,) + tuple(t[:k].contiguous() for t in rest)
+            for l, *rest in aux]
+
+
+def test_int1e_ipip(host, water):
+    """Every ordered class of water/def2-SVP (three shell pairs each) with
+    its three charges against the twin, on seeded density blocks."""
+    mol, zr, zq = water
+    rng = np.random.default_rng(5)
+    for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
+        p = _few(p, 3)
+        n, Ka, Kb = _dims(p)
+        D, W = (torch.as_tensor(rng.standard_normal(
+            (n, (2 * la + 1) * (2 * lb + 1)))) for _ in range(2))
+        out = torch.empty((n, mol.natm + 1, 27), dtype=torch.float64)
+        assert host['int1e_ipip'](
+            la, lb, n, Ka, Kb, *_ptrs(*p), mol.natm,
+            *_ptrs(zr, zq, sph(la, DEV), sph(lb, DEV), D, W),
+            out.data_ptr(), None) == 0
+        _close(out, int1e_deriv.class_ipip(la, lb, *p, zr, zq, D, W))
+
+
+def test_int3c2e_ip1_and_ipip(host, water):
+    """Every bra class of water/def2-SVP (two pairs each, and the mirrored
+    pairs for int3c2e_ip1) against two shells of every aux class up to g,
+    on seeded Gamma rows: int3c2e_ip1 written into a (3, nao, nao, naux)
+    tensor, int3c2e_ipip contracted."""
+    mol, _, _ = water
+    aux = _few_aux(j3c.aux_tables(make_auxmol(mol)))
+    offs, shs = kernels._aux_offsets(aux)
+    nao = mol.nao
+    rng = np.random.default_rng(6)
+    for (la, lb), (bc, p) in j3c.screened_pairs(mol).items():
+        p = _few(p, 2)
+        n, Ka, Kb = _dims(p)
+        ia = torch.as_tensor(bc.ga.ao_off[bc.sel_a[:n]], dtype=torch.int32)
+        jb = torch.as_tensor(bc.gb.ao_off[bc.sel_b[:n]], dtype=torch.int32)
+        for a, b, pp, i0, j0 in ((la, lb, p, ia, jb),
+                                 (lb, la, p[3:] + p[:3], jb, ia)):
+            out = torch.zeros((3, nao, nao, offs[-1]), dtype=torch.float64)
+            ref = kernels.int3c2e_ip1(a, b, *pp, aux, i0, j0,
+                                      torch.zeros_like(out))
+            for k, (l, e, c, r) in enumerate(aux):
+                assert host[f'int3c2e_ip1_la{a}'](
+                    a, b, l, n, Ka if a == la else Kb, Kb if a == la else Ka,
+                    *_ptrs(*pp), e.shape[0], e.shape[1],
+                    *_ptrs(e, c, r, sph(a, DEV), sph(b, DEV), sph(l, DEV),
+                           i0, j0), nao, offs[-1], offs[k], out.data_ptr(),
+                    None) == 0
+            _close(out, ref)
+        G = torch.as_tensor(rng.standard_normal(
+            (n * (2 * la + 1) * (2 * lb + 1), offs[-1])))
+        out = torch.empty((n, shs[-1], 27), dtype=torch.float64)
+        for i, (l, e, c, r) in enumerate(aux):
+            assert host[f'int3c2e_ipip_la{la}'](
+                la, lb, l, n, Ka, Kb, *_ptrs(*p), e.shape[0], e.shape[1],
+                *_ptrs(e, c, r, sph(la, DEV), sph(lb, DEV), sph(l, DEV), G),
+                offs[-1], offs[i], out.data_ptr(), shs[-1], shs[i],
+                None) == 0
+        _close_contracted(out, j3c_deriv.int3c2e_ipip_plain(la, lb, *p, aux,
+                                                             G))
+
+
+def test_int2c2e_ip1_full_and_ipip(host, water):
+    """Every ordered aux class pair of def2-universal-jkfit on water (two
+    shells a class), up to (g|g): d(P|Q)/dP written out, and its second
+    derivative contracted with a seeded symmetric W."""
+    mol, _, _ = water
+    aux = _few_aux(j3c.aux_tables(make_auxmol(mol)))
+    offs, shs = kernels._aux_offsets(aux)
+    naux = offs[-1]
+    W = np.random.default_rng(8).standard_normal((naux, naux))
+    W = torch.as_tensor(W + W.T)
+    full = torch.empty((3, naux, naux), dtype=torch.float64)
+    pp = torch.empty((shs[-1], shs[-1], 9), dtype=torch.float64)
+    for i, (lx, ex, cx, rx) in enumerate(aux):
+        for j, (ly, ey, cy, ry) in enumerate(aux):
+            args = (lx, ly, *ex.shape, *_ptrs(ex, cx, rx), *ey.shape,
+                    *_ptrs(ey, cy, ry, sph(lx, DEV), sph(ly, DEV)))
+            assert host['int2c2e_ip1_full'](
+                *args, None, naux, offs[i], offs[j], full.data_ptr(), 0, 0,
+                0, None) == 0
+            assert host['int2c2e_ipip'](
+                *args, W.data_ptr(), naux, offs[i], offs[j], pp.data_ptr(),
+                shs[-1], shs[i], shs[j], None) == 0
+    _close(full, j3c_deriv.int2c2e_ip1_full_plain(aux))
+    _close_contracted(pp, j3c_deriv.int2c2e_ipip_plain(aux, W))
 
 
 def _seeded_cc(seed, no=5, nv=9):

@@ -1,5 +1,7 @@
 """The (P|Q) metric and the whitened DF factor B: pyscf_tpu_torch (plain
-twins of the int2c2e and int3c2e kernels, on the CPU) against pyscf_tpu.
+twins of the int2c2e and int3c2e kernels, on the CPU) against pyscf_tpu
+(water's metric and factor as tests/port_refs_record.py recorded them,
+H2's metric live).
 
 Water def2-SVP + def2-universal-jkfit has nao 24 and naux 113 and its aux
 basis reaches l = 4, so it covers every bra/aux class of the benzene main
@@ -24,13 +26,25 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope='module')
 def jax_factor():
-    mol = jpt.M(atom=refs.WATER, basis='def2-svp', verbose=0)
-    auxmol = jax_make_auxmol(mol)
-    meta, raw = jj3c._aux_meta(auxmol)
+    """The JAX package's metric and factor of water/def2-SVP, as
+    tests/port_refs_record.py recorded them."""
+    r = np.load(refs.PORT_REFS)
+    return r['df_metric'], r['df_factor']
+
+
+def test_h2_metric_matches_live_jax():
+    """The int2c2e twin against a live _j2c_whitener on H2's
+    def2-universal-jkfit (aux l = 0, 1, 2): 1e-10, as for water."""
+    mol = jpt.M(atom='H 0 0 0; H 0 0 0.74', basis='sto-3g', verbose=0)
+    meta, raw = jj3c._aux_meta(jax_make_auxmol(mol))
     aux_data = jj3c._aux_prep(meta, tuple(
         (jnp.asarray(e), jnp.asarray(c), jnp.asarray(r)) for e, c, r in raw))
-    jg, _ = jj3c._j2c_whitener(meta, aux_data)
-    return np.asarray(jg), np.asarray(jj3c.df_factor(mol, auxmol))
+    ref = np.asarray(jj3c._j2c_whitener(meta, aux_data)[0])
+    auxmol = make_auxmol(tpt.M(atom='H 0 0 0; H 0 0 0.74', basis='sto-3g',
+                               device='cpu'))
+    got = kernels.int2c2e(j3c.aux_tables(auxmol)).numpy()
+    assert got.shape == ref.shape
+    assert np.max(np.abs(got - ref)) < 1e-10
 
 
 @pytest.fixture(scope='module')

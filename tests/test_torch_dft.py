@@ -1,6 +1,6 @@
 """DF-RKS in pyscf_tpu_torch on the CPU against pyscf_tpu: grids and Becke
-weights, AO values, the XC quadrature, water DF-RKS against a live JAX
-run, and He against the PySCF goldens of tests/test_dft.py."""
+weights, AO values, the XC quadrature, water DF-RKS against a JAX
+run recorded by tests/port_refs_record.py, and He against the PySCF goldens of tests/test_dft.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,12 +122,11 @@ def test_nr_rks_blocks_give_the_same_result(water_density, monkeypatch):
 
 @pytest.fixture(scope='module')
 def jax_water_rks():
-    mol = jpt.M(atom=refs.WATER, basis='def2-svp', verbose=0)
-    mf = mol.RKS(xc='b3lypg').density_fit()
-    mf.grids.level = 1
-    mf.init_guess = 'minao'
-    mf.conv_tol = 1e-10
-    return mf.kernel(), mf.converged
+    """The JAX package's water DF-RKS b3lypg/def2-SVP (grids level 1,
+    minao, conv_tol 1e-10): (energy, converged) as
+    tests/port_refs_record.py recorded them."""
+    r = np.load(refs.PORT_REFS)
+    return float(r['rks_e']), bool(r['rks_converged'])
 
 
 def test_water_df_rks_matches_jax(jax_water_rks):

@@ -1,9 +1,8 @@
 """Geometry optimisation of pyscf_tpu_torch on the CPU against pyscf_tpu:
 both packages' Cartesian and internal-coordinate optimisers on one seeded
 pair potential (no SCF), the Wilson B matrix of q_func against
-jax.jacobian, and the port's water/sto-3g optimisation end to end."""
-import jax
-import jax.numpy as jnp
+jax.jacobian (recorded by tests/port_refs_record.py), and the port's
+water/sto-3g optimisation end to end."""
 import numpy as np
 import pytest
 import torch
@@ -85,23 +84,24 @@ def test_optimisers_match_jax_on_pair_potential(kind):
 
 @pytest.mark.parametrize('atom', ['BENZENE', 'PHENYL'])
 def test_wilson_b_matches_jax_jacobian(atom):
-    """detect_internals as the JAX package's, and the Jacobian of q_func by
-    torch.func.jacrev against jax.jacobian of the JAX q_func: 1e-12."""
+    """detect_internals as the JAX package's (live), and the Jacobian of
+    q_func by torch.func.jacrev against jax.jacobian of the JAX q_func
+    (recorded by tests/port_refs_record.py): 1e-12."""
     jmol = jpt.M(atom=getattr(refs, atom), basis='sto-3g', verbose=0)
     mol = tpt.M(atom=getattr(refs, atom), basis='sto-3g', device='cpu')
     ints = internal.detect_internals(mol)
     assert ints == jax_internal.detect_internals(jmol)
     x = np.asarray(mol.coords)
     q = internal.q_func(*ints)
-    jq = jax_internal.q_func(*ints)
+    jax_run = np.load(refs.PORT_REFS)
     # a planar dihedral is pi or -pi by the sign of a zero: compare the
     # differences wrapped into (-pi, pi], as the optimisers take them
-    dq = q(torch.as_tensor(x)).numpy() - np.asarray(jq(jnp.asarray(x)))
+    dq = q(torch.as_tensor(x)).numpy() - jax_run[f'wilson_{atom}_q']
     nd = len(ints[2])
     dq[-nd:] = (dq[-nd:] + np.pi) % (2 * np.pi) - np.pi
     assert np.max(np.abs(dq)) < 1e-12
     B = torch.func.jacrev(q)(torch.as_tensor(x)).numpy()
-    jB = np.asarray(jax.jacobian(jq)(jnp.asarray(x)))    # eager: no compile
+    jB = jax_run[f'wilson_{atom}_B']
     assert B.shape == jB.shape == (sum(map(len, ints)), mol.natm, 3)
     assert np.max(np.abs(B - jB)) < 1e-12
 

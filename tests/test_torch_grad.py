@@ -1,6 +1,7 @@
 """The conventional RHF nuclear gradient of pyscf_tpu_torch on the CPU
-against a live pyscf_tpu run, finite differences and a recorded pyscf_tpu
-value; Mole.copy / set_geom_; the gradient entry points."""
+against pyscf_tpu runs recorded by tests/port_refs_record.py and in
+refs.py, finite differences and grad_nuc live; Mole.copy / set_geom_; the
+gradient entry points."""
 import numpy as np
 import pytest
 import torch
@@ -29,9 +30,13 @@ def _rhf(mol, conv_tol=1e-12):
 
 @pytest.fixture(scope='module')
 def water():
-    """(JAX mean field, port mean field) of water/sto-3g in-core RHF."""
-    return (_rhf(jpt.M(atom=refs.WATER, basis='sto-3g', verbose=0)),
-            _rhf(tpt.M(atom=refs.WATER, basis='sto-3g', device='cpu')))
+    """(the JAX package's water/sto-3g in-core RHF, hcore, conv_tol 1e-12:
+    its orbitals, nuc_grad_method().kernel(), grad_elec and grad_nuc as
+    tests/port_refs_record.py recorded them; the port's mean field)."""
+    r = np.load(refs.PORT_REFS)
+    jax_run = {k[5:]: r[k] for k in r.files if k.startswith('grad_')}
+    return jax_run, _rhf(tpt.M(atom=refs.WATER, basis='sto-3g',
+                               device='cpu'))
 
 
 def test_grad_nuc_h2():
@@ -43,10 +48,10 @@ def test_grad_nuc_h2():
 
 
 def test_grad_matches_live_jax(water):
-    """1e-8 Ha/Bohr: both SCFs stop at conv_tol 1e-12, so the densities
-    differ by ~1e-9."""
-    jmf, tmf = water
-    ref = np.asarray(jmf.nuc_grad_method().kernel())
+    """1e-8 Ha/Bohr against the JAX run's gradient: both SCFs stop at
+    conv_tol 1e-12, so the densities differ by ~1e-9."""
+    jax_run, tmf = water
+    ref = jax_run['de']
     g = tmf.nuc_grad_method()
     de = g.kernel()
     assert isinstance(de, np.ndarray) and de.shape == (3, 3)
@@ -58,12 +63,14 @@ def test_grad_matches_live_jax(water):
 def test_grad_elec_on_jax_orbitals(water):
     """The same orbitals through both grad_elec: 1e-11, only the
     summation order of the contractions differs."""
-    jmf, tmf = water
-    mo = [np.asarray(x) for x in (jmf.mo_energy, jmf.mo_coeff, jmf.mo_occ)]
+    jax_run, tmf = water
+    mo = [jax_run[k] for k in ('mo_energy', 'mo_coeff', 'mo_occ')]
     got = grad_rhf.grad_elec(tmf, *mo)
-    assert np.max(np.abs(got - jax_grad.grad_elec(jmf))) < 1e-11
-    assert np.max(np.abs(grad_rhf.grad_nuc(tmf.mol)
-                         - jax_grad.grad_nuc(jmf.mol))) < 1e-13
+    assert np.max(np.abs(got - jax_run['elec'])) < 1e-11
+    assert np.max(np.abs(grad_rhf.grad_nuc(tmf.mol) - jax_run['nuc'])) < 1e-13
+    # grad_nuc is numpy in both packages: live
+    assert np.max(np.abs(grad_rhf.grad_nuc(tmf.mol) - jax_grad.grad_nuc(
+        jpt.M(atom=refs.WATER, basis='sto-3g', verbose=0)))) < 1e-13
 
 
 def test_run_chains_to_the_gradient(water):

@@ -31,13 +31,29 @@ def test_eri_sto3g_matches_jax_j2e():
     assert np.max(np.abs(got - ref)) <= 1e-12 * np.max(np.abs(ref))
 
 
+def _eri_from_unique(u, n):
+    """The (n,)*4 tensor from its elements (ij|kl), i >= j, k >= l, ij >= kl
+    (tests/port_refs_record.py eri_unique)."""
+    i, j = np.tril_indices(n)
+    npair = i.size
+    pair = np.zeros((npair, npair))
+    p, q = np.tril_indices(npair)
+    pair[p, q] = u
+    pair[q, p] = u
+    eri = np.zeros((n,) * 4)
+    for a, b in ((i, j), (j, i)):
+        for c, d in ((i, j), (j, i)):
+            eri[a[:, None], b[:, None], c[None, :], d[None, :]] = pair
+    return eri
+
+
 @pytest.fixture(scope='module')
 def water_svp_eri():
     """(port tensor, JAX legacy tensor) for water/def2-SVP, whose classes
-    reach (dd|dd)."""
+    reach (dd|dd); the JAX package's mol.intor('int2e') as
+    tests/port_refs_record.py recorded it."""
     got = _port_mol('def2-svp').intor('int2e')
-    ref = np.asarray(jpt.M(atom=refs.WATER, basis='def2-svp',
-                           verbose=0).intor('int2e'))
+    ref = _eri_from_unique(np.load(refs.PORT_REFS)['eri_svp_u'], 24)
     return got, ref
 
 

@@ -1,6 +1,7 @@
 """The derivative integrals of pyscf_tpu_torch on the CPU (the plain twins
 of the kernels int1e_ip, int1e_iprinv and int2e_ip1) against pyscf_tpu's
-jitted programs on the same numpy inputs."""
+jitted programs on the same numpy inputs (the per-class chunks as
+tests/port_refs_record.py recorded them)."""
 import numpy as np
 import pytest
 import torch
@@ -41,20 +42,20 @@ def _close(got, ref, tol=1e-12):
 
 @pytest.mark.parametrize('la,lb', CLASSES)
 def test_chunks_match_jax(la, lb):
-    """ipovlp, ipkin, ipnuc and iprinv over random primitive pairs."""
+    """ipovlp, ipkin, ipnuc and iprinv over random primitive pairs, against
+    the JAX chunks on the same inputs (recorded)."""
     a, b, A, B, w = _prims(10 * la + lb)
     rng = np.random.default_rng(99)
     zr, zq = rng.normal(size=(8, 3)), np.arange(8.0)   # ATOM_PAD centres
     t = [torch.as_tensor(x) for x in (a, b, A, B, w)]
-    _close(int1e_deriv.ipovlp_chunk(la, lb, *t),
-           jax_deriv.ipovlp_chunk(la, lb, a, b, A, B, w))
-    _close(int1e_deriv.ipkin_chunk(la, lb, *t),
-           jax_deriv.ipkin_chunk(la, lb, a, b, A, B, w))
+    ref = np.load(refs.PORT_REFS)
+    k = f'chunk_{la}{lb}'
+    _close(int1e_deriv.ipovlp_chunk(la, lb, *t), ref[f'{k}_ipovlp'])
+    _close(int1e_deriv.ipkin_chunk(la, lb, *t), ref[f'{k}_ipkin'])
     _close(int1e_deriv.ipnuc_chunk(la, lb, *t, torch.as_tensor(zr),
-                                   torch.as_tensor(zq)),
-           jax_deriv.ipnuc_chunk(la, lb, a, b, A, B, w, zr, zq))
+                                   torch.as_tensor(zq)), ref[f'{k}_ipnuc'])
     _close(int1e_deriv.iprinv_chunk(la, lb, *t, torch.as_tensor(zr[3])),
-           jax_deriv.iprinv_chunk(la, lb, a, b, A, B, w, zr[3]))
+           ref[f'{k}_iprinv'])
 
 
 @pytest.fixture(scope='module')
@@ -93,10 +94,12 @@ def test_ipovlp_is_antisymmetric():
 
 
 def test_int2e_ip1_matches_jax_dense(water):
-    jmol, tmol = water
+    """Against the JAX package's int2e_ip1 of water/sto-3g (recorded by
+    tests/port_refs_record.py)."""
+    _, tmol = water
     got = tmol.intor('int2e_ip1')
     assert got.shape == (3, 7, 7, 7, 7)
-    _close(got.numpy(), jax_int2e.int2e_ip1(jmol))
+    _close(got.numpy(), np.load(refs.PORT_REFS)['int2e_ip1_sto3g'])
 
 
 def _all_pairs(mol, la, lb):

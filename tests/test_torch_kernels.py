@@ -684,3 +684,64 @@ def test_tddft_on_card_launches_its_kernels(water):
     launches = kernels.launches()
     assert launches['xc_fxc'] > 0 and launches['xc_fxc_pairs'] > 0
     assert np.max(np.abs(e - ref['rks_tdhf_s'])) < 1e-8
+
+
+def test_hessian_kernels_match_their_twins(water):
+    """int1e_ipip, int3c2e_ip1, int2c2e_ip1_full, int3c2e_ipip and
+    int2c2e_ipip on water/def2-SVP's classes against their twins, the
+    first two built as the Hessian builds them (hessian/rhf.py)."""
+    from pyscf_tpu_torch.hessian import rhf as hess_rhf
+    mol, auxmol = water
+    aux = j3c.aux_tables(auxmol)
+    rng = np.random.default_rng(5)
+    zr = torch.as_tensor(mol.coords, device='cuda')
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64, device='cuda')
+    for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
+        n = p[0].shape[0]
+        D, W = (torch.as_tensor(rng.standard_normal(
+            (n, (2 * la + 1) * (2 * lb + 1))), device='cuda')
+            for _ in range(2))
+        got = kernels.int1e_ipip(la, lb, *p, zr, zq, D, W)
+        ref = int1e_deriv.class_ipip(la, lb, *p, zr, zq, D, W)
+        assert torch.max(torch.abs(got - ref)) <= 1e-10 * ref.abs().max()
+    ip1, ip2 = hess_rhf._first_df(mol, auxmol)
+    kernels_ip1 = kernels.int3c2e_ip1
+    try:
+        kernels.int3c2e_ip1 = j3c_deriv.int3c2e_ip1_plain
+        ref1, _ = hess_rhf._first_df(mol, auxmol)
+    finally:
+        kernels.int3c2e_ip1 = kernels_ip1
+    assert torch.max(torch.abs(ip1 - ref1)) <= 1e-10 * ref1.abs().max()
+    ref2 = j3c_deriv.int2c2e_ip1_full_plain(aux)
+    got2 = kernels.int2c2e_ip1_full(aux)
+    assert torch.max(torch.abs(got2 - ref2)) <= 1e-10 * ref2.abs().max()
+    naux = auxmol.nao
+    for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
+        G = torch.as_tensor(rng.standard_normal(
+            (p[0].shape[0] * (2 * la + 1) * (2 * lb + 1), naux)),
+            device='cuda')
+        got = kernels.int3c2e_ipip(la, lb, *p, aux, G)
+        ref = j3c_deriv.int3c2e_ipip_plain(la, lb, *p, aux, G)
+        assert torch.max(torch.abs(got - ref)) <= 1e-10 * ref.abs().max()
+    W = torch.as_tensor(rng.standard_normal((naux, naux)), device='cuda')
+    W = W + W.T
+    got, ref = kernels.int2c2e_ipip(aux, W), j3c_deriv.int2c2e_ipip_plain(
+        aux, W)
+    assert torch.max(torch.abs(got - ref)) <= 1e-10 * ref.abs().max()
+
+
+def test_hessian_on_card_launches_its_kernels(water):
+    """mf.Hessian().kernel() of water/def2-SVP DF-RHF on the card launches
+    the five Hessian kernels and obeys the sum rule and symmetry."""
+    mol, _ = water
+    mf = mol.RHF().density_fit()
+    mf.conv_tol = 1e-12
+    mf.kernel()
+    kernels.reset_launches()
+    h = mf.Hessian().kernel()
+    got = kernels.launches()
+    for k in ('int1e_ipip', 'int3c2e_ip1', 'int2c2e_ip1_full',
+              'int3c2e_ipip', 'int2c2e_ipip', 'int1e_ip', 'int1e_iprinv'):
+        assert got[k] > 0
+    hm = h.reshape(9, 9)
+    assert np.abs(h.sum(axis=0)).max() < 1e-7 and np.abs(hm - hm.T).max() < 1e-9

@@ -3,7 +3,8 @@ the attenuation, CAM-B88 and wB97 energy densities and their derivatives
 (torch autograd and the dual numbers of csrc/xc_funcs.cuh built for the host
 with g++) against jax.grad, the erf(omega r)/r integrals (3c rows, the
 metric, the long-range factor, the in-core tensor) against the JAX
-package's engines, the He wB97 golden, the water energies of CAM-B3LYP and
+package's engines (as tests/port_refs_record.py recorded them), the He
+wB97 golden, the water energies of CAM-B3LYP and
 wB97X-V against the recorded JAX runs, and the gradients that raise."""
 import shutil
 import subprocess
@@ -15,14 +16,10 @@ import pytest
 import torch
 
 import pyscf_tpu as jpt
-from pyscf_tpu.df.addons import make_auxmol as jax_make_auxmol
 from pyscf_tpu.dft import gen_grid as jax_gen_grid
 from pyscf_tpu.dft import numint as jax_numint
 from pyscf_tpu.dft import xc as jax_xc
 from pyscf_tpu.dft import xc_funcs as jax_F
-from pyscf_tpu.ops.integrals import int2e as jax_int2e
-from pyscf_tpu.ops.integrals import j2e as jax_j2e
-from pyscf_tpu.ops.integrals import j3c as jj3c
 
 import pyscf_tpu_torch as tpt
 from pyscf_tpu_torch import compat, refs
@@ -328,21 +325,17 @@ def test_xc_assignment_resolves_nlc():
 
 @pytest.fixture(scope='module')
 def water_aux():
-    mj = jpt.M(atom=refs.WATER, basis='def2-svp', verbose=0)
-    auxj = jax_make_auxmol(mj)
-    meta, raw = jj3c._aux_meta(auxj)
-    aux_data = jj3c._aux_prep(meta, tuple(
-        (jnp.asarray(e), jnp.asarray(c), jnp.asarray(r)) for e, c, r in raw))
+    """(the JAX values of tests/port_refs_record.py, the port's water/
+    def2-SVP and its aux mole)."""
     mt = tpt.M(atom=refs.WATER, basis='def2-svp', device='cpu')
-    return mj, meta, aux_data, mt, make_auxmol(mt)
+    return np.load(refs.PORT_REFS), mt, make_auxmol(mt)
 
 
 def test_lr_metric_matches_jax(water_aux):
     """(P|erf|Q) of def2-universal-jkfit against _j2c_whitener's metric
-    (through _eri_2c_sph with rs_omega), grouped aux order."""
-    _, meta, aux_data, _, auxmol = water_aux
-    ref = np.asarray(jj3c._j2c_whitener(meta, aux_data,
-                                        rs_omega=OMEGA)[0])
+    (through _eri_2c_sph with rs_omega), grouped aux order, as recorded."""
+    jax_refs, _, auxmol = water_aux
+    ref = jax_refs['lr_metric']
     got = kernels.int2c2e(j3c.aux_tables(auxmol), OMEGA).numpy()
     assert np.max(np.abs(got - ref)) <= 1e-12 * np.max(np.abs(ref))
     full = kernels.int2c2e(j3c.aux_tables(auxmol)).numpy()
@@ -351,19 +344,14 @@ def test_lr_metric_matches_jax(water_aux):
 
 def test_lr_3c_rows_match_jax(water_aux):
     """Raw erf(omega r)/r rows of every bra class against _class_program
-    with rs_omega and an identity whitener, grouped aux order."""
-    mj, meta, aux_data, mt, auxmol = water_aux
+    with rs_omega and an identity whitener, grouped aux order, as
+    recorded."""
+    jax_refs, mt, auxmol = water_aux
     aux = j3c.aux_tables(auxmol)
-    eye = jnp.eye(auxmol.nao)
-    bra = jj3c._bra_classes(mj)
     for (la, lb), (bc, pairs) in j3c.screened_pairs(mt).items():
-        jbc = bra[(la, lb)]
-        npc, tiles = jj3c._class_tiles(jbc, meta)
-        arrays, _ = jbc.chunk_arrays(npc)
-        ref = np.asarray(jj3c._class_program(
-            la, lb, meta, tiles, *[jnp.asarray(a) for a in arrays],
-            aux_data, eye, rs_omega=OMEGA))[:bc.nsel * bc.ns1]
+        ref = jax_refs[f'lr_rows_{la}{lb}']
         got = kernels.int3c2e(la, lb, *pairs, aux, OMEGA).numpy()
+        assert got.shape == ref.shape
         assert np.max(np.abs(got - ref)) <= 1e-12 * np.max(np.abs(ref))
 
 
@@ -374,9 +362,9 @@ def test_lr_factor(water_aux):
     against the same product formed from the JAX package's raw rows and
     metric with numpy's eigendecomposition, and the Mole's cache keeps the
     full-range and the long-range factors apart."""
-    mj, meta, aux_data, mt, auxmol = water_aux
+    jax_refs, mt, auxmol = water_aux
     B, _ = j3c.df_factor(mt, auxmol, omega=OMEGA)
-    jg = np.asarray(jj3c._j2c_whitener(meta, aux_data, rs_omega=OMEGA)[0])
+    jg = jax_refs['lr_metric']
     assert torch.linalg.cholesky_ex(torch.as_tensor(jg))[1] > 0
     lam, U = np.linalg.eigh(jg)
     keep = lam > j3c.LINEAR_DEP_THR
@@ -399,13 +387,11 @@ def test_lr_eri_matches_jax_engines():
     """int2e_dense(omega) of water/sto-3g against the JAX package's
     screened engine (j2e.int2e_dense(omega)) and its legacy host engine
     (int2e.int2e(mol, omega)), which the JAX SCF's in-core long-range K
-    takes."""
-    mj = jpt.M(atom=refs.WATER, basis='sto-3g', verbose=0)
+    takes, as tests/port_refs_record.py recorded them."""
     got = j2e.int2e_dense(tpt.M(atom=refs.WATER, basis='sto-3g',
                                 device='cpu'), OMEGA).numpy()
-    for ref in (jax_j2e.int2e_dense(mj, OMEGA),
-                jax_int2e.int2e(mj, omega=OMEGA)):
-        ref = np.asarray(ref)
+    jax_refs = np.load(refs.PORT_REFS)
+    for ref in (jax_refs['lr_eri_j2e'], jax_refs['lr_eri_legacy']):
         assert np.max(np.abs(got - ref)) <= 1e-12 * np.max(np.abs(ref))
 
 

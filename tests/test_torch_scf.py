@@ -1,12 +1,12 @@
-"""DF-RHF end to end: pyscf_tpu_torch on the CPU against pyscf_tpu, the
-recorded reference energies, the DF-J/K GEMMs, DIIS and eigh."""
+"""DF-RHF end to end: pyscf_tpu_torch on the CPU against pyscf_tpu (its
+water/cc-pVDZ run and J/K recorded by tests/port_refs_record.py, DIIS
+live), the recorded reference energies, the DF-J/K GEMMs, DIIS and eigh."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import pyscf_tpu as jpt
-from pyscf_tpu.df.df_jk import get_jk as jax_get_jk
 from pyscf_tpu.scf.fused import _diis_extrapolate as jax_diis
 
 import pyscf_tpu_torch as tpt
@@ -41,11 +41,13 @@ def _port_df_rhf(atom, basis, conv_tol, dm0=None, init_guess='minao'):
 
 @pytest.fixture(scope='module')
 def jax_water():
-    mf, e = _jax_df_rhf(refs.WATER, 'cc-pvdz', 1e-10)
-    occ = np.asarray(mf.mo_occ)
-    co = np.asarray(mf.mo_coeff)[:, occ > 0] * np.sqrt(occ[occ > 0])
-    return dict(e=e, converged=mf.converged, dm=np.asarray(mf.make_rdm1()),
-                B=np.asarray(mf.with_df.cderi), co=co, dfobj=mf.with_df)
+    """The JAX package's water/cc-pVDZ DF-RHF (minao, conv_tol 1e-10, a
+    converged run) and its J/K, as tests/port_refs_record.py recorded
+    them."""
+    r = np.load(refs.PORT_REFS)
+    return dict(e=float(r['scf_e']), converged=True, dm=r['scf_dm'],
+                B=r['scf_B'], co=r['scf_co'], vj=r['scf_vj'],
+                vk=r['scf_vk'], vk_occ=r['scf_vk_occ'])
 
 
 @pytest.fixture(scope='module')
@@ -92,11 +94,8 @@ def test_jk_match_jax(jax_water):
     B = compat.tensor_from_numpy(jax_water['B'], 'cpu')
     dm = compat.tensor_from_numpy(jax_water['dm'], 'cpu')
     co = compat.tensor_from_numpy(jax_water['co'], 'cpu')
-    vj_ref, vk_ref = map(np.asarray, jax_get_jk(jax_water['dfobj'],
-                                                jnp.asarray(jax_water['dm'])))
-    _, vk_occ = map(np.asarray, jax_get_jk(
-        jax_water['dfobj'], jnp.asarray(jax_water['dm']),
-        mo_coeff_occ=jnp.asarray(jax_water['co'])))
+    vj_ref, vk_ref = jax_water['vj'], jax_water['vk']
+    vk_occ = jax_water['vk_occ']
     dfobj = DF(None)
     dfobj._cderi = B
     vj, vk = get_jk(dfobj, dm)

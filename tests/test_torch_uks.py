@@ -1,7 +1,8 @@
 """Open-shell SCF in pyscf_tpu_torch on the CPU against pyscf_tpu: the
 two- and five-tangent dual numbers of csrc/xc_funcs.cuh (built for the
 host with g++) against jax.grad, the spin-polarized XC quadrature, in-core UHF on
-O2 and DF-UKS b3lypg on the water cation against live JAX runs."""
+O2 and DF-UKS b3lypg on the water cation against JAX runs recorded by
+tests/port_refs_record.py."""
 import shutil
 import subprocess
 
@@ -216,42 +217,37 @@ def test_nr_uks_closed_shell_is_nr_rks(cation_grids):
 
 def test_water_cation_df_uks_matches_jax():
     """Water cation (charge 1, spin 1) DF-UKS b3lypg/def2-SVP, level-1
-    grids, against one live JAX run."""
-    mfj = jpt.M(atom=refs.WATER, basis='def2-svp', charge=1, spin=1,
-                verbose=0).UKS(xc='b3lypg').density_fit()
-    mfj.grids.level = 1
-    mfj.init_guess = 'minao'
-    mfj.conv_tol = 1e-10
-    e_jax = mfj.kernel()
+    grids, against the JAX run that tests/port_refs_record.py recorded."""
+    r = np.load(refs.PORT_REFS)
+    e_jax, s2_jax = float(r['uks_e']), float(r['uks_s2'])
     mol = tpt.M(atom=refs.WATER, basis='def2-svp', charge=1, spin=1,
                 device='cpu')
     mf = mol.UKS(xc='b3lypg').density_fit()
     mf.grids.level = 1
     mf.conv_tol = 1e-10
     e = mf.kernel()
-    assert mfj.converged and mf.converged
+    assert bool(r['uks_converged']) and mf.converged
     assert abs(e - e_jax) < 1e-8
     assert abs(refs.E_WATER_CATION_DF_UKS_B3LYPG_L1 - e_jax) < 1e-8
     assert mf.mo_energy.shape == (2, mol.nao)
     assert torch.equal(mf.mo_occ.sum(dim=1),
                        torch.tensor([5.0, 4.0], dtype=torch.float64))
-    assert abs(mf.spin_square()[0] - mfj.spin_square()[0]) < 1e-6
+    assert abs(mf.spin_square()[0] - s2_jax) < 1e-6
 
 
 def test_o2_incore_uhf_matches_jax():
-    mj = jpt.M(atom=O2, basis='sto-3g', spin=2, verbose=0)
-    mfj = jpt.scf.UHF(mj)
-    mfj.init_guess = 'hcore'
-    mfj.conv_tol = 1e-10
-    e_jax = mfj.kernel()
+    """O2/sto-3g in-core UHF (hcore, conv_tol 1e-10) against the JAX run
+    that tests/port_refs_record.py recorded."""
+    r = np.load(refs.PORT_REFS)
+    e_jax = float(r['o2_e'])
     mf = tpt.M(atom=O2, basis='sto-3g', spin=2, device='cpu').UHF()
     mf.init_guess = 'hcore'
     mf.conv_tol = 1e-10
     e = mf.kernel()
-    assert mfj.converged and mf.converged
+    assert bool(r['o2_converged']) and mf.converged
     assert abs(e - e_jax) < 1e-8
     ss, mult = mf.spin_square()
-    assert abs(ss - mfj.spin_square()[0]) < 1e-6 and ss > 1.9
+    assert abs(ss - float(r['o2_s2'])) < 1e-6 and ss > 1.9
     assert abs(mult - (2 * (ss + 0.25) ** 0.5)) < 1e-12
     dm = mf.make_rdm1()
     vhf = mf._veff_fns()[1](dm)[0]
