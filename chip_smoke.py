@@ -2,9 +2,10 @@
 """Smoke run of pyscf_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
 Drives the port's paths for benzene/def2-SVP, the phenyl radical and
-water on the card, in order:
+water, then BASELINE configs 3 ((H2O)10/cc-pVTZ) and 4 (N2/cc-pVQZ) on
+the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the thirty-six kernel libraries of the thirty-two kernels from
+  2. builds the fifty-four kernel libraries of the thirty-two kernels from
      the twenty-six sources of pyscf_tpu_torch/csrc (nvcc, sm_90a, one
      process per library, all at once);
   3. integral kernel phases at the main path's shapes: each kernel against
@@ -175,7 +176,32 @@ water on the card, in order:
      x max): int1e_ipip with the SCF's D and W, int3c2e_ip1 and
      int2c2e_ip1_full written out, int3c2e_ipip and int2c2e_ipip with the
      DF gradient's Gamma and W_PQ;
- 39. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 39. BASELINE config 3 at full width, (H2O)10 DF-RHF/cc-pVTZ (cc-pvtz-
+     jkfit; nao 580, naux 1390; f shells, aux to g) through
+     scf.RHF(M(...)).density_fit().kernel() (minao, conv_tol 1e-8):
+     converged, int1e_stv, int3c2e and int2c2e launched in that run, its
+     wall, phases and peak memory, E beside the TPU-era energy (not gated:
+     that SCF stalled); the eigh residual at n = 580 (torch.linalg.eigh and
+     one and two refinement steps; the SCF's setting < 1e-12); the three
+     kernels against their twins at its shapes (S/T/V and the minao cross
+     overlap, every (ij|P) class and (P|Q), <= 1e-12 x max) and B under
+     one whitener (<= 1e-10); the SCF at conv_tol 1e-10 on the kernels'
+     integrals and on the twins' within 1e-8 Ha of each other (no JAX
+     reference at this width: refs.py says why);
+ 40. water/cc-pVTZ DF-RHF and water/def2-TZVP DF-RKS b3lypg (grids level
+     1, conv_tol 1e-10) within 1e-8 Ha of the recorded JAX energies;
+ 41. BASELINE config 4 at full width, N2/cc-pVQZ in-core (nao 110, g
+     shells): int1e_stv and int2e against their twins over every class
+     (<= 1e-12 x max, each (gg|..) bra class to its own size); RHF (minao,
+     conv_tol 1e-12, conv_tol_grad 1e-9), MP2, CCSD (conv_tol 1e-10,
+     conv_tol_normt 1e-8) and (T) on the twins' ERI tensor, then through the
+     entry points M(...).RHF().run(), MP2(), CCSD(), ccsd_t(): converged,
+     E_HF, E_MP2, E_CCSD and E_(T) within 1e-8 Ha of the twins', int2e,
+     int1e_stv, mp2_energy and ccsd_t launched in that run, times and peak
+     memory printed;
+ 42. Ne/cc-pVQZ in-core RHF, MP2, CCSD and (T) (the same settings) within
+     1e-8 Ha of the recorded JAX energies;
+ 43. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
@@ -184,7 +210,9 @@ water on the card, in order:
      with WB97 from 25, int2e_lr from 27's in-core run, mp2_energy and
      ccsd_t from 28, xc_fxc, xc_fxc_pairs, xc_rks_fxc and xc_uks_fxc from
      33, int1e_ipip, int3c2e_ip1, int2c2e_ip1_full, int3c2e_ipip and
-     int2c2e_ipip from 37, the others from 6), then the result line
+     int2c2e_ipip from 37, int1e_stv_tz, int3c2e_tz and int2c2e_tz (the
+     kernels at config 3's classes) from 39, int1e_stv_qz and int2e_qz
+     (at config 4's) from 41, the others from 6), then the result line
      {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
@@ -206,10 +234,11 @@ FP64_FLOPS = 34e12
 FP64_TC_FLOPS = 67e12
 
 
-def cuda_ms(fn, reps=3):
+def cuda_ms(fn, reps=3, warmup=True):
     """Mean milliseconds of fn() over reps calls on the current stream,
-    after one warm-up."""
-    fn()
+    after one warm-up call unless warmup is False."""
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -245,13 +274,15 @@ def bound(nbytes, nops, peak=FP64_FLOPS):
 def record(report, name, source, replaces, err, kernel_fn, plain_fn, nbytes,
            nops, plain_reps=3, plain_ms=None, peak=FP64_FLOPS):
     """Time the kernel and its twin (or take the twin's plain_ms, measured
-    once by the caller) and keep the kernel's line of the report."""
+    once by the caller) and keep the kernel's line of the report. Both ran
+    on the same inputs in the caller's comparison, which serves as their
+    warm-up."""
     bound_ms, bound_by = bound(nbytes, nops, peak)
     report[name] = dict(
         source=source, replaces=replaces, max_abs_err=err,
-        ms=cuda_ms(kernel_fn),
-        plain_ms=(cuda_ms(plain_fn, plain_reps) if plain_ms is None
-                  else plain_ms),
+        ms=cuda_ms(kernel_fn, warmup=False),
+        plain_ms=(cuda_ms(plain_fn, plain_reps, warmup=False)
+                  if plain_ms is None else plain_ms),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     r = report[name]
     print(f'{name}: max_abs_err {err:.3e}  kernel {r["ms"]:.3f} ms  plain '
@@ -469,76 +500,72 @@ def int2c2e_ops(aux):
 def integral_phases(pt, refs, report):
     from pyscf_tpu_torch.df.addons import make_auxmol
     from pyscf_tpu_torch.ops import kernels
-    from pyscf_tpu_torch.ops.integrals import int1e, j3c
 
-    dev = torch.device('cuda')
-    mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device=dev)
+    mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device='cuda')
     auxmol = make_auxmol(mol)
-    minao = pt.M(atom=list(zip(mol.raw_symbols, mol.coords)), basis='minao',
-                 unit='bohr', device=dev)
     print(f'benzene/def2-SVP: nao {mol.nao}, naux {auxmol.nao}')
+    stv_phase(kernels, mol, 'int1e_stv', report)
+    df_integral_phase(kernels, mol, auxmol, '', report)
+
+
+def df_integral_phase(kernels, mol, auxmol, suffix, report):
+    """int3c2e (every (ij|P) class) and int2c2e against their twins on the
+    card, <= 1e-12 x max, recorded as 'int3c2e' and 'int2c2e' + suffix; B
+    from the kernel rows against B from the twin's rows under the same
+    whitener, <= 1e-10. Returns the twin's rows and metric."""
+    from pyscf_tpu_torch.ops.integrals import j3c
+
     classes = j3c.screened_pairs(mol)
-    zr = torch.as_tensor(mol.coords, dtype=torch.float64, device=dev)
-    zq = torch.as_tensor(mol.charges, dtype=torch.float64, device=dev)
-    cross = int1e.cross_pairs(mol, minao)   # minao guess, S only
     aux = j3c.aux_tables(auxmol)
-
-    def stv(fn):
-        out = [fn(la, lb, *p, zr, zq) for (la, lb), (_, p) in classes.items()]
-        return out + [fn(la, lb, *p, with_tv=False)
-                      for la, lb, _, _, p in cross]
-
-    k_out, p_out = stv(kernels.int1e_stv), stv(int1e.class_stv)
-    err, _ = max_abs(list(zip(k_out, p_out)))
-    ops = sum(stv_ops(la, lb, p, mol.natm, True)
-              for (la, lb), (_, p) in classes.items())
-    ops += sum(stv_ops(la, lb, p, 0, False) for la, lb, _, _, p in cross)
-    io = sum(nbytes(*p) for _, p in classes.values()) \
-        + sum(nbytes(*p) for *_, p in cross) + nbytes(*k_out)
-    record(report, 'int1e_stv', 'pyscf_tpu_torch/csrc/int1e_stv.cu',
-           'pyscf_tpu/ops/integrals/j1e.py:30', err,
-           lambda: stv(kernels.int1e_stv), lambda: stv(int1e.class_stv),
-           io, ops)
-    check(err <= 1e-12, f'int1e_stv vs plain: {err:.3e} > 1e-12')
 
     def rows(fn):
         return {cls: fn(*cls, *p, aux) for cls, (_, p) in classes.items()}
 
-    rows_k, rows_p = rows(kernels.int3c2e), rows(j3c.int3c2e_plain)
+    rows_k = rows(kernels.int3c2e)
+    rows_p, plain_s = host_s(lambda: rows(j3c.int3c2e_plain))
     err, scale = max_abs([(rows_k[c], rows_p[c]) for c in rows_k])
+    for cls in classes:
+        if max(cls) > 2:        # the f and g classes, each to its own size
+            e_c, s_c = max_abs([(rows_k[cls], rows_p[cls])])
+            print(f'int3c2e{suffix} {cls}: max_abs_err {e_c:.3e} of '
+                  f'{s_c:.3e}')
     io = sum(nbytes(*p) for _, p in classes.values()) \
         + sum(nbytes(*a[1:]) for a in aux) + nbytes(*rows_k.values())
-    record(report, 'int3c2e', 'pyscf_tpu_torch/csrc/int3c2e.cu',
+    record(report, 'int3c2e' + suffix, 'pyscf_tpu_torch/csrc/int3c2e.cu',
            'pyscf_tpu/ops/integrals/j3c.py:188', err,
-           lambda: rows(kernels.int3c2e), lambda: rows(j3c.int3c2e_plain),
-           io, int3c2e_ops(classes, aux))
-    check(err <= 1e-12 * scale, f'int3c2e vs plain: {err:.3e} > 1e-12 x '
-          f'{scale:.3e}')
+           lambda: rows(kernels.int3c2e), None, io,
+           int3c2e_ops(classes, aux), plain_ms=plain_s * 1e3)
+    check(err <= 1e-12 * scale, f'int3c2e{suffix} vs plain: {err:.3e} > '
+          f'1e-12 x {scale:.3e}')
 
-    jg_k, jg_p = kernels.int2c2e(aux), j3c.int2c2e_plain(aux)
+    jg_k = kernels.int2c2e(aux)
+    jg_p, plain_s = host_s(lambda: j3c.int2c2e_plain(aux))
     err, scale = max_abs([(jg_k, jg_p)])
-    record(report, 'int2c2e', 'pyscf_tpu_torch/csrc/int2c2e.cu',
+    record(report, 'int2c2e' + suffix, 'pyscf_tpu_torch/csrc/int2c2e.cu',
            'pyscf_tpu/ops/integrals/j3c.py:266', err,
-           lambda: kernels.int2c2e(aux), lambda: j3c.int2c2e_plain(aux),
+           lambda: kernels.int2c2e(aux), None,
            sum(nbytes(*a[1:]) for a in aux) + nbytes(jg_k),
-           int2c2e_ops(aux))
-    check(err <= 1e-12 * scale, f'int2c2e vs plain: {err:.3e} > 1e-12 x '
-          f'{scale:.3e}')
+           int2c2e_ops(aux), plain_ms=plain_s * 1e3)
+    check(err <= 1e-12 * scale, f'int2c2e{suffix} vs plain: {err:.3e} > '
+          f'1e-12 x {scale:.3e}')
 
     # B from the kernel rows against B from the plain rows, whitened by the
     # same (L^-1)^T: the metric's condition number amplifies the rounding
     # difference of the two metrics into B, so that part is reported apart
     linv_k = j3c.whitener(jg_k)
     B_k = j3c.whitened_factor(mol, auxmol, rows_k, linv_k)
-    B_p = j3c.whitened_factor(mol, auxmol, rows_p, linv_k)
-    err_b, _ = max_abs([(B_k, B_p)])
-    B_pp = j3c.whitened_factor(mol, auxmol, rows_p, j3c.whitener(jg_p))
-    err_w, _ = max_abs([(B_k, B_pp)])
+    del rows_k
+    err_b, _ = max_abs([(B_k, j3c.whitened_factor(mol, auxmol, rows_p,
+                                                   linv_k))])
+    err_w, _ = max_abs([(B_k, j3c.whitened_factor(mol, auxmol, rows_p,
+                                                   j3c.whitener(jg_p)))])
     ev = torch.linalg.eigvalsh(jg_k)
-    print(f'B: max_abs_err {err_b:.3e} (same whitener); {err_w:.3e} with '
-          f'each side\'s own whitener; (P|Q) condition number '
+    print(f'B{suffix}: max_abs_err {err_b:.3e} (same whitener); {err_w:.3e} '
+          f'with each side\'s own whitener; (P|Q) condition number '
           f'{float(ev[-1] / ev[0]):.3e}')
-    check(err_b <= 1e-10, f'B (kernels) vs B (plain): {err_b:.3e} > 1e-10')
+    check(err_b <= 1e-10, f'B{suffix} (kernels) vs B (plain): {err_b:.3e} > '
+          f'1e-10')
+    return rows_p, jg_p
 
 
 def run_path(name, kernels, names, build):
@@ -585,18 +612,25 @@ def df_rhf_path(pt, refs, kernels):
 
 
 def eigh_residual(mf):
-    """eigh residual at n = nao on the converged Fock, orthogonal basis."""
-    from pyscf_tpu_torch.lib.linalg import EIGH_REFINE, canonical_orth
+    """eigh residuals at n = nao on the converged Fock, orthogonal basis:
+    max |AV - VW| of torch.linalg.eigh and of lib.linalg.eigh with one and
+    two Ogita-Aishima steps; the SCF's own setting must stay under
+    1e-12."""
+    from pyscf_tpu_torch.lib.linalg import EIGH_REFINE, canonical_orth, eigh
     _, veff_dm_fn = mf._veff_fns()
     fock = mf.get_hcore() + veff_dm_fn(mf.make_rdm1())[0]
     x = canonical_orth(mf.get_ovlp())
     fp = x.T @ fock @ x
-    w, v = torch.linalg.eigh(fp)
-    resid = float((fp @ v - v * w).abs().max())
-    print(f'torch.linalg.eigh n={fp.shape[0]}: max |AV - VW| = {resid:.3e} '
-          f'(EIGH_REFINE = {EIGH_REFINE})')
-    check(EIGH_REFINE > 0 or resid < 1e-12,
-          f'eigh residual {resid:.3e} >= 1e-12 with refinement off')
+    resid = {}
+    for refine in (0, 1, 2):
+        w, v = eigh(fp, refine)
+        resid[refine] = float((fp @ v - v * w).abs().max())
+    print(f'eigh n={fp.shape[0]}: max |AV - VW| = {resid[0]:.3e} '
+          f'(torch.linalg.eigh), {resid[1]:.3e} and {resid[2]:.3e} (one and '
+          f'two refinement steps); EIGH_REFINE = {EIGH_REFINE}')
+    check(resid[EIGH_REFINE] < 1e-12,
+          f'eigh residual {resid[EIGH_REFINE]:.3e} >= 1e-12 at EIGH_REFINE '
+          f'{EIGH_REFINE}')
 
 
 def grid_xc_phases(pt, kernels, mol, dm, report):
@@ -692,38 +726,9 @@ def int2e_phase(pt, refs, kernels, report, omega=None):
     """Every ordered pair of benzene's screened classes through the `int2e`
     kernel and its twin, <= 1e-12 x max; with omega, the erf(omega r)/r
     quartets, recorded as int2e_lr."""
-    from pyscf_tpu_torch.ops.integrals import j2e, j3c
-
-    name = 'int2e_lr' if omega else 'int2e'
     mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device='cuda')
-    classes = j3c.screened_pairs(mol)
-    kets = j2e._ket_arrays(mol)
-
-    def pieces(fn):
-        return [fn(la, lb, *p, kets, omega)
-                for (la, lb), (_, p) in classes.items()]
-
-    k_out = pieces(kernels.int2e)
-    p_out = pieces(j2e.int2e_class_plain)
-    err, scale = max_abs(list(zip(k_out, p_out)))
-    nrow = sum(p.shape[0] for p in k_out)
-    print(f'{name}: {len(classes)} bra classes x {len(kets)} ket classes, '
-          f'stacked rows {nrow} x {k_out[0].shape[1]}, dense (nao)^4 '
-          f'{mol.nao ** 4 * 8 / 1e9:.3f} GB')
-    del p_out
-    ops = sum(quartet_ops(la, lb, p, lc, ld, ket)
-              for (la, lb), (_, p) in classes.items()
-              for lc, ld, *ket in kets)
-    ops += sum(pair_e_ops(la, lb, p, True)
-               for (la, lb), (_, p) in classes.items())
-    ops += sum(pair_e_ops(lc, ld, ket, False) for lc, ld, *ket in kets)
-    io = sum(nbytes(*p) for _, p in classes.values()) + nbytes(*k_out)
-    record(report, name, 'pyscf_tpu_torch/csrc/int2e.cu',
-           'pyscf_tpu/ops/integrals/j2e.py:42', err,
-           lambda: pieces(kernels.int2e),
-           lambda: pieces(j2e.int2e_class_plain), io, ops, plain_reps=1)
-    check(err <= 1e-12 * scale, f'{name} vs plain: {err:.3e} > 1e-12 x '
-          f'{scale:.3e}')
+    int2e_rows(kernels, mol, 'int2e_lr' if omega else 'int2e', report,
+               omega)
 
 
 def incore_rhf_path(pt, refs, kernels):
@@ -2533,6 +2538,264 @@ def hessian_path(pt, refs, kernels):
 
 
 
+# ---- f and g shells: BASELINE configs 3 and 4 ------------------------------
+
+# the JAX package's (H2O)10 DF-RHF/cc-pVTZ run on the TPU
+# (results/scaling_h2o10.log): its reported energy (:91) and the electronic
+# energy its SCF stalled at, |g| 2.48e-5, in cycles 33-34 (:85, :87); the
+# reported energy is a DIIS spike's. Printed beside the port's, not gated.
+E_H2O10_TPU = -760.5090479322669
+E_ELEC_H2O10_TPU_PLATEAU = -1480.98178908
+
+
+def stv_rows(mol, fn):
+    """S/T/V rows of every screened class and the minao guess's S-only
+    cross rows (mol x minao, every ordered class), through fn (the
+    int1e_stv kernel or its twin class_stv)."""
+    from pyscf_tpu_torch.ops.integrals import int1e, j3c
+    zr = torch.as_tensor(mol.coords, dtype=torch.float64, device=mol.device)
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64, device=mol.device)
+    out = [fn(la, lb, *p, zr, zq)
+           for (la, lb), (_, p) in j3c.screened_pairs(mol).items()]
+    return out + [fn(la, lb, *p, with_tv=False)
+                  for la, lb, _, _, p in int1e.cross_pairs(mol, minao(mol))]
+
+
+def minao(mol):
+    """The minao guess's basis on mol's atoms."""
+    import pyscf_tpu_torch as pt
+    return pt.M(atom=list(zip(mol.raw_symbols, mol.coords)), basis='minao',
+                unit='bohr', device=mol.device)
+
+
+def stv_phase(kernels, mol, name, report):
+    """int1e_stv against its twin on every class of mol (S/T/V) and of its
+    minao cross overlap (S), <= 1e-12; recorded as name."""
+    from pyscf_tpu_torch.ops.integrals import int1e, j3c
+    k_out = stv_rows(mol, kernels.int1e_stv)
+    p_out, plain_s = host_s(lambda: stv_rows(mol, int1e.class_stv))
+    err, _ = max_abs(list(zip(k_out, p_out)))
+    classes = j3c.screened_pairs(mol)
+    cross = int1e.cross_pairs(mol, minao(mol))
+    ops = sum(stv_ops(la, lb, p, mol.natm, True)
+              for (la, lb), (_, p) in classes.items())
+    ops += sum(stv_ops(la, lb, p, 0, False) for la, lb, _, _, p in cross)
+    io = sum(nbytes(*p) for _, p in classes.values()) \
+        + sum(nbytes(*p) for *_, p in cross) + nbytes(*k_out)
+    record(report, name, 'pyscf_tpu_torch/csrc/int1e_stv.cu',
+           'pyscf_tpu/ops/integrals/j1e.py:30', err,
+           lambda: stv_rows(mol, kernels.int1e_stv), None, io, ops,
+           plain_ms=plain_s * 1e3)
+    check(err <= 1e-12, f'{name} vs plain: {err:.3e} > 1e-12')
+
+
+def plain_hcore_parts(mol):
+    """ops/integrals/j1e.py hcore_parts with the twin class_stv."""
+    from pyscf_tpu_torch.ops.integrals import int1e, j3c
+    zr = torch.as_tensor(mol.coords, dtype=torch.float64, device=mol.device)
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64, device=mol.device)
+    pieces, row_ids = [], []
+    for (la, lb), (bc, p) in j3c.screened_pairs(mol).items():
+        pieces.append(int1e.class_stv(la, lb, *p, zr, zq).reshape(-1, 3))
+        row_ids.append(j3c._row_maps(mol, bc))
+    nao = mol.nao
+    return j3c._assemble(pieces, row_ids, nao).T.reshape(3, nao, nao)
+
+
+def h2o10_path(pt, refs, kernels, report):
+    """BASELINE config 3 at full width: (H2O)10 DF-RHF/cc-pVTZ
+    (cc-pvtz-jkfit, nao 580, naux 1390) through
+    scf.RHF(M(...)).density_fit().kernel() (minao, conv_tol 1e-8) with the
+    launch counts set to 0 just before and read just after; its wall, phases
+    and peak memory, the eigh residual at n = nao; int1e_stv (1e-12),
+    int3c2e and int2c2e (1e-12 x max) against their twins at its shapes and
+    B under one whitener (1e-10); then the SCF at conv_tol 1e-10 on the
+    kernels' integrals and on the twins' (S/T/V, rows and metric from the
+    plain versions on the card), within 1e-8 Ha of each other. Returns
+    launches."""
+    from pyscf_tpu_torch.ops.integrals import j3c
+
+    def build():
+        mf = pt.scf.RHF(pt.M(atom=refs.H2O10, basis='cc-pvtz')).density_fit()
+        mf.init_guess = 'minao'
+        mf.conv_tol = 1e-8
+        return mf
+
+    torch.cuda.reset_peak_memory_stats()
+    mf, e, launches = run_path('DF-RHF (H2O)10/cc-pVTZ', kernels,
+                               ('int1e_stv', 'int3c2e', 'int2c2e'), build)
+    mol, auxmol = mf.mol, mf.with_df.auxmol
+    plateau = E_ELEC_H2O10_TPU_PLATEAU + mf.energy_nuc()
+    print(f'(H2O)10/cc-pVTZ: nao {mol.nao}, naux {auxmol.nao}, B '
+          f'{mf.with_df.cderi.numel() * 8 / 1e9:.3f} GB, peak device memory '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; E {e!r}; the '
+          f'JAX package on the TPU (not gated: its SCF stalled) reported '
+          f'{E_H2O10_TPU!r} ({e - E_H2O10_TPU:.3e} from the port) and '
+          f'stalled at {plateau!r} ({e - plateau:.3e})')
+    check(mol.nao == 580 and auxmol.nao == 1390, '(H2O)10: nao or naux')
+    eigh_residual(mf)
+
+    stv_phase(kernels, mol, 'int1e_stv_tz', report)
+    rows_p, jg_p = df_integral_phase(kernels, mol, auxmol, '_tz', report)
+
+    # the same SCF on the twins' integrals: S/T/V and the factor of a fresh
+    # Mole replaced before its first use
+    mf.conv_tol = 1e-10
+    e_k, s_k = host_s(mf.kernel)
+    check(mf.converged, '(H2O)10 at conv_tol 1e-10 did not converge')
+    mol_p = pt.M(atom=refs.H2O10, basis='cc-pvtz')
+    mol_p._j3c_cache['stv'] = plain_hcore_parts(mol_p)
+    linv_p = j3c.whitener(jg_p)
+    B_p = j3c.whitened_factor(mol_p, auxmol, rows_p, linv_p)
+    del rows_p
+    ao = j3c._to_ao_order(auxmol, B_p.device)
+    mol_p._df_cache[(str(None), None)] = (auxmol, B_p,
+                                          linv_p[ao][:, ao])
+    mf_p = pt.scf.RHF(mol_p).density_fit()
+    mf_p.init_guess = 'minao'
+    mf_p.conv_tol = 1e-10
+    e_p = mf_p.kernel()
+    print(f'(H2O)10 at conv_tol 1e-10: kernels E {e_k!r} ({mf.scf_cycles} '
+          f'cycles, {s_k:.3f} s), twins E {e_p!r} ({mf_p.scf_cycles} '
+          f'cycles); difference {e_k - e_p:.3e}; conv_tol 1e-8 - 1e-10 '
+          f'{e - e_k:.3e}')
+    check(mf_p.converged, '(H2O)10 on the twins\' integrals did not converge')
+    check(abs(e_k - e_p) < 1e-8, f'(H2O)10: |E(kernels) - E(twins)| '
+          f'{abs(e_k - e_p):.3e} >= 1e-8')
+    return launches
+
+
+def tz_water_references(pt, refs):
+    """Water/cc-pVTZ DF-RHF and water/def2-TZVP DF-RKS b3lypg (grids level
+    1; minao, conv_tol 1e-10) on the card within 1e-8 Ha of the recorded
+    JAX energies: f shells on O, and the aux to g."""
+    for name, basis, xc, ref in (
+            ('DF-RHF', 'cc-pvtz', None, refs.E_WATER_DF_RHF_CCPVTZ),
+            ('DF-RKS b3lypg', 'def2-tzvp', 'b3lypg',
+             refs.E_WATER_DF_RKS_B3LYPG_DEF2TZVP_L1)):
+        mol = pt.M(atom=refs.WATER, basis=basis)
+        mf = (mol.RKS(xc=xc) if xc else mol.RHF()).density_fit()
+        if xc:
+            mf.grids.level = 1
+        mf.init_guess = 'minao'
+        mf.conv_tol = 1e-10
+        e = mf.kernel()
+        print(f'water {name}/{basis}: E {e!r}, E - E_ref {e - ref:.3e}')
+        check(mf.converged and abs(e - ref) < 1e-8,
+              f'water {name}/{basis}: converged {mf.converged}, '
+              f'|E - E_ref| {abs(e - ref):.3e}')
+
+
+def int2e_rows(kernels, mol, name, report, omega=None):
+    """Every ordered pair of mol's screened classes through the `int2e`
+    kernel and its twin, <= 1e-12 x max; recorded as name. Returns the
+    twin's pieces."""
+    from pyscf_tpu_torch.ops.integrals import j2e, j3c
+
+    classes = j3c.screened_pairs(mol)
+    kets = j2e._ket_arrays(mol)
+
+    def pieces(fn):
+        return [fn(la, lb, *p, kets, omega)
+                for (la, lb), (_, p) in classes.items()]
+
+    k_out = pieces(kernels.int2e)
+    p_out, plain_s = host_s(lambda: pieces(j2e.int2e_class_plain))
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    nrow = sum(p.shape[0] for p in k_out)
+    print(f'{name}: {len(classes)} bra classes x {len(kets)} ket classes, '
+          f'stacked rows {nrow} x {k_out[0].shape[1]}, dense (nao)^4 '
+          f'{mol.nao ** 4 * 8 / 1e9:.3f} GB')
+    for cls, k, p in zip(classes, k_out, p_out):
+        if max(cls) == 4:       # the g bra classes, each to its own size
+            e_c, s_c = max_abs([(k, p)])
+            print(f'{name} {cls}: max_abs_err {e_c:.3e} of {s_c:.3e}')
+            check(e_c <= 1e-12 * s_c, f'{name} {cls} vs plain: {e_c:.3e} '
+                  f'> 1e-12 x {s_c:.3e}')
+    ops = sum(quartet_ops(la, lb, p, lc, ld, ket)
+              for (la, lb), (_, p) in classes.items()
+              for lc, ld, *ket in kets)
+    ops += sum(pair_e_ops(la, lb, p, True)
+               for (la, lb), (_, p) in classes.items())
+    ops += sum(pair_e_ops(lc, ld, ket, False) for lc, ld, *ket in kets)
+    io = sum(nbytes(*p) for _, p in classes.values()) + nbytes(*k_out)
+    record(report, name, 'pyscf_tpu_torch/csrc/int2e.cu',
+           'pyscf_tpu/ops/integrals/j2e.py:42', err,
+           lambda: pieces(kernels.int2e), None, io, ops,
+           plain_ms=plain_s * 1e3)
+    check(err <= 1e-12 * scale, f'{name} vs plain: {err:.3e} > 1e-12 x '
+          f'{scale:.3e}')
+    return p_out
+
+
+def post_hf_energies(mf):
+    """(E_MP2, E_CCSD, E_(T)) of a converged RHF, CCSD at conv_tol 1e-10
+    and conv_tol_normt 1e-8."""
+    e_mp2 = mf.MP2().kernel()[0]
+    mycc = mf.CCSD()
+    mycc.conv_tol = 1e-10
+    mycc.conv_tol_normt = 1e-8
+    e_cc = mycc.kernel()[0]
+    check(mycc.converged, 'CCSD did not converge')
+    return e_mp2, e_cc, mycc.ccsd_t()
+
+
+def n2_qz_path(pt, refs, kernels, report):
+    """BASELINE config 4 at full width: N2/cc-pVQZ (nao 110, g shells)
+    in-core. int2e against its twin over every ordered class pair (1e-12 x
+    max, each (gg|..) block to its own size) and int1e_stv likewise; the
+    twin's ERI tensor assembled and RHF (minao, conv_tol 1e-12,
+    conv_tol_grad 1e-9), MP2, CCSD and (T) run on it (mf._eri assigned);
+    then the same through the entry points, M(...).RHF().run(), MP2(),
+    CCSD(), ccsd_t(), with the launch counts set to 0 just before and read
+    just after: converged, every energy within 1e-8 Ha of the twins'.
+    Returns launches."""
+    from pyscf_tpu_torch.ops.integrals import j2e, j3c
+
+    mol = pt.M(atom=refs.N2, basis='cc-pvqz')
+    check(mol.nao == 110 and max(mol.shell_groups) == 4, 'N2/cc-pVQZ shells')
+    stv_phase(kernels, mol, 'int1e_stv_qz', report)
+    p_out = int2e_rows(kernels, mol, 'int2e_qz', report)
+    bcs = [bc for bc in j3c._bra_classes(mol).values() if bc.nsel]
+    n = sum(p.shape[0] for p in p_out)
+    eri_p = j2e._assemble_4c(p_out, j2e._index_map(mol, bcs, n), mol.nao)
+    del p_out
+    mf_p = tight_scf(pt.M(atom=refs.N2, basis='cc-pvqz').RHF())
+    mf_p._eri = eri_p
+    mf_p.run()
+    check(mf_p.converged, 'N2/cc-pVQZ RHF on the twins\' ERIs did not '
+          'converge')
+    e_p = (mf_p.e_tot,) + post_hf_energies(mf_p)
+    print(f'N2/cc-pVQZ on the twins\' ERIs: E_HF, E_MP2, E_CCSD, E_(T) '
+          f'{e_p}')
+    del mf_p, eri_p
+    torch.cuda.empty_cache()
+    mf, _, launches = postscf_path(
+        'N2/cc-pVQZ CCSD(T)', kernels,
+        lambda: pt.M(atom=refs.N2, basis='cc-pvqz').RHF(), e_p[1:])
+    print(f'N2/cc-pVQZ E_HF {mf.e_tot!r}, E - E(twins) '
+          f'{mf.e_tot - e_p[0]:.3e}; nocc {mf.mol.nelectron // 2}, nvir '
+          f'{mf.mol.nao - mf.mol.nelectron // 2}')
+    check(abs(mf.e_tot - e_p[0]) < 1e-8, f'N2/cc-pVQZ E_HF |E - E(twins)| '
+          f'{abs(mf.e_tot - e_p[0]):.3e}')
+    for k in ('int2e', 'int1e_stv'):
+        check(launches[k] > 0, f'N2/cc-pVQZ: kernel {k} never launched')
+    return launches
+
+
+def neon_qz_references(pt, refs, kernels):
+    """Ne/cc-pVQZ in-core RHF (minao, conv_tol 1e-12, conv_tol_grad 1e-9),
+    MP2, CCSD and (T) on the card within 1e-8 Ha of the recorded JAX
+    energies: the g shells' quartets through the whole post-HF path."""
+    mf, _, _ = postscf_path(
+        'Ne/cc-pVQZ CCSD(T)', kernels,
+        lambda: pt.M(atom='Ne 0 0 0', basis='cc-pvqz').RHF(),
+        (refs.E_NE_MP2_CCPVQZ, refs.E_NE_CCSD_CCPVQZ, refs.E_NE_CCSD_T_CCPVQZ))
+    de = mf.e_tot - refs.E_NE_RHF_CCPVQZ
+    print(f'Ne/cc-pVQZ RHF: E - E_ref {de:.3e}')
+    check(abs(de) < 1e-8, f'Ne/cc-pVQZ RHF |E - E_ref| {abs(de):.3e}')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
@@ -2640,6 +2903,19 @@ def main():
     launches.update({k: hess_launches[k] for k in HESS_KERNELS})
     hessian_phases(pt, kernels, rhf, report)
     del rhf
+    torch.cuda.empty_cache()
+    # f and g shells: BASELINE configs 3 and 4 at full width
+    tz_launches = h2o10_path(pt, refs, kernels, report)
+    launches.update({f'{k}_tz': tz_launches[k]
+                     for k in ('int1e_stv', 'int3c2e', 'int2c2e')})
+    torch.cuda.empty_cache()
+    tz_water_references(pt, refs)
+    torch.cuda.empty_cache()
+    qz_launches = n2_qz_path(pt, refs, kernels, report)
+    launches.update({f'{k}_qz': qz_launches[k]
+                     for k in ('int1e_stv', 'int2e')})
+    torch.cuda.empty_cache()
+    neon_qz_references(pt, refs, kernels)
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

@@ -20,8 +20,10 @@ conv_tol_grad 1e-7) followed by mf.TDA() (four singlets by Davidson:
 phases tda, tda_cycles, tda_matvecs) and mf.TDDFT() (five singlets,
 dense: tddft_get_ab, tddft_eigh), and benzene's DF-RHF (conv_tol 1e-12,
 conv_tol_grad 1e-8) followed by mf.Hessian().kernel() (the phases of
-hessian/rhf.py prefixed hess_, hessian, hess_cphf_cycles), or for the
-paths named by --paths, runs
+hessian/rhf.py prefixed hess_, hessian, hess_cphf_cycles), and BASELINE
+configs 3 and 4: (H2O)10 DF-RHF/cc-pVTZ and N2/cc-pVQZ in-core RHF
+(conv_tol 1e-12, conv_tol_grad 1e-9) followed by MP2, CCSD and (T), as
+benzene's; or for the paths named by --paths, runs
 each once cold and `--runs` times warm, every run
 from a fresh Mole, and prints the median, quartiles, min and max of each
 phase of mf.timings (and of the gradient's timings, prefixed grad_) and
@@ -46,7 +48,7 @@ import torch
 GRADIENT = 'in-core RHF + gradient'
 DF_GRADIENTS = ('DF-RKS b3lypg + gradient', 'DF-RHF + gradient',
                 'DF-UKS phenyl + gradient')
-POSTSCF = ('in-core CCSD(T)', 'DF-CCSD(T)')
+POSTSCF = ('in-core CCSD(T)', 'DF-CCSD(T)', 'N2/cc-pVQZ CCSD(T)')
 TDDFT = 'DF-RKS TDA'
 HESSIAN = 'DF-RHF + Hessian'
 PATHS = {
@@ -82,6 +84,10 @@ PATHS = {
         pt.M(atom=refs.BENZENE, basis='def2-svp'), xc='b3lypg').density_fit(),
     HESSIAN: lambda pt, refs: pt.M(atom=refs.BENZENE,
                                    basis='def2-svp').RHF().density_fit(),
+    # BASELINE configs 3 and 4 (f and g shells)
+    'DF-RHF (H2O)10/cc-pVTZ': lambda pt, refs: pt.scf.RHF(
+        pt.M(atom=refs.H2O10, basis='cc-pvtz')).density_fit(),
+    POSTSCF[2]: lambda pt, refs: pt.M(atom=refs.N2, basis='cc-pvqz').RHF(),
 }
 
 

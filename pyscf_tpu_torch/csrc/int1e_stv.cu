@@ -8,7 +8,8 @@
 // One thread per shell pair owns its output rows, so there are no atomics
 // and the result is the same from run to run. The thread loops over the
 // primitive pairs, builds the 1D Hermite tables up to lb+2 (the kinetic
-// term needs them), and for V sums R_tuv over the atoms. What bounds it on
+// term needs them), and for V sums R_tuv over the atoms (to L = la + lb
+// = 8 at (gg)). What bounds it on
 // the card is FP64 arithmetic in the Boys series and the R recursion of the
 // nuclear term (one per atom and primitive pair); the simple design spends
 // it once per pair and keeps every table in per-thread local memory.
@@ -87,7 +88,7 @@ static int launch(int n, int Ka, int Kb, const double* ea, const double* ca,
 }
 
 // Returns cudaGetLastError() after the launch, or -1 for a class that has
-// no instantiation (S/T/V needs la <= lb <= 2; S alone la, lb <= 2).
+// no instantiation (S/T/V needs la <= lb <= 4; S alone la, lb <= 4).
 extern "C" int pt_int1e_stv(int la, int lb, int with_tv, int n, int Ka,
                             int Kb, const double* ea, const double* ca,
                             const double* ra, const double* eb,
@@ -101,11 +102,16 @@ extern "C" int pt_int1e_stv(int la, int lb, int with_tv, int n, int Ka,
   if (with_tv && la == A && lb == B) return launch<A, B, true>(PT_ARGS);
 #define PT_S(A, B) \
   if (!with_tv && la == A && lb == B) return launch<A, B, false>(PT_ARGS);
-  PT_TV(0, 0) PT_TV(0, 1) PT_TV(0, 2) PT_TV(1, 1) PT_TV(1, 2) PT_TV(2, 2)
-  PT_S(0, 0) PT_S(0, 1) PT_S(0, 2) PT_S(1, 0) PT_S(1, 1) PT_S(1, 2)
-  PT_S(2, 0) PT_S(2, 1) PT_S(2, 2)
-#undef PT_TV
+  PT_TV(0, 0) PT_TV(0, 1) PT_TV(0, 2) PT_TV(0, 3) PT_TV(0, 4)
+  PT_TV(1, 1) PT_TV(1, 2) PT_TV(1, 3) PT_TV(1, 4)
+  PT_TV(2, 2) PT_TV(2, 3) PT_TV(2, 4)
+  PT_TV(3, 3) PT_TV(3, 4)
+  PT_TV(4, 4)
+#define PT_SA(A) PT_S(A, 0) PT_S(A, 1) PT_S(A, 2) PT_S(A, 3) PT_S(A, 4)
+  PT_SA(0) PT_SA(1) PT_SA(2) PT_SA(3) PT_SA(4)
+#undef PT_SA
 #undef PT_S
+#undef PT_TV
 #undef PT_ARGS
   return -1;
 }

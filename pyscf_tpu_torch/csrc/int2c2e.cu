@@ -10,8 +10,9 @@
 // transposed block, so the full symmetric matrix is filled without atomics.
 // The bra is the single shell P, written as a pair with an s partner of
 // exponent 0 (coulomb_block with LB = 0). What bounds it on the card is
-// FP64 arithmetic in the Boys series and the R recursion up to L = 8; the
-// metric is 558 x 558 for benzene/def2-universal-jkfit, so the simple
+// FP64 arithmetic in the Boys series and the R recursion up to L = 10
+// (the h shells of cc-pvqz-jkfit); the metric is 558 x 558 for
+// benzene/def2-universal-jkfit and 1390 x 1390 for (H2O)10/cc-pvtz-jkfit, so the simple
 // design leaves most of the card idle and is still cheap next to the 3c
 // rows.
 //
@@ -69,7 +70,7 @@ static int launch(int nsx, int Kx, const double* ex, const double* cx,
 
 // omega > 0: the erf(omega r)/r attenuated metric (0: the full operator).
 // Returns cudaGetLastError() after the launch, or -1 for a class pair that
-// has no instantiation (lx <= ly <= 4).
+// has no instantiation (lx <= ly <= 5).
 extern "C" int pt_int2c2e(int lx, int ly, int nsx, int Kx, const double* ex,
                           const double* cx, const double* rx, int nsy, int Ky,
                           const double* ey, const double* cy,
@@ -80,11 +81,12 @@ extern "C" int pt_int2c2e(int lx, int ly, int nsx, int Kx, const double* ex,
 #define PT_ARGS nsx, Kx, ex, cx, rx, nsy, Ky, ey, cy, ry, Sx, Sy, out, ld, \
                 offx, offy, omega, s
 #define PT_C(X, Y) if (lx == X && ly == Y) return launch<X, Y>(PT_ARGS);
-  PT_C(0, 0) PT_C(0, 1) PT_C(0, 2) PT_C(0, 3) PT_C(0, 4)
-  PT_C(1, 1) PT_C(1, 2) PT_C(1, 3) PT_C(1, 4)
-  PT_C(2, 2) PT_C(2, 3) PT_C(2, 4)
-  PT_C(3, 3) PT_C(3, 4)
-  PT_C(4, 4)
+  PT_C(0, 0) PT_C(0, 1) PT_C(0, 2) PT_C(0, 3) PT_C(0, 4) PT_C(0, 5)
+  PT_C(1, 1) PT_C(1, 2) PT_C(1, 3) PT_C(1, 4) PT_C(1, 5)
+  PT_C(2, 2) PT_C(2, 3) PT_C(2, 4) PT_C(2, 5)
+  PT_C(3, 3) PT_C(3, 4) PT_C(3, 5)
+  PT_C(4, 4) PT_C(4, 5)
+  PT_C(5, 5)
 #undef PT_C
 #undef PT_ARGS
   return -1;

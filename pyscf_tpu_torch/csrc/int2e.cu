@@ -6,15 +6,20 @@
 // rows into the dense (nao,)^4 tensor (_assemble_4c) is an index_select and
 // stays a library call.
 //
-// One launch per ordered (bra class, ket class). One thread per (screened
-// bra shell pair, screened ket shell pair, sph component sd of the ket's
-// second shell) owns the (2la+1)(2lb+1)(2lc+1) numbers of its column sd, so
-// there are no atomics and the rows are the same from run to run.
-// Neighbouring threads share the bra pair. Splitting the ket's sd over
-// threads keeps the per-thread tables of (dd|dd) (the bra's cartesian
-// accumulators and Y, 36 x 5 and 35 x 5, R_tuv with 165 terms, the six E
-// tables) near 6 KB of local memory; the price is that each thread redoes
-// the Boys function, R_tuv and the E tables of its quartet for every sd.
+// One launch per ordered (bra class, ket class), la <= lb <= 4 against
+// lc <= ld <= 4; the library is built once per bra class (-DPT_LA,
+// -DPT_LB), so that nvcc compiles its fifteen ket classes in fifteen
+// processes side by side. One thread per (screened bra shell pair,
+// screened ket shell pair, sph component sd of the ket's second shell)
+// writes the (2la+1)(2lb+1)(2lc+1) numbers of its column sd, so there are
+// no atomics and the rows are the same from run to run. Neighbouring
+// threads share the bra pair. Splitting the ket's sd over threads keeps
+// the per-thread tables of (dd|dd) (the bra's cartesian accumulators and
+// Y, 36 x 5 and 35 x 5, R_tuv with 165 terms, the six E tables) near 6 KB
+// of local memory, and those of (gg|gg) (225 x 9 and 165 x 9, R_tuv with
+// 969 terms, six tables of 225) near 46 KB; the price is that each thread
+// redoes the Boys function, R_tuv and the E tables of its quartet for
+// every sd.
 //
 // Per (bra primitive pair, ket primitive pair), as coulomb_block does with
 // a one-centre ket (hermite.cuh), the ket's primitive pair is folded into
@@ -22,8 +27,8 @@
 // and each bra primitive pair contracts Y with its E tables into cartesian
 // accumulators (ket_fold and bra_contract of quartet.cuh, shared with
 // int2e_ip1.cu); the bra's cart->sph transform is applied once at the end.
-// What bounds it on the card is FP64 arithmetic (R_tuv up to L = 8 and the
-// Hermite contractions); the output, (nao)^4 / 8 unique doubles, is written
+// What bounds it on the card is FP64 arithmetic (R_tuv up to L = 16 and
+// the Hermite contractions); the output, (nao)^4 / 8 unique doubles, is written
 // once. The simple design accepts local-memory traffic and the recomputation
 // across sd: it is right first.
 //
@@ -40,7 +45,7 @@ __device__ __forceinline__ void quartet_column(
     int Kc, const double* ec, const double* cc, const double* C,
     int Kd, const double* ed, const double* cd, const double* D,
     const double* Sa, const double* Sb, const double* Sc, const double* Sd,
-    int sd, double omega, double* res) {
+    int sd, double omega, double* out, size_t ld, int DD) {
   constexpr int L1 = LA + LB;
   constexpr int NCA = n_cart(LA), NCB = n_cart(LB);
   constexpr int DA = 2 * LA + 1, DB = 2 * LB + 1, DC = 2 * LC + 1;
@@ -85,7 +90,7 @@ __device__ __forceinline__ void quartet_column(
             v += fa * Sb[sb * NCB + jb] * acc[(ia * NCB + jb) * DC + sc];
           }
         }
-        res[(sa * DB + sb) * DC + sc] = v;
+        out[(sa * DB + sb) * ld + (size_t)sc * DD] = v;
       }
     }
   }
@@ -111,18 +116,14 @@ __global__ void __launch_bounds__(128) int2e_kernel(
   const long pair = idx / DD;
   const int kp = (int)(pair % nk);
   const int ip = (int)(pair / nk);
-  double res[DA * DB * DC];
   quartet_column<LA, LB, LC, LD>(
       Ka, ea + (size_t)ip * Ka, ca + (size_t)ip * Ka, ra + 3 * (size_t)ip,
       Kb, eb + (size_t)ip * Kb, cb + (size_t)ip * Kb, rb + 3 * (size_t)ip,
       Kc, ec + (size_t)kp * Kc, cc + (size_t)kp * Kc, rc + 3 * (size_t)kp,
       Kd, ed + (size_t)kp * Kd, cd + (size_t)kp * Kd, rd + 3 * (size_t)kp,
-      Sa, Sb, Sc, Sd, sd, omega, res);
-  for (int ab = 0; ab < DA * DB; ++ab) {
-    double* row = out + ((size_t)ip * DA * DB + ab) * ld + col0
-                  + (size_t)kp * DC * DD + sd;
-    for (int sc = 0; sc < DC; ++sc) row[sc * DD] = res[ab * DC + sc];
-  }
+      Sa, Sb, Sc, Sd, sd, omega,
+      out + (size_t)ip * DA * DB * ld + col0 + (size_t)kp * DC * DD + sd, ld,
+      DD);
 }
 
 template <int LA, int LB, int LC, int LD>
@@ -145,7 +146,8 @@ static int launch(int nb, int Ka, int Kb, const double* ea, const double* ca,
 
 // omega > 0: the erf(omega r)/r attenuated integrals (0: the full
 // operator). Returns cudaGetLastError() after the launch, or -1 for a class
-// pair that has no instantiation (la <= lb <= 2 and lc <= ld <= 2).
+// pair that has no instantiation in this library (la == PT_LA, lb ==
+// PT_LB, lc <= ld <= 4).
 extern "C" int pt_int2e(int la, int lb, int lc, int ld_, int nb, int Ka,
                         int Kb, const double* ea, const double* ca,
                         const double* ra, const double* eb, const double* cb,
@@ -158,13 +160,14 @@ extern "C" int pt_int2e(int la, int lb, int lc, int ld_, int nb, int Ka,
   cudaStream_t s = (cudaStream_t)stream;
 #define PT_ARGS nb, Ka, Kb, ea, ca, ra, eb, cb, rb, nk, Kc, Kd, ec, cc, rc, \
                 ed, cd, rd, Sa, Sb, Sc, Sd, out, ld, col0, omega, s
-#define PT_Q(A, B, C, D) \
-  if (la == A && lb == B && lc == C && ld_ == D) \
-    return launch<A, B, C, D>(PT_ARGS);
-#define PT_AB(A, B) PT_Q(A, B, 0, 0) PT_Q(A, B, 0, 1) PT_Q(A, B, 0, 2) \
-                    PT_Q(A, B, 1, 1) PT_Q(A, B, 1, 2) PT_Q(A, B, 2, 2)
-  PT_AB(0, 0) PT_AB(0, 1) PT_AB(0, 2) PT_AB(1, 1) PT_AB(1, 2) PT_AB(2, 2)
-#undef PT_AB
+#define PT_Q(C, D) \
+  if (la == PT_LA && lb == PT_LB && lc == C && ld_ == D) \
+    return launch<PT_LA, PT_LB, C, D>(PT_ARGS);
+  PT_Q(0, 0) PT_Q(0, 1) PT_Q(0, 2) PT_Q(0, 3) PT_Q(0, 4)
+  PT_Q(1, 1) PT_Q(1, 2) PT_Q(1, 3) PT_Q(1, 4)
+  PT_Q(2, 2) PT_Q(2, 3) PT_Q(2, 4)
+  PT_Q(3, 3) PT_Q(3, 4)
+  PT_Q(4, 4)
 #undef PT_Q
 #undef PT_ARGS
   return -1;

@@ -5,16 +5,19 @@
 // pyscf_tpu_torch/ops/integrals/j3c.py:int3c2e_plain. The whitening product
 // that follows (rows @ (L^-1)^T) is a plain GEMM and stays a library call.
 //
-// One launch per (bra class, aux class): one thread per (screened shell
-// pair, aux shell) owns its (2la+1)(2lb+1) x (2lc+1) output block, so there
-// are no atomics and the rows are the same from run to run. Neighbouring
-// threads share the bra pair and walk neighbouring aux shells. The thread
-// loops over the bra primitive pairs and the aux primitives and evaluates
-// Boys + R_tuv up to L = la+lb+lc <= 8 (165 Hermite terms). What bounds it
-// on the card is FP64 arithmetic in that recursion and in the Hermite
-// contraction; the tables live in per-thread local memory, which spills at
-// (dd|g). The simple design accepts the spills: it is right first, and the
-// rows are built once per geometry.
+// One launch per (bra class, aux class), la <= lb <= 4 and lc <= 5; the
+// library is built once per bra momentum la (-DPT_LA), so that nvcc
+// compiles the classes in five processes side by side. One thread per
+// (screened shell pair, aux shell) owns its (2la+1)(2lb+1) x (2lc+1)
+// output block, so there are no atomics and the rows are the same from run
+// to run. Neighbouring threads share the bra pair and walk neighbouring aux
+// shells. The thread loops over the bra primitive pairs and the aux
+// primitives and evaluates Boys + R_tuv up to L = la+lb+lc <= 13 (560
+// Hermite terms). What bounds it on the card is FP64 arithmetic in that
+// recursion and in the Hermite contraction; the tables live in per-thread
+// local memory, which spills at (dd|g) and reaches ~50 KB a thread at
+// (gg|h). The simple design accepts the spills: it is right first, and
+// the rows are built once per geometry.
 //
 // out: row (pair*(2la+1)(2lb+1) + sa*(2lb+1) + sb), column col0 + P*(2lc+1)
 // + sc, leading dimension ld (the grouped aux order of the JAX package).
@@ -67,7 +70,8 @@ static int launch(int n, int Ka, int Kb, const double* ea, const double* ca,
 
 // omega > 0: the erf(omega r)/r attenuated integrals (0: the full
 // operator). Returns cudaGetLastError() after the launch, or -1 for a class
-// that has no instantiation (la <= lb <= 2, lc <= 4).
+// that has no instantiation in this library (la == PT_LA, la <= lb <= 4,
+// lc <= 5).
 extern "C" int pt_int3c2e(int la, int lb, int lc, int n, int Ka, int Kb,
                           const double* ea, const double* ca,
                           const double* ra, const double* eb,
@@ -79,12 +83,24 @@ extern "C" int pt_int3c2e(int la, int lb, int lc, int n, int Ka, int Kb,
   cudaStream_t s = (cudaStream_t)stream;
 #define PT_ARGS n, Ka, Kb, ea, ca, ra, eb, cb, rb, nsx, Kc, ec, cc, rc, \
                 Sa, Sb, Sc, out, ld, col0, omega, s
-#define PT_C(A, B, C) \
-  if (la == A && lb == B && lc == C) return launch<A, B, C>(PT_ARGS);
-#define PT_AB(A, B) PT_C(A, B, 0) PT_C(A, B, 1) PT_C(A, B, 2) PT_C(A, B, 3) \
-                    PT_C(A, B, 4)
-  PT_AB(0, 0) PT_AB(0, 1) PT_AB(0, 2) PT_AB(1, 1) PT_AB(1, 2) PT_AB(2, 2)
-#undef PT_AB
+#define PT_C(B, C) \
+  if (la == PT_LA && lb == B && lc == C) return launch<PT_LA, B, C>(PT_ARGS);
+#define PT_B(B) PT_C(B, 0) PT_C(B, 1) PT_C(B, 2) PT_C(B, 3) PT_C(B, 4) \
+                PT_C(B, 5)
+#if PT_LA <= 0
+  PT_B(0)
+#endif
+#if PT_LA <= 1
+  PT_B(1)
+#endif
+#if PT_LA <= 2
+  PT_B(2)
+#endif
+#if PT_LA <= 3
+  PT_B(3)
+#endif
+  PT_B(4)
+#undef PT_B
 #undef PT_C
 #undef PT_ARGS
   return -1;

@@ -211,18 +211,28 @@ class Mole:
         return self.spin + 1
 
     def intor(self, name):
-        """Integrals by libcint name, on self.device: 'int2e' (the dense
-        (nao,)^4 ERI tensor, kernel `int2e`), 'int2e_ip1' (3, nao, nao, nao,
-        nao), 'int1e_ipovlp', 'int1e_ipkin', 'int1e_ipnuc' (3, nao,
-        nao), the bra-centre derivatives of the gradient, and 'int1e_r'
-        (3, nao, nao), the dipole integrals (kernel `int1e_r`)."""
-        from ..ops.integrals import int1e, int1e_deriv, int2e, j2e
+        """Integrals by libcint name (a '_sph' suffix accepted), on
+        self.device, in AO order: 'int1e_ovlp', 'int1e_kin' and 'int1e_nuc'
+        (nao, nao), S, T and V (kernel `int1e_stv`); 'int2c2e' (nao, nao),
+        the Coulomb metric (P|Q) over this Mole's own shells (kernel
+        `int2c2e`); 'int2e' (the dense (nao,)^4 ERI tensor, kernel `int2e`);
+        'int2e_ip1' (3, nao, nao, nao, nao), 'int1e_ipovlp', 'int1e_ipkin',
+        'int1e_ipnuc' (3, nao, nao), the bra-centre derivatives of the
+        gradient; and 'int1e_r' (3, nao, nao), the dipole integrals (kernel
+        `int1e_r`)."""
+        from ..ops.integrals import int1e, int1e_deriv, int2e, j1e, j2e, j3c
+        stv = {'int1e_ovlp': 0, 'int1e_kin': 1, 'int1e_nuc': 2}
         fns = {'int2e': j2e.int2e_dense, 'int2e_ip1': int2e.int2e_ip1,
-               'int1e_r': int1e.int1e_r,
+               'int1e_r': int1e.int1e_r, 'int2c2e': j3c.int2c2e_ao,
                'int1e_ipovlp': int1e_deriv.int1e_ipovlp,
                'int1e_ipkin': int1e_deriv.int1e_ipkin,
                'int1e_ipnuc': int1e_deriv.int1e_ipnuc}
         key = name.replace('_sph', '')
+        if key in stv:        # a copy: hcore_parts is the Mole's cache
+            return j1e.hcore_parts(self)[stv[key]].clone()
+        if key.startswith('ECPscalar'):
+            raise NotImplementedError(f'intor({name!r}): ECP integrals are '
+                                      'not ported yet')
         if key not in fns:
             raise NotImplementedError(f'intor({name!r}) is not ported')
         return fns[key](self)

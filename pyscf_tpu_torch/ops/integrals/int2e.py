@@ -1,9 +1,9 @@
-"""Shell-pair screening, the Hermite combination table and the
-derivative ERIs (d/dA ab|cd) of the nuclear gradient.
+"""Shell-pair screening and the derivative ERIs (d/dA ab|cd) of the
+nuclear gradient.
 
 Counterpart of the pieces of pyscf_tpu/ops/integrals/int2e.py that the
-port's paths use: SCREEN_THRESH, pair_screen_bound and _comb_onehot3 (the
-DF path), and int2e_ip1 with the derivative bra table of DerivPairClass.
+port's paths use: SCREEN_THRESH, pair_screen_bound, and int2e_ip1 with
+the derivative bra table of DerivPairClass.
 Screening runs in numpy on the host with the JAX package's exact
 arithmetic, so both packages keep exactly the same shell pairs.
 
@@ -18,12 +18,10 @@ the pair's overlap bound, so the bra side runs every ordered class over
 every shell pair, unscreened, as the JAX package does; the ket side keeps
 the screened lc <= ld pairs and the (cd) = (dc) fold of the energy's ERIs.
 """
-from functools import lru_cache
-
 import numpy as np
 import torch
 
-from .hermite import e3d, n_tuv, tuv_components, tuv_index
+from .hermite import e3d, n_tuv
 
 SCREEN_THRESH = 1e-14
 
@@ -38,29 +36,6 @@ def pair_screen_bound(ga, gb):
     return (ca[:, None, :, None] * cb[None, :, None, :]
             * np.exp(-mu * AB2[:, :, None, None])
             * (np.pi / p) ** 1.5).sum(axis=(2, 3))
-
-
-@lru_cache(maxsize=None)
-def _phase(L):
-    return np.array([(-1.0) ** sum(c) for c in tuv_components(L)])
-
-
-@lru_cache(maxsize=None)
-def _comb_onehot3(L1, L2):
-    """Dense (nt1, nt2, ntuv(L1+L2)) +-1 combination tensor.
-
-    W3[s, t, L] = phase(t) if tuv_s + tuv_t == tuv_L else 0.
-    """
-    idx12 = tuv_index(L1 + L2)
-    t1 = tuv_components(L1)
-    t2 = tuv_components(L2)
-    phase = _phase(L2)
-    W = np.zeros((len(t1), len(t2), len(tuv_components(L1 + L2))))
-    for i, c1 in enumerate(t1):
-        for j, c2 in enumerate(t2):
-            W[i, j, idx12[(c1[0] + c2[0], c1[1] + c2[1], c1[2] + c2[2])]] = \
-                phase[j]
-    return W
 
 
 def _deriv_pair_sph_tables(la, lb, ea, ca, ra, eb, cb, rb):
@@ -103,8 +78,8 @@ def int2e_ip1_class_plain(la, lb, ea, ca, ra, eb, cb, rb, kets):
         L2 = lc + ld
         ns2 = (2 * lc + 1) * (2 * ld + 1)
         p2, P2, E2 = _pair_sph_tables(lc, ld, *ket)
-        per_pair = KK1 * nk * KK2 * max(n_tuv(L1 + L2), ns2 * n_tuv(L1),
-                                        3 * ns1 * ns2)
+        per_pair = KK1 * nk * KK2 * max(n_tuv(L1) * n_tuv(L2),
+                                        ns2 * n_tuv(L1), 3 * ns1 * ns2)
         step = max(1, _PLAIN_BUDGET // per_pair)
         blocks = []
         for i in range(0, n, step):

@@ -45,8 +45,8 @@ def int2e_class_plain(la, lb, ea, ca, ra, eb, cb, rb, kets, omega=None):
         L2 = lc + ld
         ns2 = (2 * lc + 1) * (2 * ld + 1)
         p2, P2, E2 = _pair_sph_tables(lc, ld, *ket)
-        per_pair = KK1 * nk * KK2 * max(n_tuv(L1 + L2), ns2 * n_tuv(L1),
-                                        ns1 * ns2)
+        per_pair = KK1 * nk * KK2 * max(n_tuv(L1) * n_tuv(L2),
+                                        ns2 * n_tuv(L1), ns1 * ns2)
         step = max(1, _PLAIN_BUDGET // per_pair)
         blocks = []
         for i in range(0, n, step):

@@ -22,13 +22,14 @@ torch.linalg, as XLA ran them as library ops in the JAX package.
 """
 import math
 import time
+from functools import lru_cache
 
 import numpy as np
 import torch
 
-from .hermite import e3d, hermite_R, n_tuv
+from .hermite import e3d, hermite_R, n_tuv, tuv_components
 from .int1e import flat_prims, pair_tables, sph
-from .int2e import _comb_onehot3, pair_screen_bound, SCREEN_THRESH
+from .int2e import pair_screen_bound, SCREEN_THRESH
 
 # elements of the largest temporary the plain 3c version allocates per chunk
 _PLAIN_BUDGET = 1 << 24
@@ -114,10 +115,25 @@ def _coulomb(l1, p1, P1, E1, l2, p2, P2, E2, omega=None):
         pref = pref * torch.sqrt(theta)
     rpq = P1[:, None, :] - P2[None, :, :]
     R = hermite_R(l1 + l2, rho, rpq) * pref[..., None]       # (C1, C2, ntL)
-    W3 = torch.as_tensor(_comb_onehot3(l1, l2), device=p1.device)
-    P2f = torch.einsum('bqt,stL->bqsL', E2, W3)      # (C2, ns2, nt1, ntL)
-    Q = torch.einsum('abL,bqsL->abqs', R, P2f)        # (C1, C2, ns2, nt1)
+    # R at tuv_s + tuv_t for every (s, t): the gather that the JAX
+    # package writes as a product with a one-hot (nt1, nt2, ntL) tensor
+    # (pyscf_tpu/ops/integrals/int2e.py _comb_onehot3), without its zeros
+    idx, phase = _tuv_sums(l1, l2)
+    Rg = R[:, :, torch.as_tensor(idx, device=p1.device)]  # (C1, C2, nt1, nt2)
+    E2p = E2 * torch.as_tensor(phase, device=p1.device)
+    Q = torch.einsum('abst,bqt->abqs', Rg, E2p)       # (C1, C2, ns2, nt1)
     return torch.einsum('aps,abqs->apbq', E1, Q)
+
+
+@lru_cache(maxsize=None)
+def _tuv_sums(l1, l2):
+    """(nt1, nt2) positions of tuv_s + tuv_t among the Hermite terms of
+    order <= l1 + l2, and the phases (-1)^|tuv_t| (nt2,)."""
+    pos = {c: i for i, c in enumerate(tuv_components(l1 + l2))}
+    t2 = tuv_components(l2)
+    idx = np.array([[pos[(a[0] + b[0], a[1] + b[1], a[2] + b[2])]
+                     for b in t2] for a in tuv_components(l1)])
+    return idx, np.array([(-1.0) ** sum(b) for b in t2])
 
 
 def int3c2e_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, omega=None):
@@ -132,7 +148,8 @@ def int3c2e_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, omega=None):
         nsx, K2 = e2.shape
         ns2 = 2 * l2 + 1
         p2, P2, E2 = _aux_prep(l2, e2, c2, r2)
-        per_pair = KK * nsx * K2 * max(n_tuv(L1 + l2), ns2 * n_tuv(L1))
+        per_pair = KK * nsx * K2 * max(n_tuv(L1) * n_tuv(l2),
+                                        ns2 * n_tuv(L1))
         step = max(1, _PLAIN_BUDGET // per_pair)
         blocks = []
         for i in range(0, n, step):
@@ -236,6 +253,14 @@ def screened_pairs(mol):
 def _to_ao_order(auxmol, device):
     """Positions that take an aux index from grouped to AO order."""
     return torch.as_tensor(np.argsort(_grouped_order(auxmol)), device=device)
+
+
+def int2c2e_ao(mol):
+    """(P|Q) over mol's own shells in its AO order, (nao, nao) on
+    mol.device: mol.intor('int2c2e')."""
+    from .. import kernels
+    idx = _to_ao_order(mol, mol.device)
+    return kernels.int2c2e(aux_tables(mol))[idx][:, idx]
 
 
 def whitened_factor(mol, auxmol, rows, linv_t):

@@ -113,7 +113,7 @@ def int3c2e_ip_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, G):
         ns2 = 2 * l2 + 1
         p2, P2, E2 = _aux_prep(l2, e2, c2, r2)
         E2d = _aux_ip_prep(l2, e2, c2, r2)
-        per_pair = KK * nsx * K2 * max(n_tuv(L1 + l2 + 1),
+        per_pair = KK * nsx * K2 * max(n_tuv(L1 + 1) * n_tuv(l2 + 1),
                                        3 * ns2 * n_tuv(L1 + 1))
         step = max(1, _PLAIN_BUDGET // per_pair)
         for i in range(0, n, step):
@@ -151,7 +151,7 @@ def int3c2e_ip1_rows(la, lb, ea, ca, ra, eb, cb, rb, aux):
         nsx, K2 = e2.shape
         ns2 = 2 * l2 + 1
         p2, P2, E2 = _aux_prep(l2, e2, c2, r2)
-        per_pair = KK * nsx * K2 * max(n_tuv(L1 + l2 + 1),
+        per_pair = KK * nsx * K2 * max(n_tuv(L1 + 1) * n_tuv(l2 + 1),
                                        3 * ns2 * n_tuv(L1 + 1))
         step = max(1, _PLAIN_BUDGET // per_pair)
         blocks = []
@@ -203,7 +203,7 @@ def int3c2e_ipip_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, G):
         p2, P2, E2 = _aux_prep(l2, e2, c2, r2)
         E2d = _aux_ip_prep(l2, e2, c2, r2)
         E2dd = _aux_ip2_prep(l2, e2, c2, r2)
-        per_pair = KK * nsx * K2 * 9 * max(n_tuv(L1 + l2 + 2),
+        per_pair = KK * nsx * K2 * 9 * max(n_tuv(L1 + 2) * n_tuv(l2 + 1),
                                            ns2 * n_tuv(L1 + 2))
         step = max(1, _PLAIN_BUDGET // per_pair)
         for i in range(0, n, step):

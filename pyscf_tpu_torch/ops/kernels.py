@@ -65,11 +65,16 @@ device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
 tensor it launches the kernel on torch.cuda.current_stream() or raises. A
 wrapper adds one to its `launches` count for every kernel launch it makes.
 
-The kernels are compiled at first use with nvcc for sm_90a, one shared
-library per source (three each for int2e_ip1.cu, int3c2e_ip.cu,
-int3c2e_ip1.cu and int3c2e_ipip.cu, one per bra momentum; two each for
-xc_fxc.cu and int2c2e_ipip.cu, one per kernel) with a plain C interface
-loaded by ctypes, into
+The integral kernels take s to g shells and aux shells to h (int1e_stv,
+int3c2e, int2c2e, int2e: la <= lb <= 4, lc <= 5); the derivative and
+Hessian kernels stop at d (la, lb <= 2, aux lc <= 4), and a class that
+has no instantiation raises NotImplementedError. The kernels are compiled
+at first use with nvcc for sm_90a, one shared library per source (five
+for int3c2e.cu, one per bra momentum; fifteen for int2e.cu, one per bra
+class; three each for int2e_ip1.cu, int3c2e_ip.cu, int3c2e_ip1.cu and
+int3c2e_ipip.cu, one per bra momentum; two each for xc_fxc.cu and
+int2c2e_ipip.cu, one per kernel: fifty-four libraries) with a plain C
+interface loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
 checkout builds them once and an edit to a source rebuilds them; nvcc's
 output, with ptxas's registers, stack frame and spills per kernel
@@ -109,11 +114,8 @@ _ERI_ARGS = [_I] * 7 + [_P] * 6 + [_I] * 3 + [_P] * 11 + [_I, _I, _P]
 _LIBRARIES = {
     'int1e_stv': ('int1e_stv.cu', 'pt_int1e_stv',
                   [_I] * 6 + [_P] * 6 + [_I] + [_P] * 6, ()),
-    'int3c2e': ('int3c2e.cu', 'pt_int3c2e', [_I] * 6 + [_P] * 6 + [_I, _I]
-                + [_P] * 7 + [_I, _I, _D, _P], ()),
     'int2c2e': ('int2c2e.cu', 'pt_int2c2e', [_I] * 4 + [_P] * 3 + [_I, _I]
                 + [_P] * 6 + [_I, _I, _I, _D, _P], ()),
-    'int2e': ('int2e.cu', 'pt_int2e', _ERI_ARGS[:-1] + [_D, _P], ()),
     'int1e_ip': ('int1e_ip.cu', 'pt_int1e_ip',
                  [_I] * 5 + [_P] * 6 + [_I] + [_P] * 6, ()),
     'int1e_iprinv': ('int1e_iprinv.cu', 'pt_int1e_iprinv',
@@ -163,9 +165,18 @@ _LIBRARIES = {
                          + [_P] * 3 + [_I, _I] + [_P] * 6 + [_I] * 3 + [_P]
                          + [_I] * 3 + [_P], ('-DPT_IP1_FULL',)),
 }
-# int2e_ip1.cu, int3c2e_ip.cu, int3c2e_ip1.cu and int3c2e_ipip.cu once per
-# bra momentum, so that their instantiations compile in three processes
-# each, side by side
+# int3c2e.cu once per bra momentum la <= 4 and int2e.cu once per bra class
+# la <= lb <= 4; int2e_ip1.cu, int3c2e_ip.cu, int3c2e_ip1.cu and
+# int3c2e_ipip.cu once per bra momentum la <= 2: so that their
+# instantiations compile side by side
+_LIBRARIES.update({
+    f'int3c2e_la{la}': ('int3c2e.cu', 'pt_int3c2e', [_I] * 6 + [_P] * 6
+                        + [_I, _I] + [_P] * 7 + [_I, _I, _D, _P],
+                        (f'-DPT_LA={la}',)) for la in range(5)})
+_LIBRARIES.update({
+    f'int2e_{la}{lb}': ('int2e.cu', 'pt_int2e', _ERI_ARGS[:-1] + [_D, _P],
+                        (f'-DPT_LA={la}', f'-DPT_LB={lb}'))
+    for la in range(5) for lb in range(la, 5)})
 _LIBRARIES.update({
     f'int2e_ip1_la{la}': ('int2e_ip1.cu', 'pt_int2e_ip1', _ERI_ARGS,
                           (f'-DPT_LA={la}',)) for la in range(3)})
@@ -248,6 +259,9 @@ def build():
 
 
 def _fn(lib):
+    if lib not in _LIBRARIES:
+        raise NotImplementedError(f'{lib}: no such CUDA kernel library (the '
+                                  'class is not instantiated)')
     build()
     return _LIBS[lib]
 
@@ -375,7 +389,7 @@ def _int3c2e(wrapper, la, lb, ea, ca, ra, eb, cb, rb, aux, omega):
     for l, e, c, r in aux:
         nsx, Kc = e.shape
         if n and nsx:
-            rc = _fn('int3c2e')(
+            rc = _fn(f'int3c2e_la{la}')(
                 la, lb, l, n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
                 ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
                 nsx, Kc, e.data_ptr(), c.data_ptr(), r.data_ptr(),
@@ -665,7 +679,8 @@ def _int2e(wrapper, la, lb, bra, kets, omega):
         return j2e.int2e_class_plain(la, lb, *bra, kets, omega)
     out = torch.empty((n * (2 * la + 1) * (2 * lb + 1), ncol),
                       dtype=torch.float64, device=dev)
-    _launch_quartets(wrapper, 'int2e', la, lb, bra, kets, out, ncol, omega)
+    _launch_quartets(wrapper, f'int2e_{la}{lb}', la, lb, bra, kets, out, ncol,
+                     omega)
     return out
 
 

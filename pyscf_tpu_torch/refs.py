@@ -106,6 +106,7 @@ package (its docstring holds the command and the settings: water/def2-SVP
 DF-RKS b3lypg and the cation's DF-UKS b3lypg, grids level 1, conv_tol
 1e-12, conv_tol_grad 1e-9).
 """
+import math
 import os
 
 BENZENE = '''
@@ -127,6 +128,25 @@ H -2.151390  1.242106  0.000000
 PHENYL = '\n'.join(line for line in BENZENE.splitlines()
                    if line.split()[1:3] != ['0.000000', '2.484212'])
 WATER = 'O 0 0 0; H 0 -0.757 0.587; H 0 0.757 0.587'
+
+
+def _h2o10():
+    """BASELINE.md config 3, (H2O)10, built as examples/scaling_h2o10.py:16-28
+    builds it: two stacked pentagonal rings of waters, O-O ~2.8 Angstrom;
+    [(symbol, (x, y, z))] in Angstrom."""
+    atoms = []
+    for ring, z in ((0, 0.0), (1, 2.8)):
+        for k in range(5):
+            th = 2 * math.pi * k / 5 + (math.pi / 5 if ring else 0)
+            x, y = 2.4 * math.cos(th), 2.4 * math.sin(th)
+            atoms += [('O', (x, y, z)), ('H', (x + 0.7571, y, z + 0.5861)),
+                      ('H', (x - 0.7571, y, z + 0.5861))]
+    return atoms
+
+
+H2O10 = _h2o10()
+# config 4's N2 (examples/scaling_n2_qz.py:22)
+N2 = 'N 0 0 0; N 0 0 1.0977'
 # np.load-able arrays of the JAX package's values that the CPU tests read
 # (tests/port_refs_record.py and tests/hessian_refs_record.py say how each
 # was made)
@@ -234,6 +254,21 @@ DF_DERIV_FUNCTIONALS = {
                [122.45305670573372, 13.864459001249074, 41.804487676729245],
                [-32.53675765922591, 18.481453521611428, 58.371690040051895]]},
 }
+# f shells (tests/port_refs_record.py fg_water_refs; minao, conv_tol 1e-10,
+# every SCF converged): water/cc-pVTZ DF-RHF (cc-pvtz-jkfit, to g; 89 s of
+# JAX on the CPU), DF-RKS b3lypg (grids level 1; 11 s) and water/def2-TZVP
+# DF-RKS b3lypg (def2-universal-jkfit, grids level 1; 101 s)
+E_WATER_DF_RHF_CCPVTZ = -76.05710789750125
+E_WATER_DF_RKS_B3LYPG_CCPVTZ_L1 = -76.45984141526318
+E_WATER_DF_RKS_B3LYPG_DEF2TZVP_L1 = -76.46295262803359
+# g shells (tests/port_refs_record.py fg_neon_refs, 11 min on the CPU, most
+# of it compiling j2e.py's 225 class-pair programs): Ne/cc-pVQZ in-core RHF
+# (minao, conv_tol 1e-12, conv_tol_grad 1e-9; converged, 71 s), MP2, CCSD
+# (conv_tol 1e-10, conv_tol_normt 1e-8; converged) and (T), all electrons
+E_NE_RHF_CCPVQZ = -128.54346965912123
+E_NE_MP2_CCPVQZ = -0.32625844379442426
+E_NE_CCSD_CCPVQZ = -0.32758571691000243
+E_NE_CCSD_T_CCPVQZ = -0.005706135787231147
 # post-HF correlation energies (all electrons correlated; SCF conv_tol
 # 1e-12, conv_tol_grad 1e-9; CCSD conv_tol 1e-10, conv_tol_normt 1e-8;
 # see the docstring). Benzene/def2-SVP in-core RHF (PYSCF_TPU_INT2E=v2,

@@ -4,7 +4,7 @@ CPU), so that the fast tests read them instead of recomputing them:
 
   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/port_refs_record.py
 
-writes pyscf_tpu_torch/data/port_refs.npz (about 3 minutes on the CPU) with,
+writes pyscf_tpu_torch/data/port_refs.npz (about 15 minutes on the CPU) with,
 water being refs.WATER:
 
   scf_*        tests/test_torch_scf.py: water/cc-pVDZ DF-RHF (minao, conv_tol
@@ -46,7 +46,11 @@ water being refs.WATER:
   wilson_*     tests/test_torch_geomopt.py: for refs.BENZENE and
                refs.PHENYL (sto-3g), q_func of detect_internals at the
                coordinates ('wilson_<atom>_q') and its jax.jacobian
-               ('wilson_<atom>_B').
+               ('wilson_<atom>_B');
+  fg_*         tests/test_torch_fg_shells.py: f, g and aux h shells (the
+               docstrings of fg_water_refs and fg_neon_refs; '<key>_seconds'
+               the seconds of each timed JAX run). The energies are also
+               constants in pyscf_tpu_torch/refs.py.
 
 Run with the names of the recording functions (scf_refs, ...) to record
 only those into the existing file.
@@ -230,8 +234,146 @@ def more_refs(out):
         out[f'wilson_{name}_B'] = np.asarray(jax.jacobian(jq)(x))
 
 
+def _raw_rows(mol, auxmol, la, lb):
+    """The raw (ij|P) rows of _class_program for one bra class (identity
+    whitener), the screened pairs only."""
+    meta, raw = jj3c._aux_meta(auxmol)
+    aux_data = jj3c._aux_prep(meta, tuple(
+        (jnp.asarray(e), jnp.asarray(c), jnp.asarray(r)) for e, c, r in raw))
+    bc = jj3c._bra_classes(mol)[(la, lb)]
+    npc, tiles = jj3c._class_tiles(bc, meta)
+    arrays, _ = bc.chunk_arrays(npc)
+    return np.asarray(jj3c._class_program(
+        la, lb, meta, tiles, *[jnp.asarray(a) for a in arrays], aux_data,
+        jnp.eye(auxmol.nao)))[:bc.nsel * bc.da * bc.db]
+
+
+def _timed(out, key, fn):
+    import time
+    t0 = time.perf_counter()
+    value = fn()
+    out[f'{key}_seconds'] = time.perf_counter() - t0
+    print(key, repr(value) if np.ndim(value) == 0 else np.shape(value),
+          f'{out[key + "_seconds"]:.1f} s', flush=True)
+    return value
+
+
+def fg_water_refs(out):
+    """tests/test_torch_fg_shells.py, f shells: water/cc-pVTZ (aux
+    cc-pvtz-jkfit, to g) DF-RHF (minao, conv_tol 1e-10) 'fg_tz_rhf_e' and
+    DF-RKS b3lypg (grids level 1) 'fg_tz_rks_e', water/def2-TZVP DF-RKS
+    b3lypg 'fg_tzvp_rks_e'; water/cc-pVTZ's hcore_parts 'fg_tz_stv',
+    mol.intor of 'int1e_ovlp', 'int1e_kin', 'int1e_nuc' and 'int2c2e'
+    ('fg_tz_intor_<name>')."""
+    from pyscf_tpu.ops.integrals import j1e as jax_j1e
+    mol = jpt.M(atom=WATER, basis='cc-pvtz', verbose=0)
+
+    def scf(mf):
+        mf.init_guess = 'minao'
+        mf.conv_tol = 1e-10
+        e = mf.kernel()
+        assert mf.converged
+        return e
+
+    out['fg_tz_rhf_e'] = _timed(out, 'fg_tz_rhf_e', lambda: scf(
+        mol.RHF().density_fit()))
+    for key, basis in (('fg_tz_rks_e', 'cc-pvtz'),
+                       ('fg_tzvp_rks_e', 'def2-tzvp')):
+        mf = jpt.M(atom=WATER, basis=basis, verbose=0).RKS(
+            xc='b3lypg').density_fit()
+        mf.grids.level = 1
+        out[key] = _timed(out, key, lambda: scf(mf))
+    mol = jpt.M(atom=WATER, basis='cc-pvtz', verbose=0)
+    out['fg_tz_stv'] = np.asarray(jax_j1e.hcore_parts(mol))
+    for name in ('int1e_ovlp', 'int1e_kin', 'int1e_nuc', 'int2c2e'):
+        out[f'fg_tz_intor_{name}'] = np.asarray(mol.intor(name))
+
+
+NEON = 'Ne 0 0 0'
+
+
+def _neon_class_rows(bra):
+    """The rows of j2e.py's _class_pair_program of one bra class of
+    Ne/cc-pVQZ against every ket class, as int2e_dense calls it (the other
+    bra classes' programs replaced by zeros of their shape): (bra,
+    {(lc, ld): rows})."""
+    real = jax_j2e._class_pair_program
+    rows = {}
+
+    def one(la, lb, lc, ld, npk, *arrays, rs_omega=None):
+        if (la, lb) != bra:
+            return jnp.zeros((arrays[0].shape[0] * arrays[0].shape[1]
+                              * (2 * la + 1) * (2 * lb + 1),
+                              arrays[6].shape[0] * (2 * lc + 1)
+                              * (2 * ld + 1)))
+        out = real(la, lb, lc, ld, npk, *arrays, rs_omega=rs_omega)
+        rows[(lc, ld)] = np.asarray(out)
+        return out
+
+    jax_j2e._class_pair_program = one
+    try:
+        jax_j2e.int2e_dense(jpt.M(atom=NEON, basis='cc-pvqz', verbose=0))
+    finally:
+        jax_j2e._class_pair_program = real
+    return bra, rows
+
+
+def fg_neon_refs(out):
+    """tests/test_torch_fg_shells.py, g shells: Ne/cc-pVQZ's ERI tensor from
+    j2e.py's int2e_dense (the engine of PYSCF_TPU_INT2E=v2), its (gg|..)
+    block, the g AOs as bra and the f and g AOs as ket, 'fg_ne_eri_gg';
+    in-core RHF on it (minao, conv_tol 1e-12, conv_tol_grad 1e-9) 'fg_ne_e'
+    with MP2 'fg_ne_mp2', CCSD (conv_tol 1e-10, conv_tol_normt 1e-8)
+    'fg_ne_ccsd' and (T) 'fg_ne_t'; the raw rows of the (gg) bra class
+    against cc-pvqz-jkfit (to h) 'fg_ne_rows_44'.
+
+    Run with XLA_FLAGS=--xla_disable_hlo_passes=constant_folding: XLA's
+    constant folding of the (gg|..) classes' one-hot combination tensor
+    took more than 16 GB of the CPU's memory (for j2e.py and for the
+    default engine, ops/integrals/int2e.py); without it the (gg|gg)
+    program compiles in 12 s. Each bra class's fifteen class-pair programs
+    compile in a process of their own: the 225 programs of one process ran
+    out of its memory maps (LLVM 'Cannot allocate memory')."""
+    import multiprocessing
+    if 'constant_folding' not in os.environ.get('XLA_FLAGS', ''):
+        raise SystemExit('fg_neon_refs needs XLA_FLAGS='
+                         '--xla_disable_hlo_passes=constant_folding')
+    mol = jpt.M(atom=NEON, basis='cc-pvqz', verbose=0)
+    classes = [k for k, bc in jj3c._bra_classes(mol).items() if bc.nsel]
+    with multiprocessing.get_context('spawn').Pool(
+            3, maxtasksperchild=1) as pool:
+        pieces = dict(pool.map(_neon_class_rows, classes, chunksize=1))
+    real = jax_j2e._class_pair_program
+    jax_j2e._class_pair_program = (
+        lambda la, lb, lc, ld, *a, **k:
+        jnp.asarray(pieces[(la, lb)][(lc, ld)]))
+    try:
+        eri = jax_j2e.int2e_dense(mol)
+    finally:
+        jax_j2e._class_pair_program = real
+    g = np.arange(mol.nao - 9, mol.nao)          # the last shell is the g
+    fg = np.arange(mol.nao - 23, mol.nao)        # two f shells before it
+    out['fg_ne_eri_gg'] = np.asarray(eri)[np.ix_(g, g, fg, fg)]
+    mf = mol.RHF()
+    mf._eri = eri
+    mf.init_guess = 'minao'
+    mf.conv_tol = 1e-12
+    mf.conv_tol_grad = 1e-9
+    out['fg_ne_e'] = _timed(out, 'fg_ne_e', mf.kernel)
+    assert mf.converged
+    out['fg_ne_mp2'] = _timed(out, 'fg_ne_mp2',
+                              lambda: jpt.mp.MP2(mf).kernel()[0])
+    cc = jpt.cc.CCSD(mf)
+    cc.conv_tol = 1e-10
+    cc.conv_tol_normt = 1e-8
+    out['fg_ne_ccsd'] = _timed(out, 'fg_ne_ccsd', lambda: cc.kernel()[0])
+    assert cc.converged
+    out['fg_ne_t'] = _timed(out, 'fg_ne_t', cc.ccsd_t)
+    out['fg_ne_rows_44'] = _raw_rows(mol, jax_make_auxmol(mol), 4, 4)
+
+
 FUNCTIONS = (scf_refs, integral_refs, grad_refs, analysis_refs,
-             scf_energy_refs, more_refs)
+             scf_energy_refs, more_refs, fg_water_refs, fg_neon_refs)
 
 
 def main(names):

@@ -13,7 +13,9 @@ blocks and threads, in order, so that vv10.cu, mp2_energy.cu and
 ccsd_t.cu run with one thread per block) and calls them through the C
 interface the wrappers use, on water/def2-SVP, whose classes reach
 (dd|dd) and whose aux basis reaches g, with and without the erf(omega
-r)/r attenuation, the dipole kernel on a basis of s to g shells, vv10.cu
+r)/r attenuation; int1e_stv.cu, int3c2e.cu, int2c2e.cu and int2e.cu
+also on a basis of s to g shells with an aux basis of s to h, at the (ff)
+and (gg) bra classes and aux l 5; the dipole kernel on that basis; vv10.cu
 on a water grid, and mp2_energy.cu and ccsd_t.cu on seeded tensors of a
 water-sized correlated calculation; and the second-order dual numbers of
 xc_funcs.cuh (HDualN, the functional of the XC response kernels xc_fxc,
@@ -80,7 +82,12 @@ void host_launch(int blocks, int threads, F f, A... a) {
     }
 }
 '''
-LIBS = ('int1e_stv', 'int3c2e', 'int2c2e', 'int2e', 'int1e_ip',
+# int3c2e.cu and int2e.cu are built only for the bra momenta and classes
+# that the tests below run: water/def2-SVP's to d, and one f and one g
+LIBS = ('int1e_stv', 'int3c2e_la0', 'int3c2e_la1', 'int3c2e_la2',
+        'int3c2e_la3', 'int3c2e_la4', 'int2c2e', 'int2e_00', 'int2e_01',
+        'int2e_02', 'int2e_11', 'int2e_12', 'int2e_22', 'int2e_33',
+        'int2e_44', 'int1e_ip',
         'int1e_iprinv', 'int2e_ip1_la0', 'int2e_ip1_la1', 'int2e_ip1_la2',
         'int3c2e_ip_la0', 'int3c2e_ip_la1', 'int3c2e_ip_la2', 'int2c2e_ip1',
         'int1e_r', 'vv10', 'mp2_energy', 'ccsd_t', 'int1e_ipip',
@@ -252,7 +259,7 @@ def _int2e(host, water, omega):
     kets = j2e._ket_arrays(mol)
     for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
         ref = j2e.int2e_class_plain(la, lb, *p, kets, omega)
-        got = _quartets(host['int2e'], la, lb, p, kets,
+        got = _quartets(host[f'int2e_{la}{lb}'], la, lb, p, kets,
                         torch.empty_like(ref), ref.shape[1], omega)
         _close(got, ref)
 
@@ -278,7 +285,7 @@ def test_int3c2e(host, water, omega):
         out = torch.empty((n * (2 * la + 1) * (2 * lb + 1), offs[-1]),
                           dtype=torch.float64)
         for i, (l, e, c, r) in enumerate(aux):
-            assert host['int3c2e'](
+            assert host[f'int3c2e_la{la}'](
                 la, lb, l, n, Ka, Kb, *_ptrs(*p), *e.shape,
                 *_ptrs(e, c, r, sph(la, DEV), sph(lb, DEV), sph(l, DEV),
                        out), offs[-1], offs[i], omega, None) == 0
@@ -300,6 +307,102 @@ def test_int2c2e(host, water, omega):
                 *_ptrs(ey, cy, ry, sph(lx, DEV), sph(ly, DEV), out),
                 offs[-1], offs[i], offs[j], omega, None) == 0
     _close(out, j3c.int2c2e_plain(aux, omega))
+
+
+# an aux basis of s to h shells on O (h: the lc 5 of cc-pvqz-jkfit) and two
+# on H
+HOST_AUX = {'O': [[l, [0.7 + 0.4 * l, 1.0]] for l in range(6)],
+            'H': [[0, [1.4, 1.0]], [2, [0.8, 1.0]]]}
+HOST_ATOMS = 'O 0.1 0.2 -0.3; H 0.3 -0.7 0.6'
+
+
+@pytest.fixture(scope='module')
+def fg_mols():
+    """HOST_BASIS (s to g) and HOST_AUX (s to h) on two centres off the
+    origin."""
+    return (tpt.M(atom=HOST_ATOMS, basis=HOST_BASIS, device='cpu'),
+            tpt.M(atom=HOST_ATOMS, basis=HOST_AUX, device='cpu'))
+
+
+def test_int1e_stv_f_and_g(host, fg_mols):
+    """S/T/V of every class la <= lb of s to g shells, (ff) and (gg)
+    among them, and S alone of every ordered class, against class_stv."""
+    mol, _ = fg_mols
+    zr = torch.as_tensor(mol.coords)
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64)
+    classes = j3c.screened_pairs(mol)
+    assert (3, 3) in classes and (4, 4) in classes
+    for (la, lb), (_, p) in classes.items():
+        n, Ka, Kb = _dims(p)
+        out = torch.empty((n, (2 * la + 1) * (2 * lb + 1), 3),
+                          dtype=torch.float64)
+        assert host['int1e_stv'](
+            la, lb, 1, n, Ka, Kb, *_ptrs(*p), mol.natm,
+            *_ptrs(zr, zq, sph(la, DEV), sph(lb, DEV), out), None) == 0
+        _close(out, int1e.class_stv(la, lb, *p, zr, zq))
+    for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
+        n, Ka, Kb = _dims(p)
+        out = torch.empty((n, (2 * la + 1) * (2 * lb + 1)),
+                          dtype=torch.float64)
+        assert host['int1e_stv'](
+            la, lb, 0, n, Ka, Kb, *_ptrs(*p), 0, None, None,
+            *_ptrs(sph(la, DEV), sph(lb, DEV), out), None) == 0
+        _close(out, int1e.class_stv(la, lb, *p, with_tv=False))
+
+
+@pytest.mark.parametrize('omega', [0.0, OMEGA])
+def test_int3c2e_f_and_g(host, fg_mols, omega):
+    """Raw (ij|P) rows of the (ff) and (gg) bra classes against an aux basis
+    of s to h shells (lc 5), with and without the attenuation."""
+    mol, auxmol = fg_mols
+    aux = j3c.aux_tables(auxmol)
+    assert [a[0] for a in aux] == list(range(6))
+    offs, _ = kernels._aux_offsets(aux)
+    classes = j3c.screened_pairs(mol)
+    for la, lb in ((3, 3), (4, 4)):
+        p = classes[(la, lb)][1]
+        n, Ka, Kb = _dims(p)
+        out = torch.empty((n * (2 * la + 1) * (2 * lb + 1), offs[-1]),
+                          dtype=torch.float64)
+        for i, (l, e, c, r) in enumerate(aux):
+            assert host[f'int3c2e_la{la}'](
+                la, lb, l, n, Ka, Kb, *_ptrs(*p), *e.shape,
+                *_ptrs(e, c, r, sph(la, DEV), sph(lb, DEV), sph(l, DEV),
+                       out), offs[-1], offs[i], omega, None) == 0
+        _close(out, j3c.int3c2e_plain(la, lb, *p, aux, omega))
+
+
+def test_int2c2e_to_h(host, fg_mols):
+    """The (P|Q) metric of an aux basis of s to h shells, (h|h) among its
+    class pairs."""
+    _, auxmol = fg_mols
+    aux = j3c.aux_tables(auxmol)
+    offs, _ = kernels._aux_offsets(aux)
+    out = torch.empty((offs[-1], offs[-1]), dtype=torch.float64)
+    for i, (lx, ex, cx, rx) in enumerate(aux):
+        for j in range(i, len(aux)):
+            ly, ey, cy, ry = aux[j]
+            assert host['int2c2e'](
+                lx, ly, *ex.shape, *_ptrs(ex, cx, rx), *ey.shape,
+                *_ptrs(ey, cy, ry, sph(lx, DEV), sph(ly, DEV), out),
+                offs[-1], offs[i], offs[j], 0.0, None) == 0
+    _close(out, j3c.int2c2e_plain(aux))
+
+
+@pytest.mark.parametrize('omega', [0.0, OMEGA])
+def test_int2e_f_and_g(host, fg_mols, omega):
+    """(ff|..) and (gg|..) rows against every ket class of s to g shells,
+    (ff|ff), (ff|gg), (gg|ff) and (gg|gg) among them, with and without the
+    attenuation."""
+    mol, _ = fg_mols
+    kets = j2e._ket_arrays(mol)
+    classes = j3c.screened_pairs(mol)
+    for la, lb in ((3, 3), (4, 4)):
+        p = classes[(la, lb)][1]
+        ref = j2e.int2e_class_plain(la, lb, *p, kets, omega)
+        got = _quartets(host[f'int2e_{la}{lb}'], la, lb, p, kets,
+                        torch.empty_like(ref), ref.shape[1], omega)
+        _close(got, ref)
 
 
 def test_vv10(host):

@@ -64,6 +64,81 @@ def test_int2e(water):
         assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
 
 
+# s to g shells, and an aux basis of s to h shells (tests/test_torch_csrc_
+# host.py's HOST_BASIS and HOST_AUX), on two centres off the origin
+FG_ATOMS = 'O 0.1 0.2 -0.3; H 0.3 -0.7 0.6'
+FG_BASIS = {'O': [[0, [3.0, 0.6], [0.8, 0.5]], [1, [1.1, 1.0]],
+                  [2, [0.9, 1.0]], [3, [0.7, 0.4], [2.0, 0.7]],
+                  [4, [0.6, 1.0]]],
+            'H': [[0, [1.2, 1.0]], [1, [0.9, 1.0]], [2, [0.5, 1.0]]]}
+FG_AUX = {'O': [[l, [0.7 + 0.4 * l, 1.0]] for l in range(6)],
+          'H': [[0, [1.4, 1.0]], [2, [0.8, 1.0]]]}
+
+
+@pytest.fixture(scope='module')
+def fg_mols():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels run only on the card')
+    return (tpt.M(atom=FG_ATOMS, basis=FG_BASIS, device='cuda'),
+            tpt.M(atom=FG_ATOMS, basis=FG_AUX, device='cuda'))
+
+
+def _close(got, ref):
+    assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+def test_int1e_stv_f_and_g(fg_mols):
+    """S/T/V of every class la <= lb to (gg), and S alone of every ordered
+    class."""
+    mol, _ = fg_mols
+    zr = torch.as_tensor(mol.coords, device='cuda')
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64, device='cuda')
+    for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
+        _close(kernels.int1e_stv(la, lb, *p, zr, zq),
+               int1e.class_stv(la, lb, *p, zr, zq))
+    for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
+        _close(kernels.int1e_stv(la, lb, *p, with_tv=False),
+               int1e.class_stv(la, lb, *p, with_tv=False))
+
+
+@pytest.mark.parametrize('omega', [None, 0.3])
+def test_int3c2e_f_and_g(fg_mols, omega):
+    """The (ff) and (gg) bra classes against aux shells to h (lc 5)."""
+    mol, auxmol = fg_mols
+    aux = j3c.aux_tables(auxmol)
+    classes = j3c.screened_pairs(mol)
+    for la, lb in ((3, 3), (4, 4)):
+        p = classes[(la, lb)][1]
+        _close(kernels.int3c2e(la, lb, *p, aux, omega),
+               j3c.int3c2e_plain(la, lb, *p, aux, omega))
+
+
+def test_int2c2e_to_h(fg_mols):
+    aux = j3c.aux_tables(fg_mols[1])
+    _close(kernels.int2c2e(aux), j3c.int2c2e_plain(aux))
+
+
+@pytest.mark.parametrize('omega', [None, 0.3])
+def test_int2e_f_and_g(fg_mols, omega):
+    """(ff|..) and (gg|..) against every ket class to (gg)."""
+    mol, _ = fg_mols
+    kets = j2e._ket_arrays(mol)
+    classes = j3c.screened_pairs(mol)
+    for la, lb in ((3, 3), (4, 4)):
+        p = classes[(la, lb)][1]
+        _close(kernels.int2e(la, lb, *p, kets, omega),
+               j2e.int2e_class_plain(la, lb, *p, kets, omega))
+
+
+def test_f_shell_derivative_kernel_raises(fg_mols):
+    """The derivative kernels stop at d: an f class raises on the card."""
+    mol, _ = fg_mols
+    kets = j2e._ket_arrays(mol)
+    p = j3c.screened_pairs(mol)[(3, 3)][1]
+    with pytest.raises(NotImplementedError):
+        kernels.int2e_ip1(3, 3, *p, kets)
+
+
 def test_int1e_ip_and_iprinv(water):
     """Every ordered class of water/def2-SVP, up to (d, d)."""
     mol, _ = water
