@@ -2,10 +2,10 @@
 """Smoke run of pyscf_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
 Drives the port's paths for benzene/def2-SVP, the phenyl radical and
-water, then BASELINE configs 3 ((H2O)10/cc-pVTZ) and 4 (N2/cc-pVQZ) on
-the card, in order:
+water, then BASELINE configs 3 ((H2O)10/cc-pVTZ) and 4 (N2/cc-pVQZ), and
+the forces and frequencies of the f and g shells on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the fifty-four kernel libraries of the thirty-two kernels from
+  2. builds the eighty-two kernel libraries of the thirty-two kernels from
      the twenty-six sources of pyscf_tpu_torch/csrc (nvcc, sm_90a, one
      process per library, all at once);
   3. integral kernel phases at the main path's shapes: each kernel against
@@ -167,11 +167,11 @@ the card, in order:
  37. the Hessian path: benzene DF-RHF/def2-SVP from M() (minao, conv_tol
      1e-12, conv_tol_grad 1e-8) and mf.Hessian().kernel(): the five
      Hessian kernels, int1e_ip and int1e_iprinv launched in that run;
-     |sum_A H[A]| <= 1e-7, |H - H^T| <= 1e-9, central differences of the
-     analytic gradient (step 1e-3 Bohr, SCFs at conv_tol 1e-12 and
-     conv_tol_grad 1e-9) within 1e-5 Ha/Bohr^2; the warm time (median of
-     3), its phases, the CPHF iterations, the peak memory, the harmonic
-     frequencies and the thermochemistry printed;
+     |sum_A H[A]| <= 1e-7, |H - H^T| <= 1e-9, every column against
+     central differences of the analytic gradient (step 1e-3 Bohr, SCFs at
+     conv_tol 1e-12 and conv_tol_grad 1e-9) within 1e-5 Ha/Bohr^2; one
+     warm time, the phases, the CPHF iterations, the peak memory, the
+     harmonic frequencies and the thermochemistry printed;
  38. the Hessian kernels at benzene's shapes against their twins (<= 1e-10
      x max): int1e_ipip with the SCF's D and W, int3c2e_ip1 and
      int2c2e_ip1_full written out, int3c2e_ipip and int2c2e_ipip with the
@@ -201,7 +201,40 @@ the card, in order:
      memory printed;
  42. Ne/cc-pVQZ in-core RHF, MP2, CCSD and (T) (the same settings) within
      1e-8 Ha of the recorded JAX energies;
- 43. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 43. the f and g phase: every class of the nine derivative and Hessian
+     kernels at water/cc-pVTZ's shapes (f, cc-pvtz-jkfit to g) and
+     water/cc-pVQZ's (g, cc-pvqz-jkfit to h), on seeded densities and
+     weights, against their twins within 1e-12 of the twin's largest
+     element (rows <kernel>_tz and <kernel>_qz); the card's free memory
+     after them (the local memory the largest stacks reserve);
+ 44. BASELINE config 3's forces at full width: (H2O)10 DF-RHF/cc-pVTZ
+     from M() (conv_tol 1e-10, conv_tol_grad 1e-7) through
+     nuc_grad_method().kernel(): the sum rule within 1e-9, central
+     differences on one O and one H coordinate within 1e-6, the same
+     gradient on the twins' derivative integrals within 1e-8; the wall
+     from M(), the gradient's phases, its warm time and the peak memory;
+ 45. water/cc-pVTZ DF-RHF and water/def2-TZVP DF-RKS b3lypg (grids level
+     1) forces within 1e-8 of the recorded JAX gradients; water/cc-pVQZ
+     DF-RHF forces (g, aux h) with the sum rule within 1e-9;
+ 46. the north-star level, benzene DF-RKS b3lypg/def2-TZVP forces as in
+     13 (|de_z| and the mirror planes within 1e-8, central differences
+     with the grid held fixed within 1e-6; no JAX reference at this
+     width);
+ 47. the DF-RHF Hessian and harmonic frequencies of benzene/cc-pVTZ (nao
+     264, naux 654) and water/cc-pVQZ from M() (conv_tol 1e-12,
+     conv_tol_grad 1e-8): the seven kernels launched, the sum rule within
+     1e-7, the symmetry within 1e-9, central differences of the analytic
+     gradient within 1e-5 on four columns (one C x and z, one H x and y)
+     and on all nine; the eight phases, the peak memory and the
+     frequencies printed;
+ 48. int2e_ip1's (gg|gg) class, R_tuv to order 17, on two g shells whose
+     primitive quartets put the Boys argument on both sides of 18, and
+     int2e_ip1 over every ordered class of N2/cc-pVQZ (f and g), each
+     against its twin within 1e-12 of the twin's largest element (each g
+     bra class to its own size); then config 4's molecule's in-core RHF
+     forces from M(): the sum rule within 1e-9, the central difference
+     along the bond within 1e-6;
+ 49. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
@@ -212,8 +245,10 @@ the card, in order:
      33, int1e_ipip, int3c2e_ip1, int2c2e_ip1_full, int3c2e_ipip and
      int2c2e_ipip from 37, int1e_stv_tz, int3c2e_tz and int2c2e_tz (the
      kernels at config 3's classes) from 39, int1e_stv_qz and int2e_qz
-     (at config 4's) from 41, the others from 6), then the result line
-     {"ok": true, "device": {...}}.
+     (at config 4's) from 41, the DF gradient's four <kernel>_tz from 44
+     and <kernel>_qz from 45's water/cc-pVQZ, the Hessian's five
+     <kernel>_tz and <kernel>_qz from 47, int2e_ip1_qz from 48, the others
+     from 6), then the result line {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
 import contextlib
@@ -272,15 +307,17 @@ def bound(nbytes, nops, peak=FP64_FLOPS):
 
 
 def record(report, name, source, replaces, err, kernel_fn, plain_fn, nbytes,
-           nops, plain_reps=3, plain_ms=None, peak=FP64_FLOPS):
-    """Time the kernel and its twin (or take the twin's plain_ms, measured
-    once by the caller) and keep the kernel's line of the report. Both ran
-    on the same inputs in the caller's comparison, which serves as their
-    warm-up."""
+           nops, plain_reps=3, plain_ms=None, peak=FP64_FLOPS,
+           kernel_ms=None):
+    """Time the kernel and its twin (or take kernel_ms and plain_ms, each
+    measured once by the caller: a long call's time is its comparison
+    call) and keep the kernel's line of the report. Both ran on the same
+    inputs in the caller's comparison, which serves as their warm-up."""
     bound_ms, bound_by = bound(nbytes, nops, peak)
     report[name] = dict(
         source=source, replaces=replaces, max_abs_err=err,
-        ms=cuda_ms(kernel_fn, warmup=False),
+        ms=cuda_ms(kernel_fn, warmup=False) if kernel_ms is None
+        else kernel_ms,
         plain_ms=(cuda_ms(plain_fn, plain_reps, warmup=False)
                   if plain_ms is None else plain_ms),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -859,7 +896,8 @@ def deriv_phases(pt, refs, kernels, report):
 
     kets = j2e._ket_arrays(mol)
     k_out = per_class(kernels.int2e_ip1, kets)
-    p_out = per_class(int2e.int2e_ip1_class_plain, kets)
+    p_out, plain_s = host_s(lambda: per_class(int2e.int2e_ip1_class_plain,
+                                              kets))
     err, scale = max_abs(list(zip(k_out, p_out)))
     nrow = sum(p.shape[1] for p in k_out)
     print(f'int2e_ip1: {len(classes)} ordered bra classes x {len(kets)} ket '
@@ -876,9 +914,8 @@ def deriv_phases(pt, refs, kernels, report):
     del k_out
     record(report, 'int2e_ip1', 'pyscf_tpu_torch/csrc/int2e_ip1.cu',
            'pyscf_tpu/ops/integrals/int2e.py:727', err,
-           lambda: per_class(kernels.int2e_ip1, kets),
-           lambda: per_class(int2e.int2e_ip1_class_plain, kets), io, ops,
-           plain_reps=1)
+           lambda: per_class(kernels.int2e_ip1, kets), None, io, ops,
+           plain_ms=plain_s * 1e3)
     check(err <= 1e-12 * scale, f'int2e_ip1 vs plain: {err:.3e} > 1e-12 x '
           f'{scale:.3e}')
 
@@ -1053,7 +1090,9 @@ def fixed_grid(mf0):
 def df_grad_path(name, kernels, build, e_ref, names):
     """M() through kernel() (run_path, which sets the launch counts to 0)
     and nuc_grad_method().kernel(); every kernel in `names` must have
-    launched by the end. Returns (mf, grad, de, launches)."""
+    launched by the end; E within 1e-8 of e_ref unless e_ref is None (no
+    JAX reference at the path's width). Returns (mf, grad, de,
+    launches)."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mf, e, _ = run_path(name, kernels, (), build)
@@ -1062,14 +1101,17 @@ def df_grad_path(name, kernels, build, e_ref, names):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launches()
-    print(f'{name}: E - E_ref {e - e_ref:.3e}  energy check |e_chk - E| '
+    ref = f'E - E_ref {e - e_ref:.3e}' if e_ref is not None else f'E {e!r}'
+    print(f'{name}: {ref}  energy check |e_chk - E| '
           f'{abs(grad.e_chk - e):.3e}  wall from M() {wall:.3f} s  peak '
           f'device memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB')
     print('gradient phases: ' + '  '.join(
         f'{k} {v:.4f}' for k, v in grad.timings.items()))
     print(f'launches: {launches}')
     print('de (Ha/Bohr):\n' + np.array2string(de, precision=10))
-    check(abs(e - e_ref) < 1e-8, f'{name}: |E - E_ref| {abs(e - e_ref):.3e}')
+    if e_ref is not None:
+        check(abs(e - e_ref) < 1e-8, f'{name}: |E - E_ref| '
+              f'{abs(e - e_ref):.3e}')
     check(abs(grad.e_chk - e) < 1e-6, f'{name}: energy check')
     check(de.shape == (mf.mol.natm, 3) and bool(np.isfinite(de).all()),
           f'{name}: the gradient is not finite of shape (natm, 3)')
@@ -1108,13 +1150,16 @@ def warm_gradient(name, grad, runs=3):
                       for k in phases[0]))
 
 
-def df_rks_grad_path(pt, refs, kernels):
-    """The main path with its forces: benzene DF-RKS b3lypg/def2-SVP."""
+def df_rks_grad_path(pt, refs, kernels, tzvp=False):
+    """The main path with its forces: benzene DF-RKS b3lypg/def2-SVP; with
+    tzvp, the north-star basis def2-TZVP (f shells; no JAX reference at
+    that width, no moving-grid differences and no warm runs)."""
+    basis = 'def2-TZVP' if tzvp else 'def2-SVP'
     mf, grad, de, launches = df_grad_path(
-        'DF-RKS b3lypg benzene/def2-SVP + gradient', kernels,
-        lambda: tight(pt.dft.RKS(pt.M(atom=refs.BENZENE, basis='def2-svp'),
+        f'DF-RKS b3lypg benzene/{basis} + gradient', kernels,
+        lambda: tight(pt.dft.RKS(pt.M(atom=refs.BENZENE, basis=basis),
                                  xc='b3lypg').density_fit()),
-        refs.E_BENZENE_DF_RKS_B3LYPG_DEF2SVP,
+        None if tzvp else refs.E_BENZENE_DF_RKS_B3LYPG_DEF2SVP,
         ('int1e_stv', 'int3c2e', 'int2c2e', 'eval_ao', 'becke', 'xc_rks')
         + DF_GRAD_KERNELS + XC_GRAD_KERNELS)
     # the grid is held fixed (no grid response, as in the JAX package), so
@@ -1127,9 +1172,11 @@ def df_rks_grad_path(pt, refs, kernels):
     check(out < 1e-8, f'DF-RKS gradient: |de_z| {out:.3e} >= 1e-8')
     check(mirror < 1e-8, f'DF-RKS gradient: mirror defect {mirror:.3e}')
     build = fixed_grid(mf)
-    fd = central_differences('DF-RKS (grid fixed)', de,
+    fd = central_differences(f'DF-RKS {basis} (grid fixed)', de,
                              lambda m: build(m).kernel(), mf.mol,
                              RADIAL_PICKS, 1e-6)
+    if tzvp:
+        return mf, launches
     fdm = central_differences('DF-RKS (grid moving)', de,
                               lambda m: build(m, grid=False).kernel(),
                               mf.mol, RADIAL_PICKS, None)
@@ -1213,7 +1260,8 @@ def df_grad_phases(pt, kernels, mf, report):
     def rows(fn):
         return [fn(*cls, *p, aux, G[cls]) for cls, (_, p) in classes.items()]
 
-    k_out, p_out = rows(kernels.int3c2e_ip), rows(j3c_deriv.int3c2e_ip_plain)
+    k_out = rows(kernels.int3c2e_ip)
+    p_out, plain_s = host_s(lambda: rows(j3c_deriv.int3c2e_ip_plain))
     err, scale = max_abs(list(zip(k_out, p_out)))
     aux_nnz = {l: float(_nnz(c).sum()) for l, _, c, _ in aux}
     ops = 0.0
@@ -1226,8 +1274,8 @@ def df_grad_phases(pt, kernels, mf, report):
         + sum(nbytes(*a[1:]) for a in aux) + nbytes(*G.values(), *k_out)
     record(report, 'int3c2e_ip', 'pyscf_tpu_torch/csrc/int3c2e_ip.cu',
            'pyscf_tpu/grad/autodiff.py:148', err,
-           lambda: rows(kernels.int3c2e_ip),
-           lambda: rows(j3c_deriv.int3c2e_ip_plain), io, ops, plain_reps=1)
+           lambda: rows(kernels.int3c2e_ip), None, io, ops,
+           plain_ms=plain_s * 1e3)
     check(err <= 1e-10 * scale, f'int3c2e_ip vs plain: {err:.3e} > 1e-10 x '
           f'{scale:.3e}')
     del G, k_out, p_out
@@ -2225,6 +2273,8 @@ HESS_KERNELS = ('int1e_ipip', 'int3c2e_ip1', 'int2c2e_ip1_full',
                 'int3c2e_ipip', 'int2c2e_ipip')
 HESS_PHASES = ('s1h1', 'ip1_3c', 'F1', 'cphf', 'rows_1e', 'rows_df',
                'rows_3c', 'rows_2c')
+# the kernels of the DF-RHF Hessian's path
+HESS_PATH_KERNELS = HESS_KERNELS + ('int1e_ip', 'int1e_iprinv')
 
 
 def hess_terms_ops(la, lb, with_a):
@@ -2281,24 +2331,53 @@ def ipip_1e_ops(la, lb, pairs, natm):
 
 
 @contextlib.contextmanager
-def hessian_twins(kernels):
-    """The Hessian's five kernel wrappers replaced by the plain twins on the
-    card's tensors, so that the same Hessian is built both ways."""
-    from pyscf_tpu_torch.ops.integrals import int1e_deriv, j3c_deriv
+def plain_kernels(kernels, names):
+    """The named derivative and Hessian kernel wrappers replaced by their
+    plain twins on the card's tensors, so that the same gradient or Hessian
+    is built both ways."""
+    from pyscf_tpu_torch.ops.integrals import int1e_deriv, int2e, j3c_deriv
 
-    names = HESS_KERNELS
-    saved = [getattr(kernels, k) for k in names]
-    for k, fn in zip(names, (int1e_deriv.class_ipip,
-                             j3c_deriv.int3c2e_ip1_plain,
-                             j3c_deriv.int2c2e_ip1_full_plain,
-                             j3c_deriv.int3c2e_ipip_plain,
-                             j3c_deriv.int2c2e_ipip_plain)):
-        setattr(kernels, k, fn)
+    twin = {'int1e_ip': int1e_deriv.class_ip,
+            'int1e_iprinv': int1e_deriv.class_iprinv,
+            'int2e_ip1': int2e.int2e_ip1_class_plain,
+            'int3c2e_ip': j3c_deriv.int3c2e_ip_plain,
+            'int2c2e_ip1': j3c_deriv.int2c2e_ip1_plain,
+            'int1e_ipip': int1e_deriv.class_ipip,
+            'int3c2e_ip1': j3c_deriv.int3c2e_ip1_plain,
+            'int2c2e_ip1_full': j3c_deriv.int2c2e_ip1_full_plain,
+            'int3c2e_ipip': j3c_deriv.int3c2e_ipip_plain,
+            'int2c2e_ipip': j3c_deriv.int2c2e_ipip_plain}
+    saved = {k: getattr(kernels, k) for k in names}
+    for k in names:
+        setattr(kernels, k, twin[k])
     try:
         yield
     finally:
-        for k, fn in zip(names, saved):
+        for k, fn in saved.items():
             setattr(kernels, k, fn)
+
+
+def ip1_all(fn, mol, classes, aux):
+    """d(ij|P)/dA_i of every ordered shell pair through fn (int3c2e_ip1 or
+    its twin) into a fresh (3, nao, nao, naux) tensor, as the Hessian's
+    _first_df writes it: each screened class, then its mirrored pairs."""
+    dev = mol.device
+    naux = sum(e.shape[0] * (2 * l + 1) for l, e, _, _ in aux)
+    out = torch.zeros((3, mol.nao, mol.nao, naux), dtype=torch.float64,
+                      device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    for (la, lb), (bc, p) in classes.items():
+        ia, jb = bc.ga.ao_off[bc.sel_a], bc.gb.ao_off[bc.sel_b]
+        fn(la, lb, *p, aux, torch.as_tensor(ia, **i32),
+           torch.as_tensor(jb, **i32), out)
+        keep = ~((la == lb) & (bc.sel_a == bc.sel_b))
+        if not keep.any():
+            continue
+        k = torch.as_tensor(np.flatnonzero(keep), device=dev)
+        q = [t.index_select(0, k) for t in p]
+        fn(lb, la, *q[3:], *q[:3], aux, torch.as_tensor(jb[keep], **i32),
+           torch.as_tensor(ia[keep], **i32), out)
+    return out
 
 
 def hessian_phases(pt, kernels, mf, report):
@@ -2343,20 +2422,19 @@ def hessian_phases(pt, kernels, mf, report):
         return [fn(la, lb, *p, zr, zq, D, W) for la, lb, p, D, W in blocks]
 
     k_out = one_e(kernels.int1e_ipip)
-    p_out = one_e(int1e_deriv.class_ipip)
+    p_out, plain_s = host_s(lambda: one_e(int1e_deriv.class_ipip))
     err, scale = max_abs(list(zip(k_out, p_out)))
     ops = sum(ipip_1e_ops(la, lb, p, natm) for la, lb, p, _, _ in blocks)
     io = sum(nbytes(*p, D, W) for _, _, p, D, W in blocks) \
         + nbytes(*k_out, zr, zq)
     record(report, 'int1e_ipip', 'pyscf_tpu_torch/csrc/int1e_ipip.cu',
            'pyscf_tpu/hessian/rhf.py:327', err, lambda: one_e(
-               kernels.int1e_ipip),
-           lambda: one_e(int1e_deriv.class_ipip), io, ops, plain_reps=1)
+               kernels.int1e_ipip), None, io, ops, plain_ms=plain_s * 1e3)
     check(err <= 1e-10 * scale, f'int1e_ipip vs plain: {err:.3e} > 1e-10 x '
           f'{scale:.3e}')
     del k_out, p_out
 
-    with hessian_twins(kernels):
+    with plain_kernels(kernels, HESS_KERNELS):
         ip1_p, _ = hess_rhf._first_df(mol, auxmol)
     ip1_k, _ = hess_rhf._first_df(mol, auxmol)
     err, scale = max_abs([(ip1_k, ip1_p)])
@@ -2370,27 +2448,10 @@ def hessian_phases(pt, kernels, mf, report):
                 ops += coulomb_ip1_ops(a, b, l, prims, e.shape[0],
                                        prims * aux_nnz[l])
 
-    def ip1_all(fn):
-        out = torch.zeros((3, nao, nao, naux), dtype=torch.float64,
-                          device=dev)
-        i32 = dict(dtype=torch.int32, device=dev)
-        for (la, lb), (bc, p) in classes.items():
-            ia, jb = bc.ga.ao_off[bc.sel_a], bc.gb.ao_off[bc.sel_b]
-            fn(la, lb, *p, aux, torch.as_tensor(ia, **i32),
-               torch.as_tensor(jb, **i32), out)
-            keep = ~((la == lb) & (bc.sel_a == bc.sel_b))
-            if not keep.any():
-                continue
-            k = torch.as_tensor(np.flatnonzero(keep), device=dev)
-            q = [t.index_select(0, k) for t in p]
-            fn(lb, la, *q[3:], *q[:3], aux, torch.as_tensor(jb[keep], **i32),
-               torch.as_tensor(ia[keep], **i32), out)
-        return out
-
     record(report, 'int3c2e_ip1', 'pyscf_tpu_torch/csrc/int3c2e_ip1.cu',
            'pyscf_tpu/hessian/rhf.py:270', err,
-           lambda: ip1_all(kernels.int3c2e_ip1),
-           lambda: ip1_all(j3c_deriv.int3c2e_ip1_plain),
+           lambda: ip1_all(kernels.int3c2e_ip1, mol, classes, aux),
+           lambda: ip1_all(j3c_deriv.int3c2e_ip1_plain, mol, classes, aux),
            nbytes(ip1_k) + sum(nbytes(*p) for _, p in classes.values())
            + sum(nbytes(*a[1:]) for a in aux), ops, plain_reps=1)
     check(err <= 1e-10 * scale, f'int3c2e_ip1 vs plain: {err:.3e} > 1e-10 x '
@@ -2426,8 +2487,8 @@ def hessian_phases(pt, kernels, mf, report):
     def rows(fn):
         return [fn(*cls, *p, aux, G[cls]) for cls, (_, p) in classes.items()]
 
-    k_out, p_out = rows(kernels.int3c2e_ipip), rows(
-        j3c_deriv.int3c2e_ipip_plain)
+    k_out = rows(kernels.int3c2e_ipip)
+    p_out, plain_s = host_s(lambda: rows(j3c_deriv.int3c2e_ipip_plain))
     err, scale = max_abs(list(zip(k_out, p_out)))
     ops = 0.0
     for (la, lb), (_, p) in classes.items():
@@ -2439,9 +2500,8 @@ def hessian_phases(pt, kernels, mf, report):
         + sum(nbytes(*a[1:]) for a in aux) + nbytes(*G.values(), *k_out)
     record(report, 'int3c2e_ipip', 'pyscf_tpu_torch/csrc/int3c2e_ipip.cu',
            'pyscf_tpu/hessian/rhf.py:327', err,
-           lambda: rows(kernels.int3c2e_ipip),
-           lambda: rows(j3c_deriv.int3c2e_ipip_plain), io, ops,
-           plain_reps=1)
+           lambda: rows(kernels.int3c2e_ipip), None, io, ops,
+           plain_ms=plain_s * 1e3)
     check(err <= 1e-10 * scale, f'int3c2e_ipip vs plain: {err:.3e} > 1e-10 x '
           f'{scale:.3e}')
     del G, k_out, p_out
@@ -2464,78 +2524,95 @@ def hessian_phases(pt, kernels, mf, report):
           f'{scale:.3e}')
 
 
-def hessian_path(pt, refs, kernels):
-    """Benzene DF-RHF/def2-SVP from M() (minao, conv_tol 1e-12,
-    conv_tol_grad 1e-8), then mf.Hessian().kernel() with the launch counts
-    set to 0 just before and read just after: the five Hessian kernels,
-    int1e_ip and int1e_iprinv launched; |sum_A H[A]| <= 1e-7, |H - H^T| <=
-    1e-9; central differences (hessian_fd, step 1e-3 Bohr) of the analytic
-    gradient with SCFs at conv_tol 1e-12 and conv_tol_grad 1e-9 within
-    1e-5 Ha/Bohr^2, the reference's gate (tests/test_hessian.py:39); the
-    warm time (median of 3) and its phases, the CG iterations and the
-    peak memory, the harmonic frequencies and the thermochemistry (the
-    geometry is no RHF minimum: printed, not gated). Returns (mf,
-    launches)."""
+def tight_df_rhf(mol, conv_tol_grad):
+    """DF-RHF converged as far as a Hessian and the central differences of
+    its gradient need: minao, conv_tol 1e-12."""
+    mf = mol.RHF().density_fit()
+    mf.init_guess = 'minao'
+    mf.conv_tol = 1e-12
+    mf.conv_tol_grad = conv_tol_grad
+    mf.kernel()
+    check(mf.converged, 'DF-RHF (Hessian) did not converge')
+    return mf
+
+
+
+def hessian_path(pt, kernels, name, atom, basis, picks, e_ref=None):
+    """The DF-RHF Hessian and harmonic frequencies at atom/basis from M()
+    (minao, conv_tol 1e-12, conv_tol_grad 1e-8) through
+    mf.Hessian().kernel(), the launch counts set to 0 just before and read
+    just after: its seven kernels launched, |sum_A H[A]| <= 1e-7, |H - H^T|
+    <= 1e-9, and the columns `picks` (atom, direction) against central
+    differences (step 1e-3 Bohr) of the analytic gradient (SCFs at conv_tol
+    1e-12 and conv_tol_grad 1e-9) within 1e-5 Ha/Bohr^2, the reference's
+    gate (tests/test_hessian.py:39); the wall from M(), the eight phases of
+    the first call and of one warm call, the CPHF iterations, the peak
+    memory, the harmonic frequencies and the thermochemistry printed (the
+    geometries are no RHF minima: not gated); E - e_ref printed where there
+    is a reference. Returns (mf, launches)."""
     from pyscf_tpu_torch import hessian
 
-    def tight_df_rhf(mol, conv_tol_grad):
-        mf = mol.RHF().density_fit()
-        mf.init_guess = 'minao'
-        mf.conv_tol = 1e-12
-        mf.conv_tol_grad = conv_tol_grad
-        mf.kernel()
-        check(mf.converged, 'benzene DF-RHF (Hessian) did not converge')
-        return mf
-
-    mf = tight_df_rhf(pt.M(atom=refs.BENZENE, basis='def2-svp'), 1e-8)
-    de = mf.e_tot - refs.E_BENZENE_DF_RHF_DEF2SVP
-    print(f'Hessian: benzene DF-RHF/def2-SVP E {mf.e_tot!r} (E - E_ref '
-          f'{de:.3e}, the reference at conv_tol 1e-8)')
     torch.cuda.synchronize()
-    kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mf = tight_df_rhf(pt.M(atom=atom, basis=basis), 1e-8)
+    torch.cuda.synchronize()
+    t_scf = time.perf_counter() - t0
+    if e_ref is not None:
+        print(f'{name}: E {mf.e_tot!r} (E - E_ref {mf.e_tot - e_ref:.3e}, '
+              f'the reference at conv_tol 1e-8)')
+    kernels.reset_launches()
     hobj = mf.Hessian()
     h, s = host_s(hobj.kernel)
     launches = kernels.launches()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f'Hessian (first call) {s:.3f} s, CPHF {hobj.cphf_cycles} '
-          f'iterations, peak device memory {peak:.3f} GB')
+    mol = mf.mol
+    print(f'{name} Hessian: nao {mol.nao}, naux {mf.with_df.auxmol.nao}; '
+          f'SCF {t_scf:.3f} s, Hessian {s:.3f} s, wall from M() '
+          f'{t_scf + s:.3f} s; CPHF {hobj.cphf_cycles} iterations; peak '
+          f'device memory {peak:.3f} GB')
+    print(f'{name} Hessian phases: ' + '  '.join(
+        f'{k} {hobj.timings[k]:.4f}' for k in HESS_PHASES))
     print(f'launches: {launches}')
-    for k in HESS_KERNELS + ('int1e_ip', 'int1e_iprinv'):
-        check(launches[k] > 0, f'Hessian: kernel {k} never launched')
-    natm = mf.mol.natm
+    for k in HESS_PATH_KERNELS:
+        check(launches[k] > 0, f'{name} Hessian: kernel {k} never launched')
+    natm = mol.natm
     hm = h.reshape(3 * natm, 3 * natm)
     drift = float(np.abs(h.sum(axis=0)).max())
     asym = float(np.abs(hm - hm.T).max())
-    print(f'Hessian |sum_A H[A]| {drift:.3e}  |H - H^T| {asym:.3e}')
+    print(f'{name} Hessian |sum_A H[A]| {drift:.3e}  |H - H^T| {asym:.3e}')
     check(np.all(np.isfinite(h)) and h.shape == (natm, 3, natm, 3),
-          'Hessian not finite of shape (natm, 3, natm, 3)')
-    check(drift <= 1e-7, f'Hessian sum rule {drift:.3e} > 1e-7')
-    check(asym <= 1e-9, f'Hessian symmetry {asym:.3e} > 1e-9')
-    times = []
-    for _ in range(3):
-        times.append(host_s(hobj.kernel)[1])
-    print(f'Hessian warm {float(np.median(times)):.4f} s (median of 3: '
-          f'{[round(t, 4) for t in times]}); phases: '
-          + '  '.join(f'{k} {hobj.timings[k]:.4f}' for k in HESS_PHASES)
-          + f'; CPHF iterations {hobj.cphf_cycles}')
-
-    def grad_factory(m):
-        return tight_df_rhf(m, 1e-9).Gradients().kernel()
-
-    fd, s = host_s(lambda: hessian.hessian_fd(grad_factory, mf.mol, 1e-3))
-    dfd = float(np.abs(h - fd).max())
-    print(f'Hessian vs central differences of the gradient (72 SCF + '
-          f'gradient runs, {s:.1f} s): max |H - H_fd| {dfd:.3e} Ha/Bohr^2')
-    check(dfd <= 1e-5, f'Hessian vs central differences {dfd:.3e} > 1e-5')
-    res = hessian.harmonic_analysis(mf.mol, h)
-    print('harmonic frequencies (cm^-1): '
+          f'{name} Hessian not finite of shape (natm, 3, natm, 3)')
+    check(drift <= 1e-7, f'{name} Hessian sum rule {drift:.3e} > 1e-7')
+    check(asym <= 1e-9, f'{name} Hessian symmetry {asym:.3e} > 1e-9')
+    _, s = host_s(hobj.kernel)
+    print(f'{name} Hessian warm {s:.4f} s; phases: ' + '  '.join(
+        f'{k} {hobj.timings[k]:.4f}' for k in HESS_PHASES))
+    coords0 = np.asarray(mol.coords).copy()
+    t0 = time.perf_counter()
+    worst = 0.0
+    for a, x in picks:
+        g = []
+        for step in (1e-3, -1e-3):
+            c = coords0.copy()
+            c[a, x] += step
+            g.append(tight_df_rhf(mol.copy().set_geom_(c), 1e-9)
+                     .Gradients().kernel())
+        col = (g[0] - g[1]) / 2e-3
+        worst = max(worst, float(np.abs(h[a, x] - col).max()))
+    print(f'{name} Hessian vs central differences of the gradient on '
+          f'{len(picks)} columns ({2 * len(picks)} SCF + gradient runs, '
+          f'{time.perf_counter() - t0:.1f} s): max |H - H_fd| {worst:.3e} '
+          f'Ha/Bohr^2')
+    check(worst <= 1e-5, f'{name} Hessian vs central differences '
+          f'{worst:.3e} > 1e-5')
+    res = hessian.harmonic_analysis(mol, h)
+    print(f'{name} harmonic frequencies (cm^-1): '
           + ' '.join(f'{f:.2f}' for f in res['freq_wavenumber']))
-    th = hessian.thermo(mf.mol, res['freq_au'], mf.e_tot)
-    print('thermochemistry (Ha): ' + '  '.join(f'{k} {v:.8f}'
-                                               for k, v in th.items()))
+    th = hessian.thermo(mol, res['freq_au'], mf.e_tot)
+    print(f'{name} thermochemistry (Ha): ' + '  '.join(
+        f'{k} {v:.8f}' for k, v in th.items()))
     return mf, launches
-
 
 
 # ---- f and g shells: BASELINE configs 3 and 4 ------------------------------
@@ -2796,6 +2873,295 @@ def neon_qz_references(pt, refs, kernels):
     check(abs(de) < 1e-8, f'Ne/cc-pVQZ RHF |E - E_ref| {abs(de):.3e}')
 
 
+# ---- f and g shells in the derivative and Hessian kernels -------------------
+
+# the sources and the JAX programs of the derivative and Hessian kernels
+DERIV_SOURCES = {
+    'int1e_ip': ('int1e_ip.cu', 'pyscf_tpu/ops/integrals/int1e_deriv.py:32'),
+    'int1e_iprinv': ('int1e_iprinv.cu',
+                     'pyscf_tpu/ops/integrals/int1e_deriv.py:136'),
+    'int3c2e_ip': ('int3c2e_ip.cu', 'pyscf_tpu/grad/autodiff.py:148'),
+    'int2c2e_ip1': ('int2c2e_ip1.cu', 'pyscf_tpu/grad/autodiff.py:131'),
+    'int1e_ipip': ('int1e_ipip.cu', 'pyscf_tpu/hessian/rhf.py:327'),
+    'int3c2e_ip1': ('int3c2e_ip1.cu', 'pyscf_tpu/hessian/rhf.py:270'),
+    'int2c2e_ip1_full': ('int2c2e_ipip.cu', 'pyscf_tpu/hessian/rhf.py:270'),
+    'int3c2e_ipip': ('int3c2e_ipip.cu', 'pyscf_tpu/hessian/rhf.py:327'),
+    'int2c2e_ipip': ('int2c2e_ipip.cu', 'pyscf_tpu/hessian/rhf.py:327'),
+    'int2e_ip1': ('int2e_ip1.cu', 'pyscf_tpu/ops/integrals/int2e.py:727')}
+
+
+def fg_deriv_phase(pt, refs, kernels, report, tag, basis):
+    """Every class of the derivative and Hessian kernels at water/<basis>'s
+    shapes with its JKFIT set (cc-pVTZ: f, aux to g; cc-pVQZ: g, aux to h)
+    against the plain twins on the card on the same inputs (seeded D, W,
+    Gamma rows and W_PQ), each kernel within 1e-12 of its twin's largest
+    element; recorded as <kernel>_<tag>."""
+    from pyscf_tpu_torch.df.addons import make_auxmol
+    from pyscf_tpu_torch.ops.integrals import int1e, int1e_deriv, j3c
+
+    mol = pt.M(atom=refs.WATER, basis=basis, device='cuda')
+    auxmol = make_auxmol(mol)
+    dev, natm = mol.device, mol.natm
+    print(f'water/{basis}: nao {mol.nao}, naux {auxmol.nao}, shells to l '
+          f'{max(mol.shell_groups)}, aux to l {max(auxmol.shell_groups)}')
+    zr = torch.as_tensor(mol.coords, dtype=torch.float64, device=dev)
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(12)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), device=dev)
+
+    cross = int1e.cross_pairs(mol, mol)
+    classes = j3c.screened_pairs(mol)
+    aux = j3c.aux_tables(auxmol)
+    aux_nnz = {l: float(_nnz(c).sum()) for l, _, c, _ in aux}
+    aux_bytes = sum(nbytes(*a[1:]) for a in aux)
+    naux = auxmol.nao
+
+    def compare(name, calls, ops, in_bytes):
+        """calls(fn) -> outputs through fn, the kernel or its twin."""
+        k_fn = getattr(kernels, name)
+        k_out = calls(k_fn)
+        with plain_kernels(kernels, (name,)):
+            p_fn = getattr(kernels, name)
+            p_out, plain_s = host_s(lambda: calls(p_fn))
+        k_out = k_out if isinstance(k_out, list) else [k_out]
+        p_out = p_out if isinstance(p_out, list) else [p_out]
+        err, scale = max_abs(list(zip(k_out, p_out)))
+        src, replaces = DERIV_SOURCES[name]
+        record(report, f'{name}_{tag}', f'pyscf_tpu_torch/csrc/{src}',
+               replaces, err, lambda: calls(k_fn), None,
+               in_bytes + nbytes(*k_out), ops, plain_ms=plain_s * 1e3)
+        check(err <= 1e-12 * scale, f'{name}_{tag} vs plain: {err:.3e} > '
+              f'1e-12 x {scale:.3e}')
+
+    pair_bytes = sum(nbytes(*p) for *_, p in cross) + nbytes(zr, zq)
+    compare('int1e_ip', lambda fn: [fn(la, lb, *p, zr, zq)
+                                    for la, lb, _, _, p in cross],
+            sum(ip_ops(la, lb, p, natm) for la, lb, _, _, p in cross),
+            pair_bytes)
+    compare('int1e_iprinv', lambda fn: [fn(la, lb, *p, zr)
+                                        for la, lb, _, _, p in cross],
+            sum(iprinv_ops(la, lb, p, natm) for la, lb, _, _, p in cross),
+            pair_bytes)
+    dw = [(normal(p[0].shape[0], (2 * la + 1) * (2 * lb + 1)),
+           normal(p[0].shape[0], (2 * la + 1) * (2 * lb + 1)))
+          for la, lb, _, _, p in cross]
+    compare('int1e_ipip', lambda fn: [
+        fn(la, lb, *p, zr, zq, D, W)
+        for (la, lb, _, _, p), (D, W) in zip(cross, dw)],
+        sum(ipip_1e_ops(la, lb, p, natm) for la, lb, _, _, p in cross),
+        pair_bytes + sum(nbytes(D, W) for D, W in dw))
+
+    G = {cls: normal(p[0].shape[0] * (2 * cls[0] + 1) * (2 * cls[1] + 1),
+                     naux) for cls, (_, p) in classes.items()}
+    rows_bytes = sum(nbytes(*p) for _, p in classes.values()) + aux_bytes
+    ops_ip = ops_ipip = ops_ip1 = 0.0
+    for (la, lb), (_, p) in classes.items():
+        prims = float(_prim_pairs(p).sum())
+        for l, e, _, _ in aux:
+            triples = prims * aux_nnz[l]
+            ops_ip += coulomb_ip_ops(la, lb, l, prims, e.shape[0], triples)
+            ops_ipip += coulomb_ipip_ops(la, lb, l, prims, e.shape[0],
+                                         triples)
+            for a, b in {(la, lb), (lb, la)}:
+                ops_ip1 += coulomb_ip1_ops(a, b, l, prims, e.shape[0],
+                                           triples)
+    for name, ops in (('int3c2e_ip', ops_ip), ('int3c2e_ipip', ops_ipip)):
+        compare(name, lambda fn: [fn(*cls, *p, aux, G[cls])
+                                  for cls, (_, p) in classes.items()],
+                ops, rows_bytes + nbytes(*G.values()))
+    del G
+    compare('int3c2e_ip1', lambda fn: ip1_all(fn, mol, classes, aux),
+            ops_ip1, rows_bytes)
+
+    W = normal(naux, naux)
+    W = W + W.T
+    ops_2c = {'int2c2e_ip1': 0.0, 'int2c2e_ip1_full': 0.0,
+              'int2c2e_ipip': 0.0}
+    for lx, ex, cx, _ in aux:
+        for ly, ey, cy, _ in aux:
+            px, py = float(_nnz(cx).sum()), float(_nnz(cy).sum())
+            ops_2c['int2c2e_ip1'] += coulomb_ip_ops(
+                ly, 0, lx, py, ex.shape[0], py * px, False)
+            ops_2c['int2c2e_ip1_full'] += coulomb_ip1_ops(
+                lx, 0, ly, px, ey.shape[0], px * py)
+            ops_2c['int2c2e_ipip'] += coulomb_ipip_ops(
+                ly, 0, lx, py, ex.shape[0], py * px, False)
+    compare('int2c2e_ip1', lambda fn: fn(aux, W), ops_2c['int2c2e_ip1'],
+            aux_bytes + nbytes(W))
+    compare('int2c2e_ip1_full', lambda fn: fn(aux), ops_2c['int2c2e_ip1_full'],
+            aux_bytes)
+    compare('int2c2e_ipip', lambda fn: fn(aux, W), ops_2c['int2c2e_ipip'],
+            aux_bytes + nbytes(W))
+
+
+def int2e_ip1_phase(kernels, mol, tag, report):
+    """int2e_ip1 over every ordered bra class of mol against every ket
+    class, against its twin on the card, within 1e-12 of the twin's largest
+    element (each (g, .) bra class to its own size too); recorded as
+    int2e_ip1_<tag>."""
+    from pyscf_tpu_torch.ops.integrals import int1e, int2e, j2e
+
+    cross = int1e.cross_pairs(mol, mol)
+    kets = j2e._ket_arrays(mol)
+
+    def pieces(fn):
+        return [fn(la, lb, *p, kets) for la, lb, _, _, p in cross]
+
+    k_out, kernel_s = host_s(lambda: pieces(kernels.int2e_ip1))
+    p_out, plain_s = host_s(lambda: pieces(int2e.int2e_ip1_class_plain))
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    for (la, lb, *_), k, p in zip(cross, k_out, p_out):
+        if max(la, lb) == 4:
+            e_c, s_c = max_abs([(k, p)])
+            check(e_c <= 1e-12 * s_c, f'int2e_ip1_{tag} ({la},{lb}) vs '
+                  f'plain: {e_c:.3e} > 1e-12 x {s_c:.3e}')
+    del p_out
+    print(f'int2e_ip1_{tag}: {len(cross)} ordered bra classes x {len(kets)} '
+          f'ket classes, {nbytes(*k_out) / 1e9:.3f} GB of rows')
+    ops = sum(quartet_ops(la, lb, p, lc, ld, ket, deriv=True)
+              for la, lb, _, _, p in cross for lc, ld, *ket in kets)
+    ops += sum(pair_e_ops(la, lb, p, True, deriv=True)
+               for la, lb, _, _, p in cross)
+    ops += sum(pair_e_ops(lc, ld, ket, False) for lc, ld, *ket in kets)
+    io = sum(nbytes(*p) for *_, p in cross) + nbytes(*k_out)
+    del k_out
+    src, replaces = DERIV_SOURCES['int2e_ip1']
+    record(report, f'int2e_ip1_{tag}', f'pyscf_tpu_torch/csrc/{src}',
+           replaces, err, None, None, io, ops, plain_ms=plain_s * 1e3,
+           kernel_ms=kernel_s * 1e3)
+    check(err <= 1e-12 * scale, f'int2e_ip1_{tag} vs plain: {err:.3e} > '
+          f'1e-12 x {scale:.3e}')
+
+
+def boys_both_sides(pt, kernels):
+    """int2e_ip1's (gg|gg) class, where R_tuv reaches order 17, on two g
+    shells of two primitives (exponents 6 and 0.3) on two centres 3
+    Angstrom apart, so that the Boys argument T = rho |P - Q|^2 of its
+    primitive quartets lies on both sides of the series' limit 18: within
+    1e-12 of the twin's largest element."""
+    from pyscf_tpu_torch.ops.integrals import int1e, int2e, j2e
+
+    mol = pt.M(atom='Ne 0 0 0; Ne 0 0 3.0',
+               basis=[[4, [6.0, 0.5], [0.3, 0.5]]])
+    gg = next(p for la, lb, _, _, p in int1e.cross_pairs(mol, mol)
+              if (la, lb) == (4, 4))
+    a, b = gg[0][:, :, None], gg[3][:, None, :]
+    p = (a + b).reshape(-1)
+    P = ((a[..., None] * gg[2][:, None, None, :] + b[..., None]
+          * gg[5][:, None, None, :]) / (a + b)[..., None]).reshape(-1, 3)
+    rho = p[:, None] * p[None, :] / (p[:, None] + p[None, :])
+    T = rho * ((P[:, None, :] - P[None, :, :]) ** 2).sum(-1)
+    below, above = int((T < 18).sum()), int((T >= 18).sum())
+    kets = j2e._ket_arrays(mol)
+    err, scale = max_abs([(kernels.int2e_ip1(4, 4, *gg, kets),
+                           int2e.int2e_ip1_class_plain(4, 4, *gg, kets))])
+    print(f'int2e_ip1 (gg|gg) at R_tuv order 17, Boys T from '
+          f'{float(T.min()):.3e} to {float(T.max()):.3e} ({below} primitive '
+          f'quartets below 18, {above} at or above): max_abs_err '
+          f'{err:.3e} of {scale:.3e}')
+    check(below > 0 and above > 0, 'Boys T not on both sides of 18')
+    check(err <= 1e-12 * scale, f'int2e_ip1 (gg|gg) on both sides of T = 18 '
+          f'vs plain: {err:.3e} > 1e-12 x {scale:.3e}')
+
+
+def h2o10_forces_path(pt, refs, kernels):
+    """BASELINE config 3's forces at full width: (H2O)10 DF-RHF/cc-pVTZ
+    from M() (minao, conv_tol 1e-10, conv_tol_grad 1e-7) through
+    nuc_grad_method().kernel(), the launch counts set to 0 before M() and
+    read after the gradient: |sum_A de[A]| < 1e-9, central differences on
+    one O and one H coordinate within 1e-6, and the same gradient with the
+    four derivative kernels replaced by their plain twins on the card
+    within 1e-8; the wall from M(), the gradient's phases, its warm time
+    and the peak memory printed. Returns launches."""
+    mf, grad, de, launches = df_grad_path(
+        'DF-RHF (H2O)10/cc-pVTZ + gradient', kernels,
+        lambda: tight(pt.scf.RHF(pt.M(atom=refs.H2O10, basis='cc-pvtz'))
+                      .density_fit()), None, DF_GRAD_KERNELS)
+    drift = float(np.abs(de.sum(axis=0)).max())
+    print(f'(H2O)10 |sum_A de[A]| {drift:.3e}')
+    check(drift < 1e-9, f'(H2O)10 gradient sum rule: {drift:.3e} >= 1e-9')
+    central_differences(
+        '(H2O)10', de, lambda m: tight(m.RHF().density_fit()).kernel(),
+        mf.mol, [(0, 2), (1, 0)], 1e-6)
+    warm_gradient('(H2O)10', grad)
+    cache = mf.mol._j3c_cache
+    cache.pop('ip1e')
+    with plain_kernels(kernels, DF_GRAD_KERNELS):
+        de_p, s_p = host_s(mf.nuc_grad_method().kernel)
+    cache.pop('ip1e')
+    diff = float(np.abs(de - de_p).max())
+    print(f'(H2O)10 gradient on the twins\' integrals ({s_p:.1f} s): max '
+          f'|de - de_twins| {diff:.3e}')
+    check(diff < 1e-8, f'(H2O)10 gradient vs the twins\' {diff:.3e} >= 1e-8')
+    return launches
+
+
+def tz_water_gradients(pt, refs):
+    """Water/cc-pVTZ DF-RHF and water/def2-TZVP DF-RKS b3lypg (grids level
+    1) forces on the card within 1e-8 of the recorded JAX gradients."""
+    for name, basis, xc, ref in (
+            ('DF-RHF', 'cc-pvtz', None, refs.GRAD_WATER_DF_RHF_CCPVTZ),
+            ('DF-RKS b3lypg', 'def2-tzvp', 'b3lypg',
+             refs.GRAD_WATER_DF_RKS_B3LYPG_DEF2TZVP_L1)):
+        mol = pt.M(atom=refs.WATER, basis=basis)
+        mf = tight((mol.RKS(xc=xc) if xc else mol.RHF()).density_fit())
+        if xc:
+            mf.grids.level = 1
+        de = mf.run().nuc_grad_method().kernel()
+        err = float(np.abs(de - np.array(ref)).max())
+        print(f'water/{basis} {name}: max |de - de_ref| {err:.3e}')
+        check(mf.converged and err < 1e-8, f'water/{basis} {name} gradient '
+              f'vs the recorded JAX gradient: {err:.3e} >= 1e-8')
+
+
+def qz_water_gradient(pt, refs, kernels):
+    """Water/cc-pVQZ DF-RHF (cc-pvqz-jkfit: g, aux to h) from M() through
+    the gradient: the sum rule within 1e-9. Returns launches."""
+    mf, _, de, launches = df_grad_path(
+        'DF-RHF water/cc-pVQZ + gradient', kernels,
+        lambda: tight(pt.M(atom=refs.WATER, basis='cc-pvqz').RHF()
+                      .density_fit()), None, DF_GRAD_KERNELS)
+    drift = float(np.abs(de.sum(axis=0)).max())
+    print(f'water/cc-pVQZ |sum_A de[A]| {drift:.3e}')
+    check(drift < 1e-9, f'water/cc-pVQZ gradient sum rule: {drift:.3e}')
+    return launches
+
+
+def n2_qz_forces_path(pt, refs, kernels):
+    """Config 4's molecule, N2/cc-pVQZ in-core RHF (minao, conv_tol 1e-10,
+    conv_tol_grad 1e-7) from M() through nuc_grad_method().kernel(), the
+    launch counts set to 0 before M(): |sum_A de[A]| < 1e-9, the central
+    difference along the bond within 1e-6, the int2e_ip1 phase's time
+    printed. Returns launches."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mf, _, _ = run_path('RHF N2/cc-pVQZ', kernels, (),
+                        lambda: tight(pt.M(atom=refs.N2, basis='cc-pvqz')
+                                      .RHF()))
+    grad = mf.nuc_grad_method()
+    de = grad.kernel()
+    torch.cuda.synchronize()
+    launches = kernels.launches()
+    print(f'N2/cc-pVQZ gradient: wall from M() {time.perf_counter() - t0:.3f}'
+          f' s, phases ' + '  '.join(f'{k} {v:.4f}'
+                                     for k, v in grad.timings.items())
+          + f', peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}'
+          f' GB\nde (Ha/Bohr):\n' + np.array2string(de, precision=10))
+    for k in GRAD_KERNELS:
+        check(launches[k] > 0, f'N2/cc-pVQZ gradient: kernel {k} never '
+              f'launched')
+    drift = float(np.abs(de.sum(axis=0)).max())
+    check(drift < 1e-9, f'N2/cc-pVQZ gradient sum rule: {drift:.3e}')
+    del mf, grad
+    torch.cuda.empty_cache()
+    central_differences('N2/cc-pVQZ', de,
+                        lambda m: tight(m.RHF()).kernel(), pt.M(
+                            atom=refs.N2, basis='cc-pvqz'), [(1, 2)], 1e-6)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
@@ -2899,7 +3265,10 @@ def main():
     tdscf_goldens(pt)
     torch.cuda.empty_cache()
     # the analytic DF-RHF Hessian
-    rhf, hess_launches = hessian_path(pt, refs, kernels)
+    rhf, hess_launches = hessian_path(
+        pt, kernels, 'benzene/def2-SVP', refs.BENZENE, 'def2-svp',
+        [(a, x) for a in range(12) for x in range(3)],
+        refs.E_BENZENE_DF_RHF_DEF2SVP)
     launches.update({k: hess_launches[k] for k in HESS_KERNELS})
     hessian_phases(pt, kernels, rhf, report)
     del rhf
@@ -2916,6 +3285,40 @@ def main():
                      for k in ('int1e_stv', 'int2e')})
     torch.cuda.empty_cache()
     neon_qz_references(pt, refs, kernels)
+    torch.cuda.empty_cache()
+    # f and g shells in the derivative and Hessian kernels: their forces
+    # and frequencies at triple and quadruple zeta
+    for tag, basis in (('tz', 'cc-pvtz'), ('qz', 'cc-pvqz')):
+        fg_deriv_phase(pt, refs, kernels, report, tag, basis)
+        torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f'device memory after the f and g kernels: {free / 1e9:.2f} GB '
+          f'free of {total / 1e9:.2f} GB')
+    tz_launches = h2o10_forces_path(pt, refs, kernels)
+    launches.update({f'{k}_tz': tz_launches[k] for k in DF_GRAD_KERNELS})
+    torch.cuda.empty_cache()
+    tz_water_gradients(pt, refs)
+    qz_launches = qz_water_gradient(pt, refs, kernels)
+    launches.update({f'{k}_qz': qz_launches[k] for k in DF_GRAD_KERNELS})
+    torch.cuda.empty_cache()
+    df_rks_grad_path(pt, refs, kernels, tzvp=True)
+    torch.cuda.empty_cache()
+    _, tz_launches = hessian_path(
+        pt, kernels, 'benzene/cc-pVTZ', refs.BENZENE, 'cc-pvtz',
+        [(0, 0), (0, 2), (6, 0), (6, 1)])
+    launches.update({f'{k}_tz': tz_launches[k] for k in HESS_KERNELS})
+    torch.cuda.empty_cache()
+    _, qz_launches = hessian_path(
+        pt, kernels, 'water/cc-pVQZ', refs.WATER, 'cc-pvqz',
+        [(a, x) for a in range(3) for x in range(3)])
+    launches.update({f'{k}_qz': qz_launches[k] for k in HESS_KERNELS})
+    torch.cuda.empty_cache()
+    boys_both_sides(pt, kernels)
+    int2e_ip1_phase(kernels, pt.M(atom=refs.N2, basis='cc-pvqz'), 'qz',
+                    report)
+    torch.cuda.empty_cache()
+    launches['int2e_ip1_qz'] = n2_qz_forces_path(pt, refs, kernels)[
+        'int2e_ip1']
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

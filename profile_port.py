@@ -23,7 +23,11 @@ conv_tol_grad 1e-8) followed by mf.Hessian().kernel() (the phases of
 hessian/rhf.py prefixed hess_, hessian, hess_cphf_cycles), and BASELINE
 configs 3 and 4: (H2O)10 DF-RHF/cc-pVTZ and N2/cc-pVQZ in-core RHF
 (conv_tol 1e-12, conv_tol_grad 1e-9) followed by MP2, CCSD and (T), as
-benzene's; or for the paths named by --paths, runs
+benzene's, and the forces and frequencies of the f and g shells: (H2O)10
+DF-RHF/cc-pVTZ, benzene DF-RKS b3lypg/def2-TZVP and N2/cc-pVQZ in-core RHF
+(conv_tol 1e-10, conv_tol_grad 1e-7) followed by their gradients, and
+benzene/cc-pVTZ and water/cc-pVQZ DF-RHF (conv_tol 1e-12, conv_tol_grad
+1e-8) followed by their Hessians; or for the paths named by --paths, runs
 each once cold and `--runs` times warm, every run
 from a fresh Mole, and prints the median, quartiles, min and max of each
 phase of mf.timings (and of the gradient's timings, prefixed grad_) and
@@ -47,10 +51,14 @@ import torch
 
 GRADIENT = 'in-core RHF + gradient'
 DF_GRADIENTS = ('DF-RKS b3lypg + gradient', 'DF-RHF + gradient',
-                'DF-UKS phenyl + gradient')
+                'DF-UKS phenyl + gradient',
+                'DF-RHF (H2O)10/cc-pVTZ + gradient',
+                'DF-RKS b3lypg benzene/def2-TZVP + gradient',
+                'RHF N2/cc-pVQZ + gradient')
 POSTSCF = ('in-core CCSD(T)', 'DF-CCSD(T)', 'N2/cc-pVQZ CCSD(T)')
 TDDFT = 'DF-RKS TDA'
-HESSIAN = 'DF-RHF + Hessian'
+HESSIANS = ('DF-RHF + Hessian', 'DF-RHF benzene/cc-pVTZ + Hessian',
+            'DF-RHF water/cc-pVQZ + Hessian')
 PATHS = {
     'DF-RHF': lambda pt, refs: pt.M(atom=refs.BENZENE, basis='def2-svp')
     .RHF().density_fit(),
@@ -82,12 +90,23 @@ PATHS = {
                                       basis='def2-svp').RHF().density_fit(),
     TDDFT: lambda pt, refs: pt.dft.RKS(
         pt.M(atom=refs.BENZENE, basis='def2-svp'), xc='b3lypg').density_fit(),
-    HESSIAN: lambda pt, refs: pt.M(atom=refs.BENZENE,
-                                   basis='def2-svp').RHF().density_fit(),
+    HESSIANS[0]: lambda pt, refs: pt.M(atom=refs.BENZENE,
+                                       basis='def2-svp').RHF().density_fit(),
     # BASELINE configs 3 and 4 (f and g shells)
     'DF-RHF (H2O)10/cc-pVTZ': lambda pt, refs: pt.scf.RHF(
         pt.M(atom=refs.H2O10, basis='cc-pvtz')).density_fit(),
     POSTSCF[2]: lambda pt, refs: pt.M(atom=refs.N2, basis='cc-pvqz').RHF(),
+    # the forces and frequencies of the f and g shells
+    DF_GRADIENTS[3]: lambda pt, refs: pt.scf.RHF(
+        pt.M(atom=refs.H2O10, basis='cc-pvtz')).density_fit(),
+    DF_GRADIENTS[4]: lambda pt, refs: pt.dft.RKS(
+        pt.M(atom=refs.BENZENE, basis='def2-tzvp'), xc='b3lypg').density_fit(),
+    DF_GRADIENTS[5]: lambda pt, refs: pt.M(atom=refs.N2,
+                                           basis='cc-pvqz').RHF(),
+    HESSIANS[1]: lambda pt, refs: pt.M(atom=refs.BENZENE,
+                                       basis='cc-pvtz').RHF().density_fit(),
+    HESSIANS[2]: lambda pt, refs: pt.M(atom=refs.WATER,
+                                       basis='cc-pvqz').RHF().density_fit(),
 }
 
 
@@ -143,7 +162,7 @@ def one_run(pt, refs, name):
     if name in POSTSCF:
         mf.conv_tol = 1e-12
         mf.conv_tol_grad = 1e-9
-    if name == HESSIAN:
+    if name in HESSIANS:
         mf.conv_tol = 1e-12
         mf.conv_tol_grad = 1e-8
     mf.init_guess = 'minao'
@@ -153,7 +172,7 @@ def one_run(pt, refs, name):
         timings.update(postscf_timings(mf))
     if name == TDDFT:
         timings.update(tddft_timings(mf))
-    if name == HESSIAN:
+    if name in HESSIANS:
         hobj = mf.Hessian()
         _, t = synced(hobj.kernel)
         timings.update({f'hess_{k}': v for k, v in hobj.timings.items()},

@@ -7,8 +7,9 @@
 #include "hess2.cuh"
 
 // d(ab|c)/dA_x of one bra shell pair (a on A, b on B) and one single-centre
-// shell c, all primitives contracted, in real solid harmonics:
-// out[x][sa][sb][sc] = blk[((x * DA + sa) * DB + sb) * DC + sc]. The
+// shell c, all primitives contracted, in real solid harmonics, written
+// straight to out[x * sx + sa * ssa + sb * ssb + sc] (no block of the
+// output in the thread's local memory: at (gg|h) it would be 21 KB). The
 // power-shift rule on the raised and lowered bra shells accumulated from
 // one set of tables e1d<LA + 1, LB> (coulomb_ip.cuh's design, without the
 // contraction with weights).
@@ -17,7 +18,8 @@ __device__ __forceinline__ void coulomb_ip1_block(
     int Ka, const double* ea, const double* ca, const double* A,
     int Kb, const double* eb, const double* cb, const double* B,
     int Kc, const double* ec, const double* cc, const double* C,
-    const double* Sa, const double* Sb, const double* Sc, double* blk) {
+    const double* Sa, const double* Sb, const double* Sc, double* out,
+    size_t sx, size_t ssa, size_t ssb) {
   constexpr int L1 = LA + LB;
   constexpr int NCA = n_cart(LA), NCB = n_cart(LB);
   constexpr int DA = 2 * LA + 1, DB = 2 * LB + 1, DC = 2 * LC + 1;
@@ -82,7 +84,7 @@ __device__ __forceinline__ void coulomb_ip1_block(
               v += fa * Sb[sb * NCB + jb] * cart[(ia * NCB + jb) * DC + sc];
             }
           }
-          blk[((d * DA + sa) * DB + sb) * DC + sc] = v;
+          out[d * sx + sa * ssa + sb * ssb + sc] = v;
         }
       }
     }

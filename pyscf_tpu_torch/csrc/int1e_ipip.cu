@@ -200,7 +200,7 @@ static int launch(int n, int Ka, int Kb, const double* ea, const double* ca,
 }
 
 // Returns cudaGetLastError() after the launch, or -1 for a class that has
-// no instantiation (la, lb <= 2, every ordered pair).
+// no instantiation (la, lb <= 4, every ordered pair).
 extern "C" int pt_int1e_ipip(int la, int lb, int n, int Ka, int Kb,
                              const double* ea, const double* ca,
                              const double* ra, const double* eb,
@@ -214,8 +214,9 @@ extern "C" int pt_int1e_ipip(int la, int lb, int n, int Ka, int Kb,
   if (la == A && lb == B) \
     return launch<A, B>(n, Ka, Kb, ea, ca, ra, eb, cb, rb, natm, zr, zq, Sa, \
                         Sb, D, W, out, s);
-  PT_C(0, 0) PT_C(0, 1) PT_C(0, 2) PT_C(1, 0) PT_C(1, 1) PT_C(1, 2)
-  PT_C(2, 0) PT_C(2, 1) PT_C(2, 2)
+#define PT_A(A) PT_C(A, 0) PT_C(A, 1) PT_C(A, 2) PT_C(A, 3) PT_C(A, 4)
+  PT_A(0) PT_A(1) PT_A(2) PT_A(3) PT_A(4)
+#undef PT_A
 #undef PT_C
   return -1;
 }

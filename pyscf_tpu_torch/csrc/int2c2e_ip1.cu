@@ -7,7 +7,7 @@
 // pyscf_tpu_torch/ops/integrals/j3c_deriv.py:int2c2e_ip1_plain. The sums by
 // atom that follow are index_add_ calls.
 //
-// One launch per ordered aux class pair (lx, ly), 25 for shells up to g:
+// One launch per ordered aux class pair (lx, ly), 36 for shells up to h:
 // one thread per (P, Q) shell pair writes sum_pq W_pq d(p|q)/dR_P, three
 // numbers, to its own slot, so there are no atomics. Q is the bra, a single
 // shell with an s partner of exponent 0, and P the single-Gaussian ket:
@@ -15,7 +15,7 @@
 // the W block at once (coulomb_ip.cuh, without the bra derivative). d/dR_Q
 // = -d/dR_P (translational invariance) is left to the caller. What bounds
 // it on the card is FP64 arithmetic in Boys and R_tuv to order lx + ly + 1
-// <= 9; the metric is small (558 x 558 at benzene), so most of the card
+// <= 11; the metric is small (558 x 558 at benzene), so most of the card
 // idles, and it runs once per gradient.
 //
 // W: (naux, naux), grouped aux order, leading dimension ld, the class
@@ -68,7 +68,7 @@ static int launch(int nsx, int Kx, const double* ex, const double* cx,
 }
 
 // Returns cudaGetLastError() after the launch, or -1 for a class pair that
-// has no instantiation (lx, ly <= 4).
+// has no instantiation (lx, ly <= 5).
 extern "C" int pt_int2c2e_ip1(int lx, int ly, int nsx, int Kx,
                               const double* ex, const double* cx,
                               const double* rx, int nsy, int Ky,
@@ -81,8 +81,9 @@ extern "C" int pt_int2c2e_ip1(int lx, int ly, int nsx, int Kx,
 #define PT_ARGS nsx, Kx, ex, cx, rx, nsy, Ky, ey, cy, ry, Sx, Sy, W, ld, \
                 offx, offy, out, nsh, shx, shy, s
 #define PT_C(X, Y) if (lx == X && ly == Y) return launch<X, Y>(PT_ARGS);
-#define PT_X(X) PT_C(X, 0) PT_C(X, 1) PT_C(X, 2) PT_C(X, 3) PT_C(X, 4)
-  PT_X(0) PT_X(1) PT_X(2) PT_X(3) PT_X(4)
+#define PT_X(X) PT_C(X, 0) PT_C(X, 1) PT_C(X, 2) PT_C(X, 3) PT_C(X, 4) \
+                PT_C(X, 5)
+  PT_X(0) PT_X(1) PT_X(2) PT_X(3) PT_X(4) PT_X(5)
 #undef PT_X
 #undef PT_C
 #undef PT_ARGS

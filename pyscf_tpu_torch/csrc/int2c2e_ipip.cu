@@ -48,17 +48,11 @@ __global__ void __launch_bounds__(128) int2c2e_deriv_kernel(
   const double* RP = rx + 3 * (size_t)P;
   const double* RQ = ry + 3 * (size_t)Q;
 #ifdef PT_IP1_FULL
-  double blk[3 * DX * DY];
   coulomb_ip1_block<LX, 0, LY>(
       Kx, ex + (size_t)P * Kx, cx + (size_t)P * Kx, RP, 1, &zero, &one, RP,
-      Ky, ey + (size_t)Q * Ky, cy + (size_t)Q * Ky, RQ, Sx, &one, Sy, blk);
-  for (int d = 0; d < 3; ++d) {
-    for (int sp = 0; sp < DX; ++sp) {
-      double* o = out + ((size_t)d * ld + offx + P * DX + sp) * ld + offy
-                  + (size_t)Q * DY;
-      for (int sq = 0; sq < DY; ++sq) o[sq] = blk[(d * DX + sp) * DY + sq];
-    }
-  }
+      Ky, ey + (size_t)Q * Ky, cy + (size_t)Q * Ky, RQ, Sx, &one, Sy,
+      out + (size_t)(offx + P * DX) * ld + offy + (size_t)Q * DY,
+      (size_t)ld * ld, ld, 0);
 #else
   double pp[9];
   for (int k = 0; k < 9; ++k) pp[k] = 0.0;
@@ -89,7 +83,7 @@ static int launch(int nsx, int Kx, const double* ex, const double* cx,
 }
 
 // Returns cudaGetLastError() after the launch, or -1 for a class pair that
-// has no instantiation (lx, ly <= 4).
+// has no instantiation (lx, ly <= 5).
 #ifdef PT_IP1_FULL
 extern "C" int pt_int2c2e_ip1_full(
 #else
@@ -105,8 +99,9 @@ extern "C" int pt_int2c2e_ipip(
   if (lx == X && ly == Y) \
     return launch<X, Y>(nsx, Kx, ex, cx, rx, nsy, Ky, ey, cy, ry, Sx, Sy, W, \
                         ld, offx, offy, out, nsh, shx, shy, s);
-#define PT_X(X) PT_C(X, 0) PT_C(X, 1) PT_C(X, 2) PT_C(X, 3) PT_C(X, 4)
-  PT_X(0) PT_X(1) PT_X(2) PT_X(3) PT_X(4)
+#define PT_X(X) PT_C(X, 0) PT_C(X, 1) PT_C(X, 2) PT_C(X, 3) PT_C(X, 4) \
+                PT_C(X, 5)
+  PT_X(0) PT_X(1) PT_X(2) PT_X(3) PT_X(4) PT_X(5)
 #undef PT_X
 #undef PT_C
   return -1;

@@ -21,8 +21,10 @@
 // cart->sph transform. That holds (10 + 3) x 6 x 5 accumulators for
 // (dd|dd) where three direction blocks would hold 3 x 36 x 5, and
 // contracts 13 x 6 cartesian pairs per primitive pair instead of 108.
-// R_tuv reaches order 9 (220 terms) and Boys m = 9; (dd|dd) keeps about
-// 10 KB of per-thread tables in local memory. The derivative is not
+// R_tuv reaches order 9 (220 terms) and Boys m = 9 at (dd|dd), which keeps
+// about 10 KB of per-thread tables in local memory, and order 17 (1140
+// terms) at (gg|gg), about 87 KB (the raised bra's 21 x 15 x 9
+// accumulators, Y of 220 x 9, R of 1140). The derivative is not
 // symmetric in a and b: the caller passes every ordered bra pair; the ket
 // keeps lc <= ld.
 //
@@ -31,8 +33,9 @@
 // once. The simple design accepts local-memory traffic and the
 // recomputation across sd: it is right first.
 //
-// The library is built once per bra momentum la (-DPT_LA=0, 1, 2), so that
-// the 54 instantiations compile in three processes side by side.
+// The library is built once per ordered bra class (-DPT_LA, -DPT_LB, la,
+// lb <= 4), so that the 375 instantiations (fifteen ket classes lc <= ld
+// <= 4 each) compile in twenty-five processes side by side.
 //
 // out: direction d at d * nb * (2la+1)(2lb+1) * ld; row (bra pair *
 // (2la+1)(2lb+1) + sa*(2lb+1) + sb), column col0 + ket pair *
@@ -163,8 +166,8 @@ static int launch(int nb, int Ka, int Kb, const double* ea, const double* ca,
 }
 
 // Returns cudaGetLastError() after the launch, or -1 for a class pair that
-// has no instantiation in this library (la == PT_LA, lb <= 2 and
-// lc <= ld <= 2).
+// has no instantiation in this library (la == PT_LA, lb == PT_LB,
+// lc <= ld <= 4).
 extern "C" int pt_int2e_ip1(int la, int lb, int lc, int ld_, int nb, int Ka,
                             int Kb, const double* ea, const double* ca,
                             const double* ra, const double* eb,
@@ -179,13 +182,14 @@ extern "C" int pt_int2e_ip1(int la, int lb, int lc, int ld_, int nb, int Ka,
   cudaStream_t s = (cudaStream_t)stream;
 #define PT_ARGS nb, Ka, Kb, ea, ca, ra, eb, cb, rb, nk, Kc, Kd, ec, cc, rc, \
                 ed, cd, rd, Sa, Sb, Sc, Sd, out, ld, col0, s
-#define PT_Q(B, C, D) \
-  if (la == PT_LA && lb == B && lc == C && ld_ == D) \
-    return launch<PT_LA, B, C, D>(PT_ARGS);
-#define PT_B(B) PT_Q(B, 0, 0) PT_Q(B, 0, 1) PT_Q(B, 0, 2) \
-                PT_Q(B, 1, 1) PT_Q(B, 1, 2) PT_Q(B, 2, 2)
-  PT_B(0) PT_B(1) PT_B(2)
-#undef PT_B
+#define PT_Q(C, D) \
+  if (la == PT_LA && lb == PT_LB && lc == C && ld_ == D) \
+    return launch<PT_LA, PT_LB, C, D>(PT_ARGS);
+  PT_Q(0, 0) PT_Q(0, 1) PT_Q(0, 2) PT_Q(0, 3) PT_Q(0, 4)
+  PT_Q(1, 1) PT_Q(1, 2) PT_Q(1, 3) PT_Q(1, 4)
+  PT_Q(2, 2) PT_Q(2, 3) PT_Q(2, 4)
+  PT_Q(3, 3) PT_Q(3, 4)
+  PT_Q(4, 4)
 #undef PT_Q
 #undef PT_ARGS
   return -1;

@@ -21,11 +21,16 @@
 // term and no accumulators. d/dB = -(d/dA + d/dC) (translational
 // invariance). The thread writes six numbers: d/dA_xyz, d/dB_xyz.
 //
+// One launch per (bra class, aux class), la <= lb <= 4 and lc <= 5; the
+// library is built once per bra momentum la (-DPT_LA), so that the classes
+// compile in five processes side by side.
+//
 // What bounds it on the card is FP64 arithmetic: R_tuv to order
-// la + lb + lc + 1 (9 for (dd|g), 220 terms, Boys m = 9) and the fold of
-// the aux shell into Y to order la + lb + 1, per primitive triple. The
-// tables live in per-thread local memory (about 16 KB for (dd|g)); the
-// simple design accepts it: the rows are contracted once per gradient.
+// la + lb + lc + 1 (9 for (dd|g), 220 terms, Boys m = 9; 14 for (gg|h))
+// and the fold of the aux shell into Y to order la + lb + 1, per primitive
+// triple. The tables live in per-thread local memory (about 16 KB for
+// (dd|g), about 93 KB for (gg|h)); the simple design accepts it: the rows
+// are contracted once per gradient.
 //
 // G: row (pair*(2la+1)(2lb+1) + sa*(2lb+1) + sb), column col0 + P*(2lc+1)
 // + sc, leading dimension ld; out: (n, nsh, 6), this class's aux shells at
@@ -82,7 +87,7 @@ static int launch(int n, int Ka, int Kb, const double* ea, const double* ca,
 }
 
 // Returns cudaGetLastError() after the launch, or -1 for a class that has
-// no instantiation in this library (la == PT_LA <= lb <= 2, lc <= 4).
+// no instantiation in this library (la == PT_LA <= lb <= 4, lc <= 5).
 extern "C" int pt_int3c2e_ip(int la, int lb, int lc, int n, int Ka, int Kb,
                              const double* ea, const double* ca,
                              const double* ra, const double* eb,
@@ -97,14 +102,21 @@ extern "C" int pt_int3c2e_ip(int la, int lb, int lc, int n, int Ka, int Kb,
                 Sa, Sb, Sc, G, ld, col0, out, nsh, sh0, s
 #define PT_C(B, C) \
   if (la == PT_LA && lb == B && lc == C) return launch<PT_LA, B, C>(PT_ARGS);
-#define PT_B(B) PT_C(B, 0) PT_C(B, 1) PT_C(B, 2) PT_C(B, 3) PT_C(B, 4)
-#if PT_LA == 0
-  PT_B(0) PT_B(1) PT_B(2)
-#elif PT_LA == 1
-  PT_B(1) PT_B(2)
-#else
+#define PT_B(B) PT_C(B, 0) PT_C(B, 1) PT_C(B, 2) PT_C(B, 3) PT_C(B, 4) \
+                PT_C(B, 5)
+#if PT_LA <= 0
+  PT_B(0)
+#endif
+#if PT_LA <= 1
+  PT_B(1)
+#endif
+#if PT_LA <= 2
   PT_B(2)
 #endif
+#if PT_LA <= 3
+  PT_B(3)
+#endif
+  PT_B(4)
 #undef PT_B
 #undef PT_C
 #undef PT_ARGS

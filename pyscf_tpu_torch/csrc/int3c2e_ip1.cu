@@ -15,9 +15,11 @@
 // shells from one set of tables e1d<la + 1, lb> (coulomb_ipip.cuh
 // coulomb_ip1_block, int3c2e_ip.cu's design without the weights), then the
 // thread writes its 3 (2la+1)(2lb+1)(2lc+1) numbers to its own place in the
-// dense tensor: no atomics. What bounds it on the card is FP64 arithmetic in
-// the fold of the aux shell (R_tuv to order la + lb + lc + 1) and the
-// 174 MB it writes at benzene/def2-SVP.
+// dense tensor: no atomics. Every ordered (la, lb) <= 4 against lc <= 5;
+// the library is built once per bra momentum la (-DPT_LA). What bounds it
+// on the card is FP64 arithmetic in the fold of the aux shell (R_tuv to
+// order la + lb + lc + 1, 14 at (gg|h)) and the 174 MB it writes at
+// benzene/def2-SVP.
 //
 // ia, jb: AO offsets of the pairs' shells (int32, n); out: (3, nao, nao,
 // naux), the aux index in grouped order, this class's shells at col0.
@@ -40,25 +42,14 @@ __global__ void __launch_bounds__(128) int3c2e_ip1_kernel(
   if (idx >= (long)n * nsx) return;
   const int ip = (int)(idx / nsx);
   const int P = (int)(idx % nsx);
-  constexpr int DA = 2 * LA + 1, DB = 2 * LB + 1, DC = 2 * LC + 1;
-  double blk[3 * DA * DB * DC];
+  constexpr int DC = 2 * LC + 1;
+  const size_t ssb = (size_t)naux, ssa = (size_t)nao * ssb;
   coulomb_ip1_block<LA, LB, LC>(
       Ka, ea + (size_t)ip * Ka, ca + (size_t)ip * Ka, ra + 3 * (size_t)ip,
       Kb, eb + (size_t)ip * Kb, cb + (size_t)ip * Kb, rb + 3 * (size_t)ip,
       Kc, ec + (size_t)P * Kc, cc + (size_t)P * Kc, rc + 3 * (size_t)P, Sa,
-      Sb, Sc, blk);
-  const size_t col = (size_t)col0 + (size_t)P * DC;
-  for (int d = 0; d < 3; ++d) {
-    for (int sa = 0; sa < DA; ++sa) {
-      for (int sb = 0; sb < DB; ++sb) {
-        double* o = out + (((size_t)d * nao + ia[ip] + sa) * nao + jb[ip]
-                           + sb) * naux + col;
-        for (int sc = 0; sc < DC; ++sc) {
-          o[sc] = blk[((d * DA + sa) * DB + sb) * DC + sc];
-        }
-      }
-    }
-  }
+      Sb, Sc, out + ia[ip] * ssa + jb[ip] * ssb + col0 + (size_t)P * DC,
+      (size_t)nao * ssa, ssa, ssb);
 }
 
 template <int LA, int LB, int LC>
@@ -79,7 +70,7 @@ static int launch(int n, int Ka, int Kb, const double* ea, const double* ca,
 }
 
 // Returns cudaGetLastError() after the launch, or -1 for a class that has
-// no instantiation in this library (la == PT_LA, lb <= 2, lc <= 4).
+// no instantiation in this library (la == PT_LA, lb <= 4, lc <= 5).
 extern "C" int pt_int3c2e_ip1(int la, int lb, int lc, int n, int Ka, int Kb,
                               const double* ea, const double* ca,
                               const double* ra, const double* eb,
@@ -94,8 +85,9 @@ extern "C" int pt_int3c2e_ip1(int la, int lb, int lc, int n, int Ka, int Kb,
                 Sa, Sb, Sc, ia, jb, nao, naux, col0, out, s
 #define PT_C(B, C) \
   if (la == PT_LA && lb == B && lc == C) return launch<PT_LA, B, C>(PT_ARGS);
-#define PT_B(B) PT_C(B, 0) PT_C(B, 1) PT_C(B, 2) PT_C(B, 3) PT_C(B, 4)
-  PT_B(0) PT_B(1) PT_B(2)
+#define PT_B(B) PT_C(B, 0) PT_C(B, 1) PT_C(B, 2) PT_C(B, 3) PT_C(B, 4) \
+                PT_C(B, 5)
+  PT_B(0) PT_B(1) PT_B(2) PT_B(3) PT_B(4)
 #undef PT_B
 #undef PT_C
 #undef PT_ARGS

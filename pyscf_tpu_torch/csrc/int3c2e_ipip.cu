@@ -21,8 +21,10 @@
 // follow in the caller the same way.
 //
 // What bounds it on the card is FP64 arithmetic: R_tuv to order la + lb +
-// lc + 2 (10 for (dd|g)) in the fold, and the shifted Hermite sums per
-// cartesian bra component; the tables live in per-thread local memory.
+// lc + 2 (10 for (dd|g), 15 for (gg|h)) in the fold, and the shifted
+// Hermite sums per cartesian bra component; the tables live in per-thread
+// local memory. la <= lb <= 4, lc <= 5; the library is built once per bra
+// momentum la (-DPT_LA).
 //
 // G: row (pair*(2la+1)(2lb+1) + sa*(2lb+1) + sb), column col0 + P*(2lc+1)
 // + sc, leading dimension ld (int3c2e_ip.cu's layout); out: (n, nsh, 27),
@@ -84,7 +86,7 @@ static int launch(int n, int Ka, int Kb, const double* ea, const double* ca,
 }
 
 // Returns cudaGetLastError() after the launch, or -1 for a class that has
-// no instantiation in this library (la == PT_LA <= lb <= 2, lc <= 4).
+// no instantiation in this library (la == PT_LA <= lb <= 4, lc <= 5).
 extern "C" int pt_int3c2e_ipip(int la, int lb, int lc, int n, int Ka, int Kb,
                                const double* ea, const double* ca,
                                const double* ra, const double* eb,
@@ -99,14 +101,21 @@ extern "C" int pt_int3c2e_ipip(int la, int lb, int lc, int n, int Ka, int Kb,
                 Sa, Sb, Sc, G, ld, col0, out, nsh, sh0, s
 #define PT_C(B, C) \
   if (la == PT_LA && lb == B && lc == C) return launch<PT_LA, B, C>(PT_ARGS);
-#define PT_B(B) PT_C(B, 0) PT_C(B, 1) PT_C(B, 2) PT_C(B, 3) PT_C(B, 4)
-#if PT_LA == 0
-  PT_B(0) PT_B(1) PT_B(2)
-#elif PT_LA == 1
-  PT_B(1) PT_B(2)
-#else
+#define PT_B(B) PT_C(B, 0) PT_C(B, 1) PT_C(B, 2) PT_C(B, 3) PT_C(B, 4) \
+                PT_C(B, 5)
+#if PT_LA <= 0
+  PT_B(0)
+#endif
+#if PT_LA <= 1
+  PT_B(1)
+#endif
+#if PT_LA <= 2
   PT_B(2)
 #endif
+#if PT_LA <= 3
+  PT_B(3)
+#endif
+  PT_B(4)
 #undef PT_B
 #undef PT_C
 #undef PT_ARGS

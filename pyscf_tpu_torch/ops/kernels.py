@@ -65,20 +65,22 @@ device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
 tensor it launches the kernel on torch.cuda.current_stream() or raises. A
 wrapper adds one to its `launches` count for every kernel launch it makes.
 
-The integral kernels take s to g shells and aux shells to h (int1e_stv,
-int3c2e, int2c2e, int2e: la <= lb <= 4, lc <= 5); the derivative and
-Hessian kernels stop at d (la, lb <= 2, aux lc <= 4), and a class that
-has no instantiation raises NotImplementedError. The kernels are compiled
-at first use with nvcc for sm_90a, one shared library per source (five
-for int3c2e.cu, one per bra momentum; fifteen for int2e.cu, one per bra
-class; three each for int2e_ip1.cu, int3c2e_ip.cu, int3c2e_ip1.cu and
-int3c2e_ipip.cu, one per bra momentum; two each for xc_fxc.cu and
-int2c2e_ipip.cu, one per kernel: fifty-four libraries) with a plain C
-interface loaded by ctypes, into
+The integral, derivative and Hessian kernels take s to g shells and aux
+shells to h (la, lb <= 4, lc <= 5: la <= lb where the kernel's
+contraction is symmetric, every ordered pair for the derivative bras of
+int1e_ip, int1e_iprinv, int1e_ipip, int3c2e_ip1 and int2e_ip1); a class
+that has no instantiation raises NotImplementedError. The kernels are
+compiled at first use with nvcc for sm_90a, one shared library per source
+(five each for int3c2e.cu, int3c2e_ip.cu, int3c2e_ip1.cu and
+int3c2e_ipip.cu, one per bra momentum; fifteen for int2e.cu, one per bra
+class la <= lb; twenty-five for int2e_ip1.cu, one per ordered bra class;
+two each for xc_fxc.cu and int2c2e_ipip.cu, one per kernel: eighty-two
+libraries) with a plain C interface loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
 checkout builds them once and an edit to a source rebuilds them; nvcc's
 output, with ptxas's registers, stack frame and spills per kernel
-instantiation, is kept beside each library as <library>.log.
+instantiation, and the library's compile seconds, is kept beside each
+library as <library>.log.
 """
 import ctypes
 import hashlib
@@ -165,9 +167,9 @@ _LIBRARIES = {
                          + [_P] * 3 + [_I, _I] + [_P] * 6 + [_I] * 3 + [_P]
                          + [_I] * 3 + [_P], ('-DPT_IP1_FULL',)),
 }
-# int3c2e.cu once per bra momentum la <= 4 and int2e.cu once per bra class
-# la <= lb <= 4; int2e_ip1.cu, int3c2e_ip.cu, int3c2e_ip1.cu and
-# int3c2e_ipip.cu once per bra momentum la <= 2: so that their
+# int3c2e.cu, int3c2e_ip.cu, int3c2e_ip1.cu and int3c2e_ipip.cu once per bra
+# momentum la <= 4, int2e.cu once per bra class la <= lb <= 4 and
+# int2e_ip1.cu once per ordered bra class la, lb <= 4: so that their
 # instantiations compile side by side
 _LIBRARIES.update({
     f'int3c2e_la{la}': ('int3c2e.cu', 'pt_int3c2e', [_I] * 6 + [_P] * 6
@@ -178,23 +180,24 @@ _LIBRARIES.update({
                         (f'-DPT_LA={la}', f'-DPT_LB={lb}'))
     for la in range(5) for lb in range(la, 5)})
 _LIBRARIES.update({
-    f'int2e_ip1_la{la}': ('int2e_ip1.cu', 'pt_int2e_ip1', _ERI_ARGS,
-                          (f'-DPT_LA={la}',)) for la in range(3)})
+    f'int2e_ip1_{la}{lb}': ('int2e_ip1.cu', 'pt_int2e_ip1', _ERI_ARGS,
+                            (f'-DPT_LA={la}', f'-DPT_LB={lb}'))
+    for la in range(5) for lb in range(5)})
 _LIBRARIES.update({
     f'int3c2e_ip_la{la}': ('int3c2e_ip.cu', 'pt_int3c2e_ip',
                            [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 7
                            + [_I, _I, _P, _I, _I, _P], (f'-DPT_LA={la}',))
-    for la in range(3)})
+    for la in range(5)})
 _LIBRARIES.update({
     f'int3c2e_ip1_la{la}': ('int3c2e_ip1.cu', 'pt_int3c2e_ip1',
                             [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 8
                             + [_I] * 3 + [_P, _P], (f'-DPT_LA={la}',))
-    for la in range(3)})
+    for la in range(5)})
 _LIBRARIES.update({
     f'int3c2e_ipip_la{la}': ('int3c2e_ipip.cu', 'pt_int3c2e_ipip',
                              [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 7
                              + [_I, _I, _P, _I, _I, _P], (f'-DPT_LA={la}',))
-    for la in range(3)})
+    for la in range(5)})
 _LIBS = {}      # library -> loaded ctypes function
 
 
@@ -236,17 +239,25 @@ def build():
         tmp = f'{so}.{os.getpid()}.tmp'
         cmd = [_nvcc(), *NVCC_FLAGS, *extra, '-I', _CSRC, '-o', tmp,
                os.path.join(_CSRC, src)]
-        jobs.append((lib, so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        with open(tmp + '.log', 'w') as log:
+            jobs.append((lib, so, tmp, time.perf_counter(), subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT)))
     errors = []
-    for lib, so, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            errors.append(f'nvcc failed on {lib}:\n{log}')
-        else:
+    while jobs:
+        # each library's compile seconds, taken when its nvcc ends
+        time.sleep(0.1)
+        for job in [j for j in jobs if j[4].poll() is not None]:
+            jobs.remove(job)
+            lib, so, tmp, t_start, proc = job
+            seconds = time.perf_counter() - t_start
+            with open(tmp + '.log') as f:
+                log = f.read()
+            os.remove(tmp + '.log')
+            if proc.returncode != 0:
+                errors.append(f'nvcc failed on {lib}:\n{log}')
+                continue
             with open(so[:-3] + '.log', 'w') as f:
-                f.write(log)
+                f.write(f'{log}compile seconds: {seconds:.1f}\n')
             os.replace(tmp, so)
     if errors:
         raise RuntimeError('\n'.join(errors))
@@ -452,9 +463,9 @@ def _aux_offsets(aux):
 
 def int3c2e_ip(la, lb, ea, ca, ra, eb, cb, rb, aux, G):
     """d(ij|P)/dA and d(ij|P)/dB of n shell pairs of class (la, lb), la <=
-    lb <= 2, against every aux shell, contracted with G: (n, nshells, 6),
-    per pair and aux shell the sums over the block of G times d/dA_xyz, then
-    d/dB_xyz.
+    lb <= 4, against every aux shell (l <= 5), contracted with G: (n,
+    nshells, 6), per pair and aux shell the sums over the block of G times
+    d/dA_xyz, then d/dB_xyz.
 
     G (n*(2la+1)(2lb+1), naux): rows in the layout of int3c2e's output
     (grouped aux order); aux as int3c2e's."""
@@ -509,8 +520,8 @@ def int2c2e_ip1(aux, W):
 
 
 def int3c2e_ip1(la, lb, ea, ca, ra, eb, cb, rb, aux, ia, jb, out):
-    """d(ij|P)/dA_i of n ordered shell pairs of class (la, lb), la, lb <= 2,
-    against every aux shell, written into out (3, nao, nao, naux) at rows
+    """d(ij|P)/dA_i of n ordered shell pairs of class (la, lb), la, lb <= 4,
+    against every aux shell (l <= 5), written into out (3, nao, nao, naux) at rows
     ia[k] + sa, columns jb[k] + sb of pair k, the aux index in grouped
     order; the rest of out is left as it is. ia, jb: the AO offsets of the
     pairs' shells, int32 (n,). Returns out."""
@@ -542,9 +553,9 @@ def int3c2e_ip1(la, lb, ea, ca, ra, eb, cb, rb, aux, ia, jb, out):
 
 def int3c2e_ipip(la, lb, ea, ca, ra, eb, cb, rb, aux, G):
     """Second derivatives of (ij|P) of n shell pairs of class (la, lb), la <=
-    lb <= 2, against every aux shell, contracted with G: (n, nshells, 27),
-    per pair and aux shell the sums over the block of G times d2/dA dA,
-    d2/dA dB and d2/dB dB (3 x 3 each, row-major). G and aux as
+    lb <= 4, against every aux shell (l <= 5), contracted with G: (n,
+    nshells, 27), per pair and aux shell the sums over the block of G times
+    d2/dA dA, d2/dA dB and d2/dB dB (3 x 3 each, row-major). G and aux as
     int3c2e_ip's."""
     dev = _device_of(ea)
     n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
@@ -708,7 +719,7 @@ def int1e_r(la, lb, ea, ca, ra, eb, cb, rb):
 def int1e_ip(la, lb, ea, ca, ra, eb, cb, rb, atom_coords, atom_charges):
     """Bra-centre derivatives of S, T and V of n ordered shell pairs:
     (n, (2la+1)(2lb+1), 9), [ipovlp, ipkin, ipnuc] x [x, y, z] with the
-    operator major. Arguments as int1e_stv's; any la, lb <= 2."""
+    operator major. Arguments as int1e_stv's; any la, lb <= 4."""
     dev = _device_of(ea)
     n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
     natm = atom_coords.shape[0]
@@ -735,7 +746,7 @@ def int1e_ip(la, lb, ea, ca, ra, eb, cb, rb, atom_coords, atom_charges):
 def int1e_iprinv(la, lb, ea, ca, ra, eb, cb, rb, centers):
     """Operator-centre derivatives d/dC <a|1/|r-C||b> of n ordered shell
     pairs for every centre of centers (nc, 3), in one launch:
-    (nc, 3, n, (2la+1)(2lb+1)). Any la, lb <= 2."""
+    (nc, 3, n, (2la+1)(2lb+1)). Any la, lb <= 4."""
     dev = _device_of(ea)
     n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
     nc = centers.shape[0]
@@ -764,7 +775,7 @@ def int1e_ipip(la, lb, ea, ca, ra, eb, cb, rb, atom_coords, atom_charges, D,
     27). Slot c < natm: d2/dA dA, dA dC and dC dC (3 x 3 each, row-major;
     A the bra's centre, C atom c's) of sum D V_c, V_c the attraction of
     the charge of atom c; slot natm: d2/dA dA of sum D T - W S (9 numbers,
-    then zeros). Arguments as int1e_ip's; any la, lb <= 2."""
+    then zeros). Arguments as int1e_ip's; any la, lb <= 4."""
     dev = _device_of(ea)
     n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
     natm = atom_coords.shape[0]
@@ -791,7 +802,7 @@ def int1e_ipip(la, lb, ea, ca, ra, eb, cb, rb, atom_coords, atom_charges, D,
 
 def int2e_ip1(la, lb, ea, ca, ra, eb, cb, rb, kets):
     """d/dA (ab|cd) sph rows of n bra shell pairs of the ordered class
-    (la, lb), la, lb <= 2, against the ket pairs of every class in kets:
+    (la, lb), la, lb <= 4, against the ket pairs of every class in kets:
     (3, n*(2la+1)(2lb+1), sum over kets of nket*(2lc+1)(2ld+1)).
 
     kets as int2e's: lc <= ld, the (cd) = (dc) fold kept."""
@@ -801,7 +812,7 @@ def int2e_ip1(la, lb, ea, ca, ra, eb, cb, rb, kets):
         return int2e_mod.int2e_ip1_class_plain(la, lb, *bra, kets)
     out = torch.empty((3, n * (2 * la + 1) * (2 * lb + 1), ncol),
                       dtype=torch.float64, device=dev)
-    _launch_quartets(int2e_ip1, f'int2e_ip1_la{la}', la, lb, bra, kets, out,
+    _launch_quartets(int2e_ip1, f'int2e_ip1_{la}{lb}', la, lb, bra, kets, out,
                      ncol)
     return out
 

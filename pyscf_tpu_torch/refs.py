@@ -261,6 +261,22 @@ DF_DERIV_FUNCTIONALS = {
 E_WATER_DF_RHF_CCPVTZ = -76.05710789750125
 E_WATER_DF_RKS_B3LYPG_CCPVTZ_L1 = -76.45984141526318
 E_WATER_DF_RKS_B3LYPG_DEF2TZVP_L1 = -76.46295262803359
+# their DF gradients (tests/port_refs_record.py fg_grad_tz_refs and
+# fg_grad_tzvp_refs: minao, conv_tol 1e-12, conv_tol_grad 1e-9, converged;
+# build_grad_fn's jax.grad term by term, each pair class's in a process of
+# its own, as the one traced program uses up a process's memory maps at f:
+# water/def2-SVP's that way is 1.3e-11 from GRAD_WATER_DF_RHF_DEF2SVP);
+# water/cc-pVTZ DF-RHF (206 s on the CPU; the SCF gave
+# -76.05710789750121) and water/def2-TZVP DF-RKS b3lypg (grids level 1,
+# held fixed; 209 s; the SCF gave -76.46295262803366)
+GRAD_WATER_DF_RHF_CCPVTZ = [
+    [-1.3492705849835816e-12, -1.8019281871444423e-13, -0.025122180692019214],
+    [-1.5124125884637554e-12, -0.013582322762787591, 0.012561090346169479],
+    [2.8616831734473547e-12, 0.013582322762967003, 0.012561090345851733]]
+GRAD_WATER_DF_RKS_B3LYPG_DEF2TZVP_L1 = [
+    [-8.86517163894818e-15, 3.044261327831814e-13, 0.003863430105823795],
+    [8.626487959723824e-15, 0.005122051000987504, -0.0019850462111417055],
+    [3.0595842402693557e-16, -0.0051220510012925935, -0.001985046211397723]]
 # g shells (tests/port_refs_record.py fg_neon_refs, 11 min on the CPU, most
 # of it compiling j2e.py's 225 class-pair programs): Ne/cc-pVQZ in-core RHF
 # (minao, conv_tol 1e-12, conv_tol_grad 1e-9; converged, 71 s), MP2, CCSD

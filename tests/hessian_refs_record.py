@@ -3,7 +3,7 @@ compares the port with (the JAX Hessian is the jvp of its analytic gradient
 and takes minutes to hours on the CPU, too long for the fast tests):
 
   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/hessian_refs_record.py \
-    h2 water_sto3g twins [water_svp]
+    h2 water_sto3g twins [water_svp] [twins_fg]
 
 adds to pyscf_tpu_torch/data/hessian_water_refs.npz, for each case named,
 the converged DF-RHF orbitals ('<case>_mo_coeff', '<case>_mo_energy',
@@ -17,8 +17,13 @@ file are kept, so the cases may be recorded by separate processes.
 The cases: 'h2' is H2/sto-3g at 0.74 Angstrom (tests/test_hessian.py's
 molecule), 'water_sto3g' and 'water_svp' water (refs.WATER) in sto-3g and
 def2-SVP. Wall times on the CPU (8 cores, shared with other work): h2
-11.5 s SCF and 81.6 s Hessian, water_sto3g 22.7 s and 691.4 s, water_svp
-as its '<case>_seconds' say.
+11.5 s SCF and 81.6 s Hessian, water_sto3g 22.7 s and 691.4 s.
+water_svp's Hessian ran out of XLA's compile memory after 20 minutes, and
+an f-shell case, HF/cc-pVTZ at 0.917 Angstrom (with
+XLA_FLAGS=--xla_disable_hlo_passes=constant_folding), out of the
+process's memory maps (LLVM 'Cannot allocate memory') after 4 minutes:
+neither is in the file, and tests/test_torch_fg_deriv.py holds the
+port's HF/cc-pVTZ Hessian to central differences of its gradient.
 
 'twins' records, for the plain twins of the Hessian's kernels, the JAX
 package's derivatives on the inputs that twin_inputs() builds (seeded
@@ -32,7 +37,11 @@ _aux_data_kernel; '<2c key>_{ip1,pp}' the same for the metric's block
 (each 10-50 s on the CPU). At a one-centre pair (A = B),
 jax.jacfwd(jax.grad(...)) in A alone departs from central differences of
 jax.grad (by 0.73 of 4.5 for a (p d|p) pair), so the pairs are two-centre
-ones."""
+ones.
+
+'twins_fg' records the same derivatives at f, g and aux h, on FG_BASIS
+and FG_AUX (TWIN_1E_FG, TWIN_3C_FG, TWIN_2C_FG; run with
+XLA_FLAGS=--xla_disable_hlo_passes=constant_folding, about 2 minutes)."""
 import os
 import sys
 import time
@@ -62,6 +71,15 @@ TWIN_2C = ((1, 2), (4, 0))
 CHARGES = np.array([8.0, 1.0, 1.0, 6.0, 0.0, 3.0, 0.0, 2.0])
 # Bohr; moves a shell off a centre it shares (see twin_inputs)
 OFFSET = np.array([0.3, -0.2, 0.5])
+# f and g shells ('twins_fg'): two centres off the origin, a g and an s
+# shell on O and an f shell on H; an aux basis of an h and an s shell (also
+# tests/port_refs_record.py fg_grad_refs's); the classes of its twins
+FG_ATOMS = 'O 0.1 0.2 -0.3; H 0.3 -0.7 0.6'
+FG_BASIS = {'O': [[4, [0.6, 1.0]], [0, [1.3, 1.0]]], 'H': [[3, [0.7, 1.0]]]}
+FG_AUX = {'O': [[5, [1.1, 1.0]], [0, [2.0, 1.0]]], 'H': [[0, [1.4, 1.0]]]}
+TWIN_1E_FG = ((4, 3),)
+TWIN_3C_FG = ((3, 4, 5),)
+TWIN_2C_FG = ((5, 0),)
 
 
 def record(case):
@@ -100,9 +118,10 @@ def prims_1e(la, lb, m=5):
     return a, b, A, B, w, rng.normal(size=(8, 3)), CHARGES, dm, wm
 
 
-def twin_inputs():
+def twin_inputs(fg=False):
     """{key: numpy inputs} of the twins' Coulomb checks, from the port's
-    water/def2-SVP tables: per TWIN_3C entry the pair tables (ea, ca, ra,
+    water/def2-SVP tables (with fg, of FG_BASIS and FG_AUX on FG_ATOMS and
+    the classes TWIN_3C_FG and TWIN_2C_FG): per TWIN_3C entry the pair tables (ea, ca, ra,
     eb, cb, rb) of two two-centre pairs of the class (mirrored for la >
     lb; where a class has one-centre pairs only, the first two with the
     ket shell moved by OFFSET), up to three aux shells (l, e, c, r) of lc
@@ -114,8 +133,15 @@ def twin_inputs():
     import pyscf_tpu_torch as tpt
     from pyscf_tpu_torch.df.addons import make_auxmol
     from pyscf_tpu_torch.ops.integrals import j3c
-    mol = tpt.M(atom=WATER, basis='def2-svp', device='cpu')
-    aux = j3c.aux_tables(make_auxmol(mol))
+    if fg:
+        mol = tpt.M(atom=FG_ATOMS, basis=FG_BASIS, device='cpu')
+        aux = j3c.aux_tables(tpt.M(atom=FG_ATOMS, basis=FG_AUX,
+                                   device='cpu'))
+        twin_3c, twin_2c = TWIN_3C_FG, TWIN_2C_FG
+    else:
+        mol = tpt.M(atom=WATER, basis='def2-svp', device='cpu')
+        aux = j3c.aux_tables(make_auxmol(mol))
+        twin_3c, twin_2c = TWIN_3C, TWIN_2C
     classes = j3c.screened_pairs(mol)
 
     def shells(l, k=3):
@@ -123,7 +149,7 @@ def twin_inputs():
         return (l,) + tuple(x[:k].numpy() for x in t[1:])
 
     out = {}
-    for la, lb, lc in TWIN_3C:
+    for la, lb, lc in twin_3c:
         cls = (min(la, lb), max(la, lb))
         pairs = [t.numpy() for t in classes[cls][1]]
         two = np.flatnonzero(np.abs(pairs[2] - pairs[5]).sum(axis=1) > 0)[:2]
@@ -140,7 +166,7 @@ def twin_inputs():
         G = np.random.default_rng(3).standard_normal(
             (n, 2 * la + 1, 2 * lb + 1, nsx, 2 * lc + 1))
         out[f'twin_3c_{la}{lb}{lc}'] = (pairs, ax, G)
-    for lx, ly in TWIN_2C:
+    for lx, ly in twin_2c:
         ax, ay = shells(lx), shells(ly)
         ay = ay[:3] + (ay[3] + OFFSET,)
         W = np.random.default_rng(4).standard_normal(
@@ -190,9 +216,9 @@ def j2c_block(ax, ay):
     return blk
 
 
-def twins():
+def twins(fg=False):
     out = {}
-    for la, lb in TWIN_1E:
+    for la, lb in TWIN_1E_FG if fg else TWIN_1E:
         a, b, A, B, w, zr, zq, dm, wm = prims_1e(la, lb)
 
         def f(A_, B_, C_):
@@ -207,7 +233,7 @@ def twins():
         out[f'{k}_ac'] = np.asarray(jax.jacfwd(jax.grad(f, 0), 2)(*args))
         out[f'{k}_cc'] = np.asarray(jax.jacfwd(jax.grad(f, 2), 2)(*args))
         print(k, flush=True)
-    for key, inputs in twin_inputs().items():
+    for key, inputs in twin_inputs(fg).items():
         if key.startswith('twin_3c'):
             pairs, ax, G = inputs
             la, lb, lc = (int(c) for c in key[-3:])
@@ -241,7 +267,7 @@ def compare():
     import pyscf_tpu_torch as tpt
     from pyscf_tpu_torch.hessian import rhf
     r = np.load(OUT)
-    for case in ('h2', 'water_sto3g', 'water_svp'):
+    for case in CASES:
         if f'{case}_hess' not in r.files:
             continue
         atom, basis = CASES[case]
@@ -259,7 +285,10 @@ def main(cases):
         compare()
         return
     for case in cases:
-        rec = twins() if case == 'twins' else record(case)
+        if case in ('twins', 'twins_fg'):
+            rec = twins(case == 'twins_fg')
+        else:
+            rec = record(case)
         out = dict(np.load(OUT)) if os.path.exists(OUT) else {}
         out.update(rec)
         tmp = f'{OUT}.{os.getpid()}.tmp.npz'

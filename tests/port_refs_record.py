@@ -372,8 +372,245 @@ def fg_neon_refs(out):
     out['fg_ne_rows_44'] = _raw_rows(mol, jax_make_auxmol(mol), 4, 4)
 
 
+def fg_df_functionals(mol, auxmol, seed=11):
+    """jax.grad of tests/test_torch_grad_df.py's seeded DF functionals (the
+    3c one of autodiff._df_intermediates, the 2c one of _j2c) at the
+    coordinates: ('3c', '2c')."""
+    from pyscf_tpu.grad import autodiff
+    pairs, auxes = autodiff._build_host_data_cached(mol, auxmol)
+    nao, naux = mol.nao, auxmol.nao
+    rng = np.random.default_rng(seed)
+    C = rng.standard_normal((nao, 3)) * 0.3
+    D = 2 * C @ C.T
+    a = rng.standard_normal(naux)
+    b = rng.standard_normal((naux, 3, 3))
+    b = b + b.transpose(0, 2, 1)
+    W = rng.standard_normal((naux, naux))
+    W = W + W.T
+    dm_blocks = [sp.mat_blocks(D) for sp in pairs]
+    co_sets = [[sp.co_blocks(C) for sp in pairs]]
+
+    def f3(X):
+        gam, Os = autodiff._df_intermediates(pairs, auxes, naux, X,
+                                             dm_blocks, co_sets)
+        return jnp.dot(gam, a) + jnp.sum(Os[0] * b)
+
+    def f2(X):
+        return jnp.sum(autodiff._j2c(auxes, naux, X) * W)
+
+    X = jnp.asarray(np.asarray(mol.coords))
+    return (np.asarray(jax.jit(jax.grad(f3))(X)),
+            np.asarray(jax.jit(jax.grad(f2))(X)))
+
+
+def _grad_inputs(basis, state):
+    """mol, pairs, auxes and the blocks of autodiff.build_grad_fn's fn for
+    the restricted state (mo_coeff, mo_occ, mo_energy, dm) of water/basis
+    with its default aux basis."""
+    from pyscf_tpu.grad import autodiff
+    mol = jpt.M(atom=WATER, basis=basis, verbose=0)
+    pairs, auxes = autodiff._build_host_data_cached(mol,
+                                                     jax_make_auxmol(mol))
+    mo_coeff, mo_occ, mo_energy, dm = state
+    sel = mo_occ > 0
+    co = mo_coeff[:, sel] * np.sqrt(mo_occ[sel])
+    wdm = (mo_coeff[:, sel] * (mo_occ[sel] * mo_energy[sel])) \
+        @ mo_coeff[:, sel].T
+    return (mol, pairs, auxes, [sp.mat_blocks(dm) for sp in pairs],
+            [sp.mat_blocks(wdm) for sp in pairs],
+            [[sp.co_blocks(co) for sp in pairs]])
+
+
+def _grad_piece(task):
+    """One term of autodiff.build_grad_fn's jax.value_and_grad(energy), in
+    a process of its own: 'fwd' (gamma and O of one pair class, and the
+    metric with the first), '1e' (jax.grad of one pair class's
+    _one_electron), '3c' (jax.grad of one pair class's gamma and O
+    contracted with their cotangents), '2c' (jax.grad of _j2c contracted
+    with its cotangent) or 'xc' (jax.grad of _exc_quadrature)."""
+    from pyscf_tpu.grad import autodiff
+    kind, basis, xc, state, ip, extra = task
+    mol, pairs, auxes, dmb, wb, co_sets = _grad_inputs(basis, state)
+    naux = sum(ax.cols.size for ax in auxes)
+    X0 = jnp.asarray(np.asarray(mol.coords))
+    natm = mol.natm
+    natm_pad = -(-natm // autodiff.ATOM_PAD) * autodiff.ATOM_PAD
+    Z = jnp.asarray(np.asarray(mol.charges, dtype=np.float64))
+
+    def df(X):
+        return autodiff._df_intermediates(
+            [pairs[ip]], auxes, naux, X, [dmb[ip]],
+            [[cs[ip]] for cs in co_sets])
+
+    if kind == 'fwd':
+        gam, Os = jax.jit(df)(X0)
+        j2c = autodiff._j2c(auxes, naux, X0) if ip == 0 else None
+        return np.asarray(gam), [np.asarray(o) for o in Os], (
+            None if j2c is None else np.asarray(j2c))
+    if kind == '1e':
+        def f(X):
+            Xpad = jnp.zeros((natm_pad, 3)).at[:natm].set(X)
+            Zpad = jnp.zeros(natm_pad).at[:natm].set(Z)
+            return autodiff._one_electron([pairs[ip]], X, [dmb[ip]],
+                                          [wb[ip]], Xpad, Zpad)
+    elif kind == '3c':
+        gbar, obars = extra
+
+        def f(X):
+            gam, Os = df(X)
+            return jnp.dot(gam, gbar) + sum(jnp.sum(o * b)
+                                            for o, b in zip(Os, obars))
+    elif kind == '2c':
+        def f(X):
+            return jnp.sum(autodiff._j2c(auxes, naux, X) * extra)
+    else:
+        from pyscf_tpu.dft import xc as xc_mod
+        coords, weights = extra
+
+        def f(X):
+            return autodiff._exc_quadrature(
+                mol, xc_mod.parse_xc(xc), X, jnp.asarray(state[3]),
+                jnp.asarray(coords), jnp.asarray(weights), True)
+    return np.asarray(jax.jit(jax.grad(f))(X0))
+
+
+def _fg_gradient(out, key, basis, xc):
+    """The JAX package's DF-RHF or DF-RKS gradient of water/basis, minao,
+    conv_tol 1e-12, conv_tol_grad 1e-9, as autodiff.build_grad_fn builds it
+    but term by term: its one traced program at f shells uses up the
+    memory maps of the process (LLVM 'Cannot allocate memory'). The energy
+    is a sum over pair classes (the one-electron terms, gamma and O) and
+    the metric, so jax.grad of each term runs in a process of its own, the
+    DF terms against the cotangents of 0.5 |L^-1 gamma|^2 - 1/4 hyb sum
+    |L^-1 O|^2 at the converged geometry (jax.grad in gamma, O and the
+    metric); the nuclear repulsion's and the XC quadrature's (fixed grid)
+    are added."""
+    import multiprocessing
+    from pyscf_tpu.grad import autodiff
+    if 'constant_folding' not in os.environ.get('XLA_FLAGS', ''):
+        raise SystemExit('the fg_* recordings need XLA_FLAGS='
+                         '--xla_disable_hlo_passes=constant_folding')
+    mol = jpt.M(atom=WATER, basis=basis, verbose=0)
+    mf = (mol.RKS(xc=xc) if xc else mol.RHF()).density_fit()
+    if xc:
+        mf.grids.level = 1
+    mf.init_guess = 'minao'
+    mf.conv_tol = 1e-12
+    mf.conv_tol_grad = 1e-9
+    out[f'{key}_e'] = _timed(out, f'{key}_e', mf.kernel)
+    assert mf.converged
+    state = tuple(np.asarray(x) for x in (mf.mo_coeff, mf.mo_occ,
+                                          mf.mo_energy, mf.make_rdm1()))
+    hyb = float(mf._numint.hybrid_coeff(mf.xc)) if xc else 1.0
+    npair = len(_grad_inputs(basis, state)[1])
+
+    def run(tasks):
+        with multiprocessing.get_context('spawn').Pool(
+                3, maxtasksperchild=1) as pool:
+            return pool.map(_grad_piece, tasks, chunksize=1)
+
+    def gradient():
+        fwd = run([('fwd', basis, xc, state, ip, None)
+                   for ip in range(npair)])
+        gam = sum(f[0] for f in fwd)
+        Os = [sum(f[1][k] for f in fwd) for k in range(len(fwd[0][1]))]
+
+        def e_df(g, os_, j2c):
+            L = jnp.linalg.cholesky(j2c)
+            u = jax.scipy.linalg.solve_triangular(L, g, lower=True)
+            e = 0.5 * jnp.dot(u, u)
+            for O in os_:
+                no = O.shape[-1]
+                V = jax.scipy.linalg.solve_triangular(
+                    L, O.reshape(-1, no * no), lower=True)
+                e = e - 0.25 * hyb * jnp.sum(V * V)
+            return e
+
+        gbar, obars, jbar = jax.grad(e_df, argnums=(0, 1, 2))(
+            jnp.asarray(gam), [jnp.asarray(o) for o in Os],
+            jnp.asarray(fwd[0][2]))
+        extra3c = (np.asarray(gbar), [np.asarray(o) for o in obars])
+        tasks = [('1e', basis, xc, state, ip, None) for ip in range(npair)]
+        tasks += [('3c', basis, xc, state, ip, extra3c)
+                  for ip in range(npair)]
+        tasks.append(('2c', basis, xc, state, 0, np.asarray(jbar)))
+        if xc:
+            from pyscf_tpu.dft.numint import _pad_grid
+            tasks.append(('xc', basis, xc, state, 0, tuple(
+                np.asarray(a) for a in _pad_grid(mf.grids.coords,
+                                                 mf.grids.weights))))
+        X = jnp.asarray(np.asarray(mol.coords))
+        Z = jnp.asarray(np.asarray(mol.charges, dtype=np.float64))
+        return (np.asarray(jax.grad(autodiff._enuc)(X, Z))
+                + sum(run(tasks)))
+
+    out[key] = _timed(out, key, gradient)
+
+
+def fg_grad_tz_refs(out):
+    """tests/test_torch_fg_deriv.py: water/cc-pVTZ DF-RHF (cc-pvtz-jkfit;
+    minao, conv_tol 1e-12, conv_tol_grad 1e-9; converged) and its gradient
+    'fg_grad_tz_rhf', energy 'fg_grad_tz_rhf_e'. Run with
+    XLA_FLAGS=--xla_disable_hlo_passes=constant_folding, in a process of
+    its own (the gradient's programs use up one process's memory maps)."""
+    _fg_gradient(out, 'fg_grad_tz_rhf', 'cc-pvtz', None)
+
+
+def fg_grad_tzvp_refs(out):
+    """The same for water/def2-TZVP DF-RKS b3lypg (grids level 1, held
+    fixed) 'fg_grad_tzvp_rks'."""
+    _fg_gradient(out, 'fg_grad_tzvp_rks', 'def2-tzvp', 'b3lypg')
+
+
+def fg_grad_refs(out):
+    """tests/test_torch_fg_deriv.py: the g rows of the derivative programs:
+    ipovlp_chunk, ipkin_chunk, ipnuc_chunk and iprinv_chunk of the (g, f)
+    class on tests/test_torch_int_deriv.py's seeded primitive pairs
+    ('fg_chunk_43_<name>'), jax.grad of the seeded DF functionals of
+    tests/test_torch_grad_df.py on tests/hessian_refs_record.py's FG_BASIS
+    with FG_AUX ('fg_df_3c', 'fg_df_2c': (gg|h), (fg|s) and (h|h) among
+    the classes).
+
+    Run with XLA_FLAGS=--xla_disable_hlo_passes=constant_folding (as
+    fg_neon_refs)."""
+    if 'constant_folding' not in os.environ.get('XLA_FLAGS', ''):
+        raise SystemExit('fg_grad_refs needs XLA_FLAGS='
+                         '--xla_disable_hlo_passes=constant_folding')
+    a, b, A, B, w = chunk_prims(43)
+    rng = np.random.default_rng(99)
+    zr, zq = rng.normal(size=(8, 3)), np.arange(8.0)
+    k = 'fg_chunk_43'
+    out[f'{k}_ipovlp'] = np.asarray(jax_deriv.ipovlp_chunk(4, 3, a, b, A, B,
+                                                           w))
+    out[f'{k}_ipkin'] = np.asarray(jax_deriv.ipkin_chunk(4, 3, a, b, A, B, w))
+    out[f'{k}_ipnuc'] = np.asarray(jax_deriv.ipnuc_chunk(4, 3, a, b, A, B, w,
+                                                         zr, zq))
+    out[f'{k}_iprinv'] = np.asarray(jax_deriv.iprinv_chunk(4, 3, a, b, A, B,
+                                                           w, zr[3]))
+    from hessian_refs_record import FG_ATOMS, FG_AUX, FG_BASIS
+    mol = jpt.M(atom=FG_ATOMS, basis=FG_BASIS, verbose=0)
+    auxmol = jpt.M(atom=FG_ATOMS, basis=FG_AUX, verbose=0)
+    out['fg_df_3c'], out['fg_df_2c'] = _timed(
+        out, 'fg_df', lambda: fg_df_functionals(mol, auxmol))
+
+
+def fg_ip1_refs(out):
+    """tests/test_torch_fg_deriv.py: the (gs|sg) block of int2e.py
+    _deriv_class_pair_block (DerivPairClass of the (g, s) bra, the cart
+    blocks) on a g and an s shell on each of two centres 'fg_ip1_gssg'
+    (the (gg|gg) block's program was killed compiling on the CPU). Run
+    with XLA_FLAGS=--xla_disable_hlo_passes=constant_folding, in a process
+    of its own."""
+    gs = jpt.M(atom='He 0 0 0; He 0.3 -0.4 1.1',
+               basis=[[4, [0.6, 1.0]], [0, [1.3, 1.0]]], verbose=0)
+    out['fg_ip1_gssg'] = _timed(out, 'fg_ip1_gssg', lambda: np.asarray(
+        jax_int2e._deriv_class_pair_block(jax_int2e.DerivPairClass(gs, 4, 0),
+                                          jax_int2e.PairClass(gs, 0, 4))))
+
+
 FUNCTIONS = (scf_refs, integral_refs, grad_refs, analysis_refs,
-             scf_energy_refs, more_refs, fg_water_refs, fg_neon_refs)
+             scf_energy_refs, more_refs, fg_water_refs, fg_neon_refs,
+             fg_grad_tz_refs, fg_grad_tzvp_refs, fg_grad_refs, fg_ip1_refs)
 
 
 def main(names):

@@ -82,17 +82,18 @@ void host_launch(int blocks, int threads, F f, A... a) {
     }
 }
 '''
-# int3c2e.cu and int2e.cu are built only for the bra momenta and classes
+# the sources split by bra are built only for the bra momenta and classes
 # that the tests below run: water/def2-SVP's to d, and one f and one g
 LIBS = ('int1e_stv', 'int3c2e_la0', 'int3c2e_la1', 'int3c2e_la2',
         'int3c2e_la3', 'int3c2e_la4', 'int2c2e', 'int2e_00', 'int2e_01',
         'int2e_02', 'int2e_11', 'int2e_12', 'int2e_22', 'int2e_33',
-        'int2e_44', 'int1e_ip',
-        'int1e_iprinv', 'int2e_ip1_la0', 'int2e_ip1_la1', 'int2e_ip1_la2',
-        'int3c2e_ip_la0', 'int3c2e_ip_la1', 'int3c2e_ip_la2', 'int2c2e_ip1',
+        'int2e_44', 'int1e_ip', 'int1e_iprinv',
+        *[f'int2e_ip1_{la}{lb}' for la in range(3) for lb in range(3)],
+        'int2e_ip1_33', 'int2e_ip1_44',
+        *[f'int3c2e_ip_la{la}' for la in range(5)], 'int2c2e_ip1',
         'int1e_r', 'vv10', 'mp2_energy', 'ccsd_t', 'int1e_ipip',
-        'int3c2e_ip1_la0', 'int3c2e_ip1_la1', 'int3c2e_ip1_la2',
-        'int3c2e_ipip_la0', 'int3c2e_ipip_la1', 'int3c2e_ipip_la2',
+        *[f'int3c2e_ip1_la{la}' for la in range(5)],
+        *[f'int3c2e_ipip_la{la}' for la in range(5)],
         'int2c2e_ip1_full', 'int2c2e_ipip')
 OMEGA = 0.3
 DEV = torch.device('cpu')
@@ -405,6 +406,134 @@ def test_int2e_f_and_g(host, fg_mols, omega):
         _close(got, ref)
 
 
+def test_int1e_derivatives_f_and_g(host, fg_mols):
+    """int1e_ip, int1e_iprinv and int1e_ipip of every ordered class of s to
+    g shells with an f or g shell, (g, g) among them (one shell pair a
+    class for int1e_ipip), against class_ip, class_iprinv and class_ipip
+    (test_int1e_ip_and_iprinv and test_int1e_ipip take the classes to
+    (d, d))."""
+    mol, _ = fg_mols
+    zr = torch.as_tensor(mol.coords)
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64)
+    rng = np.random.default_rng(15)
+    classes = int1e.cross_pairs(mol, mol)
+    assert len(classes) == 25
+    for la, lb, _, _, p in classes:
+        if max(la, lb) < 3:
+            continue
+        n, Ka, Kb = _dims(p)
+        ns1 = (2 * la + 1) * (2 * lb + 1)
+        out = torch.empty((n, ns1, 9), dtype=torch.float64)
+        assert host['int1e_ip'](
+            la, lb, n, Ka, Kb, *_ptrs(*p), mol.natm,
+            *_ptrs(zr, zq, sph(la, DEV), sph(lb, DEV), out), None) == 0
+        ref = int1e_deriv.class_ip(la, lb, *p, zr, zq)
+        for x in range(3):
+            _close(out[..., 3 * x:3 * x + 3], ref[..., 3 * x:3 * x + 3])
+        out = torch.empty((mol.natm, 3, n, ns1), dtype=torch.float64)
+        assert host['int1e_iprinv'](
+            la, lb, n, Ka, Kb, *_ptrs(*p), mol.natm,
+            *_ptrs(zr, sph(la, DEV), sph(lb, DEV), out), None) == 0
+        _close(out, int1e_deriv.class_iprinv(la, lb, *p, zr))
+        p = _few(p, 1)
+        D, W = (torch.as_tensor(rng.standard_normal((1, ns1)))
+                for _ in range(2))
+        out = torch.empty((1, mol.natm + 1, 27), dtype=torch.float64)
+        assert host['int1e_ipip'](
+            la, lb, 1, Ka, Kb, *_ptrs(*p), mol.natm,
+            *_ptrs(zr, zq, sph(la, DEV), sph(lb, DEV), D, W),
+            out.data_ptr(), None) == 0
+        _close(out, int1e_deriv.class_ipip(la, lb, *p, zr, zq, D, W))
+
+
+def test_int3c2e_derivatives_f_and_g(host, fg_mols):
+    """int3c2e_ip and int3c2e_ipip of the (ff) and (gg) bra classes and
+    int3c2e_ip1 of the ordered (ff), (fg), (gf) and (gg) classes (the
+    la = 3 and 4 libraries) against an aux basis of s to h shells, on
+    seeded Gamma rows."""
+    mol, auxmol = fg_mols
+    aux = j3c.aux_tables(auxmol)
+    offs, shs = kernels._aux_offsets(aux)
+    naux, nao = offs[-1], mol.nao
+    rng = np.random.default_rng(16)
+    classes = j3c.screened_pairs(mol)
+    for la, lb in ((3, 3), (4, 4)):
+        p = classes[(la, lb)][1]
+        n, Ka, Kb = _dims(p)
+        G = torch.as_tensor(rng.standard_normal(
+            (n * (2 * la + 1) * (2 * lb + 1), naux)))
+        for name, width, plain in (
+                ('int3c2e_ip', 6, j3c_deriv.int3c2e_ip_plain),
+                ('int3c2e_ipip', 27, j3c_deriv.int3c2e_ipip_plain)):
+            out = torch.empty((n, shs[-1], width), dtype=torch.float64)
+            for i, (l, e, c, r) in enumerate(aux):
+                assert host[f'{name}_la{la}'](
+                    la, lb, l, n, Ka, Kb, *_ptrs(*p), *e.shape,
+                    *_ptrs(e, c, r, sph(la, DEV), sph(lb, DEV), sph(l, DEV),
+                           G), naux, offs[i], out.data_ptr(), shs[-1],
+                    shs[i], None) == 0
+            _close_contracted(out, plain(la, lb, *p, aux, G))
+    for la, lb, ga, gb, p in int1e.cross_pairs(mol, mol):
+        if min(la, lb) < 3:
+            continue
+        n, Ka, Kb = _dims(p)
+        ia = torch.as_tensor(np.repeat(ga.ao_off, gb.nshl), dtype=torch.int32)
+        jb = torch.as_tensor(np.tile(gb.ao_off, ga.nshl), dtype=torch.int32)
+        out = torch.zeros((3, nao, nao, naux), dtype=torch.float64)
+        ref = j3c_deriv.int3c2e_ip1_plain(la, lb, *p, aux, ia, jb,
+                                          torch.zeros_like(out))
+        for k, (l, e, c, r) in enumerate(aux):
+            assert host[f'int3c2e_ip1_la{la}'](
+                la, lb, l, n, Ka, Kb, *_ptrs(*p), *e.shape,
+                *_ptrs(e, c, r, sph(la, DEV), sph(lb, DEV), sph(l, DEV), ia,
+                       jb), nao, naux, offs[k], out.data_ptr(), None) == 0
+        _close(out, ref)
+
+
+def test_int2c2e_derivatives_to_h(host, fg_mols):
+    """int2c2e_ip1, int2c2e_ip1_full and int2c2e_ipip of every ordered aux
+    class pair of s to h shells, (h|h) among them, on a seeded symmetric
+    W."""
+    _, auxmol = fg_mols
+    aux = j3c.aux_tables(auxmol)
+    offs, shs = kernels._aux_offsets(aux)
+    naux = offs[-1]
+    W = np.random.default_rng(17).standard_normal((naux, naux))
+    W = torch.as_tensor(W + W.T)
+    ip1 = torch.empty((shs[-1], shs[-1], 3), dtype=torch.float64)
+    full = torch.empty((3, naux, naux), dtype=torch.float64)
+    pp = torch.empty((shs[-1], shs[-1], 9), dtype=torch.float64)
+    for i, (lx, ex, cx, rx) in enumerate(aux):
+        for j, (ly, ey, cy, ry) in enumerate(aux):
+            args = (lx, ly, *ex.shape, *_ptrs(ex, cx, rx), *ey.shape,
+                    *_ptrs(ey, cy, ry, sph(lx, DEV), sph(ly, DEV)))
+            for name, w, o, tail in (
+                    ('int2c2e_ip1', W.data_ptr(), ip1, (shs[-1], shs[i],
+                                                        shs[j])),
+                    ('int2c2e_ip1_full', None, full, (0, 0, 0)),
+                    ('int2c2e_ipip', W.data_ptr(), pp, (shs[-1], shs[i],
+                                                        shs[j]))):
+                assert host[name](*args, w, naux, offs[i], offs[j],
+                                  o.data_ptr(), *tail, None) == 0
+    _close_contracted(ip1, j3c_deriv.int2c2e_ip1_plain(aux, W))
+    _close(full, j3c_deriv.int2c2e_ip1_full_plain(aux))
+    _close_contracted(pp, j3c_deriv.int2c2e_ipip_plain(aux, W))
+
+
+def test_int2e_ip1_f_and_g(host, fg_mols):
+    """int2e_ip1 of the ordered (ff) and (gg) bra classes against every ket
+    class of s to g shells, (ff|ff), (gg|ff) and (gg|gg) among them."""
+    mol, _ = fg_mols
+    kets = j2e._ket_arrays(mol)
+    for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
+        if la != lb or la < 3:
+            continue
+        ref = int2e.int2e_ip1_class_plain(la, lb, *p, kets)
+        got = _quartets(host[f'int2e_ip1_{la}{lb}'], la, lb, p, kets,
+                        torch.empty_like(ref), ref.shape[2])
+        _close(got, ref)
+
+
 def test_vv10(host):
     """vv10.cu, one thread per block, on water's level-1 grid at a seeded
     density (some points under RHO_CUT) against vv10_plain: the energy to
@@ -436,7 +565,7 @@ def test_int2e_ip1(host, water):
     kets = j2e._ket_arrays(mol)
     for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
         ref = int2e.int2e_ip1_class_plain(la, lb, *p, kets)
-        got = _quartets(host[f'int2e_ip1_la{la}'], la, lb, p, kets,
+        got = _quartets(host[f'int2e_ip1_{la}{lb}'], la, lb, p, kets,
                         torch.empty_like(ref), ref.shape[2])
         _close(got, ref)
 

@@ -131,12 +131,82 @@ def test_int2e_f_and_g(fg_mols, omega):
 
 
 def test_f_shell_derivative_kernel_raises(fg_mols):
-    """The derivative kernels stop at d: an f class raises on the card."""
+    """The derivative kernels stop at g: an h bra (la = 5, the aux basis's
+    h shells as a pair class) raises on the card."""
+    mol, auxmol = fg_mols
+    kets = j2e._ket_arrays(mol)
+    p = j3c.screened_pairs(auxmol)[(5, 5)][1]
+    with pytest.raises(NotImplementedError):
+        kernels.int2e_ip1(5, 5, *p, kets)
+
+
+def _fg_tensors(mol, seed):
+    rng = np.random.default_rng(seed)
+    zr = torch.as_tensor(mol.coords, device='cuda')
+    zq = torch.as_tensor(mol.charges, dtype=torch.float64, device='cuda')
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), device='cuda')
+    return zr, zq, normal
+
+
+def test_int1e_derivatives_f_and_g(fg_mols):
+    """int1e_ip, int1e_iprinv and int1e_ipip over every ordered class of s
+    to g shells, (g, g) among them."""
+    mol, _ = fg_mols
+    zr, zq, normal = _fg_tensors(mol, 21)
+    classes = int1e.cross_pairs(mol, mol)
+    assert len(classes) == 25
+    for la, lb, _, _, p in classes:
+        _close(kernels.int1e_ip(la, lb, *p, zr, zq),
+               int1e_deriv.class_ip(la, lb, *p, zr, zq))
+        _close(kernels.int1e_iprinv(la, lb, *p, zr),
+               int1e_deriv.class_iprinv(la, lb, *p, zr))
+        D, W = (normal(p[0].shape[0], (2 * la + 1) * (2 * lb + 1))
+                for _ in range(2))
+        _close(kernels.int1e_ipip(la, lb, *p, zr, zq, D, W),
+               int1e_deriv.class_ipip(la, lb, *p, zr, zq, D, W))
+
+
+def test_df_derivatives_f_and_g(fg_mols):
+    """int3c2e_ip and int3c2e_ipip over every class la <= lb to (gg), and
+    int3c2e_ip1 over every ordered class, against aux shells to h; the
+    metric's int2c2e_ip1, int2c2e_ip1_full and int2c2e_ipip to (h|h)."""
+    mol, auxmol = fg_mols
+    aux = j3c.aux_tables(auxmol)
+    naux, nao = auxmol.nao, mol.nao
+    _, _, normal = _fg_tensors(mol, 22)
+    for (la, lb), (_, p) in j3c.screened_pairs(mol).items():
+        G = normal(p[0].shape[0] * (2 * la + 1) * (2 * lb + 1), naux)
+        _close(kernels.int3c2e_ip(la, lb, *p, aux, G),
+               j3c_deriv.int3c2e_ip_plain(la, lb, *p, aux, G))
+        _close(kernels.int3c2e_ipip(la, lb, *p, aux, G),
+               j3c_deriv.int3c2e_ipip_plain(la, lb, *p, aux, G))
+    for la, lb, ga, gb, p in int1e.cross_pairs(mol, mol):
+        ia = torch.as_tensor(np.repeat(ga.ao_off, gb.nshl), dtype=torch.int32,
+                             device='cuda')
+        jb = torch.as_tensor(np.tile(gb.ao_off, ga.nshl), dtype=torch.int32,
+                             device='cuda')
+        out = torch.zeros((3, nao, nao, naux), dtype=torch.float64,
+                          device='cuda')
+        _close(kernels.int3c2e_ip1(la, lb, *p, aux, ia, jb, out.clone()),
+               j3c_deriv.int3c2e_ip1_plain(la, lb, *p, aux, ia, jb, out))
+    W = normal(naux, naux)
+    W = W + W.T
+    _close(kernels.int2c2e_ip1(aux, W), j3c_deriv.int2c2e_ip1_plain(aux, W))
+    _close(kernels.int2c2e_ip1_full(aux),
+           j3c_deriv.int2c2e_ip1_full_plain(aux))
+    _close(kernels.int2c2e_ipip(aux, W), j3c_deriv.int2c2e_ipip_plain(aux, W))
+
+
+def test_int2e_ip1_f_and_g(fg_mols):
+    """Every ordered bra class of s to g shells against every ket class to
+    (gg), (gg|gg) among them."""
     mol, _ = fg_mols
     kets = j2e._ket_arrays(mol)
-    p = j3c.screened_pairs(mol)[(3, 3)][1]
-    with pytest.raises(NotImplementedError):
-        kernels.int2e_ip1(3, 3, *p, kets)
+    for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
+        _close(kernels.int2e_ip1(la, lb, *p, kets),
+               int2e.int2e_ip1_class_plain(la, lb, *p, kets))
 
 
 def test_int1e_ip_and_iprinv(water):
