@@ -5,7 +5,7 @@ Drives the port's paths for benzene/def2-SVP, the phenyl radical and
 water, then BASELINE configs 3 ((H2O)10/cc-pVTZ) and 4 (N2/cc-pVQZ), and
 the forces and frequencies of the f and g shells on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the eighty-two kernel libraries of the thirty-two kernels from
+  2. builds the sixty-six kernel libraries of the thirty-two kernels from
      the twenty-six sources of pyscf_tpu_torch/csrc (nvcc, sm_90a, one
      process per library, all at once);
   3. integral kernel phases at the main path's shapes: each kernel against
@@ -202,10 +202,10 @@ the forces and frequencies of the f and g shells on the card, in order:
  42. Ne/cc-pVQZ in-core RHF, MP2, CCSD and (T) (the same settings) within
      1e-8 Ha of the recorded JAX energies;
  43. the f and g phase: every class of the nine derivative and Hessian
-     kernels at water/cc-pVTZ's shapes (f, cc-pvtz-jkfit to g) and
-     water/cc-pVQZ's (g, cc-pvqz-jkfit to h), on seeded densities and
-     weights, against their twins within 1e-12 of the twin's largest
-     element (rows <kernel>_tz and <kernel>_qz); the card's free memory
+     kernels but int2e_ip1 (which stops at d) at water/cc-pVQZ's shapes
+     (every ordered class to (g, g), cc-pvqz-jkfit to h), on seeded
+     densities and weights, against their twins within 1e-12 of the
+     twin's largest element (rows <kernel>_qz); the card's free memory
      after them (the local memory the largest stacks reserve);
  44. BASELINE config 3's forces at full width: (H2O)10 DF-RHF/cc-pVTZ
      from M() (conv_tol 1e-10, conv_tol_grad 1e-7) through
@@ -213,6 +213,9 @@ the forces and frequencies of the f and g shells on the card, in order:
      differences on one O and one H coordinate within 1e-6, the same
      gradient on the twins' derivative integrals within 1e-8; the wall
      from M(), the gradient's phases, its warm time and the peak memory;
+     then its four kernels against their twins at its shapes (int1e_ip,
+     int1e_iprinv 1e-12 x max; int3c2e_ip, int2c2e_ip1 on its Gamma and
+     W_PQ 1e-10 x max; rows <kernel>_tz);
  45. water/cc-pVTZ DF-RHF and water/def2-TZVP DF-RKS b3lypg (grids level
      1) forces within 1e-8 of the recorded JAX gradients; water/cc-pVQZ
      DF-RHF forces (g, aux h) with the sum rule within 1e-9;
@@ -222,18 +225,16 @@ the forces and frequencies of the f and g shells on the card, in order:
      width);
  47. the DF-RHF Hessian and harmonic frequencies of benzene/cc-pVTZ (nao
      264, naux 654) and water/cc-pVQZ from M() (conv_tol 1e-12,
-     conv_tol_grad 1e-8): the seven kernels launched, the sum rule within
-     1e-7, the symmetry within 1e-9, central differences of the analytic
-     gradient within 1e-5 on four columns (one C x and z, one H x and y)
-     and on all nine; the eight phases, the peak memory and the
-     frequencies printed;
- 48. int2e_ip1's (gg|gg) class, R_tuv to order 17, on two g shells whose
-     primitive quartets put the Boys argument on both sides of 18, and
-     int2e_ip1 over every ordered class of N2/cc-pVQZ (f and g), each
-     against its twin within 1e-12 of the twin's largest element (each g
-     bra class to its own size); then config 4's molecule's in-core RHF
-     forces from M(): the sum rule within 1e-9, the central difference
-     along the bond within 1e-6;
+     conv_tol_grad 1e-8), as in 37: the seven kernels launched, the sum
+     rule within 1e-7, the symmetry within 1e-9, central differences of
+     the analytic gradient within 1e-5 on four columns (one C x and z, one
+     H x and y) and on all nine; the eight phases, the peak memory and the
+     frequencies printed; after benzene/cc-pVTZ's, its five kernels
+     against their twins at its shapes as in 38 (rows <kernel>_tz);
+ 48. int3c2e_ipip's (gg|h) class, R_tuv to order 15, on two g shells and
+     an h aux shell whose primitive triples put the Boys argument on both
+     sides of 18, against its twin within 1e-12 of the twin's largest
+     element;
  49. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
@@ -247,8 +248,8 @@ the forces and frequencies of the f and g shells on the card, in order:
      kernels at config 3's classes) from 39, int1e_stv_qz and int2e_qz
      (at config 4's) from 41, the DF gradient's four <kernel>_tz from 44
      and <kernel>_qz from 45's water/cc-pVQZ, the Hessian's five
-     <kernel>_tz and <kernel>_qz from 47, int2e_ip1_qz from 48, the others
-     from 6), then the result line {"ok": true, "device": {...}}.
+     <kernel>_tz and <kernel>_qz from 47, the others from 6), then the
+     result line {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
 import contextlib
@@ -306,20 +307,20 @@ def bound(nbytes, nops, peak=FP64_FLOPS):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def record(report, name, source, replaces, err, kernel_fn, plain_fn, nbytes,
-           nops, plain_reps=3, plain_ms=None, peak=FP64_FLOPS,
-           kernel_ms=None):
-    """Time the kernel and its twin (or take kernel_ms and plain_ms, each
-    measured once by the caller: a long call's time is its comparison
-    call) and keep the kernel's line of the report. Both ran on the same
-    inputs in the caller's comparison, which serves as their warm-up."""
+def record(report, name, source, replaces, err, kernel, plain, nbytes,
+           nops, plain_reps=3, peak=FP64_FLOPS):
+    """Keep the kernel's line of the report. kernel and plain: each a
+    callable, timed here by CUDA events (the mean of 3 calls, of plain_reps
+    for the twin; the caller's comparison on the same inputs served as the
+    warm-up), or the milliseconds the caller measured: a long twin's one
+    comparison call on the host clock, ended by a synchronize."""
+    def ms(t, reps):
+        return cuda_ms(t, reps, warmup=False) if callable(t) else t
+
     bound_ms, bound_by = bound(nbytes, nops, peak)
     report[name] = dict(
         source=source, replaces=replaces, max_abs_err=err,
-        ms=cuda_ms(kernel_fn, warmup=False) if kernel_ms is None
-        else kernel_ms,
-        plain_ms=(cuda_ms(plain_fn, plain_reps, warmup=False)
-                  if plain_ms is None else plain_ms),
+        ms=ms(kernel, 3), plain_ms=ms(plain, plain_reps),
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
     r = report[name]
     print(f'{name}: max_abs_err {err:.3e}  kernel {r["ms"]:.3f} ms  plain '
@@ -570,8 +571,8 @@ def df_integral_phase(kernels, mol, auxmol, suffix, report):
         + sum(nbytes(*a[1:]) for a in aux) + nbytes(*rows_k.values())
     record(report, 'int3c2e' + suffix, 'pyscf_tpu_torch/csrc/int3c2e.cu',
            'pyscf_tpu/ops/integrals/j3c.py:188', err,
-           lambda: rows(kernels.int3c2e), None, io,
-           int3c2e_ops(classes, aux), plain_ms=plain_s * 1e3)
+           lambda: rows(kernels.int3c2e), plain_s * 1e3, io,
+           int3c2e_ops(classes, aux))
     check(err <= 1e-12 * scale, f'int3c2e{suffix} vs plain: {err:.3e} > '
           f'1e-12 x {scale:.3e}')
 
@@ -580,9 +581,9 @@ def df_integral_phase(kernels, mol, auxmol, suffix, report):
     err, scale = max_abs([(jg_k, jg_p)])
     record(report, 'int2c2e' + suffix, 'pyscf_tpu_torch/csrc/int2c2e.cu',
            'pyscf_tpu/ops/integrals/j3c.py:266', err,
-           lambda: kernels.int2c2e(aux), None,
+           lambda: kernels.int2c2e(aux), plain_s * 1e3,
            sum(nbytes(*a[1:]) for a in aux) + nbytes(jg_k),
-           int2c2e_ops(aux), plain_ms=plain_s * 1e3)
+           int2c2e_ops(aux))
     check(err <= 1e-12 * scale, f'int2c2e{suffix} vs plain: {err:.3e} > '
           f'1e-12 x {scale:.3e}')
 
@@ -856,10 +857,12 @@ def xc_uks_phase(kernels, mf, report, name='xc_uks', xc_code='b3lypg'):
           f'{name} n/exc vs plain: {rel_n:.2e}, {rel_e:.2e} > 1e-11')
 
 
-def deriv_phases(pt, refs, kernels, report):
-    from pyscf_tpu_torch.ops.integrals import int1e, int1e_deriv, int2e, j2e
+def one_e_deriv_phases(kernels, mol, report, suffix=''):
+    """int1e_ip and int1e_iprinv over every ordered class and pair of mol
+    against their twins (1e-12 x max), recorded as int1e_ip<suffix> and
+    int1e_iprinv<suffix>."""
+    from pyscf_tpu_torch.ops.integrals import int1e, int1e_deriv
 
-    mol = pt.M(atom=refs.BENZENE, basis='def2-svp', device='cuda')
     dev = mol.device
     classes = int1e.cross_pairs(mol, mol)     # every ordered class and pair
     zr = torch.as_tensor(mol.coords, dtype=torch.float64, device=dev)
@@ -870,29 +873,39 @@ def deriv_phases(pt, refs, kernels, report):
         return [fn(la, lb, *p, *extra) for la, lb, _, _, p in classes]
 
     k_out = per_class(kernels.int1e_ip, zr, zq)
-    p_out = per_class(int1e_deriv.class_ip, zr, zq)
+    p_out, plain_s = host_s(lambda: per_class(int1e_deriv.class_ip, zr, zq))
     err, scale = max_abs(list(zip(k_out, p_out)))
-    record(report, 'int1e_ip', 'pyscf_tpu_torch/csrc/int1e_ip.cu',
+    record(report, f'int1e_ip{suffix}', 'pyscf_tpu_torch/csrc/int1e_ip.cu',
            'pyscf_tpu/ops/integrals/int1e_deriv.py:32', err,
-           lambda: per_class(kernels.int1e_ip, zr, zq),
-           lambda: per_class(int1e_deriv.class_ip, zr, zq),
+           lambda: per_class(kernels.int1e_ip, zr, zq), plain_s * 1e3,
            pair_bytes + nbytes(*k_out),
            sum(ip_ops(la, lb, p, mol.natm) for la, lb, _, _, p in classes))
-    check(err <= 1e-12 * scale, f'int1e_ip vs plain: {err:.3e} > 1e-12 x '
-          f'{scale:.3e}')
+    check(err <= 1e-12 * scale, f'int1e_ip{suffix} vs plain: {err:.3e} > '
+          f'1e-12 x {scale:.3e}')
 
     k_out = per_class(kernels.int1e_iprinv, zr)
-    p_out = per_class(int1e_deriv.class_iprinv, zr)
+    p_out, plain_s = host_s(lambda: per_class(int1e_deriv.class_iprinv, zr))
     err, scale = max_abs(list(zip(k_out, p_out)))
-    record(report, 'int1e_iprinv', 'pyscf_tpu_torch/csrc/int1e_iprinv.cu',
+    record(report, f'int1e_iprinv{suffix}',
+           'pyscf_tpu_torch/csrc/int1e_iprinv.cu',
            'pyscf_tpu/ops/integrals/int1e_deriv.py:136', err,
-           lambda: per_class(kernels.int1e_iprinv, zr),
-           lambda: per_class(int1e_deriv.class_iprinv, zr),
+           lambda: per_class(kernels.int1e_iprinv, zr), plain_s * 1e3,
            pair_bytes + nbytes(*k_out),
            sum(iprinv_ops(la, lb, p, mol.natm)
                for la, lb, _, _, p in classes))
-    check(err <= 1e-12 * scale, f'int1e_iprinv vs plain: {err:.3e} > 1e-12 '
-          f'x {scale:.3e}')
+    check(err <= 1e-12 * scale, f'int1e_iprinv{suffix} vs plain: {err:.3e} '
+          f'> 1e-12 x {scale:.3e}')
+
+
+def int2e_ip1_phase(kernels, mol, report):
+    """int2e_ip1 over every ordered bra class of mol against every ket
+    class, against its twin (1e-12 x max)."""
+    from pyscf_tpu_torch.ops.integrals import int1e, int2e, j2e
+
+    classes = int1e.cross_pairs(mol, mol)     # every ordered class and pair
+
+    def per_class(fn, *extra):
+        return [fn(la, lb, *p, *extra) for la, lb, _, _, p in classes]
 
     kets = j2e._ket_arrays(mol)
     k_out = per_class(kernels.int2e_ip1, kets)
@@ -910,12 +923,11 @@ def deriv_phases(pt, refs, kernels, report):
     ops += sum(pair_e_ops(la, lb, p, True, deriv=True)
                for la, lb, _, _, p in classes)
     ops += sum(pair_e_ops(lc, ld, ket, False) for lc, ld, *ket in kets)
-    io = pair_bytes + nbytes(*k_out)
+    io = sum(nbytes(*p) for *_, p in classes) + nbytes(*k_out)
     del k_out
     record(report, 'int2e_ip1', 'pyscf_tpu_torch/csrc/int2e_ip1.cu',
            'pyscf_tpu/ops/integrals/int2e.py:727', err,
-           lambda: per_class(kernels.int2e_ip1, kets), None, io, ops,
-           plain_ms=plain_s * 1e3)
+           lambda: per_class(kernels.int2e_ip1, kets), plain_s * 1e3, io, ops)
     check(err <= 1e-12 * scale, f'int2e_ip1 vs plain: {err:.3e} > 1e-12 x '
           f'{scale:.3e}')
 
@@ -1234,13 +1246,11 @@ def df_water_gradients(pt, refs, names):
               f'recorded JAX gradient: {err:.3e} >= 1e-8')
 
 
-def df_grad_phases(pt, kernels, mf, report):
-    """The four kernels of the DF gradient against their twins at benzene's
-    shapes: Gamma and W from the converged DF-RKS, the AO second
-    derivatives and the XC gradient on its grid."""
-    from pyscf_tpu_torch.dft import numint
+def df_grad_phases(kernels, mf, report, suffix=''):
+    """int3c2e_ip and int2c2e_ip1 against their twins at the shapes of mf's
+    DF gradient, on the Gamma and W_PQ of the converged mean field (1e-10 x
+    max), recorded as int3c2e_ip<suffix> and int2c2e_ip1<suffix>."""
     from pyscf_tpu_torch.grad import df
-    from pyscf_tpu_torch.ops import eval_gto
     from pyscf_tpu_torch.ops.integrals import j3c, j3c_deriv
 
     mol, auxmol = mf.mol, mf.with_df.auxmol
@@ -1272,12 +1282,12 @@ def df_grad_phases(pt, kernels, mf, report):
                                   prims * aux_nnz[l])
     io = sum(nbytes(*p) for _, p in classes.values()) \
         + sum(nbytes(*a[1:]) for a in aux) + nbytes(*G.values(), *k_out)
-    record(report, 'int3c2e_ip', 'pyscf_tpu_torch/csrc/int3c2e_ip.cu',
+    record(report, f'int3c2e_ip{suffix}',
+           'pyscf_tpu_torch/csrc/int3c2e_ip.cu',
            'pyscf_tpu/grad/autodiff.py:148', err,
-           lambda: rows(kernels.int3c2e_ip), None, io, ops,
-           plain_ms=plain_s * 1e3)
-    check(err <= 1e-10 * scale, f'int3c2e_ip vs plain: {err:.3e} > 1e-10 x '
-          f'{scale:.3e}')
+           lambda: rows(kernels.int3c2e_ip), plain_s * 1e3, io, ops)
+    check(err <= 1e-10 * scale, f'int3c2e_ip{suffix} vs plain: {err:.3e} > '
+          f'1e-10 x {scale:.3e}')
     del G, k_out, p_out
 
     Wg = W.index_select(0, order).index_select(1, order).contiguous()
@@ -1289,14 +1299,25 @@ def df_grad_phases(pt, kernels, mf, report):
             prims = float(_nnz(cy).sum())
             ops += coulomb_ip_ops(ly, 0, lx, prims, ex.shape[0],
                                   prims * float(_nnz(cx).sum()), False)
-    record(report, 'int2c2e_ip1', 'pyscf_tpu_torch/csrc/int2c2e_ip1.cu',
+    record(report, f'int2c2e_ip1{suffix}',
+           'pyscf_tpu_torch/csrc/int2c2e_ip1.cu',
            'pyscf_tpu/grad/autodiff.py:131', err,
            lambda: kernels.int2c2e_ip1(aux, Wg),
            lambda: j3c_deriv.int2c2e_ip1_plain(aux, Wg),
            sum(nbytes(*a[1:]) for a in aux) + nbytes(Wg, k_out), ops)
-    check(err <= 1e-10 * scale, f'int2c2e_ip1 vs plain: {err:.3e} > 1e-10 x '
-          f'{scale:.3e}')
+    check(err <= 1e-10 * scale, f'int2c2e_ip1{suffix} vs plain: {err:.3e} > '
+          f'1e-10 x {scale:.3e}')
 
+
+def xc_grad_phases(kernels, mf, report):
+    """eval_ao_deriv2 and xc_rks_grad against their twins on the converged
+    DF-RKS's grid and density."""
+    from pyscf_tpu_torch.dft import numint
+    from pyscf_tpu_torch.grad import df
+    from pyscf_tpu_torch.ops import eval_gto
+
+    mol, nao = mf.mol, mf.mol.nao
+    dm = df.occupied(mf)[0]
     coords, weights = mf.grids.coords, mf.grids.weights
     tables = eval_gto.ao_tables(mol)
     ao_k = kernels.eval_ao_deriv2(tables, coords, nao)
@@ -1893,7 +1914,7 @@ def ccsd_t_phase(kernels, mycc, report):
     ops = 12.0 * nocc ** 3 * (nvir + nocc) * len(args[0])
     record(report, 'ccsd_t', 'pyscf_tpu_torch/csrc/ccsd_t.cu',
            'pyscf_tpu/cc/ccsd_t.py:70', err, lambda: kernels.ccsd_t(*args),
-           None, nbytes(*args), ops, plain_ms=plain_s * 1e3,
+           plain_s * 1e3, nbytes(*args), ops,
            peak=FP64_TC_FLOPS)
 
 
@@ -2135,9 +2156,8 @@ def fxc_phases(kernels, mf, report):
     # point on second-order dual numbers are not counted
     record(report, 'xc_fxc', 'pyscf_tpu_torch/csrc/xc_fxc.cu',
            'pyscf_tpu/tdscf/rhf.py:96', err,
-           lambda: kernels.xc_fxc(aod, dmao, w, f), None,
-           nbytes(aod, dmao, w, h_k), 8.0 * npts * nao + 1040.0 * npts,
-           plain_ms=plain_s * 1e3)
+           lambda: kernels.xc_fxc(aod, dmao, w, f), plain_s * 1e3,
+           nbytes(aod, dmao, w, h_k), 8.0 * npts * nao + 1040.0 * npts)
     check(err <= 1e-10 * scale, f'xc_fxc vs plain: {err:.3e} > 1e-10 x '
           f'{scale:.3e}')
     del h_p
@@ -2380,13 +2400,13 @@ def ip1_all(fn, mol, classes, aux):
     return out
 
 
-def hessian_phases(pt, kernels, mf, report):
-    """The Hessian's five kernels against their twins at benzene's shapes
-    (1e-10 x max): int1e_ipip with the SCF's D and W over every ordered
-    class, int3c2e_ip1 and int2c2e_ip1_full written out as the Hessian
-    writes them, int3c2e_ipip and int2c2e_ipip contracted with the DF
-    gradient's Gamma and W_PQ; each timed over the full set of launches
-    the Hessian makes."""
+def hessian_phases(kernels, mf, report, suffix=''):
+    """The Hessian's five kernels against their twins at the shapes of
+    mf's Hessian (1e-10 x max): int1e_ipip with the SCF's D and W over
+    every ordered class, int3c2e_ip1 and int2c2e_ip1_full written out as
+    the Hessian writes them, int3c2e_ipip and int2c2e_ipip contracted with
+    the DF gradient's Gamma and W_PQ; each timed over the full set of
+    launches the Hessian makes; recorded as <kernel><suffix>."""
     from pyscf_tpu_torch.grad import df
     from pyscf_tpu_torch.hessian import rhf as hess_rhf
     from pyscf_tpu_torch.ops.integrals import (int1e, int1e_deriv, j3c,
@@ -2400,8 +2420,8 @@ def hessian_phases(pt, kernels, mf, report):
     zq = torch.as_tensor(mol.charges, dtype=torch.float64, device=dev)
     aux = j3c.aux_tables(auxmol)
     aux_nnz = {l: float(_nnz(c).sum()) for l, _, c, _ in aux}
-    print('the Hessian kernels against their twins on benzene/def2-SVP '
-          '(every class at the main path\'s shapes)')
+    print(f'the Hessian kernels against their twins at the Hessian path\'s '
+          f'shapes (nao {nao}, naux {naux}, every class)')
 
     cross = int1e.cross_pairs(mol, mol)
     blocks = []
@@ -2427,11 +2447,11 @@ def hessian_phases(pt, kernels, mf, report):
     ops = sum(ipip_1e_ops(la, lb, p, natm) for la, lb, p, _, _ in blocks)
     io = sum(nbytes(*p, D, W) for _, _, p, D, W in blocks) \
         + nbytes(*k_out, zr, zq)
-    record(report, 'int1e_ipip', 'pyscf_tpu_torch/csrc/int1e_ipip.cu',
+    record(report, f'int1e_ipip{suffix}', 'pyscf_tpu_torch/csrc/int1e_ipip.cu',
            'pyscf_tpu/hessian/rhf.py:327', err, lambda: one_e(
-               kernels.int1e_ipip), None, io, ops, plain_ms=plain_s * 1e3)
-    check(err <= 1e-10 * scale, f'int1e_ipip vs plain: {err:.3e} > 1e-10 x '
-          f'{scale:.3e}')
+               kernels.int1e_ipip), plain_s * 1e3, io, ops)
+    check(err <= 1e-10 * scale, f'int1e_ipip{suffix} vs plain: {err:.3e} > '
+          f'1e-10 x {scale:.3e}')
     del k_out, p_out
 
     with plain_kernels(kernels, HESS_KERNELS):
@@ -2448,14 +2468,15 @@ def hessian_phases(pt, kernels, mf, report):
                 ops += coulomb_ip1_ops(a, b, l, prims, e.shape[0],
                                        prims * aux_nnz[l])
 
-    record(report, 'int3c2e_ip1', 'pyscf_tpu_torch/csrc/int3c2e_ip1.cu',
+    record(report, f'int3c2e_ip1{suffix}',
+           'pyscf_tpu_torch/csrc/int3c2e_ip1.cu',
            'pyscf_tpu/hessian/rhf.py:270', err,
            lambda: ip1_all(kernels.int3c2e_ip1, mol, classes, aux),
            lambda: ip1_all(j3c_deriv.int3c2e_ip1_plain, mol, classes, aux),
            nbytes(ip1_k) + sum(nbytes(*p) for _, p in classes.values())
            + sum(nbytes(*a[1:]) for a in aux), ops, plain_reps=1)
-    check(err <= 1e-10 * scale, f'int3c2e_ip1 vs plain: {err:.3e} > 1e-10 x '
-          f'{scale:.3e}')
+    check(err <= 1e-10 * scale, f'int3c2e_ip1{suffix} vs plain: {err:.3e} > '
+          f'1e-10 x {scale:.3e}')
     del ip1_k
 
     full_k = kernels.int2c2e_ip1_full(aux)
@@ -2467,13 +2488,14 @@ def hessian_phases(pt, kernels, mf, report):
             prims = float(_nnz(cx).sum())
             ops += coulomb_ip1_ops(lx, 0, ly, prims, ey.shape[0],
                                    prims * float(_nnz(cy).sum()))
-    record(report, 'int2c2e_ip1_full', 'pyscf_tpu_torch/csrc/int2c2e_ipip.cu',
+    record(report, f'int2c2e_ip1_full{suffix}',
+           'pyscf_tpu_torch/csrc/int2c2e_ipip.cu',
            'pyscf_tpu/hessian/rhf.py:270', err,
            lambda: kernels.int2c2e_ip1_full(aux),
            lambda: j3c_deriv.int2c2e_ip1_full_plain(aux),
            nbytes(full_k) + sum(nbytes(*a[1:]) for a in aux), ops)
-    check(err <= 1e-10 * scale, f'int2c2e_ip1_full vs plain: {err:.3e} > '
-          f'1e-10 x {scale:.3e}')
+    check(err <= 1e-10 * scale, f'int2c2e_ip1_full{suffix} vs plain: '
+          f'{err:.3e} > 1e-10 x {scale:.3e}')
     del full_k, full_p
 
     _, gamma, Wpq = df.fitted_weights(mf, dm, cos, kfac)
@@ -2498,12 +2520,12 @@ def hessian_phases(pt, kernels, mf, report):
                                     prims * aux_nnz[l])
     io = sum(nbytes(*p) for _, p in classes.values()) \
         + sum(nbytes(*a[1:]) for a in aux) + nbytes(*G.values(), *k_out)
-    record(report, 'int3c2e_ipip', 'pyscf_tpu_torch/csrc/int3c2e_ipip.cu',
+    record(report, f'int3c2e_ipip{suffix}',
+           'pyscf_tpu_torch/csrc/int3c2e_ipip.cu',
            'pyscf_tpu/hessian/rhf.py:327', err,
-           lambda: rows(kernels.int3c2e_ipip), None, io, ops,
-           plain_ms=plain_s * 1e3)
-    check(err <= 1e-10 * scale, f'int3c2e_ipip vs plain: {err:.3e} > 1e-10 x '
-          f'{scale:.3e}')
+           lambda: rows(kernels.int3c2e_ipip), plain_s * 1e3, io, ops)
+    check(err <= 1e-10 * scale, f'int3c2e_ipip{suffix} vs plain: {err:.3e} > '
+          f'1e-10 x {scale:.3e}')
     del G, k_out, p_out
 
     Wg = Wpq.index_select(0, order).index_select(1, order).contiguous()
@@ -2515,13 +2537,14 @@ def hessian_phases(pt, kernels, mf, report):
             prims = float(_nnz(cy).sum())
             ops += coulomb_ipip_ops(ly, 0, lx, prims, ex.shape[0],
                                     prims * float(_nnz(cx).sum()), False)
-    record(report, 'int2c2e_ipip', 'pyscf_tpu_torch/csrc/int2c2e_ipip.cu',
+    record(report, f'int2c2e_ipip{suffix}',
+           'pyscf_tpu_torch/csrc/int2c2e_ipip.cu',
            'pyscf_tpu/hessian/rhf.py:327', err,
            lambda: kernels.int2c2e_ipip(aux, Wg),
            lambda: j3c_deriv.int2c2e_ipip_plain(aux, Wg),
            sum(nbytes(*a[1:]) for a in aux) + nbytes(Wg, k_out), ops)
-    check(err <= 1e-10 * scale, f'int2c2e_ipip vs plain: {err:.3e} > 1e-10 x '
-          f'{scale:.3e}')
+    check(err <= 1e-10 * scale, f'int2c2e_ipip{suffix} vs plain: {err:.3e} > '
+          f'1e-10 x {scale:.3e}')
 
 
 def tight_df_rhf(mol, conv_tol_grad):
@@ -2588,18 +2611,11 @@ def hessian_path(pt, kernels, name, atom, basis, picks, e_ref=None):
     _, s = host_s(hobj.kernel)
     print(f'{name} Hessian warm {s:.4f} s; phases: ' + '  '.join(
         f'{k} {hobj.timings[k]:.4f}' for k in HESS_PHASES))
-    coords0 = np.asarray(mol.coords).copy()
     t0 = time.perf_counter()
-    worst = 0.0
-    for a, x in picks:
-        g = []
-        for step in (1e-3, -1e-3):
-            c = coords0.copy()
-            c[a, x] += step
-            g.append(tight_df_rhf(mol.copy().set_geom_(c), 1e-9)
-                     .Gradients().kernel())
-        col = (g[0] - g[1]) / 2e-3
-        worst = max(worst, float(np.abs(h[a, x] - col).max()))
+    fd = hessian.fd_columns(
+        lambda m: tight_df_rhf(m, 1e-9).Gradients().kernel(), mol, picks)
+    worst = max(float(np.abs(h[a, x] - col).max())
+                for (a, x), col in zip(picks, fd))
     print(f'{name} Hessian vs central differences of the gradient on '
           f'{len(picks)} columns ({2 * len(picks)} SCF + gradient runs, '
           f'{time.perf_counter() - t0:.1f} s): max |H - H_fd| {worst:.3e} '
@@ -2661,8 +2677,7 @@ def stv_phase(kernels, mol, name, report):
         + sum(nbytes(*p) for *_, p in cross) + nbytes(*k_out)
     record(report, name, 'pyscf_tpu_torch/csrc/int1e_stv.cu',
            'pyscf_tpu/ops/integrals/j1e.py:30', err,
-           lambda: stv_rows(mol, kernels.int1e_stv), None, io, ops,
-           plain_ms=plain_s * 1e3)
+           lambda: stv_rows(mol, kernels.int1e_stv), plain_s * 1e3, io, ops)
     check(err <= 1e-12, f'{name} vs plain: {err:.3e} > 1e-12')
 
 
@@ -2798,8 +2813,7 @@ def int2e_rows(kernels, mol, name, report, omega=None):
     io = sum(nbytes(*p) for _, p in classes.values()) + nbytes(*k_out)
     record(report, name, 'pyscf_tpu_torch/csrc/int2e.cu',
            'pyscf_tpu/ops/integrals/j2e.py:42', err,
-           lambda: pieces(kernels.int2e), None, io, ops,
-           plain_ms=plain_s * 1e3)
+           lambda: pieces(kernels.int2e), plain_s * 1e3, io, ops)
     check(err <= 1e-12 * scale, f'{name} vs plain: {err:.3e} > 1e-12 x '
           f'{scale:.3e}')
     return p_out
@@ -2886,16 +2900,15 @@ DERIV_SOURCES = {
     'int3c2e_ip1': ('int3c2e_ip1.cu', 'pyscf_tpu/hessian/rhf.py:270'),
     'int2c2e_ip1_full': ('int2c2e_ipip.cu', 'pyscf_tpu/hessian/rhf.py:270'),
     'int3c2e_ipip': ('int3c2e_ipip.cu', 'pyscf_tpu/hessian/rhf.py:327'),
-    'int2c2e_ipip': ('int2c2e_ipip.cu', 'pyscf_tpu/hessian/rhf.py:327'),
-    'int2e_ip1': ('int2e_ip1.cu', 'pyscf_tpu/ops/integrals/int2e.py:727')}
+    'int2c2e_ipip': ('int2c2e_ipip.cu', 'pyscf_tpu/hessian/rhf.py:327')}
 
 
 def fg_deriv_phase(pt, refs, kernels, report, tag, basis):
     """Every class of the derivative and Hessian kernels at water/<basis>'s
-    shapes with its JKFIT set (cc-pVTZ: f, aux to g; cc-pVQZ: g, aux to h)
-    against the plain twins on the card on the same inputs (seeded D, W,
-    Gamma rows and W_PQ), each kernel within 1e-12 of its twin's largest
-    element; recorded as <kernel>_<tag>."""
+    shapes with its JKFIT set (cc-pVQZ: every ordered class to (g, g), aux
+    to h) against the plain twins on the card on the same inputs (seeded
+    D, W, Gamma rows and W_PQ), each kernel within 1e-12 of its twin's
+    largest element; recorded as <kernel>_<tag>."""
     from pyscf_tpu_torch.df.addons import make_auxmol
     from pyscf_tpu_torch.ops.integrals import int1e, int1e_deriv, j3c
 
@@ -2930,8 +2943,8 @@ def fg_deriv_phase(pt, refs, kernels, report, tag, basis):
         err, scale = max_abs(list(zip(k_out, p_out)))
         src, replaces = DERIV_SOURCES[name]
         record(report, f'{name}_{tag}', f'pyscf_tpu_torch/csrc/{src}',
-               replaces, err, lambda: calls(k_fn), None,
-               in_bytes + nbytes(*k_out), ops, plain_ms=plain_s * 1e3)
+               replaces, err, lambda: calls(k_fn), plain_s * 1e3,
+               in_bytes + nbytes(*k_out), ops)
         check(err <= 1e-12 * scale, f'{name}_{tag} vs plain: {err:.3e} > '
               f'1e-12 x {scale:.3e}')
 
@@ -2996,74 +3009,45 @@ def fg_deriv_phase(pt, refs, kernels, report, tag, basis):
             aux_bytes + nbytes(W))
 
 
-def int2e_ip1_phase(kernels, mol, tag, report):
-    """int2e_ip1 over every ordered bra class of mol against every ket
-    class, against its twin on the card, within 1e-12 of the twin's largest
-    element (each (g, .) bra class to its own size too); recorded as
-    int2e_ip1_<tag>."""
-    from pyscf_tpu_torch.ops.integrals import int1e, int2e, j2e
-
-    cross = int1e.cross_pairs(mol, mol)
-    kets = j2e._ket_arrays(mol)
-
-    def pieces(fn):
-        return [fn(la, lb, *p, kets) for la, lb, _, _, p in cross]
-
-    k_out, kernel_s = host_s(lambda: pieces(kernels.int2e_ip1))
-    p_out, plain_s = host_s(lambda: pieces(int2e.int2e_ip1_class_plain))
-    err, scale = max_abs(list(zip(k_out, p_out)))
-    for (la, lb, *_), k, p in zip(cross, k_out, p_out):
-        if max(la, lb) == 4:
-            e_c, s_c = max_abs([(k, p)])
-            check(e_c <= 1e-12 * s_c, f'int2e_ip1_{tag} ({la},{lb}) vs '
-                  f'plain: {e_c:.3e} > 1e-12 x {s_c:.3e}')
-    del p_out
-    print(f'int2e_ip1_{tag}: {len(cross)} ordered bra classes x {len(kets)} '
-          f'ket classes, {nbytes(*k_out) / 1e9:.3f} GB of rows')
-    ops = sum(quartet_ops(la, lb, p, lc, ld, ket, deriv=True)
-              for la, lb, _, _, p in cross for lc, ld, *ket in kets)
-    ops += sum(pair_e_ops(la, lb, p, True, deriv=True)
-               for la, lb, _, _, p in cross)
-    ops += sum(pair_e_ops(lc, ld, ket, False) for lc, ld, *ket in kets)
-    io = sum(nbytes(*p) for *_, p in cross) + nbytes(*k_out)
-    del k_out
-    src, replaces = DERIV_SOURCES['int2e_ip1']
-    record(report, f'int2e_ip1_{tag}', f'pyscf_tpu_torch/csrc/{src}',
-           replaces, err, None, None, io, ops, plain_ms=plain_s * 1e3,
-           kernel_ms=kernel_s * 1e3)
-    check(err <= 1e-12 * scale, f'int2e_ip1_{tag} vs plain: {err:.3e} > '
-          f'1e-12 x {scale:.3e}')
-
-
 def boys_both_sides(pt, kernels):
-    """int2e_ip1's (gg|gg) class, where R_tuv reaches order 17, on two g
-    shells of two primitives (exponents 6 and 0.3) on two centres 3
-    Angstrom apart, so that the Boys argument T = rho |P - Q|^2 of its
-    primitive quartets lies on both sides of the series' limit 18: within
+    """int3c2e_ipip's (gg|h) class, where R_tuv reaches order 15, the
+    highest of the derivative and Hessian kernels: two g shells of two
+    primitives (exponents 6 and 0.3) on two centres 3 Angstrom apart
+    against an h aux shell of the same two primitives on each centre, so
+    that the Boys argument T = rho |P - C|^2 of the primitive triples lies
+    on both sides of the series' limit 18; on seeded Gamma rows, within
     1e-12 of the twin's largest element."""
-    from pyscf_tpu_torch.ops.integrals import int1e, int2e, j2e
+    from pyscf_tpu_torch.ops.integrals import j3c, j3c_deriv
 
-    mol = pt.M(atom='Ne 0 0 0; Ne 0 0 3.0',
-               basis=[[4, [6.0, 0.5], [0.3, 0.5]]])
-    gg = next(p for la, lb, _, _, p in int1e.cross_pairs(mol, mol)
-              if (la, lb) == (4, 4))
+    atom = 'Ne 0 0 0; Ne 0 0 3.0'
+    mol = pt.M(atom=atom, basis=[[4, [6.0, 0.5], [0.3, 0.5]]])
+    auxmol = pt.M(atom=atom, basis=[[5, [6.0, 0.5], [0.3, 0.5]]])
+    gg = j3c.screened_pairs(mol)[(4, 4)][1]
+    aux = j3c.aux_tables(auxmol)
     a, b = gg[0][:, :, None], gg[3][:, None, :]
     p = (a + b).reshape(-1)
     P = ((a[..., None] * gg[2][:, None, None, :] + b[..., None]
           * gg[5][:, None, None, :]) / (a + b)[..., None]).reshape(-1, 3)
-    rho = p[:, None] * p[None, :] / (p[:, None] + p[None, :])
-    T = rho * ((P[:, None, :] - P[None, :, :]) ** 2).sum(-1)
+    T = []
+    for _, e, _, r in aux:
+        c = e.reshape(-1)
+        C = r[:, None, :].expand(-1, e.shape[1], -1).reshape(-1, 3)
+        rho = p[:, None] * c[None, :] / (p[:, None] + c[None, :])
+        T.append((rho * ((P[:, None, :] - C[None, :, :]) ** 2).sum(-1))
+                 .reshape(-1))
+    T = torch.cat(T)
     below, above = int((T < 18).sum()), int((T >= 18).sum())
-    kets = j2e._ket_arrays(mol)
-    err, scale = max_abs([(kernels.int2e_ip1(4, 4, *gg, kets),
-                           int2e.int2e_ip1_class_plain(4, 4, *gg, kets))])
-    print(f'int2e_ip1 (gg|gg) at R_tuv order 17, Boys T from '
+    G = torch.as_tensor(np.random.default_rng(13).standard_normal(
+        (gg[0].shape[0] * 81, auxmol.nao)), device=mol.device)
+    err, scale = max_abs([(kernels.int3c2e_ipip(4, 4, *gg, aux, G),
+                           j3c_deriv.int3c2e_ipip_plain(4, 4, *gg, aux, G))])
+    print(f'int3c2e_ipip (gg|h) at R_tuv order 15, Boys T from '
           f'{float(T.min()):.3e} to {float(T.max()):.3e} ({below} primitive '
-          f'quartets below 18, {above} at or above): max_abs_err '
-          f'{err:.3e} of {scale:.3e}')
+          f'triples below 18, {above} at or above): max_abs_err {err:.3e} '
+          f'of {scale:.3e}')
     check(below > 0 and above > 0, 'Boys T not on both sides of 18')
-    check(err <= 1e-12 * scale, f'int2e_ip1 (gg|gg) on both sides of T = 18 '
-          f'vs plain: {err:.3e} > 1e-12 x {scale:.3e}')
+    check(err <= 1e-12 * scale, f'int3c2e_ipip (gg|h) on both sides of T = '
+          f'18 vs plain: {err:.3e} > 1e-12 x {scale:.3e}')
 
 
 def h2o10_forces_path(pt, refs, kernels):
@@ -3074,7 +3058,7 @@ def h2o10_forces_path(pt, refs, kernels):
     one O and one H coordinate within 1e-6, and the same gradient with the
     four derivative kernels replaced by their plain twins on the card
     within 1e-8; the wall from M(), the gradient's phases, its warm time
-    and the peak memory printed. Returns launches."""
+    and the peak memory printed. Returns (mf, launches)."""
     mf, grad, de, launches = df_grad_path(
         'DF-RHF (H2O)10/cc-pVTZ + gradient', kernels,
         lambda: tight(pt.scf.RHF(pt.M(atom=refs.H2O10, basis='cc-pvtz'))
@@ -3095,7 +3079,7 @@ def h2o10_forces_path(pt, refs, kernels):
     print(f'(H2O)10 gradient on the twins\' integrals ({s_p:.1f} s): max '
           f'|de - de_twins| {diff:.3e}')
     check(diff < 1e-8, f'(H2O)10 gradient vs the twins\' {diff:.3e} >= 1e-8')
-    return launches
+    return mf, launches
 
 
 def tz_water_gradients(pt, refs):
@@ -3126,39 +3110,6 @@ def qz_water_gradient(pt, refs, kernels):
     drift = float(np.abs(de.sum(axis=0)).max())
     print(f'water/cc-pVQZ |sum_A de[A]| {drift:.3e}')
     check(drift < 1e-9, f'water/cc-pVQZ gradient sum rule: {drift:.3e}')
-    return launches
-
-
-def n2_qz_forces_path(pt, refs, kernels):
-    """Config 4's molecule, N2/cc-pVQZ in-core RHF (minao, conv_tol 1e-10,
-    conv_tol_grad 1e-7) from M() through nuc_grad_method().kernel(), the
-    launch counts set to 0 before M(): |sum_A de[A]| < 1e-9, the central
-    difference along the bond within 1e-6, the int2e_ip1 phase's time
-    printed. Returns launches."""
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    mf, _, _ = run_path('RHF N2/cc-pVQZ', kernels, (),
-                        lambda: tight(pt.M(atom=refs.N2, basis='cc-pvqz')
-                                      .RHF()))
-    grad = mf.nuc_grad_method()
-    de = grad.kernel()
-    torch.cuda.synchronize()
-    launches = kernels.launches()
-    print(f'N2/cc-pVQZ gradient: wall from M() {time.perf_counter() - t0:.3f}'
-          f' s, phases ' + '  '.join(f'{k} {v:.4f}'
-                                     for k, v in grad.timings.items())
-          + f', peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}'
-          f' GB\nde (Ha/Bohr):\n' + np.array2string(de, precision=10))
-    for k in GRAD_KERNELS:
-        check(launches[k] > 0, f'N2/cc-pVQZ gradient: kernel {k} never '
-              f'launched')
-    drift = float(np.abs(de.sum(axis=0)).max())
-    check(drift < 1e-9, f'N2/cc-pVQZ gradient sum rule: {drift:.3e}')
-    del mf, grad
-    torch.cuda.empty_cache()
-    central_differences('N2/cc-pVQZ', de,
-                        lambda m: tight(m.RHF()).kernel(), pt.M(
-                            atom=refs.N2, basis='cc-pvqz'), [(1, 2)], 1e-6)
     return launches
 
 
@@ -3193,7 +3144,10 @@ def main():
     launches['xc_uks'] = uks_launches['xc_uks']
     xc_uks_phase(kernels, uks, report)
     torch.cuda.empty_cache()
-    deriv_phases(pt, refs, kernels, report)
+    mol = pt.M(atom=refs.BENZENE, basis='def2-svp')
+    one_e_deriv_phases(kernels, mol, report)
+    int2e_ip1_phase(kernels, mol, report)
+    del mol
     torch.cuda.empty_cache()
     grad_launches = rhf_grad_path(pt, refs, kernels)
     launches.update({k: grad_launches[k] for k in GRAD_KERNELS})
@@ -3201,7 +3155,8 @@ def main():
     rks, rks_launches = df_rks_grad_path(pt, refs, kernels)
     launches.update({k: rks_launches[k] for k in
                      ('int3c2e_ip', 'int2c2e_ip1') + XC_GRAD_KERNELS})
-    df_grad_phases(pt, kernels, rks, report)
+    df_grad_phases(kernels, rks, report)
+    xc_grad_phases(kernels, rks, report)
     del rks
     torch.cuda.empty_cache()
     df_rhf_grad_path(pt, refs, kernels)
@@ -3270,7 +3225,7 @@ def main():
         [(a, x) for a in range(12) for x in range(3)],
         refs.E_BENZENE_DF_RHF_DEF2SVP)
     launches.update({k: hess_launches[k] for k in HESS_KERNELS})
-    hessian_phases(pt, kernels, rhf, report)
+    hessian_phases(kernels, rhf, report)
     del rhf
     torch.cuda.empty_cache()
     # f and g shells: BASELINE configs 3 and 4 at full width
@@ -3288,14 +3243,16 @@ def main():
     torch.cuda.empty_cache()
     # f and g shells in the derivative and Hessian kernels: their forces
     # and frequencies at triple and quadruple zeta
-    for tag, basis in (('tz', 'cc-pvtz'), ('qz', 'cc-pvqz')):
-        fg_deriv_phase(pt, refs, kernels, report, tag, basis)
-        torch.cuda.empty_cache()
+    fg_deriv_phase(pt, refs, kernels, report, 'qz', 'cc-pvqz')
+    torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
     print(f'device memory after the f and g kernels: {free / 1e9:.2f} GB '
           f'free of {total / 1e9:.2f} GB')
-    tz_launches = h2o10_forces_path(pt, refs, kernels)
+    h2o10, tz_launches = h2o10_forces_path(pt, refs, kernels)
     launches.update({f'{k}_tz': tz_launches[k] for k in DF_GRAD_KERNELS})
+    one_e_deriv_phases(kernels, h2o10.mol, report, '_tz')
+    df_grad_phases(kernels, h2o10, report, '_tz')
+    del h2o10
     torch.cuda.empty_cache()
     tz_water_gradients(pt, refs)
     qz_launches = qz_water_gradient(pt, refs, kernels)
@@ -3303,10 +3260,12 @@ def main():
     torch.cuda.empty_cache()
     df_rks_grad_path(pt, refs, kernels, tzvp=True)
     torch.cuda.empty_cache()
-    _, tz_launches = hessian_path(
+    rhf, tz_launches = hessian_path(
         pt, kernels, 'benzene/cc-pVTZ', refs.BENZENE, 'cc-pvtz',
         [(0, 0), (0, 2), (6, 0), (6, 1)])
     launches.update({f'{k}_tz': tz_launches[k] for k in HESS_KERNELS})
+    hessian_phases(kernels, rhf, report, '_tz')
+    del rhf
     torch.cuda.empty_cache()
     _, qz_launches = hessian_path(
         pt, kernels, 'water/cc-pVQZ', refs.WATER, 'cc-pvqz',
@@ -3314,11 +3273,6 @@ def main():
     launches.update({f'{k}_qz': qz_launches[k] for k in HESS_KERNELS})
     torch.cuda.empty_cache()
     boys_both_sides(pt, kernels)
-    int2e_ip1_phase(kernels, pt.M(atom=refs.N2, basis='cc-pvqz'), 'qz',
-                    report)
-    torch.cuda.empty_cache()
-    launches['int2e_ip1_qz'] = n2_qz_forces_path(pt, refs, kernels)[
-        'int2e_ip1']
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

@@ -24,8 +24,8 @@ hessian/rhf.py prefixed hess_, hessian, hess_cphf_cycles), and BASELINE
 configs 3 and 4: (H2O)10 DF-RHF/cc-pVTZ and N2/cc-pVQZ in-core RHF
 (conv_tol 1e-12, conv_tol_grad 1e-9) followed by MP2, CCSD and (T), as
 benzene's, and the forces and frequencies of the f and g shells: (H2O)10
-DF-RHF/cc-pVTZ, benzene DF-RKS b3lypg/def2-TZVP and N2/cc-pVQZ in-core RHF
-(conv_tol 1e-10, conv_tol_grad 1e-7) followed by their gradients, and
+DF-RHF/cc-pVTZ and benzene DF-RKS b3lypg/def2-TZVP (conv_tol 1e-10,
+conv_tol_grad 1e-7) followed by their gradients, and
 benzene/cc-pVTZ and water/cc-pVQZ DF-RHF (conv_tol 1e-12, conv_tol_grad
 1e-8) followed by their Hessians; or for the paths named by --paths, runs
 each once cold and `--runs` times warm, every run
@@ -53,8 +53,7 @@ GRADIENT = 'in-core RHF + gradient'
 DF_GRADIENTS = ('DF-RKS b3lypg + gradient', 'DF-RHF + gradient',
                 'DF-UKS phenyl + gradient',
                 'DF-RHF (H2O)10/cc-pVTZ + gradient',
-                'DF-RKS b3lypg benzene/def2-TZVP + gradient',
-                'RHF N2/cc-pVQZ + gradient')
+                'DF-RKS b3lypg benzene/def2-TZVP + gradient')
 POSTSCF = ('in-core CCSD(T)', 'DF-CCSD(T)', 'N2/cc-pVQZ CCSD(T)')
 TDDFT = 'DF-RKS TDA'
 HESSIANS = ('DF-RHF + Hessian', 'DF-RHF benzene/cc-pVTZ + Hessian',
@@ -101,8 +100,6 @@ PATHS = {
         pt.M(atom=refs.H2O10, basis='cc-pvtz')).density_fit(),
     DF_GRADIENTS[4]: lambda pt, refs: pt.dft.RKS(
         pt.M(atom=refs.BENZENE, basis='def2-tzvp'), xc='b3lypg').density_fit(),
-    DF_GRADIENTS[5]: lambda pt, refs: pt.M(atom=refs.N2,
-                                           basis='cc-pvqz').RHF(),
     HESSIANS[1]: lambda pt, refs: pt.M(atom=refs.BENZENE,
                                        basis='cc-pvtz').RHF().density_fit(),
     HESSIANS[2]: lambda pt, refs: pt.M(atom=refs.WATER,

@@ -21,10 +21,8 @@
 // cart->sph transform. That holds (10 + 3) x 6 x 5 accumulators for
 // (dd|dd) where three direction blocks would hold 3 x 36 x 5, and
 // contracts 13 x 6 cartesian pairs per primitive pair instead of 108.
-// R_tuv reaches order 9 (220 terms) and Boys m = 9 at (dd|dd), which keeps
-// about 10 KB of per-thread tables in local memory, and order 17 (1140
-// terms) at (gg|gg), about 87 KB (the raised bra's 21 x 15 x 9
-// accumulators, Y of 220 x 9, R of 1140). The derivative is not
+// R_tuv reaches order 9 (220 terms) and Boys m = 9; (dd|dd) keeps about
+// 10 KB of per-thread tables in local memory. The derivative is not
 // symmetric in a and b: the caller passes every ordered bra pair; the ket
 // keeps lc <= ld.
 //
@@ -34,8 +32,10 @@
 // recomputation across sd: it is right first.
 //
 // The library is built once per ordered bra class (-DPT_LA, -DPT_LB, la,
-// lb <= 4), so that the 375 instantiations (fifteen ket classes lc <= ld
-// <= 4 each) compile in twenty-five processes side by side.
+// lb <= 2), so that the 54 instantiations (six ket classes lc <= ld <= 2
+// each) compile in nine processes side by side. f and g shells are not
+// instantiated: every ordered (la, lb | lc <= ld) <= 4 is 375 classes, whose
+// build passed 600 s on 8 cores.
 //
 // out: direction d at d * nb * (2la+1)(2lb+1) * ld; row (bra pair *
 // (2la+1)(2lb+1) + sa*(2lb+1) + sb), column col0 + ket pair *
@@ -167,7 +167,7 @@ static int launch(int nb, int Ka, int Kb, const double* ea, const double* ca,
 
 // Returns cudaGetLastError() after the launch, or -1 for a class pair that
 // has no instantiation in this library (la == PT_LA, lb == PT_LB,
-// lc <= ld <= 4).
+// lc <= ld <= 2).
 extern "C" int pt_int2e_ip1(int la, int lb, int lc, int ld_, int nb, int Ka,
                             int Kb, const double* ea, const double* ca,
                             const double* ra, const double* eb,
@@ -185,11 +185,9 @@ extern "C" int pt_int2e_ip1(int la, int lb, int lc, int ld_, int nb, int Ka,
 #define PT_Q(C, D) \
   if (la == PT_LA && lb == PT_LB && lc == C && ld_ == D) \
     return launch<PT_LA, PT_LB, C, D>(PT_ARGS);
-  PT_Q(0, 0) PT_Q(0, 1) PT_Q(0, 2) PT_Q(0, 3) PT_Q(0, 4)
-  PT_Q(1, 1) PT_Q(1, 2) PT_Q(1, 3) PT_Q(1, 4)
-  PT_Q(2, 2) PT_Q(2, 3) PT_Q(2, 4)
-  PT_Q(3, 3) PT_Q(3, 4)
-  PT_Q(4, 4)
+  PT_Q(0, 0) PT_Q(0, 1) PT_Q(0, 2)
+  PT_Q(1, 1) PT_Q(1, 2)
+  PT_Q(2, 2)
 #undef PT_Q
 #undef PT_ARGS
   return -1;

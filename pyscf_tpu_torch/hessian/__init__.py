@@ -11,20 +11,29 @@ from ..data.elements import MASSES
 from ..lib.parameters import AMU2AU, BOLTZMANN_AU, HARTREE2WAVENUMBER
 
 
+def fd_columns(grad_factory, mol, columns, step=1e-3):
+    """Columns (A, x) of the Hessian from central differences of gradients,
+    unsymmetrised: (len(columns), natm, 3). grad_factory(mol) -> (natm, 3)
+    gradient (runs the SCF)."""
+    coords0 = np.asarray(mol.coords).copy()
+    out = []
+    for A, x in columns:
+        g = []
+        for s in (step, -step):
+            c = coords0.copy()
+            c[A, x] += s
+            g.append(np.asarray(grad_factory(mol.copy().set_geom_(c))))
+        out.append((g[0] - g[1]) / (2 * step))
+    return np.array(out)
+
+
 def hessian_fd(grad_factory, mol, step=1e-3):
     """(natm, 3, natm, 3) Hessian from central differences of gradients,
     symmetrised. grad_factory(mol) -> (natm, 3) gradient (runs the SCF)."""
     natm = mol.natm
-    h = np.zeros((natm, 3, natm, 3))
-    coords0 = np.asarray(mol.coords).copy()
-    for A in range(natm):
-        for x in range(3):
-            g = []
-            for s in (step, -step):
-                c = coords0.copy()
-                c[A, x] += s
-                g.append(np.asarray(grad_factory(mol.copy().set_geom_(c))))
-            h[A, x] = (g[0] - g[1]) / (2 * step)
+    h = fd_columns(grad_factory, mol, [(A, x) for A in range(natm)
+                                       for x in range(3)], step)
+    h = h.reshape(natm, 3, natm, 3)
     return 0.5 * (h + h.transpose(2, 3, 0, 1))
 
 

@@ -68,14 +68,15 @@ wrapper adds one to its `launches` count for every kernel launch it makes.
 The integral, derivative and Hessian kernels take s to g shells and aux
 shells to h (la, lb <= 4, lc <= 5: la <= lb where the kernel's
 contraction is symmetric, every ordered pair for the derivative bras of
-int1e_ip, int1e_iprinv, int1e_ipip, int3c2e_ip1 and int2e_ip1); a class
-that has no instantiation raises NotImplementedError. The kernels are
-compiled at first use with nvcc for sm_90a, one shared library per source
-(five each for int3c2e.cu, int3c2e_ip.cu, int3c2e_ip1.cu and
-int3c2e_ipip.cu, one per bra momentum; fifteen for int2e.cu, one per bra
-class la <= lb; twenty-five for int2e_ip1.cu, one per ordered bra class;
-two each for xc_fxc.cu and int2c2e_ipip.cu, one per kernel: eighty-two
-libraries) with a plain C interface loaded by ctypes, into
+int1e_ip, int1e_iprinv, int1e_ipip and int3c2e_ip1), except int2e_ip1,
+the in-core gradient's, which stops at d (every ordered la, lb <= 2, lc <=
+ld <= 2); a class that has no instantiation raises NotImplementedError.
+The kernels are compiled at first use with nvcc for sm_90a, one shared
+library per source (five each for int3c2e.cu, int3c2e_ip.cu,
+int3c2e_ip1.cu and int3c2e_ipip.cu, one per bra momentum; fifteen for
+int2e.cu, one per bra class la <= lb; nine for int2e_ip1.cu, one per
+ordered bra class; two each for xc_fxc.cu and int2c2e_ipip.cu, one per
+kernel: sixty-six libraries) with a plain C interface loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
 checkout builds them once and an edit to a source rebuilds them; nvcc's
 output, with ptxas's registers, stack frame and spills per kernel
@@ -169,7 +170,7 @@ _LIBRARIES = {
 }
 # int3c2e.cu, int3c2e_ip.cu, int3c2e_ip1.cu and int3c2e_ipip.cu once per bra
 # momentum la <= 4, int2e.cu once per bra class la <= lb <= 4 and
-# int2e_ip1.cu once per ordered bra class la, lb <= 4: so that their
+# int2e_ip1.cu once per ordered bra class la, lb <= 2: so that their
 # instantiations compile side by side
 _LIBRARIES.update({
     f'int3c2e_la{la}': ('int3c2e.cu', 'pt_int3c2e', [_I] * 6 + [_P] * 6
@@ -182,7 +183,7 @@ _LIBRARIES.update({
 _LIBRARIES.update({
     f'int2e_ip1_{la}{lb}': ('int2e_ip1.cu', 'pt_int2e_ip1', _ERI_ARGS,
                             (f'-DPT_LA={la}', f'-DPT_LB={lb}'))
-    for la in range(5) for lb in range(5)})
+    for la in range(3) for lb in range(3)})
 _LIBRARIES.update({
     f'int3c2e_ip_la{la}': ('int3c2e_ip.cu', 'pt_int3c2e_ip',
                            [_I] * 6 + [_P] * 6 + [_I, _I] + [_P] * 7
@@ -802,10 +803,10 @@ def int1e_ipip(la, lb, ea, ca, ra, eb, cb, rb, atom_coords, atom_charges, D,
 
 def int2e_ip1(la, lb, ea, ca, ra, eb, cb, rb, kets):
     """d/dA (ab|cd) sph rows of n bra shell pairs of the ordered class
-    (la, lb), la, lb <= 4, against the ket pairs of every class in kets:
+    (la, lb), la, lb <= 2, against the ket pairs of every class in kets:
     (3, n*(2la+1)(2lb+1), sum over kets of nket*(2lc+1)(2ld+1)).
 
-    kets as int2e's: lc <= ld, the (cd) = (dc) fold kept."""
+    kets as int2e's: lc <= ld <= 2, the (cd) = (dc) fold kept."""
     bra = (ea, ca, ra, eb, cb, rb)
     dev, n, ncol = _check_quartets(*bra, kets)
     if dev.type == 'cpu':

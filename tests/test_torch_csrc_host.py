@@ -89,7 +89,6 @@ LIBS = ('int1e_stv', 'int3c2e_la0', 'int3c2e_la1', 'int3c2e_la2',
         'int2e_02', 'int2e_11', 'int2e_12', 'int2e_22', 'int2e_33',
         'int2e_44', 'int1e_ip', 'int1e_iprinv',
         *[f'int2e_ip1_{la}{lb}' for la in range(3) for lb in range(3)],
-        'int2e_ip1_33', 'int2e_ip1_44',
         *[f'int3c2e_ip_la{la}' for la in range(5)], 'int2c2e_ip1',
         'int1e_r', 'vv10', 'mp2_energy', 'ccsd_t', 'int1e_ipip',
         *[f'int3c2e_ip1_la{la}' for la in range(5)],
@@ -521,17 +520,33 @@ def test_int2c2e_derivatives_to_h(host, fg_mols):
 
 
 def test_int2e_ip1_f_and_g(host, fg_mols):
-    """int2e_ip1 of the ordered (ff) and (gg) bra classes against every ket
-    class of s to g shells, (ff|ff), (gg|ff) and (gg|gg) among them."""
+    """int2e_ip1 stops at d: the (dd) bra's library runs the ket classes to
+    (dd) against the twin and returns -1 (not instantiated) for every ket
+    class with an f or g shell; no library is built for an f or g bra."""
     mol, _ = fg_mols
     kets = j2e._ket_arrays(mol)
-    for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
-        if la != lb or la < 3:
-            continue
-        ref = int2e.int2e_ip1_class_plain(la, lb, *p, kets)
-        got = _quartets(host[f'int2e_ip1_{la}{lb}'], la, lb, p, kets,
-                        torch.empty_like(ref), ref.shape[2])
-        _close(got, ref)
+    p = next(p for la, lb, _, _, p in int1e.cross_pairs(mol, mol)
+             if (la, lb) == (2, 2))
+    ref = int2e.int2e_ip1_class_plain(2, 2, *p, kets)
+    got = torch.zeros_like(ref)
+    n, Ka, Kb = _dims(p)
+    col, cols = 0, []
+    for lc, ld, *ket in kets:
+        nk, Kc, Kd = _dims(ket)
+        ncol = nk * (2 * lc + 1) * (2 * ld + 1)
+        rc = host['int2e_ip1_22'](
+            2, 2, lc, ld, n, Ka, Kb, *_ptrs(*p), nk, Kc, Kd, *_ptrs(*ket),
+            *_ptrs(*[sph(l, DEV) for l in (2, 2, lc, ld)]), got.data_ptr(),
+            ref.shape[2], col, None)
+        assert rc == (0 if ld <= 2 else -1)
+        if ld <= 2:
+            cols.append(torch.arange(col, col + ncol))
+        col += ncol
+    assert max(ld for _, ld, *_ in kets) == 4 and cols
+    cols = torch.cat(cols)
+    _close(got[:, :, cols], ref[:, :, cols])
+    assert not [k for k in kernels._LIBRARIES if k.startswith('int2e_ip1_')
+                and max(int(k[-2]), int(k[-1])) > 2]
 
 
 def test_vv10(host):

@@ -131,13 +131,18 @@ def test_int2e_f_and_g(fg_mols, omega):
 
 
 def test_f_shell_derivative_kernel_raises(fg_mols):
-    """The derivative kernels stop at g: an h bra (la = 5, the aux basis's
-    h shells as a pair class) raises on the card."""
+    """int2e_ip1 stops at d: its (ff) class raises on the card; the other
+    derivative kernels stop at g: an h bra (la = 5, the aux basis's h
+    shells as a pair class) of int1e_ip raises."""
     mol, auxmol = fg_mols
     kets = j2e._ket_arrays(mol)
+    p = j3c.screened_pairs(mol)[(3, 3)][1]
+    with pytest.raises(NotImplementedError):
+        kernels.int2e_ip1(3, 3, *p, kets)
+    zr, zq, _ = _fg_tensors(auxmol, 20)
     p = j3c.screened_pairs(auxmol)[(5, 5)][1]
     with pytest.raises(NotImplementedError):
-        kernels.int2e_ip1(5, 5, *p, kets)
+        kernels.int1e_ip(5, 5, *p, zr, zq)
 
 
 def _fg_tensors(mol, seed):
@@ -200,13 +205,21 @@ def test_df_derivatives_f_and_g(fg_mols):
 
 
 def test_int2e_ip1_f_and_g(fg_mols):
-    """Every ordered bra class of s to g shells against every ket class to
-    (gg), (gg|gg) among them."""
+    """int2e_ip1 at the s to g basis: every ordered bra class to (dd)
+    against the ket classes to (dd) matches its twin; a bra or a ket class
+    with an f or g shell raises."""
     mol, _ = fg_mols
     kets = j2e._ket_arrays(mol)
+    low = [k for k in kets if k[1] <= 2]
     for la, lb, _, _, p in int1e.cross_pairs(mol, mol):
-        _close(kernels.int2e_ip1(la, lb, *p, kets),
-               int2e.int2e_ip1_class_plain(la, lb, *p, kets))
+        if max(la, lb) > 2:
+            with pytest.raises(NotImplementedError):
+                kernels.int2e_ip1(la, lb, *p, low)
+            continue
+        _close(kernels.int2e_ip1(la, lb, *p, low),
+               int2e.int2e_ip1_class_plain(la, lb, *p, low))
+        with pytest.raises(NotImplementedError):
+            kernels.int2e_ip1(la, lb, *p, kets)
 
 
 def test_int1e_ip_and_iprinv(water):
