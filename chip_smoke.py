@@ -2,12 +2,14 @@
 """Smoke run of pyscf_tpu_torch on one NVIDIA GPU: python3 chip_smoke.py
 
 Drives the port's paths for benzene/def2-SVP, the phenyl radical and
-water, then BASELINE configs 3 ((H2O)10/cc-pVTZ) and 4 (N2/cc-pVQZ), and
-the forces and frequencies of the f and g shells on the card, in order:
+water, then BASELINE configs 3 ((H2O)10/cc-pVTZ) and 4 (N2/cc-pVQZ), the
+forces and frequencies of the f and g shells, and the DF-RKS Hessian and
+the transition-state search on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the sixty-six kernel libraries of the thirty-two kernels from
-     the twenty-six sources of pyscf_tpu_torch/csrc (nvcc, sm_90a, one
-     process per library, all at once);
+  2. builds the sixty-eight kernel libraries of the thirty-five kernels
+     from the twenty-seven sources of pyscf_tpu_torch/csrc (nvcc, sm_90a,
+     one process per library, all at once), and prints the compile seconds
+     and ptxas register lines of eval_ao, xc_rks_hess and xc_rks_deriv1;
   3. integral kernel phases at the main path's shapes: each kernel against
      its plain PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c
      rows and (P|Q) <= 1e-12 x max|value|; the whitened factor B <= 1e-10);
@@ -235,7 +237,32 @@ the forces and frequencies of the f and g shells on the card, in order:
      an h aux shell whose primitive triples put the Boys argument on both
      sides of 18, against its twin within 1e-12 of the twin's largest
      element;
- 49. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 49. the DF-RKS Hessian of the main path's mean field, benzene DF-RKS
+     b3lypg/def2-SVP (nao 114, 143,556 grid points) from M() (minao,
+     conv_tol 1e-12, conv_tol_grad 1e-8) through mf.Hessian().kernel():
+     the RHF Hessian's seven kernels, eval_ao_deriv3, xc_rks_hess,
+     xc_rks_deriv1, xc_fxc, xc_fxc_pairs and xc_rks_fxc launched in that
+     run, |H - H^T| <= 1e-9
+     (the sum rule printed: no grid response), all 36 columns against the
+     four-point central differences of the analytic gradient on the same
+     fixed grid within 1e-5 Ha/Bohr^2; the phases (xc_rows, xc_F1 among
+     them), a warm time, the CPHF iterations, the peak memory, the
+     frequencies and the thermochemistry printed;
+ 50. the three new kernels at its shapes against their twins: eval_ao
+     deriv 3 <= 1e-12 x max, xc_rks_hess and xc_rks_deriv1 <= 1e-10 x max;
+ 51. the same Hessian at the north-star level, benzene DF-RKS
+     b3lypg/def2-TZVP (f on C): four columns ((0,0), (0,2), (6,0), (6,1))
+     against the fixed-grid four-point central differences within 1e-5,
+     the same prints, and a warm Hessian through each XC response of
+     CPHF's CG steps (the dense A_xc of xc_fxc and xc_fxc_pairs, which
+     hessian/rhf.py _dense_fxc selects here; the tangent by xc_rks_fxc),
+     the two within 1e-8; then the three
+     kernels against their twins at its shapes (rows <kernel>_tz);
+ 52. geomopt.optimize_ts of NH3's inversion, DF-RKS b3lypg/def2-SVP from a
+     pyramid 0.15 Angstrom high: max|g| < 3e-4, N within 1e-3 Angstrom of
+     the H3 plane, the DF-RKS Hessian's kernels launched, exactly one
+     imaginary frequency at the saddle;
+ 53. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
@@ -248,8 +275,9 @@ the forces and frequencies of the f and g shells on the card, in order:
      kernels at config 3's classes) from 39, int1e_stv_qz and int2e_qz
      (at config 4's) from 41, the DF gradient's four <kernel>_tz from 44
      and <kernel>_qz from 45's water/cc-pVQZ, the Hessian's five
-     <kernel>_tz and <kernel>_qz from 47, the others from 6), then the
-     result line {"ok": true, "device": {...}}.
+     <kernel>_tz and <kernel>_qz from 47, eval_ao_deriv3, xc_rks_hess and
+     xc_rks_deriv1 from 49 and their <kernel>_tz from 51, the others from
+     6), then the result line {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
 import contextlib
@@ -2631,6 +2659,279 @@ def hessian_path(pt, kernels, name, atom, basis, picks, e_ref=None):
     return mf, launches
 
 
+# ---- the DF-RKS Hessian and the transition-state search --------------------
+
+KS_HESS_KERNELS = ('eval_ao_deriv3', 'xc_rks_hess', 'xc_rks_deriv1')
+# the kernels of the DF-RKS Hessian's path: the RHF Hessian's, the XC
+# terms' and the XC response's (the dense A_xc in the CG steps, the
+# tangent of V_xc for the right-hand side and dW)
+KS_HESS_PATH_KERNELS = HESS_PATH_KERNELS + KS_HESS_KERNELS + (
+    'xc_fxc', 'xc_fxc_pairs', 'xc_rks_fxc')
+KS_HESS_PHASES = HESS_PHASES[:1] + ('xc_rows', 'xc_F1') + HESS_PHASES[1:]
+# the new libraries, whose compile seconds and ptxas lines are printed
+KS_HESS_LIBRARIES = ('eval_ao', 'xc_rks_hess', 'xc_rks_deriv1')
+# tangents per xc_rks_deriv1 launch in the Hessian (2 tangent_chunk)
+KS_DERIV1_CHUNK = 12
+
+
+def library_logs(kernels, names):
+    """Print each library's compile seconds and ptxas register lines from
+    its <library>.log in the build directory."""
+    import os
+    out = kernels._build_dir()
+    for lib in names:
+        with open(os.path.join(out, lib + '.log')) as f:
+            lines = f.read().splitlines()
+        regs = [ln.strip() for ln in lines if 'registers' in ln]
+        print(f'library {lib}: {lines[-1]}; ' + ' | '.join(regs))
+
+
+def tight_df_rks(mol, conv_tol_grad, grids=None):
+    """DF-RKS b3lypg converged as far as a Hessian and the central
+    differences of its gradient need: minao, conv_tol 1e-12; on the grid
+    `grids` (points, weights) where given, so that the differences are the
+    fixed-grid gradient's."""
+    mf = mol.RKS(xc='b3lypg').density_fit()
+    if grids is not None:
+        mf.grids.coords, mf.grids.weights = grids
+    mf.init_guess = 'minao'
+    mf.conv_tol = 1e-12
+    mf.conv_tol_grad = conv_tol_grad
+    mf.kernel()
+    check(mf.converged, 'DF-RKS (Hessian) did not converge')
+    return mf
+
+
+def ks_hessian_path(pt, refs, kernels, basis, picks, fxc_routes=False):
+    """The DF-RKS b3lypg Hessian and harmonic frequencies of benzene/basis
+    from M() (minao, conv_tol 1e-12, conv_tol_grad 1e-8) through
+    mf.Hessian().kernel(), the launch counts set to 0 just before and read
+    just after: the RHF Hessian's seven kernels, eval_ao_deriv3,
+    xc_rks_hess, xc_rks_deriv1, xc_fxc, xc_fxc_pairs and xc_rks_fxc
+    launched, |H - H^T| <= 1e-9
+    (the sum rule printed, not gated: no grid response, as in the JAX
+    package), and the columns `picks` against the four-point central
+    differences (step 1e-3 Bohr) of the analytic gradient on the same fixed
+    grid (SCFs at conv_tol 1e-12 and conv_tol_grad 1e-9) within 1e-5
+    Ha/Bohr^2; the wall from M(), the phases of the first call and of a
+    warm call, the CPHF iterations, the peak memory, the frequencies (the
+    translations and rotations projected out) and the thermochemistry
+    printed, and which XC response hessian/rhf.py _dense_fxc selects for
+    CPHF's CG steps. With fxc_routes, one warm call more through the other
+    one (the dense A_xc of xc_fxc and xc_fxc_pairs, or the tangent of V_xc
+    by xc_rks_fxc), its phases printed and its Hessian within 1e-8 of the
+    selected route's. Returns (mf, launches)."""
+    from pyscf_tpu_torch import hessian
+    from pyscf_tpu_torch.hessian import rhf as hess_rhf
+
+    name = f'DF-RKS b3lypg benzene/{basis}'
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mf = tight_df_rks(pt.M(atom=refs.BENZENE, basis=basis), 1e-8)
+    torch.cuda.synchronize()
+    t_scf = time.perf_counter() - t0
+    kernels.reset_launches()
+    hobj = mf.Hessian()
+    h, s = host_s(hobj.kernel)
+    launches = kernels.launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    mol = mf.mol
+    nov = int((mf.mo_occ > 0).sum()) * int((mf.mo_occ == 0).sum())
+    dense = hess_rhf._dense_fxc(mol, nov)
+    routes = ('dense A_xc', 'tangent of V_xc')
+    print(f'{name} Hessian: CPHF XC response {routes[not dense]} (nocc nvir '
+          f'{nov}, (nocc nvir)^2 / (3 natm nao^2) '
+          f'{nov ** 2 / (3 * mol.natm * mol.nao ** 2):.2f})')
+    print(f'{name} Hessian: nao {mol.nao}, naux {mf.with_df.auxmol.nao}, '
+          f'{mf.grids.size} grid points; E {mf.e_tot!r}; SCF {t_scf:.3f} s, '
+          f'Hessian {s:.3f} s, wall from M() {t_scf + s:.3f} s; CPHF '
+          f'{hobj.cphf_cycles} iterations; peak device memory {peak:.3f} GB')
+    print(f'{name} Hessian phases: ' + '  '.join(
+        f'{k} {hobj.timings[k]:.4f}' for k in KS_HESS_PHASES))
+    print(f'launches: {launches}')
+    for k in KS_HESS_PATH_KERNELS:
+        check(launches[k] > 0, f'{name} Hessian: kernel {k} never launched')
+    natm = mol.natm
+    hm = h.reshape(3 * natm, 3 * natm)
+    asym = float(np.abs(hm - hm.T).max())
+    print(f'{name} Hessian |H - H^T| {asym:.3e}  |sum_A H[A]| (no grid '
+          f'response) {np.abs(h.sum(axis=0)).max():.3e}')
+    check(np.all(np.isfinite(h)) and h.shape == (natm, 3, natm, 3),
+          f'{name} Hessian not finite of shape (natm, 3, natm, 3)')
+    check(asym <= 1e-9, f'{name} Hessian symmetry {asym:.3e} > 1e-9')
+    _, s = host_s(hobj.kernel)
+    print(f'{name} Hessian warm {s:.4f} s; phases: ' + '  '.join(
+        f'{k} {hobj.timings[k]:.4f}' for k in KS_HESS_PHASES))
+    if fxc_routes:
+        selected = hess_rhf._dense_fxc
+        hess_rhf._dense_fxc = lambda m, n: not dense
+        try:
+            hd, s = host_s(hobj.kernel)
+        finally:
+            hess_rhf._dense_fxc = selected
+        diff = float(np.abs(hd - h).max())
+        print(f'{name} Hessian warm, CPHF XC response {routes[dense]} '
+              f'{s:.4f} s; CPHF {hobj.cphf_cycles} iterations; phases: '
+              + '  '.join(f'{k} {hobj.timings[k]:.4f}'
+                          for k in KS_HESS_PHASES)
+              + f'; max |H - H_selected| {diff:.3e}')
+        check(diff <= 1e-8, f'{name} Hessian: the XC responses of CPHF '
+              f'differ by {diff:.3e} > 1e-8')
+    grids = (mf.grids.coords, mf.grids.weights)
+    t0 = time.perf_counter()
+    fd = hessian.fd_columns(
+        lambda m: tight_df_rks(m, 1e-9, grids).Gradients().kernel(), mol,
+        picks, points=4)
+    worst = max(float(np.abs(h[a, x] - col).max())
+                for (a, x), col in zip(picks, fd))
+    print(f'{name} Hessian vs four-point central differences of the '
+          f'gradient on the fixed grid on {len(picks)} columns '
+          f'({4 * len(picks)} SCF + gradient runs, '
+          f'{time.perf_counter() - t0:.1f} s): max |H - H_fd| {worst:.3e} '
+          f'Ha/Bohr^2')
+    check(worst <= 1e-5, f'{name} Hessian vs central differences '
+          f'{worst:.3e} > 1e-5')
+    res = hessian.harmonic_analysis(mol, hessian.project_trans_rot(mol, h))
+    print(f'{name} harmonic frequencies (cm^-1, translations and rotations '
+          'projected out): '
+          + ' '.join(f'{f:.2f}' for f in res['freq_wavenumber']))
+    th = hessian.thermo(mol, res['freq_au'], mf.e_tot)
+    print(f'{name} thermochemistry (Ha): ' + '  '.join(
+        f'{k} {v:.8f}' for k, v in th.items()))
+    return mf, launches
+
+
+def ks_hessian_phases(kernels, mf, report, suffix=''):
+    """The DF-RKS Hessian's three new kernels against their twins on mf's
+    grid at its density, at the shapes its Hessian gives them: eval_ao
+    deriv 3 on the whole grid (<= 1e-12 x max), xc_rks_hess (each output
+    <= 1e-10 x its max) and xc_rks_deriv1 over every tangent in the
+    Hessian's chunks of KS_DERIV1_CHUNK (<= 1e-10 x max); the twins timed
+    once on the host clock; recorded as <kernel><suffix>."""
+    from pyscf_tpu_torch.dft import numint
+    from pyscf_tpu_torch.ops import eval_gto
+
+    mol, nao, natm = mf.mol, mf.mol.nao, mf.mol.natm
+    nt = 3 * natm
+    dm = mf.make_rdm1()
+    coords, weights = mf.grids.coords, mf.grids.weights
+    npts = coords.shape[0]
+    f = mf.xc_obj
+    tables = eval_gto.ao_tables(mol)
+    print(f'the DF-RKS Hessian\'s kernels against their twins at nao {nao}, '
+          f'{npts} grid points')
+    ao_k = kernels.eval_ao_deriv3(tables, coords, nao)
+    ao_p, plain_s = host_s(
+        lambda: eval_gto.eval_ao_plain(tables, coords, nao, 3))
+    err, scale = max_abs([(ao_k, ao_p)])
+    del ao_p
+    ops = 0.0
+    for l, e, c, _, _ in tables:
+        nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
+        ops += npts * e.shape[0] * (8 + 11 * e.shape[1]
+                                    + 20 * nc * (l + 16 + 2 * d))
+    record(report, f'eval_ao_deriv3{suffix}',
+           'pyscf_tpu_torch/csrc/eval_ao.cu', 'pyscf_tpu/ops/eval_gto.py:19',
+           err,
+           lambda: kernels.eval_ao_deriv3(tables, coords, nao), plain_s * 1e3,
+           nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables), ops)
+    check(err <= 1e-12 * scale, f'eval_ao deriv 3 vs plain: {err:.3e} > '
+          f'1e-12 x {scale:.3e}')
+
+    atom_off, ao_atom = numint.atom_ranges(mol)
+    dmao = (ao_k[:4].reshape(-1, nao) @ dm).reshape(4, npts, nao)
+    out_k = kernels.xc_rks_hess(ao_k, dmao, weights, f, atom_off)
+    # the twin's second call is timed: its first builds torch.func's vmap of
+    # the functional's Hessian
+    for _ in range(2):
+        out_p, plain_s = host_s(lambda: numint.xc_rks_hess_plain(
+            ao_k, dmao, weights, f, atom_off))
+    errs = [(float((a - b).abs().max()), float(b.abs().max()))
+            for a, b in zip(out_k, out_p)]
+    del out_p
+    for (e_, s_), what in zip(errs, ('wv', 'ut', 'ht', 'same', 'xr')):
+        check(e_ <= 1e-10 * s_, f'xc_rks_hess{suffix} {what} vs plain: '
+              f'{e_:.3e} > 1e-10 x {s_:.3e}')
+    # per point and AO ~200 operations (the density, the atoms' sums, the
+    # explicit rows); the functional's few thousand per point not counted
+    record(report, f'xc_rks_hess{suffix}',
+           'pyscf_tpu_torch/csrc/xc_rks_hess.cu',
+           'pyscf_tpu/hessian/rhf.py:327', max(e_ for e_, _ in errs),
+           lambda: kernels.xc_rks_hess(ao_k, dmao, weights, f, atom_off),
+           plain_s * 1e3, nbytes(ao_k, dmao, weights, *out_k),
+           200.0 * npts * nao)
+    wv, _, ht, _, xr = out_k
+    del dmao
+
+    def chunks(fn):
+        return [fn(ao_k, wv, ht, xr, ao_atom, a, min(KS_DERIV1_CHUNK, nt - a))
+                for a in range(0, nt, KS_DERIV1_CHUNK)]
+
+    err = scale = 0.0
+    plain_s = 0.0
+    for a in range(0, nt, KS_DERIV1_CHUNK):
+        m = min(KS_DERIV1_CHUNK, nt - a)
+        v_k = kernels.xc_rks_deriv1(ao_k, wv, ht, xr, ao_atom, a, m)
+        v_p, s_ = host_s(lambda: numint.xc_rks_deriv1_plain(
+            ao_k, wv, ht, xr, ao_atom, a, m))
+        plain_s += s_
+        err = max(err, float((v_k - v_p).abs().max()))
+        scale = max(scale, float(v_p.abs().max()))
+        del v_k, v_p
+    record(report, f'xc_rks_deriv1{suffix}',
+           'pyscf_tpu_torch/csrc/xc_rks_hess.cu',
+           'pyscf_tpu/hessian/rhf.py:279', err,
+           lambda: chunks(kernels.xc_rks_deriv1), plain_s * 1e3,
+           8 * npts * nao * (nt + 7) + nbytes(wv, ht), 8.0 * npts * nao * nt)
+    check(err <= 1e-10 * scale, f'xc_rks_deriv1{suffix} vs plain: '
+          f'{err:.3e} > 1e-10 x {scale:.3e}')
+
+
+def nh3_ts_path(pt, refs, kernels):
+    """geomopt.optimize_ts of NH3's inversion with DF-RKS b3lypg/def2-SVP
+    (minao, conv_tol 1e-10, conv_tol_grad 1e-7, each geometry's own grid)
+    from refs.NH3_PYRAMID (N 0.15 Angstrom above the H3 plane), the launch
+    counts set to 0 just before: max|g| < 3e-4, N within 1e-3 Angstrom of
+    the plane of its three H, the DF-RKS Hessian's kernels launched, and
+    exactly one imaginary frequency at the saddle once the translations and
+    rotations are projected out (the six of them within 1 cm^-1 of 0); the
+    energy, max|g| and the seconds printed."""
+    from pyscf_tpu_torch import hessian
+    from pyscf_tpu_torch.lib.parameters import BOHR
+
+    def factory(m):
+        mf = tight(m.RKS(xc='b3lypg').density_fit())
+        mf.kernel()
+        check(mf.converged, 'NH3 DF-RKS did not converge')
+        return mf
+
+    mol = pt.M(atom=refs.NH3_PYRAMID, basis='def2-svp')
+    kernels.reset_launches()
+    (m, es), s = host_s(lambda: pt.geomopt.optimize_ts(factory, mol))
+    launches = kernels.launches()
+    r = np.asarray(m.coords) * BOHR
+    nrm = np.cross(r[2] - r[1], r[3] - r[1])
+    off = abs(float(np.dot(r[0] - r[1], nrm / np.linalg.norm(nrm))))
+    print(f'NH3 DF-RKS b3lypg/def2-SVP optimize_ts: {len(es)} geometries, '
+          f'{s:.3f} s; E {es[0]:.10f} -> {es[-1]:.10f}; max|g| '
+          f'{m._ts_grad_norm:.3e}; N {off:.3e} Angstrom off the H3 plane')
+    check(m._ts_grad_norm < 3e-4, f'NH3 TS: max|g| {m._ts_grad_norm:.3e}')
+    check(off < 1e-3, f'NH3 TS: N {off:.3e} Angstrom off the plane')
+    for k in KS_HESS_KERNELS:
+        check(launches[k] > 0, f'NH3 TS: kernel {k} never launched')
+    mf = factory(m)
+    h = hessian.project_trans_rot(m, mf.Hessian().kernel())
+    freq = hessian.harmonic_analysis(m, h)['freq_wavenumber']
+    print('NH3 saddle frequencies (cm^-1, translations and rotations '
+          'projected out): ' + ' '.join(f'{f:.2f}' for f in freq))
+    check(int(np.sum(freq < -1.0)) == 1, 'NH3 TS: not one imaginary '
+          'frequency')
+    check(int(np.sum(np.abs(freq) < 1.0)) == 6, 'NH3 TS: the six '
+          'translations and rotations are not at 0')
+    return launches
+
+
 # ---- f and g shells: BASELINE configs 3 and 4 ------------------------------
 
 # the JAX package's (H2O)10 DF-RHF/cc-pVTZ run on the TPU
@@ -3128,6 +3429,7 @@ def main():
     print('torch', torch.__version__, 'cuda', torch.version.cuda,
           'python', sys.version.split()[0])
     print(f'kernel build: {kernels.build():.1f} s', flush=True)
+    library_logs(kernels, KS_HESS_LIBRARIES)
 
     report = {}
     integral_phases(pt, refs, report)
@@ -3273,6 +3575,23 @@ def main():
     launches.update({f'{k}_qz': qz_launches[k] for k in HESS_KERNELS})
     torch.cuda.empty_cache()
     boys_both_sides(pt, kernels)
+    torch.cuda.empty_cache()
+    # the analytic DF-RKS Hessian and the transition-state search
+    rks, ks_launches = ks_hessian_path(
+        pt, refs, kernels, 'def2-SVP',
+        [(a, x) for a in range(12) for x in range(3)])
+    launches.update({k: ks_launches[k] for k in KS_HESS_KERNELS})
+    ks_hessian_phases(kernels, rks, report)
+    del rks
+    torch.cuda.empty_cache()
+    rks, tz_launches = ks_hessian_path(
+        pt, refs, kernels, 'def2-TZVP', [(0, 0), (0, 2), (6, 0), (6, 1)],
+        fxc_routes=True)
+    launches.update({f'{k}_tz': tz_launches[k] for k in KS_HESS_KERNELS})
+    ks_hessian_phases(kernels, rks, report, '_tz')
+    del rks
+    torch.cuda.empty_cache()
+    nh3_ts_path(pt, refs, kernels)
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

@@ -2,6 +2,7 @@
 """Phase times and a device profile of the port's paths on one NVIDIA GPU.
 
     python3 profile_port.py [--runs 10] [--top 12] [--paths NAME ...]
+                            [--cphf-xc auto|dense|jvp]
 
 Builds the kernels, then for the paths of chip_smoke.py (minao guess,
 conv_tol 1e-8): benzene/def2-SVP DF-RHF, DF-RKS b3lypg and in-core RHF,
@@ -27,7 +28,15 @@ benzene's, and the forces and frequencies of the f and g shells: (H2O)10
 DF-RHF/cc-pVTZ and benzene DF-RKS b3lypg/def2-TZVP (conv_tol 1e-10,
 conv_tol_grad 1e-7) followed by their gradients, and
 benzene/cc-pVTZ and water/cc-pVQZ DF-RHF (conv_tol 1e-12, conv_tol_grad
-1e-8) followed by their Hessians; or for the paths named by --paths, runs
+1e-8) followed by their Hessians, and the DF-RKS Hessian: benzene DF-RKS
+b3lypg/def2-SVP and def2-TZVP and C6F6's at def2-TZVP (conv_tol 1e-12,
+conv_tol_grad 1e-8) followed by theirs (the phases hess_xc_rows,
+hess_xc_F1 and hess_cphf among them; --cphf-xc dense or jvp makes CPHF's
+CG steps take that XC response whatever hessian/rhf.py _dense_fxc
+selects), and NH3's inversion saddle by geomopt.optimize_ts with
+DF-RKS b3lypg/def2-SVP from refs.NH3_PYRAMID (conv_tol 1e-10,
+conv_tol_grad 1e-7 at every geometry: phases ts, the search's seconds,
+and ts_geometries); or for the paths named by --paths, runs
 each once cold and `--runs` times warm, every run
 from a fresh Mole, and prints the median, quartiles, min and max of each
 phase of mf.timings (and of the gradient's timings, prefixed grad_) and
@@ -57,7 +66,11 @@ DF_GRADIENTS = ('DF-RKS b3lypg + gradient', 'DF-RHF + gradient',
 POSTSCF = ('in-core CCSD(T)', 'DF-CCSD(T)', 'N2/cc-pVQZ CCSD(T)')
 TDDFT = 'DF-RKS TDA'
 HESSIANS = ('DF-RHF + Hessian', 'DF-RHF benzene/cc-pVTZ + Hessian',
-            'DF-RHF water/cc-pVQZ + Hessian')
+            'DF-RHF water/cc-pVQZ + Hessian',
+            'DF-RKS b3lypg benzene/def2-SVP + Hessian',
+            'DF-RKS b3lypg benzene/def2-TZVP + Hessian',
+            'DF-RKS b3lypg C6F6/def2-TZVP + Hessian')
+TS = 'NH3 DF-RKS TS'
 PATHS = {
     'DF-RHF': lambda pt, refs: pt.M(atom=refs.BENZENE, basis='def2-svp')
     .RHF().density_fit(),
@@ -104,6 +117,15 @@ PATHS = {
                                        basis='cc-pvtz').RHF().density_fit(),
     HESSIANS[2]: lambda pt, refs: pt.M(atom=refs.WATER,
                                        basis='cc-pvqz').RHF().density_fit(),
+    # the DF-RKS Hessian and the transition-state search
+    HESSIANS[3]: lambda pt, refs: pt.dft.RKS(
+        pt.M(atom=refs.BENZENE, basis='def2-svp'), xc='b3lypg').density_fit(),
+    HESSIANS[4]: lambda pt, refs: pt.dft.RKS(
+        pt.M(atom=refs.BENZENE, basis='def2-tzvp'), xc='b3lypg').density_fit(),
+    HESSIANS[5]: lambda pt, refs: pt.dft.RKS(
+        pt.M(atom=refs.C6F6, basis='def2-tzvp'), xc='b3lypg').density_fit(),
+    TS: lambda pt, refs: pt.M(atom=refs.NH3_PYRAMID, basis='def2-svp').RKS(
+        xc='b3lypg').density_fit(),
 }
 
 
@@ -148,12 +170,30 @@ def tddft_timings(mf):
                 tddft_eigh=rpa.timings['eigh'])
 
 
+def ts_timings(pt, mf):
+    """geomopt.optimize_ts from mf's geometry, each geometry's DF-RKS
+    b3lypg at conv_tol 1e-10 and conv_tol_grad 1e-7: its seconds and the
+    number of geometries."""
+    def factory(m):
+        f = m.RKS(xc='b3lypg').density_fit()
+        f.conv_tol, f.conv_tol_grad, f.init_guess = 1e-10, 1e-7, 'minao'
+        f.kernel()
+        if not f.converged:
+            raise SystemExit('NH3 DF-RKS did not converge')
+        return f
+
+    (m, es), t = synced(lambda: pt.geomopt.optimize_ts(factory, mf.mol))
+    if m._ts_grad_norm >= 3e-4:
+        raise SystemExit(f'optimize_ts stopped at max|g| {m._ts_grad_norm}')
+    return dict(ts=t, ts_geometries=len(es))
+
+
 def one_run(pt, refs, name):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mf = PATHS[name](pt, refs)
     mf.conv_tol = 1e-11 if name == GRADIENT else 1e-8
-    if name in DF_GRADIENTS or name == TDDFT:
+    if name in DF_GRADIENTS or name in (TDDFT, TS):
         mf.conv_tol = 1e-10
         mf.conv_tol_grad = 1e-7
     if name in POSTSCF:
@@ -169,6 +209,8 @@ def one_run(pt, refs, name):
         timings.update(postscf_timings(mf))
     if name == TDDFT:
         timings.update(tddft_timings(mf))
+    if name == TS:
+        timings.update(ts_timings(pt, mf))
     if name in HESSIANS:
         hobj = mf.Hessian()
         _, t = synced(hobj.kernel)
@@ -225,20 +267,26 @@ def main():
     ap.add_argument('--top', type=int, default=12)
     ap.add_argument('--paths', nargs='+', choices=list(PATHS),
                     default=list(PATHS))
+    ap.add_argument('--cphf-xc', choices=('auto', 'dense', 'jvp'),
+                    default='auto')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: profile_port.py measures '
                          'the card')
     import pyscf_tpu_torch as pt
     from pyscf_tpu_torch import refs
+    from pyscf_tpu_torch.hessian import rhf as hess_rhf
     from pyscf_tpu_torch.ops import kernels
+    if args.cphf_xc != 'auto':
+        dense = args.cphf_xc == 'dense'
+        hess_rhf._dense_fxc = lambda mol, nov: dense
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
     print(f'kernel build: {kernels.build():.1f} s')
-    out = {'card': card}
+    out = {'card': card, 'cphf_xc': args.cphf_xc}
     for name in args.paths:
         cold, e, ncyc = one_run(pt, refs, name)
         runs = [one_run(pt, refs, name)[0] for _ in range(args.runs)]

@@ -36,6 +36,26 @@ autodiff.py:228-245):
     the per-AO integrand of both spins               (csrc/xc_uks_grad.cu);
                                                      twin xc_uks_grad_plain
 
+The KS terms of the analytic DF-RKS Hessian on the fixed grid at the
+fixed density D (rks_xc_hessian; what jax.jvp of jax.grad makes of
+_exc_quadrature in pyscf_tpu/hessian/rhf.py:226-233,327):
+
+    aod with third derivatives                      CUDA kernel `eval_ao`,
+                                                     deriv 3 (second for an
+                                                     LDA)
+    dmao4 = aod[:4] @ D                             torch.matmul (cuBLAS)
+    per point: v, H = d2e/du2 of u = (rho, grad     CUDA kernel `xc_rks_hess`
+    rho), u_t and w H u_t per tangent (atom-         (csrc/xc_rks_hess.cu);
+    segmented sums over the AOs), the same-atom      twin xc_rks_hess_plain
+    blocks, the explicit rows
+    the quadratic term sum u_s . w H u_t, the       torch.matmul (cuBLAS)
+    explicit cross term's Z
+    per point and tangent, the rows vt'_t of        CUDA kernel
+    dV_xc/dX                                         `xc_rks_deriv1`; twin
+                                                     xc_rks_deriv1_plain
+    F_t = phi^T vt'_t - [rows on A] (d_x phi)^T     torch.matmul (cuBLAS)
+    vtmp0
+
 The XC response of TDA/TDDFT, on a closed- or open-shell ground density:
 
     the Hessian route (tdscf get_ab): w f_xc per    CUDA kernel `xc_fxc`;
@@ -60,7 +80,7 @@ import time
 
 import torch
 
-from ..ops.eval_gto import SECOND_DERIVS, eval_ao
+from ..ops.eval_gto import NCOMP, SECOND_DERIVS, THIRD_DERIVS, eval_ao
 from ..ops.integrals.j3c import sync
 from . import xc as xc_mod
 from .xc_funcs import _max
@@ -235,6 +255,14 @@ def clamp_slope(x, lo):
     return (x > lo).to(x.dtype) + 0.5 * (x == lo).to(x.dtype)
 
 
+def _pair_table(aod):
+    """{(i, j): d_i d_j phi} of the second-derivative rows aod[4:10]."""
+    t = {}
+    for k, (i, j) in enumerate(SECOND_DERIVS):
+        t[i, j] = t[j, i] = aod[4 + k]
+    return t
+
+
 def _grad_rows(aod, dm_rows, a, bj):
     """g (3, nao) of one density's coefficients per point, a (B,) and, for
     a GGA, bj (3, B): sum_b a d_x phi (D phi) + sum_j bj (d_x phi (D d_j
@@ -243,9 +271,7 @@ def _grad_rows(aod, dm_rows, a, bj):
     g = torch.einsum('b,xbi,bi->xi', a, aod[1:4], dm0)
     if bj is None:
         return g
-    second = {}
-    for k, (i, j) in enumerate(SECOND_DERIVS):
-        second[i, j] = second[j, i] = aod[4 + k]
+    second = _pair_table(aod)
     return g + torch.stack([
         sum(torch.einsum('b,bi->i', bj[j], aod[1 + x] * dm_rows[1 + j]
                          + second[x, j] * dm0) for j in range(3))
@@ -359,25 +385,155 @@ def xc_fxc_pairs_plain(oo, ov, H, blocks):
 def xc_rks_fxc_plain(aod, dmao, dmao1, weights, xc):
     """Plain PyTorch twin of the `xc_rks_fxc` kernel: (nvec, B, nao), the
     tangent of xc_rks_plain's vtmp at dmao along each dmao1[v] by
-    torch.func.jvp, through the same clamps, as jax.jvp of the JAX
-    package's _get_rks_core_aod (pyscf_tpu/tdscf/rhf.py:218)."""
+    torch.func.jvp (vmapped over the vectors), through the same clamps, as
+    jax.jvp of the JAX package's _get_rks_core_aod (pyscf_tpu/tdscf/
+    rhf.py:218)."""
     def vtmp(d):
         return xc_rks_plain(aod, d, weights, xc)[0]
 
-    return torch.stack([torch.func.jvp(vtmp, (dmao,), (t,))[1]
-                        for t in dmao1])
+    return torch.func.vmap(
+        lambda t: torch.func.jvp(vtmp, (dmao,), (t,))[1])(dmao1)
 
 
 def xc_uks_fxc_plain(aod, dmao, dmao1, weights, xc):
     """Plain PyTorch twin of the `xc_uks_fxc` kernel: (nvec, 2, B, nao), the
     tangent of xc_uks_plain's vtmp at dmao (2, B, nao) along each dmao1[v]
-    (2, B, nao) by torch.func.jvp, as jax.jvp of the JAX package's
-    _get_uks_core_aod (pyscf_tpu/tdscf/rhf.py:237)."""
+    (2, B, nao) by torch.func.jvp (vmapped over the vectors), as jax.jvp of
+    the JAX package's _get_uks_core_aod (pyscf_tpu/tdscf/rhf.py:237)."""
     def vtmp(d):
         return xc_uks_plain(aod, d, weights, xc)[0]
 
-    return torch.stack([torch.func.jvp(vtmp, (dmao,), (t,))[1]
-                        for t in dmao1])
+    return torch.func.vmap(
+        lambda t: torch.func.jvp(vtmp, (dmao,), (t,))[1])(dmao1)
+
+
+# ---- the DF-RKS Hessian's XC terms -----------------------------------------
+
+def _closed_second(xc, rho_s, sigma_s):
+    """(e_r, e_s, e_rr, e_rs, e_ss) per point of the closed-shell energy
+    density at the clamped inputs, by torch.func.grad and torch.func.hessian
+    (vmapped over the points)."""
+    def f(x):
+        return edens_closed(xc, x[0], x[1])
+
+    x = torch.stack([rho_s, sigma_s], dim=1)
+    g = torch.func.vmap(torch.func.grad(f))(x)
+    h = torch.func.vmap(torch.func.hessian(f))(x)
+    return g[:, 0], g[:, 1], h[:, 0, 0], h[:, 0, 1], h[:, 1, 1]
+
+
+def xc_rks_hess_plain(aod, dmao, weights, xc, atom_off):
+    """Plain PyTorch twin of the `xc_rks_hess` kernel on one block of B
+    points: (wv (B, 4), ut (3 natm, B, 4), ht (3 natm, B, 4), same (B,
+    natm, 6), xr (4, B, nao)) as kernels.xc_rks_hess documents them.
+
+    aod (20, B, nao) and dmao = aod[:4] @ D (4, B, nao) for a GGA, (10, B,
+    nao) and (1, B, nao) for an LDA; weights (B,); atom_off (natm + 1,).
+    v and H are the derivatives of e(rho_s, sigma_s) by torch.func through
+    _masked's clamps, the sigma clamp's slope taken as jax.grad takes it:
+      v_0 = e_r, v_j = 2 e_s s' g_j, H_00 = e_rr, H_0j = 2 e_rs s' g_j,
+      H_jk = 4 e_ss s'^2 g_j g_k + 2 e_s s' delta_jk
+    and zero at masked points; u_t of t = 3 A + x is -2 sum over the AOs
+    mu on A of [d_x phi_mu (D phi)_mu, d_x d_j phi_mu (D phi)_mu + d_x
+    phi_mu (D d_j phi)_mu]."""
+    gga = aod.shape[0] == 20
+    B, nao = aod.shape[1:]
+    natm = atom_off.shape[0] - 1
+    ao, d0 = aod[0], dmao[0]
+    rho = torch.clamp(torch.einsum('bi,bi->b', d0, ao), min=0.0)
+    if gga:
+        g = 2.0 * torch.einsum('bi,jbi->jb', d0, aod[1:4])
+        sigma = torch.einsum('jb,jb->b', g, g)
+    else:
+        g = ao.new_zeros((3, B))
+        sigma = torch.zeros_like(rho)
+    mask, rho_s, sigma_s = _masked(rho, sigma)
+    er, es, err, ers, ess = _closed_second(xc, rho_s, sigma_s)
+    v = ao.new_zeros((4, B))
+    H = ao.new_zeros((4, 4, B))
+    v[0] = er
+    H[0, 0] = err
+    if gga:
+        sl = clamp_slope(sigma, SIGMA_FLOOR)
+        v[1:] = 2.0 * es * sl * g
+        H[0, 1:] = H[1:, 0] = 2.0 * ers * sl * g
+        eye = torch.eye(3, dtype=g.dtype, device=g.device)
+        H[1:, 1:] = (4.0 * ess * sl * sl * g[:, None] * g[None, :]
+                     + 2.0 * es * sl * eye[:, :, None])
+    v = torch.where(mask, v, 0.0)
+    H = torch.where(mask, H, 0.0)
+    wv = weights * v                                    # (4, B)
+
+    atoms = torch.arange(natm, device=ao.device)
+    ao_atom = torch.repeat_interleave(atoms,
+                                      (atom_off[1:] - atom_off[:-1]).long())
+    onehot = (ao_atom[None, :] == atoms[:, None]).to(ao.dtype)
+    sec = _pair_table(aod)
+    p = [torch.einsum('xbi,bi,ai->axb', aod[1:4], d0, onehot)]
+    for j in range(3):
+        pj = torch.stack([sec[x, j] for x in range(3)]) * d0
+        if gga:
+            pj = pj + aod[1:4] * dmao[1 + j]
+            p.append(torch.einsum('xbi,ai->axb', pj, onehot))
+        else:
+            p.append(torch.zeros_like(p[0]))
+    u = -2.0 * torch.stack(p, dim=2).reshape(3 * natm, 4, B)
+    u = torch.where(mask, u, 0.0)
+    ht = weights * torch.einsum('cqb,tqb->tcb', H, u)
+
+    third = {}
+    for k, ijk in enumerate(THIRD_DERIVS):
+        third[tuple(sorted(ijk))] = aod[10 + k] if gga else None
+    same = []
+    for x, y in SECOND_DERIVS:
+        t = v[0, :, None] * sec[x, y] * d0
+        if gga:
+            for j in range(3):
+                t = t + v[1 + j, :, None] * (
+                    third[tuple(sorted((x, y, j)))] * d0
+                    + sec[x, y] * dmao[1 + j])
+        same.append(2.0 * weights[:, None] * (t @ onehot.T))
+    same = torch.stack(same, dim=-1)                    # (B, natm, 6)
+
+    vtmp0 = 0.5 * wv[0, :, None] * ao
+    G = ao.new_zeros((3, B, nao))
+    if gga:
+        vtmp0 = vtmp0 + torch.einsum('jb,jbi->bi', wv[1:], aod[1:4])
+        G = torch.stack([sum(wv[1 + j, :, None] * sec[x, j] for j in range(3))
+                         for x in range(3)])
+    xr = torch.cat([vtmp0[None], G])
+    return (wv.T.contiguous(), u.permute(0, 2, 1).contiguous(),
+            ht.permute(0, 2, 1).contiguous(), same, xr)
+
+
+def xc_rks_deriv1_plain(aod, wv, ht, xr, ao_atom, t0, nt):
+    """Plain PyTorch twin of the `xc_rks_deriv1` kernel: (B, nt, nao) of
+      vt'_t = 1/2 ht_0 phi + sum_j ht_j d_j phi
+              - 1/2 [nu on A] (w v_0 d_x phi + 2 G_x)
+    for t = 3 A + x in t0 .. t0 + nt - 1; the inputs as the kernel's."""
+    ts = torch.arange(t0, t0 + nt, device=aod.device)
+    h = ht[ts]                                          # (nt, B, 4)
+    val = 0.5 * h[..., 0, None] * aod[0] + torch.einsum(
+        'tbj,jbi->tbi', h[..., 1:], aod[1:4])
+    x = ts % 3
+    on_a = (ao_atom.long()[None, :] == (ts // 3)[:, None]).to(aod.dtype)
+    e = wv[:, 0, None] * aod[1 + x] + 2.0 * xr[1 + x]  # (nt, B, nao)
+    val = val - 0.5 * on_a[:, None, :] * e
+    return val.permute(1, 0, 2).contiguous()
+
+
+def atom_ranges(mol):
+    """(atom_off (natm + 1,) int32, ao_atom (nao,) int32) on mol.device: the
+    first AO of each atom and the atom of each AO; ValueError unless every
+    atom's AOs are consecutive, as the XC Hessian kernels take them."""
+    import numpy as np
+    from ..grad.rhf import _ao2atom_map
+    ao_atom = _ao2atom_map(mol)
+    if np.any(np.diff(ao_atom) < 0):
+        raise ValueError('the AOs of an atom are not consecutive')
+    off = np.searchsorted(ao_atom, np.arange(mol.natm + 1))
+    i32 = dict(dtype=torch.int32, device=mol.device)
+    return torch.as_tensor(off, **i32), torch.as_tensor(ao_atom, **i32)
 
 
 def _budget(device, share):
@@ -453,11 +609,13 @@ class NumInt:
 
         return run
 
-    def _response(self, kernel, nspin, xc_code, aod_blocks, weights, dm0):
+    def _response(self, kernel, nspin, xc_code, aod_blocks, weights, dm0,
+                  sym=True):
         """ddm (nvec, [2,] nao, nao) -> the tangent of the core's V_xc at
         dm0 along each ddm, block by block: dmao1 = ao @ ddm (GEMM), the
         kernel, dV += ao^T @ dvtmp (GEMM), in groups of vectors that fit
-        half the free memory; then dV + dV^T, as the core's V + V^T."""
+        half the free memory; then dV + dV^T, as the core's V + V^T (2 dV
+        unless sym: the JAX package's unsymmetrised jax.grad in D)."""
         xc = xc_mod.parse_xc(xc_code)
         aos = [aod[0] if aod.dim() == 3 else aod for aod in aod_blocks]
         dmao0 = [torch.matmul(ao, dm0) for ao in aos]
@@ -471,18 +629,20 @@ class NumInt:
                     dmao1 = torch.matmul(ao, ddm[i:i + step])
                     dv = kernel(aod, d0, dmao1, w, xc)
                     v[i:i + step] += torch.matmul(ao.T, dv)
-            return v + v.transpose(-1, -2)
+            return v + v.transpose(-1, -2) if sym else 2.0 * v
 
         return run
 
-    def rks_response(self, xc_code, aod_blocks, weights, dm0):
+    def rks_response(self, xc_code, aod_blocks, weights, dm0, sym=True):
         """The closed-shell V_xc response at the density dm0: a map ddm
         (nvec, nao, nao) -> (nvec, nao, nao), jax.jvp of _get_rks_core_aod's
         V_xc at dm0 as pyscf_tpu/tdscf/rhf.py:210-219 takes it (kernel
-        `xc_rks_fxc`), over the AO blocks of grid_ao."""
+        `xc_rks_fxc`), over the AO blocks of grid_ao; unless sym, of the
+        JAX package's unsymmetrised dE_xc/dD (pyscf_tpu/hessian/rhf.py:
+        287-288 lin_g)."""
         from ..ops import kernels
         return self._response(kernels.xc_rks_fxc, 1, xc_code, aod_blocks,
-                              weights, dm0)
+                              weights, dm0, sym)
 
     def uks_response(self, xc_code, aod_blocks, weights, dm0):
         """The spin-polarized V_xc response at the spin density dm0 (2, nao,
@@ -560,6 +720,100 @@ class NumInt:
         if timings is not None:
             timings.update(ao2=t_ao, xc_grad=t_xc)
         return e, g.T
+
+    def rks_xc_hessian(self, mol, grids, xc_code, dm, tangent_chunk=12,
+                       timings=None):
+        """The KS terms of the analytic Hessian of a closed-shell density dm
+        on the fixed grid: (F (3 natm, nao, nao), hxx (3 natm, 3 natm)),
+        tangents t = 3 A + x.
+
+        hxx is E_xc's second derivative in the nuclear coordinates at fixed
+        dm (jax.hessian of the JAX package's _exc_quadrature in X):
+          sum_b u_s . w H u_t                  (GEMM of xc_rks_hess's u_t
+                                                and w H u_t)
+          + the same-atom blocks               (xc_rks_hess)
+          + 2 sum_{mu on A, nu on B} D_munu Z^xy_munu, Z^xy = (d_x phi)^T
+            (w v_0 d_y phi + G_y) + G_x^T d_y phi   (one GEMM)
+        F the half-product of dV_xc/dX_t at fixed dm: V'_t = F_t + F_t^T
+        (2 F_t is the JAX package's unsymmetrised jax.jacfwd in X of its
+        jax.grad in D), F_t = phi^T vt'_t (xc_rks_deriv1, one GEMM per
+        chunk of tangent_chunk tangents) - [rows on A] (d_x phi)^T vtmp0.
+        Per block of grid points: the AO values to the third derivative
+        (kernel `eval_ao` deriv 3; second for an LDA), dmao = aod[:4] @ dm
+        as one GEMM, then the kernels. timings, if given, receives the
+        seconds of the AO values, xc_rks_hess and its GEMMs ('xc_rows') and
+        of xc_rks_deriv1 and its GEMMs ('xc_F1')."""
+        from ..ops import kernels
+        xc = xc_mod.parse_xc(xc_code)
+        gga = xc.is_gga
+        deriv, nd = (3, 4) if gga else (2, 1)
+        natm, nao = mol.natm, mol.nao
+        nt = 3 * natm
+        atom_off, ao_atom = atom_ranges(mol)
+        dev = dm.device
+        f64 = dict(dtype=dm.dtype, device=dev)
+        n = grids.size
+        tc = max(1, min(tangent_chunk, nt))
+        blk = _block_size(n, nao, NCOMP[deriv] + nd + 16 + tc, dev)
+        F = torch.zeros((nt, nao, nao), **f64)
+        hxx = torch.zeros((nt, nt), **f64)
+        Z = torch.zeros((3 * nao, 3 * nao), **f64)
+        Q = torch.zeros((3, nao, nao), **f64)
+        same = torch.zeros((natm, 6), **f64)
+        t_rows = t_f1 = 0.0
+        for i in range(0, n, blk):
+            t0 = time.perf_counter()
+            w = grids.weights[i:i + blk]
+            B = w.shape[0]
+            aod = eval_ao(mol, grids.coords[i:i + blk], deriv)
+            dmao = (aod[:nd].reshape(-1, nao) @ dm).reshape(nd, B, nao)
+            wv, ut, ht, sm, xr = kernels.xc_rks_hess(aod, dmao, w, xc,
+                                                     atom_off)
+            del dmao
+            hxx += ut.reshape(nt, -1) @ ht.reshape(nt, -1).T
+            same += sm.sum(dim=0)
+            d1 = aod[1:4]
+            L = torch.cat([d1, xr[1:]], dim=1).permute(1, 0, 2)
+            R = torch.cat([wv[:, 0, None] * d1 + xr[1:], d1],
+                          dim=1).permute(1, 0, 2)
+            Z += L.reshape(2 * B, -1).T @ R.reshape(2 * B, -1)
+            del L, R, ut, sm
+            Q += d1.transpose(1, 2) @ xr[0]
+            sync(dev)
+            t1 = time.perf_counter()
+            ao_t = aod[0].T
+            for a in range(0, nt, tc):
+                m = min(tc, nt - a)
+                vt = kernels.xc_rks_deriv1(aod, wv, ht, xr, ao_atom, a, m)
+                F[a:a + m] += (ao_t @ vt.reshape(B, m * nao)).reshape(
+                    nao, m, nao).transpose(0, 1)
+                del vt
+            del aod, wv, ht, xr
+            sync(dev)
+            t_rows += t1 - t0
+            t_f1 += time.perf_counter() - t1
+        t0 = time.perf_counter()
+        onehot = (ao_atom.long()[None, :] == torch.arange(
+            natm, device=dev)[:, None]).to(dm.dtype)
+        rows = onehot.repeat_interleave(3, dim=0)       # (nt, nao)
+        F -= rows[:, :, None] * Q.repeat(natm, 1, 1)
+        sync(dev)
+        t_f1 += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Z = Z.reshape(3, nao, 3, nao).permute(0, 2, 1, 3) * dm
+        hxx += 2.0 * torch.einsum('am,xymn,bn->axby', onehot, Z,
+                                  onehot).reshape(nt, nt)
+        iu = [(x, y) for x in range(3) for y in range(x, 3)]
+        for k, (x, y) in enumerate(iu):
+            idx = torch.arange(natm, device=dev) * 3
+            hxx[idx + x, idx + y] += same[:, k]
+            if x != y:
+                hxx[idx + y, idx + x] += same[:, k]
+        sync(dev)
+        t_rows += time.perf_counter() - t0
+        if timings is not None:
+            timings.update(xc_rows=t_rows, xc_F1=t_f1)
+        return F, hxx
 
     def nr_rks(self, mol, grids, xc_code, dm):
         """(nelec, exc, vxc matrix) of a closed-shell density dm."""

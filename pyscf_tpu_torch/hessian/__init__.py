@@ -3,7 +3,8 @@
 Counterpart of pyscf_tpu/hessian/__init__.py: hessian_fd and HessianFD
 (central differences of the analytic gradient), harmonic_analysis and thermo
 (reference hessian/thermo.py:40 harmonic_analysis, :136 thermo), and the
-Hessian(mf) dispatcher. The analytic Hessian of DF-RHF is hessian/rhf.py.
+Hessian(mf) dispatcher. The analytic Hessian of DF-RHF and DF-RKS is
+hessian/rhf.py.
 """
 import numpy as np
 
@@ -11,19 +12,30 @@ from ..data.elements import MASSES
 from ..lib.parameters import AMU2AU, BOLTZMANN_AU, HARTREE2WAVENUMBER
 
 
-def fd_columns(grad_factory, mol, columns, step=1e-3):
+# the central-difference stencils: 2 points, O(h^2); 4 points (the
+# five-point stencil without its centre), O(h^4)
+STENCILS = {2: ((1, 0.5), (-1, -0.5)),
+            4: ((2, -1 / 12), (1, 8 / 12), (-1, -8 / 12), (-2, 1 / 12))}
+
+
+def fd_columns(grad_factory, mol, columns, step=1e-3, points=2):
     """Columns (A, x) of the Hessian from central differences of gradients,
     unsymmetrised: (len(columns), natm, 3). grad_factory(mol) -> (natm, 3)
-    gradient (runs the SCF)."""
+    gradient (runs the SCF); points 2 or 4 gradients per column
+    (STENCILS). The four-point stencil serves a KS gradient on a fixed
+    grid, whose fourth derivatives in a nucleus with tight core shells are
+    large: at water/sto-3g B3LYP on a level-0 grid the two-point difference
+    of step 1e-3 Bohr misses O's z diagonal by 4.3e-3 Ha/Bohr^2, the
+    four-point one by 4.8e-7 (tests/hessian_refs_record.py compare)."""
     coords0 = np.asarray(mol.coords).copy()
     out = []
     for A, x in columns:
-        g = []
-        for s in (step, -step):
+        col = 0.0
+        for k, wk in STENCILS[points]:
             c = coords0.copy()
-            c[A, x] += s
-            g.append(np.asarray(grad_factory(mol.copy().set_geom_(c))))
-        out.append((g[0] - g[1]) / (2 * step))
+            c[A, x] += k * step
+            col = col + wk * np.asarray(grad_factory(mol.copy().set_geom_(c)))
+        out.append(col / step)
     return np.array(out)
 
 
@@ -53,6 +65,35 @@ def harmonic_analysis(mol, hess, masses=None):
             'norm_mode': modes, 'freq_au': freq_au}
 
 
+def project_trans_rot(mol, hess, masses=None):
+    """The Cartesian Hessian (natm, 3, natm, 3) with the rigid translations
+    and rotations about the centre of mass projected out in mass-weighted
+    coordinates, so that harmonic_analysis gives them zero frequencies (a KS
+    Hessian on a fixed grid is not translationally invariant). masses as
+    harmonic_analysis's."""
+    natm = mol.natm
+    if masses is None:
+        masses = np.array([MASSES[z] for z in mol.charges]) * AMU2AU
+    r = np.asarray(mol.coords)
+    r = r - (masses[:, None] * r).sum(axis=0) / masses.sum()
+    sq = np.sqrt(masses)
+    vecs = []
+    for x in range(3):
+        t = np.zeros((natm, 3))
+        t[:, x] = sq
+        vecs.append(t.ravel())
+        axis = np.zeros(3)
+        axis[x] = 1.0
+        vecs.append((sq[:, None] * np.cross(axis, r)).ravel())
+    q, sv, _ = np.linalg.svd(np.array(vecs).T, full_matrices=False)
+    q = q[:, sv > 1e-6 * sv.max()]
+    p = np.eye(3 * natm) - q @ q.T
+    m = np.repeat(sq, 3)
+    hm = np.asarray(hess).reshape(3 * natm, 3 * natm) / m[:, None] / m[None, :]
+    hm = p @ hm @ p
+    return (hm * m[:, None] * m[None, :]).reshape(natm, 3, natm, 3)
+
+
 def thermo(mol, freq_au, e_tot, temperature=298.15, pressure=101325.0):
     """Ideal-gas RRHO vibrational thermochemistry (reference
     hessian/thermo.py:136): the 3 natm - 6 (5 for a diatomic) largest |freq|
@@ -73,11 +114,12 @@ def thermo(mol, freq_au, e_tot, temperature=298.15, pressure=101325.0):
 def Hessian(mf, **kwargs):
     """Nuclear Hessian of a converged mean field (reference mf.Hessian()).
 
-    DF-RHF: the analytic Hessian (hessian/rhf.py). Where the reference falls
-    back to HessianFD (no density fitting; a range-separated or VV10
-    functional), so does the port. DF-RKS, DF-UHF and DF-UKS raise
-    NotImplementedError: the reference computes them analytically, and a
-    finite-difference Hessian would be a different result."""
+    DF-RHF and DF-RKS: the analytic Hessian (hessian/rhf.py). Where the
+    reference falls back to HessianFD (no density fitting; a
+    range-separated or VV10 functional), so does the port. DF-UHF and
+    DF-UKS raise NotImplementedError: the reference computes them
+    analytically, and a finite-difference Hessian would be a different
+    result."""
     from ..scf.uhf import UHF
     if mf.with_df is None:
         return HessianFD(mf, **kwargs)
@@ -86,7 +128,7 @@ def Hessian(mf, **kwargs):
     if isinstance(mf, UHF):
         raise NotImplementedError(
             'the analytic DF-UHF/UKS Hessian (pyscf_tpu/hessian/uhf.py) is '
-            'not ported yet: it comes after the DF-RKS Hessian')
+            'not ported yet: it is the next slice of the Hessian')
     from .rhf import Hessian as AnalyticHessian
     return AnalyticHessian(mf, **kwargs)
 

@@ -1,5 +1,5 @@
-"""Analytic nuclear Hessian of density-fitted RHF through the coupled-
-perturbed equations.
+"""Analytic nuclear Hessian of density-fitted RHF and RKS through the
+coupled-perturbed equations.
 
 Counterpart of pyscf_tpu/hessian/rhf.py. The JAX package takes the jvp of
 its analytic gradient g(X, D, W) = grad_X E_fix(X, D, W) along (dX_t, dD_t,
@@ -38,6 +38,27 @@ of B (cuBLAS GEMMs), solved for all 3 natm right-hand sides at once by
 the reference's preconditioned CG, stopping when every column is under
 cphf_tol (the reference runs all cphf_max_cycle steps with the finished
 columns frozen, which gives the same U).
+
+DF-RKS (the JAX package's isks branch, :184-245, with exc_fun its
+_exc_quadrature on the fixed grid) adds, with hyb the functional's hybrid
+fraction (pyscf_tpu/hessian/rhf.py:223-245,279,287,327):
+  - dV_xc/dX_t at fixed D to h'_t, so to F'_t and to the rows dD_s . V'_t
+    (NumInt.rks_xc_hessian: kernels eval_ao deriv 3, xc_rks_hess and
+    xc_rks_deriv1, GEMMs);
+  - E_xc's second derivative in X at fixed D to the rows (the same call);
+  - the XC response fxc . dD to G[dD] of CPHF: the tangent of V_xc along
+    dD by NumInt.rks_response (kernel `xc_rks_fxc`) in the right-hand side
+    and dW's occupied block, and in the CG steps either the same tangent
+    or, where _dense_fxc finds it the cheaper, the dense occupied-virtual
+    A_xc of tdscf/rhf.py _fxc_ov (kernels `xc_fxc`, `xc_fxc_pairs`), whose
+    products with the vectors are GEMMs (both routes' times in PERF.md
+    section 6).
+The JAX package's dE_xc/dD is not symmetric for a GGA (its jax.grad in D
+takes grad rho = 2 (D phi) . grad phi as written), and its CPHF takes the
+occupied-virtual block of that matrix's derivatives in F' and in lin_g;
+reference_vxc=True does the same, the default takes V_xc = (dE_xc/dD +
+its transpose)/2, the matrix on which the SCF converged (ROADMAP section
+3).
 """
 import time
 
@@ -106,10 +127,11 @@ def cphf_pcg(matvec, rhs, ediff, max_cycle=40, tol=1e-10):
 
 
 class Hessian:
-    """Analytic Hessian of a converged DF-RHF mean field:
-    Hessian(mf).kernel() -> (natm, 3, natm, 3) numpy in Ha/Bohr^2. After a
-    call, `timings` holds the seconds of its phases (each ended by a device
-    synchronize) and `cphf_cycles` the CG iterations."""
+    """Analytic Hessian of a converged DF-RHF or DF-RKS (pure or global
+    hybrid) mean field: Hessian(mf).kernel() -> (natm, 3, natm, 3) numpy in
+    Ha/Bohr^2. After a call, `timings` holds the seconds of its phases
+    (each ended by a device synchronize) and `cphf_cycles` the CG
+    iterations."""
 
     cphf_max_cycle = 40
     cphf_tol = 1e-9
@@ -121,12 +143,12 @@ class Hessian:
                                       'fitting; use mf.density_fit()')
         from ..scf.uhf import UHF
         if isinstance(mf, UHF):
-            raise NotImplementedError('restricted (RHF) only')
+            raise NotImplementedError('restricted (RHF/RKS) only')
         if hasattr(mf, 'xc'):
-            raise NotImplementedError(
-                'the analytic DF-RKS Hessian is not ported yet: it needs the '
-                'AO third derivatives and the XC energy\'s second derivative '
-                'along the geometry (pyscf_tpu/hessian/rhf.py with isks)')
+            if mf._numint.rsh_and_hybrid_coeff(mf.xc)[0]:
+                raise NotImplementedError('range-separated hybrids')
+            if mf.nlc:
+                raise NotImplementedError('NLC functionals')
         self.mf = mf
         self.mol = mf.mol
         self.de = None
@@ -222,17 +244,18 @@ def _tangent_derivs(ip1, ip2, ao2atom, aux2atom, idx):
     return j3, m2 + m2.transpose(-1, -2)
 
 
-def _mo_response(B, Co, Cv, hyb):
-    """G(Moo, Mvo) -> (G_vo, G_oo): the MO blocks of J[dD] - hyb/2 K[dD] for
-    the densities dD = Co Moo Co^T + Cv Mvo Co^T + Co Mvo^T Cv^T (batched,
-    Moo (T, no, no), Mvo (T, nv, no)), on the MO blocks of B."""
+def _mo_response(B, Co, Cv, hyb, vxc=None):
+    """G(Moo, Mvo) -> (G_vo, G_oo): the MO blocks of J[dD] - hyb/2 K[dD]
+    (+ vxc(dD), the XC response, where given and with_xc) for the
+    densities dD = Co Moo Co^T + Cv Mvo Co^T + Co Mvo^T Cv^T (batched, Moo
+    (T, no, no), Mvo (T, nv, no)), J and K on the MO blocks of B."""
     Bo = B @ Co                                         # (naux, nao, no)
     Boo = Co.T @ Bo                                     # (naux, no, no)
     Bvo = Cv.T @ Bo                                     # (naux, nv, no)
     Bvv = Cv.T @ (B @ Cv)                               # (naux, nv, nv)
     del Bo
 
-    def g(Moo, Mvo):
+    def g(Moo, Mvo, with_xc=True):
         rho = (torch.einsum('Pij,Tij->TP', Boo, Moo)
                + 2.0 * torch.einsum('Pai,Tai->TP', Bvo, Mvo))
         gvo = torch.einsum('TP,Pai->Tai', rho, Bvo)
@@ -245,7 +268,13 @@ def _mo_response(B, Co, Cv, hyb):
         k2 = torch.einsum('Pbi,Tbk,Pkj->Tij', Bvo, Mvo, Boo)
         koo = (torch.einsum('Pik,Tkl,Plj->Tij', Boo, Moo, Boo)
                + k2 + k2.transpose(-1, -2))
-        return gvo - 0.5 * hyb * kvo, goo - 0.5 * hyb * koo
+        gvo, goo = gvo - 0.5 * hyb * kvo, goo - 0.5 * hyb * koo
+        if vxc is not None and with_xc:
+            half = Cv @ Mvo @ Co.T
+            v = vxc(Co @ Moo @ Co.T + half + half.transpose(-1, -2))
+            gvo = gvo + Cv.T @ v @ Co
+            goo = goo + Co.T @ v @ Co
+        return gvo, goo
 
     return g
 
@@ -456,12 +485,79 @@ def _rows_df(dfd, chunks, dD, hyb):
     return torch.cat(rows)
 
 
+def _xc_terms(mf, D, tangent_chunk, clock, reference_vxc):
+    """The KS terms at the density D: (V' (3 natm, nao, nao), E_xc's fixed-D
+    Hessian (3 natm, 3 natm)), timed as the phases 'xc_rows' and 'xc_F1'.
+    V' is the derivative of V_xc at fixed D, symmetrised unless
+    reference_vxc (the JAX package's unsymmetrised form, 2 F)."""
+    if mf.grids.coords is None:
+        mf.grids.build()
+    t = {}
+    F, hxx = mf._numint.rks_xc_hessian(mf.mol, mf.grids, mf.xc, D,
+                                       2 * tangent_chunk, t)
+    V1 = 2.0 * F if reference_vxc else F + F.transpose(-1, -2)
+    clock.lap('xc_F1')
+    clock.out['xc_F1'] -= t['xc_rows']
+    clock.out['xc_rows'] = t['xc_rows']
+    return V1, hxx
+
+
+# the ratio (nocc nvir)^2 / (3 natm nao^2) up to which CPHF's CG steps take
+# the dense A_xc (_dense_fxc)
+DENSE_FXC_RATIO = 16.0
+
+
+def _dense_fxc(mol, nov):
+    """True when CPHF's CG steps take the dense A_xc of nov = nocc nvir:
+    it fits half the free memory (numint._budget), and its build, 8 nov^2
+    npts operations, costs no more than the tangent route's steps, 4
+    (3 natm) npts nao^2 operations each, so while nov^2 / (3 natm nao^2)
+    is at most DENSE_FXC_RATIO. On an H100 the build took 0.54 of the
+    tangent route's CG steps' time at benzene/def2-TZVP (ratio 10.0) and
+    3.5 times it at C6F6/def2-TZVP (ratio 43.5); the power law through
+    the two crosses 1 at 16 (PERF.md section 6)."""
+    from ..dft.numint import _budget
+    return (nov * nov <= DENSE_FXC_RATIO * 3 * mol.natm * mol.nao ** 2
+            and 8 * nov * nov <= _budget(mol.device, 2))
+
+
+def _xc_response(mf, D, Co, Cv, reference_vxc):
+    """(the XC response dD -> (T, nao, nao) of G[dD], NumInt.rks_response
+    symmetrised as _xc_terms's V'; the CG step's Mvo -> (T, nv, no) by the
+    dense occupied-virtual A_xc of tdscf/rhf.py _fxc_ov where _dense_fxc
+    takes it, else None), both on one set of the grid's AO values.
+    reference_vxc takes the tangent alone: the reference's unsymmetrised
+    form has no dense counterpart here."""
+    ni = mf._numint
+    no, nv = Co.shape[1], Cv.shape[1]
+    dense = not reference_vxc and _dense_fxc(mf.mol, no * nv)
+    gga = mf.xc_obj.is_gga
+    aod, weights = ni.grid_ao(mf.mol, mf.grids, 1 if gga or dense else 0)
+    resp = ni.rks_response(mf.xc, aod if gga or not dense
+                           else [a[0] for a in aod], weights, D,
+                           sym=not reference_vxc)
+    if not dense:
+        return resp, None
+    from ..tdscf.rhf import _fxc_ov
+    a_xc = _fxc_ov(mf, Co, Cv, aod, weights).reshape(no * nv, no * nv)
+
+    def step(Mvo):
+        T = Mvo.shape[0]
+        x = Mvo.transpose(1, 2).reshape(T, no * nv)
+        return (x @ a_xc).reshape(T, no, nv).transpose(1, 2)
+
+    return resp, step
+
+
 def hessian(mf, cphf_max_cycle=40, cphf_tol=1e-9, tangent_chunk=6,
-            timings=None, reference_w=False):
+            timings=None, reference_w=False, reference_vxc=False):
     """((natm, 3, natm, 3) numpy Hessian, CPHF iterations) of a converged
-    DF-RHF mean field; timings, if given, receives the seconds of the
-    phases 's1h1', 'ip1_3c', 'F1', 'cphf', 'rows_1e', 'rows_df', 'rows_3c'
-    and 'rows_2c'.
+    DF-RHF or DF-RKS mean field; timings, if given, receives the seconds of
+    the phases 's1h1', 'ip1_3c', 'F1', 'cphf', 'rows_1e', 'rows_df',
+    'rows_3c' and 'rows_2c', and for DF-RKS 'xc_rows' (the AO values to the
+    third derivative, xc_rks_hess and E_xc's fixed-D Hessian) and 'xc_F1'
+    (xc_rks_deriv1 and dV_xc/dX); 'cphf' includes the XC response's
+    set-up (A_xc, where _dense_fxc takes it).
 
     reference_w=True reproduces pyscf_tpu/hessian/rhf.py:316-323, whose dW
     keeps only the diagonal of its occupied block (the orbital energies'
@@ -469,13 +565,19 @@ def hessian(mf, cphf_max_cycle=40, cphf_tol=1e-9, tangent_chunk=6,
     canonical orbitals' rotation: that Hessian misses -S' . dW of it
     wherever there are two occupied orbitals or more (ROADMAP section 3).
     The tests hold the port to the reference with it; the default is the
-    derivative of the gradient, which central differences confirm."""
+    derivative of the gradient, which central differences confirm.
+
+    reference_vxc=True (DF-RKS) takes the JAX package's unsymmetrised
+    dE_xc/dD in F' and in CPHF's XC response, as pyscf_tpu/hessian/
+    rhf.py:226-233,287 do (the module docstring says why it differs), with
+    the tangent of V_xc in the CG steps."""
     mol = mf.mol
     dev = mol.device
     auxmol = mf.with_df.build().auxmol
     natm = mol.natm
     nt = 3 * natm
-    hyb = 1.0
+    isks = hasattr(mf, 'xc')
+    hyb = mf._numint.rsh_and_hybrid_coeff(mf.xc)[2] if isks else 1.0
     clock = _Clock(dev, {} if timings is None else timings)
     f64 = dict(dtype=torch.float64, device=dev)
 
@@ -491,6 +593,11 @@ def hessian(mf, cphf_max_cycle=40, cphf_tol=1e-9, tangent_chunk=6,
 
     s1, h1 = _first_1e(mol, ao2atom)
     clock.lap('s1h1')
+    if isks:
+        V1, hxx_xc = _xc_terms(mf, co @ co.T, tangent_chunk, clock,
+                               reference_vxc)
+        h1 = h1 + V1
+        del V1
     dfd = _DFDerivs(mol, auxmol, B, mf.with_df.whitener, co)
     clock.lap('ip1_3c')
 
@@ -503,7 +610,10 @@ def hessian(mf, cphf_max_cycle=40, cphf_tol=1e-9, tangent_chunk=6,
     s1_oo = Co.T @ s1 @ Co                              # (nt, no, no)
     s1_vo = Cv.T @ s1 @ Co
     f1_vo = Cv.T @ F1 @ Co
-    g = _mo_response(B, Co, Cv, hyb)
+    vxc = step = None
+    if isks:
+        vxc, step = _xc_response(mf, co @ co.T, Co, Cv, reference_vxc)
+    g = _mo_response(B, Co, Cv, hyb, vxc)
     zero_vo = torch.zeros((nt, nv, no), **f64)
     g_oo_vo = g(-2.0 * s1_oo, zero_vo)[0]
     ediff = ev[:, None] - eo[None, :]
@@ -511,8 +621,11 @@ def hessian(mf, cphf_max_cycle=40, cphf_tol=1e-9, tangent_chunk=6,
     zero_oo = torch.zeros((1, no, no), **f64)
 
     def matvec(u):
-        gvo = g(zero_oo.expand(u.shape[2], no, no), 2.0 * u.permute(2, 0, 1))
-        return ediff[:, :, None] * u + gvo[0].permute(1, 2, 0)
+        Mvo = 2.0 * u.permute(2, 0, 1)
+        gvo = g(zero_oo.expand(u.shape[2], no, no), Mvo, step is None)[0]
+        if step is not None:
+            gvo = gvo + step(Mvo)
+        return ediff[:, :, None] * u + gvo.permute(1, 2, 0)
 
     U, _, cycles = cphf_pcg(matvec, rhs, ediff, cphf_max_cycle, cphf_tol)
     U = U.permute(2, 0, 1)                              # (nt, nv, no)
@@ -549,6 +662,8 @@ def hessian(mf, cphf_max_cycle=40, cphf_tol=1e-9, tangent_chunk=6,
     hxx += _hess_2c(auxmol, Wpq)
     clock.lap('rows_2c')
     hxx = hxx.reshape(natm, natm, 3, 3).permute(0, 2, 1, 3).reshape(nt, nt)
+    if isks:
+        hxx = hxx + hxx_xc
     H = H + hxx
     H = 0.5 * (H + H.T)
     h = H.cpu().numpy().reshape(natm, 3, natm, 3) + hess_nuc(mol)

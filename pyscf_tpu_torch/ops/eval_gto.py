@@ -1,4 +1,5 @@
-"""AO values (and first and second derivatives) on grid points.
+"""AO values and their first, second and third derivatives on grid
+points.
 
 Counterpart of pyscf_tpu/ops/eval_gto.py (eval_ao, _class_ao). The values
 come from the CUDA kernel `eval_ao` (csrc/eval_ao.cu), which writes every
@@ -7,11 +8,13 @@ concatenate-then-argsort of the class blocks has no counterpart. The
 plain PyTorch twin is `eval_ao_plain`: `_class_ao` per l-class, scattered
 to the same columns.
 
-deriv 2 adds the six second derivatives xx, xy, xz, yy, yz, zz (PySCF's
-order). The JAX package has no deriv 2: the XC gradient there is jax.grad
-through eval_ao(..., deriv=1, atom_coords=X) (pyscf_tpu/grad/autodiff.py
-:207-210), whose derivative with respect to the centre of AO mu is
--d_i d_j phi_mu.
+deriv 2 adds the six second derivatives xx, xy, xz, yy, yz, zz and deriv 3
+the ten third derivatives xxx, xxy, xxz, xyy, xyz, xzz, yyy, yyz, yzz, zzz
+(PySCF's order). The JAX package has neither: the XC gradient there is
+jax.grad through eval_ao(..., deriv=1, atom_coords=X) (pyscf_tpu/grad/
+autodiff.py:207-210), whose derivative with respect to the centre of AO mu
+is -d_i d_j phi_mu, and the XC Hessian takes its second derivative there
+(pyscf_tpu/hessian/rhf.py:327), d_i d_j d_k phi_mu.
 """
 import torch
 
@@ -20,7 +23,10 @@ from .integrals.int1e import sph
 
 # (i, j) of the second derivatives in the order of components 4..9
 SECOND_DERIVS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
-NCOMP = {0: 1, 1: 4, 2: 10}
+# (i, j, k) of the third derivatives in the order of components 10..19
+THIRD_DERIVS = ((0, 0, 0), (0, 0, 1), (0, 0, 2), (0, 1, 1), (0, 1, 2),
+                (0, 2, 2), (1, 1, 1), (1, 1, 2), (1, 2, 2), (2, 2, 2))
+NCOMP = {0: 1, 1: 4, 2: 10, 3: 20}
 
 
 def _ipow(x, n):
@@ -40,8 +46,9 @@ def _class_ao(l, pts, exps, coeffs, centers, deriv):
     """AO values for all shells of one l-class.
 
     pts (C,3); exps/coeffs (ns,K); centers (ns,3).
-    Returns (ncomp, C, ns*(2l+1)) with ncomp = 1 (values), 4 (+d/dx,y,z)
-    or 10 (+ d2/dxx, dxy, dxz, dyy, dyz, dzz).
+    Returns (ncomp, C, ns*(2l+1)) with ncomp = 1 (values), 4 (+d/dx,y,z),
+    10 (+ d2/dxx, dxy, dxz, dyy, dyz, dzz) or 20 (+ the ten third
+    derivatives of THIRD_DERIVS).
     """
     diff = pts[:, None, :] - centers[None, :, :]          # (C, ns, 3)
     r2 = torch.sum(diff * diff, dim=-1)                   # (C, ns)
@@ -78,8 +85,8 @@ def _class_ao(l, pts, exps, coeffs, centers, deriv):
         zero = torch.zeros_like(r2)
 
         def lowered(c, *dirs):
-            """c[d] * (c[d] - 1 if twice) * the monomial with the powers of
-            dirs taken down by one each, 0 where a power runs out."""
+            """c[d] * (c[d] - 1 if twice) ... * the monomial with the powers
+            of dirs taken down by one each, 0 where a power runs out."""
             pw = list(c)
             fac = 1
             for d in dirs:
@@ -101,6 +108,36 @@ def _class_ao(l, pts, exps, coeffs, centers, deriv):
                 comp.append(v + mono(*c) * dd)
             comp = torch.stack(comp, dim=-1)
             out.append(torch.einsum('cnp,mp->cnm', comp, S))
+    if deriv >= 3:
+        d3rad = torch.sum(-8.0 * exps[None] ** 3 * coeffs[None] * expo,
+                          dim=-1)
+
+        def rad1(i):
+            return xyz[i] * drad
+
+        def rad2(i, j):
+            dd = xyz[i] * xyz[j] * d2rad
+            return dd + drad if i == j else dd
+
+        def rad3(i, j, k):
+            t = xyz[i] * xyz[j] * xyz[k] * d3rad
+            for a, b, c_ in ((i, j, k), (i, k, j), (j, k, i)):
+                if a == b:
+                    t = t + xyz[c_] * d2rad
+            return t
+
+        for i, j, k in THIRD_DERIVS:
+            comp = []
+            for c in carts:
+                # d_ijk (m R) = m_ijk R + sum over the three splits (ab, c)
+                # of (m_ab R_c + m_c R_ab) + m R_ijk
+                v = lowered(c, i, j, k) * rad + mono(*c) * rad3(i, j, k)
+                for a, b, c_ in ((i, j, k), (i, k, j), (j, k, i)):
+                    v = v + lowered(c, a, b) * rad1(c_) \
+                        + lowered(c, c_) * rad2(a, b)
+                comp.append(v)
+            comp = torch.stack(comp, dim=-1)
+            out.append(torch.einsum('cnp,mp->cnm', comp, S))
     out = torch.stack(out)                          # (ncomp, C, ns, 2l+1)
     ncomp, C, ns = out.shape[0], out.shape[1], out.shape[2]
     return out.reshape(ncomp, C, ns * (2 * l + 1))
@@ -116,7 +153,8 @@ def ao_tables(mol):
 def eval_ao_plain(tables, coords, nao, deriv=0):
     """Plain PyTorch twin of the `eval_ao` kernel: (n, nao) for deriv 0,
     (4, n, nao) [value, d/dx, d/dy, d/dz] for deriv 1, (10, n, nao) with
-    [xx, xy, xz, yy, yz, zz] after those for deriv 2."""
+    [xx, xy, xz, yy, yz, zz] after those for deriv 2, (20, n, nao) with the
+    third derivatives of THIRD_DERIVS after those for deriv 3."""
     out = coords.new_empty((NCOMP[deriv], coords.shape[0], nao))
     for l, e, c, r, off in tables:
         cols = (off[:, None].long()
@@ -128,8 +166,10 @@ def eval_ao_plain(tables, coords, nao, deriv=0):
 def eval_ao(mol, coords, deriv=0):
     """AO values on coords (n, 3) on mol.device: (n, nao) for deriv 0,
     (4, n, nao) [value, d/dx, d/dy, d/dz] for deriv 1, (10, n, nao) with
-    the second derivatives [xx, xy, xz, yy, yz, zz] for deriv 2."""
+    the second derivatives [xx, xy, xz, yy, yz, zz] for deriv 2, (20, n,
+    nao) with the third derivatives [xxx, xxy, xxz, xyy, xyz, xzz, yyy,
+    yyz, yzz, zzz] for deriv 3."""
     from . import kernels
     if deriv not in NCOMP:
-        raise NotImplementedError(f'eval_ao deriv={deriv}: only 0, 1 and 2')
+        raise NotImplementedError(f'eval_ao deriv={deriv}: only 0 to 3')
     return kernels.eval_ao(ao_tables(mol), coords, mol.nao, deriv)

@@ -1,10 +1,10 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Thirty-two kernels carry the DF-RHF/RKS/UKS and in-core paths with the
+Thirty-five kernels carry the DF-RHF/RKS/UKS and in-core paths with the
 range-separated and VV10 functionals, the conventional RHF gradient, the
 DF-RHF/RKS/UHF/UKS gradients, the dipole of the SCF analysis, MP2, UMP2,
-CCSD and CCSD(T), TDA/TDHF/TDDFT and the DF-RHF nuclear Hessian (sources
-in pyscf_tpu_torch/csrc/):
+CCSD and CCSD(T), TDA/TDHF/TDDFT and the DF-RHF and DF-RKS nuclear
+Hessians (sources in pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
@@ -25,6 +25,7 @@ in pyscf_tpu_torch/csrc/):
   eval_ao    AO values and gradients on points    (csrc/eval_ao.cu)
   eval_ao_deriv2  the same kernel's deriv 2: with the second derivatives,
              counted apart
+  eval_ao_deriv3  its deriv 3: with the third derivatives, counted apart
   becke      Becke partition weights of the grid  (csrc/becke.cu)
   xc_rks     density, functional (B3LYP family,   (csrc/xc_rks.cu,
              CAM-B88, the B97 series) and the V_xc  csrc/xc_funcs.cuh)
@@ -59,6 +60,12 @@ in pyscf_tpu_torch/csrc/):
              with Gamma^P_ij
   int2c2e_ipip  d2(P|Q)/dP dP contracted with     (csrc/int2c2e_ipip.cu)
              W_PQ
+  xc_rks_hess  the XC energy's fixed-D second    (csrc/xc_rks_hess.cu)
+             derivative along the geometry per
+             point: u_t, w H u_t, the same-atom
+             blocks, the explicit rows
+  xc_rks_deriv1  the rows of dV_xc/dX at fixed D (csrc/xc_rks_hess.cu,
+             per point and tangent                  PT_XC_DERIV1)
 
 Each wrapper takes float64 (int32 for indices) contiguous tensors on one
 device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
@@ -75,8 +82,9 @@ The kernels are compiled at first use with nvcc for sm_90a, one shared
 library per source (five each for int3c2e.cu, int3c2e_ip.cu,
 int3c2e_ip1.cu and int3c2e_ipip.cu, one per bra momentum; fifteen for
 int2e.cu, one per bra class la <= lb; nine for int2e_ip1.cu, one per
-ordered bra class; two each for xc_fxc.cu and int2c2e_ipip.cu, one per
-kernel: sixty-six libraries) with a plain C interface loaded by ctypes, into
+ordered bra class; two each for xc_fxc.cu, int2c2e_ipip.cu and
+xc_rks_hess.cu, one per kernel: sixty-eight libraries) with a plain C
+interface loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
 checkout builds them once and an edit to a source rebuilds them; nvcc's
 output, with ptxas's registers, stack frame and spills per kernel
@@ -167,6 +175,12 @@ _LIBRARIES = {
     'int2c2e_ip1_full': ('int2c2e_ipip.cu', 'pt_int2c2e_ip1_full', [_I] * 4
                          + [_P] * 3 + [_I, _I] + [_P] * 6 + [_I] * 3 + [_P]
                          + [_I] * 3 + [_P], ('-DPT_IP1_FULL',)),
+    # the DF-RKS Hessian's XC terms: no FMA contraction in the functional,
+    # as in the other XC kernels; the rows of dV_xc/dX a second launch
+    'xc_rks_hess': ('xc_rks_hess.cu', 'pt_xc_rks_hess', [_I] * 4 + [_P] * 4
+                    + [_I] + [_P] * 8, ('-fmad=false',)),
+    'xc_rks_deriv1': ('xc_rks_hess.cu', 'pt_xc_rks_deriv1', [_I] * 5
+                      + [_P] * 7, ('-DPT_XC_DERIV1',)),
 }
 # int3c2e.cu, int3c2e_ip.cu, int3c2e_ip1.cu and int3c2e_ipip.cu once per bra
 # momentum la <= 4, int2e.cu once per bra class la <= lb <= 4 and
@@ -851,12 +865,15 @@ def _launch_eval_ao(wrapper, tables, coords, nao, deriv):
 
 def eval_ao(tables, coords, nao, deriv=0):
     """AO values on coords (n, 3): (n, nao) for deriv 0, (4, n, nao)
-    [value, d/dx, d/dy, d/dz] for deriv 1; deriv 2 is eval_ao_deriv2's.
+    [value, d/dx, d/dy, d/dz] for deriv 1; deriv 2 is eval_ao_deriv2's and
+    deriv 3 eval_ao_deriv3's.
 
     tables: [(l, exps (ns, K), coeffs (ns, K), centers (ns, 3),
     ao_off (ns,) int32)] per l-class; every AO column belongs to one shell."""
     if deriv == 2:
         return eval_ao_deriv2(tables, coords, nao)
+    if deriv == 3:
+        return eval_ao_deriv3(tables, coords, nao)
     dev = _device_of(coords)
     _check_tables(dev, tables, coords)
     if dev.type == 'cpu':
@@ -874,6 +891,18 @@ def eval_ao_deriv2(tables, coords, nao):
     if dev.type == 'cpu':
         return eval_gto.eval_ao_plain(tables, coords, nao, 2)
     return _launch_eval_ao(eval_ao_deriv2, tables, coords, nao, 2)
+
+
+def eval_ao_deriv3(tables, coords, nao):
+    """AO values with their first, second and third derivatives on coords
+    (n, 3): (20, n, nao), eval_ao_deriv2's ten components followed by
+    [xxx, xxy, xxz, xyy, xyz, xzz, yyy, yyz, yzz, zzz], the `eval_ao`
+    kernel's deriv 3, counted apart. tables as eval_ao's."""
+    dev = _device_of(coords)
+    _check_tables(dev, tables, coords)
+    if dev.type == 'cpu':
+        return eval_gto.eval_ao_plain(tables, coords, nao, 3)
+    return _launch_eval_ao(eval_ao_deriv3, tables, coords, nao, 3)
 
 
 def becke(coords, w0, owner, atm_coords, inv_dist, a_adj):
@@ -1320,12 +1349,96 @@ def xc_uks_fxc(aod, dmao, dmao1, weights, xc):
                         aod, dmao, dmao1, weights, xc)
 
 
+def xc_rks_hess(aod, dmao, weights, xc, atom_off):
+    """The closed-shell XC energy's fixed-D second derivative along the
+    nuclear coordinates, per point of one block of B points, for the
+    tangents t = 3 A + x of the natm atoms:
+      wv (B, 4)            w v, v = de/du of u = (rho, grad rho)
+      ut (3 natm, B, 4)    u_t, the features' derivative along t
+      ht (3 natm, B, 4)    w H u_t, H = d2e/du2
+      same (B, natm, 6)    the same-atom blocks of w v . d2u/dA_x dA_y
+                           (xx, xy, xz, yy, yz, zz)
+      xr (4, B, nao)       the explicit rows vtmp0 = 1/2 w v_0 phi +
+                           sum_j w v_j d_j phi and G_x = sum_j w v_j d_x
+                           d_j phi
+    all zero where rho <= RHO_THR (csrc/xc_rks_hess.cu says how).
+
+    aod (20, B, nao) with dmao = aod[:4] @ D (4, B, nao) for a GGA; aod
+    (10, B, nao) with dmao = aod[:1] @ D (1, B, nao) for an LDA; weights
+    (B,); atom_off (natm + 1,) int32, the first AO of each atom (an atom's
+    AOs consecutive); xc a dft.xc.XCFunctional of the B3LYP family."""
+    dev = _device_of(aod)
+    gga = aod.shape[0] == 20
+    B, nao = aod.shape[1:]
+    nd = 4 if gga else 1
+    natm = atom_off.shape[0] - 1
+    _check(dev, ('aod', aod, (20 if gga else 10, B, nao)),
+           ('dmao', dmao, (nd, B, nao)), ('weights', weights, (B,)))
+    _check_index(dev, 'atom_off', atom_off, natm + 1)
+    if xc.is_gga and not gga:
+        raise ValueError('a GGA functional needs the third AO derivatives '
+                         '(20, B, nao)')
+    if dev.type == 'cpu':
+        return numint.xc_rks_hess_plain(aod, dmao, weights, xc, atom_off)
+    ids, coeffs, _ = _xc_terms(xc, 'xc_rks_hess', XC_FXC_COMPONENTS)
+    f64 = dict(dtype=torch.float64, device=dev)
+    wv = torch.empty((B, 4), **f64)
+    ut = torch.empty((3 * natm, B, 4), **f64)
+    ht = torch.empty((3 * natm, B, 4), **f64)
+    same = torch.empty((B, natm, 6), **f64)
+    xr = torch.empty((4, B, nao), **f64)
+    if B:
+        rc = _fn('xc_rks_hess')(
+            int(gga), B, nao, natm, atom_off.data_ptr(), aod.data_ptr(),
+            dmao.data_ptr(), weights.data_ptr(), len(xc.terms), ids, coeffs,
+            wv.data_ptr(), ut.data_ptr(), ht.data_ptr(), same.data_ptr(),
+            xr.data_ptr(), _stream())
+        _raise_on(rc, 'xc_rks_hess')
+        xc_rks_hess.launches += 1
+    return wv, ut, ht, same, xr
+
+
+def xc_rks_deriv1(aod, wv, ht, xr, ao_atom, t0, nt):
+    """The rows of dV_xc/dX at fixed D for the tangents t0 .. t0 + nt - 1
+    of one block of B points: (B, nt, nao) with
+      vt'_t[b, nu] = 1/2 ht_0 phi_nu + sum_j ht_j d_j phi_nu
+                     - 1/2 [nu on A] (w v_0 d_x phi_nu + 2 G_x[nu])
+    (t = 3 A + x), so that F_t = phi^T vt'_t - [rows on A] (d_x phi)^T vtmp0
+    and V'_t = F_t + F_t^T.
+
+    aod (20 or 10, B, nao) as xc_rks_hess's (its first four components are
+    read); wv, ht and xr from xc_rks_hess; ao_atom (nao,) int32."""
+    dev = _device_of(aod)
+    gga = aod.shape[0] == 20
+    B, nao = aod.shape[1:]
+    ntan = ht.shape[0]
+    _check(dev, ('aod', aod, (20 if gga else 10, B, nao)),
+           ('wv', wv, (B, 4)), ('ht', ht, (ntan, B, 4)),
+           ('xr', xr, (4, B, nao)))
+    _check_index(dev, 'ao_atom', ao_atom, nao)
+    if not (0 <= t0 and nt >= 0 and t0 + nt <= ntan):
+        raise ValueError(f'tangents {t0} .. {t0 + nt - 1} outside 0 .. '
+                         f'{ntan - 1}')
+    if dev.type == 'cpu':
+        return numint.xc_rks_deriv1_plain(aod, wv, ht, xr, ao_atom, t0, nt)
+    out = torch.empty((B, nt, nao), dtype=torch.float64, device=dev)
+    if B and nt:
+        rc = _fn('xc_rks_deriv1')(
+            int(gga), B, nao, t0, nt, ao_atom.data_ptr(), aod.data_ptr(),
+            wv.data_ptr(), ht.data_ptr(), xr.data_ptr(), out.data_ptr(),
+            _stream())
+        _raise_on(rc, 'xc_rks_deriv1')
+        xc_rks_deriv1.launches += 1
+    return out
+
+
 KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
            xc_uks, int1e_ip, int1e_iprinv, int2e_ip1, int3c2e_ip, int2c2e_ip1,
            eval_ao_deriv2, xc_rks_grad, xc_uks_grad, int1e_r, int3c2e_lr,
            int2c2e_lr, int2e_lr, vv10, mp2_energy, ccsd_t, xc_fxc,
            xc_fxc_pairs, xc_rks_fxc, xc_uks_fxc, int1e_ipip, int3c2e_ip1,
-           int2c2e_ip1_full, int3c2e_ipip, int2c2e_ipip)
+           int2c2e_ip1_full, int3c2e_ipip, int2c2e_ipip, eval_ao_deriv3,
+           xc_rks_hess, xc_rks_deriv1)
 
 
 def reset_launches():

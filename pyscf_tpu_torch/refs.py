@@ -127,6 +127,16 @@ H -2.151390  1.242106  0.000000
 # radical C6H5, a sigma radical (charge 0, spin 1: na 21, nb 20)
 PHENYL = '\n'.join(line for line in BENZENE.splitlines()
                    if line.split()[1:3] != ['0.000000', '2.484212'])
+# hexafluorobenzene: the bench ring with each H replaced by an F 1.34
+# Angstrom from its C along the C-H bond (45 occupied orbitals on 12 atoms)
+C6F6 = '\n'.join(BENZENE.strip().splitlines()[:6]) + '''
+F  0.000000  2.736792  0.000000
+F  2.370131  1.368396  0.000000
+F  2.370131 -1.368396  0.000000
+F  0.000000 -2.736792  0.000000
+F -2.370131 -1.368396  0.000000
+F -2.370131  1.368396  0.000000
+'''
 WATER = 'O 0 0 0; H 0 -0.757 0.587; H 0 0.757 0.587'
 
 
@@ -147,6 +157,13 @@ def _h2o10():
 H2O10 = _h2o10()
 # config 4's N2 (examples/scaling_n2_qz.py:22)
 N2 = 'N 0 0 0; N 0 0 1.0977'
+# ammonia pyramidal, N 0.15 Angstrom above the plane of its three H (1.01
+# Angstrom from the axis): the start of the inversion saddle search, inside
+# the umbrella mode's region of negative curvature at B3LYP/def2-SVP (from
+# 0.2 Angstrom the P-RFO of geomopt.optimize_ts, which follows the lowest
+# Cartesian mode, falls to the pyramidal minimum)
+NH3_PYRAMID = ('N 0 0 0.15; H 1.01 0 0; H -0.505 0.874686 0; '
+               'H -0.505 -0.874686 0')
 # np.load-able arrays of the JAX package's values that the CPU tests read
 # (tests/port_refs_record.py and tests/hessian_refs_record.py say how each
 # was made)

@@ -105,20 +105,20 @@ def get_ab(mf, singlet=True):
         a = a + 2.0 * ovov
         b = b + 2.0 * ovov
     if hasattr(mf, 'xc'):
-        a_xc = _fxc_ov(mf, co, cv, singlet)
+        if mf.grids.coords is None:
+            mf.grids.build()
+        aod, weights = mf._numint.grid_ao(mf.mol, mf.grids, 1)
+        a_xc = _fxc_ov(mf, co, cv, aod, weights, singlet)
         a = a + a_xc
         b = b + a_xc
     return a, b
 
 
-def _fxc_ov(mf, co, cv, singlet=True):
+def _fxc_ov(mf, co, cv, aod_blocks, weights, singlet=True):
     """The XC coupling (nocc, nvir, nocc, nvir): sum over the grid of
     P^T w (f_aa +/- f_ab) P, the spin-adapted kernel of the closed shell
-    (xc_fxc), with P the pair features (xc_fxc_pairs)."""
-    mol = mf.mol
-    if mf.grids.coords is None:
-        mf.grids.build()
-    aod_blocks, weights = mf._numint.grid_ao(mol, mf.grids, 1)
+    (xc_fxc), with P the pair features (xc_fxc_pairs), on the caller's
+    deriv-1 AO blocks of grid_ao and their weights."""
     dm = mf.make_rdm1()
     xc = mf.xc_obj
     nocc, nvir = co.shape[1], cv.shape[1]

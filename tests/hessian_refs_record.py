@@ -12,7 +12,10 @@ conv_tol_grad 1e-9, def2-universal-jkfit) and mf.Hessian().kernel()
 ('<case>_hess', (natm, 3, natm, 3) in Ha/Bohr^2), with the seconds of the
 SCF and of the Hessian ('<case>_seconds'). Cases that are already in the
 file are kept, so the cases may be recorded by separate processes.
-'compare' alone prints the port's Hessians against the recorded ones.
+'compare' alone prints the port's Hessians against the recorded ones (for
+water_rks also with reference_vxc, the asymmetry of the JAX package's
+dE_xc/dD and the two- and four-point central differences of O's z
+column).
 
 The cases: 'h2' is H2/sto-3g at 0.74 Angstrom (tests/test_hessian.py's
 molecule), 'water_sto3g' and 'water_svp' water (refs.WATER) in sto-3g and
@@ -41,7 +44,22 @@ ones.
 
 'twins_fg' records the same derivatives at f, g and aux h, on FG_BASIS
 and FG_AUX (TWIN_1E_FG, TWIN_3C_FG, TWIN_2C_FG; run with
-XLA_FLAGS=--xla_disable_hlo_passes=constant_folding, about 2 minutes)."""
+XLA_FLAGS=--xla_disable_hlo_passes=constant_folding, about 2 minutes).
+
+'water_rks' is water/sto-3g DF-RKS b3lypg on the level-0 Becke grid
+(RKS_CASES; its points and weights stored as '<case>_grid_coords' and
+'_grid_weights'): SCF 37.0 s, Hessian 537.4 s on the CPU.
+
+'xc_twins' records the JAX derivatives that the DF-RKS Hessian's XC kernels
+are held to (about 45 s): 'xc_ao3', the third derivatives of the AO values
+of s to g shells (AO3_BASIS on FG_ATOMS, at AO3_POINTS seeded points) as
+jax.jacfwd(jax.jacfwd(...)) of eval_ao(..., deriv=1, atom_coords=X) on the
+AO's own atom, (10, npts, nao) in the order xxx, xxy, ..., zzz; and per
+functional of XC_TWINS, on water/def2-SVP's level-0 grid (every eighth
+point) with a seeded density matrix, 'xc_<name>_hess' jax.hessian of
+_exc_quadrature in X (3 natm, 3 natm) and 'xc_<name>_dv' jax.jacfwd in X
+of its jax.grad in D (nao, nao, 3 natm), with the inputs
+'xc_grid_coords', 'xc_grid_weights' and 'xc_dm'."""
 import os
 import sys
 import time
@@ -60,7 +78,10 @@ from pyscf_tpu.ops.integrals.int2e import (_aux_data_kernel, _eri_core,
 WATER = 'O 0 0 0; H 0 -0.757 0.587; H 0 0.757 0.587'
 CASES = {'h2': ('H 0 0 0; H 0 0 0.74', 'sto-3g'),
          'water_sto3g': (WATER, 'sto-3g'),
-         'water_svp': (WATER, 'def2-svp')}
+         'water_svp': (WATER, 'def2-svp'),
+         'water_rks': (WATER, 'sto-3g')}
+# the DF-RKS case: its functional and the level of its Becke grid
+RKS_CASES = {'water_rks': ('b3lypg', 0)}
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'pyscf_tpu_torch', 'data', 'hessian_water_refs.npz')
 # the twins' classes: one-electron (la, lb); three-centre (la, lb, lc) on
@@ -78,6 +99,14 @@ FG_ATOMS = 'O 0.1 0.2 -0.3; H 0.3 -0.7 0.6'
 FG_BASIS = {'O': [[4, [0.6, 1.0]], [0, [1.3, 1.0]]], 'H': [[3, [0.7, 1.0]]]}
 FG_AUX = {'O': [[5, [1.1, 1.0]], [0, [2.0, 1.0]]], 'H': [[0, [1.4, 1.0]]]}
 TWIN_1E_FG = ((4, 3),)
+# 'xc_twins': s to g shells for the AO third derivatives, seeded points;
+# the functionals of the XC terms
+AO3_BASIS = {'O': [[0, [3.0, 0.6], [0.8, 0.5]], [1, [1.1, 1.0]],
+                   [2, [0.9, 1.0]], [3, [0.7, 0.4], [2.0, 0.7]],
+                   [4, [0.6, 1.0]]],
+             'H': [[0, [1.2, 1.0]], [1, [0.9, 1.0]]]}
+AO3_POINTS = 40
+XC_TWINS = {'lda': 'lda,vwn', 'b3lypg': 'b3lypg'}
 TWIN_3C_FG = ((3, 4, 5),)
 TWIN_2C_FG = ((5, 0),)
 
@@ -85,7 +114,16 @@ TWIN_2C_FG = ((5, 0),)
 def record(case):
     atom, basis = CASES[case]
     mol = pt.M(atom=atom, basis=basis, verbose=0)
-    mf = mol.RHF().density_fit()
+    extra = {}
+    if case in RKS_CASES:
+        xc, level = RKS_CASES[case]
+        mf = mol.RKS(xc=xc).density_fit()
+        mf.grids.level = level
+        mf.grids.build()
+        extra = {f'{case}_grid_coords': np.asarray(mf.grids.coords),
+                 f'{case}_grid_weights': np.asarray(mf.grids.weights)}
+    else:
+        mf = mol.RHF().density_fit()
     mf.init_guess = 'minao'
     mf.conv_tol = 1e-12
     mf.conv_tol_grad = 1e-9
@@ -100,7 +138,7 @@ def record(case):
             f'{case}_mo_energy': np.asarray(mf.mo_energy),
             f'{case}_mo_occ': np.asarray(mf.mo_occ),
             f'{case}_e_tot': float(mf.e_tot), f'{case}_hess': h,
-            f'{case}_seconds': np.array([t1 - t0, t2 - t1])}
+            f'{case}_seconds': np.array([t1 - t0, t2 - t1]), **extra}
 
 
 # ---- the twins' inputs and the JAX derivatives ------------------------------
@@ -259,25 +297,127 @@ def twins(fg=False):
     return out
 
 
+def ao3_points():
+    return np.random.default_rng(0).normal(size=(AO3_POINTS, 3))
+
+
+def xc_dm(nao):
+    c = np.random.default_rng(2).standard_normal((nao, 5)) * 0.3
+    return 2.0 * c @ c.T
+
+
+def xc_twins():
+    from pyscf_tpu.dft import gen_grid as jax_gen_grid
+    from pyscf_tpu.dft import xc as jax_xc
+    from pyscf_tpu.dft.numint import _pad_grid
+    from pyscf_tpu.grad.autodiff import _exc_quadrature
+    from pyscf_tpu.ops.eval_gto import eval_ao as jax_eval_ao
+    out = {}
+    jmol = pt.M(atom=FG_ATOMS, basis=AO3_BASIS, verbose=0)
+    pts = ao3_points()
+    jac = np.asarray(jax.jit(jax.jacfwd(jax.jacfwd(lambda X: jax_eval_ao(
+        jmol, pts, deriv=1, atom_coords=X))))(jnp.asarray(jmol.coords)))
+    import pyscf_tpu_torch as tpt
+    from pyscf_tpu_torch.grad.rhf import _ao2atom_map
+    from pyscf_tpu_torch.ops.eval_gto import THIRD_DERIVS
+    atom = _ao2atom_map(tpt.M(atom=FG_ATOMS, basis=AO3_BASIS, device='cpu'))
+    # the AOs' order is the same in both packages
+    out['xc_ao3'] = np.stack([
+        np.stack([jac[1 + k, :, m, atom[m], i, atom[m], j]
+                  for m in range(jac.shape[2])], axis=1)
+        for i, j, k in THIRD_DERIVS])
+    print('xc_ao3', flush=True)
+    jmol = pt.M(atom=WATER, basis='def2-svp', verbose=0)
+    grids = jax_gen_grid.Grids(jmol)
+    grids.level = 0
+    grids.build()
+    c = np.asarray(grids.coords)[::8]
+    w = np.asarray(grids.weights)[::8]
+    cb, wb = _pad_grid(jnp.asarray(c), jnp.asarray(w), blk=c.shape[0])
+    D = xc_dm(jmol.nao)
+    X = jnp.asarray(np.asarray(jmol.coords))
+    out.update(xc_grid_coords=c, xc_grid_weights=w, xc_dm=D)
+    for name, code in XC_TWINS.items():
+        xc = jax_xc.parse_xc(code)
+
+        def f(X_, d):
+            return _exc_quadrature(jmol, xc, X_, d, cb, wb, True)
+
+        nt = 3 * jmol.natm
+        out[f'xc_{name}_hess'] = np.asarray(jax.jit(jax.hessian(f))(
+            X, jnp.asarray(D))).reshape(nt, nt)
+        out[f'xc_{name}_dv'] = np.asarray(jax.jit(jax.jacfwd(jax.grad(
+            f, argnums=1)))(X, jnp.asarray(D))).reshape(jmol.nao, jmol.nao,
+                                                        nt)
+        print(f'xc_{name}', flush=True)
+    return out
+
+
 def compare():
     """Print max |H_port - H_jax| (Ha/Bohr^2) of the recorded cases on the
     JAX orbitals, the port's own Hessian and with the reference's W
-    response (hessian/rhf.py hessian(..., reference_w=True))."""
+    response (hessian/rhf.py hessian(..., reference_w=True)); for
+    water_rks also with the reference's unsymmetrised dE_xc/dD
+    (reference_vxc=True), the asymmetry of the JAX package's jax.grad of
+    _exc_quadrature in D at the recorded density, and O's z diagonal of
+    the port's own Hessian against the two- and four-point central
+    differences (step 1e-3 Bohr) of the port's gradient on the recorded
+    fixed grid."""
     import torch
     import pyscf_tpu_torch as tpt
+    from pyscf_tpu_torch import hessian
     from pyscf_tpu_torch.hessian import rhf
     r = np.load(OUT)
     for case in CASES:
         if f'{case}_hess' not in r.files:
             continue
         atom, basis = CASES[case]
-        mf = tpt.M(atom=atom, basis=basis, device='cpu').RHF().density_fit()
+        mol = tpt.M(atom=atom, basis=basis, device='cpu')
+        if case in RKS_CASES:
+            mf = mol.RKS(xc=RKS_CASES[case][0]).density_fit()
+            mf.grids.coords = torch.as_tensor(r[f'{case}_grid_coords'])
+            mf.grids.weights = torch.as_tensor(r[f'{case}_grid_weights'])
+        else:
+            mf = mol.RHF().density_fit()
         for k in ('mo_coeff', 'mo_energy', 'mo_occ'):
             setattr(mf, k, torch.as_tensor(r[f'{case}_{k}']))
-        diffs = [float(np.abs(rhf.hessian(mf, reference_w=w)[0]
-                              - r[f'{case}_hess']).max())
-                 for w in (False, True)]
+        ref = r[f'{case}_hess']
+        h = rhf.hessian(mf)[0]
+        diffs = [float(np.abs(h - ref).max()), float(np.abs(
+            rhf.hessian(mf, reference_w=True)[0] - ref).max())]
         print(case, 'port', diffs[0], 'port with reference_w', diffs[1])
+        if case not in RKS_CASES:
+            continue
+        print(case, 'port with reference_w and reference_vxc', float(np.abs(
+            rhf.hessian(mf, reference_w=True, reference_vxc=True)[0]
+            - ref).max()))
+        from pyscf_tpu.dft import xc as jax_xc
+        from pyscf_tpu.dft.numint import _pad_grid
+        from pyscf_tpu.grad.autodiff import _exc_quadrature
+        jmol = pt.M(atom=atom, basis=basis, verbose=0)
+        cb, wb = _pad_grid(jnp.asarray(r[f'{case}_grid_coords']),
+                           jnp.asarray(r[f'{case}_grid_weights']))
+        co = r[f'{case}_mo_coeff'][:, r[f'{case}_mo_occ'] > 0]
+        xc = jax_xc.parse_xc(RKS_CASES[case][0])
+        v = np.asarray(jax.grad(lambda d: _exc_quadrature(
+            jmol, xc, jnp.asarray(jmol.coords), d, cb, wb, True))(
+            jnp.asarray(2.0 * co @ co.T)))
+        print(case, 'JAX dE_xc/dD: max |V - V^T|', float(np.abs(
+            v - v.T).max()), 'of max |V|', float(np.abs(v).max()))
+        grids = (mf.grids.coords, mf.grids.weights)
+
+        def grad(m):
+            f = m.RKS(xc=RKS_CASES[case][0]).density_fit()
+            f.grids.coords, f.grids.weights = grids
+            f.conv_tol, f.conv_tol_grad = 1e-12, 1e-9
+            f.kernel()
+            return f.Gradients().kernel()
+
+        for points in (2, 4):
+            fd = hessian.fd_columns(grad, mol, [(0, 2)], points=points)[0]
+            print(case, f'{points}-point central differences of O z: '
+                  f'|H - H_fd| at O z {abs(h[0, 2, 0, 2] - fd[0, 2]):.3e}, '
+                  f'max over the column {np.abs(h[0, 2] - fd).max():.3e}')
 
 
 def main(cases):
@@ -287,6 +427,8 @@ def main(cases):
     for case in cases:
         if case in ('twins', 'twins_fg'):
             rec = twins(case == 'twins_fg')
+        elif case == 'xc_twins':
+            rec = xc_twins()
         else:
             rec = record(case)
         out = dict(np.load(OUT)) if os.path.exists(OUT) else {}

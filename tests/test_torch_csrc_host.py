@@ -4,9 +4,10 @@ sources, compiled for the host with g++, against their plain twins.
 There is no CUDA compiler or card where the fast tests run, so this file
 compiles csrc/int1e_stv.cu, int3c2e.cu, int2c2e.cu, int2e.cu, int1e_ip.cu,
 int1e_iprinv.cu, int2e_ip1.cu, int3c2e_ip.cu, int2c2e_ip1.cu, int1e_r.cu,
-vv10.cu, mp2_energy.cu, ccsd_t.cu and the nuclear Hessian's int1e_ipip.cu,
+vv10.cu, mp2_energy.cu, ccsd_t.cu, the nuclear Hessian's int1e_ipip.cu,
 int3c2e_ip1.cu, int3c2e_ipip.cu and int2c2e_ipip.cu (both of its kernels)
-as C++ behind a small stand-in for
+and the DF-RKS Hessian's eval_ao.cu (deriv 0 to 3) and xc_rks_hess.cu
+(both of its kernels) as C++ behind a small stand-in for
 cuda_runtime.h (the qualifiers defined away, shared arrays static, the
 dynamic shared memory a static array, a launch turned into a loop over
 blocks and threads, in order, so that vv10.cu, mp2_energy.cu and
@@ -17,7 +18,8 @@ r)/r attenuation; int1e_stv.cu, int3c2e.cu, int2c2e.cu and int2e.cu
 also on a basis of s to g shells with an aux basis of s to h, at the (ff)
 and (gg) bra classes and aux l 5; the dipole kernel on that basis; vv10.cu
 on a water grid, and mp2_energy.cu and ccsd_t.cu on seeded tensors of a
-water-sized correlated calculation; and the second-order dual numbers of
+water-sized correlated calculation; eval_ao.cu on s to g shells and
+xc_rks_hess.cu on a water/def2-SVP grid at a seeded density, LDA and B3LYP; and the second-order dual numbers of
 xc_funcs.cuh (HDualN, the functional of the XC response kernels xc_fxc,
 xc_rks_fxc and xc_uks_fxc) through a small harness program, against
 torch.func.hessian of dft/xc_funcs.py and jax.hessian of the JAX
@@ -73,6 +75,9 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 using std::fmax;
+// declared for xc_point.cuh's warp reductions, which no host-built kernel
+// calls
+double __shfl_xor_sync(unsigned, double, int);
 template <class F, class... A>
 void host_launch(int blocks, int threads, F f, A... a) {
   blockDim.x = threads;
@@ -93,7 +98,8 @@ LIBS = ('int1e_stv', 'int3c2e_la0', 'int3c2e_la1', 'int3c2e_la2',
         'int1e_r', 'vv10', 'mp2_energy', 'ccsd_t', 'int1e_ipip',
         *[f'int3c2e_ip1_la{la}' for la in range(5)],
         *[f'int3c2e_ipip_la{la}' for la in range(5)],
-        'int2c2e_ip1_full', 'int2c2e_ipip')
+        'int2c2e_ip1_full', 'int2c2e_ipip', 'eval_ao', 'xc_rks_hess',
+        'xc_rks_deriv1')
 OMEGA = 0.3
 DEV = torch.device('cpu')
 
@@ -136,8 +142,12 @@ class _HostLibs:
             text, n = re.subn(
                 r'(\w+<[^;<>]*>)<<<blocks, threads, \w+, stream>>>\(\s*',
                 r'host_launch(blocks, threads, \1, ', text)
-            assert n == 1
+            # one launch per kernel; a source of two kernels keeps each in
+            # a preprocessor branch of its own
+            assert n == (2 if src == 'xc_rks_hess.cu' else 1)
             (out / f'{lib}.cpp').write_text(text)
+            # the -D flags; nvcc's own (-fmad=false) mean nothing to g++
+            flags = [f for f in flags if f.startswith('-D')]
             jobs.append((lib, subprocess.Popen(
                 [self.gxx, '-O0', '-std=c++17', '-shared', '-fPIC', '-w',
                  *flags, '-I', str(out), '-I', kernels._CSRC, '-o',
@@ -573,6 +583,65 @@ def test_vv10(host):
     assert abs(float(out[0].sum() - e)) <= 1e-12 * abs(float(e))
     _close(out[1], dr)
     _close(out[2], dg)
+
+
+def test_eval_ao_to_third_derivatives(host):
+    """eval_ao.cu, deriv 0 to 3, on s to g shells at seeded points against
+    eval_ao_plain: 1e-12 of the largest element per deriv."""
+    from pyscf_tpu_torch.ops import eval_gto
+    mol = tpt.M(atom='O 0.1 0.2 -0.3; H 0.3 -0.7 0.6', basis=HOST_BASIS,
+                device='cpu')
+    pts = torch.as_tensor(np.random.default_rng(8).normal(size=(50, 3)))
+    tables = eval_gto.ao_tables(mol)
+    for deriv in range(4):
+        ref = eval_gto.eval_ao_plain(tables, pts, mol.nao, deriv)
+        out = torch.zeros_like(ref)
+        for l, e, c, r, off in tables:
+            assert host['eval_ao'](
+                l, deriv, pts.shape[0], e.shape[0], e.shape[1],
+                *_ptrs(pts, e, c, r, off, sph(l, DEV), out), mol.nao,
+                None) == 0
+        _close(out, ref)
+
+
+@pytest.mark.parametrize('code', ['lda,vwn', 'b3lypg'])
+def test_xc_rks_hess_and_deriv1(host, code):
+    """xc_rks_hess.cu's two kernels on every eighth point of water/def2-SVP's
+    level-0 grid at a seeded density against xc_rks_hess_plain and
+    xc_rks_deriv1_plain: the per-point outputs within 1e-10 of each one's
+    largest element, the card's limit for the contracted results."""
+    from pyscf_tpu_torch.dft import gen_grid
+    from pyscf_tpu_torch.ops import eval_gto
+    mol = tpt.M(atom=refs.WATER, basis='def2-svp', device='cpu')
+    grids = gen_grid.Grids(mol)
+    grids.level = 0
+    grids.build()
+    coords, w = grids.coords[::8].contiguous(), grids.weights[::8].contiguous()
+    f = xc.parse_xc(code)
+    gga = f.is_gga
+    aod = eval_gto.eval_ao(mol, coords, 3 if gga else 2)
+    c = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (mol.nao, 5))) * 0.3
+    nd = 4 if gga else 1
+    B, nao, natm = coords.shape[0], mol.nao, mol.natm
+    dmao = (aod[:nd].reshape(-1, nao) @ (2 * c @ c.T)).reshape(nd, B, nao)
+    atom_off, ao_atom = numint.atom_ranges(mol)
+    ref = numint.xc_rks_hess_plain(aod, dmao, w, f, atom_off)
+    got = [torch.empty_like(t) for t in ref]
+    ids, coeffs, _ = kernels._xc_terms(f, 'xc_rks_hess',
+                                       kernels.XC_FXC_COMPONENTS)
+    assert host['xc_rks_hess'](
+        int(gga), B, nao, natm, *_ptrs(atom_off, aod, dmao, w),
+        len(f.terms), ids, coeffs, *_ptrs(*got), None) == 0
+    for g, r in zip(got, ref):
+        _close_contracted(g, r)
+    wv, _, ht, _, xr = ref
+    ref1 = numint.xc_rks_deriv1_plain(aod, wv, ht, xr, ao_atom, 2, 5)
+    got1 = torch.empty_like(ref1)
+    assert host['xc_rks_deriv1'](
+        int(gga), B, nao, 2, 5, *_ptrs(ao_atom, aod, wv, ht, xr, got1),
+        None) == 0
+    _close_contracted(got1, ref1)
 
 
 def test_int2e_ip1(host, water):

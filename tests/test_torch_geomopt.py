@@ -134,9 +134,3 @@ def test_water_internal_optimisation():
     assert len(e_i) == len(refs.E_WATER_OPT_RHF_STO3G)
     assert np.max(np.abs(np.array(e_i)
                          - np.array(refs.E_WATER_OPT_RHF_STO3G))) < 1e-8
-
-
-def test_optimize_ts_raises():
-    mol = tpt.M(atom=CHAIN, basis='sto-3g', device='cpu')
-    with pytest.raises(NotImplementedError, match='Hessian'):
-        tpt.geomopt.optimize_ts(lambda m: None, mol)

@@ -302,10 +302,13 @@ def _unconverged(kind, **kw):
 
 @pytest.mark.parametrize('kind,spin', [('RKS', 0), ('UHF', 1), ('UKS', 1)])
 def test_df_rks_uhf_uks_raise(kind, spin):
-    """DF-RKS, DF-UHF and DF-UKS: NotImplementedError naming the later
-    slice, never a finite-difference Hessian (the reference computes
-    them analytically)."""
+    """DF-RKS goes to the analytic Hessian; DF-UHF and DF-UKS raise
+    NotImplementedError naming the later slice, never a finite-difference
+    Hessian (the reference computes them analytically)."""
     mf = _unconverged(kind, charge=spin, spin=spin).density_fit()
+    if kind == 'RKS':
+        assert isinstance(mf.Hessian(), hess_rhf.Hessian)
+        return
     with pytest.raises(NotImplementedError, match='not ported'):
         mf.Hessian()
 

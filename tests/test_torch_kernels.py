@@ -903,3 +903,67 @@ def test_hessian_on_card_launches_its_kernels(water):
         assert got[k] > 0
     hm = h.reshape(9, 9)
     assert np.abs(h.sum(axis=0)).max() < 1e-7 and np.abs(hm - hm.T).max() < 1e-9
+
+
+@pytest.mark.parametrize('basis', ['def2-svp', 'cc-pvqz'])
+def test_eval_ao_deriv3(water_grid, basis):
+    """eval_ao deriv 3 (to g at cc-pVQZ) against its twin, 1e-12 x max;
+    counted as eval_ao_deriv3 alone."""
+    mol = tpt.M(atom=refs.WATER, basis=basis, device='cuda')
+    tables = eval_gto.ao_tables(mol)
+    kernels.reset_launches()
+    got = kernels.eval_ao(tables, water_grid.coords, mol.nao, 3)
+    n = kernels.launches()
+    assert n['eval_ao_deriv3'] == len(tables)
+    assert n['eval_ao'] == n['eval_ao_deriv2'] == 0
+    ref = eval_gto.eval_ao_plain(tables, water_grid.coords, mol.nao, 3)
+    assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+def test_xc_rks_hess_and_deriv1(water, water_grid, xc_code):
+    """xc_rks_hess and xc_rks_deriv1 at a seeded density on water's grid
+    against their twins: each output within 1e-10 of its largest element."""
+    mol, _ = water
+    f = xc.parse_xc(xc_code)
+    aod = eval_gto.eval_ao(mol, water_grid.coords, 3 if f.is_gga else 2)
+    rng = np.random.default_rng(5)
+    c = torch.as_tensor(rng.standard_normal((mol.nao, 5)) * 0.3,
+                        device='cuda')
+    nd = 4 if f.is_gga else 1
+    dmao = (aod[:nd].reshape(-1, mol.nao) @ (2.0 * c @ c.T)).reshape(
+        nd, -1, mol.nao)
+    atom_off, ao_atom = numint.atom_ranges(mol)
+    w = water_grid.weights
+    got = kernels.xc_rks_hess(aod, dmao, w, f, atom_off)
+    ref = numint.xc_rks_hess_plain(aod.cpu(), dmao.cpu(), w.cpu(), f,
+                                   atom_off.cpu())
+    for g, r in zip(got, ref):
+        assert torch.max(torch.abs(g.cpu() - r)) <= 1e-10 * r.abs().max()
+    wv, _, ht, _, xr = got
+    v1 = kernels.xc_rks_deriv1(aod, wv, ht, xr, ao_atom, 0, 3 * mol.natm)
+    ref1 = numint.xc_rks_deriv1_plain(aod.cpu(), wv.cpu(), ht.cpu(),
+                                      xr.cpu(), ao_atom.cpu(), 0,
+                                      3 * mol.natm)
+    assert torch.max(torch.abs(v1.cpu() - ref1)) <= 1e-10 * ref1.abs().max()
+
+
+def test_rks_hessian_on_card_launches_its_kernels(water):
+    """mf.Hessian().kernel() of water/def2-SVP DF-RKS b3lypg on the card
+    launches eval_ao_deriv3, xc_rks_hess, xc_rks_deriv1, xc_fxc,
+    xc_fxc_pairs and xc_rks_fxc beside the RHF Hessian's kernels, and is
+    symmetric."""
+    mol, _ = water
+    mf = mol.RKS(xc='b3lypg').density_fit()
+    mf.grids.level = 1
+    mf.conv_tol = 1e-12
+    mf.kernel()
+    kernels.reset_launches()
+    h = mf.Hessian().kernel()
+    got = kernels.launches()
+    for k in ('eval_ao_deriv3', 'xc_rks_hess', 'xc_rks_deriv1', 'xc_fxc',
+              'xc_fxc_pairs', 'xc_rks_fxc', 'int1e_ipip', 'int3c2e_ip1',
+              'int3c2e_ipip'):
+        assert got[k] > 0
+    hm = h.reshape(9, 9)
+    assert np.abs(hm - hm.T).max() < 1e-9
