@@ -3,13 +3,14 @@
 
 Drives the port's paths for benzene/def2-SVP, the phenyl radical and
 water, then BASELINE configs 3 ((H2O)10/cc-pVTZ) and 4 (N2/cc-pVQZ), the
-forces and frequencies of the f and g shells, and the DF-RKS Hessian and
-the transition-state search on the card, in order:
+forces and frequencies of the f and g shells, the DF-RKS Hessian and the
+transition-state search, and the DF-UHF/UKS Hessian with PBE and PBE0 in
+every XC kernel, on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the sixty-eight kernel libraries of the thirty-five kernels
-     from the twenty-seven sources of pyscf_tpu_torch/csrc (nvcc, sm_90a,
+  2. builds the seventy kernel libraries of the thirty-seven kernels
+     from the twenty-eight sources of pyscf_tpu_torch/csrc (nvcc, sm_90a,
      one process per library, all at once), and prints the compile seconds
-     and ptxas register lines of eval_ao, xc_rks_hess and xc_rks_deriv1;
+     and ptxas register lines of eval_ao and of every XC library;
   3. integral kernel phases at the main path's shapes: each kernel against
      its plain PyTorch twin on the same card inputs (S/T/V <= 1e-12; raw 3c
      rows and (P|Q) <= 1e-12 x max|value|; the whitened factor B <= 1e-10);
@@ -169,8 +170,9 @@ the transition-state search on the card, in order:
  37. the Hessian path: benzene DF-RHF/def2-SVP from M() (minao, conv_tol
      1e-12, conv_tol_grad 1e-8) and mf.Hessian().kernel(): the five
      Hessian kernels, int1e_ip and int1e_iprinv launched in that run;
-     |sum_A H[A]| <= 1e-7, |H - H^T| <= 1e-9, every column against
-     central differences of the analytic gradient (step 1e-3 Bohr, SCFs at
+     |sum_A H[A]| <= 1e-7, |H - H^T| <= 1e-9, twelve columns (every
+     direction of two neighbouring C and their H) against central
+     differences of the analytic gradient (step 1e-3 Bohr, SCFs at
      conv_tol 1e-12 and conv_tol_grad 1e-9) within 1e-5 Ha/Bohr^2; one
      warm time, the phases, the CPHF iterations, the peak memory, the
      harmonic frequencies and the thermochemistry printed;
@@ -225,14 +227,15 @@ the transition-state search on the card, in order:
      13 (|de_z| and the mirror planes within 1e-8, central differences
      with the grid held fixed within 1e-6; no JAX reference at this
      width);
- 47. the DF-RHF Hessian and harmonic frequencies of benzene/cc-pVTZ (nao
-     264, naux 654) and water/cc-pVQZ from M() (conv_tol 1e-12,
-     conv_tol_grad 1e-8), as in 37: the seven kernels launched, the sum
-     rule within 1e-7, the symmetry within 1e-9, central differences of
-     the analytic gradient within 1e-5 on four columns (one C x and z, one
-     H x and y) and on all nine; the eight phases, the peak memory and the
-     frequencies printed; after benzene/cc-pVTZ's, its five kernels
-     against their twins at its shapes as in 38 (rows <kernel>_tz);
+ 47. the DF-RHF Hessian and harmonic frequencies of water/cc-pVTZ (f on
+     O; smaller than benzene/cc-pVTZ, whose twins take 100-150 s) and
+     water/cc-pVQZ from M() (conv_tol 1e-12, conv_tol_grad 1e-8), as in
+     37: the seven kernels launched, the sum rule within 1e-7, the
+     symmetry within 1e-9, central differences of the analytic gradient
+     within 1e-5 on all nine columns of each; the eight phases, the peak
+     memory and the frequencies printed; after water/cc-pVTZ's, its five
+     kernels against their twins at its shapes as in 38 (rows
+     <kernel>_tz);
  48. int3c2e_ipip's (gg|h) class, R_tuv to order 15, on two g shells and
      an h aux shell whose primitive triples put the Boys argument on both
      sides of 18, against its twin within 1e-12 of the twin's largest
@@ -243,7 +246,8 @@ the transition-state search on the card, in order:
      the RHF Hessian's seven kernels, eval_ao_deriv3, xc_rks_hess,
      xc_rks_deriv1, xc_fxc, xc_fxc_pairs and xc_rks_fxc launched in that
      run, |H - H^T| <= 1e-9
-     (the sum rule printed: no grid response), all 36 columns against the
+     (the sum rule printed: no grid response), six columns (every
+     direction of one C and of one H) against the
      four-point central differences of the analytic gradient on the same
      fixed grid within 1e-5 Ha/Bohr^2; the phases (xc_rows, xc_F1 among
      them), a warm time, the CPHF iterations, the peak memory, the
@@ -262,7 +266,38 @@ the transition-state search on the card, in order:
      pyramid 0.15 Angstrom high: max|g| < 3e-4, N within 1e-3 Angstrom of
      the H3 plane, the DF-RKS Hessian's kernels launched, exactly one
      imaginary frequency at the saddle;
- 53. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 53. the DF-UKS Hessian of the phenyl radical, DF-UKS b3lypg/def2-SVP
+     (nao 109, 11 atoms, 33 tangents, its default grid) from M() (minao,
+     conv_tol 1e-12, conv_tol_grad 1e-8) through mf.Hessian().kernel()
+     (hessian/uhf.py): the RHF Hessian's seven kernels, eval_ao_deriv3,
+     xc_uks_hess, xc_uks_deriv1 and xc_uks_fxc launched, |H - H^T| <=
+     1e-9, the nine columns of the radical carbon, its ortho carbon and
+     the ortho hydrogen against the fixed-grid four-point central
+     differences within 1e-5 Ha/Bohr^2; the phases, a warm time, the CPHF
+     iterations, the peak memory and the frequencies printed; then
+     eval_ao deriv 3 (<= 1e-12 x max, row eval_ao_deriv3_phenyl),
+     xc_uks_hess and xc_uks_deriv1 (<= 1e-10 x max) at its shapes against
+     their twins;
+ 54. the same path with PBE0 (its forces too: energy check 1e-6, |de_z|
+     and the x-mirror 1e-8; three columns of the radical carbon), and the
+     open-shell XC kernels with PBE0 against their twins at its density:
+     xc_uks, xc_uks_grad, xc_uks_fxc (five seeded transition densities),
+     xc_uks_hess and xc_uks_deriv1 (rows <kernel>_pbe0);
+ 55. benzene DF-RKS PBE/def2-SVP from M(): energy, forces (energy check
+     1e-6, |de_z| and the mirror planes 1e-8) and Hessian (symmetric to
+     1e-9), and the closed-shell XC kernels with PBE against their twins
+     at its density: xc_rks, xc_rks_grad, xc_fxc, xc_fxc_pairs,
+     xc_rks_fxc, xc_rks_hess and xc_rks_deriv1 (rows <kernel>_pbe);
+ 56. tests/test_ts_opt.py's H + H2 exchange saddle by geomopt.optimize_ts
+     on DF-UHF/sto-3g with that test's asserts (max|g| < 5e-4, equal H-H
+     distances within 5e-3 Bohr between 1.5 and 2.1, one negative
+     eigenvalue of the analytic Hessian), the DF-UHF Hessian's kernels
+     launched;
+ 57. the DF-UHF Hessian of the methyl radical at triple zeta, CH3/
+     def2-TZVP (f on C; 12 tangents), as step 37 for DF-RHF: sum rule
+     1e-7, symmetry 1e-9, all 12 columns against two-point central
+     differences of the gradient within 1e-5;
+ 58. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
@@ -276,8 +311,10 @@ the transition-state search on the card, in order:
      (at config 4's) from 41, the DF gradient's four <kernel>_tz from 44
      and <kernel>_qz from 45's water/cc-pVQZ, the Hessian's five
      <kernel>_tz and <kernel>_qz from 47, eval_ao_deriv3, xc_rks_hess and
-     xc_rks_deriv1 from 49 and their <kernel>_tz from 51, the others from
-     6), then the result line {"ok": true, "device": {...}}.
+     xc_rks_deriv1 from 49 and their <kernel>_tz from 51, xc_uks_hess,
+     xc_uks_deriv1 and eval_ao_deriv3_phenyl from 53, the <kernel>_pbe0
+     from 54, the <kernel>_pbe from 55, the others from 6), then the
+     result line {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
 import contextlib
@@ -1337,9 +1374,10 @@ def df_grad_phases(kernels, mf, report, suffix=''):
           f'1e-10 x {scale:.3e}')
 
 
-def xc_grad_phases(kernels, mf, report):
-    """eval_ao_deriv2 and xc_rks_grad against their twins on the converged
-    DF-RKS's grid and density."""
+def xc_grad_phases(kernels, mf, report, suffix='', with_ao=True):
+    """eval_ao_deriv2 (unless not with_ao) and xc_rks_grad against their
+    twins on the converged DF-RKS's grid and density; xc_rks_grad recorded
+    as xc_rks_grad<suffix>."""
     from pyscf_tpu_torch.dft import numint
     from pyscf_tpu_torch.grad import df
     from pyscf_tpu_torch.ops import eval_gto
@@ -1349,22 +1387,24 @@ def xc_grad_phases(kernels, mf, report):
     coords, weights = mf.grids.coords, mf.grids.weights
     tables = eval_gto.ao_tables(mol)
     ao_k = kernels.eval_ao_deriv2(tables, coords, nao)
-    ao_p = eval_gto.eval_ao_plain(tables, coords, nao, 2)
-    err, scale = max_abs([(ao_k, ao_p)])
-    del ao_p
     npts = coords.shape[0]
-    ops = 0.0
-    for l, e, c, _, _ in tables:
-        nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
-        ops += npts * e.shape[0] * (8 + 9 * e.shape[1]
-                                    + 10 * nc * (l + 8 + 2 * d))
-    record(report, 'eval_ao_deriv2', 'pyscf_tpu_torch/csrc/eval_ao.cu',
-           'pyscf_tpu/ops/eval_gto.py:63', err,
-           lambda: kernels.eval_ao_deriv2(tables, coords, nao),
-           lambda: eval_gto.eval_ao_plain(tables, coords, nao, 2),
-           nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables), ops)
-    check(err <= 1e-12 * scale, f'eval_ao deriv 2 vs plain: {err:.3e} > '
-          f'1e-12 x {scale:.3e}')
+    if with_ao:
+        ao_p = eval_gto.eval_ao_plain(tables, coords, nao, 2)
+        err, scale = max_abs([(ao_k, ao_p)])
+        del ao_p
+        ops = 0.0
+        for l, e, c, _, _ in tables:
+            nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
+            ops += npts * e.shape[0] * (8 + 9 * e.shape[1]
+                                        + 10 * nc * (l + 8 + 2 * d))
+        record(report, 'eval_ao_deriv2', 'pyscf_tpu_torch/csrc/eval_ao.cu',
+               'pyscf_tpu/ops/eval_gto.py:63', err,
+               lambda: kernels.eval_ao_deriv2(tables, coords, nao),
+               lambda: eval_gto.eval_ao_plain(tables, coords, nao, 2),
+               nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables),
+               ops)
+        check(err <= 1e-12 * scale, f'eval_ao deriv 2 vs plain: {err:.3e} > '
+              f'1e-12 x {scale:.3e}')
 
     f = mf.xc_obj
     dmao = (ao_k[:4].reshape(-1, nao) @ dm).reshape(4, -1, nao)
@@ -1372,11 +1412,12 @@ def xc_grad_phases(kernels, mf, report):
     g_p, e_p = numint.xc_rks_grad_plain(ao_k, dmao, weights, f)
     err, scale = max_abs([(g_k, g_p)])
     rel_e = abs(float(e_k - e_p)) / abs(float(e_p))
-    print(f'xc_rks_grad at the DF-RKS density: exc {float(e_k):.12f} (rel '
-          f'diff {rel_e:.2e})')
+    print(f'xc_rks_grad{suffix} ({mf.xc}) at the DF-RKS density: exc '
+          f'{float(e_k):.12f} (rel diff {rel_e:.2e})')
     # per point and AO 13 reads and ~40 operations; the functional's few
     # hundred per point are not counted
-    record(report, 'xc_rks_grad', 'pyscf_tpu_torch/csrc/xc_rks_grad.cu',
+    record(report, f'xc_rks_grad{suffix}',
+           'pyscf_tpu_torch/csrc/xc_rks_grad.cu',
            'pyscf_tpu/grad/autodiff.py:199', err,
            lambda: kernels.xc_rks_grad(ao_k, dmao, weights, f),
            lambda: numint.xc_rks_grad_plain(ao_k, dmao, weights, f),
@@ -1389,7 +1430,7 @@ def xc_grad_phases(kernels, mf, report):
 
 # ---- DF-UKS forces, the dipole and geometry optimisation ------------------
 
-def xc_uks_grad_phase(kernels, mf, report):
+def xc_uks_grad_phase(kernels, mf, report, name='xc_uks_grad'):
     """xc_uks_grad against its twin at the converged phenyl DF-UKS spin
     density on its whole default grid, block by block as uks_grad cuts
     it: g <= 1e-10 x max|g|, exc <= 1e-11 relative."""
@@ -1415,11 +1456,12 @@ def xc_uks_grad_phase(kernels, mf, report):
     rel_e = abs(e_k - e_p) / abs(e_p)
     aod, dmao, w = first
     nb = w.shape[0]
-    print(f'xc_uks_grad at the DF-UKS phenyl spin density: {npts} points in '
-          f'blocks of {blk}, exc {e_k:.12f} (rel diff {rel_e:.2e})')
+    print(f'{name} ({mf.xc}) at the DF-UKS phenyl spin density: {npts} '
+          f'points in blocks of {blk}, exc {e_k:.12f} (rel diff '
+          f'{rel_e:.2e})')
     # per point and AO 18 reads and ~75 operations; the functional's few
     # thousand per point are not counted
-    record(report, 'xc_uks_grad', 'pyscf_tpu_torch/csrc/xc_uks_grad.cu',
+    record(report, name, 'pyscf_tpu_torch/csrc/xc_uks_grad.cu',
            'pyscf_tpu/grad/autodiff.py:228', err,
            lambda: kernels.xc_uks_grad(aod, dmao, w, f),
            lambda: numint.xc_uks_grad_plain(aod, dmao, w, f),
@@ -2158,9 +2200,11 @@ def tdscf_benzene_path(pt, refs, kernels):
     return mf, launches
 
 
-def fxc_phases(kernels, mf, report):
-    """The four response kernels at the converged benzene DF-RKS density
-    on its whole grid, each against its plain twin on the card: xc_fxc
+def fxc_phases(kernels, mf, report, suffix='',
+               tangents=('xc_rks_fxc', 'xc_uks_fxc')):
+    """The response kernels xc_fxc, xc_fxc_pairs and `tangents` (recorded
+    as <kernel><suffix>) at the converged benzene DF-RKS density on its
+    whole grid, each against its plain twin on the card: xc_fxc
     (singlet kernel) <= 1e-10 x max|H|; xc_fxc_pairs on one chunk of the
     size get_ab uses <= 1e-10 x max; xc_rks_fxc and xc_uks_fxc along five
     seeded transition densities (the Davidson's first batch) <= 1e-10 x
@@ -2178,11 +2222,12 @@ def fxc_phases(kernels, mf, report):
     h_k = kernels.xc_fxc(aod, dmao, w, f)
     h_p, plain_s = host_s(lambda: plain_fxc(aod, dmao, w, f))
     err, scale = max_abs([(h_k, h_p)])
-    print(f'xc_fxc: {npts} points, max|H| {scale:.3e}, twin {plain_s:.3f} s')
+    print(f'xc_fxc{suffix} ({mf.xc}): {npts} points, max|H| {scale:.3e}, '
+          f'twin {plain_s:.3f} s')
     # reductions of rho and grad rho (8 per point and AO) and the 8x8
     # chain rule (1040 per point); the functional's tens of thousands per
     # point on second-order dual numbers are not counted
-    record(report, 'xc_fxc', 'pyscf_tpu_torch/csrc/xc_fxc.cu',
+    record(report, f'xc_fxc{suffix}', 'pyscf_tpu_torch/csrc/xc_fxc.cu',
            'pyscf_tpu/tdscf/rhf.py:96', err,
            lambda: kernels.xc_fxc(aod, dmao, w, f), plain_s * 1e3,
            nbytes(aod, dmao, w, h_k), 8.0 * npts * nao + 1040.0 * npts)
@@ -2204,7 +2249,7 @@ def fxc_phases(kernels, mf, report):
           f'{2 * nbytes(got[0]) / 1e9:.3f} GB, {-(-npts // step)} chunks '
           f'per grid')
     # P: 10 operations per point and pair, H P: 28
-    record(report, 'xc_fxc_pairs', 'pyscf_tpu_torch/csrc/xc_fxc.cu',
+    record(report, f'xc_fxc_pairs{suffix}', 'pyscf_tpu_torch/csrc/xc_fxc.cu',
            'pyscf_tpu/tdscf/rhf.py:130', err,
            lambda: kernels.xc_fxc_pairs(oo, ov, hs, (0,)),
            lambda: numint.xc_fxc_pairs_plain(oo, ov, hs, (0,)),
@@ -2232,12 +2277,14 @@ def fxc_phases(kernels, mf, report):
              (aod, torch.stack([0.5 * d0, 0.5 * d0]),
               torch.stack([0.5 * d1, -0.5 * d1], dim=1).contiguous(), w, f),
              (16.0 + 32.0 * 5) * npts * nao)):
+        if name not in tangents:
+            continue
         got, ref = fn(*args), plain(*args)
         err, scale = max_abs([(got, ref)])
         del ref
         # reductions (8 per point and AO per density) and the rows (8 per
         # point and AO per output); the functional is not counted
-        record(report, name, f'pyscf_tpu_torch/csrc/{name}.cu',
+        record(report, name + suffix, f'pyscf_tpu_torch/csrc/{name}.cu',
                'pyscf_tpu/tdscf/rhf.py:218' if name == 'xc_rks_fxc'
                else 'pyscf_tpu/tdscf/rhf.py:237', err,
                lambda: fn(*args), lambda: plain(*args),
@@ -2588,8 +2635,9 @@ def tight_df_rhf(mol, conv_tol_grad):
 
 
 
-def hessian_path(pt, kernels, name, atom, basis, picks, e_ref=None):
-    """The DF-RHF Hessian and harmonic frequencies at atom/basis from M()
+def hessian_path(pt, kernels, name, atom, basis, picks, e_ref=None, spin=0):
+    """The DF-RHF (DF-UHF with spin) Hessian and harmonic frequencies at
+    atom/basis from M()
     (minao, conv_tol 1e-12, conv_tol_grad 1e-8) through
     mf.Hessian().kernel(), the launch counts set to 0 just before and read
     just after: its seven kernels launched, |sum_A H[A]| <= 1e-7, |H - H^T|
@@ -2603,10 +2651,11 @@ def hessian_path(pt, kernels, name, atom, basis, picks, e_ref=None):
     is a reference. Returns (mf, launches)."""
     from pyscf_tpu_torch import hessian
 
+    tight_df = tight_df_uhf if spin else tight_df_rhf
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    mf = tight_df_rhf(pt.M(atom=atom, basis=basis), 1e-8)
+    mf = tight_df(pt.M(atom=atom, basis=basis, spin=spin), 1e-8)
     torch.cuda.synchronize()
     t_scf = time.perf_counter() - t0
     if e_ref is not None:
@@ -2641,7 +2690,7 @@ def hessian_path(pt, kernels, name, atom, basis, picks, e_ref=None):
         f'{k} {hobj.timings[k]:.4f}' for k in HESS_PHASES))
     t0 = time.perf_counter()
     fd = hessian.fd_columns(
-        lambda m: tight_df_rhf(m, 1e-9).Gradients().kernel(), mol, picks)
+        lambda m: tight_df(m, 1e-9).Gradients().kernel(), mol, picks)
     worst = max(float(np.abs(h[a, x] - col).max())
                 for (a, x), col in zip(picks, fd))
     print(f'{name} Hessian vs central differences of the gradient on '
@@ -2668,15 +2717,14 @@ KS_HESS_KERNELS = ('eval_ao_deriv3', 'xc_rks_hess', 'xc_rks_deriv1')
 KS_HESS_PATH_KERNELS = HESS_PATH_KERNELS + KS_HESS_KERNELS + (
     'xc_fxc', 'xc_fxc_pairs', 'xc_rks_fxc')
 KS_HESS_PHASES = HESS_PHASES[:1] + ('xc_rows', 'xc_F1') + HESS_PHASES[1:]
-# the new libraries, whose compile seconds and ptxas lines are printed
-KS_HESS_LIBRARIES = ('eval_ao', 'xc_rks_hess', 'xc_rks_deriv1')
 # tangents per xc_rks_deriv1 launch in the Hessian (2 tangent_chunk)
 KS_DERIV1_CHUNK = 12
 
 
 def library_logs(kernels, names):
     """Print each library's compile seconds and ptxas register lines from
-    its <library>.log in the build directory."""
+    its <library>.log in the build directory, then the twelve libraries
+    that took longest and the sum over all."""
     import os
     out = kernels._build_dir()
     for lib in names:
@@ -2684,6 +2732,14 @@ def library_logs(kernels, names):
             lines = f.read().splitlines()
         regs = [ln.strip() for ln in lines if 'registers' in ln]
         print(f'library {lib}: {lines[-1]}; ' + ' | '.join(regs))
+    secs = {}
+    for lib in kernels._LIBRARIES:
+        with open(os.path.join(out, lib + '.log')) as f:
+            secs[lib] = float(f.read().splitlines()[-1].split()[-1])
+    top = sorted(secs, key=secs.get, reverse=True)[:12]
+    print(f'compile seconds of {len(secs)} libraries, sum '
+          f'{sum(secs.values()):.1f} s; the longest: '
+          + ', '.join(f'{k} {secs[k]:.1f}' for k in top))
 
 
 def tight_df_rks(mol, conv_tol_grad, grids=None):
@@ -2802,7 +2858,7 @@ def ks_hessian_path(pt, refs, kernels, basis, picks, fxc_routes=False):
     return mf, launches
 
 
-def ks_hessian_phases(kernels, mf, report, suffix=''):
+def ks_hessian_phases(kernels, mf, report, suffix='', with_ao=True):
     """The DF-RKS Hessian's three new kernels against their twins on mf's
     grid at its density, at the shapes its Hessian gives them: eval_ao
     deriv 3 on the whole grid (<= 1e-12 x max), xc_rks_hess (each output
@@ -2822,22 +2878,25 @@ def ks_hessian_phases(kernels, mf, report, suffix=''):
     print(f'the DF-RKS Hessian\'s kernels against their twins at nao {nao}, '
           f'{npts} grid points')
     ao_k = kernels.eval_ao_deriv3(tables, coords, nao)
-    ao_p, plain_s = host_s(
-        lambda: eval_gto.eval_ao_plain(tables, coords, nao, 3))
-    err, scale = max_abs([(ao_k, ao_p)])
-    del ao_p
-    ops = 0.0
-    for l, e, c, _, _ in tables:
-        nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
-        ops += npts * e.shape[0] * (8 + 11 * e.shape[1]
-                                    + 20 * nc * (l + 16 + 2 * d))
-    record(report, f'eval_ao_deriv3{suffix}',
-           'pyscf_tpu_torch/csrc/eval_ao.cu', 'pyscf_tpu/ops/eval_gto.py:19',
-           err,
-           lambda: kernels.eval_ao_deriv3(tables, coords, nao), plain_s * 1e3,
-           nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables), ops)
-    check(err <= 1e-12 * scale, f'eval_ao deriv 3 vs plain: {err:.3e} > '
-          f'1e-12 x {scale:.3e}')
+    if with_ao:
+        ao_p, plain_s = host_s(
+            lambda: eval_gto.eval_ao_plain(tables, coords, nao, 3))
+        err, scale = max_abs([(ao_k, ao_p)])
+        del ao_p
+        ops = 0.0
+        for l, e, c, _, _ in tables:
+            nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
+            ops += npts * e.shape[0] * (8 + 11 * e.shape[1]
+                                        + 20 * nc * (l + 16 + 2 * d))
+        record(report, f'eval_ao_deriv3{suffix}',
+               'pyscf_tpu_torch/csrc/eval_ao.cu',
+               'pyscf_tpu/ops/eval_gto.py:19', err,
+               lambda: kernels.eval_ao_deriv3(tables, coords, nao),
+               plain_s * 1e3,
+               nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables),
+               ops)
+        check(err <= 1e-12 * scale, f'eval_ao deriv 3 vs plain: {err:.3e} > '
+              f'1e-12 x {scale:.3e}')
 
     atom_off, ao_atom = numint.atom_ranges(mol)
     dmao = (ao_k[:4].reshape(-1, nao) @ dm).reshape(4, npts, nao)
@@ -2930,6 +2989,344 @@ def nh3_ts_path(pt, refs, kernels):
     check(int(np.sum(np.abs(freq) < 1.0)) == 6, 'NH3 TS: the six '
           'translations and rotations are not at 0')
     return launches
+
+
+# ---- the DF-UHF/UKS Hessian, the PBE family and the DF-UHF TS search -------
+
+UKS_HESS_KERNELS = ('eval_ao_deriv3', 'xc_uks_hess', 'xc_uks_deriv1')
+# the kernels of the DF-UKS Hessian's path: the RHF Hessian's, the XC
+# terms' and the XC response's (the tangent of V_xc, in every CG step)
+UKS_HESS_PATH_KERNELS = HESS_PATH_KERNELS + UKS_HESS_KERNELS + ('xc_uks_fxc',)
+# every XC library, whose compile seconds (each holds PBE) and
+# ptxas lines are printed
+XC_LIBRARIES = ('xc_rks', 'xc_uks', 'xc_rks_grad', 'xc_uks_grad', 'xc_fxc',
+                'xc_fxc_pairs', 'xc_rks_fxc', 'xc_uks_fxc', 'xc_rks_hess',
+                'xc_rks_deriv1', 'xc_uks_hess', 'xc_uks_deriv1')
+# the phenyl radical's radical carbon, its ortho carbon and the ortho
+# hydrogen (refs.PHENYL atoms 0, 1 and 6), every direction
+PHENYL_PICKS = [(a, x) for a in (0, 1, 6) for x in range(3)]
+# tests/test_ts_opt.py's H + H2 exchange
+H3 = 'H 0 0 -1.05; H 0 0 0.0; H 0 0 0.85'
+# planar methyl, C-H 1.079 Angstrom
+CH3 = 'C 0 0 0; H 1.079 0 0; H -0.5395 0.934441 0; H -0.5395 -0.934441 0'
+
+
+def tight_df_uks(mol, xc_code, conv_tol_grad, grids=None):
+    """DF-UKS converged as tight_df_rks converges DF-RKS, on `grids` where
+    given."""
+    mf = mol.UKS(xc=xc_code).density_fit()
+    if grids is not None:
+        mf.grids.coords, mf.grids.weights = grids
+    mf.init_guess = 'minao'
+    mf.conv_tol = 1e-12
+    mf.conv_tol_grad = conv_tol_grad
+    mf.kernel()
+    check(mf.converged, f'DF-UKS {xc_code} (Hessian) did not converge')
+    return mf
+
+
+def uks_hessian_path(pt, refs, kernels, xc_code, picks, forces=False):
+    """The phenyl radical's DF-UKS xc_code/def2-SVP Hessian at full width
+    from M() (minao, conv_tol 1e-12, conv_tol_grad 1e-8; with forces, its
+    gradient too: energy check 1e-6, |de_z| and the x-mirror 1e-8) through
+    mf.Hessian().kernel(), the launch counts set to 0 before M() and read
+    after the Hessian: the analytic DF-UHF/UKS Hessian (hessian/uhf.py),
+    the RHF Hessian's kernels, eval_ao_deriv3, xc_uks_hess, xc_uks_deriv1
+    and xc_uks_fxc launched, |H - H^T| <= 1e-9, and the columns `picks`
+    against the four-point central differences (step 1e-3 Bohr) of the
+    analytic gradient on the same fixed grid (SCFs at conv_tol 1e-12 and
+    conv_tol_grad 1e-9) within 1e-5 Ha/Bohr^2; the wall, the phases of the
+    first and of a warm call, the CPHF iterations, the peak memory, the
+    gap to the reference's dW (reference_w=True) and the frequencies
+    (translations and rotations projected out) printed. Returns (mf,
+    launches)."""
+    from pyscf_tpu_torch import hessian
+    from pyscf_tpu_torch.hessian import uhf as hess_uhf
+
+    name = f'DF-UKS {xc_code} phenyl/def2-SVP'
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    mf = tight_df_uks(pt.M(atom=refs.PHENYL, basis='def2-svp', spin=1),
+                      xc_code, 1e-8)
+    torch.cuda.synchronize()
+    t_scf = time.perf_counter() - t0
+    print(f'{name}: E {mf.e_tot!r}, {mf.scf_cycles} cycles, <S^2> '
+          f'{mf.spin_square()[0]:.6f}, {mf.grids.size} grid points')
+    if forces:
+        grad = mf.nuc_grad_method()
+        de, s = host_s(grad.kernel)
+        out = float(np.abs(de[:, 2]).max())
+        mirror = mirror_defect(mf.mol.coords, de, 0)
+        print(f'{name} forces {s:.3f} s: energy check |e_chk - E| '
+              f'{abs(grad.e_chk - mf.e_tot):.3e}  |de_z| {out:.3e}  '
+              f'x-mirror defect {mirror:.3e}\nde (Ha/Bohr):\n'
+              + np.array2string(de, precision=10))
+        check(abs(grad.e_chk - mf.e_tot) < 1e-6, f'{name}: energy check')
+        check(out < 1e-8 and mirror < 1e-8, f'{name} gradient: |de_z| '
+              f'{out:.3e} or x-mirror {mirror:.3e} >= 1e-8')
+    hobj = mf.Hessian()
+    check(isinstance(hobj, hess_uhf.Hessian), f'{name}: mf.Hessian() is not '
+          'the analytic DF-UHF/UKS Hessian')
+    h, s = host_s(hobj.kernel)
+    launches = kernels.launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    mol = mf.mol
+    print(f'{name} Hessian: nao {mol.nao}, naux {mf.with_df.auxmol.nao}; '
+          f'SCF {t_scf:.3f} s, Hessian {s:.3f} s, wall from M() '
+          f'{t_scf + s:.3f} s; CPHF {hobj.cphf_cycles} iterations; peak '
+          f'device memory {peak:.3f} GB')
+    print(f'{name} Hessian phases: ' + '  '.join(
+        f'{k} {hobj.timings[k]:.4f}' for k in KS_HESS_PHASES))
+    print(f'launches: {launches}')
+    for k in UKS_HESS_PATH_KERNELS:
+        check(launches[k] > 0, f'{name} Hessian: kernel {k} never launched')
+    natm = mol.natm
+    hm = h.reshape(3 * natm, 3 * natm)
+    asym = float(np.abs(hm - hm.T).max())
+    print(f'{name} Hessian |H - H^T| {asym:.3e}  |sum_A H[A]| (no grid '
+          f'response) {np.abs(h.sum(axis=0)).max():.3e}')
+    check(np.all(np.isfinite(h)) and h.shape == (natm, 3, natm, 3),
+          f'{name} Hessian not finite of shape (natm, 3, natm, 3)')
+    check(asym <= 1e-9, f'{name} Hessian symmetry {asym:.3e} > 1e-9')
+    _, s = host_s(hobj.kernel)
+    print(f'{name} Hessian warm {s:.4f} s; phases: ' + '  '.join(
+        f'{k} {hobj.timings[k]:.4f}' for k in KS_HESS_PHASES))
+    gap = float(np.abs(hess_uhf.hessian(mf, reference_w=True)[0] - h).max())
+    print(f'{name} Hessian: the reference\'s dW (the diagonal of each '
+          f'spin\'s occupied block, reference_w=True) moves it by '
+          f'{gap:.3e} Ha/Bohr^2')
+    grids = (mf.grids.coords, mf.grids.weights)
+    t0 = time.perf_counter()
+    fd = hessian.fd_columns(
+        lambda m: tight_df_uks(m, xc_code, 1e-9, grids).Gradients().kernel(),
+        mol, picks, points=4)
+    worst = max(float(np.abs(h[a, x] - col).max())
+                for (a, x), col in zip(picks, fd))
+    print(f'{name} Hessian vs four-point central differences of the '
+          f'gradient on the fixed grid on {len(picks)} columns '
+          f'({4 * len(picks)} SCF + gradient runs, '
+          f'{time.perf_counter() - t0:.1f} s): max |H - H_fd| {worst:.3e} '
+          f'Ha/Bohr^2')
+    check(worst <= 1e-5, f'{name} Hessian vs central differences '
+          f'{worst:.3e} > 1e-5')
+    res = hessian.harmonic_analysis(mol, hessian.project_trans_rot(mol, h))
+    print(f'{name} harmonic frequencies (cm^-1, translations and rotations '
+          'projected out): '
+          + ' '.join(f'{f:.2f}' for f in res['freq_wavenumber']))
+    return mf, launches
+
+
+def uks_hessian_phases(kernels, mf, report, suffix='', with_ao=True):
+    """The DF-UKS Hessian's kernels against their twins on mf's grid at its
+    spin density, at the shapes its Hessian gives them: eval_ao deriv 3 on
+    the whole grid (<= 1e-12 x max; recorded as eval_ao_deriv3_phenyl
+    unless not with_ao), xc_uks_hess (each output <= 1e-10 x its max) and
+    xc_uks_deriv1 over every tangent in the Hessian's chunks of
+    KS_DERIV1_CHUNK (<= 1e-10 x max); the twins timed once on the host
+    clock; recorded as <kernel><suffix>."""
+    from pyscf_tpu_torch.dft import numint
+    from pyscf_tpu_torch.ops import eval_gto
+
+    mol, nao, natm = mf.mol, mf.mol.nao, mf.mol.natm
+    nt = 3 * natm
+    dm = mf.make_rdm1()
+    coords, weights = mf.grids.coords, mf.grids.weights
+    npts = coords.shape[0]
+    f = mf.xc_obj
+    tables = eval_gto.ao_tables(mol)
+    print(f'the DF-UKS Hessian\'s kernels ({mf.xc}) against their twins at '
+          f'nao {nao}, {npts} grid points')
+    ao_k = kernels.eval_ao_deriv3(tables, coords, nao)
+    if with_ao:
+        ao_p, plain_s = host_s(
+            lambda: eval_gto.eval_ao_plain(tables, coords, nao, 3))
+        err, scale = max_abs([(ao_k, ao_p)])
+        del ao_p
+        ops = 0.0
+        for l, e, c, _, _ in tables:
+            nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
+            ops += npts * e.shape[0] * (8 + 11 * e.shape[1]
+                                        + 20 * nc * (l + 16 + 2 * d))
+        record(report, 'eval_ao_deriv3_phenyl',
+               'pyscf_tpu_torch/csrc/eval_ao.cu',
+               'pyscf_tpu/ops/eval_gto.py:19', err,
+               lambda: kernels.eval_ao_deriv3(tables, coords, nao),
+               plain_s * 1e3,
+               nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables),
+               ops)
+        check(err <= 1e-12 * scale, f'eval_ao deriv 3 (phenyl) vs plain: '
+              f'{err:.3e} > 1e-12 x {scale:.3e}')
+
+    atom_off, ao_atom = numint.atom_ranges(mol)
+    dmao = torch.matmul(ao_k[:4].reshape(-1, nao), dm).reshape(
+        2, 4, npts, nao)
+    out_k = kernels.xc_uks_hess(ao_k, dmao, weights, f, atom_off)
+    # the twin's second call is timed: its first builds torch.func's vmap of
+    # the functional's Hessian
+    for _ in range(2):
+        out_p, plain_s = host_s(lambda: numint.xc_uks_hess_plain(
+            ao_k, dmao, weights, f, atom_off))
+    errs = [(float((a - b).abs().max()), float(b.abs().max()))
+            for a, b in zip(out_k, out_p)]
+    del out_p
+    for (e_, s_), what in zip(errs, ('wv', 'ut', 'ht', 'same', 'xr')):
+        check(e_ <= 1e-10 * s_, f'xc_uks_hess{suffix} {what} vs plain: '
+              f'{e_:.3e} > 1e-10 x {s_:.3e}')
+    # per point and AO ~400 operations (both densities, the atoms' sums,
+    # both spins' explicit rows); the functional's and the chain rule's
+    # tens of thousands per point not counted
+    record(report, f'xc_uks_hess{suffix}',
+           'pyscf_tpu_torch/csrc/xc_uks_hess.cu',
+           'pyscf_tpu/hessian/uhf.py:256', max(e_ for e_, _ in errs),
+           lambda: kernels.xc_uks_hess(ao_k, dmao, weights, f, atom_off),
+           plain_s * 1e3, nbytes(ao_k, dmao, weights, *out_k),
+           400.0 * npts * nao)
+    wv, _, ht, _, xr = out_k
+    del dmao
+
+    def chunks(fn):
+        return [fn(ao_k, wv, ht, xr, ao_atom, a, min(KS_DERIV1_CHUNK, nt - a))
+                for a in range(0, nt, KS_DERIV1_CHUNK)]
+
+    err = scale = 0.0
+    plain_s = 0.0
+    for a in range(0, nt, KS_DERIV1_CHUNK):
+        m = min(KS_DERIV1_CHUNK, nt - a)
+        v_k = kernels.xc_uks_deriv1(ao_k, wv, ht, xr, ao_atom, a, m)
+        v_p, s_ = host_s(lambda: numint.xc_uks_deriv1_plain(
+            ao_k, wv, ht, xr, ao_atom, a, m))
+        plain_s += s_
+        err = max(err, float((v_k - v_p).abs().max()))
+        scale = max(scale, float(v_p.abs().max()))
+        del v_k, v_p
+    record(report, f'xc_uks_deriv1{suffix}',
+           'pyscf_tpu_torch/csrc/xc_uks_hess.cu',
+           'pyscf_tpu/hessian/uhf.py:176', err,
+           lambda: chunks(kernels.xc_uks_deriv1), plain_s * 1e3,
+           8 * npts * nao * (2 * nt + 10) + nbytes(wv, ht),
+           16.0 * npts * nao * nt)
+    check(err <= 1e-10 * scale, f'xc_uks_deriv1{suffix} vs plain: '
+          f'{err:.3e} > 1e-10 x {scale:.3e}')
+
+
+def uks_fxc_phase(kernels, mf, report, name):
+    """xc_uks_fxc at the converged DF-UKS spin density on its whole grid
+    along five seeded spin transition densities (one chunk of the
+    Hessian's CG steps) against its twin: <= 1e-10 x max; recorded as
+    name."""
+    from pyscf_tpu_torch.dft import numint
+
+    f = mf.xc_obj
+    aods, wblocks = mf._numint.grid_ao(mf.mol, mf.grids, 1, spins=2)
+    check(len(aods) == 1, 'the phenyl grid does not fit one block')
+    aod, w = aods[0], wblocks[0]
+    npts, nao = w.shape[0], aod.shape[-1]
+    d0 = torch.matmul(aod[0], mf.make_rdm1())
+    rng = np.random.default_rng(23)
+    t = torch.as_tensor(rng.standard_normal((5, 2, nao, nao)),
+                        device='cuda') * 1e-2
+    d1 = torch.matmul(aod[0], t + t.transpose(-1, -2))
+    args = (aod, d0, d1, w, f)
+    got, ref = kernels.xc_uks_fxc(*args), numint.xc_uks_fxc_plain(*args)
+    err, scale = max_abs([(got, ref)])
+    del ref
+    record(report, name, 'pyscf_tpu_torch/csrc/xc_uks_fxc.cu',
+           'pyscf_tpu/hessian/uhf.py:196', err,
+           lambda: kernels.xc_uks_fxc(*args),
+           lambda: numint.xc_uks_fxc_plain(*args),
+           nbytes(*args[:-1], got), (16.0 + 32.0 * 5) * npts * nao)
+    check(err <= 1e-10 * scale, f'{name} vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
+
+
+def benzene_pbe_path(pt, refs, kernels):
+    """Benzene DF-RKS PBE/def2-SVP from M() (minao, conv_tol 1e-10,
+    conv_tol_grad 1e-7): its energy, its forces (energy check 1e-6, |de_z|
+    and the mirror planes 1e-8) and its Hessian (symmetric to 1e-9), the
+    launch counts set to 0 before M() and read at the end: xc_rks,
+    xc_rks_grad, xc_rks_hess, xc_rks_deriv1 and the CPHF response kernels
+    launched with PBE. Returns (mf, launches)."""
+    kernels.reset_launches()
+    mf, s = host_s(lambda: tight(pt.dft.RKS(
+        pt.M(atom=refs.BENZENE, basis='def2-svp'), xc='pbe').density_fit()))
+    e, s_scf = host_s(mf.kernel)
+    check(mf.converged, 'DF-RKS PBE benzene did not converge')
+    grad = mf.nuc_grad_method()
+    de, s_grad = host_s(grad.kernel)
+    out = float(np.abs(de[:, 2]).max())
+    mirror = max(mirror_defect(mf.mol.coords, de, ax) for ax in (0, 1))
+    print(f'DF-RKS PBE benzene/def2-SVP: E {e!r}, {mf.scf_cycles} cycles, '
+          f'SCF {s + s_scf:.3f} s, forces {s_grad:.3f} s: energy check '
+          f'{abs(grad.e_chk - e):.3e}  |de_z| {out:.3e}  mirror defect '
+          f'{mirror:.3e}')
+    check(abs(grad.e_chk - e) < 1e-6, 'DF-RKS PBE: energy check')
+    check(out < 1e-8 and mirror < 1e-8, f'DF-RKS PBE gradient: |de_z| '
+          f'{out:.3e} or mirror {mirror:.3e} >= 1e-8')
+    hobj = mf.Hessian()
+    h, s = host_s(hobj.kernel)
+    launches = kernels.launches()
+    hm = h.reshape(36, 36)
+    asym = float(np.abs(hm - hm.T).max())
+    print(f'DF-RKS PBE benzene/def2-SVP Hessian {s:.3f} s, CPHF '
+          f'{hobj.cphf_cycles} iterations, |H - H^T| {asym:.3e}')
+    print(f'launches: {launches}')
+    check(np.all(np.isfinite(h)) and asym <= 1e-9, 'DF-RKS PBE Hessian not '
+          f'finite or not symmetric ({asym:.3e})')
+    for k in ('xc_rks', 'xc_rks_grad', 'xc_rks_hess', 'xc_rks_deriv1',
+              'xc_fxc', 'xc_fxc_pairs', 'xc_rks_fxc'):
+        check(launches[k] > 0, f'DF-RKS PBE: kernel {k} never launched')
+    return mf, launches
+
+
+def tight_df_uhf(mol, conv_tol_grad):
+    """DF-UHF converged as tight_df_rhf converges DF-RHF."""
+    mf = mol.UHF().density_fit()
+    mf.init_guess = 'minao'
+    mf.conv_tol = 1e-12
+    mf.conv_tol_grad = conv_tol_grad
+    mf.kernel()
+    check(mf.converged, 'DF-UHF (Hessian) did not converge')
+    return mf
+
+
+def h3_ts_path(pt, kernels):
+    """tests/test_ts_opt.py's H + H2 exchange saddle by geomopt.optimize_ts
+    on DF-UHF/sto-3g (spin 1, conv_tol 1e-11, gtol 5e-4, maxsteps 25), the
+    launch counts set to 0 just before, with that test's asserts: max|g|
+    under gtol, the two H-H distances within 5e-3 Bohr of each other and
+    between 1.5 and 2.1 Bohr, and one eigenvalue of the analytic Hessian
+    under -1e-4; the DF-UHF Hessian's kernels launched."""
+    from pyscf_tpu_torch import hessian
+
+    def factory(m):
+        mf = m.UHF().density_fit()
+        mf.conv_tol = 1e-11
+        mf.kernel()
+        check(mf.converged, 'H3 DF-UHF did not converge')
+        return mf
+
+    mol = pt.M(atom=H3, basis='sto-3g', spin=1)
+    kernels.reset_launches()
+    (ts, es), s = host_s(lambda: pt.geomopt.optimize_ts(
+        factory, mol, maxsteps=25, gtol=5e-4))
+    launches = kernels.launches()
+    r = np.asarray(ts.coords)
+    d01 = float(np.linalg.norm(r[1] - r[0]))
+    d12 = float(np.linalg.norm(r[2] - r[1]))
+    h = hessian.Hessian(factory(ts)).kernel().reshape(9, 9)
+    w = np.linalg.eigvalsh(0.5 * (h + h.T))
+    print(f'H3 DF-UHF/sto-3g optimize_ts: {len(es)} geometries, {s:.3f} s; '
+          f'E {es[0]:.10f} -> {es[-1]:.10f}; max|g| {ts._ts_grad_norm:.3e}; '
+          f'H-H {d01:.6f} and {d12:.6f} Bohr; Hessian eigenvalues '
+          + ' '.join(f'{x:.5f}' for x in w))
+    check(ts._ts_grad_norm < 5e-4, f'H3 TS: max|g| {ts._ts_grad_norm:.3e}')
+    check(abs(d01 - d12) < 5e-3 and 1.5 < d01 < 2.1,
+          f'H3 TS: H-H {d01:.4f}, {d12:.4f} Bohr')
+    check(int((w < -1e-4).sum()) == 1, 'H3 TS: not one negative eigenvalue')
+    for k in HESS_PATH_KERNELS:
+        check(launches[k] > 0, f'H3 TS: kernel {k} never launched')
 
 
 # ---- f and g shells: BASELINE configs 3 and 4 ------------------------------
@@ -3429,7 +3826,7 @@ def main():
     print('torch', torch.__version__, 'cuda', torch.version.cuda,
           'python', sys.version.split()[0])
     print(f'kernel build: {kernels.build():.1f} s', flush=True)
-    library_logs(kernels, KS_HESS_LIBRARIES)
+    library_logs(kernels, ('eval_ao',) + XC_LIBRARIES)
 
     report = {}
     integral_phases(pt, refs, report)
@@ -3524,7 +3921,7 @@ def main():
     # the analytic DF-RHF Hessian
     rhf, hess_launches = hessian_path(
         pt, kernels, 'benzene/def2-SVP', refs.BENZENE, 'def2-svp',
-        [(a, x) for a in range(12) for x in range(3)],
+        [(a, x) for a in (0, 1, 6, 7) for x in range(3)],
         refs.E_BENZENE_DF_RHF_DEF2SVP)
     launches.update({k: hess_launches[k] for k in HESS_KERNELS})
     hessian_phases(kernels, rhf, report)
@@ -3563,8 +3960,8 @@ def main():
     df_rks_grad_path(pt, refs, kernels, tzvp=True)
     torch.cuda.empty_cache()
     rhf, tz_launches = hessian_path(
-        pt, kernels, 'benzene/cc-pVTZ', refs.BENZENE, 'cc-pvtz',
-        [(0, 0), (0, 2), (6, 0), (6, 1)])
+        pt, kernels, 'water/cc-pVTZ', refs.WATER, 'cc-pvtz',
+        [(a, x) for a in range(3) for x in range(3)])
     launches.update({f'{k}_tz': tz_launches[k] for k in HESS_KERNELS})
     hessian_phases(kernels, rhf, report, '_tz')
     del rhf
@@ -3578,8 +3975,8 @@ def main():
     torch.cuda.empty_cache()
     # the analytic DF-RKS Hessian and the transition-state search
     rks, ks_launches = ks_hessian_path(
-        pt, refs, kernels, 'def2-SVP',
-        [(a, x) for a in range(12) for x in range(3)])
+        pt, refs, kernels, 'def2-SVP', [(a, x) for a in (0, 6)
+                                        for x in range(3)])
     launches.update({k: ks_launches[k] for k in KS_HESS_KERNELS})
     ks_hessian_phases(kernels, rks, report)
     del rks
@@ -3592,6 +3989,45 @@ def main():
     del rks
     torch.cuda.empty_cache()
     nh3_ts_path(pt, refs, kernels)
+    torch.cuda.empty_cache()
+    # the DF-UHF/UKS Hessian, PBE and PBE0 through every XC kernel, and the
+    # DF-UHF transition-state search
+    uks, uks_launches = uks_hessian_path(pt, refs, kernels, 'b3lypg',
+                                         PHENYL_PICKS)
+    launches.update({k: uks_launches[k]
+                     for k in ('xc_uks_hess', 'xc_uks_deriv1')})
+    launches['eval_ao_deriv3_phenyl'] = uks_launches['eval_ao_deriv3']
+    uks_hessian_phases(kernels, uks, report)
+    del uks
+    torch.cuda.empty_cache()
+    uks, pbe0_launches = uks_hessian_path(
+        pt, refs, kernels, 'pbe0', [(0, x) for x in range(3)], forces=True)
+    launches.update({f'{k}_pbe0': pbe0_launches[k] for k in (
+        'xc_uks', 'xc_uks_grad', 'xc_uks_fxc', 'xc_uks_hess',
+        'xc_uks_deriv1')})
+    xc_uks_phase(kernels, uks, report, 'xc_uks_pbe0', 'pbe0')
+    xc_uks_grad_phase(kernels, uks, report, 'xc_uks_grad_pbe0')
+    uks_fxc_phase(kernels, uks, report, 'xc_uks_fxc_pbe0')
+    uks_hessian_phases(kernels, uks, report, '_pbe0', with_ao=False)
+    del uks
+    torch.cuda.empty_cache()
+    rks, pbe_launches = benzene_pbe_path(pt, refs, kernels)
+    launches.update({f'{k}_pbe': pbe_launches[k] for k in (
+        'xc_rks', 'xc_rks_grad', 'xc_fxc', 'xc_fxc_pairs', 'xc_rks_fxc',
+        'xc_rks_hess', 'xc_rks_deriv1')})
+    aods, wblocks = rks._numint.grid_ao(rks.mol, rks.grids, 1)
+    check(len(aods) == 1, 'the benzene grid does not fit one block')
+    xc_rks_phase(kernels, 'xc_rks_pbe', 'pbe', aods[0], rks.make_rdm1(),
+                 wblocks[0], report)
+    del aods, wblocks
+    xc_grad_phases(kernels, rks, report, '_pbe', with_ao=False)
+    fxc_phases(kernels, rks, report, '_pbe', tangents=('xc_rks_fxc',))
+    ks_hessian_phases(kernels, rks, report, '_pbe', with_ao=False)
+    del rks
+    torch.cuda.empty_cache()
+    h3_ts_path(pt, kernels)
+    hessian_path(pt, kernels, 'DF-UHF CH3/def2-TZVP', CH3, 'def2-tzvp',
+                 [(a, x) for a in range(4) for x in range(3)], spin=1)
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

@@ -36,7 +36,11 @@ CG steps take that XC response whatever hessian/rhf.py _dense_fxc
 selects), and NH3's inversion saddle by geomopt.optimize_ts with
 DF-RKS b3lypg/def2-SVP from refs.NH3_PYRAMID (conv_tol 1e-10,
 conv_tol_grad 1e-7 at every geometry: phases ts, the search's seconds,
-and ts_geometries); or for the paths named by --paths, runs
+and ts_geometries), and the DF-UHF/UKS Hessian: the phenyl radical's
+DF-UKS b3lypg and PBE0/def2-SVP (conv_tol 1e-12, conv_tol_grad 1e-8)
+followed by theirs, and tests/test_ts_opt.py's H + H2 exchange saddle by
+geomopt.optimize_ts on DF-UHF/sto-3g (conv_tol 1e-11, gtol 5e-4,
+maxsteps 25); or for the paths named by --paths, runs
 each once cold and `--runs` times warm, every run
 from a fresh Mole, and prints the median, quartiles, min and max of each
 phase of mf.timings (and of the gradient's timings, prefixed grad_) and
@@ -69,8 +73,13 @@ HESSIANS = ('DF-RHF + Hessian', 'DF-RHF benzene/cc-pVTZ + Hessian',
             'DF-RHF water/cc-pVQZ + Hessian',
             'DF-RKS b3lypg benzene/def2-SVP + Hessian',
             'DF-RKS b3lypg benzene/def2-TZVP + Hessian',
-            'DF-RKS b3lypg C6F6/def2-TZVP + Hessian')
+            'DF-RKS b3lypg C6F6/def2-TZVP + Hessian',
+            'DF-UKS b3lypg phenyl/def2-SVP + Hessian',
+            'DF-UKS pbe0 phenyl/def2-SVP + Hessian')
 TS = 'NH3 DF-RKS TS'
+# tests/test_ts_opt.py's H + H2 exchange on DF-UHF/sto-3g
+TS_UHF = 'H3 DF-UHF TS'
+H3 = 'H 0 0 -1.05; H 0 0 0.0; H 0 0 0.85'
 PATHS = {
     'DF-RHF': lambda pt, refs: pt.M(atom=refs.BENZENE, basis='def2-svp')
     .RHF().density_fit(),
@@ -126,6 +135,15 @@ PATHS = {
         pt.M(atom=refs.C6F6, basis='def2-tzvp'), xc='b3lypg').density_fit(),
     TS: lambda pt, refs: pt.M(atom=refs.NH3_PYRAMID, basis='def2-svp').RKS(
         xc='b3lypg').density_fit(),
+    # the DF-UHF/UKS Hessian and the DF-UHF transition-state search
+    HESSIANS[6]: lambda pt, refs: pt.M(
+        atom=refs.PHENYL, basis='def2-svp', spin=1).UKS(
+        xc='b3lypg').density_fit(),
+    HESSIANS[7]: lambda pt, refs: pt.M(
+        atom=refs.PHENYL, basis='def2-svp', spin=1).UKS(
+        xc='pbe0').density_fit(),
+    TS_UHF: lambda pt, refs: pt.M(atom=H3, basis='sto-3g', spin=1).UHF()
+    .density_fit(),
 }
 
 
@@ -171,19 +189,29 @@ def tddft_timings(mf):
 
 
 def ts_timings(pt, mf):
-    """geomopt.optimize_ts from mf's geometry, each geometry's DF-RKS
-    b3lypg at conv_tol 1e-10 and conv_tol_grad 1e-7: its seconds and the
-    number of geometries."""
+    """geomopt.optimize_ts from mf's geometry: NH3's with each geometry's
+    DF-RKS b3lypg at conv_tol 1e-10 and conv_tol_grad 1e-7 (gtol 3e-4),
+    H3's with DF-UHF at conv_tol 1e-11 (gtol 5e-4, maxsteps 25, as
+    tests/test_ts_opt.py): its seconds and the number of geometries."""
+    uhf = mf.mo_occ.dim() == 2
+    gtol = 5e-4 if uhf else 3e-4
+
     def factory(m):
-        f = m.RKS(xc='b3lypg').density_fit()
-        f.conv_tol, f.conv_tol_grad, f.init_guess = 1e-10, 1e-7, 'minao'
+        if uhf:
+            f = m.UHF().density_fit()
+            f.conv_tol = 1e-11
+        else:
+            f = m.RKS(xc='b3lypg').density_fit()
+            f.conv_tol, f.conv_tol_grad, f.init_guess = 1e-10, 1e-7, 'minao'
         f.kernel()
         if not f.converged:
-            raise SystemExit('NH3 DF-RKS did not converge')
+            raise SystemExit('the TS search\'s SCF did not converge')
         return f
 
-    (m, es), t = synced(lambda: pt.geomopt.optimize_ts(factory, mf.mol))
-    if m._ts_grad_norm >= 3e-4:
+    kw = dict(maxsteps=25, gtol=gtol) if uhf else {}
+    (m, es), t = synced(lambda: pt.geomopt.optimize_ts(factory, mf.mol,
+                                                       **kw))
+    if m._ts_grad_norm >= gtol:
         raise SystemExit(f'optimize_ts stopped at max|g| {m._ts_grad_norm}')
     return dict(ts=t, ts_geometries=len(es))
 
@@ -196,6 +224,8 @@ def one_run(pt, refs, name):
     if name in DF_GRADIENTS or name in (TDDFT, TS):
         mf.conv_tol = 1e-10
         mf.conv_tol_grad = 1e-7
+    if name == TS_UHF:
+        mf.conv_tol = 1e-11
     if name in POSTSCF:
         mf.conv_tol = 1e-12
         mf.conv_tol_grad = 1e-9
@@ -209,7 +239,7 @@ def one_run(pt, refs, name):
         timings.update(postscf_timings(mf))
     if name == TDDFT:
         timings.update(tddft_timings(mf))
-    if name == TS:
+    if name in (TS, TS_UHF):
         timings.update(ts_timings(pt, mf))
     if name in HESSIANS:
         hobj = mf.Hessian()

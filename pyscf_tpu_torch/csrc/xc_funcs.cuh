@@ -1,8 +1,9 @@
 // The XC components on forward-mode dual numbers of first and second order.
 //
 // Device counterpart of pyscf_tpu/dft/xc_funcs.py (lda_x, _vwn_eps,
-// _f_zeta, vwn5_c, vwn3_c, b88_x, lyp_c, _rs; _pw92_g, pw92_eps,
-// _sr_attenuation, cam_b88_x, _b97_u, _b97_series, wb97_xc) and of their
+// _f_zeta, vwn5_c, vwn3_c, b88_x, pbe_x, lyp_c, _rs; _pw92_g, pw92_eps,
+// pbe_c, _sr_attenuation, cam_b88_x, _b97_u, _b97_series, wb97_xc) and of
+// their
 // torch versions in pyscf_tpu_torch/dft/xc_funcs.py. Each component is
 // written once, in the JAX package's expression order and with its clamps,
 // as a template over the number type D, which is one of
@@ -20,7 +21,8 @@
 //      (edens_open: kernels xc_uks, xc_uks_fxc, xc_fxc).
 // The derivative rules are JAX's: pow(x, y)' = y pow(x, y-1), integer
 // powers by repeated squaring with (x^n)' = n x^(n-1), erf' = 2/sqrt(pi)
-// exp(-x^2), log1p' = 1/(1+x), and a maximum or minimum at a tie passes
+// exp(-x^2), log1p' = 1/(1+x), expm1' = expm1(x) + 1, and a maximum or
+// minimum at a tie passes
 // half the tangent; on HDualN each rule is also differentiated once more
 // (x^y)'' = y (y-1) x^(y-2), ..., and a tie's second derivative is zero,
 // as jax.hessian (jacfwd of jacrev) composes them. The two components with
@@ -38,9 +40,20 @@
 #define __host__
 #define __device__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #endif
 
 #define PT_HD __host__ __device__ __forceinline__
+// The components' qualifiers: inlined into the kernel, or, where a library
+// is built with PT_XC_NOINLINE (the kernels on second-order dual numbers,
+// ops/kernels.py), each compiled once as a function of its own. ptxas then
+// takes about half the time on those libraries, and their kernels take
+// 1-8 % longer (PERF.md section 6).
+#ifdef PT_XC_NOINLINE
+#define PT_XC __host__ __device__ __noinline__
+#else
+#define PT_XC PT_HD
+#endif
 
 namespace ptxc {
 
@@ -218,6 +231,11 @@ PT_HD DualN<N> derf(const DualN<N>& x) {
 template <int N>
 PT_HD DualN<N> dlog1p(const DualN<N>& x) {
   return scale(x, 1.0 / (x.v + 1.0), log1p(x.v));
+}
+template <int N>
+PT_HD DualN<N> dexpm1(const DualN<N>& x) {
+  const double v = expm1(x.v);
+  return scale(x, v + 1.0, v);
 }
 template <int N>
 PT_HD DualN<N> dmax(const DualN<N>& x, double c) {
@@ -430,6 +448,11 @@ PT_HD HDualN<N> dlog1p(const HDualN<N>& x) {
   return hchain(x, log1p(x.v), d1, -d1 * d1);
 }
 template <int N>
+PT_HD HDualN<N> dexpm1(const HDualN<N>& x) {
+  const double v = expm1(x.v);
+  return hchain(x, v, v + 1.0, v + 1.0);
+}
+template <int N>
 PT_HD HDualN<N> dmax(const HDualN<N>& x, double c) {
   if (x.v > c) return x;
   if (x.v < c) return hcst<N>(c);
@@ -455,7 +478,7 @@ PT_HD D rs_of(const D& rho) {
 
 // Slater exchange, spin-scaled
 template <class D>
-PT_HD D lda_x(const D& ra, const D& rb) {
+PT_XC D lda_x(const D& ra, const D& rb) {
   constexpr double CX = -0.7385587663820223;  // -(3/4) (3/pi)^(1/3)
   D e = cst_like(ra, 0.0);
   const D* rs[2] = {&ra, &rb};
@@ -493,7 +516,7 @@ PT_HD D zeta_of(const D& ra, const D& rb,
 }
 
 template <class D>
-PT_HD D vwn5_c(const D& ra, const D& rb) {
+PT_XC D vwn5_c(const D& ra, const D& rb) {
   const D rho = dmax(ra + rb, TINY);
   const D zeta = zeta_of(ra, rb, rho);
   const D rs = rs_of(rho);
@@ -511,7 +534,7 @@ PT_HD D vwn5_c(const D& ra, const D& rb) {
 
 // VWN III (RPA): the correlation of the original B3LYP
 template <class D>
-PT_HD D vwn3_c(const D& ra, const D& rb) {
+PT_XC D vwn3_c(const D& ra, const D& rb) {
   const D rho = dmax(ra + rb, TINY);
   const D zeta = zeta_of(ra, rb, rho);
   const D rs = rs_of(rho);
@@ -523,7 +546,7 @@ PT_HD D vwn3_c(const D& ra, const D& rb) {
 }
 
 template <class D>
-PT_HD D b88_x(const D& ra, const D& rb,
+PT_XC D b88_x(const D& ra, const D& rb,
                     const D& saa, const D& sbb) {
   constexpr double beta = 0.0042;
   constexpr double LDA = -0.9305257363491002;  // -(3/2) (3/(4 pi))^(1/3)
@@ -542,9 +565,32 @@ PT_HD D b88_x(const D& ra, const D& rb,
   return e;
 }
 
+// PBE exchange, spin-scaled: half the unpolarized term at 2 rho_s and
+// 4 sigma_ss for each spin
+constexpr double THREE_PI2 = 29.608813203268074;  // 3 pi^2
+
+template <class D>
+PT_XC D pbe_x(const D& ra, const D& rb, const D& saa, const D& sbb) {
+  constexpr double kappa = 0.8040, mu = 0.2195149727645171;
+  constexpr double CX = -0.7385587663820223;  // -(3/4) (3/pi)^(1/3)
+  D e = cst_like(ra, 0.0);
+  const D* rr[2] = {&ra, &rb};
+  const D* ss[2] = {&saa, &sbb};
+  for (int k = 0; k < 2; ++k) {
+    const D r2 = dmax(2.0 * *rr[k], TINY);
+    const D s2 = 4.0 * dmax(*ss[k], 0.0);
+    const D kf = dpow(THREE_PI2 * r2, 1.0 / 3.0);
+    const D ss2 = s2 / dipow(2.0 * kf * r2, 2);
+    const D fx = (1.0 + kappa) - kappa / (1.0 + mu * ss2 / kappa);
+    const D ex_lda = CX * dpow(r2, 4.0 / 3.0);
+    e = e + 0.5 * ex_lda * fx;
+  }
+  return e;
+}
+
 // LYP correlation, Miehlich et al. CPL 157, 200 form
 template <class D>
-PT_HD D lyp_c(const D& rho_a, const D& rho_b,
+PT_XC D lyp_c(const D& rho_a, const D& rho_b,
                     const D& gaa, const D& gab,
                     const D& gbb) {
   constexpr double a = 0.04918, b = 0.132, c = 0.2533, d = 0.349;
@@ -595,6 +641,27 @@ PT_HD D pw92_eps(const D& ra, const D& rb) {
   return e0 + alc * f / FPP0 * (1.0 - z4) + (e1 - e0) * f * z4;
 }
 
+// PBE correlation on PW92; sigma = sigma_aa + 2 sigma_ab + sigma_bb
+template <class D>
+PT_XC D pbe_c(const D& ra, const D& rb, const D& sigma) {
+  constexpr double beta = 0.06672455060314922;
+  constexpr double gamma = 0.0310906908696549;  // (1 - log 2) / pi^2
+  const D rho = dmax(ra + rb, TINY);
+  const D zeta = zeta_of(ra, rb, rho);
+  const D eps = pw92_eps(ra, rb);
+  const D phi = 0.5 * (dpow(1.0 + zeta, 2.0 / 3.0)
+                       + dpow(1.0 - zeta, 2.0 / 3.0));
+  const D kf = dpow(THREE_PI2 * rho, 1.0 / 3.0);
+  const D ks = dsqrt(4.0 * kf / PI);
+  const D t2 = dmax(sigma, 0.0) / dipow(2.0 * phi * ks * rho, 2);
+  const D phi3 = dipow(phi, 3);
+  const D A = (beta / gamma) / dmax(dexpm1(-eps / (gamma * phi3)), TINY);
+  const D u = A * t2;
+  const D H = gamma * phi3
+              * dlog1p((beta / gamma) * t2 * (1.0 + u) / (1.0 + u + u * u));
+  return rho * (eps + H);
+}
+
 // F(a): the fraction of exchange that survives erfc(w r)/r attenuation, a
 // clipped to [1e-10, 50]. At large a the bracket is a difference of terms
 // near 1e8 that leaves ~1e-5, so F carries ~1e-3 relative rounding there,
@@ -614,7 +681,7 @@ PT_HD D sr_attenuation(const D& a_in) {
 // B88 with the CAM partition of 1/r12: the DFT part keeps
 // [1 - alpha - beta + beta F(a_sigma)] of the full B88 energy density.
 template <class D>
-PT_HD D cam_b88_x(const D& ra, const D& rb, const D& saa, const D& sbb,
+PT_XC D cam_b88_x(const D& ra, const D& rb, const D& saa, const D& sbb,
                   double omega, double alpha, double beta) {
   constexpr double bbeta = 0.0042;
   constexpr double LDA = -0.9305257363491002;  // -(3/2) (3/(4 pi))^(1/3)
@@ -658,7 +725,7 @@ PT_HD D b97_series(const D& u, const double* c) {
 // The omega-B97 family's semilocal part. p = [omega, alpha, beta,
 // cx[5], css[5], cos[5]] (alpha and beta unused here).
 template <class D>
-PT_HD D wb97_xc(const D& ra, const D& rb, const D& saa, const D& sab,
+PT_XC D wb97_xc(const D& ra, const D& rb, const D& saa, const D& sab,
                 const D& sbb, const double* p) {
   constexpr double gam_x = 0.004, gam_ss = 0.2, gam_os = 0.006;
   constexpr double ELDA = -0.9305257363491002;  // -1.5 (3/(4 pi))^(1/3)
@@ -697,7 +764,8 @@ PT_HD D wb97_xc(const D& ra, const D& rb, const D& saa, const D& sab,
 
 // Component ids, as pyscf_tpu_torch/ops/kernels.py names them.
 enum Component {
-  SLATER = 0, VWN5 = 1, VWN3 = 2, B88 = 3, LYP = 4, CAM_B88 = 5, WB97 = 6
+  SLATER = 0, VWN5 = 1, VWN3 = 2, B88 = 3, LYP = 4, CAM_B88 = 5, WB97 = 6,
+  PBE_X = 7, PBE_C = 8
 };
 
 constexpr int MAXTERM = 8;
@@ -713,8 +781,10 @@ struct Terms {
 
 // The weighted sum of the terms at (rho_a, rho_b, sigma_aa, sigma_ab,
 // sigma_bb) = (a, b, xaa, xab, xbb), in their listed order; RSH compiles in
-// CAM_B88 and WB97.
-template <bool RSH, class D>
+// CAM_B88 and WB97, GGA the gradient components (without it only SLATER,
+// VWN5 and VWN3, which is all that make_terms lets an LDA launch take: a
+// kernel's LDA instantiation then compiles a fraction of the code).
+template <bool RSH, bool GGA = true, class D>
 PT_HD D edens_terms(const Terms& t, const D& a, const D& b, const D& xaa,
                     const D& xab, const D& xbb) {
   D e = cst_like(a, 0.0);
@@ -724,10 +794,20 @@ PT_HD D edens_terms(const Terms& t, const D& a, const D& b, const D& xaa,
       case SLATER: f = lda_x(a, b); break;
       case VWN5: f = vwn5_c(a, b); break;
       case VWN3: f = vwn3_c(a, b); break;
-      case B88: f = b88_x(a, b, xaa, xbb); break;
-      case LYP: f = lyp_c(a, b, xaa, xab, xbb); break;
+      case B88:
+        if constexpr (GGA) f = b88_x(a, b, xaa, xbb);
+        break;
+      case LYP:
+        if constexpr (GGA) f = lyp_c(a, b, xaa, xab, xbb);
+        break;
+      case PBE_X:
+        if constexpr (GGA) f = pbe_x(a, b, xaa, xbb);
+        break;
+      case PBE_C:
+        if constexpr (GGA) f = pbe_c(a, b, xaa + 2.0 * xab + xbb);
+        break;
       default:
-        if constexpr (RSH) {
+        if constexpr (RSH && GGA) {
           if (t.id[k] == CAM_B88) {
             f = cam_b88_x(a, b, xaa, xbb, t.p[k][0], t.p[k][1], t.p[k][2]);
           } else {
@@ -764,21 +844,23 @@ PT_HD DualN<5> edens_open(const Terms& t, double ra, double rb, double saa,
   return edens_terms<RSH>(t, a, b, xaa, xab, xbb);
 }
 
-// The same with second derivatives, for the B3LYP family (the response
-// kernels take no range-separated component): h = (e_rr, e_rs, e_ss) of
-// (rho, sigma) ...
+// The same with second derivatives, for the B3LYP and PBE families (the
+// response and Hessian kernels take no range-separated component; GGA as
+// edens_terms's): h = (e_rr, e_rs, e_ss) of (rho, sigma) ...
+template <bool GGA = true>
 PT_HD HDualN<2> edens_closed2(const Terms& t, double rho, double sigma) {
   const HDualN<2> ra = 0.5 * hvar<2>(rho, 0);
   const HDualN<2> s4 = 0.25 * hvar<2>(sigma, 1);
-  return edens_terms<false>(t, ra, ra, s4, s4, s4);
+  return edens_terms<false, GGA>(t, ra, ra, s4, s4, s4);
 }
 
 // ... and the 15 of (rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb)
+template <bool GGA = true>
 PT_HD HDualN<5> edens_open2(const Terms& t, double ra, double rb, double saa,
                             double sab, double sbb) {
-  return edens_terms<false>(t, hvar<5>(ra, 0), hvar<5>(rb, 1),
-                            hvar<5>(saa, 2), hvar<5>(sab, 3),
-                            hvar<5>(sbb, 4));
+  return edens_terms<false, GGA>(t, hvar<5>(ra, 0), hvar<5>(rb, 1),
+                                 hvar<5>(saa, 2), hvar<5>(sab, 3),
+                                 hvar<5>(sbb, 4));
 }
 
 }  // namespace ptxc

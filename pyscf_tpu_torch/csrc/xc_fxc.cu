@@ -140,7 +140,7 @@ __global__ void xc_fxc_kernel(int nspin, double sgn, int npts, int nao,
 
 // aod (4, npts, nao); dmao (nspin, npts, nao) of the total density (nspin
 // 1) or of each spin (nspin 2); weights (npts,); ids/coeffs: the nterm
-// components (the B3LYP family) and their weights; out (npts, 1, 4, 4) for
+// components (the B3LYP and PBE families) and their weights; out (npts, 1, 4, 4) for
 // nspin 1 with sgn +1 (singlet) or -1 (triplet), (npts, 4, 4, 4) for nspin
 // 2. Returns cudaGetLastError() after the launch, or -1 for a component
 // that is not in the kernel or too many terms.
@@ -150,7 +150,7 @@ extern "C" int pt_xc_fxc(int nspin, double sgn, int npts, int nao,
                          const double* coeffs, double* out,
                          int warps_per_block, void* stream) {
   ptxc::Terms terms;
-  if (!make_terms(1, nterm, ids, coeffs, nullptr, ptxc::LYP, terms))
+  if (!make_terms(1, nterm, ids, coeffs, nullptr, false, terms))
     return -1;
   const int threads = 32 * warps_per_block;
   const long npw = 32L * warps_per_block;

@@ -46,15 +46,17 @@ __device__ __forceinline__ void closed_density(int gga, int lane, int nao,
 
 // The functional's components for a launch, summed in the order given,
 // with params (nterm x NPARAM, or null when no component takes any); false
-// for too many terms, a component above max_id or a GGA component without
-// gga.
+// for too many terms, an unknown component, a range-separated one (CAM_B88,
+// WB97) without rsh or a GGA component without gga.
 inline bool make_terms(int gga, int nterm, const int* ids,
-                       const double* coeffs, const double* params,
-                       int max_id, ptxc::Terms& terms) {
+                       const double* coeffs, const double* params, bool rsh,
+                       ptxc::Terms& terms) {
   if (nterm > ptxc::MAXTERM) return false;
   terms.n = nterm;
   for (int k = 0; k < nterm; ++k) {
-    if (ids[k] < ptxc::SLATER || ids[k] > max_id) return false;
+    if (ids[k] < ptxc::SLATER || ids[k] > ptxc::PBE_C) return false;
+    if (!rsh && (ids[k] == ptxc::CAM_B88 || ids[k] == ptxc::WB97))
+      return false;
     if (!gga && ids[k] >= ptxc::B88) return false;
     terms.id[k] = ids[k];
     terms.c[k] = coeffs[k];

@@ -116,7 +116,7 @@ __global__ void xc_rks_fxc_kernel(int gga, int npts, int nao, int nvec,
 
 // aod: (4, npts, nao) for a GGA (gga = 1) or (npts, nao) for an LDA;
 // dmao = ao @ dm0 (npts, nao); dmao1 = ao @ ddm_v (nvec, npts, nao);
-// weights (npts,); ids/coeffs: the nterm components (the B3LYP family) and
+// weights (npts,); ids/coeffs: the nterm components (the B3LYP and PBE families) and
 // their weights; out (nvec, npts, nao). Returns cudaGetLastError() after
 // the launch, or -1 for a component that is not in the kernel or too many
 // terms.
@@ -126,7 +126,7 @@ extern "C" int pt_xc_rks_fxc(int gga, int npts, int nao, int nvec,
                              int nterm, const int* ids, const double* coeffs,
                              double* out, void* stream) {
   ptxc::Terms terms;
-  if (!make_terms(gga, nterm, ids, coeffs, nullptr, ptxc::LYP, terms))
+  if (!make_terms(gga, nterm, ids, coeffs, nullptr, false, terms))
     return -1;
   const long npb = 32L * RKS_FXC_WARPS;
   const int blocks = (int)((npts + npb - 1) / npb);

@@ -16,7 +16,7 @@
 //
 // At a point with features u = (rho, grad rho) (rho = max(phi . D phi, 0),
 // g_j = 2 (D phi) . d_j phi), the clamped energy density e(rho_s, sigma_s)
-// of the B3LYP family on second-order dual numbers (xc_funcs.cuh
+// of the B3LYP and PBE families on second-order dual numbers (xc_funcs.cuh
 // edens_closed2) gives v = de/du and H = d2e/du2,
 //   v_0 = e_r,  v_j = 2 e_s s' g_j,
 //   H_00 = e_rr, H_0j = 2 e_rs s' g_j,
@@ -115,7 +115,7 @@ __global__ void __launch_bounds__(128) xc_rks_hess_kernel(
   for (int p = 0; p < 4; ++p)
     for (int q = 0; q < 4; ++q) H[p][q] = 0.0;
   if (mask) {
-    const ptxc::HDualN<2> e = ptxc::edens_closed2(
+    const ptxc::HDualN<2> e = ptxc::edens_closed2<GGA>(
         terms, fmax(rho, RHO_THR), fmax(sigma, SIGMA_FLOOR));
     v[0] = e.d[0];
     H[0][0] = e.h[0];
@@ -212,7 +212,7 @@ static void launch_hess(int blocks, int threads, cudaStream_t stream,
 // aod (20, npts, nao) for a GGA (gga = 1) or (10, npts, nao) for an LDA;
 // dmao (4, npts, nao) or (1, npts, nao); weights (npts,); atom_off (natm +
 // 1,) the first AO of each atom (consecutive); ids/coeffs: the nterm
-// components (the B3LYP family) and their weights; outputs wv (npts, 4),
+// components (the B3LYP and PBE families) and their weights; outputs wv (npts, 4),
 // ut and ht (3 natm, npts, 4), same (npts, natm, 6), xr (4, npts, nao).
 // Returns cudaGetLastError() after the launch, or -1 for a component that
 // is not in the kernel or too many terms.
@@ -224,7 +224,7 @@ extern "C" int pt_xc_rks_hess(int gga, int npts, int nao, int natm,
                               double* ht, double* same, double* xr,
                               void* stream) {
   ptxc::Terms terms;
-  if (!make_terms(gga, nterm, ids, coeffs, nullptr, ptxc::LYP, terms))
+  if (!make_terms(gga, nterm, ids, coeffs, nullptr, false, terms))
     return -1;
   const int threads = 128;
   const int blocks = (npts + threads - 1) / threads;

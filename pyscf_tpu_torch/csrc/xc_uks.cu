@@ -4,7 +4,7 @@
 //
 // Replaces pyscf_tpu/dft/numint.py:246-302 (inside _get_uks_core_aod) with
 // the ported components of pyscf_tpu/dft/xc_funcs.py (the B3LYP family,
-// cam_b88_x and wb97_xc) and the derivatives
+// pbe_x, pbe_c, cam_b88_x and wb97_xc) and the derivatives
 // that jax.grad takes at numint.py:239-240; plain PyTorch twin:
 // pyscf_tpu_torch/dft/numint.py:xc_uks_plain. The products around it,
 // dmao_s = ao @ dm_s and V_s = ao^T @ vtmp_s, are GEMMs and stay library
@@ -148,7 +148,7 @@ extern "C" int pt_xc_uks(int gga, int npts, int nao, const double* aod,
                          double* vtmp, double* partials, int warps_per_block,
                          void* stream) {
   ptxc::Terms terms;
-  if (!make_terms(gga, nterm, ids, coeffs, params, ptxc::WB97, terms))
+  if (!make_terms(gga, nterm, ids, coeffs, params, true, terms))
     return -1;
   const int threads = 32 * warps_per_block;
   const int blocks = (npts + warps_per_block - 1) / warps_per_block;

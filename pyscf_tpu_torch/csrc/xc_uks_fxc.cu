@@ -163,7 +163,7 @@ extern "C" int pt_xc_uks_fxc(int gga, int npts, int nao, int nvec,
                              int nterm, const int* ids, const double* coeffs,
                              double* out, void* stream) {
   ptxc::Terms terms;
-  if (!make_terms(gga, nterm, ids, coeffs, nullptr, ptxc::LYP, terms))
+  if (!make_terms(gga, nterm, ids, coeffs, nullptr, false, terms))
     return -1;
   const long npb = 32L * UKS_FXC_WARPS;
   const int blocks = (int)((npts + npb - 1) / npb);

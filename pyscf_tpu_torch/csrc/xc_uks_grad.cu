@@ -159,7 +159,7 @@ extern "C" int pt_xc_uks_grad(int gga, int npts, int nao, const double* aod,
                               double* exc_partials, int pts,
                               int warps_per_block, void* stream) {
   ptxc::Terms terms;
-  if (!make_terms(gga, nterm, ids, coeffs, nullptr, ptxc::LYP, terms)) {
+  if (!make_terms(gga, nterm, ids, coeffs, nullptr, false, terms)) {
     return -1;
   }
   const int blocks = (npts + pts - 1) / pts;

@@ -56,6 +56,12 @@ _exc_quadrature in pyscf_tpu/hessian/rhf.py:226-233,327):
     F_t = phi^T vt'_t - [rows on A] (d_x phi)^T     torch.matmul (cuBLAS)
     vtmp0
 
+and of the DF-UKS Hessian (uks_xc_hessian; pyscf_tpu/hessian/uhf.py:
+176-186,256 on _exc_quadrature's unrestricted branch): the same with the
+features of both spins, u = (rho_a, grad rho_a, rho_b, grad rho_b), on
+one set of AO values, by the kernels `xc_uks_hess` and `xc_uks_deriv1`
+(twins xc_uks_hess_plain and xc_uks_deriv1_plain).
+
 The XC response of TDA/TDDFT, on a closed- or open-shell ground density:
 
     the Hessian route (tdscf get_ab): w f_xc per    CUDA kernel `xc_fxc`;
@@ -437,8 +443,7 @@ def xc_rks_hess_plain(aod, dmao, weights, xc, atom_off):
     mu on A of [d_x phi_mu (D phi)_mu, d_x d_j phi_mu (D phi)_mu + d_x
     phi_mu (D d_j phi)_mu]."""
     gga = aod.shape[0] == 20
-    B, nao = aod.shape[1:]
-    natm = atom_off.shape[0] - 1
+    B = aod.shape[1]
     ao, d0 = aod[0], dmao[0]
     rho = torch.clamp(torch.einsum('bi,bi->b', d0, ao), min=0.0)
     if gga:
@@ -463,12 +468,42 @@ def xc_rks_hess_plain(aod, dmao, weights, xc, atom_off):
     v = torch.where(mask, v, 0.0)
     H = torch.where(mask, H, 0.0)
     wv = weights * v                                    # (4, B)
+    onehot, sec, third = _atom_tables(aod, atom_off)
+    u, same, xr = _hess_rows(aod, dmao, v, weights, onehot, sec, third)
+    u = torch.where(mask, u, 0.0)
+    ht = weights * torch.einsum('cqb,tqb->tcb', H, u)
+    return (wv.T.contiguous(), u.permute(0, 2, 1).contiguous(),
+            ht.permute(0, 2, 1).contiguous(), same, xr)
 
-    atoms = torch.arange(natm, device=ao.device)
+
+def _atom_tables(aod, atom_off):
+    """(onehot (natm, nao) of each AO's atom, {(i, j): d_i d_j phi},
+    {sorted (i, j, k): d_i d_j d_k phi} or None for an LDA's (10, B, nao))
+    of the XC Hessian twins."""
+    natm = atom_off.shape[0] - 1
+    atoms = torch.arange(natm, device=aod.device)
     ao_atom = torch.repeat_interleave(atoms,
                                       (atom_off[1:] - atom_off[:-1]).long())
-    onehot = (ao_atom[None, :] == atoms[:, None]).to(ao.dtype)
-    sec = _pair_table(aod)
+    onehot = (ao_atom[None, :] == atoms[:, None]).to(aod.dtype)
+    third = None
+    if aod.shape[0] == 20:
+        third = {tuple(sorted(ijk)): aod[10 + k]
+                 for k, ijk in enumerate(THIRD_DERIVS)}
+    return onehot, _pair_table(aod), third
+
+
+def _hess_rows(aod, dmao, v, weights, onehot, sec, third):
+    """The rows of one density D of the XC Hessian twins, with v (4, B)
+    the coefficients of its features (rho, grad rho) and dmao
+    = aod[:4] @ D (aod[:1] @ D for an LDA, third None): (u (3 natm, 4, B),
+    the features' derivative along t = 3 A + x, -2 sum over the AOs mu on
+    A of [d_x phi_mu (D phi)_mu, d_x d_j phi_mu (D phi)_mu + d_x phi_mu (D
+    d_j phi)_mu]; same (B, natm, 6), the same-atom blocks of w v .
+    d2u/dA_x dA_y; xr (4, B, nao), vtmp0 = 1/2 w v_0 phi + sum_j w v_j d_j
+    phi and G_x = sum_j w v_j d_x d_j phi)."""
+    gga = third is not None
+    natm, B = onehot.shape[0], aod.shape[1]
+    ao, d0 = aod[0], dmao[0]
     p = [torch.einsum('xbi,bi,ai->axb', aod[1:4], d0, onehot)]
     for j in range(3):
         pj = torch.stack([sec[x, j] for x in range(3)]) * d0
@@ -478,12 +513,6 @@ def xc_rks_hess_plain(aod, dmao, weights, xc, atom_off):
         else:
             p.append(torch.zeros_like(p[0]))
     u = -2.0 * torch.stack(p, dim=2).reshape(3 * natm, 4, B)
-    u = torch.where(mask, u, 0.0)
-    ht = weights * torch.einsum('cqb,tqb->tcb', H, u)
-
-    third = {}
-    for k, ijk in enumerate(THIRD_DERIVS):
-        third[tuple(sorted(ijk))] = aod[10 + k] if gga else None
     same = []
     for x, y in SECOND_DERIVS:
         t = v[0, :, None] * sec[x, y] * d0
@@ -494,16 +523,14 @@ def xc_rks_hess_plain(aod, dmao, weights, xc, atom_off):
                     + sec[x, y] * dmao[1 + j])
         same.append(2.0 * weights[:, None] * (t @ onehot.T))
     same = torch.stack(same, dim=-1)                    # (B, natm, 6)
-
+    wv = weights * v
     vtmp0 = 0.5 * wv[0, :, None] * ao
-    G = ao.new_zeros((3, B, nao))
+    G = ao.new_zeros((3, B, ao.shape[1]))
     if gga:
         vtmp0 = vtmp0 + torch.einsum('jb,jbi->bi', wv[1:], aod[1:4])
         G = torch.stack([sum(wv[1 + j, :, None] * sec[x, j] for j in range(3))
                          for x in range(3)])
-    xr = torch.cat([vtmp0[None], G])
-    return (wv.T.contiguous(), u.permute(0, 2, 1).contiguous(),
-            ht.permute(0, 2, 1).contiguous(), same, xr)
+    return u, same, torch.cat([vtmp0[None], G])
 
 
 def xc_rks_deriv1_plain(aod, wv, ht, xr, ao_atom, t0, nt):
@@ -520,6 +547,94 @@ def xc_rks_deriv1_plain(aod, wv, ht, xr, ao_atom, t0, nt):
     e = wv[:, 0, None] * aod[1 + x] + 2.0 * xr[1 + x]  # (nt, B, nao)
     val = val - 0.5 * on_a[:, None, :] * e
     return val.permute(1, 0, 2).contiguous()
+
+
+def _open_second(xc, x5):
+    """(e_x (5, B), e_xx (5, 5, B)) of the open-shell energy density at the
+    clamped inputs x5 = (rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb) (5,
+    B), by torch.func.grad and torch.func.hessian (vmapped over the
+    points)."""
+    def f(x):
+        return xc.exc_density(*x)
+
+    X = x5.T
+    g = torch.func.vmap(torch.func.grad(f))(X)
+    h = torch.func.vmap(torch.func.hessian(f))(X)
+    return g.T, h.permute(1, 2, 0)
+
+
+def xc_uks_hess_plain(aod, dmao, weights, xc, atom_off):
+    """Plain PyTorch twin of the `xc_uks_hess` kernel on one block of B
+    points: (wv (B, 8), ut (3 natm, B, 8), ht (3 natm, B, 8), same (B,
+    natm, 6), xr (2, 4, B, nao)) as kernels.xc_uks_hess documents them.
+
+    aod (20, B, nao) and dmao = aod[:4] @ D_s stacked (2, 4, B, nao) for a
+    GGA, (10, B, nao) and (2, 1, B, nao) for an LDA; weights (B,);
+    atom_off (natm + 1,). The features are u = (rho_a, grad rho_a, rho_b,
+    grad rho_b); x = (rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb) is
+    clamped as xc_uks_plain clamps it (rho_s >= RHO_THR/2, sigma_ss >=
+    SIGMA_FLOOR, sigma_ab as it is, zero where rho_a + rho_b <= RHO_THR),
+    and with J = dx/du (the clamps' slopes as jax.grad takes them)
+      v = J^T e_x,  H = J^T e_xx J + sum_k e_k d2x_k/du2,
+    d2sigma_ss/dg_s dg_s = 2 s'_ss 1, d2sigma_ab/dg_a dg_b = 1; u_t, same
+    and xr per spin as xc_rks_hess_plain's, same summed over the spins."""
+    gga = aod.shape[0] == 20
+    B = aod.shape[1]
+    ao = aod[0]
+    rho = torch.clamp(torch.einsum('sbi,bi->sb', dmao[:, 0], ao), min=0.0)
+    if gga:
+        g = 2.0 * torch.einsum('sbi,jbi->sjb', dmao[:, 0], aod[1:4])
+    else:
+        g = ao.new_zeros((2, 3, B))
+    saa, sab, sbb = [torch.einsum('jb,jb->b', g[i], g[j])
+                     for i, j in ((0, 0), (0, 1), (1, 1))]
+    mask = (rho[0] + rho[1]) > RHO_THR
+    lo = 0.5 * RHO_THR
+
+    def sf(x, floor):
+        return torch.where(mask, x if floor is None else _max(x, floor), 1.0)
+
+    ex, exx = _open_second(xc, torch.stack([
+        sf(rho[0], lo), sf(rho[1], lo), sf(saa, SIGMA_FLOOR), sf(sab, None),
+        sf(sbb, SIGMA_FLOOR)]))
+    J = ao.new_zeros((5, 8, B))
+    J[0, 0] = clamp_slope(rho[0], lo)
+    J[1, 4] = clamp_slope(rho[1], lo)
+    sl_aa = clamp_slope(saa, SIGMA_FLOOR)
+    sl_bb = clamp_slope(sbb, SIGMA_FLOOR)
+    if gga:
+        J[2, 1:4] = 2.0 * sl_aa * g[0]
+        J[3, 1:4] = g[1]
+        J[3, 5:8] = g[0]
+        J[4, 5:8] = 2.0 * sl_bb * g[1]
+    v = torch.einsum('kb,kub->ub', ex, J)
+    H = torch.einsum('kub,klb,lvb->uvb', J, exx, J)
+    if gga:
+        eye = torch.eye(3, dtype=ao.dtype, device=ao.device)[:, :, None]
+        H[1:4, 1:4] += 2.0 * ex[2] * sl_aa * eye
+        H[5:8, 5:8] += 2.0 * ex[4] * sl_bb * eye
+        H[1:4, 5:8] += ex[3] * eye
+        H[5:8, 1:4] += ex[3] * eye
+    v = torch.where(mask, v, 0.0)
+    H = torch.where(mask, H, 0.0)
+    onehot, sec, third = _atom_tables(aod, atom_off)
+    rows = [_hess_rows(aod, dmao[s], v[4 * s:4 * s + 4], weights, onehot,
+                       sec, third) for s in (0, 1)]
+    u = torch.where(mask, torch.cat([r[0] for r in rows], dim=1), 0.0)
+    ht = weights * torch.einsum('cqb,tqb->tcb', H, u)
+    return ((weights * v).T.contiguous(), u.permute(0, 2, 1).contiguous(),
+            ht.permute(0, 2, 1).contiguous(), rows[0][1] + rows[1][1],
+            torch.stack([rows[0][2], rows[1][2]]))
+
+
+def xc_uks_deriv1_plain(aod, wv, ht, xr, ao_atom, t0, nt):
+    """Plain PyTorch twin of the `xc_uks_deriv1` kernel: (2, B, nt, nao),
+    for each spin s xc_rks_deriv1_plain's rows on that spin's four
+    features: wv[:, 4 s:4 s + 4], ht[..., 4 s:4 s + 4] and xr[s] from
+    xc_uks_hess."""
+    return torch.stack([xc_rks_deriv1_plain(
+        aod, wv[:, 4 * s:4 * s + 4], ht[..., 4 * s:4 * s + 4], xr[s], ao_atom,
+        t0, nt) for s in (0, 1)])
 
 
 def atom_ranges(mol):
@@ -644,14 +759,16 @@ class NumInt:
         return self._response(kernels.xc_rks_fxc, 1, xc_code, aod_blocks,
                               weights, dm0, sym)
 
-    def uks_response(self, xc_code, aod_blocks, weights, dm0):
+    def uks_response(self, xc_code, aod_blocks, weights, dm0, sym=True):
         """The spin-polarized V_xc response at the spin density dm0 (2, nao,
         nao): a map ddm (nvec, 2, nao, nao) -> (nvec, 2, nao, nao), jax.jvp of
         _get_uks_core_aod's V_xc as pyscf_tpu/tdscf/rhf.py:221-238 takes it
-        (kernel `xc_uks_fxc`)."""
+        (kernel `xc_uks_fxc`); unless sym, of the JAX package's
+        unsymmetrised dE_xc/dD_s (pyscf_tpu/hessian/uhf.py:196-197
+        lin_g)."""
         from ..ops import kernels
         return self._response(kernels.xc_uks_fxc, 2, xc_code, aod_blocks,
-                              weights, dm0)
+                              weights, dm0, sym)
 
     def rks_grad(self, mol, grids, xc_code, dm, timings=None):
         """(exc, g (nao, 3)) of a closed-shell density dm on the fixed grid:
@@ -743,10 +860,35 @@ class NumInt:
         as one GEMM, then the kernels. timings, if given, receives the
         seconds of the AO values, xc_rks_hess and its GEMMs ('xc_rows') and
         of xc_rks_deriv1 and its GEMMs ('xc_F1')."""
+        F, hxx = self._xc_hessian(mol, grids, xc_code, dm[None],
+                                  tangent_chunk, timings)
+        return F[0], hxx
+
+    def uks_xc_hessian(self, mol, grids, xc_code, dm, tangent_chunk=12,
+                       timings=None):
+        """The KS terms of the analytic Hessian of a spin density dm (2, nao,
+        nao) on the fixed grid: (F (2, 3 natm, nao, nao), hxx (3 natm, 3
+        natm)), as rks_xc_hessian's with the features of both spins (u =
+        (rho_a, grad rho_a, rho_b, grad rho_b), what jax.hessian makes of
+        _exc_quadrature's unrestricted branch): hxx sums the spins' same-atom
+        blocks and explicit cross terms (Z_s with D_s), F_s is the
+        half-product of dV_xc,s/dX at fixed dm. The kernels are `eval_ao`
+        deriv 3 (second for an LDA), `xc_uks_hess` and `xc_uks_deriv1`, both
+        spins on one set of AO values; timings as rks_xc_hessian's."""
+        return self._xc_hessian(mol, grids, xc_code, dm, tangent_chunk,
+                                timings)
+
+    def _xc_hessian(self, mol, grids, xc_code, dm, tangent_chunk, timings):
+        """rks_xc_hessian (dm (1, nao, nao)) and uks_xc_hessian (dm (2, nao,
+        nao)): F (nspin, 3 natm, nao, nao), hxx."""
         from ..ops import kernels
         xc = xc_mod.parse_xc(xc_code)
         gga = xc.is_gga
         deriv, nd = (3, 4) if gga else (2, 1)
+        nspin = dm.shape[0]
+        hess, deriv1 = ((kernels.xc_rks_hess, kernels.xc_rks_deriv1)
+                        if nspin == 1 else
+                        (kernels.xc_uks_hess, kernels.xc_uks_deriv1))
         natm, nao = mol.natm, mol.nao
         nt = 3 * natm
         atom_off, ao_atom = atom_ranges(mol)
@@ -754,11 +896,12 @@ class NumInt:
         f64 = dict(dtype=dm.dtype, device=dev)
         n = grids.size
         tc = max(1, min(tangent_chunk, nt))
-        blk = _block_size(n, nao, NCOMP[deriv] + nd + 16 + tc, dev)
-        F = torch.zeros((nt, nao, nao), **f64)
+        blk = _block_size(n, nao, NCOMP[deriv] + nspin * (nd + 4 + tc) + 12,
+                          dev)
+        F = torch.zeros((nspin, nt, nao, nao), **f64)
         hxx = torch.zeros((nt, nt), **f64)
-        Z = torch.zeros((3 * nao, 3 * nao), **f64)
-        Q = torch.zeros((3, nao, nao), **f64)
+        Z = torch.zeros((nspin, 3 * nao, 3 * nao), **f64)
+        Q = torch.zeros((nspin, 3, nao, nao), **f64)
         same = torch.zeros((natm, 6), **f64)
         t_rows = t_f1 = 0.0
         for i in range(0, n, blk):
@@ -766,27 +909,32 @@ class NumInt:
             w = grids.weights[i:i + blk]
             B = w.shape[0]
             aod = eval_ao(mol, grids.coords[i:i + blk], deriv)
-            dmao = (aod[:nd].reshape(-1, nao) @ dm).reshape(nd, B, nao)
-            wv, ut, ht, sm, xr = kernels.xc_rks_hess(aod, dmao, w, xc,
-                                                     atom_off)
+            dmao = torch.matmul(aod[:nd].reshape(-1, nao), dm).reshape(
+                nspin, nd, B, nao)
+            wv, ut, ht, sm, xr = hess(aod, dmao[0] if nspin == 1 else dmao,
+                                      w, xc, atom_off)
             del dmao
+            if nspin == 1:
+                xr = xr[None]
             hxx += ut.reshape(nt, -1) @ ht.reshape(nt, -1).T
             same += sm.sum(dim=0)
             d1 = aod[1:4]
-            L = torch.cat([d1, xr[1:]], dim=1).permute(1, 0, 2)
-            R = torch.cat([wv[:, 0, None] * d1 + xr[1:], d1],
-                          dim=1).permute(1, 0, 2)
-            Z += L.reshape(2 * B, -1).T @ R.reshape(2 * B, -1)
+            for s in range(nspin):
+                L = torch.cat([d1, xr[s, 1:]], dim=1).permute(1, 0, 2)
+                R = torch.cat([wv[:, 4 * s, None] * d1 + xr[s, 1:], d1],
+                              dim=1).permute(1, 0, 2)
+                Z[s] += L.reshape(2 * B, -1).T @ R.reshape(2 * B, -1)
+                Q[s] += d1.transpose(1, 2) @ xr[s, 0]
             del L, R, ut, sm
-            Q += d1.transpose(1, 2) @ xr[0]
             sync(dev)
             t1 = time.perf_counter()
             ao_t = aod[0].T
             for a in range(0, nt, tc):
                 m = min(tc, nt - a)
-                vt = kernels.xc_rks_deriv1(aod, wv, ht, xr, ao_atom, a, m)
-                F[a:a + m] += (ao_t @ vt.reshape(B, m * nao)).reshape(
-                    nao, m, nao).transpose(0, 1)
+                vt = deriv1(aod, wv, ht, xr[0] if nspin == 1 else xr,
+                            ao_atom, a, m).reshape(nspin, B, m * nao)
+                F[:, a:a + m] += (ao_t @ vt).reshape(
+                    nspin, nao, m, nao).transpose(1, 2)
                 del vt
             del aod, wv, ht, xr
             sync(dev)
@@ -796,13 +944,15 @@ class NumInt:
         onehot = (ao_atom.long()[None, :] == torch.arange(
             natm, device=dev)[:, None]).to(dm.dtype)
         rows = onehot.repeat_interleave(3, dim=0)       # (nt, nao)
-        F -= rows[:, :, None] * Q.repeat(natm, 1, 1)
+        for s in range(nspin):
+            F[s] -= rows[:, :, None] * Q[s].repeat(natm, 1, 1)
         sync(dev)
         t_f1 += time.perf_counter() - t0
         t0 = time.perf_counter()
-        Z = Z.reshape(3, nao, 3, nao).permute(0, 2, 1, 3) * dm
-        hxx += 2.0 * torch.einsum('am,xymn,bn->axby', onehot, Z,
-                                  onehot).reshape(nt, nt)
+        for s in range(nspin):
+            Zs = Z[s].reshape(3, nao, 3, nao).permute(0, 2, 1, 3) * dm[s]
+            hxx += 2.0 * torch.einsum('am,xymn,bn->axby', onehot, Zs,
+                                      onehot).reshape(nt, nt)
         iu = [(x, y) for x in range(3) for y in range(x, 3)]
         for k, (x, y) in enumerate(iu):
             idx = torch.arange(natm, device=dev) * 3

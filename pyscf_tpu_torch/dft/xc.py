@@ -1,15 +1,17 @@
 """XC functional composition: parse_xc and XCFunctional.
 
 Counterpart of pyscf_tpu/dft/xc.py for the functionals built from the
-ported components (Slater, VWN5, VWN3, B88, LYP, the CAM-attenuated B88 and
-the B97 power series): the names SLATER/LDA, VWN/VWN5, VWN3/VWN_RPA,
-B88/B and LYP, the compounds LDA, LDA,VWN, SVWN, BLYP, B3LYP, B3LYP5 and
-B3LYPG, the range-separated hybrids WB97, WB97X, WB97X-V (with VV10
+ported components (Slater, VWN5, VWN3, B88, LYP, PBE exchange and
+correlation, the CAM-attenuated B88 and the B97 power series): the names
+SLATER/LDA, VWN/VWN5, VWN3/VWN_RPA, B88/B, LYP, PBE_X and PBE_C, the
+compounds LDA, LDA,VWN, SVWN, BLYP, B3LYP, B3LYP5, B3LYPG, PBE, PBE0 and
+PBEH, the range-separated hybrids WB97, WB97X, WB97X-V (with VV10
 non-local correlation) and CAMB3LYP/CAM_B3LYP, the full-range B97 hybrids
 B97, B97-1, B97-2 and B97-D (alias B97D), and the 'X,C' and 'a*X + b*Y'
-forms with HF for exact exchange. Any other name (meta-GGA, the PBE family,
-double hybrids and the rest) raises NotImplementedError: those are
-ROADMAP.md queue 1.
+forms with HF for exact exchange, where a name of the exchange part may
+drop its _X and one of the correlation part its _C ('pbe,pbe'). Any other
+name (meta-GGA, PW91, P86, double hybrids and the rest) raises
+NotImplementedError: those are ROADMAP.md queue 1.
 
 A functional is a list of weighted components plus a hybrid HF-exchange
 fraction; the energy density is their weighted sum, in the order listed.
@@ -45,6 +47,14 @@ def _c_lyp(ra, rb, saa, sab, sbb):
     return F.lyp_c(ra, rb, saa, sab, sbb)
 
 
+def _x_pbe(ra, rb, saa, sab, sbb):
+    return F.pbe_x(ra, rb, saa, sbb)
+
+
+def _c_pbe(ra, rb, saa, sab, sbb):
+    return F.pbe_c(ra, rb, saa + 2 * sab + sbb)
+
+
 def _x_cam_b88(ra, rb, saa, sab, sbb, omega, alpha, beta):
     return F.cam_b88_x(ra, rb, saa, sbb, omega, alpha, beta)
 
@@ -61,6 +71,8 @@ COMPONENTS = {
     'VWN3': (LDA, _c_vwn3),
     'B88': (GGA, _x_b88),
     'LYP': (GGA, _c_lyp),
+    'PBE_X': (GGA, _x_pbe),
+    'PBE_C': (GGA, _c_pbe),
     'CAM_B88': (GGA, _x_cam_b88),
     'WB97': (GGA, _xc_wb97),
 }
@@ -76,6 +88,8 @@ FUNCTIONALS = {
     'B88': 'B88',
     'B': 'B88',
     'LYP': 'LYP',
+    'PBE_X': 'PBE_X',
+    'PBE_C': 'PBE_C',
 }
 
 # compound aliases: (hyb, [(coeff, xname)], [(coeff, cname)])
@@ -83,6 +97,9 @@ COMPOUND = {
     'LDA,VWN': (0.0, [(1.0, 'SLATER')], [(1.0, 'VWN5')]),
     'LDA': (0.0, [(1.0, 'SLATER')], []),
     'SVWN': (0.0, [(1.0, 'SLATER')], [(1.0, 'VWN5')]),
+    'PBE': (0.0, [(1.0, 'PBE_X')], [(1.0, 'PBE_C')]),
+    'PBE0': (0.25, [(0.75, 'PBE_X')], [(1.0, 'PBE_C')]),
+    'PBEH': (0.25, [(0.75, 'PBE_X')], [(1.0, 'PBE_C')]),
     'BLYP': (0.0, [(1.0, 'B88')], [(1.0, 'LYP')]),
     'B3LYP': (0.2, [(0.08, 'SLATER'), (0.72, 'B88')],
               [(0.81, 'LYP'), (0.19, 'VWN_RPA')]),
@@ -141,7 +158,12 @@ def _not_ported(name, xc_code):
         f'{sorted(F.WB97_PARAMS)} and {sorted(F.B97_PARAMS)} (B97D)')
 
 
-def _term(c, name, xc_code):
+def _term(c, name, xc_code, kind=None):
+    """(c, family, component) of a name; in the 'X,C' form a name of the
+    exchange (kind 'X') or correlation part ('C') may drop its suffix, as
+    pyscf_tpu/dft/xc.py parse_xc reads 'pbe,pbe'."""
+    if name not in FUNCTIONALS and f'{name}_{kind}' in FUNCTIONALS:
+        name = f'{name}_{kind}'
     if name not in FUNCTIONALS:
         raise _not_ported(name, xc_code)
     comp = FUNCTIONALS[name]
@@ -194,12 +216,12 @@ def parse_xc(xc_code):
     hyb = 0.0
     terms = []
     parts = code.split(',', 1)          # exchange, then correlation
-    for spec in parts:
+    for spec, kind in zip(parts, 'XC'):
         for coeff, name in _parse_terms(spec):
             if name == 'HF':
                 hyb += coeff
             else:
-                terms.append(_term(coeff, name, xc_code))
+                terms.append(_term(coeff, name, xc_code, kind))
     if not terms:                       # exact exchange alone, as 'HF,'
         raise _not_ported(xc_code, xc_code)
     return XCFunctional(hyb, terms)

@@ -1,8 +1,9 @@
 """Exchange-correlation energy densities in PyTorch.
 
 Counterpart of pyscf_tpu/dft/xc_funcs.py for the components the ported
-functionals use (Slater, VWN5, VWN3, B88, LYP; PW92 inside the B97
-power-series family wb97_xc; the CAM-attenuated B88 cam_b88_x), with the
+functionals use (Slater, VWN5, VWN3, B88, LYP, PBE exchange and
+correlation; PW92 inside PBE and the B97 power-series family wb97_xc; the
+CAM-attenuated B88 cam_b88_x), with the
 same formulas, constants, operation order and clamps. Every function
 returns the energy density per unit volume e(r), Exc = int e(r) d3r, of
 (rho_a, rho_b, sigma_aa, sigma_ab, sigma_bb); spin-unpolarized callers
@@ -127,7 +128,7 @@ def pw92_eps(rho_a, rho_b):
 
 
 # ---------------------------------------------------------------------------
-# GGA exchange: B88
+# GGA exchange: B88, PBE
 # ---------------------------------------------------------------------------
 
 def b88_x(rho_a, rho_b, sigma_aa, sigma_bb):
@@ -141,6 +142,42 @@ def b88_x(rho_a, rho_b, sigma_aa, sigma_bb):
         corr = -beta * r43 * x * x / (1 + 6 * beta * x * torch.asinh(x))
         e = e + lda + corr
     return e
+
+
+def pbe_x(rho_a, rho_b, sigma_aa, sigma_bb):
+    """PBE exchange (Perdew, Burke, Ernzerhof, PRL 77, 3865), spin-scaled:
+    each spin's term is half the unpolarized one at 2 rho_s, 4 sigma_ss."""
+    kappa, mu = 0.8040, 0.2195149727645171
+    e = 0.0
+    for r, s in ((rho_a, sigma_aa), (rho_b, sigma_bb)):
+        r2 = _max(2.0 * r, _TINY)
+        s2 = 4.0 * _max(s, 0.0)
+        kf = (3.0 * math.pi ** 2 * r2) ** (1.0 / 3.0)
+        # s^2 without a square root, so that sigma = 0 differentiates
+        ss2 = s2 / (2.0 * kf * r2) ** 2
+        fx = 1 + kappa - kappa / (1 + mu * ss2 / kappa)
+        ex_lda = _CX * r2 ** (4.0 / 3.0)
+        e = e + 0.5 * ex_lda * fx
+    return e
+
+
+def pbe_c(rho_a, rho_b, sigma):
+    """PBE correlation on PW92, sigma = |grad rho_total|^2 = sigma_aa + 2
+    sigma_ab + sigma_bb."""
+    rho = _max(rho_a + rho_b, _TINY)
+    zeta = _clip((rho_a - rho_b) / rho, -1 + 1e-15, 1 - 1e-15)
+    eps = pw92_eps(rho_a, rho_b)
+    beta, gamma = 0.06672455060314922, (1 - math.log(2.0)) / math.pi ** 2
+    phi = 0.5 * ((1 + zeta) ** (2.0 / 3.0) + (1 - zeta) ** (2.0 / 3.0))
+    kf = (3.0 * math.pi ** 2 * rho) ** (1.0 / 3.0)
+    ks = torch.sqrt(4.0 * kf / math.pi)
+    t2 = _max(sigma, 0.0) / (2.0 * phi * ks * rho) ** 2
+    # A = (beta/gamma) / (exp(-eps/(gamma phi^3)) - 1), by expm1
+    A = beta / gamma / _max(torch.expm1(-eps / (gamma * phi ** 3)), _TINY)
+    u = A * t2
+    H = gamma * phi ** 3 * torch.log1p(
+        beta / gamma * t2 * (1.0 + u) / (1.0 + u + u * u))
+    return rho * (eps + H)
 
 
 # ---------------------------------------------------------------------------

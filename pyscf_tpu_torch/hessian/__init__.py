@@ -4,7 +4,7 @@ Counterpart of pyscf_tpu/hessian/__init__.py: hessian_fd and HessianFD
 (central differences of the analytic gradient), harmonic_analysis and thermo
 (reference hessian/thermo.py:40 harmonic_analysis, :136 thermo), and the
 Hessian(mf) dispatcher. The analytic Hessian of DF-RHF and DF-RKS is
-hessian/rhf.py.
+hessian/rhf.py, of DF-UHF and DF-UKS hessian/uhf.py.
 """
 import numpy as np
 
@@ -114,22 +114,19 @@ def thermo(mol, freq_au, e_tot, temperature=298.15, pressure=101325.0):
 def Hessian(mf, **kwargs):
     """Nuclear Hessian of a converged mean field (reference mf.Hessian()).
 
-    DF-RHF and DF-RKS: the analytic Hessian (hessian/rhf.py). Where the
-    reference falls back to HessianFD (no density fitting; a
-    range-separated or VV10 functional), so does the port. DF-UHF and
-    DF-UKS raise NotImplementedError: the reference computes them
-    analytically, and a finite-difference Hessian would be a different
-    result."""
+    DF-RHF and DF-RKS: the analytic Hessian of hessian/rhf.py; DF-UHF and
+    DF-UKS: that of hessian/uhf.py (pyscf_tpu/hessian/__init__.py:79-95).
+    Where the reference falls back to HessianFD (no density fitting; a
+    range-separated or VV10 functional), so does the port."""
     from ..scf.uhf import UHF
     if mf.with_df is None:
         return HessianFD(mf, **kwargs)
     if hasattr(mf, 'xc') and (mf.xc_obj.omega or mf.nlc):
         return HessianFD(mf, **kwargs)
     if isinstance(mf, UHF):
-        raise NotImplementedError(
-            'the analytic DF-UHF/UKS Hessian (pyscf_tpu/hessian/uhf.py) is '
-            'not ported yet: it is the next slice of the Hessian')
-    from .rhf import Hessian as AnalyticHessian
+        from .uhf import Hessian as AnalyticHessian
+    else:
+        from .rhf import Hessian as AnalyticHessian
     return AnalyticHessian(mf, **kwargs)
 
 

@@ -141,9 +141,7 @@ class Hessian:
         if mf.with_df is None:
             raise NotImplementedError('analytic Hessian needs density '
                                       'fitting; use mf.density_fit()')
-        from ..scf.uhf import UHF
-        if isinstance(mf, UHF):
-            raise NotImplementedError('restricted (RHF/RKS) only')
+        self._check_kind(mf)
         if hasattr(mf, 'xc'):
             if mf._numint.rsh_and_hybrid_coeff(mf.xc)[0]:
                 raise NotImplementedError('range-separated hybrids')
@@ -155,9 +153,20 @@ class Hessian:
         self.timings = {}
         self.cphf_cycles = 0
 
+    @staticmethod
+    def _check_kind(mf):
+        from ..scf.uhf import UHF
+        if isinstance(mf, UHF):
+            raise NotImplementedError('restricted (RHF/RKS) only: '
+                                      'hessian/uhf.py takes DF-UHF and DF-UKS')
+
+    @staticmethod
+    def _hessian(*args):
+        return hessian(*args)
+
     def kernel(self):
         self.timings = {}
-        self.de, self.cphf_cycles = hessian(
+        self.de, self.cphf_cycles = self._hessian(
             self.mf, self.cphf_max_cycle, self.cphf_tol, self.tangent_chunk,
             self.timings)
         return self.de
@@ -227,6 +236,11 @@ def _first_df(mol, auxmol):
     return ip1, ip2
 
 
+def tangent_chunks(nt, size):
+    """The tangents 0 .. nt - 1 in consecutive chunks of size."""
+    return [np.arange(i, min(i + size, nt)) for i in range(0, nt, size)]
+
+
 def _tangent_derivs(ip1, ip2, ao2atom, aux2atom, idx):
     """(ij|P)' (T, naux, nao, nao) and M' (T, naux, naux) of the tangents
     idx (3 A + x): the bra and ket functions on A by ip1, the aux functions
@@ -244,37 +258,50 @@ def _tangent_derivs(ip1, ip2, ao2atom, aux2atom, idx):
     return j3, m2 + m2.transpose(-1, -2)
 
 
-def _mo_response(B, Co, Cv, hyb, vxc=None):
-    """G(Moo, Mvo) -> (G_vo, G_oo): the MO blocks of J[dD] - hyb/2 K[dD]
-    (+ vxc(dD), the XC response, where given and with_xc) for the
-    densities dD = Co Moo Co^T + Cv Mvo Co^T + Co Mvo^T Cv^T (batched, Moo
-    (T, no, no), Mvo (T, nv, no)), J and K on the MO blocks of B."""
-    Bo = B @ Co                                         # (naux, nao, no)
-    Boo = Co.T @ Bo                                     # (naux, no, no)
-    Bvo = Cv.T @ Bo                                     # (naux, nv, no)
-    Bvv = Cv.T @ (B @ Cv)                               # (naux, nv, nv)
-    del Bo
+def _mo_response(B, orbs, kw, vxc=None):
+    """G(Moos, Mvos) -> ([G_vo], [G_oo]): for each block (Co, Cv) of orbs
+    (one for RHF, one per spin for UHF) the MO blocks of J[sum dD] - kw
+    K[dD] (+ vxc, the XC response, where given and with_xc) for the
+    densities dD = Co Moo Co^T + Cv Mvo Co^T + Co Mvo^T Cv^T of each block
+    (batched, Moo (T, no, no), Mvo (T, nv, no)), J and K on the MO blocks
+    of B; kw is hyb/2 for RHF (dD the total density) and hyb for UHF. vxc
+    maps dD (T, nao, nao) for one block, (T, 2, nao, nao) for two."""
+    blocks = []
+    for Co, Cv in orbs:
+        Bo = B @ Co                                     # (naux, nao, no)
+        blocks.append((Co, Cv, Co.T @ Bo, Cv.T @ Bo,    # Boo, Bvo
+                       Cv.T @ (B @ Cv)))                # Bvv (naux, nv, nv)
+        del Bo
 
-    def g(Moo, Mvo, with_xc=True):
-        rho = (torch.einsum('Pij,Tij->TP', Boo, Moo)
-               + 2.0 * torch.einsum('Pai,Tai->TP', Bvo, Mvo))
-        gvo = torch.einsum('TP,Pai->Tai', rho, Bvo)
-        goo = torch.einsum('TP,Pij->Tij', rho, Boo)
-        # K_vo = sum_P Bvo Moo Boo + Bvv Mvo Boo + Bvo Mvo^T Bvo
-        kvo = (torch.einsum('Pak,Tkl,Pli->Tai', Bvo, Moo, Boo)
-               + torch.einsum('Pab,Tbk,Pki->Tai', Bvv, Mvo, Boo)
-               + torch.einsum('Pak,Tbk,Pbi->Tai', Bvo, Mvo, Bvo))
-        # K_oo = sum_P Boo Moo Boo + Bov Mvo Boo + (Bov Mvo Boo)^T
-        k2 = torch.einsum('Pbi,Tbk,Pkj->Tij', Bvo, Mvo, Boo)
-        koo = (torch.einsum('Pik,Tkl,Plj->Tij', Boo, Moo, Boo)
-               + k2 + k2.transpose(-1, -2))
-        gvo, goo = gvo - 0.5 * hyb * kvo, goo - 0.5 * hyb * koo
+    def g(Moos, Mvos, with_xc=True):
+        rho = sum(torch.einsum('Pij,Tij->TP', Boo, Moo)
+                  + 2.0 * torch.einsum('Pai,Tai->TP', Bvo, Mvo)
+                  for (_, _, Boo, Bvo, _), Moo, Mvo in zip(blocks, Moos, Mvos))
+        gvos, goos = [], []
+        for (Co, Cv, Boo, Bvo, Bvv), Moo, Mvo in zip(blocks, Moos, Mvos):
+            gvo = torch.einsum('TP,Pai->Tai', rho, Bvo)
+            goo = torch.einsum('TP,Pij->Tij', rho, Boo)
+            # K_vo = sum_P Bvo Moo Boo + Bvv Mvo Boo + Bvo Mvo^T Bvo
+            kvo = (torch.einsum('Pak,Tkl,Pli->Tai', Bvo, Moo, Boo)
+                   + torch.einsum('Pab,Tbk,Pki->Tai', Bvv, Mvo, Boo)
+                   + torch.einsum('Pak,Tbk,Pbi->Tai', Bvo, Mvo, Bvo))
+            # K_oo = sum_P Boo Moo Boo + Bov Mvo Boo + (Bov Mvo Boo)^T
+            k2 = torch.einsum('Pbi,Tbk,Pkj->Tij', Bvo, Mvo, Boo)
+            koo = (torch.einsum('Pik,Tkl,Plj->Tij', Boo, Moo, Boo)
+                   + k2 + k2.transpose(-1, -2))
+            gvos.append(gvo - kw * kvo)
+            goos.append(goo - kw * koo)
         if vxc is not None and with_xc:
-            half = Cv @ Mvo @ Co.T
-            v = vxc(Co @ Moo @ Co.T + half + half.transpose(-1, -2))
-            gvo = gvo + Cv.T @ v @ Co
-            goo = goo + Co.T @ v @ Co
-        return gvo, goo
+            dD = []
+            for (Co, Cv, _, _, _), Moo, Mvo in zip(blocks, Moos, Mvos):
+                half = Cv @ Mvo @ Co.T
+                dD.append(Co @ Moo @ Co.T + half + half.transpose(-1, -2))
+            v = vxc(dD[0] if len(dD) == 1 else torch.stack(dD, dim=1))
+            vs = [v] if len(dD) == 1 else v.unbind(1)
+            for k, ((Co, Cv, _, _, _), vk) in enumerate(zip(blocks, vs)):
+                gvos[k] = gvos[k] + Cv.T @ vk @ Co
+                goos[k] = goos[k] + Co.T @ vk @ Co
+        return gvos, goos
 
     return g
 
@@ -399,35 +426,40 @@ def _rows_to_atoms(rows, atom_of, natm):
 class _DFDerivs:
     """The DF tensors of the response terms: the uncontracted derivatives
     ip1, ip2 of _first_df, Psi = M^-1 (ij|P) (naux, nao, nao), M^-1, c =
-    Psi . D, Psi co and co^T Psi co for the density D = co co^T, and the
-    atoms of the AO and aux functions."""
+    Psi . D for the density D = sum co co^T over the occupied blocks cos
+    (co = Co sqrt(2) for RHF, Co of each spin for UHF), per block Psi co
+    and co^T Psi co, and the atoms of the AO and aux functions."""
 
-    def __init__(self, mol, auxmol, B, linv_t, co):
+    def __init__(self, mol, auxmol, B, linv_t, cos):
         dev = mol.device
         naux, nao = auxmol.nao, mol.nao
         self.natm, self.nao, self.naux = mol.natm, nao, naux
-        self.co, self.D = co, co @ co.T
+        self.cos = cos
+        self.D = sum(co @ co.T for co in cos)
         self.ip1, self.ip2 = _first_df(mol, auxmol)
         self.ao2atom = torch.as_tensor(_ao2atom_map(mol), device=dev)
         self.aux2atom = torch.as_tensor(_ao2atom_map(auxmol), device=dev)
         self.Minv = linv_t @ linv_t.T
         self.Psi = (linv_t @ B.reshape(naux, -1)).reshape(naux, nao, nao)
         self.c = torch.einsum('Pij,ij->P', self.Psi, self.D)
-        self.PsiC = self.Psi @ co                       # (naux, nao, no)
-        self.O = co.T @ self.PsiC                       # (naux, no, no)
+        self.PsiC = [self.Psi @ co for co in cos]       # (naux, nao, no)
+        self.O = [co.T @ pc for co, pc in zip(cos, self.PsiC)]
 
     def tangent(self, idx):
         return _tangent_derivs(self.ip1, self.ip2, self.ao2atom,
                                self.aux2atom, idx)
 
 
-def _fock1(dfd, chunks, hyb):
-    """J'_t - hyb/2 K'_t at the fixed density D of every tangent, (3 natm,
-    nao, nao): J = sum_P (ij|P) c_P, K = sum_P (ij|P) D Psi_P, differentiated
-    in (ij|P) and M with J' = (ij|P)' . c + Psi (gamma' - M' c) and K' =
-    sum (ij|P)'_P D Psi_P + h.c. - sum M'_PQ Psi_P D Psi_Q."""
+def _fock1(dfd, chunks, kws):
+    """J'_t - kw K'_t of each occupied block (weight kw: hyb/2 for RHF's
+    one block, hyb for each spin of UHF) at the fixed density of every
+    tangent, (nblock, 3 natm, nao, nao): J = sum_P (ij|P) c_P of the total
+    D, K = sum_P (ij|P) D_k Psi_P of the block's D_k = co co^T,
+    differentiated in (ij|P) and M with J' = (ij|P)' . c + Psi (gamma' -
+    M' c) and K' = sum (ij|P)'_P D_k Psi_P + h.c. - sum M'_PQ Psi_P D_k
+    Psi_Q."""
     naux, nao = dfd.naux, dfd.nao
-    co, c, Psi, PsiC = dfd.co, dfd.c, dfd.Psi, dfd.PsiC
+    c, Psi = dfd.c, dfd.Psi
     out = []
     for idx in chunks:
         j3, m2 = dfd.tangent(idx)
@@ -435,22 +467,25 @@ def _fock1(dfd, chunks, hyb):
         gam1 = torch.einsum('TPij,ij->TP', j3, dfd.D)
         vj = (torch.einsum('P,TPij->Tij', c, j3)
               + torch.einsum('TQ,Qij->Tij', gam1 - m2 @ c, Psi))
-        k1 = torch.einsum('TPio,Pjo->Tij', j3 @ co, PsiC)
-        Z = (m2 @ PsiC.reshape(naux, -1)).reshape(T, naux, nao, -1)
-        vk = k1 + k1.transpose(-1, -2) - torch.einsum('TPio,Pjo->Tij', Z,
-                                                      PsiC)
-        out.append(vj - 0.5 * hyb * vk)
-    return torch.cat(out)
+        f = []
+        for co, PsiC, kw in zip(dfd.cos, dfd.PsiC, kws):
+            k1 = torch.einsum('TPio,Pjo->Tij', j3 @ co, PsiC)
+            Z = (m2 @ PsiC.reshape(naux, -1)).reshape(T, naux, nao, -1)
+            vk = k1 + k1.transpose(-1, -2) - torch.einsum('TPio,Pjo->Tij', Z,
+                                                          PsiC)
+            f.append(vj - kw * vk)
+        out.append(torch.stack(f))
+    return torch.cat(out, dim=1)
 
 
-def _rows_df(dfd, chunks, dD, hyb):
+def _rows_df(dfd, chunks, dDs, kws):
     """(ij|P)'_t . dGamma_s + M'_t . dW_PQ,s, (3 natm (s), 3 natm (t)): the
     change of the DF gradient's weights along tangent s, through (ij|P), M
-    and the density response dD (3 natm, nao, nao), contracted with the
-    uncontracted first derivatives of every tangent t."""
+    and the density responses dDs (3 natm, nao, nao), one per occupied
+    block of dfd with its exchange weight kw as _fock1's, contracted with
+    the uncontracted first derivatives of every tangent t."""
     naux, nao, natm = dfd.naux, dfd.nao, dfd.natm
-    co, D0, c, Psi, PsiC, O = (dfd.co, dfd.D, dfd.c, dfd.Psi, dfd.PsiC,
-                               dfd.O)
+    D0, c, Psi = dfd.D, dfd.c, dfd.Psi
     rows = []
     for idx in chunks:
         T = len(idx)
@@ -458,23 +493,26 @@ def _rows_df(dfd, chunks, dD, hyb):
         dPsi = j3.reshape(T, naux, -1) - m2 @ Psi.reshape(naux, -1)
         dPsi = (dfd.Minv @ dPsi).reshape(T, naux, nao, nao)
         del j3
-        dDs = dD[idx[0]:idx[-1] + 1]
+        dDb = [dD[idx[0]:idx[-1] + 1] for dD in dDs]
+        dDt = sum(dDb)
         dc = (torch.einsum('TPij,ij->TP', dPsi, D0)
-              + torch.einsum('Pij,Tij->TP', Psi, dDs))
-        Tm = torch.einsum('Tij,Pjo->TPio', dDs, PsiC)
-        Od = co.T @ dPsi @ co                           # (T, naux, no, no)
-        ddp = torch.einsum('TPio,jo->TPij', Tm, co)
-        dgam = (c[None, :, None, None] * dDs[:, None]
-                + dc[:, :, None, None] * D0
-                - 0.5 * hyb * (ddp + ddp.transpose(-1, -2)
-                               + co @ Od @ co.T))
-        del dPsi, ddp
-        A = (torch.einsum('TPio,Qio->TPQ', Tm, PsiC)
-             + torch.einsum('TPop,Qop->TPQ', Od, O))
-        dWpq = (-0.5 * (dc[:, :, None] * c[None, None, :]
-                        + c[None, :, None] * dc[:, None, :])
-                + 0.25 * hyb * (A + A.transpose(-1, -2)))
-        del Tm, Od, A
+              + torch.einsum('Pij,Tij->TP', Psi, dDt))
+        dgam = (c[None, :, None, None] * dDt[:, None]
+                + dc[:, :, None, None] * D0)
+        dWpq = -0.5 * (dc[:, :, None] * c[None, None, :]
+                       + c[None, :, None] * dc[:, None, :])
+        for co, PsiC, O, dD, kw in zip(dfd.cos, dfd.PsiC, dfd.O, dDb, kws):
+            Tm = torch.einsum('Tij,Pjo->TPio', dD, PsiC)
+            Od = co.T @ dPsi @ co                       # (T, naux, no, no)
+            ddp = torch.einsum('TPio,jo->TPij', Tm, co)
+            dgam = dgam - kw * (ddp + ddp.transpose(-1, -2)
+                                + co @ Od @ co.T)
+            del ddp
+            A = (torch.einsum('TPio,Qio->TPQ', Tm, PsiC)
+                 + torch.einsum('TPop,Qop->TPQ', Od, O))
+            dWpq = dWpq + 0.5 * kw * (A + A.transpose(-1, -2))
+            del Tm, Od, A
+        del dPsi
         prod = dfd.ip1[:, None] * dgam[None]           # (3, T, naux, n, n)
         r_ao = prod.sum(dim=(2, 4)).permute(1, 0, 2)    # (T, 3, nao)
         r_aux = prod.sum(dim=(3, 4)).permute(1, 0, 2)   # (T, 3, naux)
@@ -486,15 +524,18 @@ def _rows_df(dfd, chunks, dD, hyb):
 
 
 def _xc_terms(mf, D, tangent_chunk, clock, reference_vxc):
-    """The KS terms at the density D: (V' (3 natm, nao, nao), E_xc's fixed-D
-    Hessian (3 natm, 3 natm)), timed as the phases 'xc_rows' and 'xc_F1'.
-    V' is the derivative of V_xc at fixed D, symmetrised unless
-    reference_vxc (the JAX package's unsymmetrised form, 2 F)."""
+    """The KS terms at the density D (nao, nao), or the spin density D (2,
+    nao, nao): (V' (3 natm, nao, nao), or (2, 3 natm, nao, nao) of each
+    spin's V_xc, and E_xc's fixed-D Hessian (3 natm, 3 natm)), timed as the
+    phases 'xc_rows' and 'xc_F1'. V' is the derivative of V_xc at fixed D,
+    symmetrised unless reference_vxc (the JAX package's unsymmetrised form,
+    2 F)."""
     if mf.grids.coords is None:
         mf.grids.build()
     t = {}
-    F, hxx = mf._numint.rks_xc_hessian(mf.mol, mf.grids, mf.xc, D,
-                                       2 * tangent_chunk, t)
+    xc_hessian = (mf._numint.uks_xc_hessian if D.dim() == 3
+                  else mf._numint.rks_xc_hessian)
+    F, hxx = xc_hessian(mf.mol, mf.grids, mf.xc, D, 2 * tangent_chunk, t)
     V1 = 2.0 * F if reference_vxc else F + F.transpose(-1, -2)
     clock.lap('xc_F1')
     clock.out['xc_F1'] -= t['xc_rows']
@@ -598,12 +639,11 @@ def hessian(mf, cphf_max_cycle=40, cphf_tol=1e-9, tangent_chunk=6,
                                reference_vxc)
         h1 = h1 + V1
         del V1
-    dfd = _DFDerivs(mol, auxmol, B, mf.with_df.whitener, co)
+    dfd = _DFDerivs(mol, auxmol, B, mf.with_df.whitener, [co])
     clock.lap('ip1_3c')
 
-    chunks = [np.arange(i, min(i + tangent_chunk, nt))
-              for i in range(0, nt, tangent_chunk)]
-    F1 = h1 + _fock1(dfd, chunks, hyb)
+    chunks = tangent_chunks(nt, tangent_chunk)
+    F1 = h1 + _fock1(dfd, chunks, [0.5 * hyb])[0]
     clock.lap('F1')
 
     # CPHF (pyscf_tpu/hessian/rhf.py:275-315)
@@ -613,16 +653,17 @@ def hessian(mf, cphf_max_cycle=40, cphf_tol=1e-9, tangent_chunk=6,
     vxc = step = None
     if isks:
         vxc, step = _xc_response(mf, co @ co.T, Co, Cv, reference_vxc)
-    g = _mo_response(B, Co, Cv, hyb, vxc)
+    g = _mo_response(B, [(Co, Cv)], 0.5 * hyb, vxc)
     zero_vo = torch.zeros((nt, nv, no), **f64)
-    g_oo_vo = g(-2.0 * s1_oo, zero_vo)[0]
+    g_oo_vo = g([-2.0 * s1_oo], [zero_vo])[0][0]
     ediff = ev[:, None] - eo[None, :]
     rhs = (-f1_vo - g_oo_vo + s1_vo * eo).permute(1, 2, 0)
     zero_oo = torch.zeros((1, no, no), **f64)
 
     def matvec(u):
         Mvo = 2.0 * u.permute(2, 0, 1)
-        gvo = g(zero_oo.expand(u.shape[2], no, no), Mvo, step is None)[0]
+        gvo = g([zero_oo.expand(u.shape[2], no, no)], [Mvo],
+                step is None)[0][0]
         if step is not None:
             gvo = gvo + step(Mvo)
         return ediff[:, :, None] * u + gvo.permute(1, 2, 0)
@@ -631,7 +672,7 @@ def hessian(mf, cphf_max_cycle=40, cphf_tol=1e-9, tangent_chunk=6,
     U = U.permute(2, 0, 1)                              # (nt, nv, no)
     half = Cv @ U @ Co.T
     dD = 2.0 * (half + half.transpose(-1, -2)) - 2.0 * Co @ s1_oo @ Co.T
-    g_oo = g(-2.0 * s1_oo, 2.0 * U)[1]
+    g_oo = g([-2.0 * s1_oo], [2.0 * U])[1][0]
     f1_oo = Co.T @ F1 @ Co + g_oo
     dCo = Cv @ U - 0.5 * Co @ s1_oo
     # the occupied block of the energy-weighted density's change: the
@@ -652,7 +693,7 @@ def hessian(mf, cphf_max_cycle=40, cphf_tol=1e-9, tangent_chunk=6,
     hxx = _hess_1e(mol, dm, dme, ao2atom)
     clock.lap('rows_1e')
 
-    H += _rows_df(dfd, chunks, dD, hyb)
+    H += _rows_df(dfd, chunks, [dD], [0.5 * hyb])
     clock.lap('rows_df')
 
     _, gamma, Wpq = grad_df.fitted_weights(mf, dm, cos, kfac)

@@ -1,10 +1,10 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Thirty-five kernels carry the DF-RHF/RKS/UKS and in-core paths with the
+Thirty-seven kernels carry the DF-RHF/RKS/UKS and in-core paths with the
 range-separated and VV10 functionals, the conventional RHF gradient, the
 DF-RHF/RKS/UHF/UKS gradients, the dipole of the SCF analysis, MP2, UMP2,
-CCSD and CCSD(T), TDA/TDHF/TDDFT and the DF-RHF and DF-RKS nuclear
-Hessians (sources in pyscf_tpu_torch/csrc/):
+CCSD and CCSD(T), TDA/TDHF/TDDFT and the DF-RHF, DF-RKS, DF-UHF and
+DF-UKS nuclear Hessians (sources in pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
@@ -27,8 +27,9 @@ Hessians (sources in pyscf_tpu_torch/csrc/):
              counted apart
   eval_ao_deriv3  its deriv 3: with the third derivatives, counted apart
   becke      Becke partition weights of the grid  (csrc/becke.cu)
-  xc_rks     density, functional (B3LYP family,   (csrc/xc_rks.cu,
-             CAM-B88, the B97 series) and the V_xc  csrc/xc_funcs.cuh)
+  xc_rks     density, functional (B3LYP and PBE   (csrc/xc_rks.cu,
+             families, CAM-B88, the B97 series)     csrc/xc_funcs.cuh)
+             and the V_xc
              half-product per point
   xc_uks     the same for two spin densities      (csrc/xc_uks.cu)
   xc_rks_grad  the XC energy's nuclear gradient   (csrc/xc_rks_grad.cu)
@@ -66,6 +67,10 @@ Hessians (sources in pyscf_tpu_torch/csrc/):
              blocks, the explicit rows
   xc_rks_deriv1  the rows of dV_xc/dX at fixed D (csrc/xc_rks_hess.cu,
              per point and tangent                  PT_XC_DERIV1)
+  xc_uks_hess  the same as xc_rks_hess for two    (csrc/xc_uks_hess.cu)
+             spin densities
+  xc_uks_deriv1  the same as xc_rks_deriv1 for   (csrc/xc_uks_hess.cu,
+             both spins                             PT_XC_DERIV1)
 
 Each wrapper takes float64 (int32 for indices) contiguous tensors on one
 device. On a CPU tensor it runs the kernel's plain PyTorch twin; on a CUDA
@@ -82,8 +87,8 @@ The kernels are compiled at first use with nvcc for sm_90a, one shared
 library per source (five each for int3c2e.cu, int3c2e_ip.cu,
 int3c2e_ip1.cu and int3c2e_ipip.cu, one per bra momentum; fifteen for
 int2e.cu, one per bra class la <= lb; nine for int2e_ip1.cu, one per
-ordered bra class; two each for xc_fxc.cu, int2c2e_ipip.cu and
-xc_rks_hess.cu, one per kernel: sixty-eight libraries) with a plain C
+ordered bra class; two each for xc_fxc.cu, int2c2e_ipip.cu, xc_rks_hess.cu
+and xc_uks_hess.cu, one per kernel: seventy libraries) with a plain C
 interface loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
 checkout builds them once and an edit to a source rebuilds them; nvcc's
@@ -156,15 +161,17 @@ _LIBRARIES = {
     'ccsd_t': ('ccsd_t.cu', 'pt_ccsd_t', [_I] * 4 + [_P] * 2 + [_I]
                + [_P] * 10 + [_I, _P], ()),
     # the XC response: no FMA contraction, as in xc_rks and xc_uks; the
-    # pair features are a second launch from the same source
+    # pair features are a second launch from the same source; the kernels
+    # on second-order dual numbers call the XC components as functions
+    # (PT_XC_NOINLINE, csrc/xc_funcs.cuh)
     'xc_fxc': ('xc_fxc.cu', 'pt_xc_fxc', [_I, _D, _I, _I] + [_P] * 3 + [_I]
-               + [_P] * 3 + [_I, _P], ('-fmad=false',)),
+               + [_P] * 3 + [_I, _P], ('-fmad=false', '-DPT_XC_NOINLINE')),
     'xc_fxc_pairs': ('xc_fxc.cu', 'pt_xc_fxc_pairs', [_I] * 3 + [_P] * 3
                      + [_I] * 4 + [_P] * 2 + [_I, _P], ('-DPT_FXC_PAIRS',)),
     'xc_rks_fxc': ('xc_rks_fxc.cu', 'pt_xc_rks_fxc', [_I] * 4 + [_P] * 4
-                   + [_I] + [_P] * 4, ('-fmad=false',)),
+                   + [_I] + [_P] * 4, ('-fmad=false', '-DPT_XC_NOINLINE')),
     'xc_uks_fxc': ('xc_uks_fxc.cu', 'pt_xc_uks_fxc', [_I] * 4 + [_P] * 4
-                   + [_I] + [_P] * 4, ('-fmad=false',)),
+                   + [_I] + [_P] * 4, ('-fmad=false', '-DPT_XC_NOINLINE')),
     # the nuclear Hessian's second-derivative integrals; the metric's
     # uncontracted first derivative is a second launch from int2c2e_ipip.cu
     'int1e_ipip': ('int1e_ipip.cu', 'pt_int1e_ipip',
@@ -178,8 +185,13 @@ _LIBRARIES = {
     # the DF-RKS Hessian's XC terms: no FMA contraction in the functional,
     # as in the other XC kernels; the rows of dV_xc/dX a second launch
     'xc_rks_hess': ('xc_rks_hess.cu', 'pt_xc_rks_hess', [_I] * 4 + [_P] * 4
-                    + [_I] + [_P] * 8, ('-fmad=false',)),
+                    + [_I] + [_P] * 8, ('-fmad=false', '-DPT_XC_NOINLINE')),
     'xc_rks_deriv1': ('xc_rks_hess.cu', 'pt_xc_rks_deriv1', [_I] * 5
+                      + [_P] * 7, ('-DPT_XC_DERIV1',)),
+    # the DF-UKS Hessian's: the same two launches for both spins
+    'xc_uks_hess': ('xc_uks_hess.cu', 'pt_xc_uks_hess', [_I] * 4 + [_P] * 4
+                    + [_I] + [_P] * 8, ('-fmad=false', '-DPT_XC_NOINLINE')),
+    'xc_uks_deriv1': ('xc_uks_hess.cu', 'pt_xc_uks_deriv1', [_I] * 5
                       + [_P] * 7, ('-DPT_XC_DERIV1',)),
 }
 # int3c2e.cu, int3c2e_ip.cu, int3c2e_ip1.cu and int3c2e_ipip.cu once per bra
@@ -933,9 +945,11 @@ def becke(coords, w0, owner, atm_coords, inv_dist, a_adj):
 
 # component of dft/xc.py -> id in csrc/xc_funcs.cuh
 XC_COMPONENT_IDS = {'SLATER': 0, 'VWN5': 1, 'VWN3': 2, 'B88': 3, 'LYP': 4,
-                    'CAM_B88': 5, 'WB97': 6}
-# the components of the gradient kernels xc_rks_grad and xc_uks_grad
-XC_GRAD_COMPONENTS = ('SLATER', 'VWN5', 'VWN3', 'B88', 'LYP')
+                    'CAM_B88': 5, 'WB97': 6, 'PBE_X': 7, 'PBE_C': 8}
+# the components of the gradient kernels xc_rks_grad and xc_uks_grad: all
+# but the range-separated CAM_B88 and WB97
+XC_GRAD_COMPONENTS = ('SLATER', 'VWN5', 'VWN3', 'B88', 'LYP', 'PBE_X',
+                      'PBE_C')
 # per-term parameters in csrc/xc_funcs.cuh Terms: omega, alpha, beta, then
 # three power series of XC_NSERIES coefficients (cx, css, cos)
 XC_NSERIES = 5
@@ -1333,7 +1347,7 @@ def xc_rks_fxc(aod, dmao, dmao1, weights, xc):
 
     aod (B, nao) for an LDA or (4, B, nao) for a GGA; dmao = ao @ dm
     (B, nao) of the ground density; dmao1 = ao @ ddm_v (nvec, B, nao);
-    weights (B,); xc a dft.xc.XCFunctional of the B3LYP family."""
+    weights (B,); xc a dft.xc.XCFunctional of the B3LYP or PBE family."""
     return _fxc_tangent(xc_rks_fxc, 'xc_rks_fxc', numint.xc_rks_fxc_plain, 1,
                         aod, dmao, dmao1, weights, xc)
 
@@ -1366,7 +1380,7 @@ def xc_rks_hess(aod, dmao, weights, xc, atom_off):
     aod (20, B, nao) with dmao = aod[:4] @ D (4, B, nao) for a GGA; aod
     (10, B, nao) with dmao = aod[:1] @ D (1, B, nao) for an LDA; weights
     (B,); atom_off (natm + 1,) int32, the first AO of each atom (an atom's
-    AOs consecutive); xc a dft.xc.XCFunctional of the B3LYP family."""
+    AOs consecutive); xc a dft.xc.XCFunctional of the B3LYP or PBE family."""
     dev = _device_of(aod)
     gga = aod.shape[0] == 20
     B, nao = aod.shape[1:]
@@ -1432,13 +1446,97 @@ def xc_rks_deriv1(aod, wv, ht, xr, ao_atom, t0, nt):
     return out
 
 
+def xc_uks_hess(aod, dmao, weights, xc, atom_off):
+    """The spin-polarized XC energy's fixed-D second derivative along the
+    nuclear coordinates, per point of one block of B points, with the
+    features u = (rho_a, grad rho_a, rho_b, grad rho_b):
+      wv (B, 8)            w v, v = de/du
+      ut (3 natm, B, 8)    u_t, the features' derivative along t = 3 A + x
+      ht (3 natm, B, 8)    w H u_t, H = d2e/du2
+      same (B, natm, 6)    the same-atom blocks of w v . d2u/dA_x dA_y
+                           summed over the spins (xx, xy, xz, yy, yz, zz)
+      xr (2, 4, B, nao)    per spin the explicit rows vtmp0_s = 1/2 w v_rho_s
+                           phi + sum_j w v_g_sj d_j phi and G_s,x = sum_j
+                           w v_g_sj d_x d_j phi
+    all zero where rho_a + rho_b <= RHO_THR (csrc/xc_uks_hess.cu says
+    how).
+
+    aod (20, B, nao) with dmao = aod[:4] @ D_s stacked (2, 4, B, nao) for a
+    GGA; aod (10, B, nao) with (2, 1, B, nao) for an LDA; weights (B,);
+    atom_off (natm + 1,) int32 (an atom's AOs consecutive); xc a
+    dft.xc.XCFunctional of the B3LYP or PBE family."""
+    dev = _device_of(aod)
+    gga = aod.shape[0] == 20
+    B, nao = aod.shape[1:]
+    nd = 4 if gga else 1
+    natm = atom_off.shape[0] - 1
+    _check(dev, ('aod', aod, (20 if gga else 10, B, nao)),
+           ('dmao', dmao, (2, nd, B, nao)), ('weights', weights, (B,)))
+    _check_index(dev, 'atom_off', atom_off, natm + 1)
+    if xc.is_gga and not gga:
+        raise ValueError('a GGA functional needs the third AO derivatives '
+                         '(20, B, nao)')
+    if dev.type == 'cpu':
+        return numint.xc_uks_hess_plain(aod, dmao, weights, xc, atom_off)
+    ids, coeffs, _ = _xc_terms(xc, 'xc_uks_hess', XC_FXC_COMPONENTS)
+    f64 = dict(dtype=torch.float64, device=dev)
+    wv = torch.empty((B, 8), **f64)
+    ut = torch.empty((3 * natm, B, 8), **f64)
+    ht = torch.empty((3 * natm, B, 8), **f64)
+    same = torch.empty((B, natm, 6), **f64)
+    xr = torch.empty((2, 4, B, nao), **f64)
+    if B:
+        rc = _fn('xc_uks_hess')(
+            int(gga), B, nao, natm, atom_off.data_ptr(), aod.data_ptr(),
+            dmao.data_ptr(), weights.data_ptr(), len(xc.terms), ids, coeffs,
+            wv.data_ptr(), ut.data_ptr(), ht.data_ptr(), same.data_ptr(),
+            xr.data_ptr(), _stream())
+        _raise_on(rc, 'xc_uks_hess')
+        xc_uks_hess.launches += 1
+    return wv, ut, ht, same, xr
+
+
+def xc_uks_deriv1(aod, wv, ht, xr, ao_atom, t0, nt):
+    """The rows of dV_xc,s/dX at fixed D of both spins for the tangents t0
+    .. t0 + nt - 1 of one block of B points: (2, B, nt, nao), for spin s
+    xc_rks_deriv1's rows on that spin's features, so that F_t,s = phi^T
+    vt'_t,s - [rows on A] (d_x phi)^T vtmp0_s and V'_t,s = F_t,s +
+    F_t,s^T.
+
+    aod (20 or 10, B, nao) as xc_uks_hess's (its first four components are
+    read); wv (B, 8), ht (3 natm, B, 8) and xr (2, 4, B, nao) from
+    xc_uks_hess; ao_atom (nao,) int32."""
+    dev = _device_of(aod)
+    gga = aod.shape[0] == 20
+    B, nao = aod.shape[1:]
+    ntan = ht.shape[0]
+    _check(dev, ('aod', aod, (20 if gga else 10, B, nao)),
+           ('wv', wv, (B, 8)), ('ht', ht, (ntan, B, 8)),
+           ('xr', xr, (2, 4, B, nao)))
+    _check_index(dev, 'ao_atom', ao_atom, nao)
+    if not (0 <= t0 and nt >= 0 and t0 + nt <= ntan):
+        raise ValueError(f'tangents {t0} .. {t0 + nt - 1} outside 0 .. '
+                         f'{ntan - 1}')
+    if dev.type == 'cpu':
+        return numint.xc_uks_deriv1_plain(aod, wv, ht, xr, ao_atom, t0, nt)
+    out = torch.empty((2, B, nt, nao), dtype=torch.float64, device=dev)
+    if B and nt:
+        rc = _fn('xc_uks_deriv1')(
+            int(gga), B, nao, t0, nt, ao_atom.data_ptr(), aod.data_ptr(),
+            wv.data_ptr(), ht.data_ptr(), xr.data_ptr(), out.data_ptr(),
+            _stream())
+        _raise_on(rc, 'xc_uks_deriv1')
+        xc_uks_deriv1.launches += 1
+    return out
+
+
 KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
            xc_uks, int1e_ip, int1e_iprinv, int2e_ip1, int3c2e_ip, int2c2e_ip1,
            eval_ao_deriv2, xc_rks_grad, xc_uks_grad, int1e_r, int3c2e_lr,
            int2c2e_lr, int2e_lr, vv10, mp2_energy, ccsd_t, xc_fxc,
            xc_fxc_pairs, xc_rks_fxc, xc_uks_fxc, int1e_ipip, int3c2e_ip1,
            int2c2e_ip1_full, int3c2e_ipip, int2c2e_ipip, eval_ao_deriv3,
-           xc_rks_hess, xc_rks_deriv1)
+           xc_rks_hess, xc_rks_deriv1, xc_uks_hess, xc_uks_deriv1)
 
 
 def reset_launches():

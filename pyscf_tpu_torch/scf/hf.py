@@ -301,8 +301,8 @@ class SCF:
 
     def Hessian(self):
         """The nuclear Hessian object of hessian.Hessian (the dispatcher:
-        analytic for DF-RHF, finite differences where the reference uses
-        them)."""
+        analytic for DF-RHF, DF-RKS, DF-UHF and DF-UKS, finite differences
+        where the reference uses them)."""
         from ..hessian import Hessian
         return Hessian(self)
 

@@ -1,12 +1,14 @@
-"""Record the JAX package's DF-RHF Hessians that tests/test_torch_hessian.py
-compares the port with (the JAX Hessian is the jvp of its analytic gradient
-and takes minutes to hours on the CPU, too long for the fast tests):
+"""Record the JAX package's DF Hessians that tests/test_torch_hessian.py,
+test_torch_hessian_rks.py and test_torch_hessian_uhf.py compare the port
+with (the JAX Hessian is the jvp of its analytic gradient and takes
+minutes to hours on the CPU, too long for the fast tests):
 
   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/hessian_refs_record.py \
-    h2 water_sto3g twins [water_svp] [twins_fg]
+    h2 water_sto3g twins [water_svp] [twins_fg] [oh_uhf] [oh_uks] \
+    [cation_pbe0]
 
 adds to pyscf_tpu_torch/data/hessian_water_refs.npz, for each case named,
-the converged DF-RHF orbitals ('<case>_mo_coeff', '<case>_mo_energy',
+the converged DF-RHF (DF-UHF, DF-RKS, DF-UKS) orbitals ('<case>_mo_coeff', '<case>_mo_energy',
 '<case>_mo_occ', '<case>_e_tot'; minao guess, conv_tol 1e-12,
 conv_tol_grad 1e-9, def2-universal-jkfit) and mf.Hessian().kernel()
 ('<case>_hess', (natm, 3, natm, 3) in Ha/Bohr^2), with the seconds of the
@@ -47,8 +49,17 @@ and FG_AUX (TWIN_1E_FG, TWIN_3C_FG, TWIN_2C_FG; run with
 XLA_FLAGS=--xla_disable_hlo_passes=constant_folding, about 2 minutes).
 
 'water_rks' is water/sto-3g DF-RKS b3lypg on the level-0 Becke grid
-(RKS_CASES; its points and weights stored as '<case>_grid_coords' and
+(KS_CASES; its points and weights stored as '<case>_grid_coords' and
 '_grid_weights'): SCF 37.0 s, Hessian 537.4 s on the CPU.
+
+'oh_uhf' and 'oh_uks' are the OH radical of tests/test_hessian.py:72-110
+(spin 1, sto-3g) in DF-UHF and in DF-UKS b3lypg on the level-0 grid,
+'cation_pbe0' the water cation (charge 1, spin 1, sto-3g) in DF-UKS PBE0
+on the level-0 grid: the OH radical's PBE0 converges in neither package on
+these grids (its beta pi hole drifts, 5e-9 Ha a cycle), its b3lypg only in
+the JAX package. SCF and Hessian seconds on the CPU: oh_uhf 22.1 and
+374.1, oh_uks 25.5 and 425.1, cation_pbe0 33.7 and 553.3. Run each in a
+process of its own, not under xdist.
 
 'xc_twins' records the JAX derivatives that the DF-RKS Hessian's XC kernels
 are held to (about 45 s): 'xc_ao3', the third derivatives of the AO values
@@ -76,12 +87,20 @@ from pyscf_tpu.ops.integrals.int2e import (_aux_data_kernel, _eri_core,
                                            _paired_data_kernel)
 
 WATER = 'O 0 0 0; H 0 -0.757 0.587; H 0 0.757 0.587'
+# the OH radical of tests/test_hessian.py:72-110 (spin 1)
+OH = 'O 0 0 0; H 0 0 0.97'
 CASES = {'h2': ('H 0 0 0; H 0 0 0.74', 'sto-3g'),
          'water_sto3g': (WATER, 'sto-3g'),
          'water_svp': (WATER, 'def2-svp'),
-         'water_rks': (WATER, 'sto-3g')}
-# the DF-RKS case: its functional and the level of its Becke grid
-RKS_CASES = {'water_rks': ('b3lypg', 0)}
+         'water_rks': (WATER, 'sto-3g'),
+         'oh_uhf': (OH, 'sto-3g'),
+         'oh_uks': (OH, 'sto-3g'),
+         'cation_pbe0': (WATER, 'sto-3g')}
+# the open-shell cases: (charge, spin)
+SPIN = {'oh_uhf': (0, 1), 'oh_uks': (0, 1), 'cation_pbe0': (1, 1)}
+# the DF-KS cases: the functional and the level of the Becke grid
+KS_CASES = {'water_rks': ('b3lypg', 0), 'oh_uks': ('b3lypg', 0),
+            'cation_pbe0': ('pbe0', 0)}
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'pyscf_tpu_torch', 'data', 'hessian_water_refs.npz')
 # the twins' classes: one-electron (la, lb); three-centre (la, lb, lc) on
@@ -113,17 +132,18 @@ TWIN_2C_FG = ((5, 0),)
 
 def record(case):
     atom, basis = CASES[case]
-    mol = pt.M(atom=atom, basis=basis, verbose=0)
+    charge, spin = SPIN.get(case, (0, 0))
+    mol = pt.M(atom=atom, basis=basis, charge=charge, spin=spin, verbose=0)
     extra = {}
-    if case in RKS_CASES:
-        xc, level = RKS_CASES[case]
-        mf = mol.RKS(xc=xc).density_fit()
+    if case in KS_CASES:
+        xc, level = KS_CASES[case]
+        mf = (mol.UKS if spin else mol.RKS)(xc=xc).density_fit()
         mf.grids.level = level
         mf.grids.build()
         extra = {f'{case}_grid_coords': np.asarray(mf.grids.coords),
                  f'{case}_grid_weights': np.asarray(mf.grids.weights)}
     else:
-        mf = mol.RHF().density_fit()
+        mf = (mol.UHF if spin else mol.RHF)().density_fit()
     mf.init_guess = 'minao'
     mf.conv_tol = 1e-12
     mf.conv_tol_grad = 1e-9
@@ -366,31 +386,37 @@ def compare():
     import torch
     import pyscf_tpu_torch as tpt
     from pyscf_tpu_torch import hessian
-    from pyscf_tpu_torch.hessian import rhf
+    from pyscf_tpu_torch.hessian import rhf, uhf
     r = np.load(OUT)
     for case in CASES:
         if f'{case}_hess' not in r.files:
             continue
         atom, basis = CASES[case]
-        mol = tpt.M(atom=atom, basis=basis, device='cpu')
-        if case in RKS_CASES:
-            mf = mol.RKS(xc=RKS_CASES[case][0]).density_fit()
+        charge, spin = SPIN.get(case, (0, 0))
+        mol = tpt.M(atom=atom, basis=basis, charge=charge, spin=spin,
+                    device='cpu')
+        if case in KS_CASES:
+            mf = (mol.UKS if spin else mol.RKS)(
+                xc=KS_CASES[case][0]).density_fit()
             mf.grids.coords = torch.as_tensor(r[f'{case}_grid_coords'])
             mf.grids.weights = torch.as_tensor(r[f'{case}_grid_weights'])
         else:
-            mf = mol.RHF().density_fit()
+            mf = (mol.UHF if spin else mol.RHF)().density_fit()
         for k in ('mo_coeff', 'mo_energy', 'mo_occ'):
             setattr(mf, k, torch.as_tensor(r[f'{case}_{k}']))
         ref = r[f'{case}_hess']
-        h = rhf.hessian(mf)[0]
+        hess = uhf.hessian if spin else rhf.hessian
+        h = hess(mf)[0]
         diffs = [float(np.abs(h - ref).max()), float(np.abs(
-            rhf.hessian(mf, reference_w=True)[0] - ref).max())]
+            hess(mf, reference_w=True)[0] - ref).max())]
         print(case, 'port', diffs[0], 'port with reference_w', diffs[1])
-        if case not in RKS_CASES:
+        if case not in KS_CASES:
             continue
         print(case, 'port with reference_w and reference_vxc', float(np.abs(
-            rhf.hessian(mf, reference_w=True, reference_vxc=True)[0]
+            hess(mf, reference_w=True, reference_vxc=True)[0]
             - ref).max()))
+        if spin:
+            continue
         from pyscf_tpu.dft import xc as jax_xc
         from pyscf_tpu.dft.numint import _pad_grid
         from pyscf_tpu.grad.autodiff import _exc_quadrature
@@ -398,7 +424,7 @@ def compare():
         cb, wb = _pad_grid(jnp.asarray(r[f'{case}_grid_coords']),
                            jnp.asarray(r[f'{case}_grid_weights']))
         co = r[f'{case}_mo_coeff'][:, r[f'{case}_mo_occ'] > 0]
-        xc = jax_xc.parse_xc(RKS_CASES[case][0])
+        xc = jax_xc.parse_xc(KS_CASES[case][0])
         v = np.asarray(jax.grad(lambda d: _exc_quadrature(
             jmol, xc, jnp.asarray(jmol.coords), d, cb, wb, True))(
             jnp.asarray(2.0 * co @ co.T)))
@@ -407,7 +433,7 @@ def compare():
         grids = (mf.grids.coords, mf.grids.weights)
 
         def grad(m):
-            f = m.RKS(xc=RKS_CASES[case][0]).density_fit()
+            f = m.RKS(xc=KS_CASES[case][0]).density_fit()
             f.grids.coords, f.grids.weights = grids
             f.conv_tol, f.conv_tol_grad = 1e-12, 1e-9
             f.kernel()

@@ -47,6 +47,11 @@ water being refs.WATER:
                refs.PHENYL (sto-3g), q_func of detect_internals at the
                coordinates ('wilson_<atom>_q') and its jax.jacobian
                ('wilson_<atom>_B');
+  rsh_*        tests/test_torch_rsh.py: the JAX energy densities and
+               derivatives of the range-separated functionals and nr_uks
+               of wB97X-V (rsh_refs's docstring; PYTHONPATH=.:tests);
+  pbe_*        tests/test_torch_hessian_uhf.py: the PBE family's energies
+               and DF gradients (pbe_refs's docstring);
   fg_*         tests/test_torch_fg_shells.py: f, g and aux h shells (the
                docstrings of fg_water_refs and fg_neon_refs; '<key>_seconds'
                the seconds of each timed JAX run). The energies are also
@@ -232,6 +237,47 @@ def more_refs(out):
         x = jnp.asarray(np.asarray(jmol.coords))
         out[f'wilson_{name}_q'] = np.asarray(jq(x))
         out[f'wilson_{name}_B'] = np.asarray(jax.jacobian(jq)(x))
+
+
+def pbe_refs(out):
+    """The PBE family (tests/test_torch_hessian_uhf.py): water/sto-3g
+    DF-RKS PBE0 and PBE and the water cation's (charge 1, spin 1) DF-UKS
+    PBE0, each on the level-0 grid (minao, conv_tol 1e-12, conv_tol_grad
+    1e-9): 'pbe_<case>_e' and, for the PBE0 cases, the DF gradient
+    'pbe_<case>_grad'. (The OH radical's DF-UKS PBE0 converges in neither
+    package on these grids: its beta pi hole drifts.)"""
+    for case, charge, xc_code, grad in (('pbe0_rks', 0, 'pbe0', True),
+                                        ('pbe_rks', 0, 'pbe', False),
+                                        ('pbe0_uks', 1, 'pbe0', True)):
+        mol = jpt.M(atom=WATER, basis='sto-3g', charge=charge, spin=charge,
+                    verbose=0)
+        mf = (mol.UKS if charge else mol.RKS)(xc=xc_code).density_fit()
+        mf.grids.level = 0
+        mf.init_guess = 'minao'
+        mf.conv_tol = 1e-12
+        mf.conv_tol_grad = 1e-9
+        out[f'pbe_{case}_e'] = mf.kernel()
+        assert mf.converged
+        if grad:
+            out[f'pbe_{case}_grad'] = np.asarray(mf.Gradients().kernel())
+
+
+def rsh_refs(out):
+    """tests/test_torch_rsh.py's JAX values, seconds each in JAX's eager
+    dispatch: for every name of its RSH_NAMES the open-shell energy
+    density and its five derivatives at _open_inputs ('rsh_open_<name>',
+    (6, n)) and the closed-shell e, vrho, vsigma at _closed_inputs
+    ('rsh_closed_<name>', (3, 300)), and nr_uks of wB97X-V at its seeded
+    spin density ('rsh_nr_uks_n', '_e', '_v'). Needs tests/ on the path
+    (PYTHONPATH=.:tests)."""
+    import test_torch_rsh as t
+    for name in t.RSH_NAMES:
+        e, g = t._jax_open(name, t._open_inputs())
+        out[f'rsh_open_{name}'] = np.stack([e] + g)
+        out[f'rsh_closed_{name}'] = np.stack(
+            t._jax_closed(name, t._closed_inputs()))
+    n, e, v = t.jax_nr_uks_wb97xv()
+    out.update(rsh_nr_uks_n=n, rsh_nr_uks_e=e, rsh_nr_uks_v=v)
 
 
 def _raw_rows(mol, auxmol, la, lb):
@@ -610,7 +656,8 @@ def fg_ip1_refs(out):
 
 FUNCTIONS = (scf_refs, integral_refs, grad_refs, analysis_refs,
              scf_energy_refs, more_refs, fg_water_refs, fg_neon_refs,
-             fg_grad_tz_refs, fg_grad_tzvp_refs, fg_grad_refs, fg_ip1_refs)
+             fg_grad_tz_refs, fg_grad_tzvp_refs, fg_grad_refs, fg_ip1_refs,
+             pbe_refs, rsh_refs)
 
 
 def main(names):

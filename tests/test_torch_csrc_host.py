@@ -6,8 +6,8 @@ compiles csrc/int1e_stv.cu, int3c2e.cu, int2c2e.cu, int2e.cu, int1e_ip.cu,
 int1e_iprinv.cu, int2e_ip1.cu, int3c2e_ip.cu, int2c2e_ip1.cu, int1e_r.cu,
 vv10.cu, mp2_energy.cu, ccsd_t.cu, the nuclear Hessian's int1e_ipip.cu,
 int3c2e_ip1.cu, int3c2e_ipip.cu and int2c2e_ipip.cu (both of its kernels)
-and the DF-RKS Hessian's eval_ao.cu (deriv 0 to 3) and xc_rks_hess.cu
-(both of its kernels) as C++ behind a small stand-in for
+the DF-RKS Hessian's eval_ao.cu (deriv 0 to 3) and xc_rks_hess.cu and
+the DF-UKS Hessian's xc_uks_hess.cu (both kernels of each) as C++ behind a small stand-in for
 cuda_runtime.h (the qualifiers defined away, shared arrays static, the
 dynamic shared memory a static array, a launch turned into a loop over
 blocks and threads, in order, so that vv10.cu, mp2_energy.cu and
@@ -19,7 +19,8 @@ also on a basis of s to g shells with an aux basis of s to h, at the (ff)
 and (gg) bra classes and aux l 5; the dipole kernel on that basis; vv10.cu
 on a water grid, and mp2_energy.cu and ccsd_t.cu on seeded tensors of a
 water-sized correlated calculation; eval_ao.cu on s to g shells and
-xc_rks_hess.cu on a water/def2-SVP grid at a seeded density, LDA and B3LYP; and the second-order dual numbers of
+xc_rks_hess.cu and xc_uks_hess.cu on a water/def2-SVP grid at seeded
+densities, LDA, B3LYP and PBE0; and the second-order dual numbers of
 xc_funcs.cuh (HDualN, the functional of the XC response kernels xc_fxc,
 xc_rks_fxc and xc_uks_fxc) through a small harness program, against
 torch.func.hessian of dft/xc_funcs.py and jax.hessian of the JAX
@@ -99,7 +100,7 @@ LIBS = ('int1e_stv', 'int3c2e_la0', 'int3c2e_la1', 'int3c2e_la2',
         *[f'int3c2e_ip1_la{la}' for la in range(5)],
         *[f'int3c2e_ipip_la{la}' for la in range(5)],
         'int2c2e_ip1_full', 'int2c2e_ipip', 'eval_ao', 'xc_rks_hess',
-        'xc_rks_deriv1')
+        'xc_rks_deriv1', 'xc_uks_hess', 'xc_uks_deriv1')
 OMEGA = 0.3
 DEV = torch.device('cpu')
 
@@ -144,7 +145,8 @@ class _HostLibs:
                 r'host_launch(blocks, threads, \1, ', text)
             # one launch per kernel; a source of two kernels keeps each in
             # a preprocessor branch of its own
-            assert n == (2 if src == 'xc_rks_hess.cu' else 1)
+            assert n == (2 if src in ('xc_rks_hess.cu', 'xc_uks_hess.cu')
+                         else 1)
             (out / f'{lib}.cpp').write_text(text)
             # the -D flags; nvcc's own (-fmad=false) mean nothing to g++
             flags = [f for f in flags if f.startswith('-D')]
@@ -604,7 +606,7 @@ def test_eval_ao_to_third_derivatives(host):
         _close(out, ref)
 
 
-@pytest.mark.parametrize('code', ['lda,vwn', 'b3lypg'])
+@pytest.mark.parametrize('code', ['lda,vwn', 'b3lypg', 'pbe0'])
 def test_xc_rks_hess_and_deriv1(host, code):
     """xc_rks_hess.cu's two kernels on every eighth point of water/def2-SVP's
     level-0 grid at a seeded density against xc_rks_hess_plain and
@@ -639,6 +641,48 @@ def test_xc_rks_hess_and_deriv1(host, code):
     ref1 = numint.xc_rks_deriv1_plain(aod, wv, ht, xr, ao_atom, 2, 5)
     got1 = torch.empty_like(ref1)
     assert host['xc_rks_deriv1'](
+        int(gga), B, nao, 2, 5, *_ptrs(ao_atom, aod, wv, ht, xr, got1),
+        None) == 0
+    _close_contracted(got1, ref1)
+
+
+@pytest.mark.parametrize('code', ['lda,vwn', 'b3lypg', 'pbe0'])
+def test_xc_uks_hess_and_deriv1(host, code):
+    """xc_uks_hess.cu's two kernels on every eighth point of water/def2-SVP's
+    level-0 grid at seeded spin densities against xc_uks_hess_plain and
+    xc_uks_deriv1_plain, within 1e-10 of each output's largest element,
+    as test_xc_rks_hess_and_deriv1."""
+    from pyscf_tpu_torch.dft import gen_grid
+    from pyscf_tpu_torch.ops import eval_gto
+    mol = tpt.M(atom=refs.WATER, basis='def2-svp', device='cpu')
+    grids = gen_grid.Grids(mol)
+    grids.level = 0
+    grids.build()
+    coords, w = grids.coords[::8].contiguous(), grids.weights[::8].contiguous()
+    f = xc.parse_xc(code)
+    gga = f.is_gga
+    aod = eval_gto.eval_ao(mol, coords, 3 if gga else 2)
+    rng = np.random.default_rng(3)
+    dm = torch.stack([c @ c.T for c in (
+        torch.as_tensor(rng.standard_normal((mol.nao, k))) * 0.3
+        for k in (5, 4))])
+    nd = 4 if gga else 1
+    B, nao, natm = coords.shape[0], mol.nao, mol.natm
+    dmao = torch.matmul(aod[:nd].reshape(-1, nao), dm).reshape(2, nd, B, nao)
+    atom_off, ao_atom = numint.atom_ranges(mol)
+    ref = numint.xc_uks_hess_plain(aod, dmao, w, f, atom_off)
+    got = [torch.empty_like(t) for t in ref]
+    ids, coeffs, _ = kernels._xc_terms(f, 'xc_uks_hess',
+                                       kernels.XC_FXC_COMPONENTS)
+    assert host['xc_uks_hess'](
+        int(gga), B, nao, natm, *_ptrs(atom_off, aod, dmao, w),
+        len(f.terms), ids, coeffs, *_ptrs(*got), None) == 0
+    for g, r in zip(got, ref):
+        _close_contracted(g, r)
+    wv, _, ht, _, xr = ref
+    ref1 = numint.xc_uks_deriv1_plain(aod, wv, ht, xr, ao_atom, 2, 5)
+    got1 = torch.empty_like(ref1)
+    assert host['xc_uks_deriv1'](
         int(gga), B, nao, 2, 5, *_ptrs(ao_atom, aod, wv, ht, xr, got1),
         None) == 0
     _close_contracted(got1, ref1)
@@ -923,7 +967,8 @@ int main() {
   return 0;
 }
 '''
-HDUAL_NAMES = ['SLATER', 'VWN5', 'VWN3', 'B88', 'LYP', 'b3lypg']
+HDUAL_NAMES = ['SLATER', 'VWN5', 'VWN3', 'B88', 'LYP', 'b3lypg', 'PBE_X',
+               'PBE_C', 'pbe0']
 
 
 @pytest.fixture(scope='module')
@@ -966,12 +1011,14 @@ def _hdual_points():
     return np.stack([ra, rb, saa, sab, sbb])
 
 
-def _hdual_gate(got, e, g, h, x):
+def _hdual_gate(got, e, g, h, x, cancels=False):
     """e_xc to 1e-12 relative; each first and second derivative to 1e-9 of
     its size plus the point's energy-density scale rho_a^(4/3) +
     rho_b^(4/3) over its variables (rho_s, sigma_ss, sqrt(sigma_aa
     sigma_bb) for sigma_ab): LYP's terms cancel at extreme inputs, where
-    forward and reverse modes round apart (tests/test_torch_uks.py)."""
+    forward and reverse modes round apart (tests/test_torch_uks.py). With
+    cancels (PBE correlation, whose eps + H cancels to rounding at a large
+    reduced gradient) e_xc to 1e-12 of its size plus that scale."""
     m = x.shape[0]
     if m == 5:
         scale = x[0] ** (4 / 3) + x[1] ** (4 / 3)
@@ -981,7 +1028,8 @@ def _hdual_gate(got, e, g, h, x):
         v = x.T
     iu = np.triu_indices(m)
     assert np.all(np.isfinite(got))
-    assert np.all(np.abs(got[:, 0] - e) <= 1e-12 * np.abs(e))
+    assert np.all(np.abs(got[:, 0] - e)
+                  <= 1e-12 * (np.abs(e) + (scale if cancels else 0.0)))
     assert np.all(np.abs(got[:, 1:1 + m] - g)
                   <= 1e-9 * (np.abs(g) + scale[:, None] / v))
     hp = h[:, iu[0], iu[1]]
@@ -1004,7 +1052,9 @@ def test_hdual_matches_torch_hessian(hdual, name):
 
     H = torch.func.vmap(torch.func.hessian(e5))(X).numpy()
     G = torch.func.vmap(torch.func.grad(e5))(X).numpy()
-    _hdual_gate(_run_hdual(hdual, name, x), e5(X.T).numpy(), G, H, x)
+    cancels = name in ('PBE_C', 'pbe0')
+    _hdual_gate(_run_hdual(hdual, name, x), e5(X.T).numpy(), G, H, x,
+                cancels)
     xc2 = x[[0, 2]] * np.array([[2.0], [4.0]])      # rho, sigma
 
     def e2(u):
@@ -1013,7 +1063,8 @@ def test_hdual_matches_torch_hessian(hdual, name):
     X2 = torch.as_tensor(xc2.T.copy())
     _hdual_gate(_run_hdual(hdual, name, xc2), e2(X2.T).numpy(),
                 torch.func.vmap(torch.func.grad(e2))(X2).numpy(),
-                torch.func.vmap(torch.func.hessian(e2))(X2).numpy(), xc2)
+                torch.func.vmap(torch.func.hessian(e2))(X2).numpy(), xc2,
+                cancels)
 
 
 def test_hdual_matches_jax_hessian(hdual):

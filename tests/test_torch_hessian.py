@@ -302,15 +302,21 @@ def _unconverged(kind, **kw):
 
 @pytest.mark.parametrize('kind,spin', [('RKS', 0), ('UHF', 1), ('UKS', 1)])
 def test_df_rks_uhf_uks_raise(kind, spin):
-    """DF-RKS goes to the analytic Hessian; DF-UHF and DF-UKS raise
-    NotImplementedError naming the later slice, never a finite-difference
-    Hessian (the reference computes them analytically)."""
+    """DF-RKS goes to the analytic Hessian of hessian/rhf.py, DF-UHF and
+    DF-UKS to that of hessian/uhf.py (as pyscf_tpu/hessian/__init__.py:
+    79-95), never to a finite-difference Hessian; each class raises for
+    the other kind of mean field."""
+    from pyscf_tpu_torch.hessian import uhf as hess_uhf
     mf = _unconverged(kind, charge=spin, spin=spin).density_fit()
     if kind == 'RKS':
         assert isinstance(mf.Hessian(), hess_rhf.Hessian)
+        assert not isinstance(mf.Hessian(), hess_uhf.Hessian)
+        with pytest.raises(NotImplementedError, match='unrestricted'):
+            hess_uhf.Hessian(mf)
         return
-    with pytest.raises(NotImplementedError, match='not ported'):
-        mf.Hessian()
+    assert isinstance(mf.Hessian(), hess_uhf.Hessian)
+    with pytest.raises(NotImplementedError, match='restricted'):
+        hess_rhf.Hessian(mf)
 
 
 def test_fd_where_the_reference_uses_it():

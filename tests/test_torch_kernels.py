@@ -339,7 +339,7 @@ def _density(aod, dmao):
 
 
 @pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'blyp', 'wb97x-v',
-                                     'camb3lyp', 'b97-1'])
+                                     'camb3lyp', 'b97-1', 'pbe', 'pbe0'])
 def test_xc_rks(water, water_grid, xc_code):
     """vtmp to 1e-11 of its largest magnitude; for a range-separated
     functional plus, per point and AO, the attenuation's rounding carried
@@ -370,7 +370,7 @@ def test_xc_rks(water, water_grid, xc_code):
 
 
 @pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'wb97x-v',
-                                     'camb3lyp'])
+                                     'camb3lyp', 'pbe0'])
 def test_xc_uks(water, water_grid, xc_code):
     """On a random spin density (5 alpha and 4 beta orbitals); vtmp gated
     as test_xc_rks's, per spin."""
@@ -407,9 +407,9 @@ def test_xc_uks(water, water_grid, xc_code):
 def test_xc_rks_refuses_a_component_it_lacks(water, water_grid):
     mol, _ = water
     f = xc.parse_xc('b3lypg')
-    f = xc.XCFunctional(f.hyb, f.terms + [(0.1, xc.GGA, 'PBE_X')])
+    f = xc.XCFunctional(f.hyb, f.terms + [(0.1, xc.GGA, 'P86')])
     aod = eval_gto.eval_ao(mol, water_grid.coords[:64], 1)
-    with pytest.raises(NotImplementedError, match='PBE_X'):
+    with pytest.raises(NotImplementedError, match='P86'):
         kernels.xc_rks(aod, aod[0].clone(), water_grid.weights[:64], f)
 
 
@@ -477,7 +477,7 @@ def test_eval_ao_deriv2(water_grid, basis):
     assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
 
 
-@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'pbe0'])
 def test_xc_rks_grad(water, water_grid, xc_code):
     mol, _ = water
     f = xc.parse_xc(xc_code)
@@ -494,7 +494,7 @@ def test_xc_rks_grad(water, water_grid, xc_code):
     assert abs(float(e - e_ref)) <= 1e-11 * abs(float(e_ref))
 
 
-@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'pbe0'])
 def test_xc_uks_grad(water, water_grid, xc_code):
     mol, _ = water
     f = xc.parse_xc(xc_code)
@@ -741,12 +741,13 @@ def _seeded_density(mol, nspin, seed):
     return c @ c.transpose(1, 2)
 
 
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'pbe0'])
 @pytest.mark.parametrize('case', ['singlet', 'triplet', 'uks'])
-def test_xc_fxc(water, water_grid, case):
+def test_xc_fxc(water, water_grid, case, xc_code):
     """The per-point response kernel on water's level-1 grid at a seeded
     density (some points masked) against xc_fxc_plain: 1e-10 x max|H|."""
     mol, _ = water
-    f = xc.parse_xc('b3lypg')
+    f = xc.parse_xc(xc_code)
     aod = eval_gto.eval_ao(mol, water_grid.coords, 1)
     dm = _seeded_density(mol, 2 if case == 'uks' else 1, 31)
     dmao = torch.matmul(aod[0], dm)
@@ -775,7 +776,7 @@ def test_xc_fxc_pairs(water, water_grid):
             assert torch.max(torch.abs(g - r)) <= 1e-12 * r.abs().max()
 
 
-@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'pbe0'])
 @pytest.mark.parametrize('spin', [1, 2])
 def test_xc_fxc_tangents(water, water_grid, xc_code, spin):
     """xc_rks_fxc (spin 1) and xc_uks_fxc (spin 2) along three seeded
@@ -802,7 +803,7 @@ def test_xc_fxc_tangents(water, water_grid, xc_code, spin):
 
 
 def test_xc_fxc_refuses_a_component_it_lacks(water, water_grid):
-    """The response kernels take the B3LYP family only."""
+    """The response kernels take the B3LYP and PBE families only."""
     mol, _ = water
     f = xc.parse_xc('b97-1')
     aod = eval_gto.eval_ao(mol, water_grid.coords[:64], 1)
@@ -920,7 +921,7 @@ def test_eval_ao_deriv3(water_grid, basis):
     assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
 
 
-@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn'])
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'pbe0'])
 def test_xc_rks_hess_and_deriv1(water, water_grid, xc_code):
     """xc_rks_hess and xc_rks_deriv1 at a seeded density on water's grid
     against their twins: each output within 1e-10 of its largest element."""
@@ -964,6 +965,54 @@ def test_rks_hessian_on_card_launches_its_kernels(water):
     for k in ('eval_ao_deriv3', 'xc_rks_hess', 'xc_rks_deriv1', 'xc_fxc',
               'xc_fxc_pairs', 'xc_rks_fxc', 'int1e_ipip', 'int3c2e_ip1',
               'int3c2e_ipip'):
+        assert got[k] > 0
+    hm = h.reshape(9, 9)
+    assert np.abs(hm - hm.T).max() < 1e-9
+
+
+@pytest.mark.parametrize('xc_code', ['b3lypg', 'lda,vwn', 'pbe0'])
+def test_xc_uks_hess_and_deriv1(water, water_grid, xc_code):
+    """xc_uks_hess and xc_uks_deriv1 at seeded spin densities on water's
+    grid against their twins: each output within 1e-10 of its largest
+    element."""
+    mol, _ = water
+    f = xc.parse_xc(xc_code)
+    aod = eval_gto.eval_ao(mol, water_grid.coords, 3 if f.is_gga else 2)
+    nd = 4 if f.is_gga else 1
+    dm = _seeded_density(mol, 2, 17)
+    dmao = torch.matmul(aod[:nd].reshape(-1, mol.nao), dm).reshape(
+        2, nd, -1, mol.nao)
+    atom_off, ao_atom = numint.atom_ranges(mol)
+    w = water_grid.weights
+    got = kernels.xc_uks_hess(aod, dmao, w, f, atom_off)
+    ref = numint.xc_uks_hess_plain(aod.cpu(), dmao.cpu(), w.cpu(), f,
+                                   atom_off.cpu())
+    for g, r in zip(got, ref):
+        assert torch.max(torch.abs(g.cpu() - r)) <= 1e-10 * r.abs().max()
+    wv, _, ht, _, xr = got
+    v1 = kernels.xc_uks_deriv1(aod, wv, ht, xr, ao_atom, 0, 3 * mol.natm)
+    ref1 = numint.xc_uks_deriv1_plain(aod.cpu(), wv.cpu(), ht.cpu(),
+                                      xr.cpu(), ao_atom.cpu(), 0,
+                                      3 * mol.natm)
+    assert torch.max(torch.abs(v1.cpu() - ref1)) <= 1e-10 * ref1.abs().max()
+
+
+def test_uks_hessian_on_card_launches_its_kernels():
+    """mf.Hessian().kernel() of the water cation/def2-SVP DF-UKS PBE0 on the
+    card launches eval_ao_deriv3, xc_uks_hess, xc_uks_deriv1 and
+    xc_uks_fxc beside the RHF Hessian's kernels, and is symmetric."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels run only on the card')
+    mol = tpt.M(atom=refs.WATER, basis='def2-svp', charge=1, spin=1)
+    mf = mol.UKS(xc='pbe0').density_fit()
+    mf.grids.level = 1
+    mf.conv_tol = 1e-12
+    mf.kernel()
+    kernels.reset_launches()
+    h = mf.Hessian().kernel()
+    got = kernels.launches()
+    for k in ('eval_ao_deriv3', 'xc_uks_hess', 'xc_uks_deriv1', 'xc_uks_fxc',
+              'int1e_ipip', 'int3c2e_ip1', 'int3c2e_ipip'):
         assert got[k] > 0
     hm = h.reshape(9, 9)
     assert np.abs(hm - hm.T).max() < 1e-9

@@ -1,7 +1,9 @@
 """Range-separated hybrids in pyscf_tpu_torch on the CPU against pyscf_tpu:
 the attenuation, CAM-B88 and wB97 energy densities and their derivatives
 (torch autograd and the dual numbers of csrc/xc_funcs.cuh built for the host
-with g++) against jax.grad, the erf(omega r)/r integrals (3c rows, the
+with g++) against jax.grad (live for the attenuation and wB97X-V's open
+shell, the rest and nr_uks as tests/port_refs_record.py rsh_refs recorded
+them), the erf(omega r)/r integrals (3c rows, the
 metric, the long-range factor, the in-core tensor) against the JAX
 package's engines (as tests/port_refs_record.py recorded them), the He
 wB97 golden, the water energies of CAM-B3LYP and
@@ -91,12 +93,48 @@ RSH_NAMES = ['wb97x-v', 'wb97', 'wb97x', 'b97-1', 'b97d', 'camb3lyp']
 
 
 def _jax_open(name, x):
+    """(e, [five derivatives]) of the JAX package's open-shell energy
+    density at x (tests/port_refs_record.py rsh_refs records them)."""
     fj = jax_xc.parse_xc(name)
     args = [jnp.asarray(v) for v in x]
     e = np.asarray(fj.exc_density(*args))
     grads = jax.grad(lambda *a: jnp.sum(fj.exc_density(*a)),
                      argnums=(0, 1, 2, 3, 4))(*args)
     return e, [np.asarray(g) for g in grads]
+
+
+def _closed_inputs():
+    """rho in [1e-10, 1e2] and sigma in [1e-20, 1e3], log-uniform."""
+    rng = np.random.default_rng(47)
+    return np.stack([10.0 ** rng.uniform(-10, 2, 300),
+                     10.0 ** rng.uniform(-20, 3, 300)])
+
+
+def _jax_closed(name, x):
+    """[e, vrho, vsigma] of the JAX package's closed-shell energy density
+    as pyscf_tpu/dft/numint.py takes it (rsh_refs records them)."""
+    fj = jax_xc.parse_xc(name)
+
+    def edens(r, s):
+        return fj.exc_density(0.5 * r, 0.5 * r, 0.25 * s, 0.25 * s, 0.25 * s)
+
+    r, s = jnp.asarray(x[0]), jnp.asarray(x[1])
+    vr, vs = jax.grad(lambda a, b: jnp.sum(edens(a, b)), argnums=(0, 1))(r, s)
+    return [np.asarray(edens(r, s)), np.asarray(vr), np.asarray(vs)]
+
+
+@pytest.fixture(scope='module')
+def recorded():
+    """The JAX values that tests/port_refs_record.py rsh_refs recorded
+    (each took seconds of JAX's eager dispatch): 'rsh_open_<name>' (e and
+    the five derivatives at _open_inputs), 'rsh_closed_<name>' (e, vrho,
+    vsigma at _closed_inputs) and nr_uks's 'rsh_nr_uks_{n,e,v}'."""
+    return np.load(refs.PORT_REFS)
+
+
+def _recorded_open(recorded, name):
+    r = recorded[f'rsh_open_{name}']
+    return r[0], list(r[1:])
 
 
 def _attenuation_scale(name, ra, rb, saa, sbb):
@@ -148,16 +186,19 @@ def _gate(name, x, e, grads, e_ref, grads_ref):
 
 
 @pytest.mark.parametrize('name', RSH_NAMES)
-def test_open_shell_density_matches_jax(name):
+def test_open_shell_density_matches_jax(recorded, name):
     """The torch energy density of the open-shell functional and its five
-    derivatives by autograd against jax.grad."""
+    derivatives by autograd against jax.grad (recorded; live for wB97X-V,
+    the module's live JAX comparison of the kernels' functional)."""
     x = _open_inputs()
     leaves = [torch.as_tensor(v).requires_grad_() for v in x]
     e = xc.parse_xc(name).exc_density(*leaves)
     grads = torch.autograd.grad(e.sum(), leaves, allow_unused=True)
+    ref = (_jax_open(name, x) if name == 'wb97x-v'
+           else _recorded_open(recorded, name))
     _gate(name, x, e.detach().numpy(),
           [np.zeros(x.shape[1]) if g is None else g.numpy() for g in grads],
-          *_jax_open(name, x))
+          *ref)
 
 
 # reads the terms (id, coefficient, NPARAM parameters each), the number of
@@ -223,38 +264,29 @@ def _run_harness(harness, name, x):
 
 
 @pytest.mark.parametrize('name', RSH_NAMES)
-def test_dual5_matches_jax_grad(harness, name):
+def test_dual5_matches_jax_grad(harness, recorded, name):
     """edens_open<true>, the functional of the xc_uks kernel, on dual
     numbers with five tangents (erf, log1p and the clamps' half slopes at
-    ties) against jax.grad."""
+    ties) against jax.grad (recorded)."""
     x = _open_inputs()
     got = _run_harness(harness, name, x)
-    _gate(name, x, got[0], got[1:], *_jax_open(name, x))
+    _gate(name, x, got[0], got[1:], *_recorded_open(recorded, name))
 
 
 @pytest.mark.parametrize('name', RSH_NAMES)
-def test_dual2_matches_jax_grad(harness, name):
+def test_dual2_matches_jax_grad(harness, recorded, name):
     """edens_closed<true>, the functional of the xc_rks kernel, against
     jax.grad of the closed-shell energy density as pyscf_tpu/dft/numint.py
-    takes it, rho in [1e-10, 1e2] and sigma in [1e-20, 1e3]; e_xc, vrho and
-    vsigma gated as _gate gates the open shell (over rho or sigma for the
-    derivatives)."""
-    rng = np.random.default_rng(47)
-    x = np.stack([10.0 ** rng.uniform(-10, 2, 300),
-                  10.0 ** rng.uniform(-20, 3, 300)])
+    takes it (recorded), rho in [1e-10, 1e2] and sigma in [1e-20, 1e3];
+    e_xc, vrho and vsigma gated as _gate gates the open shell (over rho or
+    sigma for the derivatives)."""
+    x = _closed_inputs()
     got = _run_harness(harness, name, x)
-    fj = jax_xc.parse_xc(name)
-
-    def edens(r, s):
-        return fj.exc_density(0.5 * r, 0.5 * r, 0.25 * s, 0.25 * s, 0.25 * s)
-
-    r, s = jnp.asarray(x[0]), jnp.asarray(x[1])
-    vr, vs = jax.grad(lambda a, b: jnp.sum(edens(a, b)), argnums=(0, 1))(r, s)
     scale = x[0] ** (4 / 3)
     att = 1e-13 * _attenuation_scale(name, 0.5 * x[0], 0.5 * x[0],
                                      0.25 * x[1], 0.25 * x[1])
-    for g, ref, v, rel in zip(got, (edens(r, s), vr, vs), (1.0, x[0], x[1]),
-                              (1e-12, 1e-9, 1e-9)):
+    for g, ref, v, rel in zip(got, recorded[f'rsh_closed_{name}'],
+                              (1.0, x[0], x[1]), (1e-12, 1e-9, 1e-9)):
         ref = np.asarray(ref)
         assert np.all(np.isfinite(g))
         assert np.all(np.abs(g - ref) <= rel * (np.abs(ref) + scale / v)
@@ -263,35 +295,52 @@ def test_dual2_matches_jax_grad(harness, name):
 
 # ---- the XC quadrature of the spin-polarized cycle -----------------------
 
-def test_nr_uks_wb97xv_matches_jax():
+def nr_uks_spin_density(nao):
+    """The seeded spin density of test_nr_uks_wb97xv_matches_jax (numpy
+    (2, nao, nao)): alpha one tight O 1s-like function, beta four seeded
+    orbitals."""
+    rng = np.random.default_rng(53)
+    dm_np = np.zeros((2, nao, nao))
+    dm_np[0, 0, 0] = 1.0
+    cb = rng.standard_normal((nao, 4)) * 0.3
+    dm_np[1] = cb @ cb.T
+    return dm_np
+
+
+def jax_nr_uks_wb97xv():
+    """(n, exc, vxc) of the JAX package's nr_uks of wB97X-V at
+    nr_uks_spin_density on the water cation's level-1 grid (rsh_refs
+    records them)."""
+    mj = jpt.M(atom=refs.WATER, basis='def2-svp', charge=1, spin=1,
+               verbose=0)
+    gj = jax_gen_grid.Grids(mj)
+    gj.level = 1
+    gj.build()
+    n, e, v = jax_numint.NumInt().nr_uks(mj, gj, 'wb97x-v', jnp.asarray(
+        nr_uks_spin_density(mj.nao)))
+    return np.asarray(n), float(e), np.asarray(v)
+
+
+def test_nr_uks_wb97xv_matches_jax(recorded):
     """nr_uks of wB97X-V (the semilocal part) on the water cation's level-1
     grid at a seeded spin density whose alpha part is one tight O 1s-like
     function: far from O, rho_a falls under RHO_THR/2 where rho_a + rho_b
-    passes the mask, the clamp of the open-shell branch."""
-    mj = jpt.M(atom=refs.WATER, basis='def2-svp', charge=1, spin=1,
-               verbose=0)
+    passes the mask, the clamp of the open-shell branch; against the JAX
+    package's nr_uks (recorded)."""
     mt = tpt.M(atom=refs.WATER, basis='def2-svp', charge=1, spin=1,
                device='cpu')
-    gj, gt = jax_gen_grid.Grids(mj), gen_grid.Grids(mt)
-    gj.level = gt.level = 1
-    gj.build()
+    gt = gen_grid.Grids(mt)
+    gt.level = 1
     gt.build()
-    rng = np.random.default_rng(53)
-    dm_np = np.zeros((2, mt.nao, mt.nao))
-    dm_np[0, 0, 0] = 1.0
-    cb = rng.standard_normal((mt.nao, 4)) * 0.3
-    dm_np[1] = cb @ cb.T
-    dm = compat.spin_density_from_numpy(dm_np, 'cpu')
+    dm = compat.spin_density_from_numpy(nr_uks_spin_density(mt.nao), 'cpu')
     ao = numint.eval_ao(mt, gt.coords, 0)
     rho = torch.einsum('bi,sij,bj->sb', ao, dm, ao)
     assert bool(((rho[0] < 0.5 * numint.RHO_THR)
                  & (rho.sum(0) > numint.RHO_THR)).any())
     n, e, v = numint.NumInt().nr_uks(mt, gt, 'wb97x-v', dm)
-    nj, ej, vj = jax_numint.NumInt().nr_uks(mj, gj, 'wb97x-v',
-                                            jnp.asarray(dm_np))
+    nj, ej, vj = (recorded[f'rsh_nr_uks_{k}'] for k in 'nev')
     assert np.all(np.abs(n.numpy() - nj) <= 1e-12 * np.abs(nj))
     assert abs(e - ej) <= 1e-12 * abs(ej)
-    vj = np.asarray(vj)
     assert np.max(np.abs(v.numpy() - vj)) <= 1e-11 * np.max(np.abs(vj))
 
 

@@ -1,6 +1,6 @@
 """The port's XC functionals against the JAX package: energy density and
-its derivatives of each B3LYP component and of the compounds, and the
-functional-name parser."""
+its derivatives of each B3LYP and PBE component and of the compounds,
+the open-shell PBE components, and the functional-name parser."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +14,11 @@ from pyscf_tpu_torch.dft import numint, xc
 torch.set_num_threads(1)
 
 NAMES = ['SLATER', 'VWN5', 'VWN3', 'B88', 'LYP', 'b3lypg', 'b3lyp5', 'blyp',
-         'lda,vwn', 'lda,vwn_rpa', '0.2*HF + 0.8*B88, LYP']
+         'lda,vwn', 'lda,vwn_rpa', '0.2*HF + 0.8*B88, LYP', 'PBE_X']
+# PBE correlation's eps + H cancels to rounding where the reduced gradient
+# is large (H -> -eps): these are held to 1e-12 of the value plus the
+# point's energy-density scale (_scaled_gate)
+PBE_NAMES = ['PBE_C', 'pbe', 'pbe0']
 
 
 def _inputs():
@@ -59,11 +63,31 @@ def test_energy_and_derivatives_match_jax(name):
         assert np.all(np.abs(got - ref) <= 1e-12 * np.abs(ref) + 1e-300)
 
 
+def _scaled_gate(got, ref, scale):
+    """|got - ref| <= 1e-12 (|ref| + scale) elementwise, finite."""
+    assert np.all(np.isfinite(got))
+    assert np.all(np.abs(got - ref) <= 1e-12 * (np.abs(ref) + scale))
+
+
+@pytest.mark.parametrize('name', PBE_NAMES)
+def test_pbe_energy_and_derivatives_match_jax(name):
+    """The closed-shell PBE family against the JAX package's on the same
+    points: e_xc, vrho and vsigma to 1e-12 of their size plus the scales
+    rho^(4/3), rho^(1/3) and rho^(4/3)/sigma."""
+    rho, sigma = _inputs()
+    s43 = rho ** (4.0 / 3.0)
+    for got, ref, scale in zip(_port_closed(name, rho, sigma),
+                               _jax_closed(name, rho, sigma),
+                               (s43, s43 / rho, s43 / sigma)):
+        _scaled_gate(got, ref, scale)
+
+
 @pytest.mark.parametrize('name,hyb,family', [
     ('B3LYPG', 0.2, xc.GGA), ('b3lyp', 0.2, xc.GGA), ('LDA,VWN', 0.0, xc.LDA),
     ('svwn', 0.0, xc.LDA), ('0.25*HF + 0.75*B88, LYP', 0.25, xc.GGA),
     ('wb97x-v', 0.167, xc.GGA), ('camb3lyp', 0.19, xc.GGA),
-    ('b97-1', 0.21, xc.GGA)])
+    ('b97-1', 0.21, xc.GGA), ('pbe', 0.0, xc.GGA), ('pbe0', 0.25, xc.GGA),
+    ('pbeh', 0.25, xc.GGA), ('pbe,pbe', 0.0, xc.GGA)])
 def test_parse_matches_jax(name, hyb, family):
     got, ref = xc.parse_xc(name), jax_xc.parse_xc(name)
     assert got.hyb == ref.hyb == xc.hybrid_coeff(name) == hyb
@@ -73,8 +97,49 @@ def test_parse_matches_jax(name, hyb, family):
     assert got.nlc == ref.nlc
 
 
-@pytest.mark.parametrize('name', ['pbe', 'scan', 'b2plyp', 'tpss',
+@pytest.mark.parametrize('name', ['pz81', 'scan', 'b2plyp', 'tpss',
                                   'pw91', 'xalpha', 'b88,p86'])
 def test_unported_functionals_raise(name):
     with pytest.raises(NotImplementedError, match='queue 1, remaining XC'):
         xc.parse_xc(name)
+
+
+@pytest.mark.parametrize('name', ['pbe_x', 'pbe_c'])
+def test_open_shell_pbe_matches_jax(name):
+    """pbe_x and pbe_c of xc_funcs.py against the JAX package's at seeded
+    spin-polarized points (rho_s, sigma_ss log-uniform, |sigma_ab| <=
+    sqrt(sigma_aa sigma_bb) of either sign), value and the five first
+    derivatives to 1e-12 of their size plus the point's energy-density
+    scale rho_a^(4/3) + rho_b^(4/3) over the variable (sqrt(sigma_aa
+    sigma_bb) for sigma_ab), as _scaled_gate."""
+    from pyscf_tpu.dft import xc_funcs as jax_f
+    from pyscf_tpu_torch.dft import xc_funcs as f
+    rng = np.random.default_rng(31)
+    n = 300
+    ra, rb = 10.0 ** rng.uniform(-10, 2, (2, n))
+    saa, sbb = 10.0 ** rng.uniform(-20, 3, (2, n))
+    sab = rng.uniform(-1, 1, n) * np.sqrt(saa * sbb)
+    x = [ra, rb, saa, sab, sbb]
+
+    def port(a, b, xaa, xab, xbb):
+        if name == 'pbe_x':
+            return f.pbe_x(a, b, xaa, xbb)
+        return f.pbe_c(a, b, xaa + 2 * xab + xbb)
+
+    def ref(a, b, xaa, xab, xbb):
+        if name == 'pbe_x':
+            return jax_f.pbe_x(a, b, xaa, xbb)
+        return jax_f.pbe_c(a, b, xaa + 2 * xab + xbb)
+
+    t = [torch.as_tensor(v).requires_grad_() for v in x]
+    e = port(*t)
+    got = [e.detach().numpy()] + [
+        np.zeros(n) if v is None else v.numpy()
+        for v in torch.autograd.grad(e.sum(), t, allow_unused=True)]
+    j = [jnp.asarray(v) for v in x]
+    want = [np.asarray(ref(*j))] + [np.asarray(v) for v in jax.grad(
+        lambda *a: jnp.sum(ref(*a)), argnums=(0, 1, 2, 3, 4))(*j)]
+    scale = ra ** (4.0 / 3.0) + rb ** (4.0 / 3.0)
+    for g, r, v in zip(got, want, [1.0, ra, rb, saa, np.sqrt(saa * sbb),
+                                   sbb]):
+        _scaled_gate(g, r, scale / v)
