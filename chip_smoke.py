@@ -227,15 +227,14 @@ every XC kernel, on the card, in order:
      13 (|de_z| and the mirror planes within 1e-8, central differences
      with the grid held fixed within 1e-6; no JAX reference at this
      width);
- 47. the DF-RHF Hessian and harmonic frequencies of water/cc-pVTZ (f on
-     O; smaller than benzene/cc-pVTZ, whose twins take 100-150 s) and
-     water/cc-pVQZ from M() (conv_tol 1e-12, conv_tol_grad 1e-8), as in
-     37: the seven kernels launched, the sum rule within 1e-7, the
-     symmetry within 1e-9, central differences of the analytic gradient
-     within 1e-5 on all nine columns of each; the eight phases, the peak
-     memory and the frequencies printed; after water/cc-pVTZ's, its five
-     kernels against their twins at its shapes as in 38 (rows
-     <kernel>_tz);
+ 47. the DF-RHF Hessian and harmonic frequencies of benzene/cc-pVTZ (nao
+     264, naux 654) and water/cc-pVQZ from M() (conv_tol 1e-12,
+     conv_tol_grad 1e-8), as in 37: the seven kernels launched, the sum
+     rule within 1e-7, the symmetry within 1e-9, central differences of
+     the analytic gradient within 1e-5 on four columns (one C x and z, one
+     H x and y) and on all nine; the eight phases, the peak memory and the
+     frequencies printed; after benzene/cc-pVTZ's, its five kernels
+     against their twins at its shapes as in 38 (rows <kernel>_tz);
  48. int3c2e_ipip's (gg|h) class, R_tuv to order 15, on two g shells and
      an h aux shell whose primitive triples put the Boys argument on both
      sides of 18, against its twin within 1e-12 of the twin's largest
@@ -1374,10 +1373,40 @@ def df_grad_phases(kernels, mf, report, suffix=''):
           f'1e-10 x {scale:.3e}')
 
 
-def xc_grad_phases(kernels, mf, report, suffix='', with_ao=True):
-    """eval_ao_deriv2 (unless not with_ao) and xc_rks_grad against their
-    twins on the converged DF-RKS's grid and density; xc_rks_grad recorded
-    as xc_rks_grad<suffix>."""
+def eval_ao_phase(kernels, mf, report, name, deriv):
+    """eval_ao at `deriv` (2 or 3) on mf's whole grid against its twin:
+    <= 1e-12 x max; recorded as name."""
+    from pyscf_tpu_torch.ops import eval_gto
+
+    mol, nao = mf.mol, mf.mol.nao
+    coords = mf.grids.coords
+    npts = coords.shape[0]
+    tables = eval_gto.ao_tables(mol)
+    kernel = getattr(kernels, f'eval_ao_deriv{deriv}')
+    ao_k = kernel(tables, coords, nao)
+    ao_p = eval_gto.eval_ao_plain(tables, coords, nao, deriv)
+    err, scale = max_abs([(ao_k, ao_p)])
+    del ao_p
+    ncomp = (deriv + 1) * (deriv + 2) * (deriv + 3) // 6
+    ops = 0.0
+    for l, e, c, _, _ in tables:
+        nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
+        ops += npts * e.shape[0] * (8 + (2 * deriv + 5) * e.shape[1]
+                                    + ncomp * nc * (l + 8 * (deriv - 1)
+                                                    + 2 * d))
+    record(report, name, 'pyscf_tpu_torch/csrc/eval_ao.cu',
+           'pyscf_tpu/ops/eval_gto.py:63' if deriv == 2
+           else 'pyscf_tpu/ops/eval_gto.py:19', err,
+           lambda: kernel(tables, coords, nao),
+           lambda: eval_gto.eval_ao_plain(tables, coords, nao, deriv),
+           nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables), ops)
+    check(err <= 1e-12 * scale, f'{name} vs plain: {err:.3e} > 1e-12 x '
+          f'{scale:.3e}')
+
+
+def xc_grad_phases(kernels, mf, report, suffix=''):
+    """xc_rks_grad against its twin on the converged DF-RKS's grid and
+    density; recorded as xc_rks_grad<suffix>."""
     from pyscf_tpu_torch.dft import numint
     from pyscf_tpu_torch.grad import df
     from pyscf_tpu_torch.ops import eval_gto
@@ -1388,23 +1417,6 @@ def xc_grad_phases(kernels, mf, report, suffix='', with_ao=True):
     tables = eval_gto.ao_tables(mol)
     ao_k = kernels.eval_ao_deriv2(tables, coords, nao)
     npts = coords.shape[0]
-    if with_ao:
-        ao_p = eval_gto.eval_ao_plain(tables, coords, nao, 2)
-        err, scale = max_abs([(ao_k, ao_p)])
-        del ao_p
-        ops = 0.0
-        for l, e, c, _, _ in tables:
-            nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
-            ops += npts * e.shape[0] * (8 + 9 * e.shape[1]
-                                        + 10 * nc * (l + 8 + 2 * d))
-        record(report, 'eval_ao_deriv2', 'pyscf_tpu_torch/csrc/eval_ao.cu',
-               'pyscf_tpu/ops/eval_gto.py:63', err,
-               lambda: kernels.eval_ao_deriv2(tables, coords, nao),
-               lambda: eval_gto.eval_ao_plain(tables, coords, nao, 2),
-               nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables),
-               ops)
-        check(err <= 1e-12 * scale, f'eval_ao deriv 2 vs plain: {err:.3e} > '
-              f'1e-12 x {scale:.3e}')
 
     f = mf.xc_obj
     dmao = (ao_k[:4].reshape(-1, nao) @ dm).reshape(4, -1, nao)
@@ -2270,27 +2282,34 @@ def fxc_phases(kernels, mf, report, suffix='',
     ddm = co @ z @ cv.T
     ddm = ddm + ddm.transpose(1, 2)
     d0, d1 = dmao[0], torch.matmul(aod[0], ddm)
-    for name, fn, plain, args, ops in (
-            ('xc_rks_fxc', kernels.xc_rks_fxc, numint.xc_rks_fxc_plain,
-             (aod, d0, d1, w, f), (8.0 + 16.0 * 5) * npts * nao),
-            ('xc_uks_fxc', kernels.xc_uks_fxc, numint.xc_uks_fxc_plain,
-             (aod, torch.stack([0.5 * d0, 0.5 * d0]),
-              torch.stack([0.5 * d1, -0.5 * d1], dim=1).contiguous(), w, f),
-             (16.0 + 32.0 * 5) * npts * nao)):
-        if name not in tangents:
-            continue
-        got, ref = fn(*args), plain(*args)
-        err, scale = max_abs([(got, ref)])
-        del ref
-        # reductions (8 per point and AO per density) and the rows (8 per
-        # point and AO per output); the functional is not counted
-        record(report, name + suffix, f'pyscf_tpu_torch/csrc/{name}.cu',
-               'pyscf_tpu/tdscf/rhf.py:218' if name == 'xc_rks_fxc'
-               else 'pyscf_tpu/tdscf/rhf.py:237', err,
-               lambda: fn(*args), lambda: plain(*args),
-               nbytes(*args[:-1], got), ops)
-        check(err <= 1e-10 * scale, f'{name} vs plain: {err:.3e} > 1e-10 x '
-              f'{scale:.3e}')
+    for name, args, ops, replaces in (
+            ('xc_rks_fxc', (aod, d0, d1, w, f), (8.0 + 16.0 * 5) * npts * nao,
+             'pyscf_tpu/tdscf/rhf.py:218'),
+            ('xc_uks_fxc', (aod, torch.stack([0.5 * d0, 0.5 * d0]),
+                            torch.stack([0.5 * d1, -0.5 * d1], dim=1)
+                            .contiguous(), w, f),
+             (16.0 + 32.0 * 5) * npts * nao, 'pyscf_tpu/tdscf/rhf.py:237')):
+        if name in tangents:
+            tangent_fxc_phase(kernels, report, name, name + suffix, args,
+                              ops, replaces)
+
+
+def tangent_fxc_phase(kernels, report, kernel, name, args, ops, replaces):
+    """The tangent response kernel `kernel` (xc_rks_fxc or xc_uks_fxc) on
+    args against its plain twin: <= 1e-10 x max|dvtmp|; recorded as name
+    with ops, its reductions (8 per point and AO per density) and rows (8
+    per point and AO per output); the functional is not counted."""
+    from pyscf_tpu_torch.dft import numint
+
+    fn, plain = getattr(kernels, kernel), getattr(numint, kernel + '_plain')
+    got, ref = fn(*args), plain(*args)
+    err, scale = max_abs([(got, ref)])
+    del ref
+    record(report, name, f'pyscf_tpu_torch/csrc/{kernel}.cu', replaces, err,
+           lambda: fn(*args), lambda: plain(*args), nbytes(*args[:-1], got),
+           ops)
+    check(err <= 1e-10 * scale, f'{name} vs plain: {err:.3e} > 1e-10 x '
+          f'{scale:.3e}')
 
 
 def tdscf_phenyl_path(pt, refs, kernels):
@@ -2622,15 +2641,22 @@ def hessian_phases(kernels, mf, report, suffix=''):
           f'1e-10 x {scale:.3e}')
 
 
-def tight_df_rhf(mol, conv_tol_grad):
-    """DF-RHF converged as far as a Hessian and the central differences of
-    its gradient need: minao, conv_tol 1e-12."""
-    mf = mol.RHF().density_fit()
+def tight_df(mol, kind, conv_tol_grad, xc_code=None, grids=None):
+    """The density-fitted mean field `kind` ('RHF', 'UHF', 'RKS' or 'UKS',
+    the last two with xc_code) converged as far as a Hessian and the
+    central differences of its gradient need: minao, conv_tol 1e-12; on
+    the grid `grids` (points, weights) where given, so that the
+    differences are the fixed-grid gradient's."""
+    make = getattr(mol, kind)
+    mf = (make(xc=xc_code) if xc_code else make()).density_fit()
+    if grids is not None:
+        mf.grids.coords, mf.grids.weights = grids
     mf.init_guess = 'minao'
     mf.conv_tol = 1e-12
     mf.conv_tol_grad = conv_tol_grad
     mf.kernel()
-    check(mf.converged, 'DF-RHF (Hessian) did not converge')
+    check(mf.converged, f'DF-{kind} {xc_code or ""}'.rstrip()
+          + ' (Hessian) did not converge')
     return mf
 
 
@@ -2651,11 +2677,11 @@ def hessian_path(pt, kernels, name, atom, basis, picks, e_ref=None, spin=0):
     is a reference. Returns (mf, launches)."""
     from pyscf_tpu_torch import hessian
 
-    tight_df = tight_df_uhf if spin else tight_df_rhf
+    kind = 'UHF' if spin else 'RHF'
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    mf = tight_df(pt.M(atom=atom, basis=basis, spin=spin), 1e-8)
+    mf = tight_df(pt.M(atom=atom, basis=basis, spin=spin), kind, 1e-8)
     torch.cuda.synchronize()
     t_scf = time.perf_counter() - t0
     if e_ref is not None:
@@ -2690,7 +2716,7 @@ def hessian_path(pt, kernels, name, atom, basis, picks, e_ref=None, spin=0):
         f'{k} {hobj.timings[k]:.4f}' for k in HESS_PHASES))
     t0 = time.perf_counter()
     fd = hessian.fd_columns(
-        lambda m: tight_df(m, 1e-9).Gradients().kernel(), mol, picks)
+        lambda m: tight_df(m, kind, 1e-9).Gradients().kernel(), mol, picks)
     worst = max(float(np.abs(h[a, x] - col).max())
                 for (a, x), col in zip(picks, fd))
     print(f'{name} Hessian vs central differences of the gradient on '
@@ -2742,22 +2768,6 @@ def library_logs(kernels, names):
           + ', '.join(f'{k} {secs[k]:.1f}' for k in top))
 
 
-def tight_df_rks(mol, conv_tol_grad, grids=None):
-    """DF-RKS b3lypg converged as far as a Hessian and the central
-    differences of its gradient need: minao, conv_tol 1e-12; on the grid
-    `grids` (points, weights) where given, so that the differences are the
-    fixed-grid gradient's."""
-    mf = mol.RKS(xc='b3lypg').density_fit()
-    if grids is not None:
-        mf.grids.coords, mf.grids.weights = grids
-    mf.init_guess = 'minao'
-    mf.conv_tol = 1e-12
-    mf.conv_tol_grad = conv_tol_grad
-    mf.kernel()
-    check(mf.converged, 'DF-RKS (Hessian) did not converge')
-    return mf
-
-
 def ks_hessian_path(pt, refs, kernels, basis, picks, fxc_routes=False):
     """The DF-RKS b3lypg Hessian and harmonic frequencies of benzene/basis
     from M() (minao, conv_tol 1e-12, conv_tol_grad 1e-8) through
@@ -2784,7 +2794,8 @@ def ks_hessian_path(pt, refs, kernels, basis, picks, fxc_routes=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    mf = tight_df_rks(pt.M(atom=refs.BENZENE, basis=basis), 1e-8)
+    mf = tight_df(pt.M(atom=refs.BENZENE, basis=basis), 'RKS', 1e-8,
+                  'b3lypg')
     torch.cuda.synchronize()
     t_scf = time.perf_counter() - t0
     kernels.reset_launches()
@@ -2837,8 +2848,8 @@ def ks_hessian_path(pt, refs, kernels, basis, picks, fxc_routes=False):
     grids = (mf.grids.coords, mf.grids.weights)
     t0 = time.perf_counter()
     fd = hessian.fd_columns(
-        lambda m: tight_df_rks(m, 1e-9, grids).Gradients().kernel(), mol,
-        picks, points=4)
+        lambda m: tight_df(m, 'RKS', 1e-9, 'b3lypg', grids)
+        .Gradients().kernel(), mol, picks, points=4)
     worst = max(float(np.abs(h[a, x] - col).max())
                 for (a, x), col in zip(picks, fd))
     print(f'{name} Hessian vs four-point central differences of the '
@@ -2858,13 +2869,12 @@ def ks_hessian_path(pt, refs, kernels, basis, picks, fxc_routes=False):
     return mf, launches
 
 
-def ks_hessian_phases(kernels, mf, report, suffix='', with_ao=True):
-    """The DF-RKS Hessian's three new kernels against their twins on mf's
-    grid at its density, at the shapes its Hessian gives them: eval_ao
-    deriv 3 on the whole grid (<= 1e-12 x max), xc_rks_hess (each output
-    <= 1e-10 x its max) and xc_rks_deriv1 over every tangent in the
-    Hessian's chunks of KS_DERIV1_CHUNK (<= 1e-10 x max); the twins timed
-    once on the host clock; recorded as <kernel><suffix>."""
+def ks_hessian_phases(kernels, mf, report, suffix=''):
+    """The DF-RKS Hessian's XC kernels against their twins on mf's grid
+    at its density, at the shapes its Hessian gives them: xc_rks_hess
+    (each output <= 1e-10 x its max) and xc_rks_deriv1 over every tangent
+    in the Hessian's chunks of KS_DERIV1_CHUNK (<= 1e-10 x max); the twins
+    timed once on the host clock; recorded as <kernel><suffix>."""
     from pyscf_tpu_torch.dft import numint
     from pyscf_tpu_torch.ops import eval_gto
 
@@ -2878,25 +2888,6 @@ def ks_hessian_phases(kernels, mf, report, suffix='', with_ao=True):
     print(f'the DF-RKS Hessian\'s kernels against their twins at nao {nao}, '
           f'{npts} grid points')
     ao_k = kernels.eval_ao_deriv3(tables, coords, nao)
-    if with_ao:
-        ao_p, plain_s = host_s(
-            lambda: eval_gto.eval_ao_plain(tables, coords, nao, 3))
-        err, scale = max_abs([(ao_k, ao_p)])
-        del ao_p
-        ops = 0.0
-        for l, e, c, _, _ in tables:
-            nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
-            ops += npts * e.shape[0] * (8 + 11 * e.shape[1]
-                                        + 20 * nc * (l + 16 + 2 * d))
-        record(report, f'eval_ao_deriv3{suffix}',
-               'pyscf_tpu_torch/csrc/eval_ao.cu',
-               'pyscf_tpu/ops/eval_gto.py:19', err,
-               lambda: kernels.eval_ao_deriv3(tables, coords, nao),
-               plain_s * 1e3,
-               nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables),
-               ops)
-        check(err <= 1e-12 * scale, f'eval_ao deriv 3 vs plain: {err:.3e} > '
-              f'1e-12 x {scale:.3e}')
 
     atom_off, ao_atom = numint.atom_ranges(mol)
     dmao = (ao_k[:4].reshape(-1, nao) @ dm).reshape(4, npts, nao)
@@ -3011,20 +3002,6 @@ H3 = 'H 0 0 -1.05; H 0 0 0.0; H 0 0 0.85'
 CH3 = 'C 0 0 0; H 1.079 0 0; H -0.5395 0.934441 0; H -0.5395 -0.934441 0'
 
 
-def tight_df_uks(mol, xc_code, conv_tol_grad, grids=None):
-    """DF-UKS converged as tight_df_rks converges DF-RKS, on `grids` where
-    given."""
-    mf = mol.UKS(xc=xc_code).density_fit()
-    if grids is not None:
-        mf.grids.coords, mf.grids.weights = grids
-    mf.init_guess = 'minao'
-    mf.conv_tol = 1e-12
-    mf.conv_tol_grad = conv_tol_grad
-    mf.kernel()
-    check(mf.converged, f'DF-UKS {xc_code} (Hessian) did not converge')
-    return mf
-
-
 def uks_hessian_path(pt, refs, kernels, xc_code, picks, forces=False):
     """The phenyl radical's DF-UKS xc_code/def2-SVP Hessian at full width
     from M() (minao, conv_tol 1e-12, conv_tol_grad 1e-8; with forces, its
@@ -3048,8 +3025,8 @@ def uks_hessian_path(pt, refs, kernels, xc_code, picks, forces=False):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    mf = tight_df_uks(pt.M(atom=refs.PHENYL, basis='def2-svp', spin=1),
-                      xc_code, 1e-8)
+    mf = tight_df(pt.M(atom=refs.PHENYL, basis='def2-svp', spin=1), 'UKS',
+                  1e-8, xc_code)
     torch.cuda.synchronize()
     t_scf = time.perf_counter() - t0
     print(f'{name}: E {mf.e_tot!r}, {mf.scf_cycles} cycles, <S^2> '
@@ -3100,8 +3077,8 @@ def uks_hessian_path(pt, refs, kernels, xc_code, picks, forces=False):
     grids = (mf.grids.coords, mf.grids.weights)
     t0 = time.perf_counter()
     fd = hessian.fd_columns(
-        lambda m: tight_df_uks(m, xc_code, 1e-9, grids).Gradients().kernel(),
-        mol, picks, points=4)
+        lambda m: tight_df(m, 'UKS', 1e-9, xc_code, grids)
+        .Gradients().kernel(), mol, picks, points=4)
     worst = max(float(np.abs(h[a, x] - col).max())
                 for (a, x), col in zip(picks, fd))
     print(f'{name} Hessian vs four-point central differences of the '
@@ -3118,14 +3095,12 @@ def uks_hessian_path(pt, refs, kernels, xc_code, picks, forces=False):
     return mf, launches
 
 
-def uks_hessian_phases(kernels, mf, report, suffix='', with_ao=True):
-    """The DF-UKS Hessian's kernels against their twins on mf's grid at its
-    spin density, at the shapes its Hessian gives them: eval_ao deriv 3 on
-    the whole grid (<= 1e-12 x max; recorded as eval_ao_deriv3_phenyl
-    unless not with_ao), xc_uks_hess (each output <= 1e-10 x its max) and
-    xc_uks_deriv1 over every tangent in the Hessian's chunks of
-    KS_DERIV1_CHUNK (<= 1e-10 x max); the twins timed once on the host
-    clock; recorded as <kernel><suffix>."""
+def uks_hessian_phases(kernels, mf, report, suffix=''):
+    """The DF-UKS Hessian's XC kernels against their twins on mf's grid at
+    its spin density, at the shapes its Hessian gives them: xc_uks_hess
+    (each output <= 1e-10 x its max) and xc_uks_deriv1 over every tangent
+    in the Hessian's chunks of KS_DERIV1_CHUNK (<= 1e-10 x max); the twins
+    timed once on the host clock; recorded as <kernel><suffix>."""
     from pyscf_tpu_torch.dft import numint
     from pyscf_tpu_torch.ops import eval_gto
 
@@ -3139,25 +3114,6 @@ def uks_hessian_phases(kernels, mf, report, suffix='', with_ao=True):
     print(f'the DF-UKS Hessian\'s kernels ({mf.xc}) against their twins at '
           f'nao {nao}, {npts} grid points')
     ao_k = kernels.eval_ao_deriv3(tables, coords, nao)
-    if with_ao:
-        ao_p, plain_s = host_s(
-            lambda: eval_gto.eval_ao_plain(tables, coords, nao, 3))
-        err, scale = max_abs([(ao_k, ao_p)])
-        del ao_p
-        ops = 0.0
-        for l, e, c, _, _ in tables:
-            nc, d = (l + 1) * (l + 2) // 2, 2 * l + 1
-            ops += npts * e.shape[0] * (8 + 11 * e.shape[1]
-                                        + 20 * nc * (l + 16 + 2 * d))
-        record(report, 'eval_ao_deriv3_phenyl',
-               'pyscf_tpu_torch/csrc/eval_ao.cu',
-               'pyscf_tpu/ops/eval_gto.py:19', err,
-               lambda: kernels.eval_ao_deriv3(tables, coords, nao),
-               plain_s * 1e3,
-               nbytes(coords, ao_k) + sum(nbytes(*t[1:]) for t in tables),
-               ops)
-        check(err <= 1e-12 * scale, f'eval_ao deriv 3 (phenyl) vs plain: '
-              f'{err:.3e} > 1e-12 x {scale:.3e}')
 
     atom_off, ao_atom = numint.atom_ranges(mol)
     dmao = torch.matmul(ao_k[:4].reshape(-1, nao), dm).reshape(
@@ -3214,10 +3170,7 @@ def uks_hessian_phases(kernels, mf, report, suffix='', with_ao=True):
 def uks_fxc_phase(kernels, mf, report, name):
     """xc_uks_fxc at the converged DF-UKS spin density on its whole grid
     along five seeded spin transition densities (one chunk of the
-    Hessian's CG steps) against its twin: <= 1e-10 x max; recorded as
-    name."""
-    from pyscf_tpu_torch.dft import numint
-
+    Hessian's CG steps) against its twin, as tangent_fxc_phase."""
     f = mf.xc_obj
     aods, wblocks = mf._numint.grid_ao(mf.mol, mf.grids, 1, spins=2)
     check(len(aods) == 1, 'the phenyl grid does not fit one block')
@@ -3228,17 +3181,9 @@ def uks_fxc_phase(kernels, mf, report, name):
     t = torch.as_tensor(rng.standard_normal((5, 2, nao, nao)),
                         device='cuda') * 1e-2
     d1 = torch.matmul(aod[0], t + t.transpose(-1, -2))
-    args = (aod, d0, d1, w, f)
-    got, ref = kernels.xc_uks_fxc(*args), numint.xc_uks_fxc_plain(*args)
-    err, scale = max_abs([(got, ref)])
-    del ref
-    record(report, name, 'pyscf_tpu_torch/csrc/xc_uks_fxc.cu',
-           'pyscf_tpu/hessian/uhf.py:196', err,
-           lambda: kernels.xc_uks_fxc(*args),
-           lambda: numint.xc_uks_fxc_plain(*args),
-           nbytes(*args[:-1], got), (16.0 + 32.0 * 5) * npts * nao)
-    check(err <= 1e-10 * scale, f'{name} vs plain: {err:.3e} > 1e-10 x '
-          f'{scale:.3e}')
+    tangent_fxc_phase(kernels, report, 'xc_uks_fxc', name,
+                      (aod, d0, d1, w, f), (16.0 + 32.0 * 5) * npts * nao,
+                      'pyscf_tpu/hessian/uhf.py:196')
 
 
 def benzene_pbe_path(pt, refs, kernels):
@@ -3278,17 +3223,6 @@ def benzene_pbe_path(pt, refs, kernels):
               'xc_fxc', 'xc_fxc_pairs', 'xc_rks_fxc'):
         check(launches[k] > 0, f'DF-RKS PBE: kernel {k} never launched')
     return mf, launches
-
-
-def tight_df_uhf(mol, conv_tol_grad):
-    """DF-UHF converged as tight_df_rhf converges DF-RHF."""
-    mf = mol.UHF().density_fit()
-    mf.init_guess = 'minao'
-    mf.conv_tol = 1e-12
-    mf.conv_tol_grad = conv_tol_grad
-    mf.kernel()
-    check(mf.converged, 'DF-UHF (Hessian) did not converge')
-    return mf
 
 
 def h3_ts_path(pt, kernels):
@@ -3855,6 +3789,7 @@ def main():
     launches.update({k: rks_launches[k] for k in
                      ('int3c2e_ip', 'int2c2e_ip1') + XC_GRAD_KERNELS})
     df_grad_phases(kernels, rks, report)
+    eval_ao_phase(kernels, rks, report, 'eval_ao_deriv2', 2)
     xc_grad_phases(kernels, rks, report)
     del rks
     torch.cuda.empty_cache()
@@ -3960,8 +3895,8 @@ def main():
     df_rks_grad_path(pt, refs, kernels, tzvp=True)
     torch.cuda.empty_cache()
     rhf, tz_launches = hessian_path(
-        pt, kernels, 'water/cc-pVTZ', refs.WATER, 'cc-pvtz',
-        [(a, x) for a in range(3) for x in range(3)])
+        pt, kernels, 'benzene/cc-pVTZ', refs.BENZENE, 'cc-pvtz',
+        [(0, 0), (0, 2), (6, 0), (6, 1)])
     launches.update({f'{k}_tz': tz_launches[k] for k in HESS_KERNELS})
     hessian_phases(kernels, rhf, report, '_tz')
     del rhf
@@ -3978,6 +3913,7 @@ def main():
         pt, refs, kernels, 'def2-SVP', [(a, x) for a in (0, 6)
                                         for x in range(3)])
     launches.update({k: ks_launches[k] for k in KS_HESS_KERNELS})
+    eval_ao_phase(kernels, rks, report, 'eval_ao_deriv3', 3)
     ks_hessian_phases(kernels, rks, report)
     del rks
     torch.cuda.empty_cache()
@@ -3985,6 +3921,7 @@ def main():
         pt, refs, kernels, 'def2-TZVP', [(0, 0), (0, 2), (6, 0), (6, 1)],
         fxc_routes=True)
     launches.update({f'{k}_tz': tz_launches[k] for k in KS_HESS_KERNELS})
+    eval_ao_phase(kernels, rks, report, 'eval_ao_deriv3_tz', 3)
     ks_hessian_phases(kernels, rks, report, '_tz')
     del rks
     torch.cuda.empty_cache()
@@ -3997,6 +3934,7 @@ def main():
     launches.update({k: uks_launches[k]
                      for k in ('xc_uks_hess', 'xc_uks_deriv1')})
     launches['eval_ao_deriv3_phenyl'] = uks_launches['eval_ao_deriv3']
+    eval_ao_phase(kernels, uks, report, 'eval_ao_deriv3_phenyl', 3)
     uks_hessian_phases(kernels, uks, report)
     del uks
     torch.cuda.empty_cache()
@@ -4008,7 +3946,7 @@ def main():
     xc_uks_phase(kernels, uks, report, 'xc_uks_pbe0', 'pbe0')
     xc_uks_grad_phase(kernels, uks, report, 'xc_uks_grad_pbe0')
     uks_fxc_phase(kernels, uks, report, 'xc_uks_fxc_pbe0')
-    uks_hessian_phases(kernels, uks, report, '_pbe0', with_ao=False)
+    uks_hessian_phases(kernels, uks, report, '_pbe0')
     del uks
     torch.cuda.empty_cache()
     rks, pbe_launches = benzene_pbe_path(pt, refs, kernels)
@@ -4020,9 +3958,9 @@ def main():
     xc_rks_phase(kernels, 'xc_rks_pbe', 'pbe', aods[0], rks.make_rdm1(),
                  wblocks[0], report)
     del aods, wblocks
-    xc_grad_phases(kernels, rks, report, '_pbe', with_ao=False)
+    xc_grad_phases(kernels, rks, report, '_pbe')
     fxc_phases(kernels, rks, report, '_pbe', tangents=('xc_rks_fxc',))
-    ks_hessian_phases(kernels, rks, report, '_pbe', with_ao=False)
+    ks_hessian_phases(kernels, rks, report, '_pbe')
     del rks
     torch.cuda.empty_cache()
     h3_ts_path(pt, kernels)

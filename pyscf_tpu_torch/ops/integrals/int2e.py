@@ -66,7 +66,7 @@ def int2e_ip1_class_plain(la, lb, ea, ca, ra, eb, cb, rb, kets):
     kets: [(lc, ld, ec, cc, rc, ed, cd, rd)], the screened ket pair tables
     per class. Returns (3, n*(2la+1)(2lb+1), sum nket*(2lc+1)(2ld+1)), the
     ket classes' columns in the order given."""
-    from .j3c import _PLAIN_BUDGET, _coulomb, _pair_sph_tables
+    from .j3c import _plain_budget, _coulomb, _pair_sph_tables
     n, Ka = ea.shape
     KK1 = Ka * eb.shape[1]
     L1 = la + lb + 1
@@ -80,7 +80,7 @@ def int2e_ip1_class_plain(la, lb, ea, ca, ra, eb, cb, rb, kets):
         p2, P2, E2 = _pair_sph_tables(lc, ld, *ket)
         per_pair = KK1 * nk * KK2 * max(n_tuv(L1) * n_tuv(L2),
                                         ns2 * n_tuv(L1), 3 * ns1 * ns2)
-        step = max(1, _PLAIN_BUDGET // per_pair)
+        step = max(1, _plain_budget(ea) // per_pair)
         blocks = []
         for i in range(0, n, step):
             s = slice(i, i + step)

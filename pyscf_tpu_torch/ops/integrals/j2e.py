@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .hermite import n_tuv
-from .j3c import (_PLAIN_BUDGET, _bra_classes, _coulomb, _pair_sph_tables,
+from .j3c import (_plain_budget, _bra_classes, _coulomb, _pair_sph_tables,
                   _row_maps, screened_pairs)
 
 
@@ -47,7 +47,7 @@ def int2e_class_plain(la, lb, ea, ca, ra, eb, cb, rb, kets, omega=None):
         p2, P2, E2 = _pair_sph_tables(lc, ld, *ket)
         per_pair = KK1 * nk * KK2 * max(n_tuv(L1) * n_tuv(L2),
                                         ns2 * n_tuv(L1), ns1 * ns2)
-        step = max(1, _PLAIN_BUDGET // per_pair)
+        step = max(1, _plain_budget(ea) // per_pair)
         blocks = []
         for i in range(0, n, step):
             s = slice(i, i + step)

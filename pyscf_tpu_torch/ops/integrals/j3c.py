@@ -31,8 +31,6 @@ from .hermite import e3d, hermite_R, n_tuv, tuv_components
 from .int1e import flat_prims, pair_tables, sph
 from .int2e import pair_screen_bound, SCREEN_THRESH
 
-# elements of the largest temporary the plain 3c version allocates per chunk
-_PLAIN_BUDGET = 1 << 24
 # eigenvalues of a metric without a Cholesky factor that the whitener keeps
 # (PySCF df/incore.py LINEAR_DEP_THR)
 LINEAR_DEP_THR = 1e-9
@@ -54,6 +52,14 @@ class _BraClass:
         self.sel_b = sel[:, 1]
         self.da, self.db = 2 * la + 1, 2 * lb + 1
         self.ns1 = self.da * self.db
+
+
+def _plain_budget(t):
+    """Elements of the largest temporary a plain integral version
+    allocates per chunk of shell pairs on t's device: larger on the card,
+    where each chunk's few hundred small launches, not its arithmetic, set
+    the time."""
+    return 1 << 26 if t.is_cuda else 1 << 24
 
 
 def _bra_classes(mol):
@@ -150,7 +156,7 @@ def int3c2e_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, omega=None):
         p2, P2, E2 = _aux_prep(l2, e2, c2, r2)
         per_pair = KK * nsx * K2 * max(n_tuv(L1) * n_tuv(l2),
                                         ns2 * n_tuv(L1))
-        step = max(1, _PLAIN_BUDGET // per_pair)
+        step = max(1, _plain_budget(ea) // per_pair)
         blocks = []
         for i in range(0, n, step):
             s = slice(i, i + step)

@@ -28,7 +28,7 @@ from .hermite import e3d, n_tuv
 from .int1e import sph
 from .int1e_deriv import _raised_lowered, _second_shift
 from .int2e import _deriv_pair_sph_tables
-from .j3c import (_PLAIN_BUDGET, _bra_classes, _coulomb, _aux_prep,
+from .j3c import (_plain_budget, _bra_classes, _coulomb, _aux_prep,
                   _grouped_order, _pair_sph_tables, _row_maps, aux_tables,
                   screened_pairs)
 
@@ -115,7 +115,7 @@ def int3c2e_ip_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, G):
         E2d = _aux_ip_prep(l2, e2, c2, r2)
         per_pair = KK * nsx * K2 * max(n_tuv(L1 + 1) * n_tuv(l2 + 1),
                                        3 * ns2 * n_tuv(L1 + 1))
-        step = max(1, _PLAIN_BUDGET // per_pair)
+        step = max(1, _plain_budget(ea) // per_pair)
         for i in range(0, n, step):
             s = slice(i, i + step)
             m = ea[s].shape[0]
@@ -153,7 +153,7 @@ def int3c2e_ip1_rows(la, lb, ea, ca, ra, eb, cb, rb, aux):
         p2, P2, E2 = _aux_prep(l2, e2, c2, r2)
         per_pair = KK * nsx * K2 * max(n_tuv(L1 + 1) * n_tuv(l2 + 1),
                                        3 * ns2 * n_tuv(L1 + 1))
-        step = max(1, _PLAIN_BUDGET // per_pair)
+        step = max(1, _plain_budget(ea) // per_pair)
         blocks = []
         for i in range(0, n, step):
             s = slice(i, i + step)
@@ -205,7 +205,7 @@ def int3c2e_ipip_plain(la, lb, ea, ca, ra, eb, cb, rb, aux, G):
         E2dd = _aux_ip2_prep(l2, e2, c2, r2)
         per_pair = KK * nsx * K2 * 9 * max(n_tuv(L1 + 2) * n_tuv(l2 + 1),
                                            ns2 * n_tuv(L1 + 2))
-        step = max(1, _PLAIN_BUDGET // per_pair)
+        step = max(1, _plain_budget(ea) // per_pair)
         for i in range(0, n, step):
             s = slice(i, i + step)
             m = ea[s].shape[0]
