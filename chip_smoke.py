@@ -4,11 +4,12 @@
 Drives the port's paths for benzene/def2-SVP, the phenyl radical and
 water, then BASELINE configs 3 ((H2O)10/cc-pVTZ) and 4 (N2/cc-pVQZ), the
 forces and frequencies of the f and g shells, the DF-RKS Hessian and the
-transition-state search, and the DF-UHF/UKS Hessian with PBE and PBE0 in
-every XC kernel, on the card, in order:
+transition-state search, the DF-UHF/UKS Hessian with PBE and PBE0 in
+every XC kernel, and the Γ-point periodic SCF (BASELINE config 5 and a
+64-atom diamond cell), on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the seventy kernel libraries of the thirty-seven kernels
-     from the twenty-eight sources of pyscf_tpu_torch/csrc (nvcc, sm_90a,
+  2. builds the seventy-one kernel libraries of the thirty-eight kernels
+     from the twenty-nine sources of pyscf_tpu_torch/csrc (nvcc, sm_90a,
      one process per library, all at once), and prints the compile seconds
      and ptxas register lines of eval_ao and of every XC library;
   3. integral kernel phases at the main path's shapes: each kernel against
@@ -296,7 +297,38 @@ every XC kernel, on the card, in order:
      def2-TZVP (f on C; 12 tangents), as step 37 for DF-RHF: sum rule
      1e-7, symmetry 1e-9, all 12 columns against two-point central
      differences of the gradient within 1e-5;
- 58. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 58. the Γ-point periodic SCF, BASELINE config 5 as published
+     (examples/scaling_diamond.py: the diamond primitive cell, gth-szv,
+     gth-pade, mesh [15]^3, nao 8, 1,505 lattice images): from
+     pbc.gto.M(), pbc.dft.RKS(cell, xc='pbe').density_fit() and the same
+     without density_fit() (hcore guess, conv_tol 1e-9), converged, GDF -
+     FFTDF within 1e-8, eval_ao_pbc, int1e_stv and xc_rks launched in each
+     run; each route's energy functional at the JAX package's converged
+     density within 1e-10 Ha of the JAX energy, and each SCF
+     1e-8 to 1e-6 Ha below the JAX energy (the JAX package's V_xc holds
+     half the GGA term, so its density is not stationary;
+     pyscf_tpu_torch/data/pbc_refs.npz); walls, cycles, phases and peak
+     memory printed;
+ 59. diamond Γ LDA at [17]^3 against the PySCF golden (1e-6) and the JAX
+     energy (1e-8), and Γ RHF at [17]^3 (FFT K with the Madelung term)
+     against the JAX energy (1e-8);
+ 60. the 64-atom diamond cell (2x2x2 conventional cells, a = 7.1336
+     Angstrom, gth-szv: nao 256, its default mesh [79]^3 = 493,039 points,
+     57 images), FFTDF PBE from pbc.gto.M() (hcore, conv_tol 1e-9):
+     converged; the wall from M(), the cycles, the seconds of the AO
+     values, of XC and of FFT-J (their per-call ms from CUDA events times
+     the calls) and the peak memory printed; xc_rks against its twin at
+     the converged density (row xc_rks_d64), and int1e_stv against its
+     twin on every call of the cell's S/T lattice sums and S-only
+     projector overlaps (row int1e_stv_pbc, 1e-12 x max); then the same
+     SCF from a fresh cell with eval_ao_pbc, int1e_stv and xc_rks replaced
+     by their plain twins on the card, none of the three launched: the
+     two energies within 1e-8 Ha;
+ 61. eval_ao_pbc against its twin, deriv 0 and 1, at config 5's shape and
+     the 64-atom cell's (<= 1e-12 x max; rows eval_ao_pbc and
+     eval_ao_pbc_d64 at deriv 1, the operations bound counted from the
+     points, atoms and images in range in this run);
+ 62. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
@@ -312,7 +344,9 @@ every XC kernel, on the card, in order:
      <kernel>_tz and <kernel>_qz from 47, eval_ao_deriv3, xc_rks_hess and
      xc_rks_deriv1 from 49 and their <kernel>_tz from 51, xc_uks_hess,
      xc_uks_deriv1 and eval_ao_deriv3_phenyl from 53, the <kernel>_pbe0
-     from 54, the <kernel>_pbe from 55, the others from 6), then the
+     from 54, the <kernel>_pbe from 55, eval_ao_pbc from 58's GDF run,
+     eval_ao_pbc_d64, int1e_stv_pbc and xc_rks_d64 from 60, the others
+     from 6), then the
      result line {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
 """
@@ -3745,6 +3779,331 @@ def qz_water_gradient(pt, refs, kernels):
     return launches
 
 
+# ---- the Γ-point periodic SCF -----------------------------------------------
+# BASELINE config 5's cell (examples/scaling_diamond.py)
+DIAMOND = dict(
+    atom='C 0 0 0; C 0.8917 0.8917 0.8917',
+    a=[[0, 1.7834, 1.7834], [1.7834, 0, 1.7834], [1.7834, 1.7834, 0]],
+    basis='gth-szv', pseudo='gth-pade', verbose=0)
+# the PySCF golden of diamond Γ LDA at [17]^3 (tests/test_pbc.py:35)
+E_DIAMOND_LDA17_GOLDEN = -10.221426445656439
+PBC_KERNELS = ('eval_ao_pbc', 'int1e_stv', 'xc_rks')
+
+
+def diamond64():
+    """The 64-atom diamond cell: 2x2x2 conventional cubic cells of a =
+    3.5668 Angstrom (the config 5 cell's), gth-szv, gth-pade."""
+    a0 = 3.5668
+    basis = np.array([[0, 0, 0], [0, .5, .5], [.5, 0, .5], [.5, .5, 0],
+                      [.25, .25, .25], [.25, .75, .75], [.75, .25, .75],
+                      [.75, .75, .25]])
+    shifts = np.array([(i, j, k) for i in range(2) for j in range(2)
+                       for k in range(2)])
+    frac = (basis[None] + shifts[:, None]).reshape(-1, 3) / 2
+    xyz = frac * 2 * a0
+    return dict(atom=[('C', tuple(r)) for r in xyz],
+                a=np.eye(3) * 2 * a0, basis='gth-szv', pseudo='gth-pade',
+                verbose=0)
+
+
+def pbc_refs():
+    import os
+    return np.load(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                'pyscf_tpu_torch', 'data', 'pbc_refs.npz'))
+
+
+def pbc_scf(pt, kernels, name, cell_kw, make_mf, names=PBC_KERNELS):
+    """One periodic SCF from pbc.gto.M() (hcore guess, conv_tol 1e-9) with
+    the launch counts set to 0 just before and read just after: converged,
+    `names` launched; wall, cycles, phases and peak memory printed.
+    Returns (mf, e, launches, wall)."""
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cell = pt.pbc.gto.M(**cell_kw)
+    mf = make_mf(cell)
+    mf.init_guess = 'hcore'
+    mf.conv_tol = 1e-9
+    e = mf.kernel()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    phases = dict(mf.timings, **mf.with_df.timings)
+    print(f'{name}: E = {e!r}  converged {mf.converged}  cycles '
+          f'{mf.scf_cycles}  wall {wall:.6f} s  peak '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB  nao '
+          f'{cell.nao}  mesh {cell.mesh}  images '
+          f'{len(cell.get_lattice_Ls())}')
+    print('phase seconds: ' + '  '.join(f'{k} {v:.6f}'
+                                        for k, v in phases.items()))
+    print(f'launches: { {k: v for k, v in launches.items() if v} }')
+    check(mf.converged, f'{name}: SCF did not converge')
+    for k in names:
+        check(launches[k] > 0, f'{name}: kernel {k} never launched')
+    return mf, e, launches, wall
+
+
+def pbc_config5_path(pt, kernels):
+    """BASELINE config 5 as published: GDF and FFTDF PBE within 1e-8 Ha of
+    each other. The JAX package's periodic RKS puts half its GGA term into
+    V_xc (pyscf_tpu/pbc/dft/rks.py:68-70), so its converged density is not
+    the functional's stationary point: each route's energy functional at
+    the recorded JAX density within 1e-10 of the JAX energy (the JAX
+    functional at that density), and each SCF 1e-8 to 1e-6 Ha below it.
+    Returns the GDF run's launches."""
+    ref = pbc_refs()
+    kw = dict(DIAMOND, mesh=[15] * 3)
+    e, launches = {}, None
+
+    def rks(c, gdf):
+        mf = pt.pbc.dft.RKS(c, xc='pbe')
+        return mf.density_fit() if gdf else mf
+
+    for gdf in (True, False):
+        what = 'GDF' if gdf else 'FFTDF'
+        key = f'e_pbe15_{"gdf" if gdf else "fft"}'
+        mf, e[gdf], runs, _ = pbc_scf(pt, kernels, f'config 5 {what} PBE',
+                                      kw, lambda c, g=gdf: rks(c, g))
+        launches = launches or runs
+        e_dm = mf.energy_tot(torch.as_tensor(ref[f'{key}_dm'],
+                                             device='cuda'))
+        d_dm = e_dm - float(ref[key])
+        below = float(ref[key]) - e[gdf]
+        print(f'config 5 {what}: E[D_JAX] - E_JAX = {d_dm:.3e}; '
+              f'E_JAX - E = {below:.3e}')
+        check(abs(d_dm) < 1e-10, f'config 5 {what}: |E[D_JAX] - E_JAX| = '
+              f'{abs(d_dm):.3e} >= 1e-10')
+        check(1e-8 < below < 1e-6, f'config 5 {what}: E_JAX - E = '
+              f'{below:.3e} outside (1e-8, 1e-6)')
+    gap = e[True] - e[False]
+    print(f'config 5: E(GDF) - E(FFTDF) = {gap:.3e}')
+    check(abs(gap) < 1e-8, 'config 5: |E(GDF) - E(FFTDF)| >= 1e-8')
+    return launches
+
+
+def pbc_lda_rhf_path(pt, kernels):
+    """Diamond Γ LDA at [17]^3 against the golden (1e-6) and the JAX energy
+    (1e-8); Γ RHF at [17]^3 against the JAX energy (1e-8)."""
+    ref = pbc_refs()
+    kw = dict(DIAMOND, mesh=[17] * 3)
+    _, e, _, _ = pbc_scf(pt, kernels, 'diamond LDA [17]^3', kw,
+                         lambda c: pt.pbc.dft.RKS(c, xc='lda,vwn'))
+    print(f'LDA: E - golden {e - E_DIAMOND_LDA17_GOLDEN:.3e}, E - E_JAX '
+          f'{e - float(ref["e_lda17"]):.3e}')
+    check(abs(e - E_DIAMOND_LDA17_GOLDEN) < 1e-6, 'diamond LDA vs golden')
+    check(abs(e - float(ref['e_lda17'])) < 1e-8, 'diamond LDA vs JAX')
+    _, e, _, _ = pbc_scf(pt, kernels, 'diamond RHF [17]^3', kw,
+                         lambda c: pt.pbc.scf.RHF(c),
+                         ('eval_ao_pbc', 'int1e_stv'))
+    print(f'RHF: E - E_JAX {e - float(ref["e_rhf17"]):.3e}')
+    check(abs(e - float(ref['e_rhf17'])) < 1e-8, 'diamond RHF vs JAX')
+
+
+@contextlib.contextmanager
+def plain_pbc(kernels):
+    """eval_ao_pbc, int1e_stv and xc_rks replaced by their plain twins on
+    the card's tensors."""
+    from pyscf_tpu_torch.dft import numint
+    from pyscf_tpu_torch.ops import eval_gto
+    from pyscf_tpu_torch.ops.integrals import int1e
+
+    twin = {'eval_ao_pbc': eval_gto.eval_ao_pbc_plain,
+            'int1e_stv': int1e.class_stv, 'xc_rks': numint.xc_rks_plain}
+    saved = {k: getattr(kernels, k) for k in twin}
+    for k, fn in twin.items():
+        setattr(kernels, k, fn)
+    try:
+        yield
+    finally:
+        for k, fn in saved.items():
+            setattr(kernels, k, fn)
+
+
+def pbc_64_path(pt, kernels, report):
+    """The 64-atom diamond cell, FFTDF PBE at its default mesh, through
+    the kernels and then through their twins (1e-8 Ha), none of the three
+    kernels launched in the twins' run; the seconds of XC and of FFT-J
+    from their per-call CUDA-event ms at the converged density; xc_rks
+    (row xc_rks_d64) and int1e_stv (row int1e_stv_pbc) against their
+    twins at the shapes this cell gives them. Returns (mf, launches)."""
+    make = lambda c: pt.pbc.dft.RKS(c, xc='pbe')      # noqa: E731
+    mf, e, launches, wall = pbc_scf(pt, kernels, '64-atom diamond FFTDF PBE',
+                                    diamond64(), make)
+    df = mf.with_df
+    check(mf.mol.nao == 256 and df.ngrid == 79 ** 3, '64-atom: nao or mesh')
+    dm = mf.make_rdm1()
+    aod = df._ao_on_grid(1)
+    w = torch.full((df.ngrid,), df.weight, dtype=torch.float64,
+                   device='cuda')
+    core = mf._numint._get_rks_core_aod('pbe')
+    ms_xc = cuda_ms(lambda: core([aod], [w], dm))
+    ms_j = cuda_ms(lambda: df.get_j(dm))
+    calls = mf.scf_cycles + 3        # the seed, the cycles, finalize's two
+    print(f'64-atom: {mf.scf_cycles} cycles, AO values {df.timings["ao"]:.6f}'
+          f' s, XC {ms_xc:.3f} ms x {calls} = {ms_xc * calls / 1e3:.6f} s, '
+          f'FFT-J {ms_j:.3f} ms x {calls} = {ms_j * calls / 1e3:.6f} s, of '
+          f'{wall:.6f} s')
+    xc_rks_phase(kernels, 'xc_rks_d64', 'pbe', aod, dm, w, report)
+    del aod
+    pbc_stv_phase(kernels, mf.mol, report)
+    torch.cuda.empty_cache()
+    with plain_pbc(kernels):
+        _, e_p, l_p, _ = pbc_scf(pt, kernels, '64-atom diamond, twins',
+                                 diamond64(), make, ())
+    check(all(l_p[k] == 0 for k in PBC_KERNELS),
+          f'64-atom twins: a kernel launched: { {k: l_p[k] for k in PBC_KERNELS} }')
+    print(f'64-atom: E(kernels) - E(twins) = {e - e_p:.3e}')
+    check(abs(e - e_p) < 1e-8, '64-atom: |E(kernels) - E(twins)| >= 1e-8')
+    return mf, launches
+
+
+def pbc_stv_calls(cell, kernels):
+    """The (args, kwargs) of every int1e_stv call of the cell's S/T
+    lattice sums and S-only projector overlaps (pbc/df/fft.py), recorded
+    while they run through the kernel."""
+    from pyscf_tpu_torch.pbc.df.fft import FFTDF
+    calls, stv = [], kernels.int1e_stv
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return stv(*args, **kw)
+
+    spy.launches = 0        # the wrapper counts into the name it is bound to
+    kernels.int1e_stv = spy
+    try:
+        df = FFTDF(cell)
+        df._build_st()
+        df._projector_overlaps()
+    finally:
+        kernels.int1e_stv = stv
+    return calls
+
+
+def pbc_stv_phase(kernels, cell, report):
+    """int1e_stv against its twin on every call of the cell's S/T lattice
+    sums (S, T over every (shell, shell + L) pair, no atoms) and S-only
+    projector overlaps (the GTH projector's monomial combination as the
+    ket's transform, sb), <= 1e-12 x max; recorded as int1e_stv_pbc."""
+    from pyscf_tpu_torch.ops.integrals import int1e
+    calls = pbc_stv_calls(cell, kernels)
+    run = lambda fn: [fn(*a, **kw) for a, kw in calls]   # noqa: E731
+    k_out = run(kernels.int1e_stv)
+    p_out, plain_s = host_s(lambda: run(int1e.class_stv))
+    err, scale = max_abs(list(zip(k_out, p_out)))
+    npairs = sum(a[2].shape[0] for a, _ in calls)
+    print(f'int1e_stv_pbc: {len(calls)} calls, {npairs} image pairs, '
+          f'max_abs_err {err:.3e} of {scale:.3e}')
+    ops = sum(stv_ops(a[0], a[1], a[2:8], 0, kw.get('with_tv', True))
+              for a, kw in calls)
+    io = sum(nbytes(*a[2:8]) for a, _ in calls) + nbytes(*k_out)
+    del p_out
+    record(report, 'int1e_stv_pbc', 'pyscf_tpu_torch/csrc/int1e_stv.cu',
+           'pyscf_tpu/ops/integrals/int1e.py:36', err,
+           lambda: run(kernels.int1e_stv), plain_s * 1e3, io, ops)
+    check(err <= 1e-12 * scale, f'int1e_stv_pbc vs plain: {err:.3e} > '
+          f'1e-12 x {scale:.3e}')
+
+
+def eval_ao_pbc_ops(cell, tables, coords, Ls, deriv):
+    """FP64 operations that the lattice-summed AO values need on these
+    inputs, counted on the card an image at a time: per (block of 128
+    points, atom, image) a bounding-sphere cull (10); per (point, atom,
+    image) in range of the atom's most diffuse primitive (a_min r^2 <=
+    lcut) the distance and its screen (10), once per atom whatever its
+    shells; per (point, shell, image) in range the powers, and per
+    cartesian component the monomial and its accumulation (4; 28 with the
+    gradients); per primitive in range the screen, the exponential
+    (counted as 20) and the radial sums (5, 7 with the gradients); per
+    (point, shell) the cart->sph transform. The kernel itself measures
+    every (point, shell, image): that is more than the function needs and
+    is not counted."""
+    from pyscf_tpu_torch.pbc.df.fft import lattice_cut
+    lcut = lattice_cut(cell)
+    n = coords.shape[0]
+    atoms = torch.as_tensor(cell.coords, dtype=torch.float64,
+                            device=coords.device)
+    amin_atom = torch.full((atoms.shape[0],), 1e300, dtype=torch.float64,
+                           device=coords.device)
+    shells = []
+    for l, e, c, r, off in tables:
+        amin = torch.where(c != 0, e, torch.full_like(e, 1e300)).min(1).values
+        owner = torch.cdist(r, atoms).argmin(1)
+        amin_atom = amin_atom.scatter_reduce(0, owner, amin, 'amin')
+        shells.append((l, e, c, r))
+    nblocks = -(-n // 128)
+    ops = 10 * nblocks * atoms.shape[0] * Ls.shape[0]
+    for l, e, c, r in shells:
+        nc = (l + 1) * (l + 2) // 2
+        ops += 2 * nc * (2 * l + 1) * n * e.shape[0] * (4 if deriv else 1)
+    for L in Ls:
+        d = coords[:, None, :] - atoms[None] - L
+        ops += 10 * int((amin_atom[None] * torch.sum(d * d, dim=-1)
+                         <= lcut).sum())
+        for l, e, c, r in shells:
+            amin = torch.where(c != 0, e,
+                               torch.full_like(e, 1e300)).min(1).values
+            d = coords[:, None, :] - r[None] - L
+            r2 = torch.sum(d * d, dim=-1)                  # (n, ns)
+            near = amin[None] * r2 <= lcut
+            prims = ((e[None] * r2[..., None] <= lcut) & (c[None] != 0)
+                     & near[..., None])
+            nc = (l + 1) * (l + 2) // 2
+            ops += int(near.sum()) * (3 * max(l - 1, 0)
+                                      + nc * (28 if deriv else 4))
+            ops += int(prims.sum()) * (27 if deriv else 25)
+    return ops
+
+
+def eval_ao_pbc_phase(kernels, cell, report, name):
+    """eval_ao_pbc against its twin on the cell's grid, deriv 0 and 1
+    (<= 1e-12 x max), recorded at deriv 1 as name."""
+    from pyscf_tpu_torch.ops import eval_gto
+    from pyscf_tpu_torch.pbc.df.fft import lattice_cut
+    tables = eval_gto.ao_tables(cell)
+    coords = torch.as_tensor(cell.get_uniform_grids(), device='cuda')
+    Ls = torch.as_tensor(cell.get_lattice_Ls(), device='cuda')
+    lcut = lattice_cut(cell)
+    for deriv in (0, 1):
+        got = kernels.eval_ao_pbc(tables, coords, Ls, cell.nao, deriv, lcut)
+        ref, plain_s = host_s(lambda: eval_gto.eval_ao_pbc_plain(
+            tables, coords, Ls, cell.nao, deriv, lcut))
+        err, scale = max_abs([(got, ref)])
+        print(f'{name} deriv {deriv}: max_abs_err {err:.3e} of {scale:.3e}')
+        check(err <= 1e-12 * scale, f'{name} deriv {deriv} vs plain: '
+              f'{err:.3e} > 1e-12 x {scale:.3e}')
+        del got, ref
+    io = nbytes(coords, Ls, *[t for tab in tables for t in tab[1:]]) \
+        + 4 * coords.shape[0] * cell.nao * 8
+    record(report, name, 'pyscf_tpu_torch/csrc/eval_ao_pbc.cu',
+           'pyscf_tpu/pbc/df/fft.py:14', err,
+           lambda: kernels.eval_ao_pbc(tables, coords, Ls, cell.nao, 1, lcut),
+           lambda: eval_gto.eval_ao_pbc_plain(tables, coords, Ls, cell.nao,
+                                              1, lcut),
+           io, eval_ao_pbc_ops(cell, tables, coords, Ls, 1), plain_reps=1)
+
+
+def pbc_paths(pt, kernels, report, launches):
+    """Config 5, the LDA golden and Γ RHF, the 64-atom cell and
+    eval_ao_pbc's phases at both shapes."""
+    launches['eval_ao_pbc'] = pbc_config5_path(pt, kernels)['eval_ao_pbc']
+    torch.cuda.empty_cache()
+    pbc_lda_rhf_path(pt, kernels)
+    torch.cuda.empty_cache()
+    mf, l64 = pbc_64_path(pt, kernels, report)
+    launches['eval_ao_pbc_d64'] = l64['eval_ao_pbc']
+    launches['int1e_stv_pbc'] = l64['int1e_stv']
+    launches['xc_rks_d64'] = l64['xc_rks']
+    cell64 = mf.mol
+    del mf
+    torch.cuda.empty_cache()
+    eval_ao_pbc_phase(kernels, pt.pbc.gto.M(mesh=[15] * 3, **DIAMOND),
+                      report, 'eval_ao_pbc')
+    cell64._pbc_cache.clear()
+    torch.cuda.empty_cache()
+    eval_ao_pbc_phase(kernels, cell64, report, 'eval_ao_pbc_d64')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
@@ -3966,6 +4325,9 @@ def main():
     h3_ts_path(pt, kernels)
     hessian_path(pt, kernels, 'DF-UHF CH3/def2-TZVP', CH3, 'def2-tzvp',
                  [(a, x) for a in range(4) for x in range(3)], spin=1)
+    torch.cuda.empty_cache()
+    # the Γ-point periodic SCF: BASELINE config 5 and the 64-atom cell
+    pbc_paths(pt, kernels, report, launches)
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

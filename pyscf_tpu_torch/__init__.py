@@ -32,7 +32,13 @@ the CPU. A Mole runs on the card unless it is given device='cpu':
         mf.kernel()
         return mf
     mol_opt, energies = pt.geomopt.internal.optimize(mf_factory, mol)
+
+    cell = pt.pbc.gto.M(atom='C 0 0 0; C 0.8917 0.8917 0.8917',
+                        a=[[0, 1.7834, 1.7834], [1.7834, 0, 1.7834],
+                           [1.7834, 1.7834, 0]], basis='gth-szv',
+                        pseudo='gth-pade', mesh=[15] * 3)
+    e = pt.pbc.dft.RKS(cell, xc='pbe').density_fit().kernel()   # Γ point
 """
 from .gto.mole import M, Mole  # noqa: F401
-from . import (ao2mo, cc, dft, geomopt, grad, hessian, mp, scf,  # noqa: F401
-               tdscf)
+from . import (ao2mo, cc, dft, geomopt, grad, hessian, mp, pbc,  # noqa: F401
+               scf, tdscf)

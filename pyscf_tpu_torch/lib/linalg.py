@@ -66,6 +66,42 @@ def eigh_gen(f, x, refine=EIGH_REFINE):
     return e, x @ cp
 
 
+def align_degenerate(e, c, n, tol=1e-8):
+    """Fix the rotation of a degenerate cluster that the occupation
+    boundary n splits (e[n-1] and e[n] within tol): eigh leaves any
+    rotation of the cluster's vectors, and a partly occupied one (the OH
+    radical's beta pi pair in its guess) would start the SCF from an
+    arbitrary orientation of the hole. The cluster's columns of c are
+    rotated so that on the AO rows of largest weight (picked greedily,
+    the lowest index among ties) they are lower triangular with a
+    positive diagonal: each vector is aligned with the AOs where the
+    Fock matrix's symmetry puts it. Returns c, changed only there."""
+    if n <= 0 or n >= e.shape[0]:
+        return c
+    lo, hi = e[n - 1:n + 1].tolist()
+    if hi - lo > tol * max(1.0, abs(hi)):
+        return c
+    ev = e.tolist()
+    i0, i1 = n - 1, n + 1
+    while i0 > 0 and ev[i0] - ev[i0 - 1] <= tol * max(1.0, abs(ev[i0])):
+        i0 -= 1
+    while i1 < len(ev) and ev[i1] - ev[i1 - 1] <= tol * max(1.0, abs(ev[i1])):
+        i1 += 1
+    blk = c[:, i0:i1].cpu().numpy()
+    res, piv = blk.copy(), []
+    for _ in range(i1 - i0):
+        norms = np.linalg.norm(res, axis=1)
+        j = int(np.flatnonzero(norms >= norms.max() * (1 - 1e-10))[0])
+        piv.append(j)
+        u = res[j] / norms[j]
+        res -= np.outer(res @ u, u)
+    q, r = np.linalg.qr(blk[piv].T)
+    q = q * np.sign(np.diagonal(r))[None, :]
+    out = c.clone()
+    out[:, i0:i1] = torch.as_tensor(blk @ q, dtype=c.dtype, device=c.device)
+    return out
+
+
 def davidson(matvec, x0, neig=1, max_cycle=60, tol=1e-10, max_space=14,
              hdiag=None):
     """Davidson eigensolver for the lowest eigenpairs of a symmetric

@@ -131,12 +131,14 @@ def flat_prims(ea, ca, ra, eb, cb, rb):
 
 
 def class_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords=None,
-              atom_charges=None, with_tv=True):
+              atom_charges=None, with_tv=True, sb=None):
     """Sph-folded rows of one shell-pair class, plain PyTorch.
 
     ea/ca (n, Ka), eb/cb (n, Kb), ra/rb (n, 3): the n shell pairs. Returns
     (n, da*db, 3) rows of [S, T, V], or (n, da*db) of S alone when
-    with_tv is False."""
+    with_tv is False. sb, a (2lb+1, ncart(lb)) matrix, takes the place of
+    the ket's cart->sph transform (the GTH projectors' monomial
+    combinations, pbc/df/fft.py)."""
     n, Ka = ea.shape
     Kb = eb.shape[1]
     a, b, A, B, w = flat_prims(ea, ca, ra, eb, cb, rb)
@@ -147,7 +149,8 @@ def class_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords=None,
                                atom_charges))
     x = torch.stack(parts, dim=-1)
     x = x.reshape((n, Ka * Kb) + x.shape[1:]).sum(dim=1)
-    Sa, Sb = sph(la, ea.device), sph(lb, ea.device)
+    Sa = sph(la, ea.device)
+    Sb = sph(lb, ea.device) if sb is None else sb
     x = torch.einsum('mpqx,ap,bq->mabx', x, Sa, Sb)
     x = x.reshape(n, Sa.shape[0] * Sb.shape[0], len(parts))
     return x if with_tv else x[..., 0]

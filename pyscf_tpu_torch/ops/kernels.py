@@ -1,10 +1,11 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Thirty-seven kernels carry the DF-RHF/RKS/UKS and in-core paths with the
+Thirty-eight kernels carry the DF-RHF/RKS/UKS and in-core paths with the
 range-separated and VV10 functionals, the conventional RHF gradient, the
 DF-RHF/RKS/UHF/UKS gradients, the dipole of the SCF analysis, MP2, UMP2,
 CCSD and CCSD(T), TDA/TDHF/TDDFT and the DF-RHF, DF-RKS, DF-UHF and
-DF-UKS nuclear Hessians (sources in pyscf_tpu_torch/csrc/):
+DF-UKS nuclear Hessians, and the Γ-point periodic SCF (sources in
+pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
   int3c2e    raw (ij|P) rows of one bra class     (csrc/int3c2e.cu)
@@ -26,6 +27,8 @@ DF-UKS nuclear Hessians (sources in pyscf_tpu_torch/csrc/):
   eval_ao_deriv2  the same kernel's deriv 2: with the second derivatives,
              counted apart
   eval_ao_deriv3  its deriv 3: with the third derivatives, counted apart
+  eval_ao_pbc  AO values and gradients summed    (csrc/eval_ao_pbc.cu)
+             over the lattice images
   becke      Becke partition weights of the grid  (csrc/becke.cu)
   xc_rks     density, functional (B3LYP and PBE   (csrc/xc_rks.cu,
              families, CAM-B88, the B97 series)     csrc/xc_funcs.cuh)
@@ -88,7 +91,7 @@ library per source (five each for int3c2e.cu, int3c2e_ip.cu,
 int3c2e_ip1.cu and int3c2e_ipip.cu, one per bra momentum; fifteen for
 int2e.cu, one per bra class la <= lb; nine for int2e_ip1.cu, one per
 ordered bra class; two each for xc_fxc.cu, int2c2e_ipip.cu, xc_rks_hess.cu
-and xc_uks_hess.cu, one per kernel: seventy libraries) with a plain C
+and xc_uks_hess.cu, one per kernel: seventy-one libraries) with a plain C
 interface loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
 checkout builds them once and an edit to a source rebuilds them; nvcc's
@@ -140,6 +143,8 @@ _LIBRARIES = {
     'eval_ao': ('eval_ao.cu', 'pt_eval_ao', [_I] * 5 + [_P] * 7 + [_I, _P],
                 ('-fmad=false',)),
     'becke': ('becke.cu', 'pt_becke', [_I, _I] + [_P] * 8, ()),
+    'eval_ao_pbc': ('eval_ao_pbc.cu', 'pt_eval_ao_pbc', [_I] * 6 + [_P] * 6
+                    + [_D, _P, _P, _I, _P], ()),
     # no FMA contraction: the range-separated attenuation cancels to ~1e-5
     # of its terms, and the plain twin's rounding is kept
     'xc_rks': ('xc_rks.cu', 'pt_xc_rks', [_I] * 3 + [_P] * 3 + [_I]
@@ -363,21 +368,24 @@ def _check_aux(dev, aux):
 
 
 def int1e_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords=None,
-              atom_charges=None, with_tv=True):
+              atom_charges=None, with_tv=True, sb=None):
     """S/T/V rows of n shell pairs: (n, (2la+1)(2lb+1), 3), or the S rows
     alone, (n, (2la+1)(2lb+1)), when with_tv is False.
 
     ea/ca (n, Ka), eb/cb (n, Kb), ra/rb (n, 3); atom_coords (natm, 3) and
-    atom_charges (natm,) for V."""
+    atom_charges (natm,) for V; sb, a (2lb+1, ncart(lb)) matrix, in place
+    of the ket's cart->sph transform."""
     dev = _device_of(ea)
     n, Ka, Kb = _check_pairs(dev, ea, ca, ra, eb, cb, rb)
     if with_tv:
         natm = atom_coords.shape[0]
         _check(dev, ('atom_coords', atom_coords, (natm, 3)),
                ('atom_charges', atom_charges, (natm,)))
+    if sb is not None:
+        _check(dev, ('sb', sb, (2 * lb + 1, (lb + 1) * (lb + 2) // 2)))
     if dev.type == 'cpu':
         return int1e.class_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords,
-                               atom_charges, with_tv)
+                               atom_charges, with_tv, sb)
     ns1 = (2 * la + 1) * (2 * lb + 1)
     out = torch.empty((n, ns1, 3) if with_tv else (n, ns1),
                       dtype=torch.float64, device=dev)
@@ -389,7 +397,8 @@ def int1e_stv(la, lb, ea, ca, ra, eb, cb, rb, atom_coords=None,
         la, lb, int(with_tv), n, Ka, Kb, ea.data_ptr(), ca.data_ptr(),
         ra.data_ptr(), eb.data_ptr(), cb.data_ptr(), rb.data_ptr(),
         natm if with_tv else 0, zr, zq, sph(la, dev).data_ptr(),
-        sph(lb, dev).data_ptr(), out.data_ptr(), _stream())
+        (sph(lb, dev) if sb is None else sb).data_ptr(), out.data_ptr(),
+        _stream())
     _raise_on(rc, f'int1e_stv({la},{lb})')
     int1e_stv.launches += 1
     return out
@@ -891,6 +900,36 @@ def eval_ao(tables, coords, nao, deriv=0):
     if dev.type == 'cpu':
         return eval_gto.eval_ao_plain(tables, coords, nao, deriv)
     return _launch_eval_ao(eval_ao, tables, coords, nao, deriv)
+
+
+def eval_ao_pbc(tables, coords, Ls, nao, deriv, lcut):
+    """Lattice-summed AO values on coords (n, 3), sum over the translations
+    Ls (nimg, 3) of phi(r - L): (n, nao) for deriv 0, (4, n, nao) [value,
+    d/dx, d/dy, d/dz] for deriv 1. One launch per l-class; the kernel skips
+    an image, or a primitive, whose exponent a makes a r^2 > lcut, as
+    its twin does. tables as eval_ao's."""
+    dev = _device_of(coords)
+    n = _check_tables(dev, tables, coords)
+    _check(dev, ('Ls', Ls, (Ls.shape[0], 3)))
+    if deriv not in (0, 1):
+        raise NotImplementedError(f'eval_ao_pbc deriv={deriv}: only 0 and 1')
+    if dev.type == 'cpu':
+        return eval_gto.eval_ao_pbc_plain(tables, coords, Ls, nao, deriv,
+                                          lcut)
+    out = torch.empty((4, n, nao) if deriv else (n, nao),
+                      dtype=torch.float64, device=dev)
+    for l, e, c, r, off in tables:
+        ns, K = e.shape
+        if n == 0 or ns == 0:
+            continue
+        rc = _fn('eval_ao_pbc')(
+            l, deriv, n, ns, K, Ls.shape[0], coords.data_ptr(), e.data_ptr(),
+            c.data_ptr(), r.data_ptr(), off.data_ptr(), Ls.data_ptr(),
+            float(lcut), sph(l, dev).data_ptr(), out.data_ptr(), nao,
+            _stream())
+        _raise_on(rc, f'eval_ao_pbc(l={l}, deriv={deriv})')
+        eval_ao_pbc.launches += 1
+    return out
 
 
 def eval_ao_deriv2(tables, coords, nao):
@@ -1536,7 +1575,8 @@ KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
            int2c2e_lr, int2e_lr, vv10, mp2_energy, ccsd_t, xc_fxc,
            xc_fxc_pairs, xc_rks_fxc, xc_uks_fxc, int1e_ipip, int3c2e_ip1,
            int2c2e_ip1_full, int3c2e_ipip, int2c2e_ipip, eval_ao_deriv3,
-           xc_rks_hess, xc_rks_deriv1, xc_uks_hess, xc_uks_deriv1)
+           xc_rks_hess, xc_rks_deriv1, xc_uks_hess, xc_uks_deriv1,
+           eval_ao_pbc)
 
 
 def reset_launches():

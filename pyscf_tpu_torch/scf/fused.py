@@ -9,7 +9,7 @@ float64 on the TPU.
 """
 import torch
 
-from ..lib.linalg import eigh, eigh_gen
+from ..lib.linalg import align_degenerate, eigh, eigh_gen
 
 
 def _diis_extrapolate(fh, eh, nval, newest):
@@ -112,9 +112,15 @@ def seed_u(veff_dm_fn, h1e, x, dm0, na, nb):
     (2, n, n): no guess information is lost to a rank-na/nb factorization
     (pyscf_tpu/scf/fused.py:298-304)."""
     vhf0, _ = veff_dm_fn(dm0)
-    _, ca = eigh_gen(h1e + vhf0[0], x)
-    _, cb = eigh_gen(h1e + vhf0[1], x)
-    return ca[:, :na], cb[:, :nb]
+    return tuple(_occupied(h1e + vhf0[s], x, n) for s, n in ((0, na),
+                                                             (1, nb)))
+
+
+def _occupied(f, x, n):
+    """The n lowest orbitals of F, a degenerate cluster that n splits
+    aligned by lib/linalg.py align_degenerate."""
+    e, c = eigh_gen(f, x)
+    return align_degenerate(e, c, n)[:, :n]
 
 
 def _fock_u(veff_fn, h1e, s1e, cos):
@@ -140,11 +146,9 @@ def cycle_u(veff_fn, h1e, s1e, x, cos, fh, eh, cyc, na, nb):
     fh[idx] = f
     eh[idx] = err
     f_d = _diis_extrapolate(fh, eh, min(cyc + 1, space), idx)
-    _, ca = eigh_gen(f_d[0], x)
-    _, cb = eigh_gen(f_d[1], x)
     gnorm = torch.sqrt(torch.linalg.norm(x.T @ err[0] @ x) ** 2
                        + torch.linalg.norm(x.T @ err[1] @ x) ** 2)
-    return (ca[:, :na], cb[:, :nb]), e_elec, gnorm
+    return (_occupied(f_d[0], x, na), _occupied(f_d[1], x, nb)), e_elec, gnorm
 
 
 def finalize_u(veff_fn, h1e, s1e, x, cos, na, nb):

@@ -49,7 +49,23 @@ water being refs.WATER:
                ('wilson_<atom>_B');
   rsh_*        tests/test_torch_rsh.py: the JAX energy densities and
                derivatives of the range-separated functionals and nr_uks
-               of wB97X-V (rsh_refs's docstring; PYTHONPATH=.:tests);
+               of wB97X-V (rsh_refs's docstring; PYTHONPATH=.:tests), and
+               the starting densities of its wB97X-V SCFs, the port's own
+               (rsh_dm_refs);
+  uks_dual*    tests/test_torch_uks.py: the JAX energy densities and
+               derivatives that its dual numbers are held to
+               (uks_dual_refs's docstring; PYTHONPATH=.:tests);
+  grad_df_xc_* tests/test_torch_grad_df.py: the restricted XC quadrature's
+               energy and gradient (grad_df_refs; PYTHONPATH=.:tests);
+  eri_sto3g_legacy, int1e_ipkin_sto3g, int1e_ipnuc_sto3g
+               tests/test_torch_int2e.py and test_torch_int_deriv.py:
+               water/sto-3g matrices (int_matrix_refs);
+  vv10_nr_*    tests/test_torch_vv10.py: the JAX nr_vv10 (vv10_refs;
+               PYTHONPATH=.:tests);
+  hermite_R_*  tests/test_torch_boys_hermite.py: the JAX hermite_R
+               (hermite_refs; PYTHONPATH=.:tests);
+  xc_closed_*  tests/test_torch_xc.py: the JAX closed-shell energy
+               densities and derivatives (xc_refs; PYTHONPATH=.:tests);
   pbe_*        tests/test_torch_hessian_uhf.py: the PBE family's energies
                and DF gradients (pbe_refs's docstring);
   fg_*         tests/test_torch_fg_shells.py: f, g and aux h shells (the
@@ -278,6 +294,89 @@ def rsh_refs(out):
             t._jax_closed(name, t._closed_inputs()))
     n, e, v = t.jax_nr_uks_wb97xv()
     out.update(rsh_nr_uks_n=n, rsh_nr_uks_e=e, rsh_nr_uks_v=v)
+
+
+def rsh_dm_refs(out):
+    """tests/test_torch_rsh.py's starting densities of its two wB97X-V
+    SCFs (water DF-RKS and the cation's DF-UKS, def2-SVP, level-1 grids),
+    the port's own converged densities at conv_tol 1e-10
+    ('rsh_dm_wb97xv_<spin>'): from them the test's SCFs take a few cycles
+    of VV10 in place of the whole run (~30 s each on the CPU). The energy
+    they reach is held to the recorded JAX energy as before."""
+    import pyscf_tpu_torch as tpt
+    from pyscf_tpu_torch import refs
+    for spin in (0, 1):
+        mol = tpt.M(atom=refs.WATER, basis='def2-svp', charge=spin,
+                    spin=spin, device='cpu')
+        mf = (mol.UKS(xc='wb97x-v') if spin
+              else mol.RKS(xc='wb97x-v')).density_fit()
+        mf.grids.level = 1
+        mf.conv_tol = 1e-10
+        mf.kernel()
+        assert mf.converged
+        out[f'rsh_dm_wb97xv_{spin}'] = mf.make_rdm1().numpy()
+
+
+def uks_dual_refs(out):
+    """tests/test_torch_uks.py's JAX energy densities and derivatives,
+    seconds each in JAX's eager dispatch: jax_dual5 at _open_inputs
+    ('uks_dual5_<name>', (6, 300)) and jax_dual2 at _closed_inputs
+    ('uks_dual2_<name>', (3, 300)). Needs tests/ on the path
+    (PYTHONPATH=.:tests)."""
+    import test_torch_uks as t
+    for name in t.DUAL5_NAMES:
+        out[f'uks_dual5_{name}'] = t.jax_dual5(name, t._open_inputs())
+    for name in t.DUAL2_NAMES:
+        out[f'uks_dual2_{name}'] = t.jax_dual2(name, t._closed_inputs())
+
+
+def grad_df_refs(out):
+    """tests/test_torch_grad_df.py's jax_xc_grad (~6 s of jit): exc
+    'grad_df_xc_exc' and its gradient 'grad_df_xc_grad' (natm, 3). Needs
+    tests/ on the path (PYTHONPATH=.:tests)."""
+    import test_torch_grad_df as t
+    out['grad_df_xc_exc'], out['grad_df_xc_grad'] = t.jax_xc_grad(
+        t._water_grid())
+
+
+def int_matrix_refs(out):
+    """Water/sto-3g's JAX matrices that tests read as data: the legacy
+    mol.intor('int2e') 'eri_sto3g_legacy' (tests/test_torch_int2e.py's
+    assigned tensor) and int1e_ipkin, int1e_ipnuc 'int1e_<name>_sto3g'
+    (tests/test_torch_int_deriv.py), seconds of compiles each."""
+    import pyscf_tpu as jpt
+    from pyscf_tpu.ops.integrals import int1e_deriv
+    from pyscf_tpu_torch import refs
+    mol = jpt.M(atom=refs.WATER, basis='sto-3g', verbose=0)
+    out['eri_sto3g_legacy'] = np.asarray(mol.intor('int2e'))
+    for name in ('int1e_ipkin', 'int1e_ipnuc'):
+        out[f'{name}_sto3g'] = np.asarray(getattr(int1e_deriv, name)(mol))
+
+
+def vv10_refs(out):
+    """tests/test_torch_vv10.py's JAX nr_vv10 (jax_nr_vv10): 'vv10_nr_e',
+    'vv10_nr_v'. Needs tests/ on the path (PYTHONPATH=.:tests)."""
+    import test_torch_vv10 as t
+    out['vv10_nr_e'], out['vv10_nr_v'] = t.jax_nr_vv10()
+
+
+def hermite_refs(out):
+    """tests/test_torch_boys_hermite.py's jax_hermite_R for L = 0..8
+    ('hermite_R_<L>', (300, n_tuv(L))). Needs tests/ on the path
+    (PYTHONPATH=.:tests)."""
+    import test_torch_boys_hermite as t
+    for L in range(9):
+        out[f'hermite_R_{L}'] = t.jax_hermite_R(L)
+
+
+def xc_refs(out):
+    """tests/test_torch_xc.py's _jax_closed at _inputs for every name of
+    its NAMES ('xc_closed_<name>', (3, 404): e, vrho, vsigma). Needs
+    tests/ on the path (PYTHONPATH=.:tests)."""
+    import test_torch_xc as t
+    for name in t.NAMES:
+        out[f'xc_closed_{name}'] = np.stack(t._jax_closed(name,
+                                                          *t._inputs()))
 
 
 def _raw_rows(mol, auxmol, la, lb):
@@ -654,10 +753,57 @@ def fg_ip1_refs(out):
                                           jax_int2e.PairClass(gs, 0, 4))))
 
 
+def fg_f_refs(out):
+    """tests/test_torch_fg_deriv.py's f-class JAX values (each module's
+    live comparison stays at s to d in test_torch_int_deriv.py,
+    test_torch_grad_df.py and test_torch_hessian.py): the four 1e chunks
+    of the (f, s) class on its seeded primitive pairs ('fg_chunk_30_<name>'),
+    jax.grad of the seeded DF functionals on its (ff|s) system
+    ('fg_df_f_3c', 'fg_df_f_2c'), the (fs|sf) block of
+    _deriv_class_pair_block ('fg_ip1_fssf') and the bra-centre Hessian of
+    the 1e energy of the (f, s) class ('fg_ipip_30'). Needs tests/ on the
+    path (PYTHONPATH=.:tests); ~30 s."""
+    import test_torch_fg_deriv as t
+    from pyscf_tpu.ops.integrals import int1e as jax_int1e
+    from hessian_refs_record import prims_1e
+    a, b, A, B, w = t._prims(31, m=3)
+    rng = np.random.default_rng(99)
+    zr, zq = rng.normal(size=(8, 3)), np.arange(8.0)
+    k = 'fg_chunk_30'
+    out[f'{k}_ipovlp'] = np.asarray(jax_deriv.ipovlp_chunk(3, 0, a, b, A, B,
+                                                           w))
+    out[f'{k}_ipkin'] = np.asarray(jax_deriv.ipkin_chunk(3, 0, a, b, A, B, w))
+    out[f'{k}_ipnuc'] = np.asarray(jax_deriv.ipnuc_chunk(3, 0, a, b, A, B, w,
+                                                         zr, zq))
+    out[f'{k}_iprinv'] = np.asarray(jax_deriv.iprinv_chunk(3, 0, a, b, A, B,
+                                                           w, zr[3]))
+    mol = jpt.M(atom=t.F_ATOMS, basis=t.F_BASIS, verbose=0)
+    auxmol = jpt.M(atom=t.F_ATOMS, basis=t.F_AUX, verbose=0)
+    out['fg_df_f_3c'], out['fg_df_f_2c'] = fg_df_functionals(mol, auxmol)
+    toy = jpt.M(atom=t.TOY_ATOM, basis=[[3, [0.7, 1.0]], [0, [1.3, 1.0]]],
+                verbose=0)
+    out['fg_ip1_fssf'] = np.asarray(jax_int2e._deriv_class_pair_block(
+        jax_int2e.DerivPairClass(toy, 3, 0), jax_int2e.PairClass(toy, 0, 3)))
+    la, lb = 3, 0
+    a, b, A, B, w, zr, zq, dm, wm = prims_1e(la, lb, m=3)
+
+    def f(A_):
+        s1 = jax_int1e.ovlp_chunk(la, lb, a, b, A_, B, w)
+        t1 = jax_int1e.kin_chunk(la, lb, a, b, A_, B, w)
+        v1 = jax_int1e.nuc_chunk(la, lb, a, b, A_, B, w, zr, zq)
+        return jnp.sum(dm * (t1 + v1)) - jnp.sum(wm * s1)
+
+    aa = np.asarray(jax.jacfwd(jax.grad(f))(jnp.asarray(A)))
+    idx = np.arange(aa.shape[0])
+    out['fg_ipip_30'] = aa[idx, :, idx, :]
+
+
 FUNCTIONS = (scf_refs, integral_refs, grad_refs, analysis_refs,
              scf_energy_refs, more_refs, fg_water_refs, fg_neon_refs,
              fg_grad_tz_refs, fg_grad_tzvp_refs, fg_grad_refs, fg_ip1_refs,
-             pbe_refs, rsh_refs)
+             pbe_refs, rsh_refs, rsh_dm_refs, fg_f_refs, uks_dual_refs,
+             grad_df_refs, int_matrix_refs, vv10_refs, hermite_refs,
+             xc_refs)
 
 
 def main(names):

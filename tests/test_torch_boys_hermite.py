@@ -1,5 +1,7 @@
 """Boys function and Hermite expansions: pyscf_tpu_torch against pyscf_tpu
-on the same inputs, made from a seed with numpy."""
+on the same inputs, made from a seed with numpy (boys and e3d live,
+hermite_R as tests/port_refs_record.py hermite_refs recorded it: a
+compile per order)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,6 +10,7 @@ import torch
 from pyscf_tpu.ops.integrals import boys as jboys
 from pyscf_tpu.ops.integrals import hermite as jherm
 
+from pyscf_tpu_torch import refs
 from pyscf_tpu_torch.ops.integrals import boys as tboys
 from pyscf_tpu_torch.ops.integrals import hermite as therm
 
@@ -45,12 +48,22 @@ def test_e3d_matches_jax(la, lb):
     assert np.max(np.abs(got - ref)) <= 1e-13 * max(1.0, np.abs(ref).max())
 
 
+def _hermite_inputs(L):
+    rng = np.random.default_rng(200 + L)
+    return rng.uniform(0.05, 5.0, 300), rng.uniform(-3.0, 3.0, (300, 3))
+
+
+def jax_hermite_R(L):
+    """The JAX package's hermite_R at _hermite_inputs(L) (hermite_refs
+    records it)."""
+    p, rpq = _hermite_inputs(L)
+    return np.asarray(jherm.hermite_R(L, jnp.asarray(p), jnp.asarray(rpq)))
+
+
 @pytest.mark.parametrize('L', range(9))
 def test_hermite_R_matches_jax(L):
-    rng = np.random.default_rng(200 + L)
-    p = rng.uniform(0.05, 5.0, 300)
-    rpq = rng.uniform(-3.0, 3.0, (300, 3))
-    ref = np.asarray(jherm.hermite_R(L, jnp.asarray(p), jnp.asarray(rpq)))
+    p, rpq = _hermite_inputs(L)
+    ref = np.load(refs.PORT_REFS)[f'hermite_R_{L}']
     got = therm.hermite_R(L, torch.as_tensor(p), torch.as_tensor(rpq)).numpy()
     assert got.shape == ref.shape == (300, therm.n_tuv(L))
     assert np.max(np.abs(got - ref)) <= 1e-13 * np.abs(ref).max()

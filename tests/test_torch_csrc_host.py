@@ -7,7 +7,8 @@ int1e_iprinv.cu, int2e_ip1.cu, int3c2e_ip.cu, int2c2e_ip1.cu, int1e_r.cu,
 vv10.cu, mp2_energy.cu, ccsd_t.cu, the nuclear Hessian's int1e_ipip.cu,
 int3c2e_ip1.cu, int3c2e_ipip.cu and int2c2e_ipip.cu (both of its kernels)
 the DF-RKS Hessian's eval_ao.cu (deriv 0 to 3) and xc_rks_hess.cu and
-the DF-UKS Hessian's xc_uks_hess.cu (both kernels of each) as C++ behind a small stand-in for
+the DF-UKS Hessian's xc_uks_hess.cu (both kernels of each), and the
+periodic SCF's eval_ao_pbc.cu, as C++ behind a small stand-in for
 cuda_runtime.h (the qualifiers defined away, shared arrays static, the
 dynamic shared memory a static array, a launch turned into a loop over
 blocks and threads, in order, so that vv10.cu, mp2_energy.cu and
@@ -18,7 +19,8 @@ r)/r attenuation; int1e_stv.cu, int3c2e.cu, int2c2e.cu and int2e.cu
 also on a basis of s to g shells with an aux basis of s to h, at the (ff)
 and (gg) bra classes and aux l 5; the dipole kernel on that basis; vv10.cu
 on a water grid, and mp2_energy.cu and ccsd_t.cu on seeded tensors of a
-water-sized correlated calculation; eval_ao.cu on s to g shells and
+water-sized correlated calculation; eval_ao.cu and eval_ao_pbc.cu on s
+to g shells and
 xc_rks_hess.cu and xc_uks_hess.cu on a water/def2-SVP grid at seeded
 densities, LDA, B3LYP and PBE0; and the second-order dual numbers of
 xc_funcs.cuh (HDualN, the functional of the XC response kernels xc_fxc,
@@ -100,18 +102,18 @@ LIBS = ('int1e_stv', 'int3c2e_la0', 'int3c2e_la1', 'int3c2e_la2',
         *[f'int3c2e_ip1_la{la}' for la in range(5)],
         *[f'int3c2e_ipip_la{la}' for la in range(5)],
         'int2c2e_ip1_full', 'int2c2e_ipip', 'eval_ao', 'xc_rks_hess',
-        'xc_rks_deriv1', 'xc_uks_hess', 'xc_uks_deriv1')
+        'xc_rks_deriv1', 'xc_uks_hess', 'xc_uks_deriv1', 'eval_ao_pbc')
 OMEGA = 0.3
 DEV = torch.device('cpu')
 
 
 class _HostLibs:
-    """{library: ctypes function} of the sources built for the host, each
-    built at its first use together with the other libraries of its
-    source (one g++ process each, side by side), into a directory named
-    by the hash of the sources that the test processes of one run share:
-    a source is built once per run, under a file lock, whichever process
-    asks first."""
+    """{library: ctypes function} of the sources built for the host: at
+    the first use, every library of LIBS (one g++ process each, as many at
+    a time as there are cores), into a directory named by the hash of the
+    sources that the test processes of one run share: the libraries are
+    built once per run, under a file lock, by whichever process asks
+    first."""
 
     def __init__(self, gxx, out):
         self.gxx, self.out, self.fns = gxx, out, {}
@@ -122,9 +124,9 @@ class _HostLibs:
         if lib not in self.fns:
             src = kernels._LIBRARIES[lib][0]
             libs = [k for k in LIBS if kernels._LIBRARIES[k][0] == src]
-            with open(self.out / f'{src}.lock', 'w') as lock:
+            with open(self.out / 'build.lock', 'w') as lock:
                 fcntl.flock(lock, fcntl.LOCK_EX)
-                todo = [k for k in libs if not (self.out / f'{k}.so').exists()]
+                todo = [k for k in LIBS if not (self.out / f'{k}.so').exists()]
                 if todo:
                     self._build(todo)
             for k in libs:
@@ -150,6 +152,8 @@ class _HostLibs:
             (out / f'{lib}.cpp').write_text(text)
             # the -D flags; nvcc's own (-fmad=false) mean nothing to g++
             flags = [f for f in flags if f.startswith('-D')]
+            if len(jobs) >= (os.cpu_count() or 1):
+                assert jobs[-os.cpu_count()][1].wait() == 0
             jobs.append((lib, subprocess.Popen(
                 [self.gxx, '-O0', '-std=c++17', '-shared', '-fPIC', '-w',
                  *flags, '-I', str(out), '-I', kernels._CSRC, '-o',
@@ -606,6 +610,35 @@ def test_eval_ao_to_third_derivatives(host):
         _close(out, ref)
 
 
+@pytest.mark.parametrize('deriv', [0, 1])
+def test_eval_ao_pbc(host, deriv):
+    """eval_ao_pbc.cu on s to g shells in a diamond cell, on seeded
+    points over the images within 10 Bohr, at the cell's lcut and at one
+    that skips images and primitives, against eval_ao_pbc_plain at the
+    same lcut: 1e-12 of the largest element."""
+    from pyscf_tpu_torch import pbc
+    from pyscf_tpu_torch.ops import eval_gto
+    from pyscf_tpu_torch.pbc.df.fft import lattice_cut
+    cell = pbc.gto.M(
+        atom='C 0 0 0; C 0.8917 0.8917 0.8917', a=[[0, 1.7834, 1.7834],
+        [1.7834, 0, 1.7834], [1.7834, 1.7834, 0]],
+        basis={'C': HOST_BASIS['O']}, device='cpu')
+    pts = torch.as_tensor(np.random.default_rng(9).uniform(size=(40, 3))
+                          @ cell.lattice_vectors())
+    Ls = torch.as_tensor(cell.get_lattice_Ls(10.0))
+    tables = eval_gto.ao_tables(cell)
+    for lcut in (lattice_cut(cell), 40.0):
+        ref = eval_gto.eval_ao_pbc_plain(tables, pts, Ls, cell.nao, deriv,
+                                         lcut)
+        out = torch.zeros_like(ref)
+        for l, e, c, r, off in tables:
+            assert host['eval_ao_pbc'](
+                l, deriv, pts.shape[0], e.shape[0], e.shape[1], Ls.shape[0],
+                *_ptrs(pts, e, c, r, off, Ls), lcut,
+                *_ptrs(sph(l, DEV), out), cell.nao, None) == 0
+        _close(out, ref)
+
+
 @pytest.mark.parametrize('code', ['lda,vwn', 'b3lypg', 'pbe0'])
 def test_xc_rks_hess_and_deriv1(host, code):
     """xc_rks_hess.cu's two kernels on every eighth point of water/def2-SVP's
@@ -978,7 +1011,7 @@ def hdual(tmp_path_factory):
         pytest.skip('needs g++ to build csrc/xc_funcs.cuh for the host')
     d = tmp_path_factory.mktemp('hdual_host')
     (d / 'h.cpp').write_text(HDUAL_HARNESS)
-    subprocess.run([gxx, '-O1', '-std=c++17', '-I', kernels._CSRC, '-o',
+    subprocess.run([gxx, '-O0', '-std=c++17', '-I', kernels._CSRC, '-o',
                     str(d / 'h'), str(d / 'h.cpp')], check=True)
     return d / 'h'
 

@@ -7,25 +7,22 @@ pyscf_tpu.
 The water/cc-pVTZ DF-RHF and water/def2-TZVP DF-RKS gradients (f on O)
 are held to the JAX package's, recorded once in pyscf_tpu_torch/refs.py
 (tests/port_refs_record.py fg_grad_tz_refs and fg_grad_tzvp_refs: the JAX
-gradient takes minutes on the CPU); one f class of each module that holds
-a kernel runs against the JAX programs live, and the g rows (the (g, f)
+gradient takes minutes on the CPU); the f rows (the (f, s) 1e chunks and
+Hessian rows, the (ff|s) DF functionals and the (fs|sf) derivative
+block) and the g rows (the (g, f)
 1e chunks, jax.grad of the DF functionals at (gg|h), the (gg|gg)
 derivative block, and the Hessian twins' JAX derivatives at (g, f),
 (fg|h) and (h|s)) are read from port_refs.npz and hessian_water_refs.npz
-(tests/port_refs_record.py fg_grad_refs, tests/hessian_refs_record.py
-twins_fg). The HF/cc-pVTZ Hessian (f on F) is checked against central
-differences of the port's own analytic gradient."""
-import jax
-import jax.numpy as jnp
+(tests/port_refs_record.py fg_f_refs and fg_grad_refs,
+tests/hessian_refs_record.py twins_fg; the f tests keep the names they
+had when they ran JAX live); each module's live comparison with the JAX
+package is at s to d (test_torch_int_deriv.py, test_torch_grad_df.py,
+test_torch_hessian.py). The HF/cc-pVTZ Hessian (f on F) is checked
+against central differences of the port's own analytic gradient."""
 import numpy as np
 import pytest
 import torch
 
-import pyscf_tpu as jpt
-from pyscf_tpu.grad import autodiff
-from pyscf_tpu.ops.integrals import int1e as jax_int1e
-from pyscf_tpu.ops.integrals import int1e_deriv as jax_deriv
-from pyscf_tpu.ops.integrals import int2e as jax_int2e
 from pyscf_tpu.ops.integrals.cart2sph import cart2sph as jax_cart2sph
 
 import hessian_refs_record as rec
@@ -90,22 +87,22 @@ def test_water_df_gradient_matches_jax(basis, xc, e_ref, g_ref):
         assert np.max(np.abs(de.sum(axis=0))) < 1e-9
 
 
-def test_int1e_chunks_at_f_match_live_jax():
+def test_int1e_chunks_at_f_match_live_jax(recorded):
     """ipovlp, ipkin, ipnuc and iprinv of the (f, s) class over seeded
-    primitive pairs against the JAX chunks, live: 1e-12 x max."""
+    primitive pairs against the JAX chunks (recorded): 1e-12 x max."""
     a, b, A, B, w = _prims(31, m=3)
     rng = np.random.default_rng(99)
     zr, zq = rng.normal(size=(8, 3)), np.arange(8.0)
     t = [torch.as_tensor(x) for x in (a, b, A, B, w)]
     zt, qt = torch.as_tensor(zr), torch.as_tensor(zq)
-    _close(int1e_deriv.ipovlp_chunk(3, 0, *t),
-           jax_deriv.ipovlp_chunk(3, 0, a, b, A, B, w), 1e-12)
-    _close(int1e_deriv.ipkin_chunk(3, 0, *t),
-           jax_deriv.ipkin_chunk(3, 0, a, b, A, B, w), 1e-12)
-    _close(int1e_deriv.ipnuc_chunk(3, 0, *t, zt, qt),
-           jax_deriv.ipnuc_chunk(3, 0, a, b, A, B, w, zr, zq), 1e-12)
+    k = 'fg_chunk_30'
+    _close(int1e_deriv.ipovlp_chunk(3, 0, *t), recorded[f'{k}_ipovlp'],
+           1e-12)
+    _close(int1e_deriv.ipkin_chunk(3, 0, *t), recorded[f'{k}_ipkin'], 1e-12)
+    _close(int1e_deriv.ipnuc_chunk(3, 0, *t, zt, qt), recorded[f'{k}_ipnuc'],
+           1e-12)
     _close(int1e_deriv.iprinv_chunk(3, 0, *t, zt[3]),
-           jax_deriv.iprinv_chunk(3, 0, a, b, A, B, w, zr[3]), 1e-12)
+           recorded[f'{k}_iprinv'], 1e-12)
 
 
 def test_int1e_chunks_at_g_match_jax(recorded):
@@ -146,27 +143,13 @@ def _port_df(atoms, basis, aux, seed=11):
             j3c_deriv.grad_2c(auxmol, torch.as_tensor(W)).numpy())
 
 
-def test_df_derivatives_at_f_match_live_jax():
+def test_df_derivatives_at_f_match_live_jax(recorded):
     """The twins of int3c2e_ip and int2c2e_ip1 with their sums by atom on
     an (ff|s), (fs|s), (ss|s) system against jax.grad of
-    autodiff._df_intermediates and _j2c, live: 1e-10 x max."""
-    jmol = jpt.M(atom=F_ATOMS, basis=F_BASIS, verbose=0)
-    jaux = jpt.M(atom=F_ATOMS, basis=F_AUX, verbose=0)
-    pairs, auxes = autodiff._build_host_data_cached(jmol, jaux)
-    D, C, a, b, W = _seeded_df(jmol.nao, jaux.nao)
-    dm_blocks = [sp.mat_blocks(D) for sp in pairs]
-    co_sets = [[sp.co_blocks(C) for sp in pairs]]
-
-    def f3(X):
-        gam, Os = autodiff._df_intermediates(pairs, auxes, jaux.nao, X,
-                                             dm_blocks, co_sets)
-        return jnp.dot(gam, a) + jnp.sum(Os[0] * b)
-
-    X = jnp.asarray(np.asarray(jmol.coords))
+    autodiff._df_intermediates and _j2c (recorded): 1e-10 x max."""
     got3, got2 = _port_df(F_ATOMS, F_BASIS, F_AUX)
-    _close(got3, jax.jit(jax.grad(f3))(X), 1e-10)
-    _close(got2, jax.jit(jax.grad(lambda X: jnp.sum(
-        autodiff._j2c(auxes, jaux.nao, X) * W)))(X), 1e-10)
+    _close(got3, recorded['fg_df_f_3c'], 1e-10)
+    _close(got2, recorded['fg_df_f_2c'], 1e-10)
 
 
 def test_df_derivatives_at_g_match_jax(recorded):
@@ -203,15 +186,11 @@ def _ip1_class(atom, basis, bra, ket, blk):
 TOY_ATOM = 'He 0 0 0; He 0.3 -0.4 1.1'
 
 
-def test_int2e_ip1_at_f_matches_live_jax():
+def test_int2e_ip1_at_f_matches_live_jax(recorded):
     """The (fs|sf) class of the int2e_ip1 twin against the JAX package's
-    DerivPairClass block, live."""
-    basis = [[3, [0.7, 1.0]], [0, [1.3, 1.0]]]
-    jmol = jpt.M(atom=TOY_ATOM, basis=basis, verbose=0)
-    _ip1_class(TOY_ATOM, basis, (3, 0), (0, 3),
-               jax_int2e._deriv_class_pair_block(
-                   jax_int2e.DerivPairClass(jmol, 3, 0),
-                   jax_int2e.PairClass(jmol, 0, 3)))
+    DerivPairClass block (recorded)."""
+    _ip1_class(TOY_ATOM, [[3, [0.7, 1.0]], [0, [1.3, 1.0]]], (3, 0), (0, 3),
+               recorded['fg_ip1_fssf'])
 
 
 def test_int2e_ip1_at_g_matches_jax(recorded):
@@ -221,26 +200,17 @@ def test_int2e_ip1_at_g_matches_jax(recorded):
                recorded['fg_ip1_gssg'])
 
 
-def test_hessian_1e_rows_at_f_match_live_jax():
+def test_hessian_1e_rows_at_f_match_live_jax(recorded):
     """ipip_chunk (the twin of int1e_ipip) of the (f, s) class against
     jax.jacfwd(jax.grad(...)) in the bra centre of sum dm (T + V) - wm S
-    over the JAX chunks, live: AA per pair, 1e-11 x max."""
+    over the JAX chunks (recorded): AA per pair, 1e-11 x max."""
     la, lb = 3, 0
     a, b, A, B, w, zr, zq, dm, wm = rec.prims_1e(la, lb, m=3)
-
-    def f(A_):
-        s = jax_int1e.ovlp_chunk(la, lb, a, b, A_, B, w)
-        t = jax_int1e.kin_chunk(la, lb, a, b, A_, B, w)
-        v = jax_int1e.nuc_chunk(la, lb, a, b, A_, B, w, zr, zq)
-        return jnp.sum(dm * (t + v)) - jnp.sum(wm * s)
-
-    aa = np.asarray(jax.jacfwd(jax.grad(f))(jnp.asarray(A)))
     out = int1e_deriv.ipip_chunk(la, lb, *[torch.as_tensor(x) for x in (
         a, b, A, B, w, zr, zq, dm, wm)]).numpy()
     m = out.shape[0]
-    idx = np.arange(m)
     got = (out[:, 8, :9] + out[:, :8, :9].sum(axis=1)).reshape(m, 3, 3)
-    _close(got, aa[idx, :, idx, :], 1e-11)
+    _close(got, recorded['fg_ipip_30'], 1e-11)
 
 
 @pytest.fixture(scope='module')

@@ -8,7 +8,8 @@ jax.grad of the JAX package's DF intermediates runs live on H2/sto-3g
 l = 4, it takes 23-54 s per case, and the JAX gradient program 67-220 s,
 too long for the fast tests: those references are recorded in
 pyscf_tpu_torch/refs.py with the commands that made them. jax.jacfwd of
-eval_ao and jax.grad of the XC quadrature run live."""
+eval_ao and jax.grad of the XC quadrature run live, but the restricted
+quadrature's (recorded by tests/port_refs_record.py grad_df_refs)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -108,8 +109,7 @@ def test_df_derivative_integrals_match_jax(basis):
     _close(got2, ref['2c'], 1e-10)
 
 
-@pytest.fixture(scope='module')
-def water_grid():
+def _water_grid():
     """(JAX mole, port mole, the JAX package's level-1 grid as numpy)."""
     jmol = jpt.M(atom=refs.WATER, basis='def2-svp', verbose=0)
     grids = jax_gen_grid.Grids(jmol)
@@ -117,6 +117,11 @@ def water_grid():
     grids.build()
     return (jmol, tpt.M(atom=refs.WATER, basis='def2-svp', device='cpu'),
             np.asarray(grids.coords), np.asarray(grids.weights))
+
+
+@pytest.fixture(scope='module')
+def water_grid():
+    return _water_grid()
 
 
 def test_eval_ao_deriv2_matches_jax_jacfwd(water_grid):
@@ -139,20 +144,36 @@ def test_eval_ao_deriv2_matches_jax_jacfwd(water_grid):
     _close(got, want, 1e-12)
 
 
+def _xc_grad_dm(nao):
+    """The seeded density of test_xc_grad_matches_jax."""
+    c = np.random.default_rng(5).standard_normal((nao, 5)) * 0.3
+    return 2 * c @ c.T
+
+
+def jax_xc_grad(water_grid):
+    """(exc, its gradient (natm, 3)): jax.value_and_grad of
+    autodiff._exc_quadrature (restricted), b3lypg, at _xc_grad_dm on the
+    level-1 grid."""
+    jmol, mol, coords, weights = water_grid
+    pc, pw = _pad_grid(coords, weights)
+    f = jax_xc.parse_xc('b3lypg')
+    dm = jnp.asarray(_xc_grad_dm(mol.nao))
+    jexc, ref = jax.jit(jax.value_and_grad(
+        lambda X: autodiff._exc_quadrature(jmol, f, X, dm, pc, pw, True)))(
+        jnp.asarray(jmol.coords))
+    return float(jexc), np.asarray(ref)
+
+
 def test_xc_grad_matches_jax(water_grid):
     """The twin of xc_rks_grad with its sum by atom on a seeded density,
     b3lypg on the level-1 grid, against jax.grad of
-    autodiff._exc_quadrature (restricted): 1e-10 x max."""
-    jmol, mol, coords, weights = water_grid
-    rng = np.random.default_rng(5)
-    c = rng.standard_normal((mol.nao, 5)) * 0.3
-    dm = 2 * c @ c.T
-    f = jax_xc.parse_xc('b3lypg')
-    pc, pw = _pad_grid(coords, weights)
-    jexc, ref = jax.jit(jax.value_and_grad(
-        lambda X: autodiff._exc_quadrature(jmol, f, X, jnp.asarray(dm), pc,
-                                           pw, True)))(
-        jnp.asarray(jmol.coords))
+    autodiff._exc_quadrature (restricted; jax_xc_grad as
+    tests/port_refs_record.py grad_df_refs recorded it, ~6 s of jit; the
+    unrestricted quadrature below runs live): 1e-10 x max."""
+    _, mol, coords, weights = water_grid
+    dm = _xc_grad_dm(mol.nao)
+    recorded = np.load(refs.PORT_REFS)
+    jexc, ref = recorded['grad_df_xc_exc'], recorded['grad_df_xc_grad']
     grids = gen_grid.Grids(mol)
     grids.coords = torch.tensor(coords)
     grids.weights = torch.tensor(weights)

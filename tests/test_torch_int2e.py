@@ -121,10 +121,11 @@ def test_incore_jk_match_einsum(water_svp_eri):
 
 def test_assigned_eri_wins():
     """An `_eri` the caller assigns is used as it is: the JAX package's
-    tensor gives the same energy and no ERI is built."""
+    tensor (its legacy mol.intor('int2e'), as tests/port_refs_record.py
+    int_matrix_refs recorded it) gives the same energy and no ERI is
+    built."""
     eri = compat.eri_from_numpy(
-        jpt.M(atom=refs.WATER, basis='sto-3g', verbose=0).intor('int2e'),
-        'cpu')
+        np.load(refs.PORT_REFS)['eri_sto3g_legacy'], 'cpu')
     mf = _port_mol('sto-3g').RHF()
     mf._eri = eri
     mf.init_guess = 'hcore'

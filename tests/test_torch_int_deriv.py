@@ -1,7 +1,8 @@
 """The derivative integrals of pyscf_tpu_torch on the CPU (the plain twins
 of the kernels int1e_ip, int1e_iprinv and int2e_ip1) against pyscf_tpu's
-jitted programs on the same numpy inputs (the per-class chunks as
-tests/port_refs_record.py recorded them)."""
+jitted programs on the same numpy inputs (the per-class chunks, and the
+kinetic and nuclear matrices, as tests/port_refs_record.py recorded
+them)."""
 import numpy as np
 import pytest
 import torch
@@ -67,10 +68,14 @@ def water():
 @pytest.mark.parametrize('name', ['int1e_ipovlp', 'int1e_ipkin',
                                   'int1e_ipnuc'])
 def test_matrices_match_jax(water, name):
+    """int1e_ipovlp live, int1e_ipkin and int1e_ipnuc as
+    tests/port_refs_record.py int_matrix_refs recorded them."""
     jmol, tmol = water
     got = tmol.intor(name)
     assert got.shape == (3, 7, 7)
-    _close(got.numpy(), getattr(jax_deriv, name)(jmol))
+    ref = (getattr(jax_deriv, name)(jmol) if name == 'int1e_ipovlp'
+           else np.load(refs.PORT_REFS)[f'{name}_sto3g'])
+    _close(got.numpy(), ref)
 
 
 def test_iprinv_matches_jax(water):

@@ -302,6 +302,27 @@ def test_eval_ao(water_grid, basis, deriv):
     assert torch.max(torch.abs(got - ref)) <= 1e-13
 
 
+@pytest.mark.parametrize('deriv', [0, 1])
+def test_eval_ao_pbc(deriv):
+    """The lattice-summed AO values of the diamond primitive cell
+    (gth-szv, 1,505 images) on its [15]^3 grid."""
+    from pyscf_tpu_torch import pbc
+    from pyscf_tpu_torch.pbc.df.fft import lattice_cut
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels run only on the card')
+    cell = pbc.gto.M(atom='C 0 0 0; C 0.8917 0.8917 0.8917',
+                     a=[[0, 1.7834, 1.7834], [1.7834, 0, 1.7834],
+                        [1.7834, 1.7834, 0]], basis='gth-szv',
+                     pseudo='gth-pade', mesh=[15] * 3, device='cuda')
+    tables = eval_gto.ao_tables(cell)
+    pts = torch.as_tensor(cell.get_uniform_grids(), device='cuda')
+    Ls = torch.as_tensor(cell.get_lattice_Ls(), device='cuda')
+    lcut = lattice_cut(cell)
+    got = kernels.eval_ao_pbc(tables, pts, Ls, cell.nao, deriv, lcut)
+    ref = eval_gto.eval_ao_pbc_plain(tables, pts, Ls, cell.nao, deriv, lcut)
+    assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
 def test_becke(water):
     mol, _ = water
     args = gen_grid.partition_inputs(mol, gen_grid.gen_atomic_grids(mol))

@@ -1,7 +1,8 @@
 """Open-shell SCF in pyscf_tpu_torch on the CPU against pyscf_tpu: the
 two- and five-tangent dual numbers of csrc/xc_funcs.cuh (built for the
-host with g++) against jax.grad, the spin-polarized XC quadrature, in-core UHF on
-O2 and DF-UKS b3lypg on the water cation against JAX runs recorded by
+host with g++) against jax.grad (as tests/port_refs_record.py
+uks_dual_refs recorded it), the spin-polarized XC quadrature, in-core UHF
+on O2 and DF-UKS b3lypg on the water cation against JAX runs recorded by
 tests/port_refs_record.py."""
 import shutil
 import subprocess
@@ -66,7 +67,7 @@ def harness(tmp_path_factory):
     d = tmp_path_factory.mktemp('xc_host')
     (d / 'h.cpp').write_text(HARNESS)
     exe = d / 'h'
-    subprocess.run([gxx, '-O2', '-std=c++17', '-I', kernels._CSRC, '-o',
+    subprocess.run([gxx, '-O0', '-std=c++17', '-I', kernels._CSRC, '-o',
                     str(exe), str(d / 'h.cpp')], check=True)
     return exe
 
@@ -97,9 +98,54 @@ def _open_inputs():
     return np.stack([ra, rb, saa, sab, sbb])
 
 
-@pytest.mark.parametrize('name', ['SLATER', 'VWN5', 'VWN3', 'B88', 'LYP',
-                                  'b3lypg', 'blyp'])
-def test_dual5_matches_jax_grad(harness, name):
+DUAL5_NAMES = ('SLATER', 'VWN5', 'VWN3', 'B88', 'LYP', 'b3lypg', 'blyp')
+DUAL2_NAMES = ('SLATER', 'VWN5', 'VWN3', 'B88', 'LYP', 'b3lypg',
+               'lda,vwn_rpa')
+
+
+def _closed_inputs():
+    """rho in [1e-10, 1e2] and sigma in [1e-20, 1e3], log-uniform."""
+    rng = np.random.default_rng(23)
+    return np.stack([10.0 ** rng.uniform(-10, 2, 300),
+                     10.0 ** rng.uniform(-20, 3, 300)])
+
+
+def jax_dual5(name, x):
+    """(6, n): the JAX package's open-shell energy density and jax.grad in
+    its five inputs at x."""
+    fj = jax_xc.parse_xc(name)
+    args = [jnp.asarray(v) for v in x]
+    grads = jax.grad(lambda *a: jnp.sum(fj.exc_density(*a)),
+                     argnums=(0, 1, 2, 3, 4))(*args)
+    return np.stack([np.asarray(fj.exc_density(*args))]
+                    + [np.asarray(g) for g in grads])
+
+
+def jax_dual2(name, x):
+    """(3, n): e, vrho, vsigma of the JAX package's closed-shell energy
+    density as pyscf_tpu/dft/numint.py:127-137 takes it, at x."""
+    fj = jax_xc.parse_xc(name)
+
+    def edens(r, s):
+        return fj.exc_density(0.5 * r, 0.5 * r, 0.25 * s, 0.25 * s, 0.25 * s)
+
+    r, s = jnp.asarray(x[0]), jnp.asarray(x[1])
+    vr, vs = jax.grad(lambda a, b: jnp.sum(edens(a, b)), argnums=(0, 1))(r, s)
+    return np.stack([np.asarray(v) for v in (edens(r, s), vr, vs)])
+
+
+@pytest.fixture(scope='module')
+def recorded():
+    """jax_dual5 at _open_inputs ('uks_dual5_<name>') and jax_dual2 at
+    _closed_inputs ('uks_dual2_<name>'), as tests/port_refs_record.py
+    uks_dual_refs recorded them (seconds each in JAX's eager dispatch;
+    the JAX functionals are held live to the port's twins in
+    tests/test_torch_xc.py)."""
+    return np.load(refs.PORT_REFS)
+
+
+@pytest.mark.parametrize('name', DUAL5_NAMES)
+def test_dual5_matches_jax_grad(harness, recorded, name):
     """e_xc to 1e-12 relative. Each derivative d_k to 1e-9 of |d_k| plus the
     point's energy-density scale rho_a^(4/3) + rho_b^(4/3) over its own
     variable (rho_s, sigma_ss, or sqrt(sigma_aa sigma_bb) for sigma_ab):
@@ -109,11 +155,7 @@ def test_dual5_matches_jax_grad(harness, name):
     derivative moves the energy density."""
     x = _open_inputs()
     got = _run_harness(harness, name, x)
-    fj = jax_xc.parse_xc(name)
-    args = [jnp.asarray(v) for v in x]
-    e = np.asarray(fj.exc_density(*args))
-    grads = jax.grad(lambda *a: jnp.sum(fj.exc_density(*a)),
-                     argnums=(0, 1, 2, 3, 4))(*args)
+    e, *grads = recorded[f'uks_dual5_{name}']
     assert np.all(np.abs(got[0] - e) <= 1e-12 * np.abs(e))
     ra, rb, saa, sab, sbb = x
     scale = ra ** (4 / 3) + rb ** (4 / 3)
@@ -124,26 +166,13 @@ def test_dual5_matches_jax_grad(harness, name):
         assert np.all(np.abs(g - r) <= 1e-9 * (np.abs(r) + scale / v))
 
 
-@pytest.mark.parametrize('name', ['SLATER', 'VWN5', 'VWN3', 'B88', 'LYP',
-                                  'b3lypg', 'lda,vwn_rpa'])
-def test_dual2_matches_jax_grad(harness, name):
+@pytest.mark.parametrize('name', DUAL2_NAMES)
+def test_dual2_matches_jax_grad(harness, recorded, name):
     """edens_closed, xc_rks's functional, against jax.grad of the closed-shell
-    energy density as pyscf_tpu/dft/numint.py:127-137 takes it: rho in
-    [1e-10, 1e2] and sigma in [1e-20, 1e3], log-uniform; e_xc, vrho and
+    energy density (jax_dual2, recorded) at _closed_inputs; e_xc, vrho and
     vsigma to 1e-12 relative."""
-    rng = np.random.default_rng(23)
-    x = np.stack([10.0 ** rng.uniform(-10, 2, 300),
-                  10.0 ** rng.uniform(-20, 3, 300)])
-    got = _run_harness(harness, name, x)
-    fj = jax_xc.parse_xc(name)
-
-    def edens(r, s):
-        return fj.exc_density(0.5 * r, 0.5 * r, 0.25 * s, 0.25 * s, 0.25 * s)
-
-    r, s = jnp.asarray(x[0]), jnp.asarray(x[1])
-    vr, vs = jax.grad(lambda a, b: jnp.sum(edens(a, b)), argnums=(0, 1))(r, s)
-    for g, ref in zip(got, (edens(r, s), vr, vs)):
-        ref = np.asarray(ref)
+    got = _run_harness(harness, name, _closed_inputs())
+    for g, ref in zip(got, recorded[f'uks_dual2_{name}']):
         assert np.all(np.isfinite(g))
         assert np.all(np.abs(g - ref) <= 1e-12 * np.abs(ref))
 
@@ -282,3 +311,23 @@ def test_minao_guess_splits_by_spin():
     na = float(torch.sum(dm[0] * s))
     nb = float(torch.sum(dm[1] * s))
     assert abs(na / nb - 5.0 / 4.0) < 1e-12
+
+
+def test_oh_radical_df_uks_converges_to_jax():
+    """The OH radical's DF-UKS b3lypg/sto-3g on the level-0 grid (minao,
+    conv_tol 1e-12, conv_tol_grad 1e-9): the beta pi pair is degenerate in
+    the guess, and a hole at an arbitrary angle in it drifted ~5e-9 Ha a
+    cycle without converging; aligned with the AOs (lib/linalg.py
+    align_degenerate), the SCF converges to the JAX package's state, its
+    energy recorded in hessian_water_refs.npz ('oh_uks_e_tot',
+    tests/hessian_refs_record.py oh_uks), within 1e-8 Ha."""
+    rec = np.load(refs.HESSIAN_REFS)
+    mol = tpt.M(atom='O 0 0 0; H 0 0 0.97', basis='sto-3g', spin=1,
+                device='cpu')
+    mf = mol.UKS(xc='b3lypg').density_fit()
+    mf.grids.level = 0
+    mf.conv_tol = 1e-12
+    mf.conv_tol_grad = 1e-9
+    e = mf.kernel()
+    assert mf.converged
+    assert abs(e - float(rec['oh_uks_e_tot'])) < 1e-8

@@ -1,7 +1,8 @@
 """VV10 non-local correlation in pyscf_tpu_torch on the CPU against
 pyscf_tpu: the plain twin of the `vv10` kernel (closed-form sums) against
 jax.value_and_grad of the JAX package's _vv10_energy_features, and nr_vv10
-(energy and potential matrix) against the JAX nr_vv10 and the PySCF golden
+(energy and potential matrix) against the JAX nr_vv10 (as
+tests/port_refs_record.py vv10_refs recorded it) and the PySCF golden
 of tests/test_vv10.py, on water/6-31G with (20, 50) grids at the minao
 density."""
 import jax
@@ -26,16 +27,30 @@ B, C = 6.0, 0.01                            # wB97M-V's, tests/test_vv10.py
 GOLDEN = 0.04237199619089385                # tests/test_vv10.py:27
 
 
-@pytest.fixture(scope='module')
-def water():
-    """(JAX mol, grids, minao dm (numpy), port mol, grids) of
-    tests/test_vv10.py's set-up."""
+def jax_water():
+    """(JAX mol, grids, minao dm (numpy)) of tests/test_vv10.py's set-up."""
     mj = jpt.M(atom=refs.WATER, basis='6-31g', verbose=0)
     dm = np.asarray(mj.RHF().get_init_guess(mj, 'minao'))
     gj = jax_gen_grid.Grids(mj)
     gj.atom_grid = {'H': (20, 50), 'O': (20, 50)}
     gj.prune = None
     gj.build()
+    return mj, gj, dm
+
+
+def jax_nr_vv10():
+    """(E, V) of the JAX nr_vv10 at jax_water's density (vv10_refs
+    records them)."""
+    mj, gj, dm = jax_water()
+    e, v = jax_vv10.nr_vv10(mj, gj, dm, b=B, C=C)
+    return float(e), np.asarray(v)
+
+
+@pytest.fixture(scope='module')
+def water():
+    """(JAX mol, grids, minao dm (numpy), port mol, grids) of
+    tests/test_vv10.py's set-up."""
+    mj, gj, dm = jax_water()
     mt = tpt.M(atom=refs.WATER, basis='6-31g', device='cpu')
     gt = gen_grid.Grids(mt)
     gt.atom_grid = {'H': (20, 50), 'O': (20, 50)}
@@ -91,15 +106,15 @@ def test_vv10_plain_blocks_give_the_same_sums(features, monkeypatch):
 
 
 def test_nr_vv10_matches_jax(water):
-    """E and the potential matrix against the JAX nr_vv10 to 1e-12, the
-    energy within 2e-4 of the PySCF golden, and the SCF's own AO blocks
-    (ao_eval) give what a fresh evaluation gives."""
-    mj, gj, dm_np, mt, gt = water
-    e_ref, v_ref = jax_vv10.nr_vv10(mj, gj, dm_np, b=B, C=C)
+    """E and the potential matrix against the JAX nr_vv10 (recorded) to
+    1e-12, the energy within 2e-4 of the PySCF golden, and the SCF's own AO
+    blocks (ao_eval) give what a fresh evaluation gives."""
+    _, _, dm_np, mt, gt = water
+    recorded = np.load(refs.PORT_REFS)
+    e_ref, v_ref = float(recorded['vv10_nr_e']), recorded['vv10_nr_v']
     dm = compat.tensor_from_numpy(dm_np, 'cpu')
     e, v = vv10.nr_vv10(mt, gt, dm, B, C)
     assert abs(float(e) - e_ref) <= 1e-12 * abs(e_ref)
-    v_ref = np.asarray(v_ref)
     assert np.max(np.abs(v.numpy() - v_ref)) <= 1e-12 * np.max(np.abs(v_ref))
     assert abs(float(e) - GOLDEN) < 2e-4
     from pyscf_tpu_torch.dft.numint import NumInt

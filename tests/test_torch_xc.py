@@ -1,6 +1,10 @@
 """The port's XC functionals against the JAX package: energy density and
-its derivatives of each B3LYP and PBE component and of the compounds,
-the open-shell PBE components, and the functional-name parser."""
+its derivatives of each B3LYP and PBE component and of the compounds
+(the B3LYP family's JAX values as tests/port_refs_record.py xc_refs
+recorded them, a few seconds of eager dispatch each; the PBE family
+live, and b3lypg live against the xc_funcs.cuh harness in
+tests/test_torch_csrc_host.py), the open-shell PBE components, and the
+functional-name parser."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +13,7 @@ import torch
 
 from pyscf_tpu.dft import xc as jax_xc
 
+from pyscf_tpu_torch import refs
 from pyscf_tpu_torch.dft import numint, xc
 
 torch.set_num_threads(1)
@@ -58,7 +63,7 @@ def _port_closed(name, rho, sigma):
 def test_energy_and_derivatives_match_jax(name):
     rho, sigma = _inputs()
     for got, ref in zip(_port_closed(name, rho, sigma),
-                        _jax_closed(name, rho, sigma)):
+                        np.load(refs.PORT_REFS)[f'xc_closed_{name}']):
         assert np.all(np.isfinite(got))
         assert np.all(np.abs(got - ref) <= 1e-12 * np.abs(ref) + 1e-300)
 
