@@ -5,11 +5,12 @@ Drives the port's paths for benzene/def2-SVP, the phenyl radical and
 water, then BASELINE configs 3 ((H2O)10/cc-pVTZ) and 4 (N2/cc-pVQZ), the
 forces and frequencies of the f and g shells, the DF-RKS Hessian and the
 transition-state search, the DF-UHF/UKS Hessian with PBE and PBE0 in
-every XC kernel, and the Γ-point periodic SCF (BASELINE config 5 and a
-64-atom diamond cell), on the card, in order:
+every XC kernel, the Γ-point periodic SCF (BASELINE config 5 and a
+64-atom diamond cell) and the k-point periodic SCF (KRHF, KRKS, KUHF and
+KUKS over FFTDF, diamond on up to 64 k-points), on the card, in order:
   1. refuses to run without CUDA; prints the card's name and power limit;
-  2. builds the seventy-one kernel libraries of the thirty-eight kernels
-     from the twenty-nine sources of pyscf_tpu_torch/csrc (nvcc, sm_90a,
+  2. builds the seventy-two kernel libraries of the thirty-nine kernels
+     from the thirty sources of pyscf_tpu_torch/csrc (nvcc, sm_90a,
      one process per library, all at once), and prints the compile seconds
      and ptxas register lines of eval_ao and of every XC library;
   3. integral kernel phases at the main path's shapes: each kernel against
@@ -328,7 +329,28 @@ every XC kernel, and the Γ-point periodic SCF (BASELINE config 5 and a
      the 64-atom cell's (<= 1e-12 x max; rows eval_ao_pbc and
      eval_ao_pbc_d64 at deriv 1, the operations bound counted from the
      points, atoms and images in range in this run);
- 62. one JSON line with the per-kernel numbers (times from CUDA events, the
+ 62. the k-point SCF's golden: diamond KRKS-LDA on the shifted 2x2x2
+     Monkhorst-Pack mesh at [17]^3 within 2e-6 of PySCF's
+     -11.353643583707452 (tests/test_pbc.py:109-118), and KRKS-PBE and
+     KUKS-PBE on that closed-shell cell within 1e-9 Ha of each other;
+     each k-point SCF from pbc.gto.M() with conv_tol 1e-10, its kernels
+     launched, energy, cycles, wall, peak memory and with_df.timings
+     printed;
+ 63. diamond gth-dzvp PBE on the Γ-centred 4x4x4 mesh (64 k-points, nao
+     26, the default mesh [25]^3): converged; xc_rks at its stacked
+     k-point rows (row xc_rks_k64, 1e-11), int1e_stv on every call of its
+     phased S/T and projector overlaps (row int1e_stv_kpts, 1e-12 x max)
+     and eval_ao_kpts at deriv 0 and 1 (row eval_ao_kpts, 1e-12 x max; its
+     operations bound the in-range image work and the phase products of
+     this run) against their twins; then the same SCF with eval_ao_kpts,
+     int1e_stv, xc_rks and xc_uks replaced by their twins, none launched,
+     within 1e-9 Ha;
+ 64. KRHF and KRKS-PBE0 (FFT K over every k pair, the Ewald exxdiv) on the
+     gth-dzvp cell at 3x3x3, each within 1e-9 Ha of the same run on the
+     twins;
+ 65. KUKS-PBE of the spin-2 primitive cell on the shifted 2x1x1 mesh at
+     [17]^3, within 1e-9 Ha of the same run on the twins;
+ 66. one JSON line with the per-kernel numbers (times from CUDA events, the
      bound computed from this run's inputs, launches from the path that
      runs the kernel: int2e from 8, xc_uks from 9, int1e_ip, int1e_iprinv
      and int2e_ip1 from 12, int3c2e_ip, int2c2e_ip1, eval_ao_deriv2 and
@@ -345,7 +367,8 @@ every XC kernel, and the Γ-point periodic SCF (BASELINE config 5 and a
      xc_rks_deriv1 from 49 and their <kernel>_tz from 51, xc_uks_hess,
      xc_uks_deriv1 and eval_ao_deriv3_phenyl from 53, the <kernel>_pbe0
      from 54, the <kernel>_pbe from 55, eval_ao_pbc from 58's GDF run,
-     eval_ao_pbc_d64, int1e_stv_pbc and xc_rks_d64 from 60, the others
+     eval_ao_pbc_d64, int1e_stv_pbc and xc_rks_d64 from 60,
+     eval_ao_kpts, int1e_stv_kpts and xc_rks_k64 from 63, the others
      from 6), then the
      result line {"ok": true, "device": {...}}.
 Any failed check raises, so the exit code is non-zero.
@@ -810,14 +833,16 @@ def grid_xc_phases(pt, kernels, mol, dm, report):
     xc_rks_phase(kernels, 'xc_rks', 'b3lypg', ao_k, dm, weights, report)
 
 
-def xc_rks_phase(kernels, name, xc_code, aod, dm, weights, report):
-    """kernel xc_rks with the functional xc_code at the density dm on the
-    AO values aod (4, npts, nao) against its twin: vtmp <= 1e-11 x
-    max|vtmp|, n and exc <= 1e-11 relative; recorded as `name`."""
+def xc_rks_phase(kernels, name, xc_code, aod, dm, weights, report,
+                 dmao=None, replaces='pyscf_tpu/dft/numint.py:117'):
+    """kernel xc_rks with the functional xc_code at the density dm (or at
+    the rows dmao, if given) on the AO values aod (4, npts, nao) against
+    its twin: vtmp <= 1e-11 x max|vtmp|, n and exc <= 1e-11 relative;
+    recorded as `name`."""
     from pyscf_tpu_torch.dft import numint, xc
 
     f = xc.parse_xc(xc_code)
-    dmao = aod[0] @ dm
+    dmao = aod[0] @ dm if dmao is None else dmao
     vt_k, n_k, e_k = kernels.xc_rks(aod, dmao, weights, f)
     vt_p, n_p, e_p = numint.xc_rks_plain(aod, dmao, weights, f)
     err, scale = max_abs([(vt_k, vt_p)])
@@ -828,8 +853,7 @@ def xc_rks_phase(kernels, name, xc_code, aod, dm, weights, report):
     npts, nao = weights.shape[0], aod.shape[-1]
     # reductions and vtmp: 16 operations per point and AO; the functional's
     # few hundred per point are not counted
-    record(report, name, 'pyscf_tpu_torch/csrc/xc_rks.cu',
-           'pyscf_tpu/dft/numint.py:117', err,
+    record(report, name, 'pyscf_tpu_torch/csrc/xc_rks.cu', replaces, err,
            lambda: kernels.xc_rks(aod, dmao, weights, f),
            lambda: numint.xc_rks_plain(aod, dmao, weights, f),
            nbytes(aod, dmao, weights, vt_k), 16 * npts * nao)
@@ -3812,11 +3836,12 @@ def pbc_refs():
                                 'pyscf_tpu_torch', 'data', 'pbc_refs.npz'))
 
 
-def pbc_scf(pt, kernels, name, cell_kw, make_mf, names=PBC_KERNELS):
-    """One periodic SCF from pbc.gto.M() (hcore guess, conv_tol 1e-9) with
-    the launch counts set to 0 just before and read just after: converged,
-    `names` launched; wall, cycles, phases and peak memory printed.
-    Returns (mf, e, launches, wall)."""
+def pbc_scf(pt, kernels, name, cell_kw, make_mf, names=PBC_KERNELS,
+            conv_tol=1e-9):
+    """One periodic SCF from pbc.gto.M() (hcore guess, conv_tol 1e-9 unless
+    given) with the launch counts set to 0 just before and read just
+    after: converged, `names` launched; wall, cycles, phases and peak
+    memory printed. Returns (mf, e, launches, wall)."""
     kernels.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -3824,7 +3849,7 @@ def pbc_scf(pt, kernels, name, cell_kw, make_mf, names=PBC_KERNELS):
     cell = pt.pbc.gto.M(**cell_kw)
     mf = make_mf(cell)
     mf.init_guess = 'hcore'
-    mf.conv_tol = 1e-9
+    mf.conv_tol = conv_tol
     e = mf.kernel()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3832,9 +3857,9 @@ def pbc_scf(pt, kernels, name, cell_kw, make_mf, names=PBC_KERNELS):
     phases = dict(mf.timings, **mf.with_df.timings)
     print(f'{name}: E = {e!r}  converged {mf.converged}  cycles '
           f'{mf.scf_cycles}  wall {wall:.6f} s  peak '
-          f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB  nao '
-          f'{cell.nao}  mesh {cell.mesh}  images '
-          f'{len(cell.get_lattice_Ls())}')
+          f'{torch.cuda.max_memory_allocated() / 1e9:.3f} GB  nk '
+          f'{getattr(mf, "nkpts", 1)}  nao {cell.nao}  mesh {cell.mesh}  '
+          f'images {len(cell.get_lattice_Ls())}')
     print('phase seconds: ' + '  '.join(f'{k} {v:.6f}'
                                         for k, v in phases.items()))
     print(f'launches: { {k: v for k, v in launches.items() if v} }')
@@ -3902,14 +3927,16 @@ def pbc_lda_rhf_path(pt, kernels):
 
 @contextlib.contextmanager
 def plain_pbc(kernels):
-    """eval_ao_pbc, int1e_stv and xc_rks replaced by their plain twins on
-    the card's tensors."""
+    """eval_ao_pbc, eval_ao_kpts, int1e_stv, xc_rks and xc_uks replaced by
+    their plain twins on the card's tensors."""
     from pyscf_tpu_torch.dft import numint
     from pyscf_tpu_torch.ops import eval_gto
     from pyscf_tpu_torch.ops.integrals import int1e
 
     twin = {'eval_ao_pbc': eval_gto.eval_ao_pbc_plain,
-            'int1e_stv': int1e.class_stv, 'xc_rks': numint.xc_rks_plain}
+            'eval_ao_kpts': eval_gto.eval_ao_kpts_plain,
+            'int1e_stv': int1e.class_stv, 'xc_rks': numint.xc_rks_plain,
+            'xc_uks': numint.xc_uks_plain}
     saved = {k: getattr(kernels, k) for k in twin}
     for k, fn in twin.items():
         setattr(kernels, k, fn)
@@ -3958,10 +3985,10 @@ def pbc_64_path(pt, kernels, report):
     return mf, launches
 
 
-def pbc_stv_calls(cell, kernels):
+def pbc_stv_calls(cell, kernels, kpts=None):
     """The (args, kwargs) of every int1e_stv call of the cell's S/T
-    lattice sums and S-only projector overlaps (pbc/df/fft.py), recorded
-    while they run through the kernel."""
+    lattice sums and S-only projector overlaps (pbc/df/fft.py; phased to
+    kpts, if given), recorded while they run through the kernel."""
     from pyscf_tpu_torch.pbc.df.fft import FFTDF
     calls, stv = [], kernels.int1e_stv
 
@@ -3973,35 +4000,35 @@ def pbc_stv_calls(cell, kernels):
     kernels.int1e_stv = spy
     try:
         df = FFTDF(cell)
-        df._build_st()
-        df._projector_overlaps()
+        df._build_st(kpts)
+        df._projector_overlaps(kpts)
     finally:
         kernels.int1e_stv = stv
     return calls
 
 
-def pbc_stv_phase(kernels, cell, report):
+def pbc_stv_phase(kernels, cell, report, name='int1e_stv_pbc', kpts=None,
+                  replaces='pyscf_tpu/ops/integrals/int1e.py:36'):
     """int1e_stv against its twin on every call of the cell's S/T lattice
     sums (S, T over every (shell, shell + L) pair, no atoms) and S-only
     projector overlaps (the GTH projector's monomial combination as the
-    ket's transform, sb), <= 1e-12 x max; recorded as int1e_stv_pbc."""
+    ket's transform, sb), <= 1e-12 x max; recorded as `name`."""
     from pyscf_tpu_torch.ops.integrals import int1e
-    calls = pbc_stv_calls(cell, kernels)
+    calls = pbc_stv_calls(cell, kernels, kpts)
     run = lambda fn: [fn(*a, **kw) for a, kw in calls]   # noqa: E731
     k_out = run(kernels.int1e_stv)
     p_out, plain_s = host_s(lambda: run(int1e.class_stv))
     err, scale = max_abs(list(zip(k_out, p_out)))
     npairs = sum(a[2].shape[0] for a, _ in calls)
-    print(f'int1e_stv_pbc: {len(calls)} calls, {npairs} image pairs, '
+    print(f'{name}: {len(calls)} calls, {npairs} image pairs, '
           f'max_abs_err {err:.3e} of {scale:.3e}')
     ops = sum(stv_ops(a[0], a[1], a[2:8], 0, kw.get('with_tv', True))
               for a, kw in calls)
     io = sum(nbytes(*a[2:8]) for a, _ in calls) + nbytes(*k_out)
     del p_out
-    record(report, 'int1e_stv_pbc', 'pyscf_tpu_torch/csrc/int1e_stv.cu',
-           'pyscf_tpu/ops/integrals/int1e.py:36', err,
+    record(report, name, 'pyscf_tpu_torch/csrc/int1e_stv.cu', replaces, err,
            lambda: run(kernels.int1e_stv), plain_s * 1e3, io, ops)
-    check(err <= 1e-12 * scale, f'int1e_stv_pbc vs plain: {err:.3e} > '
+    check(err <= 1e-12 * scale, f'{name} vs plain: {err:.3e} > '
           f'1e-12 x {scale:.3e}')
 
 
@@ -4104,6 +4131,196 @@ def pbc_paths(pt, kernels, report, launches):
     eval_ao_pbc_phase(kernels, cell64, report, 'eval_ao_pbc_d64')
 
 
+# ---- the k-point periodic SCF ----------------------------------------------
+# PySCF's golden of diamond KRKS-LDA on the shifted 2x2x2 mesh at [17]^3
+# (tests/test_pbc.py:109-118, after pbc/dft/test/test_krks.py:121)
+E_DIAMOND_KRKS_LDA_222 = -11.353643583707452
+# the primitive cell at double zeta with polarisation (nao 26, its default
+# mesh [25]^3)
+DIAMOND_DZVP = dict(DIAMOND, basis='gth-dzvp')
+KPTS_KERNELS = ('eval_ao_kpts', 'int1e_stv')
+TWINNED = ('eval_ao_kpts', 'int1e_stv', 'xc_rks', 'xc_uks')
+
+
+def kpts_scf(pt, kernels, name, cell_kw, make_mf, kmesh, gamma=True,
+             names=KPTS_KERNELS + ('xc_rks',)):
+    """pbc_scf of make_mf(cell, kpts) on the kmesh Monkhorst-Pack mesh
+    (Γ-centred, or shifted unless gamma), conv_tol 1e-10."""
+    return pbc_scf(pt, kernels, name, cell_kw, lambda c: make_mf(
+        c, c.make_kpts(kmesh, with_gamma_point=gamma)), names, 1e-10)
+
+
+def kpts_twins(pt, kernels, name, e, *args, **kw):
+    """The same k-point SCF with eval_ao_kpts, int1e_stv, xc_rks and
+    xc_uks replaced by their plain twins: none of them launched, the
+    energy within 1e-9 Ha of e."""
+    torch.cuda.empty_cache()
+    with plain_pbc(kernels):
+        _, e_p, l_p, _ = kpts_scf(pt, kernels, f'{name}, twins', *args,
+                                  names=(), **kw)
+    check(all(l_p[k] == 0 for k in TWINNED), f'{name} twins: a kernel '
+          f'launched: { {k: l_p[k] for k in TWINNED} }')
+    print(f'{name}: E(kernels) - E(twins) = {e - e_p:.3e}')
+    check(abs(e - e_p) < 1e-9, f'{name}: |E(kernels) - E(twins)| >= 1e-9')
+
+
+def kpts_golden_path(pt, kernels):
+    """Diamond KRKS-LDA on the shifted 2x2x2 mesh at [17]^3 against PySCF's
+    golden (2e-6); KRKS-PBE and KUKS-PBE on the same closed-shell cell
+    within 1e-9 Ha of each other."""
+    kw = dict(DIAMOND, mesh=[17] * 3)
+    _, e, _, _ = kpts_scf(
+        pt, kernels, 'diamond KRKS-LDA 2x2x2 [17]^3', kw,
+        lambda c, k: pt.pbc.dft.KRKS(c, kpts=k, xc='lda,vwn'), [2, 2, 2],
+        gamma=False)
+    print(f'KRKS-LDA 2x2x2: E - golden {e - E_DIAMOND_KRKS_LDA_222:.3e}')
+    check(abs(e - E_DIAMOND_KRKS_LDA_222) < 2e-6, 'KRKS-LDA 2x2x2 vs golden')
+    _, e_r, _, _ = kpts_scf(
+        pt, kernels, 'diamond KRKS-PBE 2x2x2 [17]^3', kw,
+        lambda c, k: pt.pbc.dft.KRKS(c, kpts=k, xc='pbe'), [2, 2, 2],
+        gamma=False)
+    _, e_u, _, _ = kpts_scf(
+        pt, kernels, 'diamond KUKS-PBE 2x2x2 [17]^3', kw,
+        lambda c, k: pt.pbc.dft.KUKS(c, kpts=k, xc='pbe'), [2, 2, 2],
+        gamma=False, names=KPTS_KERNELS + ('xc_uks',))
+    print(f'closed-shell KUKS - KRKS (PBE) = {e_u - e_r:.3e}')
+    check(abs(e_u - e_r) < 1e-9, 'closed-shell |KUKS - KRKS| >= 1e-9')
+
+
+def phase_ops(cell, tables, coords, Ls, nk, deriv):
+    """The complex multiply-adds of the Bloch sums: 4 FP64 operations per
+    k, component and cartesian of every (point, shell, image) in range of
+    the shell's most diffuse primitive (a_min r^2 <= lcut)."""
+    from pyscf_tpu_torch.pbc.df.fft import lattice_cut
+    lcut = lattice_cut(cell)
+    ops = 0
+    for l, e, c, r, off in tables:
+        amin = torch.where(c != 0, e, torch.full_like(e, 1e300)).min(1).values
+        nc = (l + 1) * (l + 2) // 2
+        for L in Ls:
+            d = coords[:, None, :] - r[None] - L
+            near = int((amin[None] * torch.sum(d * d, dim=-1) <= lcut).sum())
+            ops += 4 * nk * (4 if deriv else 1) * nc * near
+    return ops
+
+
+def eval_ao_kpts_phase(kernels, cell, kpts, report):
+    """eval_ao_kpts against its twin on the cell's grid for kpts, deriv 0
+    and 1 (<= 1e-12 x max), recorded at deriv 1 as eval_ao_kpts; its
+    operations bound eval_ao_pbc's in-range work plus the phase products
+    (phase_ops)."""
+    from pyscf_tpu_torch.ops import eval_gto
+    from pyscf_tpu_torch.pbc.df.fft import kpts_phases, lattice_cut
+    tables = eval_gto.ao_tables(cell)
+    coords = torch.as_tensor(cell.get_uniform_grids(), device='cuda')
+    Ls_np = cell.get_lattice_Ls()
+    Ls = torch.as_tensor(Ls_np, device='cuda')
+    ph = kpts_phases(kpts, Ls_np, 'cuda')
+    lcut = lattice_cut(cell)
+    args = (tables, coords, Ls, ph, cell.nao)
+    for deriv in (0, 1):
+        got = kernels.eval_ao_kpts(*args, deriv, lcut)
+        ref, plain_s = host_s(lambda: eval_gto.eval_ao_kpts_plain(
+            *args, deriv, lcut))
+        err, scale = max_abs([(got, ref)])
+        print(f'eval_ao_kpts deriv {deriv} ({len(kpts)} k): max_abs_err '
+              f'{err:.3e} of {scale:.3e} (twin {plain_s:.3f} s)')
+        check(err <= 1e-12 * scale, f'eval_ao_kpts deriv {deriv} vs plain: '
+              f'{err:.3e} > 1e-12 x {scale:.3e}')
+        del got, ref
+        torch.cuda.empty_cache()
+    io = nbytes(coords, Ls, torch.view_as_real(ph),
+                *[t for tab in tables for t in tab[1:]]) \
+        + len(kpts) * 4 * coords.shape[0] * cell.nao * 16
+    ops = eval_ao_pbc_ops(cell, tables, coords, Ls, 1) \
+        + phase_ops(cell, tables, coords, Ls, len(kpts), 1)
+    record(report, 'eval_ao_kpts', 'pyscf_tpu_torch/csrc/eval_ao_kpts.cu',
+           'pyscf_tpu/pbc/df/fft.py:332', err,
+           lambda: kernels.eval_ao_kpts(*args, 1, lcut), plain_s * 1e3, io,
+           ops)
+
+
+def kpts_64_path(pt, kernels, report):
+    """Diamond gth-dzvp PBE on the Γ-centred 4x4x4 mesh (64 k-points) at
+    its default mesh: converged; xc_rks at the stacked k-point rows of the
+    converged density (row xc_rks_k64), int1e_stv on every call of the
+    cell's phased S/T and projector overlaps (row int1e_stv_kpts) and
+    eval_ao_kpts (row eval_ao_kpts) against their twins; then the same SCF
+    on the twins, none launched, within 1e-9 Ha. Returns its launches."""
+    from pyscf_tpu_torch.pbc.dft.krks import stack_kpts
+    make = lambda c, k: pt.pbc.dft.KRKS(c, kpts=k, xc='pbe')  # noqa: E731
+    args = ('4x4x4 diamond gth-dzvp KRKS-PBE', DIAMOND_DZVP, make, [4, 4, 4])
+    mf, e, launches, wall = kpts_scf(pt, kernels, *args)
+    df = mf.with_df
+    cell, kpts = mf.cell, mf.kpts
+    check(mf.nkpts == 64 and cell.nao == 26 and df.ngrid == 25 ** 3,
+          '4x4x4: nk, nao or mesh')
+    aod = df._ao_on_grid_kpts(1)
+    w = torch.full((df.ngrid,), df.weight, dtype=torch.float64,
+                   device='cuda')
+    rows = stack_kpts(aod)
+    dmao = stack_kpts(aod[:, 0] @ (mf.make_rdm1() / mf.nkpts))
+    ms_j = cuda_ms(lambda: df.get_j_kpts(mf.make_rdm1()))
+    print(f'4x4x4: {mf.scf_cycles} cycles, wall {wall:.6f} s, FFT-J '
+          f'{ms_j:.3f} ms a call; with_df.timings {df.timings}')
+    xc_rks_phase(kernels, 'xc_rks_k64', 'pbe', rows, None, w, report,
+                 dmao=dmao, replaces='pyscf_tpu/pbc/dft/krks.py:18')
+    del aod, rows, dmao
+    cell._pbc_cache.clear()
+    torch.cuda.empty_cache()
+    pbc_stv_phase(kernels, cell, report, 'int1e_stv_kpts', kpts,
+                  'pyscf_tpu/pbc/df/fft.py:364')
+    eval_ao_kpts_phase(kernels, cell, kpts, report)
+    del mf, df
+    kpts_twins(pt, kernels, '4x4x4', e, *args[1:])
+    return launches
+
+
+def kpts_exchange_path(pt, kernels):
+    """KRHF and KRKS-PBE0 (FFT K over every k pair with the Ewald exxdiv)
+    on the gth-dzvp cell at 3x3x3, each held to the same run on the twins
+    (1e-9 Ha)."""
+    for name, make, xc_k in (
+            ('KRHF', lambda c, k: pt.pbc.scf.KRHF(c, kpts=k), ()),
+            ('KRKS-PBE0', lambda c, k: pt.pbc.dft.KRKS(c, kpts=k, xc='pbe0'),
+             ('xc_rks',))):
+        args = (DIAMOND_DZVP, make, [3, 3, 3])
+        name = f'3x3x3 diamond gth-dzvp {name}'
+        _, e, _, _ = kpts_scf(pt, kernels, name, *args,
+                              names=KPTS_KERNELS + xc_k)
+        kpts_twins(pt, kernels, name, e, *args)
+
+
+def kpts_open_shell_path(pt, kernels):
+    """KUKS-PBE of the spin-polarised primitive cell (spin 2) on the
+    shifted 2x1x1 mesh at [17]^3 (tests/test_torch_kpts.py's mesh; on the
+    Γ-centred one this cell's Aufbau oscillates and the SCF does not
+    converge in 100 cycles, in the port as on the CPU), held to the same
+    run on the twins (1e-9 Ha)."""
+    args = (dict(DIAMOND, mesh=[17] * 3, spin=2),
+            lambda c, k: pt.pbc.dft.KUKS(c, kpts=k, xc='pbe'), [2, 1, 1])
+    kw = dict(gamma=False)
+    name = 'diamond spin 2 KUKS-PBE shifted 2x1x1 [17]^3'
+    _, e, _, _ = kpts_scf(pt, kernels, name, *args,
+                          names=KPTS_KERNELS + ('xc_uks',), **kw)
+    kpts_twins(pt, kernels, name, e, *args, **kw)
+
+
+def kpts_paths(pt, kernels, report, launches):
+    """The golden, the 64-k-point cell with its three kernel rows, exchange
+    and the open shell."""
+    kpts_golden_path(pt, kernels)
+    torch.cuda.empty_cache()
+    k64 = kpts_64_path(pt, kernels, report)
+    launches['eval_ao_kpts'] = k64['eval_ao_kpts']
+    launches['int1e_stv_kpts'] = k64['int1e_stv']
+    launches['xc_rks_k64'] = k64['xc_rks']
+    torch.cuda.empty_cache()
+    kpts_exchange_path(pt, kernels)
+    torch.cuda.empty_cache()
+    kpts_open_shell_path(pt, kernels)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('CUDA is not available: chip_smoke.py runs only on '
@@ -4119,7 +4336,7 @@ def main():
     print('torch', torch.__version__, 'cuda', torch.version.cuda,
           'python', sys.version.split()[0])
     print(f'kernel build: {kernels.build():.1f} s', flush=True)
-    library_logs(kernels, ('eval_ao',) + XC_LIBRARIES)
+    library_logs(kernels, ('eval_ao', 'eval_ao_kpts') + XC_LIBRARIES)
 
     report = {}
     integral_phases(pt, refs, report)
@@ -4328,6 +4545,9 @@ def main():
     torch.cuda.empty_cache()
     # the Γ-point periodic SCF: BASELINE config 5 and the 64-atom cell
     pbc_paths(pt, kernels, report, launches)
+    torch.cuda.empty_cache()
+    # the k-point periodic SCF over FFTDF
+    kpts_paths(pt, kernels, report, launches)
     for name in report:
         check(launches[name] > 0, f'kernel {name} never launched on its path')
 

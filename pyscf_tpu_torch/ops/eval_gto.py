@@ -163,78 +163,141 @@ def eval_ao_plain(tables, coords, nao, deriv=0):
     return out if deriv else out[0]
 
 
+def _image_values(l, coords, e, c, centers, deriv, lcut):
+    """The real cartesian values (ncomp, P, n, ncart) of P (shell, image)
+    pairs, exponents and coefficients e, c (P, K) and centres (P, 3), on
+    coords (n, 3), with the eval_ao_pbc kernel's primitive cut: a primitive
+    whose exponent a makes a r^2 > lcut adds nothing (the argument of exp
+    is kept above -lcut, where the CPU's exp takes its fast path)."""
+    carts = cart_components(l)
+    xyz = [coords[None, :, q] - centers[:, q, None] for q in range(3)]
+    r2 = xyz[0] * xyz[0] + xyz[1] * xyz[1] + xyz[2] * xyz[2]   # (P, n)
+    rad = torch.zeros_like(r2)
+    drad = torch.zeros_like(r2) if deriv else None
+    for k in range(e.shape[1]):
+        ar2 = e[:, k, None] * r2
+        ex = torch.where(ar2 <= lcut, c[:, k, None] * torch.exp(
+            -torch.clamp(ar2, max=lcut)), 0.0)
+        rad += ex
+        if deriv:
+            drad += -2.0 * e[:, k, None] * ex
+    pw = [[None, q] + [None] * (l - 1) for q in xyz]
+    for q in range(3):
+        for k in range(2, l + 1):
+            pw[q][k] = _ipow(xyz[q], k)
+
+    def mono(powers):
+        m = None
+        for q, k in enumerate(powers):
+            if k:
+                m = pw[q][k] if m is None else m * pw[q][k]
+        return torch.ones_like(rad) if m is None else m
+
+    vals = coords.new_empty((NCOMP[deriv],) + rad.shape + (len(carts),))
+    for jc, cart in enumerate(carts):
+        m = mono(cart)
+        vals[0, ..., jc] = m * rad
+        for q in range(3 if deriv else 0):
+            v = m * xyz[q] * drad
+            if cart[q]:
+                low = list(cart)
+                low[q] -= 1
+                v = v + cart[q] * mono(low) * rad
+            vals[1 + q, ..., jc] = v
+    return vals
+
+
+def _pairs_in_range(e, c, r, Ls, coords, lcut):
+    """(shell, image) index pairs of one class whose most diffuse primitive
+    comes within range (a_min d^2 <= lcut) of the points' bounding
+    sphere, shell-major."""
+    mid = 0.5 * (coords.max(0).values + coords.min(0).values)
+    radius = torch.linalg.norm(coords - mid, dim=1).max()
+    amin = torch.where(c != 0, e, torch.full_like(e, float('inf'))).min(
+        1).values
+    gap = torch.clamp(torch.linalg.norm(
+        r[:, None, :] + Ls[None] - mid, dim=-1) - radius, min=0.0)
+    return torch.nonzero(amin[:, None] * gap * gap <= lcut, as_tuple=True)
+
+
+def _columns(l, off):
+    return (off[:, None].long()
+            + torch.arange(2 * l + 1, device=off.device)).reshape(-1)
+
+
 def eval_ao_pbc_plain(tables, coords, Ls, nao, deriv, lcut, chunk=1 << 21):
     """Plain PyTorch twin of the `eval_ao_pbc` kernel: the AO values of
     eval_ao_plain summed over the lattice translations Ls (nimg, 3),
     sum_L phi(r - L); (n, nao) for deriv 0, (4, n, nao) for deriv 1. As
     in the kernel, a primitive whose exponent a makes a r^2 > lcut adds
-    nothing (the argument of exp is kept above -lcut, where the CPU's exp
-    takes its fast path), and the cartesian
-    values are summed over the images before cart->sph. Only the (shell,
-    image) pairs that come within range of the points' bounding sphere
-    are evaluated, about `chunk` (pair, point) entries at a time."""
+    nothing, and the cartesian values are summed over the images before
+    cart->sph. Only the (shell, image) pairs that come within range of the
+    points' bounding sphere are evaluated, about `chunk` (pair, point)
+    entries at a time."""
     n = coords.shape[0]
     ncomp = NCOMP[deriv]
     out = coords.new_zeros((ncomp, n, nao))
     if n == 0:
         return out if deriv else out[0]
-    mid = 0.5 * (coords.max(0).values + coords.min(0).values)
-    radius = torch.linalg.norm(coords - mid, dim=1).max()
     for l, e, c, r, off in tables:
-        ns = e.shape[0]
-        carts = cart_components(l)
-        amin = torch.where(c != 0, e, torch.full_like(e, float('inf'))).min(
-            1).values
-        gap = torch.clamp(torch.linalg.norm(
-            r[:, None, :] + Ls[None] - mid, dim=-1) - radius, min=0.0)
-        s_idx, l_idx = torch.nonzero(amin[:, None] * gap * gap <= lcut,
-                                     as_tuple=True)
+        s_idx, l_idx = _pairs_in_range(e, c, r, Ls, coords, lcut)
         centers = r[s_idx] + Ls[l_idx]
-        acc = coords.new_zeros((ncomp, ns, n, len(carts)))
+        acc = coords.new_zeros((ncomp, e.shape[0], n, len(cart_components(l))))
         step = max(1, chunk // n)
         for i in range(0, s_idx.shape[0], step):
             si = s_idx[i:i + step]
-            xyz = [coords[None, :, q] - centers[i:i + step, q, None]
-                   for q in range(3)]                      # (p, n) each
-            r2 = xyz[0] * xyz[0] + xyz[1] * xyz[1] + xyz[2] * xyz[2]
-            rad = torch.zeros_like(r2)
-            drad = torch.zeros_like(r2) if deriv else None
-            for k in range(e.shape[1]):
-                ar2 = e[si, k, None] * r2
-                ex = torch.where(ar2 <= lcut, c[si, k, None] * torch.exp(
-                    -torch.clamp(ar2, max=lcut)), 0.0)
-                rad += ex
-                if deriv:
-                    drad += -2.0 * e[si, k, None] * ex
-            pw = [[None, q] + [None] * (l - 1) for q in xyz]
-            for q in range(3):
-                for k in range(2, l + 1):
-                    pw[q][k] = _ipow(xyz[q], k)
-
-            def mono(powers):
-                m = None
-                for q, k in enumerate(powers):
-                    if k:
-                        m = pw[q][k] if m is None else m * pw[q][k]
-                return torch.ones_like(rad) if m is None else m
-
-            vals = coords.new_empty((ncomp,) + rad.shape + (len(carts),))
-            for jc, cart in enumerate(carts):
-                m = mono(cart)
-                vals[0, ..., jc] = m * rad
-                for q in range(3 if deriv else 0):
-                    v = m * xyz[q] * drad
-                    if cart[q]:
-                        low = list(cart)
-                        low[q] -= 1
-                        v = v + cart[q] * mono(low) * rad
-                    vals[1 + q, ..., jc] = v
-            acc.index_add_(1, si, vals)
-        cols = (off[:, None].long()
-                + torch.arange(2 * l + 1, device=off.device)).reshape(-1)
-        out[..., cols] = torch.einsum('xsnp,mp->xnsm', acc, sph(
-            l, coords.device)).reshape(ncomp, n, -1)
+            acc.index_add_(1, si, _image_values(
+                l, coords, e[si], c[si], centers[i:i + step], deriv, lcut))
+        out[..., _columns(l, off)] = torch.einsum(
+            'xsnp,mp->xnsm', acc, sph(l, coords.device)).reshape(ncomp, n, -1)
     return out if deriv else out[0]
+
+
+def eval_ao_kpts_plain(tables, coords, Ls, phases, nao, deriv, lcut,
+                       chunk=1 << 22):
+    """Plain PyTorch twin of the `eval_ao_kpts` kernel: the Bloch sums
+    sum_L e^{ik.L} phi(r - L) over the lattice translations Ls (nimg, 3)
+    with phases (nk, nimg) complex128 e^{ik.L}; (nk, n, nao) for deriv 0,
+    (nk, 4, n, nao) for deriv 1, complex128. The per-image real cartesian
+    values of the (shell, image) pairs in range of a chunk of points
+    (eval_ao_pbc_plain's, with its primitive cut) are summed against the
+    phases by two real GEMMs per chunk, then cart->sph; about `chunk`
+    entries of values or sums at a time."""
+    n = coords.shape[0]
+    nk = phases.shape[0]
+    ncomp = NCOMP[deriv]
+    out = torch.zeros((nk, ncomp, n, nao), dtype=torch.complex128,
+                      device=coords.device)
+    for l, e, c, r, off in tables:
+        ns, nc = e.shape[0], len(cart_components(l))
+        cols = _columns(l, off)
+        S = sph(l, coords.device)
+        pstep = max(1, chunk // (nk * ncomp * ns * nc * 2))
+        for p0 in range(0, n, pstep):
+            pts = coords[p0:p0 + pstep]
+            m = pts.shape[0]
+            s_idx, l_idx = _pairs_in_range(e, c, r, Ls, pts, lcut)
+            centers = r[s_idx] + Ls[l_idx]
+            acc = coords.new_zeros((2, nk * ns, ncomp * m * nc))
+            step = max(1, chunk // (ncomp * m * nc))
+            for i in range(0, s_idx.shape[0], step):
+                si = s_idx[i:i + step]
+                vals = _image_values(l, pts, e[si], c[si],
+                                     centers[i:i + step], deriv, lcut)
+                # (nk, ns, pairs): each pair's phase in its shell's row
+                ph = phases[:, l_idx[i:i + step]]
+                sel = torch.zeros((nk, ns, si.shape[0]),
+                                  dtype=phases.dtype, device=pts.device)
+                sel[:, si, torch.arange(si.shape[0],
+                                        device=pts.device)] = ph
+                sel = sel.reshape(nk * ns, -1)
+                v = vals.transpose(0, 1).reshape(si.shape[0], -1)
+                acc[0] += sel.real @ v
+                acc[1] += sel.imag @ v
+            acc = torch.einsum('zksxnp,mp->zkxnsm', acc.reshape(
+                2, nk, ns, ncomp, m, nc), S).reshape(2, nk, ncomp, m, -1)
+            out[:, :, p0:p0 + m, cols] = torch.complex(acc[0], acc[1])
+    return out if deriv else out[:, 0]
 
 
 def eval_ao(mol, coords, deriv=0):

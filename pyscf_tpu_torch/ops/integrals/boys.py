@@ -22,11 +22,13 @@ def boys(mmax, t):
     tt = torch.clamp(t, min=1e-300)
     ts = torch.clamp(tt, max=_TCRIT)
     ets = torch.exp(-ts)
+    two_ts = 2.0 * ts
     term = torch.full_like(ts, 1.0 / (2.0 * mmax + 1.0))
-    acc = term
+    acc = term.clone()
+    # in place, term * (2 T) / (2m + 2k + 3): 2 T is exact, so each term
+    # rounds as the JAX package's term * 2 * T / (...)
     for k in range(_NTERMS):
-        term = term * 2.0 * ts / (2.0 * mmax + 2.0 * k + 3.0)
-        acc = acc + term
+        acc.add_(term.mul_(two_ts).div_(2.0 * mmax + 2.0 * k + 3.0))
     f = acc * ets
     fs_down = [f]
     for m in range(mmax, 0, -1):

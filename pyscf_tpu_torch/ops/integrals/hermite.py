@@ -59,30 +59,42 @@ def e1d_dense(la, lb, a, b, ab):
     zero = torch.zeros_like(p * ab)
     E = {(0, 0, 0): torch.exp(-mu * ab * ab) + zero}
 
-    def get(i, j, t):
-        if t < 0 or t > i + j or i < 0 or j < 0:
-            return zero
-        return E[(i, j, t)]
+    def step(fac, i, j, t):
+        """inv2p E[t-1] + fac E[t] + (t+1) E[t+1] of the entry (i, j), the
+        terms outside 0 <= t <= i + j (zero) left out: the same sums, in
+        the same order, as with them."""
+        out = None
+        for c, tt in ((inv2p, t - 1), (fac, t), (t + 1, t + 1)):
+            if 0 <= tt <= i + j:
+                term = c * E[(i, j, tt)]
+                out = term if out is None else out + term
+        return out
 
     for i in range(la + 1):
         for j in range(lb + 1):
             if i == 0 and j == 0:
                 continue
             for t in range(i + j + 1):
-                if j == 0:
-                    E[(i, j, t)] = (inv2p * get(i - 1, j, t - 1)
-                                    + qa * get(i - 1, j, t)
-                                    + (t + 1) * get(i - 1, j, t + 1))
-                else:
-                    E[(i, j, t)] = (inv2p * get(i, j - 1, t - 1)
-                                    + qb * get(i, j - 1, t)
-                                    + (t + 1) * get(i, j - 1, t + 1))
+                E[(i, j, t)] = (step(qa, i - 1, j, t) if j == 0
+                                else step(qb, i, j - 1, t))
     L = la + lb
     rows = [E[(i, j, t)] if t <= i + j else zero
             for i in range(la + 1) for j in range(lb + 1)
             for t in range(L + 1)]
     out = torch.stack(rows, dim=-1)
     return out.reshape(out.shape[:-1] + (la + 1, lb + 1, L + 1))
+
+
+_DEVICE_TABLES = {}
+
+
+def _on_device(table, key, device):
+    """The numpy arrays of table(*key) as tensors on device, made once."""
+    k = (table.__name__, key, str(device))
+    if k not in _DEVICE_TABLES:
+        _DEVICE_TABLES[k] = tuple(torch.as_tensor(x, device=device)
+                                  for x in table(*key))
+    return _DEVICE_TABLES[k]
 
 
 @lru_cache(maxsize=None)
@@ -107,8 +119,7 @@ def e3d(la, lb, exps_a, exps_b, ra, rb):
     """(..., ncart(la), ncart(lb), ntuv(la+lb)) Hermite expansion tensor."""
     Ed = [e1d_dense(la, lb, exps_a, exps_b, ra[..., d] - rb[..., d])
           for d in range(3)]
-    ia, jb, tt = (torch.as_tensor(x, device=exps_a.device)
-                  for x in _e3d_gather_indices(la, lb))
+    ia, jb, tt = _on_device(_e3d_gather_indices, (la, lb), exps_a.device)
     return (Ed[0][..., ia[..., 0], jb[..., 0], tt[..., 0]]
             * Ed[1][..., ia[..., 1], jb[..., 1], tt[..., 1]]
             * Ed[2][..., ia[..., 2], jb[..., 2], tt[..., 2]])
@@ -158,8 +169,8 @@ def hermite_R(L, p, rpq):
             pw = pw * m2p
     T = (pows[L] * F[L])[..., None]
     for n in range(L - 1, -1, -1):
-        idx2, coef, idx1, dsel = (torch.as_tensor(x, device=p.device)
-                                  for x in _r_step_tables(L, n))
+        idx2, coef, idx1, dsel = _on_device(_r_step_tables, (L, n),
+                                            p.device)
         Xd = rpq[..., dsel]
         Tn = coef * T[..., idx2] + Xd * T[..., idx1]
         Tn[..., 0] = pows[n] * F[n]

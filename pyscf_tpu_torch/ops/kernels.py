@@ -1,10 +1,10 @@
 """Wrappers of the hand-written CUDA kernels.
 
-Thirty-eight kernels carry the DF-RHF/RKS/UKS and in-core paths with the
+Thirty-nine kernels carry the DF-RHF/RKS/UKS and in-core paths with the
 range-separated and VV10 functionals, the conventional RHF gradient, the
 DF-RHF/RKS/UHF/UKS gradients, the dipole of the SCF analysis, MP2, UMP2,
 CCSD and CCSD(T), TDA/TDHF/TDDFT and the DF-RHF, DF-RKS, DF-UHF and
-DF-UKS nuclear Hessians, and the Γ-point periodic SCF (sources in
+DF-UKS nuclear Hessians, and the Γ-point and k-point periodic SCF (sources in
 pyscf_tpu_torch/csrc/):
 
   int1e_stv  S/T/V rows per screened shell pair   (csrc/int1e_stv.cu)
@@ -29,6 +29,9 @@ pyscf_tpu_torch/csrc/):
   eval_ao_deriv3  its deriv 3: with the third derivatives, counted apart
   eval_ao_pbc  AO values and gradients summed    (csrc/eval_ao_pbc.cu)
              over the lattice images
+  eval_ao_kpts  Bloch sums of the AO values and   (csrc/eval_ao_kpts.cu)
+             gradients, sum_L e^{ik.L} phi(r - L),
+             for every k-point at once
   becke      Becke partition weights of the grid  (csrc/becke.cu)
   xc_rks     density, functional (B3LYP and PBE   (csrc/xc_rks.cu,
              families, CAM-B88, the B97 series)     csrc/xc_funcs.cuh)
@@ -91,7 +94,7 @@ library per source (five each for int3c2e.cu, int3c2e_ip.cu,
 int3c2e_ip1.cu and int3c2e_ipip.cu, one per bra momentum; fifteen for
 int2e.cu, one per bra class la <= lb; nine for int2e_ip1.cu, one per
 ordered bra class; two each for xc_fxc.cu, int2c2e_ipip.cu, xc_rks_hess.cu
-and xc_uks_hess.cu, one per kernel: seventy-one libraries) with a plain C
+and xc_uks_hess.cu, one per kernel: seventy-two libraries) with a plain C
 interface loaded by ctypes, into
 pyscf_tpu_torch/_build/<hash of the sources and flags>/, so a fresh
 checkout builds them once and an edit to a source rebuilds them; nvcc's
@@ -145,6 +148,8 @@ _LIBRARIES = {
     'becke': ('becke.cu', 'pt_becke', [_I, _I] + [_P] * 8, ()),
     'eval_ao_pbc': ('eval_ao_pbc.cu', 'pt_eval_ao_pbc', [_I] * 6 + [_P] * 6
                     + [_D, _P, _P, _I, _P], ()),
+    'eval_ao_kpts': ('eval_ao_kpts.cu', 'pt_eval_ao_kpts', [_I] * 7
+                     + [_P] * 7 + [_D, _P, _P, _I, _P], ()),
     # no FMA contraction: the range-separated attenuation cancels to ~1e-5
     # of its terms, and the plain twin's rounding is kept
     'xc_rks': ('xc_rks.cu', 'pt_xc_rks', [_I] * 3 + [_P] * 3 + [_I]
@@ -932,6 +937,43 @@ def eval_ao_pbc(tables, coords, Ls, nao, deriv, lcut):
     return out
 
 
+def eval_ao_kpts(tables, coords, Ls, phases, nao, deriv, lcut):
+    """Bloch sums of the AO values on coords (n, 3) for nk k-points,
+    sum_L e^{ik.L} phi(r - L) over the translations Ls (nimg, 3) with
+    phases (nk, nimg) complex128 e^{ik.L}: (nk, n, nao) for deriv 0, (nk,
+    4, n, nao) [value, d/dx, d/dy, d/dz] for deriv 1, complex128. One launch
+    per l-class; the kernel skips an image, or a primitive, whose exponent
+    a makes a r^2 > lcut, as its twin does. tables as eval_ao's."""
+    dev = _device_of(coords)
+    n = _check_tables(dev, tables, coords)
+    nimg = Ls.shape[0]
+    _check(dev, ('Ls', Ls, (nimg, 3)))
+    nk = phases.shape[0]
+    if (phases.dtype != torch.complex128 or phases.device != dev
+            or tuple(phases.shape) != (nk, nimg)):
+        raise ValueError(f'phases must be complex128 ({nk}, {nimg}) on {dev}')
+    if deriv not in (0, 1):
+        raise NotImplementedError(f'eval_ao_kpts deriv={deriv}: only 0 and 1')
+    if dev.type == 'cpu':
+        return eval_gto.eval_ao_kpts_plain(tables, coords, Ls, phases, nao,
+                                           deriv, lcut)
+    out = torch.empty((nk, 4, n, nao) if deriv else (nk, n, nao),
+                      dtype=torch.complex128, device=dev)
+    ph = phases.T.contiguous()          # (nimg, nk): a k tile's phases
+    for l, e, c, r, off in tables:
+        ns, K = e.shape
+        if n == 0 or ns == 0 or nk == 0:
+            continue
+        rc = _fn('eval_ao_kpts')(
+            l, deriv, n, ns, K, nimg, nk, coords.data_ptr(), e.data_ptr(),
+            c.data_ptr(), r.data_ptr(), off.data_ptr(), Ls.data_ptr(),
+            ph.data_ptr(), float(lcut), sph(l, dev).data_ptr(),
+            out.data_ptr(), nao, _stream())
+        _raise_on(rc, f'eval_ao_kpts(l={l}, deriv={deriv})')
+        eval_ao_kpts.launches += 1
+    return out
+
+
 def eval_ao_deriv2(tables, coords, nao):
     """AO values with their first and second derivatives on coords (n, 3):
     (10, n, nao) [value, x, y, z, xx, xy, xz, yy, yz, zz], the `eval_ao`
@@ -1576,7 +1618,7 @@ KERNELS = (int1e_stv, int3c2e, int2c2e, int2e, eval_ao, becke, xc_rks,
            xc_fxc_pairs, xc_rks_fxc, xc_uks_fxc, int1e_ipip, int3c2e_ip1,
            int2c2e_ip1_full, int3c2e_ipip, int2c2e_ipip, eval_ao_deriv3,
            xc_rks_hess, xc_rks_deriv1, xc_uks_hess, xc_uks_deriv1,
-           eval_ao_pbc)
+           eval_ao_pbc, eval_ao_kpts)
 
 
 def reset_launches():

@@ -1,4 +1,5 @@
-"""Γ-point periodic systems (counterpart of pyscf_tpu/pbc, its Γ half).
+"""Periodic systems at the Γ point and over k-point meshes (counterpart
+of pyscf_tpu/pbc: its Γ half and its k-point FFTDF SCF).
 
     from pyscf_tpu_torch.pbc import gto, dft, scf
     cell = gto.M(atom='C 0 0 0; C 0.8917 0.8917 0.8917',
@@ -8,9 +9,12 @@
     e = dft.RKS(cell, xc='pbe').kernel()                  # FFTDF
     e = dft.RKS(cell, xc='pbe').density_fit().kernel()    # GDF
     e = scf.RHF(cell).kernel()                            # exxdiv 'ewald'
+    kpts = cell.make_kpts([2, 2, 2])
+    e = dft.KRKS(cell, kpts=kpts, xc='pbe').kernel()      # KFFTDF
+    e = scf.KRHF(cell, kpts=kpts).kernel()                # also KUHF, KUKS
 
-k-points, the multigrid and the analytic Fourier transforms are not
-ported yet.
+k-point Gaussian density fitting (KGDF), the analytic Fourier transforms
+(AFTDF), the multigrid and k-point post-HF are not ported yet.
 """
-from . import df, dft, gto, scf  # noqa: F401
+from . import df, dft, gto, scf, tools  # noqa: F401
 from .gto import Cell, M  # noqa: F401

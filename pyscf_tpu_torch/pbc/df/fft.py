@@ -1,18 +1,26 @@
-"""Plane-wave density fitting at the Γ point on the cell's FFT mesh.
+"""Plane-wave density fitting on the cell's FFT mesh, at the Γ point and
+over a k-point mesh.
 
-Counterpart of the Γ half of pyscf_tpu/pbc/df/fft.py: eval_ao_periodic,
+Counterpart of pyscf_tpu/pbc/df/fft.py: eval_ao_periodic, eval_ao_kpts,
 _gth_vlocG, _gth_proj_combination, the projector overlaps of
-_proj_ovlp_images, and FFTDF with _ao_on_grid, weight, get_ovlp, get_kin,
-get_pp, get_pp_nl, get_hcore and get_jk. Where the JAX package loops over
-the lattice images on the host (eval_ao per image, one cross-integral
-call per image), the port puts every image into one launch:
+_proj_ovlp_images, FFTDF with _ao_on_grid, weight, get_ovlp, get_kin,
+get_pp, get_pp_nl, get_hcore and get_jk, and KFFTDF with
+_ao_on_grid_kpts, get_ovlp_kpts, get_kin_kpts, get_pp_kpts,
+get_pp_nl_kpts, get_hcore_kpts, get_jk_kpts and get_jk_bands. Where the
+JAX package loops over the lattice images on the host (eval_ao per image,
+one cross-integral call per image), the port puts every image into one
+launch:
 
     AO values summed over the images       CUDA kernel `eval_ao_pbc`
                                             (csrc/eval_ao_pbc.cu), the
                                             image loop inside the kernel
+    Bloch sums sum_L e^{ik.L} phi(r - L)   CUDA kernel `eval_ao_kpts`
+    for every k at once                     (csrc/eval_ao_kpts.cu)
     S and T summed over the images         CUDA kernel `int1e_stv`, one
                                             launch per class pair over
-                                            every (shell, shell + L) pair
+                                            every (shell, shell + L) pair;
+                                            at k-points the image axis is
+                                            phased by a GEMM with e^{ik.L}
     <AO | GTH projector at R + L>          `int1e_stv` in S-only mode, the
                                             projector's monomial
                                             combination as the ket's
@@ -20,8 +28,9 @@ call per image), the port puts every image into one launch:
     V_loc(r), J, K on the mesh             torch.fft, GEMMs (cuBLAS)
 
 K batches the occupied orbitals' pair densities through one FFT per batch
-in place of the JAX package's loop over orbitals. Everything runs on
-cell.device.
+in place of the JAX package's loop over orbitals; at k-points it batches
+the (k, orbital) pairs of each k2 the same way, where the JAX package
+loops over k2, k and the orbitals. Everything runs on cell.device.
 """
 import math
 import time
@@ -57,12 +66,53 @@ def eval_ao_periodic(cell, coords, deriv=0, rcut=None):
                                cell.nao, deriv, lattice_cut(cell))
 
 
-def coulG(cell, mesh):
-    """4 pi / G^2 on the mesh's G vectors, 0 at G = 0 (ngrid,)."""
-    Gv = _f64(cell.get_Gv(mesh), cell.device)
-    G2 = torch.einsum('ix,ix->i', Gv, Gv)
+def kpts_phases(kpts, Ls, dev):
+    """e^{ik.L} (nk, nimg) complex128 on dev."""
+    kpts = np.asarray(kpts, dtype=np.float64).reshape(-1, 3)
+    return torch.as_tensor(np.exp(1j * (kpts @ np.asarray(Ls).T)),
+                           dtype=torch.complex128, device=dev)
+
+
+def eval_ao_kpts(cell, coords, kpts, deriv=0, rcut=None):
+    """Bloch AO values sum_L e^{ik.L} phi(r - L) over the lattice images
+    within rcut (default the cell's) on coords (n, 3) for kpts (nk, 3):
+    (nk, n, nao), or (nk, 4, n, nao) for deriv 1, complex128; kernel
+    `eval_ao_kpts`, one launch per l-class for every k."""
+    from ...ops import kernels
+    dev = cell.device
+    Ls = cell.get_lattice_Ls(rcut)
+    return kernels.eval_ao_kpts(ao_tables(cell), _f64(coords, dev),
+                                _f64(Ls, dev), kpts_phases(kpts, Ls, dev),
+                                cell.nao, deriv, lattice_cut(cell))
+
+
+def _image_sum(blk, phases, axis):
+    """blk summed over its image axis, or phased into a leading k axis:
+    sum_L e^{ik.L} blk[..., L, ...] (complex128) for phases (nk, nL)."""
+    if phases is None:
+        return blk.sum(axis)
+    blk = blk.movedim(axis, 0)
+    shape = blk.shape[1:]
+    flat = blk.reshape(blk.shape[0], -1)
+    return torch.complex(phases.real @ flat, phases.imag @ flat).reshape(
+        phases.shape[0], *shape)
+
+
+def coul_q(Gv, q):
+    """4 pi / |G + q|^2 (nq, ngrid) on the G vectors Gv (ngrid, 3) for each
+    q (nq, 3), 0 where G + q = 0."""
+    Gq = Gv[None] + q[:, None]
+    G2 = torch.einsum('qix,qix->qi', Gq, Gq)
     return torch.where(G2 > 1e-12, 4.0 * math.pi / torch.where(
         G2 > 1e-12, G2, torch.ones_like(G2)), torch.zeros_like(G2))
+
+
+def coulG(cell, mesh, k=None):
+    """4 pi / |G + k|^2 on the mesh's G vectors (ngrid,), 0 where G + k =
+    0 (k = 0 unless given)."""
+    dev = cell.device
+    return coul_q(_f64(cell.get_Gv(mesh), dev),
+                  _f64(np.zeros(3) if k is None else k, dev)[None])[0]
 
 
 def _gth_vlocG(cell, G2):
@@ -190,17 +240,23 @@ class FFTDF:
     def _lattice_st(self):
         return self._cached(('st',), self._build_st, 'st')
 
-    def _build_st(self):
+    def _build_st(self, kpts=None):
         """(S, T) summed over the lattice images: one `int1e_stv` launch per
         class pair la <= lb over every (shell, shell + L) pair; the la > lb
-        blocks are the transposes (each sum is symmetric)."""
+        blocks are the transposes (each sum is symmetric). With kpts (nk,
+        3) the image axis is phased, M_k = sum_L e^{ik.L} <a | b + L>
+        (nk, nao, nao) complex, and the la > lb blocks are the conjugate
+        transposes."""
         from ...ops import kernels
         cell = self.cell
         dev = cell.device
         Ls = cell.get_lattice_Ls()
         nL = len(Ls)
-        out = torch.zeros((2, cell.nao, cell.nao), dtype=torch.float64,
-                          device=dev)
+        ph = None if kpts is None else kpts_phases(kpts, Ls, dev)
+        lead = (2,) if ph is None else (2, ph.shape[0])
+        out = torch.zeros(lead + (cell.nao, cell.nao), device=dev,
+                          dtype=torch.float64 if ph is None
+                          else torch.complex128)
         no_atoms = (torch.zeros((0, 3), dtype=torch.float64, device=dev),
                     torch.zeros(0, dtype=torch.float64, device=dev))
         for la, ga in cell.shell_groups.items():
@@ -211,16 +267,18 @@ class FFTDF:
                 pairs = _image_pairs(ga, (gb.exps, gb.coeffs), kets, dev)
                 da, db = 2 * la + 1, 2 * lb + 1
                 rows = kernels.int1e_stv(la, lb, *pairs, *no_atoms)
-                blk = rows.reshape(ga.nshl, gb.nshl, nL, da, db, 3)
-                blk = blk.sum(2)[..., :2].permute(4, 0, 2, 1, 3).reshape(
-                    2, ga.nshl * da, gb.nshl * db)
+                blk = rows.reshape(ga.nshl, gb.nshl, nL, da, db, 3)[..., :2]
+                blk = _image_sum(blk, ph, 2).movedim(-1, 0)
+                blk = blk.transpose(-3, -2).reshape(
+                    lead + (ga.nshl * da, gb.nshl * db))
                 ia = torch.as_tensor((ga.ao_off[:, None]
                                       + np.arange(da)).ravel(), device=dev)
                 jb = torch.as_tensor((gb.ao_off[:, None]
                                       + np.arange(db)).ravel(), device=dev)
-                out[:, ia[:, None], jb[None, :]] = blk
+                out[..., ia[:, None], jb[None, :]] = blk
                 if la != lb:
-                    out[:, jb[:, None], ia[None, :]] = blk.transpose(1, 2)
+                    out[..., jb[:, None], ia[None, :]] = \
+                        blk.transpose(-1, -2).conj()
         return out[0], out[1]
 
     def get_ovlp(self):
@@ -236,9 +294,9 @@ class FFTDF:
         return self._cached(('pp',), lambda: self.get_pp_loc()
                             + self.get_pp_nl(), 'pp')
 
-    def get_pp_loc(self):
-        """Local part: V_loc(r) = (N / vol) IFFT[sum_A e^{-iG.R_A} V_A(G)]
-        on the mesh, then w ao^T V_loc ao."""
+    def _vloc(self):
+        """V_loc(r) = (N / vol) IFFT[sum_A e^{-iG.R_A} V_A(G)] on the mesh
+        (ngrid,)."""
         cell = self.cell
         dev = cell.device
         mesh = self.mesh
@@ -248,22 +306,28 @@ class FFTDF:
         for ia, symb in enumerate(cell.elements_):
             SIv += torch.exp(-1j * (Gv @ _f64(cell.coords[ia], dev))) \
                 * vlocG[symb]
-        vloc = torch.fft.ifftn(SIv.reshape(mesh)).real.reshape(-1) \
+        return torch.fft.ifftn(SIv.reshape(mesh)).real.reshape(-1) \
             * (self.ngrid / cell.vol)
-        ao = self._ao_on_grid(0)
-        return self.weight * (ao.T @ (vloc[:, None] * ao))
 
-    def _projector_overlaps(self):
+    def get_pp_loc(self):
+        """Local part: w ao^T V_loc ao."""
+        ao = self._ao_on_grid(0)
+        return self.weight * (ao.T @ (self._vloc()[:, None] * ao))
+
+    def _projector_overlaps(self, kpts=None):
         """{(atom, l, i): P (nao, 2l+1)}, P = sum_L <AO | p_i^l at R_A + L>,
         the GTH projector r^(2(i-1)) Y_lm e^(-r^2 / 2 rl^2) with its norm:
         one S-only `int1e_stv` launch per (AO class, l, i) over every
         (shell, atom, image) triple, the projector's monomial combination W
-        as the ket's transform."""
+        as the ket's transform. With kpts (nk, 3): P_k = sum_L e^{ik.L}
+        <AO | p_i^l at R_A + L> (nk, nao, 2l+1) complex."""
         from ...ops import kernels
         cell = self.cell
         dev = cell.device
         Ls = cell.get_lattice_Ls()
         nL = len(Ls)
+        ph = None if kpts is None else kpts_phases(kpts, Ls, dev)
+        lead = () if ph is None else (ph.shape[0],)
         chans = {}              # (l, i) -> [(atom, rl)]
         for ia, symb in enumerate(cell.elements_):
             pp = cell._pseudo.get(symb)
@@ -281,8 +345,9 @@ class FFTDF:
             alpha = np.array([[0.5 / rl ** 2] for _, rl in atoms])
             norm = _f64([_gth_norm(l, i, rl) for _, rl in atoms], dev)
             kets = cell.coords[ids][:, None, :] + Ls[None, :, :]
-            P = torch.zeros((len(ids), cell.nao, 2 * l + 1),
-                            dtype=torch.float64, device=dev)
+            P = torch.zeros(lead + (len(ids), cell.nao, 2 * l + 1),
+                            device=dev, dtype=torch.float64 if ph is None
+                            else torch.complex128)
             for la, ga in cell.shell_groups.items():
                 pairs = _image_pairs(ga, (alpha, np.ones_like(alpha)), kets,
                                      dev)
@@ -290,22 +355,23 @@ class FFTDF:
                 rows = kernels.int1e_stv(la, ldeg, *pairs, with_tv=False,
                                          sb=sb)
                 blk = rows.reshape(ga.nshl, len(ids), nL, da, 2 * ldeg + 1)
-                blk = blk[..., :2 * l + 1].sum(2).permute(1, 0, 2, 3)
+                blk = _image_sum(blk[..., :2 * l + 1], ph, 2)
                 ia = torch.as_tensor((ga.ao_off[:, None]
                                       + np.arange(da)).ravel(), device=dev)
-                P[:, ia] = blk.reshape(len(ids), ga.nshl * da, 2 * l + 1)
+                P[..., ia, :] = blk.transpose(-4, -3).reshape(
+                    lead + (len(ids), ga.nshl * da, 2 * l + 1))
             P = P * norm[:, None, None]
             for k, ia in enumerate(ids):
-                out[(ia, l, i)] = P[k]
+                out[(ia, l, i)] = P[..., k, :, :]
         return out
 
-    def get_pp_nl(self):
-        """Non-local part: sum over atoms and channels of
-        h_ij P_i P_j^T with the lattice-summed projector overlaps."""
+    def get_pp_nl(self, kpts=None):
+        """Non-local part: sum over atoms and channels of h_ij P_i P_j^H
+        with the lattice-summed projector overlaps; with kpts, the phased
+        ones (nk, nao, nao) complex."""
         cell = self.cell
-        vnl = torch.zeros((cell.nao, cell.nao), dtype=torch.float64,
-                          device=cell.device)
-        P = self._projector_overlaps()
+        vnl = 0.0
+        P = self._projector_overlaps(kpts)
         for ia, symb in enumerate(cell.elements_):
             pp = cell._pseudo.get(symb)
             for l, ch in enumerate(pp['nl'] if pp else []):
@@ -313,8 +379,15 @@ class FFTDF:
                 for i in range(h.shape[0]):
                     for j in range(h.shape[0]):
                         if abs(h[i, j]) > 0:
-                            vnl += float(h[i, j]) * (P[(ia, l, i + 1)]
-                                                     @ P[(ia, l, j + 1)].T)
+                            vnl = vnl + float(h[i, j]) * (
+                                P[(ia, l, i + 1)]
+                                @ P[(ia, l, j + 1)].conj().transpose(-1, -2))
+        if isinstance(vnl, float):          # no projector in the cell
+            shape = (cell.nao,) * 2 if kpts is None else (len(kpts),) \
+                + (cell.nao,) * 2
+            return torch.zeros(shape, device=cell.device,
+                               dtype=torch.float64 if kpts is None
+                               else torch.complex128)
         return vnl
 
     def get_hcore(self):
@@ -336,9 +409,7 @@ class FFTDF:
         through one FFT, K_ij = w sum_o <ao_i psi_o | v[ao_j psi_o]>."""
         from ...dft.numint import _budget
         if co is None:
-            w, v = torch.linalg.eigh(dm)
-            keep = w > 1e-10
-            co = v[:, keep] * torch.sqrt(w[keep])
+            co = occupied_orbitals(dm)
         ao = self._ao_on_grid(0)
         ng, nao = ao.shape
         aoc = ao @ co
@@ -361,3 +432,146 @@ class FFTDF:
         """(vj, vk) of one density, None for a term not asked for."""
         return (self.get_j(dm) if with_j else None,
                 self.get_k(dm) if with_k else None)
+
+
+def occupied_orbitals(dm, thresh=1e-10):
+    """Columns c with dm = c c^H from the eigenvalues of each (Hermitian)
+    dm (..., nao, nao) above thresh, scaled by their square roots: (...,
+    nao, m), m the largest count kept, the others zero."""
+    w, v = torch.linalg.eigh(dm)
+    keep = w > thresh
+    m = max(int(keep.sum(-1).max()), 1)
+    w, v, keep = w[..., -m:], v[..., -m:], keep[..., -m:]
+    return v * torch.where(keep, torch.sqrt(torch.clamp(w, min=0.0)),
+                           0.0)[..., None, :].to(v.dtype)
+
+
+class KFFTDF(FFTDF):
+    """J, K, hcore and Bloch AO values of a cell on its FFT mesh over the
+    k-points kpts (nk, 3). The Bloch AO values (kernel `eval_ao_kpts`), S_k,
+    T_k and the pseudopotential are kept in the cell's `_pbc_cache` per
+    k-point set and mesh, as FFTDF keeps the Γ ones."""
+
+    def __init__(self, cell, kpts):
+        super().__init__(cell)
+        self.kpts = np.asarray(kpts, dtype=np.float64).reshape(-1, 3)
+
+    @property
+    def nkpts(self):
+        return len(self.kpts)
+
+    def _kcached(self, key, build, timing=None):
+        return self._cached(key + (self.kpts.tobytes(),), build, timing)
+
+    def _ao_on_grid_kpts(self, deriv=0):
+        """Bloch AO values (nk, ngrid, nao), or with gradients (nk, 4,
+        ngrid, nao), complex128, on the uniform grid (kernel
+        `eval_ao_kpts`); deriv 0 is the first component of deriv 1's
+        where those exist."""
+        aod = self.cell._pbc_cache.get(('ao_k', 1, self.kpts.tobytes(),
+                                        tuple(self.mesh)))
+        if deriv == 0 and aod is not None:
+            return aod[:, 0]
+        return self._kcached(('ao_k', deriv), lambda: eval_ao_kpts(
+            self.cell, self.grids_coords, self.kpts, deriv), 'ao')
+
+    def _lattice_st_kpts(self):
+        return self._kcached(('st_k',), lambda: self._build_st(self.kpts),
+                             'st')
+
+    def get_ovlp_kpts(self):
+        """S_k = sum_L e^{ik.L} <a | b + L> (nk, nao, nao)."""
+        return self._lattice_st_kpts()[0]
+
+    def get_kin_kpts(self):
+        """T_k (nk, nao, nao)."""
+        return self._lattice_st_kpts()[1]
+
+    def get_pp_kpts(self):
+        """GTH pseudopotential per k, local + non-local (nk, nao, nao)."""
+        return self._kcached(('pp_k',), lambda: self.get_pp_loc_kpts()
+                             + self.get_pp_nl(self.kpts), 'pp')
+
+    def get_pp_loc_kpts(self):
+        """Local part per k: w phi_k^H V_loc phi_k."""
+        ao = self._ao_on_grid_kpts(0)
+        vloc = self._vloc().to(torch.complex128)
+        return self.weight * (ao.conj().transpose(1, 2)
+                              @ (vloc[:, None] * ao))
+
+    def get_pp_nl_kpts(self):
+        return self.get_pp_nl(self.kpts)
+
+    def get_hcore_kpts(self):
+        return self.get_kin_kpts() + self.get_pp_kpts()
+
+    def get_rho(self, dm):
+        """The k-averaged density (ngrid,) of dm (nk, nao, nao):
+        (1/nk) sum_k Re sum_ij phi_k,i D_k,ij conj(phi_k,j)."""
+        ao = self._ao_on_grid_kpts(0)
+        return torch.sum((ao @ dm) * ao.conj(), dim=(0, 2)).real \
+            / self.nkpts
+
+    def get_j_kpts(self, dm, band=None):
+        """J per k of dm (nk, nao, nao): V(r) = IFFT[coulG FFT[rho]] of
+        the k-averaged density, J_k = w phi_k^H V phi_k, at this object's
+        k-points or at those of the KFFTDF `band`."""
+        ao = (band or self)._ao_on_grid_kpts(0)
+        vr = torch.fft.ifftn(self._coul().reshape(self.mesh) * torch.fft.fftn(
+            self.get_rho(dm).reshape(self.mesh))).real.reshape(-1, 1)
+        return self.weight * (ao.conj().transpose(1, 2) @ (vr * ao))
+
+    def get_k_kpts(self, dm, band=None):
+        """K per k of dm (nk, nao, nao), without the G + q = 0 term: with
+        the occupied orbitals psi_k2,o of each dm_k2 (eigenvalues above
+        1e-10, scaled by their square roots) and q = k2 - k, the pair
+        functions u = conj(phi_k) psi_k2,o e^{-iq.r} of a batch of
+        (k, orbital) pairs go through one FFT, v[u] = IFFT[4 pi / |G +
+        q|^2 FFT[u]], and K_k = (w / nk) sum_k2,o u^T conj(v[u]); at this
+        object's k-points or at those of the KFFTDF `band`."""
+        from ...dft.numint import _budget
+        band = band or self
+        cell = self.cell
+        dev = cell.device
+        ao = self._ao_on_grid_kpts(0)
+        ao_b = band._ao_on_grid_kpts(0).conj()
+        nb, ng, nao = ao_b.shape
+        psi = ao @ occupied_orbitals(dm)             # (nk, ng, nocc)
+        nocc = psi.shape[2]
+        Gv = _f64(cell.get_Gv(self.mesh), dev)
+        coords = _f64(self.grids_coords, dev)
+        kb = _f64(band.kpts, dev)
+        vk = torch.zeros((nb, nao, nao), dtype=torch.complex128, device=dev)
+        # (k, orbital) pairs a batch: its pair functions, their FFT and
+        # potential in complex128
+        cap = max(1, _budget(dev, 4) // (ng * nao * 16 * 3))
+        ostep = min(nocc, cap)
+        bstep = max(1, cap // ostep)
+        for k2 in range(self.nkpts):
+            for b0 in range(0, nb, bstep):
+                q = _f64(self.kpts[k2], dev) - kb[b0:b0 + bstep]  # (nbc, 3)
+                coul = coul_q(Gv, q).reshape(-1, *self.mesh, 1)
+                phase = torch.exp(-1j * (q @ coords.T))       # (nbc, ng)
+                for o0 in range(0, nocc, ostep):
+                    po = psi[k2, None, :, o0:o0 + ostep] * phase[..., None]
+                    u = ao_b[b0:b0 + bstep, :, None, :] * po[..., None]
+                    nbc, _, no, _ = u.shape
+                    vu = torch.fft.ifftn(torch.fft.fftn(u.reshape(
+                        nbc, *self.mesh, no * nao), dim=(1, 2, 3)) * coul,
+                        dim=(1, 2, 3)).reshape(nbc, ng * no, nao)
+                    vk[b0:b0 + bstep] += u.reshape(nbc, ng * no, nao
+                                                   ).transpose(1, 2) \
+                        @ vu.conj()
+        return vk * (self.weight / self.nkpts)
+
+    def get_jk_kpts(self, dm, with_j=True, with_k=True):
+        """(vj, vk) per k of dm (nk, nao, nao), None for a term not asked
+        for; K without the exxdiv term."""
+        return (self.get_j_kpts(dm) if with_j else None,
+                self.get_k_kpts(dm) if with_k else None)
+
+    def get_jk_bands(self, dm, band):
+        """(vj, vk) at the k-points of the KFFTDF `band` from the density dm
+        (nk, nao, nao) of this object's k-points; K without the exxdiv
+        term (the caller adds it where a band point is an SCF point)."""
+        return self.get_j_kpts(dm, band), self.get_k_kpts(dm, band)

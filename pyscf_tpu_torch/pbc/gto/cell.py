@@ -3,9 +3,9 @@
 Counterpart of pyscf_tpu/pbc/gto/cell.py: load_pseudo, Cell (a Mole with
 lattice vectors, reciprocal vectors, volume, GTH tables, effective
 charges, the real-space cutoff rcut and the default FFT mesh),
-get_lattice_Ls, get_Gv, get_uniform_grids, ewald and M. The geometry stays
-numpy on the host, as the Mole's shell tables do; the FFTDF moves what it
-needs to `Cell.device`. The GTH tables are read by path from
+get_lattice_Ls, get_Gv, get_uniform_grids, make_kpts, ewald and M. The
+geometry stays numpy on the host, as the Mole's shell tables do; the FFTDF
+moves what it needs to `Cell.device`. The GTH tables are read by path from
 pyscf_tpu/pbc/gto/pseudo_data/, as gto/basis.py reads the basis sets.
 """
 import gzip
@@ -130,6 +130,18 @@ class Cell(Mole):
         f = np.stack([m.ravel() for m in mg], axis=1)
         return f @ self.lattice_vectors_
 
+    def make_kpts(self, nks, with_gamma_point=True):
+        """Monkhorst-Pack k-points (prod(nks), 3) in Cartesian units (1 /
+        Bohr): fractions m / n along each reciprocal vector, Γ-centred, or
+        shifted by half a step ((m + 1/2) / n - 1/2) without the Γ point;
+        fractions above 1/2 folded by -1, C order over the axes."""
+        ks = [np.arange(n) / n if with_gamma_point
+              else (np.arange(n) + 0.5) / n - 0.5 for n in nks]
+        mg = np.meshgrid(*ks, indexing='ij')
+        scaled = np.stack([m.ravel() for m in mg], axis=1)
+        scaled = np.where(scaled > 0.5 - 1e-9, scaled - 1.0, scaled)
+        return scaled @ self.reciprocal_vectors_
+
     def energy_nuc(self):
         return self.ewald()
 
@@ -179,7 +191,8 @@ class Cell(Mole):
         return RKS(self, xc=xc, **kwargs)
 
     def UHF(self, **kwargs):
-        raise NotImplementedError('unrestricted periodic SCF is not ported')
+        raise NotImplementedError('unrestricted Γ-point SCF is not ported '
+                                  '(pbc.scf.KUHF with one Γ k-point is)')
 
     UKS = UHF
 

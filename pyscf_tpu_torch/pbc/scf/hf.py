@@ -16,11 +16,18 @@ from ...scf.hf import RHF as MolRHF
 from ..df.fft import FFTDF
 
 
-def madelung(cell):
+def madelung(cell, kpts=None):
     """Madelung constant of a probe charge in the neutralizing lattice:
-    -2 x the Ewald energy of one unit charge per cell."""
+    -2 x the Ewald energy of one unit charge per cell. With k-points the
+    probe lives in the Born-von Karman supercell: each lattice vector is
+    scaled by the number of distinct fractions of kpts along it."""
     from ..gto.cell import Cell
-    probe = Cell(atom=[('H', (0.0, 0.0, 0.0))], a=cell.lattice_vectors_,
+    a = np.asarray(cell.lattice_vectors_)
+    if kpts is not None:
+        frac = np.asarray(kpts).reshape(-1, 3) @ a.T / (2.0 * np.pi)
+        a = a * np.array([len(np.unique(np.round(frac[:, i], 8)))
+                          for i in range(3)], dtype=float)[:, None]
+    probe = Cell(atom=[('H', (0.0, 0.0, 0.0))], a=a,
                  unit='bohr', basis={'H': [[0, [1.0, 1.0]]]}, verbose=0,
                  precision=cell.precision, device=cell.device).build()
     probe.atom_charges_eff = np.array([1.0])

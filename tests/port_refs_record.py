@@ -65,7 +65,12 @@ water being refs.WATER:
   hermite_R_*  tests/test_torch_boys_hermite.py: the JAX hermite_R
                (hermite_refs; PYTHONPATH=.:tests);
   xc_closed_*  tests/test_torch_xc.py: the JAX closed-shell energy
-               densities and derivatives (xc_refs; PYTHONPATH=.:tests);
+               densities and derivatives, the PBE family's too (xc_refs;
+               PYTHONPATH=.:tests);
+  int1e_hcore_parts_ccpvdz  tests/test_torch_int1e.py: S, T, V of
+               water/cc-pVDZ (int1e_refs);
+  int2e_ip1_class_*  tests/test_torch_int_deriv.py: the JAX class blocks
+               of int2e_ip1 (int_deriv_refs; PYTHONPATH=.:tests);
   pbe_*        tests/test_torch_hessian_uhf.py: the PBE family's energies
                and DF gradients (pbe_refs's docstring);
   fg_*         tests/test_torch_fg_shells.py: f, g and aux h shells (the
@@ -371,12 +376,34 @@ def hermite_refs(out):
 
 def xc_refs(out):
     """tests/test_torch_xc.py's _jax_closed at _inputs for every name of
-    its NAMES ('xc_closed_<name>', (3, 404): e, vrho, vsigma). Needs
-    tests/ on the path (PYTHONPATH=.:tests)."""
+    its NAMES and PBE_NAMES ('xc_closed_<name>', (3, 404): e, vrho,
+    vsigma). Needs tests/ on the path (PYTHONPATH=.:tests)."""
     import test_torch_xc as t
-    for name in t.NAMES:
+    for name in t.NAMES + t.PBE_NAMES:
         out[f'xc_closed_{name}'] = np.stack(t._jax_closed(name,
                                                           *t._inputs()))
+
+
+def int1e_refs(out):
+    """tests/test_torch_int1e.py's S, T and V of water/cc-pVDZ, the JAX
+    package's j1e.hcore_parts ('int1e_hcore_parts_ccpvdz', (3, 24, 24);
+    ~8 s of compiles)."""
+    import pyscf_tpu as jpt
+    from pyscf_tpu.ops.integrals.j1e import hcore_parts
+    from pyscf_tpu_torch import refs
+    mol = jpt.M(atom=refs.WATER, basis='cc-pvdz', verbose=0)
+    out['int1e_hcore_parts_ccpvdz'] = np.asarray(hcore_parts(mol))
+
+
+def int_deriv_refs(out):
+    """tests/test_torch_int_deriv.py's jax_int2e_ip1_class for each case
+    of its INT2E_IP1_CLASSES ('int2e_ip1_class_<la><lb><lc><ld>'; one JAX
+    program each, seconds of compile). Needs tests/ on the path
+    (PYTHONPATH=.:tests)."""
+    import test_torch_int_deriv as t
+    for (la, lb), (lc, ld) in t.INT2E_IP1_CLASSES:
+        out[f'int2e_ip1_class_{la}{lb}{lc}{ld}'] = t.jax_int2e_ip1_class(
+            (la, lb), (lc, ld))
 
 
 def _raw_rows(mol, auxmol, la, lb):
@@ -803,7 +830,7 @@ FUNCTIONS = (scf_refs, integral_refs, grad_refs, analysis_refs,
              fg_grad_tz_refs, fg_grad_tzvp_refs, fg_grad_refs, fg_ip1_refs,
              pbe_refs, rsh_refs, rsh_dm_refs, fg_f_refs, uks_dual_refs,
              grad_df_refs, int_matrix_refs, vv10_refs, hermite_refs,
-             xc_refs)
+             xc_refs, int1e_refs, int_deriv_refs)
 
 
 def main(names):

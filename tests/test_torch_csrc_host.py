@@ -8,10 +8,10 @@ vv10.cu, mp2_energy.cu, ccsd_t.cu, the nuclear Hessian's int1e_ipip.cu,
 int3c2e_ip1.cu, int3c2e_ipip.cu and int2c2e_ipip.cu (both of its kernels)
 the DF-RKS Hessian's eval_ao.cu (deriv 0 to 3) and xc_rks_hess.cu and
 the DF-UKS Hessian's xc_uks_hess.cu (both kernels of each), and the
-periodic SCF's eval_ao_pbc.cu, as C++ behind a small stand-in for
-cuda_runtime.h (the qualifiers defined away, shared arrays static, the
-dynamic shared memory a static array, a launch turned into a loop over
-blocks and threads, in order, so that vv10.cu, mp2_energy.cu and
+periodic SCF's eval_ao_pbc.cu and eval_ao_kpts.cu, as C++ behind a small
+stand-in for cuda_runtime.h (the qualifiers defined away, shared arrays
+static, the dynamic shared memory a static array, a launch turned into a
+loop over the blocks of its grid and their threads, in order, so that vv10.cu, mp2_energy.cu and
 ccsd_t.cu run with one thread per block) and calls them through the C
 interface the wrappers use, on water/def2-SVP, whose classes reach
 (dd|dd) and whose aux basis reaches g, with and without the erf(omega
@@ -19,8 +19,8 @@ r)/r attenuation; int1e_stv.cu, int3c2e.cu, int2c2e.cu and int2e.cu
 also on a basis of s to g shells with an aux basis of s to h, at the (ff)
 and (gg) bra classes and aux l 5; the dipole kernel on that basis; vv10.cu
 on a water grid, and mp2_energy.cu and ccsd_t.cu on seeded tensors of a
-water-sized correlated calculation; eval_ao.cu and eval_ao_pbc.cu on s
-to g shells and
+water-sized correlated calculation; eval_ao.cu, eval_ao_pbc.cu and
+eval_ao_kpts.cu on s to g shells and
 xc_rks_hess.cu and xc_uks_hess.cu on a water/def2-SVP grid at seeded
 densities, LDA, B3LYP and PBE0; and the second-order dual numbers of
 xc_funcs.cuh (HDualN, the functional of the XC response kernels xc_fxc,
@@ -70,8 +70,12 @@ SHIM = '''
 #define __shared__ static
 #define PT_DYNAMIC_SMEM(name) static double name[1 << 16]
 inline void __syncthreads() {}
-struct Dim { int x; };
+struct Dim { int x, y; };
 static thread_local Dim blockIdx, blockDim, threadIdx;
+struct dim3 {
+  unsigned x, y;
+  dim3(unsigned x_ = 1, unsigned y_ = 1) : x(x_), y(y_) {}
+};
 typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
@@ -82,12 +86,13 @@ using std::fmax;
 // calls
 double __shfl_xor_sync(unsigned, double, int);
 template <class F, class... A>
-void host_launch(int blocks, int threads, F f, A... a) {
+void host_launch(dim3 blocks, int threads, F f, A... a) {
   blockDim.x = threads;
-  for (int b = 0; b < blocks; ++b)
-    for (int t = 0; t < threads; ++t) {
-      blockIdx.x = b; threadIdx.x = t; f(a...);
-    }
+  for (unsigned by = 0; by < blocks.y; ++by)
+    for (unsigned b = 0; b < blocks.x; ++b)
+      for (int t = 0; t < threads; ++t) {
+        blockIdx.x = b; blockIdx.y = by; threadIdx.x = t; f(a...);
+      }
 }
 '''
 # the sources split by bra are built only for the bra momenta and classes
@@ -102,18 +107,20 @@ LIBS = ('int1e_stv', 'int3c2e_la0', 'int3c2e_la1', 'int3c2e_la2',
         *[f'int3c2e_ip1_la{la}' for la in range(5)],
         *[f'int3c2e_ipip_la{la}' for la in range(5)],
         'int2c2e_ip1_full', 'int2c2e_ipip', 'eval_ao', 'xc_rks_hess',
-        'xc_rks_deriv1', 'xc_uks_hess', 'xc_uks_deriv1', 'eval_ao_pbc')
+        'xc_rks_deriv1', 'xc_uks_hess', 'xc_uks_deriv1', 'eval_ao_pbc',
+        'eval_ao_kpts')
 OMEGA = 0.3
 DEV = torch.device('cpu')
 
 
 class _HostLibs:
     """{library: ctypes function} of the sources built for the host: at
-    the first use, every library of LIBS (one g++ process each, as many at
-    a time as there are cores), into a directory named by the hash of the
-    sources that the test processes of one run share: the libraries are
-    built once per run, under a file lock, by whichever process asks
-    first."""
+    the first use of a library, every library of LIBS from its source (one
+    g++ process each, all at once), into a directory named by the hash of
+    the sources that the test processes of one run share: each source's
+    libraries are built once per run, under a file lock of that source,
+    by whichever process asks first, so processes that need other sources
+    do not wait for them."""
 
     def __init__(self, gxx, out):
         self.gxx, self.out, self.fns = gxx, out, {}
@@ -124,9 +131,9 @@ class _HostLibs:
         if lib not in self.fns:
             src = kernels._LIBRARIES[lib][0]
             libs = [k for k in LIBS if kernels._LIBRARIES[k][0] == src]
-            with open(self.out / 'build.lock', 'w') as lock:
+            with open(self.out / f'{src}.lock', 'w') as lock:
                 fcntl.flock(lock, fcntl.LOCK_EX)
-                todo = [k for k in LIBS if not (self.out / f'{k}.so').exists()]
+                todo = [k for k in libs if not (self.out / f'{k}.so').exists()]
                 if todo:
                     self._build(todo)
             for k in libs:
@@ -152,8 +159,6 @@ class _HostLibs:
             (out / f'{lib}.cpp').write_text(text)
             # the -D flags; nvcc's own (-fmad=false) mean nothing to g++
             flags = [f for f in flags if f.startswith('-D')]
-            if len(jobs) >= (os.cpu_count() or 1):
-                assert jobs[-os.cpu_count()][1].wait() == 0
             jobs.append((lib, subprocess.Popen(
                 [self.gxx, '-O0', '-std=c++17', '-shared', '-fPIC', '-w',
                  *flags, '-I', str(out), '-I', kernels._CSRC, '-o',
@@ -635,6 +640,40 @@ def test_eval_ao_pbc(host, deriv):
             assert host['eval_ao_pbc'](
                 l, deriv, pts.shape[0], e.shape[0], e.shape[1], Ls.shape[0],
                 *_ptrs(pts, e, c, r, off, Ls), lcut,
+                *_ptrs(sph(l, DEV), out), cell.nao, None) == 0
+        _close(out, ref)
+
+
+@pytest.mark.parametrize('deriv', [0, 1])
+def test_eval_ao_kpts(host, deriv):
+    """eval_ao_kpts.cu on s to g shells in a diamond cell for 19 seeded
+    k-points (more than one tile of every class), on seeded points over
+    the images within 8 Bohr, at the cell's lcut and at one that skips
+    images and primitives, against eval_ao_kpts_plain at the same lcut:
+    1e-12 of the largest element."""
+    from pyscf_tpu_torch import pbc
+    from pyscf_tpu_torch.ops import eval_gto
+    from pyscf_tpu_torch.pbc.df.fft import kpts_phases, lattice_cut
+    cell = pbc.gto.M(
+        atom='C 0 0 0; C 0.8917 0.8917 0.8917', a=[[0, 1.7834, 1.7834],
+        [1.7834, 0, 1.7834], [1.7834, 1.7834, 0]],
+        basis={'C': HOST_BASIS['O']}, device='cpu')
+    rng = np.random.default_rng(19)
+    pts = torch.as_tensor(rng.uniform(size=(12, 3)) @ cell.lattice_vectors())
+    kpts = rng.uniform(-0.5, 0.5, size=(19, 3)) @ cell.reciprocal_vectors()
+    Ls = cell.get_lattice_Ls(8.0)
+    ph = kpts_phases(kpts, Ls, DEV)
+    Ls = torch.as_tensor(Ls)
+    tables = eval_gto.ao_tables(cell)
+    for lcut in (lattice_cut(cell), 30.0):
+        ref = eval_gto.eval_ao_kpts_plain(tables, pts, Ls, ph, cell.nao,
+                                          deriv, lcut)
+        out = torch.zeros_like(ref)
+        for l, e, c, r, off in tables:
+            assert host['eval_ao_kpts'](
+                l, deriv, pts.shape[0], e.shape[0], e.shape[1], Ls.shape[0],
+                len(kpts), *_ptrs(pts, e, c, r, off, Ls,
+                                  ph.T.contiguous()), lcut,
                 *_ptrs(sph(l, DEV), out), cell.nao, None) == 0
         _close(out, ref)
 

@@ -1,12 +1,12 @@
 """S/T/V and the minao cross overlap: pyscf_tpu_torch (plain twins of the
-int1e_stv kernel, on the CPU) against pyscf_tpu."""
+int1e_stv kernel, on the CPU) against pyscf_tpu (S/T/V as
+tests/port_refs_record.py recorded them, the cross overlap live)."""
 import numpy as np
 import pytest
 import torch
 
 import pyscf_tpu as jpt
 from pyscf_tpu.ops.integrals.int1e import int1e_ovlp_cross as jax_cross
-from pyscf_tpu.ops.integrals.j1e import hcore_parts as jax_hcore_parts
 
 import pyscf_tpu_torch as tpt
 from pyscf_tpu_torch import refs
@@ -24,8 +24,11 @@ def mols():
 
 
 def test_stv_matches_jax(mols):
-    mj, mt = mols
-    ref = np.asarray(jax_hcore_parts(mj))
+    """S, T and V of water/cc-pVDZ against the JAX package's hcore_parts
+    (recorded by tests/port_refs_record.py int1e_refs; the cross overlap
+    below stays live)."""
+    _, mt = mols
+    ref = np.load(refs.PORT_REFS)['int1e_hcore_parts_ccpvdz']
     got = hcore_parts(mt).numpy()
     assert got.shape == ref.shape == (3, 24, 24)
     assert np.max(np.abs(got - ref)) < 1e-12

@@ -114,23 +114,36 @@ def _all_pairs(mol, la, lb):
     return int1e.pair_tables(ga, gb, sel_a, sel_b)
 
 
-@pytest.mark.parametrize('bra,ket', [((2, 2), (2, 2)), ((1, 2), (0, 1)),
-                                     ((0, 2), (2, 0)), ((2, 1), (1, 1))])
-def test_int2e_ip1_class_matches_jax(bra, ket):
-    """Class level, d shells on two centres: the twin against
-    DerivPairClass + _deriv_class_pair_block with the JAX package's
-    cart->sph, so that one JAX program compiles per case."""
+INT2E_IP1_CLASSES = [((2, 2), (2, 2)), ((1, 2), (0, 1)), ((0, 2), (2, 0)),
+                     ((2, 1), (1, 1))]
+
+
+def jax_int2e_ip1_class(bra, ket):
+    """The JAX package's DerivPairClass + _deriv_class_pair_block of one
+    class with its cart->sph: (3, 2, 2, 2la+1, 2lb+1, 2, 2, 2lc+1, 2ld+1)
+    (tests/port_refs_record.py int_deriv_refs records it)."""
     jmol = jpt.M(atom=TOY_ATOM, basis=TOY_BASIS, verbose=0)
-    tmol = tpt.M(atom=TOY_ATOM, basis=TOY_BASIS, device='cpu')
     (la, lb), (lc, ld) = bra, ket
     blk = jax_int2e._deriv_class_pair_block(
         jax_int2e.DerivPairClass(jmol, la, lb),
         jax_int2e.PairClass(jmol, lc, ld))
     nca, ncb, ncc, ncd = [(l + 1) * (l + 2) // 2 for l in (la, lb, lc, ld)]
     blk = blk.reshape(2, 2, 3, nca, ncb, 2, 2, ncc, ncd)
-    ref = np.einsum('mp,nq,abxpqcdrs,kr,ls->xabmncdkl', jax_cart2sph(la),
-                    jax_cart2sph(lb), blk, jax_cart2sph(lc),
-                    jax_cart2sph(ld), optimize=True)
+    return np.einsum('mp,nq,abxpqcdrs,kr,ls->xabmncdkl', jax_cart2sph(la),
+                     jax_cart2sph(lb), blk, jax_cart2sph(lc),
+                     jax_cart2sph(ld), optimize=True)
+
+
+@pytest.mark.parametrize('bra,ket', INT2E_IP1_CLASSES)
+def test_int2e_ip1_class_matches_jax(bra, ket):
+    """Class level, d shells on two centres: the twin against
+    DerivPairClass + _deriv_class_pair_block with the JAX package's
+    cart->sph (jax_int2e_ip1_class, one JAX program per case, recorded by
+    tests/port_refs_record.py int_deriv_refs; the module's live JAX
+    comparisons are the 1e derivatives above)."""
+    tmol = tpt.M(atom=TOY_ATOM, basis=TOY_BASIS, device='cpu')
+    (la, lb), (lc, ld) = bra, ket
+    ref = np.load(refs.PORT_REFS)[f'int2e_ip1_class_{la}{lb}{lc}{ld}']
     got = int2e.int2e_ip1_class_plain(
         la, lb, *_all_pairs(tmol, la, lb),
         [(lc, ld, *_all_pairs(tmol, lc, ld))])

@@ -323,6 +323,30 @@ def test_eval_ao_pbc(deriv):
     assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
 
 
+@pytest.mark.parametrize('deriv', [0, 1])
+def test_eval_ao_kpts(deriv):
+    """The Bloch sums of the diamond primitive cell's AO values (gth-dzvp,
+    1,505 images) on its [15]^3 grid for the Γ-centred 3x3x3 mesh."""
+    from pyscf_tpu_torch import pbc
+    from pyscf_tpu_torch.pbc.df.fft import kpts_phases, lattice_cut
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels run only on the card')
+    cell = pbc.gto.M(atom='C 0 0 0; C 0.8917 0.8917 0.8917',
+                     a=[[0, 1.7834, 1.7834], [1.7834, 0, 1.7834],
+                        [1.7834, 1.7834, 0]], basis='gth-dzvp',
+                     pseudo='gth-pade', mesh=[15] * 3, device='cuda')
+    tables = eval_gto.ao_tables(cell)
+    pts = torch.as_tensor(cell.get_uniform_grids(), device='cuda')
+    Ls = cell.get_lattice_Ls()
+    ph = kpts_phases(cell.make_kpts([3, 3, 3]), Ls, 'cuda')
+    Ls = torch.as_tensor(Ls, device='cuda')
+    lcut = lattice_cut(cell)
+    got = kernels.eval_ao_kpts(tables, pts, Ls, ph, cell.nao, deriv, lcut)
+    ref = eval_gto.eval_ao_kpts_plain(tables, pts, Ls, ph, cell.nao, deriv,
+                                      lcut)
+    assert torch.max(torch.abs(got - ref)) <= 1e-12 * ref.abs().max()
+
+
 def test_becke(water):
     mol, _ = water
     args = gen_grid.partition_inputs(mol, gen_grid.gen_atomic_grids(mol))

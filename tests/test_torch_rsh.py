@@ -1,10 +1,10 @@
 """Range-separated hybrids in pyscf_tpu_torch on the CPU against pyscf_tpu:
 the attenuation, CAM-B88 and wB97 energy densities and their derivatives
 (torch autograd and the dual numbers of csrc/xc_funcs.cuh built for the host
-with g++) against jax.grad (live for the attenuation and wB97X-V's open
-shell, the rest and nr_uks as tests/port_refs_record.py rsh_refs recorded
-them), the erf(omega r)/r integrals (3c rows, the
-metric, the long-range factor, the in-core tensor) against the JAX
+with g++) against jax.grad (live for the attenuation, the rest and nr_uks
+as tests/port_refs_record.py rsh_refs recorded them), the erf(omega r)/r
+integrals (3c rows, the metric, the long-range factor, the in-core
+tensor) against the JAX
 package's engines (as tests/port_refs_record.py recorded them), the He
 wB97 golden, the water energies of CAM-B3LYP and
 wB97X-V against the recorded JAX runs, and the gradients that raise."""
@@ -188,14 +188,14 @@ def _gate(name, x, e, grads, e_ref, grads_ref):
 @pytest.mark.parametrize('name', RSH_NAMES)
 def test_open_shell_density_matches_jax(recorded, name):
     """The torch energy density of the open-shell functional and its five
-    derivatives by autograd against jax.grad (recorded; live for wB97X-V,
-    the module's live JAX comparison of the kernels' functional)."""
+    derivatives by autograd against jax.grad (recorded; the module's live
+    JAX comparison of the kernels' functional is the attenuation's,
+    test_sr_attenuation_matches_jax)."""
     x = _open_inputs()
     leaves = [torch.as_tensor(v).requires_grad_() for v in x]
     e = xc.parse_xc(name).exc_density(*leaves)
     grads = torch.autograd.grad(e.sum(), leaves, allow_unused=True)
-    ref = (_jax_open(name, x) if name == 'wb97x-v'
-           else _recorded_open(recorded, name))
+    ref = _recorded_open(recorded, name)
     _gate(name, x, e.detach().numpy(),
           [np.zeros(x.shape[1]) if g is None else g.numpy() for g in grads],
           *ref)
