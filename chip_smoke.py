@@ -341,8 +341,9 @@ KUKS over FFTDF, diamond on up to 64 k-points), on the card, in order:
      k-point rows (row xc_rks_k64, 1e-11), int1e_stv on every call of its
      phased S/T and projector overlaps (row int1e_stv_kpts, 1e-12 x max)
      and eval_ao_kpts at deriv 0 and 1 (row eval_ao_kpts, 1e-12 x max; its
-     operations bound the in-range image work and the phase products of
-     this run) against their twins; then the same SCF with eval_ao_kpts,
+     operations bound the in-range image work of this run at the FP64
+     rate and its phase products, over the spherical functions, at the
+     tensor cores') against their twins; then the same SCF with eval_ao_kpts,
      int1e_stv, xc_rks and xc_uks replaced by their twins, none launched,
      within 1e-9 Ha;
  64. KRHF and KRKS-PBE0 (FFT K over every k pair, the Ewald exxdiv) on the
@@ -419,17 +420,18 @@ def check(ok, what):
         raise SystemExit(f'FAILED: {what}')
 
 
-def bound(nbytes, nops, peak=FP64_FLOPS):
+def bound(nbytes, nops, peak=FP64_FLOPS, tc_ops=0):
     """(ms, 'bytes' or 'operations'): the least time for the work, bytes
     over HBM bandwidth or FP64 operations over the card's peak rate for
-    them."""
+    them: nops at peak, and tc_ops, the operations of matrix products, at
+    the tensor cores' FP64_TC_FLOPS."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / peak * 1e3
+    t_ops = (nops / peak + tc_ops / FP64_TC_FLOPS) * 1e3
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
 def record(report, name, source, replaces, err, kernel, plain, nbytes,
-           nops, plain_reps=3, peak=FP64_FLOPS):
+           nops, plain_reps=3, peak=FP64_FLOPS, tc_ops=0):
     """Keep the kernel's line of the report. kernel and plain: each a
     callable, timed here by CUDA events (the mean of 3 calls, of plain_reps
     for the twin; the caller's comparison on the same inputs served as the
@@ -438,7 +440,7 @@ def record(report, name, source, replaces, err, kernel, plain, nbytes,
     def ms(t, reps):
         return cuda_ms(t, reps, warmup=False) if callable(t) else t
 
-    bound_ms, bound_by = bound(nbytes, nops, peak)
+    bound_ms, bound_by = bound(nbytes, nops, peak, tc_ops)
     report[name] = dict(
         source=source, replaces=replaces, max_abs_err=err,
         ms=ms(kernel, 3), plain_ms=ms(plain, plain_reps),
@@ -4032,7 +4034,7 @@ def pbc_stv_phase(kernels, cell, report, name='int1e_stv_pbc', kpts=None,
           f'1e-12 x {scale:.3e}')
 
 
-def eval_ao_pbc_ops(cell, tables, coords, Ls, deriv):
+def eval_ao_pbc_ops(cell, tables, coords, Ls, deriv, bloch=False):
     """FP64 operations that the lattice-summed AO values need on these
     inputs, counted on the card an image at a time: per (block of 128
     points, atom, image) a bounding-sphere cull (10); per (point, atom,
@@ -4044,7 +4046,10 @@ def eval_ao_pbc_ops(cell, tables, coords, Ls, deriv):
     (counted as 20) and the radial sums (5, 7 with the gradients); per
     (point, shell) the cart->sph transform. The kernel itself measures
     every (point, shell, image): that is more than the function needs and
-    is not counted."""
+    is not counted. bloch: the image's real values only (3; 24 with the
+    gradients, per cartesian component), without the accumulation over
+    images and the transform, which the Bloch sums do in their place
+    (bloch_ops)."""
     from pyscf_tpu_torch.pbc.df.fft import lattice_cut
     lcut = lattice_cut(cell)
     n = coords.shape[0]
@@ -4062,7 +4067,9 @@ def eval_ao_pbc_ops(cell, tables, coords, Ls, deriv):
     ops = 10 * nblocks * atoms.shape[0] * Ls.shape[0]
     for l, e, c, r in shells:
         nc = (l + 1) * (l + 2) // 2
-        ops += 2 * nc * (2 * l + 1) * n * e.shape[0] * (4 if deriv else 1)
+        if not bloch:
+            ops += 2 * nc * (2 * l + 1) * n * e.shape[0] * (4 if deriv else 1)
+    per_cart = (28 if deriv else 4) - (4 if deriv else 1) * bloch
     for L in Ls:
         d = coords[:, None, :] - atoms[None] - L
         ops += 10 * int((amin_atom[None] * torch.sum(d * d, dim=-1)
@@ -4076,8 +4083,7 @@ def eval_ao_pbc_ops(cell, tables, coords, Ls, deriv):
             prims = ((e[None] * r2[..., None] <= lcut) & (c[None] != 0)
                      & near[..., None])
             nc = (l + 1) * (l + 2) // 2
-            ops += int(near.sum()) * (3 * max(l - 1, 0)
-                                      + nc * (28 if deriv else 4))
+            ops += int(near.sum()) * (3 * max(l - 1, 0) + nc * per_cart)
             ops += int(prims.sum()) * (27 if deriv else 25)
     return ops
 
@@ -4187,28 +4193,37 @@ def kpts_golden_path(pt, kernels):
     check(abs(e_u - e_r) < 1e-9, 'closed-shell |KUKS - KRKS| >= 1e-9')
 
 
-def phase_ops(cell, tables, coords, Ls, nk, deriv):
-    """The complex multiply-adds of the Bloch sums: 4 FP64 operations per
-    k, component and cartesian of every (point, shell, image) in range of
-    the shell's most diffuse primitive (a_min r^2 <= lcut)."""
+def bloch_ops(cell, tables, coords, Ls, nk, deriv):
+    """(FP64 operations, tensor-core FP64 operations) of the Bloch sums,
+    with the cart->sph transform before the phases: per (point, shell,
+    image) in range of the shell's most diffuse primitive (a_min r^2 <=
+    lcut) the transform of each component, 2 per nonzero of the cart->sph
+    matrix for l >= 2 (at l <= 1 it is a scale that the coefficients can
+    hold), and the phase products, 4 per k, component and spherical
+    function: a contraction over the image axis, a matrix product."""
+    from pyscf_tpu_torch.ops.integrals.int1e import sph
     from pyscf_tpu_torch.pbc.df.fft import lattice_cut
     lcut = lattice_cut(cell)
-    ops = 0
+    ncomp = 4 if deriv else 1
+    ops = tc_ops = 0
     for l, e, c, r, off in tables:
         amin = torch.where(c != 0, e, torch.full_like(e, 1e300)).min(1).values
-        nc = (l + 1) * (l + 2) // 2
+        nnz = int((sph(l, 'cpu') != 0).sum()) if l >= 2 else 0
+        near = 0
         for L in Ls:
             d = coords[:, None, :] - r[None] - L
-            near = int((amin[None] * torch.sum(d * d, dim=-1) <= lcut).sum())
-            ops += 4 * nk * (4 if deriv else 1) * nc * near
-    return ops
+            near += int((amin[None] * torch.sum(d * d, dim=-1) <= lcut).sum())
+        ops += 2 * nnz * ncomp * near
+        tc_ops += 4 * nk * ncomp * (2 * l + 1) * near
+    return ops, tc_ops
 
 
 def eval_ao_kpts_phase(kernels, cell, kpts, report):
     """eval_ao_kpts against its twin on the cell's grid for kpts, deriv 0
     and 1 (<= 1e-12 x max), recorded at deriv 1 as eval_ao_kpts; its
-    operations bound eval_ao_pbc's in-range work plus the phase products
-    (phase_ops)."""
+    operations bound eval_ao_pbc's in-range work of each image plus the
+    Bloch sums (bloch_ops), their phase products at the tensor cores'
+    rate."""
     from pyscf_tpu_torch.ops import eval_gto
     from pyscf_tpu_torch.pbc.df.fft import kpts_phases, lattice_cut
     tables = eval_gto.ao_tables(cell)
@@ -4232,12 +4247,14 @@ def eval_ao_kpts_phase(kernels, cell, kpts, report):
     io = nbytes(coords, Ls, torch.view_as_real(ph),
                 *[t for tab in tables for t in tab[1:]]) \
         + len(kpts) * 4 * coords.shape[0] * cell.nao * 16
-    ops = eval_ao_pbc_ops(cell, tables, coords, Ls, 1) \
-        + phase_ops(cell, tables, coords, Ls, len(kpts), 1)
+    ops, tc_ops = bloch_ops(cell, tables, coords, Ls, len(kpts), 1)
+    ops += eval_ao_pbc_ops(cell, tables, coords, Ls, 1, bloch=True)
+    print(f'eval_ao_kpts: {ops:.4e} FP64 operations, {tc_ops:.4e} in the '
+          f'phase products')
     record(report, 'eval_ao_kpts', 'pyscf_tpu_torch/csrc/eval_ao_kpts.cu',
            'pyscf_tpu/pbc/df/fft.py:332', err,
            lambda: kernels.eval_ao_kpts(*args, 1, lcut), plain_s * 1e3, io,
-           ops)
+           ops, tc_ops=tc_ops)
 
 
 def kpts_64_path(pt, kernels, report):
@@ -4294,9 +4311,9 @@ def kpts_exchange_path(pt, kernels):
 def kpts_open_shell_path(pt, kernels):
     """KUKS-PBE of the spin-polarised primitive cell (spin 2) on the
     shifted 2x1x1 mesh at [17]^3 (tests/test_torch_kpts.py's mesh; on the
-    Γ-centred one this cell's Aufbau oscillates and the SCF does not
-    converge in 100 cycles, in the port as on the CPU), held to the same
-    run on the twins (1e-9 Ha)."""
+    Γ-centred one this cell's Aufbau oscillates and neither the JAX
+    package's SCF nor the port's converges in 100 cycles, ROADMAP §3),
+    held to the same run on the twins (1e-9 Ha)."""
     args = (dict(DIAMOND, mesh=[17] * 3, spin=2),
             lambda c, k: pt.pbc.dft.KUKS(c, kpts=k, xc='pbe'), [2, 1, 1])
     kw = dict(gamma=False)

@@ -196,6 +196,11 @@ class FFTDF:
     seconds of each build are in `timings` ('ao', 'st', 'pp') of the
     object that built it."""
 
+    # the order at which the grid AO values are built: a GGA mean field
+    # sets 1 before its hcore, so that the deriv-0 users (the local
+    # pseudopotential, J, K) read the first component of the one array
+    ao_deriv = 0
+
     def __init__(self, cell):
         self.cell = cell
         self.mesh = cell.mesh
@@ -227,10 +232,10 @@ class FFTDF:
     def _ao_on_grid(self, deriv=0):
         """AO values (ngrid, nao), or with gradients (4, ngrid, nao), on the
         uniform grid (kernel `eval_ao_pbc`); deriv 0 is the first component
-        of deriv 1's where those exist."""
-        aod = self.cell._pbc_cache.get(('ao', 1, tuple(self.mesh)))
-        if deriv == 0 and aod is not None:
-            return aod[0]
+        of deriv 1's where those exist or ao_deriv asks for them."""
+        if deriv == 0 and (self.ao_deriv or ('ao', 1, tuple(self.mesh))
+                           in self.cell._pbc_cache):
+            return self._ao_on_grid(1)[0]
         return self._cached(('ao', deriv), lambda: eval_ao_periodic(
             self.cell, self.grids_coords, deriv), 'ao')
 
@@ -467,11 +472,11 @@ class KFFTDF(FFTDF):
         """Bloch AO values (nk, ngrid, nao), or with gradients (nk, 4,
         ngrid, nao), complex128, on the uniform grid (kernel
         `eval_ao_kpts`); deriv 0 is the first component of deriv 1's
-        where those exist."""
-        aod = self.cell._pbc_cache.get(('ao_k', 1, self.kpts.tobytes(),
-                                        tuple(self.mesh)))
-        if deriv == 0 and aod is not None:
-            return aod[:, 0]
+        where those exist or ao_deriv asks for them."""
+        if deriv == 0 and (self.ao_deriv or ('ao_k', 1, self.kpts.tobytes(),
+                                             tuple(self.mesh))
+                           in self.cell._pbc_cache):
+            return self._ao_on_grid_kpts(1)[:, 0]
         return self._kcached(('ao_k', deriv), lambda: eval_ao_kpts(
             self.cell, self.grids_coords, self.kpts, deriv), 'ao')
 

@@ -60,6 +60,9 @@ class KRKS(KRHF):
             raise NotImplementedError('RSH functionals with k-points')
         return xc
 
+    def _ao_deriv(self):
+        return int(self._functional().is_gga)
+
     def _xc_inputs(self, xc):
         """(ao (nk, ng, nao), stacked AO rows for the kernel, weights)."""
         df = self.with_df

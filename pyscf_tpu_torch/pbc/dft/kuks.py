@@ -26,6 +26,7 @@ class KUKS(KUHF):
 
     multigrid_fftdf_ = KRKS.multigrid_fftdf_
     _functional = KRKS._functional
+    _ao_deriv = KRKS._ao_deriv
     _xc_inputs = KRKS._xc_inputs
     energy_elec = KRKS.energy_elec
 

@@ -36,6 +36,9 @@ class RKS(PBCRHF):
         self.xc = xc
         self._numint = NumInt()
 
+    def _ao_deriv(self):
+        return int(xc_mod.parse_xc(self.xc).is_gga)
+
     def multigrid_fftdf_(self, nlevels=3):
         raise NotImplementedError('the multigrid (pbc/dft/multigrid.py) is '
                                   'not ported')

@@ -45,7 +45,13 @@ class RHF(MolRHF):
     def get_ovlp(self, mol=None):
         return self.with_df.get_ovlp()
 
+    def _ao_deriv(self):
+        """The derivative order of the grid AO values the mean field
+        needs: 0 here, 1 for a GGA."""
+        return 0
+
     def get_hcore(self, mol=None):
+        self.with_df.ao_deriv = self._ao_deriv()
         return self.with_df.get_hcore()
 
     def density_fit(self, auxbasis=None):

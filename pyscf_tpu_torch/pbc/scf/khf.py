@@ -58,8 +58,14 @@ class KRHF:
         """S_k (nk, nao, nao)."""
         return self.with_df.get_ovlp_kpts()
 
+    def _ao_deriv(self):
+        """The derivative order of the Bloch AO values the mean field
+        needs: 0 here, 1 for a GGA."""
+        return 0
+
     def get_hcore(self):
         """T_k + V_pp,k (nk, nao, nao)."""
+        self.with_df.ao_deriv = self._ao_deriv()
         return self.with_df.get_hcore_kpts()
 
     def density_fit(self, auxbasis=None):
@@ -202,6 +208,7 @@ class KRHF:
         kpts_band = np.asarray(kpts_band, dtype=np.float64).reshape(-1, 3)
         dm = self.make_rdm1() if dm is None else dm
         band = KFFTDF(self.cell, kpts_band)
+        band.ao_deriv = self._ao_deriv()
         fock = band.get_hcore_kpts() + self._band_veff(dm, band)
         return self.eig_all(fock, self.canonical_orth(band.get_ovlp_kpts()))
 

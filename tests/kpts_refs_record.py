@@ -22,7 +22,14 @@ recording functions only those run and the file keeps the other keys
                Madelung constant of the k mesh 'madelung_k';
   krks_refs    KRKS lda,vwn 'e_krks_lda' and pbe 'e_krks_pbe';
   open_refs    the spin-2 cell: KUHF 'e_kuhf_s2' and KUKS pbe
-               'e_kuks_pbe_s2'.
+               'e_kuks_pbe_s2';
+  open_gamma_refs  the spin-2 cell on the Γ-centred 2x1x1 mesh
+               (make_kpts([2, 1, 1])): KUHF and KUKS pbe, each run's last
+               energy, whether it converged, its cycles and the electronic
+               energy of every cycle ('e_kuhf_s2_g', 'kuhf_s2_g_converged',
+               'kuhf_s2_g_cycles', 'kuhf_s2_g_trace', and the same for
+               'kuks_pbe_s2_g'), recorded whatever the outcome;
+  open_gamma17_refs  the same at mesh [17]^3 (keys ending '_g17').
 
 The JAX package's eval_ao_kpts is memoized per (cell, deriv, k-points,
 rcut) and its S_k per KFFTDF while recording: its KRKS recomputes the AO
@@ -120,7 +127,39 @@ def open_refs(out):
     _scf(out, 'e_kuks_pbe_s2', KUKS(cell, kpts=kpts, xc='pbe'))
 
 
-FUNCTIONS = (int1e_refs, krhf_refs, krks_refs, open_refs)
+def _open_gamma(out, mesh, tag):
+    from pyscf_tpu.pbc.dft.kuks import KUKS
+    from pyscf_tpu.pbc.gto import Cell
+    from pyscf_tpu.pbc.scf.kuhf import KUHF
+    cell = Cell(mesh=mesh, spin=2, **DIAMOND).build()
+    kpts = cell.make_kpts(NKS)
+    for key, mf in ((f'kuhf_s2_{tag}', KUHF(cell, kpts=kpts)),
+                    (f'kuks_pbe_s2_{tag}', KUKS(cell, kpts=kpts, xc='pbe'))):
+        mf.conv_tol = 1e-10
+        trace = []                  # the electronic energy of each cycle
+        energy_elec = mf.energy_elec
+        mf.energy_elec = lambda *a, f=energy_elec, t=trace: t.append(
+            f(*a)) or t[-1]
+        t0 = time.time()
+        out[f'e_{key}'] = float(mf.kernel())
+        out[f'{key}_seconds'] = time.time() - t0
+        out[f'{key}_converged'] = bool(mf.converged)
+        out[f'{key}_cycles'] = len(trace)
+        out[f'{key}_trace'] = np.asarray(trace, dtype=np.float64)
+        print(key, out[f'e_{key}'], 'converged', mf.converged, 'cycles',
+              len(trace), flush=True)
+
+
+def open_gamma_refs(out):
+    _open_gamma(out, MESH, 'g')
+
+
+def open_gamma17_refs(out):
+    _open_gamma(out, [17] * 3, 'g17')
+
+
+FUNCTIONS = (int1e_refs, krhf_refs, krks_refs, open_refs, open_gamma_refs,
+             open_gamma17_refs)
 
 
 def main(names):

@@ -115,12 +115,11 @@ DEV = torch.device('cpu')
 
 class _HostLibs:
     """{library: ctypes function} of the sources built for the host: at
-    the first use of a library, every library of LIBS from its source (one
-    g++ process each, all at once), into a directory named by the hash of
-    the sources that the test processes of one run share: each source's
-    libraries are built once per run, under a file lock of that source,
-    by whichever process asks first, so processes that need other sources
-    do not wait for them."""
+    the first use, every library of LIBS (one g++ process each, as many at
+    a time as there are cores), into a directory named by the hash of the
+    sources that the test processes of one run share: the libraries are
+    built once per run, under a file lock, by whichever process asks
+    first."""
 
     def __init__(self, gxx, out):
         self.gxx, self.out, self.fns = gxx, out, {}
@@ -131,9 +130,9 @@ class _HostLibs:
         if lib not in self.fns:
             src = kernels._LIBRARIES[lib][0]
             libs = [k for k in LIBS if kernels._LIBRARIES[k][0] == src]
-            with open(self.out / f'{src}.lock', 'w') as lock:
+            with open(self.out / 'build.lock', 'w') as lock:
                 fcntl.flock(lock, fcntl.LOCK_EX)
-                todo = [k for k in libs if not (self.out / f'{k}.so').exists()]
+                todo = [k for k in LIBS if not (self.out / f'{k}.so').exists()]
                 if todo:
                     self._build(todo)
             for k in libs:
@@ -159,6 +158,8 @@ class _HostLibs:
             (out / f'{lib}.cpp').write_text(text)
             # the -D flags; nvcc's own (-fmad=false) mean nothing to g++
             flags = [f for f in flags if f.startswith('-D')]
+            if len(jobs) >= (os.cpu_count() or 1):
+                assert jobs[-os.cpu_count()][1].wait() == 0
             jobs.append((lib, subprocess.Popen(
                 [self.gxx, '-O0', '-std=c++17', '-shared', '-fPIC', '-w',
                  *flags, '-I', str(out), '-I', kernels._CSRC, '-o',
